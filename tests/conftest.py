@@ -70,3 +70,9 @@ def synth_dataset_cfg_varied_fs(tmp_path_factory):
 @pytest.fixture()
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the torch port's kernels); "
+        "skips where there is none")

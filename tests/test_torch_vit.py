@@ -1,0 +1,156 @@
+"""The port's ViT-1D + FCNHead against the JAX package's, on the CPU.
+
+The same inputs, made with numpy from a seed, and the same weights — the
+JAX model's init trees, perturbed with numpy noise so that every norm scale,
+bias and running statistic is non-trivial, carried across by the port's
+``utils/weights.py`` — go through both models. The JAX flash path runs its
+Pallas kernel in interpret mode (the model picks it off-TPU); the port's
+flash path runs the kernel's plain version, because the tensors lie on the
+CPU. Logits must match within atol 2e-4 / rtol 1e-3 at fp32: twelve fp32
+layers of sums taken in another order.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from semi_seg_ecg_tpu.models import build_model_from_config as jax_build
+from semi_seg_ecg_tpu.ops.interpolate import (
+    linear_interpolate as jax_interpolate,
+)
+from semi_seg_ecg_tpu.utils.torch_interop import trees_to_torch_sd
+from semi_seg_ecg_tpu_torch.models import build_model_from_config
+from semi_seg_ecg_tpu_torch.models.backbones.vision_transformer import (
+    Attention,
+)
+from semi_seg_ecg_tpu_torch.ops import flash_attention as torch_flash
+from semi_seg_ecg_tpu_torch.ops.interpolate import linear_interpolate
+from semi_seg_ecg_tpu_torch.utils.weights import jax_trees_to_state_dict
+
+SEQ, PATCH, WIDTH, HEADS, DIM_HEAD = 500, 25, 64, 2, 32
+
+
+def vit_config(attention_impl="xla", **backbone):
+    bb = {"num_leads": 1, "seq_len": SEQ, "patch_size": PATCH,
+          "width": WIDTH, "depth": 2, "heads": HEADS, "dim_head": DIM_HEAD,
+          "mlp_dim": 128, "out_indices": [0, 1],
+          "attention_impl": attention_impl}
+    bb.update(backbone)
+    return {
+        "precision": "fp32",
+        "backbone": {"vit_tiny": bb},
+        "decode_head": {"FCNHead": {
+            "in_channels": WIDTH, "in_index": 1, "channels": 16,
+            "num_convs": 1, "concat_input": True, "dropout_ratio": 0.1,
+            "num_classes": 4, "align_corners": False}},
+    }
+
+
+def perturbed_jax_trees(model, x, seed):
+    variables = model.init(
+        {"params": jax.random.key(0), "dropout": jax.random.key(1)},
+        jnp.asarray(x), train=False)
+    rng = np.random.default_rng(seed)
+
+    def noisy(tree, positive=False):
+        if isinstance(tree, dict):
+            return {k: noisy(v, positive or k == "var")
+                    for k, v in tree.items()}
+        a = np.asarray(tree, np.float32)
+        a = a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
+        return np.abs(a) + 0.5 if positive else a
+
+    return noisy(dict(variables["params"])), noisy(
+        dict(variables["batch_stats"]))
+
+
+@pytest.mark.parametrize("attention_impl,backbone", [
+    ("xla", {}),
+    ("flash", {}),
+    ("flash", {"qk_norm": True}),
+    ("xla", {"layer_scale": 0.5}),
+    ("flash", {"final_norm": True, "qkv_bias": False}),
+    ("flash", {"num_leads": 3}),
+], ids=["xla", "flash", "flash-qknorm", "xla-layerscale",
+        "flash-finalnorm-nobias", "flash-3leads"])
+def test_vit_fcn_logits_match_jax(attention_impl, backbone):
+    cfg = vit_config(attention_impl, **backbone)
+    leads = backbone.get("num_leads", 1)  # patchify's '(p c)' order
+    x = np.random.default_rng(0).standard_normal((2, leads, SEQ)).astype(
+        np.float32)
+    jmodel = jax_build(cfg, train=False, serving=True)
+    params, stats = perturbed_jax_trees(jmodel, x, seed=1)
+    ref = np.asarray(jmodel.apply({"params": params, "batch_stats": stats},
+                                  jnp.asarray(x), train=False)["seg_logits"])
+
+    model = build_model_from_config(cfg).eval()
+    model.load_state_dict(jax_trees_to_state_dict(params, stats))
+    before = torch_flash.LAUNCHES
+    with torch.no_grad():
+        ours = model(torch.from_numpy(x))["seg_logits"].numpy()
+    assert torch_flash.LAUNCHES == before  # CPU tensors: the plain version
+    assert ours.shape == ref.shape == (2, 4, SEQ)
+    np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("impl,dim_head,n,on_cuda,attn_drop,want", [
+    ("flash", 64, 101, True, 0.0, True),
+    # a head dim the kernel does not take still goes to the kernel's
+    # wrapper, which raises on the card: no quiet swap to the dense path
+    ("flash", 160, 101, True, 0.0, True),
+    ("flash", 64, 101, True, 0.1, False),  # dropout needs the (N, N) matrix
+    ("auto", 64, 511, True, 0.0, False),
+    ("auto", 64, 512, True, 0.0, True),
+    ("auto", 64, 4096, False, 0.0, False),
+    ("xla", 64, 4096, True, 0.0, False),
+    ("ring", 64, 4096, True, 0.0, False),  # no sequence mesh: dense
+])
+def test_use_flash_rules(impl, dim_head, n, on_cuda, attn_drop, want):
+    attn = Attention(32, 32, heads=2, dim_head=dim_head,
+                     attn_dropout=attn_drop, attention_impl=impl).train()
+    assert attn._use_flash(n, on_cuda) is want
+
+
+def test_state_dict_keys_follow_reference_key_space():
+    """The port's module names are the reference torch keys the JAX
+    package's own ``.pth`` exporter writes, variant leaves included."""
+    cfg = vit_config("flash", qk_norm=True, layer_scale=0.1, final_norm=True)
+    x = np.zeros((2, 1, SEQ), np.float32)
+    jmodel = jax_build(cfg, train=False, serving=True)
+    params, stats = perturbed_jax_trees(jmodel, x, seed=2)
+    ours = jax_trees_to_state_dict(params, stats)
+    theirs = trees_to_torch_sd(params, stats)
+    assert set(ours) == set(theirs) == set(build_model_from_config(
+        cfg).state_dict())
+    for key, value in theirs.items():
+        np.testing.assert_array_equal(ours[key].numpy(), value)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("in_len,out_len", [(20, 500), (7, 1), (33, 33),
+                                            (100, 37)])
+def test_linear_interpolate_matches_jax(align_corners, in_len, out_len):
+    x = np.random.default_rng(3).standard_normal((2, in_len, 3)).astype(
+        np.float32)
+    ref = np.asarray(jax_interpolate(jnp.asarray(x), out_len,
+                                     align_corners=align_corners,
+                                     time_axis=1))
+    ours = linear_interpolate(torch.from_numpy(x), out_len,
+                              align_corners=align_corners,
+                              time_axis=1).numpy()
+    # the same float64 coordinates and fp32 taps on both sides
+    np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=1e-6)
+
+
+def test_unported_parts_raise():
+    cfg = vit_config()
+    bad = dict(cfg, backbone={"resnet18": {"num_leads": 1}})
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        build_model_from_config(bad)
+    for extra in ({"quantize": "int8"}, {"use_latent_projection": True},
+                  {"auxiliary_heads": [{"FCNHead": {}}]}):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            build_model_from_config(dict(cfg, **extra))
