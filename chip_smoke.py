@@ -8,18 +8,28 @@ nvidia-smi. It imports the port (``semi_seg_ecg_tpu_torch``) and nothing of
 JAX or of the JAX package. Phases, each of which stops the script with a
 non-zero exit when it fails:
 
-1. build every CUDA kernel of the ported path from ``csrc/`` (nvcc), and
-   print the build time and the compiler's register report;
+1. build every CUDA kernel of the ported paths from ``csrc/`` (one nvcc per
+   source, all started together), and print the build time and the
+   compiler's register report;
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it and at a long and a ragged shape; time
-   kernel, plain version and the one-call PyTorch equivalent, and compute
-   the card's bound for the same work;
+   shapes the serving and training paths give it and at long and ragged
+   shapes; time kernel, plain version and the one-call PyTorch equivalent,
+   and compute the card's bound for the same work;
 3. serve the full-width ``vit_tiny`` + FCNHead recipe
    (``configs/base/vit_tiny/scratch.yaml``, ``attention_impl: flash``) on a
    synthetic test split through ``inference_main``, at fp32 and under bf16
    autocast, with launch counters zeroed just before and read just after;
    check the probabilities, and hold the fp32 outputs against the dense
-   attention path on the card and against the plain path on the CPU.
+   attention path on the card and against the plain path on the CPU;
+4. train the full-width ``vit_tiny`` FixMatch recipe
+   (``configs/base/vit_tiny/fixmatch.yaml`` with ``attention_impl: flash``
+   and ``device_augment: true``, bf16, batch 16) through ``train_main`` on a
+   synthetic split for two epochs, with the launch counters zeroed just
+   before and read just after and held to the counts the code implies;
+   serve the trained checkpoint; hold the flash path's gradients and three
+   fp32 FixMatch steps against the dense path on the card, and the card's
+   augmentation against the CPU's on the same draws; profile one bf16 and
+   one fp32 train step.
 
 The line before the last prints the card's name and power limit as
 nvidia-smi gives them; the line before that, a JSON object with one entry
@@ -27,6 +37,7 @@ per kernel. The last line is ``{"ok": true, "device": {...}}``. Details go
 to ``build/chip_smoke/chip_smoke.json``.
 """
 
+import copy
 import json
 import math
 import os
@@ -34,6 +45,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import yaml
@@ -47,13 +59,20 @@ OUT_JSON = os.path.join(WORK, "chip_smoke.json")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
-FLASH_SOURCE = "semi_seg_ecg_tpu_torch/csrc/flash_attention_fwd.cu"
-FLASH_REPLACES = "semi_seg_ecg_tpu/ops/pallas/flash_attention.py:124"
+STEMS = ("flash_attention_fwd", "flash_attention_bwd", "gather1d")
+CSRC = "semi_seg_ecg_tpu_torch/csrc/{}.cu"
+REPLACES = {
+    "flash_attention_fwd": "semi_seg_ecg_tpu/ops/pallas/flash_attention.py:124",
+    "flash_attention_bwd": "semi_seg_ecg_tpu/ops/pallas/flash_attention.py:209",
+    "gather1d": "semi_seg_ecg_tpu/ops/pallas/gather1d.py:91",
+}
 # (label, (B, H, N, D), dtype): the serving shape of vit_tiny at batch 16
-# first, in both precisions the entry runs; then a long and ragged shapes
+# first, in both precisions the entry runs; the training student pass
+# (labeled + strong, 32 windows); then a long and ragged shapes
 FLASH_SHAPES = [
     ("slice_fp32", (16, 3, 101, 64), "float32"),
     ("slice_bf16", (16, 3, 101, 64), "bfloat16"),
+    ("train_bf16", (32, 3, 101, 64), "bfloat16"),
     ("long_bf16", (8, 12, 2048, 64), "bfloat16"),
     ("ragged_fp32", (4, 3, 1000, 64), "float32"),
     ("ragged_bf16_d100", (2, 4, 257, 100), "bfloat16"),
@@ -61,13 +80,57 @@ FLASH_SHAPES = [
     # per CTA, so its time against slice_fp32 shows what one CTA costs
     ("one_head_fp32", (1, 1, 101, 64), "float32"),
 ]
-# kernel vs plain, |kernel - plain| <= atol + rtol |plain|: fp32 sums in
-# another order; bf16 output is the same fp32 value rounded once, so the two
-# are at most one bf16 ulp (2^-7 of the value) apart
+# the backward at the training step's shape (32 windows, bf16 under the
+# recipe's autocast, fp32 in the fp32 checks) first, then long and ragged
+BWD_SHAPES = [
+    ("train_fp32", (32, 3, 101, 64), "float32"),
+    ("train_bf16", (32, 3, 101, 64), "bfloat16"),
+    ("long_bf16", (8, 12, 2048, 64), "bfloat16"),
+    ("ragged_fp32", (4, 3, 1000, 64), "float32"),
+    ("ragged_bf16_d100", (2, 4, 257, 100), "bfloat16"),
+]
+# (label, kind, (B, C, T_in), J, slope): the training step's three calls
+# (resize-crop of the signal, of the labels, the partial-sine roll over a
+# doubled wave) and a 12-lead batch of long records
+GATHER_SHAPES = [
+    ("train_resize_crop", "lerp", (16, 1, 2500), 2500, 2.0),
+    ("train_labels", "index", (16, 1, 2500), 2500, 2.0),
+    ("train_sine_roll", "roll", (16, 1, 5000), 2500, 1.0),
+    ("leads12_long", "lerp", (256, 12, 5000), 5000, 2.0),
+]
+# kernel vs plain, |kernel - plain| <= atol + rtol |plain|. Forward: fp32
+# sums in another order; bf16 output is the same fp32 value rounded once,
+# so the two are at most one bf16 ulp (2^-7 of the value) apart. Backward:
+# each gradient sums N products, so atol 1e-4 in fp32 and one bf16 ulp on
+# top in bf16. Gather: bit for bit.
 TOL_OUT = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
 ATOL_LSE = 1e-4
+TOL_BWD = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2.0 ** -7)}
 
 NUM_TEST, SIGNAL_LENGTH, BATCH, DEPTH = 64, 2500, 16, 12
+# training split and run: 4 steps of 16 + 16 windows per epoch
+TRAIN_LABELED, TRAIN_UNLABELED, TRAIN_VALID, TRAIN_TEST = 64, 64, 16, 16
+TRAIN_EPOCHS = 2
+# kernel launches per FixMatch step of vit_tiny: a flash forward per block
+# in the pseudo-label pass and in the student pass, a backward per block,
+# and the gathers of the device augmentation (see phase_train)
+FWD_PER_STEP, BWD_PER_STEP, GATHER_PER_STEP = 2 * DEPTH, DEPTH, 4
+# flash vs dense after LOCKSTEP_STEPS fp32 AdamW steps, in units of lr:
+# the key bias has a gradient that is zero in exact arithmetic, so Adam
+# turns its rounding noise into O(lr) updates of either sign
+LOCKSTEP_STEPS = 3
+LOCKSTEP_ATOL_LR = 2.0 * LOCKSTEP_STEPS
+LOCKSTEP_TIGHT_ATOL_LR = 0.5
+KEY_BIAS = "attn.fn.to_qkv.bias"
+# a fresh random model is confident nowhere near the recipe's 0.8 on
+# random inputs; the lockstep's threshold lets the unlabeled loss work
+LOCKSTEP_CONF_THRESH = 0.5
+# the whole FixMatch augmentation, card vs CPU on the same draws: the two
+# libraries' sin and standardize reductions round apart (check_augment)
+CHAIN_ATOL = 1e-5
+# flash vs dense gradients of one fp32 forward/backward of the full model:
+# per parameter, max |difference| <= GRAD_RTOL x max |dense gradient|
+GRAD_RTOL = 1e-3
 
 
 def log(*args):
@@ -90,43 +153,95 @@ def device_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(shape, dtype):
-    """Least time for softmax(q kᵀ) v plus its logsumexp on an H100: each
-    of q, k, v, out moved once (lse too), against 4·B·H·N²·D flops at the
-    input type's peak."""
-    b, h, n, d = shape
-    elem = 4 if dtype == "float32" else 2
-    nbytes = 4 * b * h * n * d * elem + b * h * n * 4
-    flops = 4 * b * h * n * n * d
+def bound(nbytes, flops, dtype):
+    """The card's least time in ms for moving ``nbytes`` and doing
+    ``flops`` at the peak of ``dtype``, and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def phase_build(fa):
-    from semi_seg_ecg_tpu_torch.ops.cuda_build import library_path
+def attention_bound(shape, dtype):
+    """softmax(q kᵀ) v plus its logsumexp: each of q, k, v, out moved once
+    (lse too), against 4·B·H·N²·D flops."""
+    b, h, n, d = shape
+    elem = 4 if dtype == "float32" else 2
+    return bound(4 * b * h * n * d * elem + b * h * n * 4,
+                 4 * b * h * n * n * d, dtype)
+
+
+def attention_bwd_bound(shape, dtype):
+    """dq, dk, dv: q, k, v, o, dO read and dq, dk, dv written once (and
+    lse), against 10·B·H·N²·D flops (S, dP, dV, dQ, dK products)."""
+    b, h, n, d = shape
+    elem = 4 if dtype == "float32" else 2
+    return bound(8 * b * h * n * d * elem + b * h * n * 4,
+                 10 * b * h * n * n * d, dtype)
+
+
+def excess_over(got, want, atol, rtol):
+    """How far the worst element is past its tolerance (<= 0 passes)."""
+    diff = (got.float() - want.float()).abs()
+    return diff.max().item(), ((diff - rtol * want.float().abs()).max()
+                               .item() - atol)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: build
+# ---------------------------------------------------------------------------
+
+
+def phase_build():
+    from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
+    from semi_seg_ecg_tpu_torch.ops import gather1d
+    from semi_seg_ecg_tpu_torch.ops.cuda_build import (
+        build_library,
+        library_path,
+    )
 
     t0 = time.time()
+    with ThreadPoolExecutor(len(STEMS)) as pool:
+        list(pool.map(build_library, STEMS))
     fa.load_kernel()
+    fa.load_backward_kernel()
+    gather1d.load_kernels()
     seconds = time.time() - t0
-    log(f"phase 1: built flash_attention_fwd in {seconds:.2f} s")
-    with open(library_path("flash_attention_fwd")[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
+    log(f"phase 1: built {', '.join(STEMS)} in {seconds:.2f} s")
+    for stem in STEMS:
+        with open(library_path(stem)[:-3] + ".log") as f:
+            for line in f:
+                if "Compiling entry" in line:
+                    log(f"  ptxas {stem}:", line.split("'")[1][:90])
+                elif "registers" in line or "spill" in line:
+                    log("   ", line.strip())
     return seconds
 
 
-def phase_kernels(torch, fa):
-    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
 
-    # TF32 off for the plain version's fp32 matmuls here only: phase 3
-    # starts from PyTorch's defaults, so that the entry sets its own
+
+def phase_kernels(torch):
+    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+    from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
+    from semi_seg_ecg_tpu_torch.ops import gather1d
+
+    # TF32 off for the plain versions' fp32 matmuls here only: phases 3 and
+    # 4 start from PyTorch's defaults, so that the entries set their own
     with full_fp32():
         log(f"phase 2: {tf32_flags(torch)}")
         gen = torch.Generator(device="cuda").manual_seed(0)
-        return [check_kernel(torch, fa, gen, *case) for case in FLASH_SHAPES]
+        rows = {
+            "flash_attention_fwd": [check_kernel(torch, fa, gen, *case)
+                                    for case in FLASH_SHAPES],
+            "flash_attention_bwd": [check_backward(torch, fa, gen, *case)
+                                    for case in BWD_SHAPES],
+            "gather1d": [check_gather(torch, gather1d, *case)
+                         for case in GATHER_SHAPES],
+        }
+    return rows
 
 
 def tf32_flags(torch):
@@ -137,8 +252,8 @@ def tf32_flags(torch):
 
 
 def check_kernel(torch, fa, gen, label, shape, dtype_name):
-    """One shape: the kernel against its plain version, then the times of
-    kernel, plain version and SDPA, and the card's bound."""
+    """One forward shape: the kernel against its plain version, then the
+    times of kernel, plain version and SDPA, and the card's bound."""
     import torch.nn.functional as F
 
     dtype = getattr(torch, dtype_name)
@@ -149,10 +264,7 @@ def check_kernel(torch, fa, gen, label, shape, dtype_name):
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_attention_plain(q, k, v, scale)
     atol, rtol = TOL_OUT[dtype_name]
-    diff = (out.float() - ref_out.float()).abs()
-    err_out = diff.max().item()
-    # how far the worst element is past its tolerance (<= 0 passes)
-    excess = (diff - rtol * ref_out.float().abs()).max().item() - atol
+    err_out, excess = excess_over(out, ref_out, atol, rtol)
     err_lse = (lse - ref_lse).abs().max().item()
     ok = (math.isfinite(err_out) and excess <= 0
           and math.isfinite(err_lse) and err_lse <= ATOL_LSE)
@@ -164,13 +276,13 @@ def check_kernel(torch, fa, gen, label, shape, dtype_name):
     library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, scale=scale), 20 if long else 200)
     bound_ms, bound_by = attention_bound(shape, dtype_name)
-    log(f"  {label} {shape} {dtype_name}: err out {err_out:.3g} "
+    log(f"  fwd {label} {shape} {dtype_name}: err out {err_out:.3g} "
         f"(tolerance excess {excess:.3g}) lse {err_lse:.3g} | kernel "
         f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
         f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     if not ok:
-        raise SystemExit(f"phase 2 failed: {label} disagrees with the "
-                         f"plain version (out {err_out}, lse {err_lse})")
+        raise SystemExit(f"phase 2 failed: forward {label} disagrees with "
+                         f"the plain version (out {err_out}, lse {err_lse})")
     return {"shape": label, "bhnd": list(shape), "dtype": dtype_name,
             "max_abs_err": err_out, "max_abs_err_lse": err_lse,
             "atol": atol, "rtol": rtol, "atol_lse": ATOL_LSE,
@@ -178,11 +290,149 @@ def check_kernel(torch, fa, gen, label, shape, dtype_name):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def check_backward(torch, fa, gen, label, shape, dtype_name):
+    """One backward shape: ``flash_attention_backward`` (Δ in PyTorch, then
+    the two kernels) against the plain backward on the kernel forward's
+    ``(out, lse)``; times of the wrapper, the plain version and the backward
+    of SDPA alone, and the card's bound."""
+    import torch.nn.functional as F
+
+    dtype = getattr(torch, dtype_name)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda",
+                                 dtype=dtype) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    out, lse = fa.flash_attention_forward(q, k, v, scale)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
+    atol, rtol = TOL_BWD[dtype_name]
+    errs, excess = [], -math.inf
+    for got, ref in zip(grads, want):
+        if got.dtype != dtype:
+            raise SystemExit(f"phase 2 failed: backward {label} returned "
+                             f"{got.dtype}, not {dtype}")
+        err, ex = excess_over(got, ref, atol, rtol)
+        errs.append(err)
+        excess = max(excess, ex)
+    long = shape[2] >= 1000
+    kernel_ms = device_ms(torch, lambda: fa.flash_attention_backward(
+        q, k, v, out, lse, dout, scale), 20 if long else 200)
+    plain_ms = device_ms(torch, lambda: fa.flash_attention_backward_plain(
+        q, k, v, out, lse, dout, scale), 3 if long else 50)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    library_ms = device_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), dout, retain_graph=True), 20 if long else 200)
+    bound_ms, bound_by = attention_bwd_bound(shape, dtype_name)
+    err = max(errs)
+    log(f"  bwd {label} {shape} {dtype_name}: err dq/dk/dv "
+        f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tolerance excess "
+        f"{excess:.3g}) | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f" sdpa backward {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    if not (math.isfinite(err) and excess <= 0):
+        raise SystemExit(f"phase 2 failed: backward {label} disagrees with "
+                         f"the plain version (max error {err})")
+    return {"shape": label, "bhnd": list(shape), "dtype": dtype_name,
+            "max_abs_err": err, "max_abs_err_dq_dk_dv": errs,
+            "atol": atol, "rtol": rtol, "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def gather_positions(torch, kind, b, t_in, j, slope):
+    """Positions as the training path makes them: the resize-crop's
+    monotone map from one draw of its scale (slope up to ``slope``), or the
+    partial-sine roll's integral slope-1 map over a doubled wave."""
+    rng = np.random.default_rng(0)
+    if kind == "roll":
+        start = rng.integers(0, j, (b, 1))
+        pos = (np.arange(j)[None, :] - start + j).astype(np.float32)
+    else:
+        ratio = rng.uniform(1.0 / slope, 2.0, (b, 1))
+        offset = rng.uniform(0.0, 1.0, (b, 1)) * np.maximum(
+            t_in - 1 - (j - 1) / ratio, 0.0)
+        pos = np.clip(offset + np.arange(j)[None, :] / ratio, 0,
+                      t_in - 1).astype(np.float32)
+        pos[:, -1] = t_in - 1  # the last position reads in bounds
+        if kind == "index":
+            pos = np.round(pos)
+    return pos
+
+
+def check_gather(torch, gather1d, label, kind, shape, j, slope):
+    """One gather shape: the kernel against its plain version, bit for bit;
+    times of kernel, plain version and the one-call library equivalent
+    (``F.grid_sample`` for the interpolation, ``torch.gather`` for labels);
+    the bound over the bytes this run's positions read."""
+    import torch.nn.functional as F
+
+    b, c, t = shape
+    rng = np.random.default_rng(1)
+    pos_np = gather_positions(torch, kind, b, t, j, slope)
+    pos = torch.from_numpy(pos_np).cuda()
+    # bytes of x the positions touch (i0 and its clamped neighbour), once
+    i0 = np.floor(pos_np).astype(np.int64)
+    touched = sum(len(np.union1d(r, np.minimum(r + 1, t - 1))) for r in i0)
+    if kind == "index":
+        y = torch.from_numpy(rng.integers(0, 4, (b, t))).cuda()
+        idx = pos.to(torch.int32)
+        idx64 = idx.long()
+        run = lambda: gather1d.monotonic_gather_int(y, idx, max_slope=slope)
+        plain = lambda: torch.gather(y, 1, idx.long())
+        library = lambda: torch.gather(y, 1, idx64)
+        nbytes = touched * 8 + b * j * (4 + 8)
+        flops = 0
+        want = library()
+    else:
+        x = torch.from_numpy(rng.standard_normal((b, c, t)).astype(
+            np.float32)).cuda()
+        run = lambda: gather1d.monotonic_gather(x, pos, max_slope=slope)
+        plain = lambda: gather1d.monotonic_gather_plain(x, pos)
+        grid = torch.stack([pos / (t - 1) * 2 - 1, torch.zeros_like(pos)],
+                           dim=-1)[:, None]
+        x4 = x[:, :, None, :]
+        library = lambda: F.grid_sample(x4, grid, mode="bilinear",
+                                        padding_mode="border",
+                                        align_corners=True)
+        nbytes = touched * c * 4 + b * j * 4 + b * c * j * 4
+        flops = 3 * b * c * j
+        want = plain()
+    got = run()
+    torch.cuda.synchronize()
+    exact = torch.equal(got, want)
+    err = (got.double() - want.double()).abs().max().item()
+    lib_err = None
+    if kind != "index":
+        lib_err = (library()[:, :, 0, :] - want).abs().max().item()
+    kernel_ms = device_ms(torch, run, 200)
+    plain_ms = device_ms(torch, plain, 50)
+    library_ms = device_ms(torch, library, 200)
+    bound_ms, bound_by = bound(nbytes, flops, "float32")
+    log(f"  gather {label} x{tuple(shape)} -> {j} ({kind}, slope "
+        f"{slope}): bit-equal {exact} (max err {err:.3g}; grid_sample err "
+        f"{lib_err}) | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    if not exact:
+        raise SystemExit(f"phase 2 failed: gather {label} differs from the "
+                         f"plain version (max error {err})")
+    return {"shape": label, "kind": kind, "bct": list(shape), "j": j,
+            "max_slope": slope, "max_abs_err": err,
+            "library_max_abs_err": lib_err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: serving
+# ---------------------------------------------------------------------------
+
+
 def write_slice_config():
     from semi_seg_ecg_tpu_torch.config import load_config
     from semi_seg_ecg_tpu_torch.data.synthetic import make_synthetic_dataset
 
-    shutil.rmtree(WORK, ignore_errors=True)
     data = make_synthetic_dataset(
         os.path.join(WORK, "data"), num_train_labeled=1,
         num_train_unlabeled=1, num_valid=1, num_test=NUM_TEST,
@@ -213,26 +463,40 @@ def write_random_weights(config, path):
     return sum(p.numel() for p in model.parameters())
 
 
+def reset_counts():
+    from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
+    from semi_seg_ecg_tpu_torch.ops import gather1d
+
+    fa.LAUNCHES = fa.BWD_LAUNCHES = gather1d.LAUNCHES = 0
+
+
+def read_counts():
+    from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
+    from semi_seg_ecg_tpu_torch.ops import gather1d
+
+    return {"flash_attention_fwd": fa.LAUNCHES,
+            "flash_attention_bwd": fa.BWD_LAUNCHES,
+            "gather1d": gather1d.LAUNCHES}
+
+
 def serve(config_path, model_path, name, **override):
     """One ``inference_main`` call with an override file; returns the
-    outputs, the kernel launches it made and its wall seconds."""
+    outputs, the forward kernel launches it made and its wall seconds."""
     import torch
 
     from semi_seg_ecg_tpu_torch.cli import inference_main
-    from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
 
     override_path = os.path.join(WORK, f"{name}.yaml")
     with open(override_path, "w") as f:
         yaml.safe_dump(override, f)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    fa.LAUNCHES = 0
+    torch.cuda.synchronize()
+    reset_counts()
     t0 = time.time()
     outputs = inference_main(["-f", config_path, "-o", override_path,
                               "--model_path", model_path,
                               "--exp_name", name])
     seconds = time.time() - t0
-    launches = fa.LAUNCHES
+    launches = read_counts()["flash_attention_fwd"]
     saved = np.load(os.path.join(WORK, "exps", name, "test_outputs.npy"))
     if not np.array_equal(saved, outputs):
         raise SystemExit(f"{name}: test_outputs.npy differs from the "
@@ -240,8 +504,8 @@ def serve(config_path, model_path, name, **override):
     return outputs, launches, seconds
 
 
-def check_probs(name, probs):
-    expected = (NUM_TEST, 4, SIGNAL_LENGTH)
+def check_probs(name, probs, n=NUM_TEST):
+    expected = (n, 4, SIGNAL_LENGTH)
     if probs.shape != expected or not np.isfinite(probs).all():
         raise SystemExit(f"{name}: outputs {probs.shape} (expected "
                          f"{expected}) or not finite")
@@ -251,15 +515,46 @@ def check_probs(name, probs):
     return row_err
 
 
+def trace_device(torch, fn, steps):
+    """Device time of ``steps`` calls of ``fn`` from a torch.profiler
+    trace: busy ms per call and per kernel, and device events per call.
+    Empty when the trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / steps
+    per_kernel, count = {}, 0
+    for event in prof.events():
+        # user annotations (the optimizer's step range) span kernels that
+        # the trace also lists, so they are not device work of their own
+        if event.device_type == DeviceType.CUDA and not getattr(
+                event, "is_user_annotation", False):
+            count += 1
+            per_kernel[event.name] = (per_kernel.get(event.name, 0.0)
+                                      + event.time_range.elapsed_us() / 1e3)
+    return (traced_ms, {k: v / steps for k, v in per_kernel.items()},
+            count / steps)
+
+
+def kernel_ms(per_kernel, *needles):
+    if not per_kernel:
+        return None
+    return sum(v for k, v in per_kernel.items()
+               if any(n in k for n in needles))
+
+
 def profile_model(torch, config, model_path, amp, steps=20):
     """Where one batch's time goes: host-clock wall time per forward of a
     (16, 1, 2500) batch (synchronized), and from a torch.profiler trace of
     the same loop the card's busy time, its idle share and the kernels
     that take the most device time. Device numbers are None when the
     trace holds no device events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from semi_seg_ecg_tpu_torch.algorithms.common import (
         full_fp32,
         load_eval_model,
@@ -282,34 +577,22 @@ def profile_model(torch, config, model_path, amp, steps=20):
         forward()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            forward()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / steps
-    per_kernel = {}
-    for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
-            per_kernel[event.name] = (per_kernel.get(event.name, 0.0)
-                                      + event.time_range.elapsed_us() / 1e3)
-    busy_ms = sum(per_kernel.values()) / steps
+    traced_ms, per_kernel, events = trace_device(torch, forward, steps)
+    busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    flash_ms = sum(v for k, v in per_kernel.items()
-                   if "flash_fwd_kernel" in k) / steps
     return {
         "wall_ms_per_batch": wall_ms,
         "windows_per_s": BATCH / (wall_ms / 1e3),
         "traced_wall_ms_per_batch": traced_ms,
+        "device_events_per_batch": events,
         "device_busy_ms_per_batch": busy_ms if per_kernel else None,
         # busy time from the trace over the untraced wall time: tracing
         # slows the host, not the kernels
         "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel
         else None,
-        "flash_kernel_ms_per_batch": flash_ms if per_kernel else None,
-        "top_kernels_ms_per_batch": [(k[:80], v / steps) for k, v in top],
+        "flash_kernel_ms_per_batch": kernel_ms(per_kernel,
+                                               "flash_fwd_kernel"),
+        "top_kernels_ms_per_batch": [(k[:80], v) for k, v in top],
     }
 
 
@@ -384,6 +667,392 @@ def phase_slice(torch):
             "model": model}
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: training
+# ---------------------------------------------------------------------------
+
+
+def write_train_config():
+    """The shipped vit_tiny FixMatch recipe with flash attention and device
+    augmentation, on a synthetic split, for ``TRAIN_EPOCHS`` epochs."""
+    from semi_seg_ecg_tpu_torch.config import load_config
+    from semi_seg_ecg_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    data = make_synthetic_dataset(
+        os.path.join(WORK, "train_data"), num_train_labeled=TRAIN_LABELED,
+        num_train_unlabeled=TRAIN_UNLABELED, num_valid=TRAIN_VALID,
+        num_test=TRAIN_TEST, length=SIGNAL_LENGTH, seed=1)
+    config = load_config(os.path.join(REPO, "configs", "base", "vit_tiny",
+                                      "fixmatch.yaml"))
+    config["backbone"]["vit_tiny"]["attention_impl"] = "flash"
+    config["dataset"].update(data, device_augment=True)
+    config["output_dir"] = os.path.join(WORK, "exps")
+    config["exp_name"] = "fixmatch"
+    config["train"].update(epochs=TRAIN_EPOCHS, warmup_epochs=0)
+    path = os.path.join(WORK, "vit_tiny_fixmatch.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path, config
+
+
+def phase_train(torch):
+    from semi_seg_ecg_tpu_torch.algorithms.common import init_model
+    from semi_seg_ecg_tpu_torch.cli import inference_main, train_main
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    config_path, config = write_train_config()
+    steps_per_epoch = TRAIN_LABELED // BATCH
+    steps = steps_per_epoch * TRAIN_EPOCHS
+    eval_batches = (TRAIN_EPOCHS * math.ceil(TRAIN_VALID / BATCH)
+                    + math.ceil(TRAIN_TEST / BATCH))
+    want = {"flash_attention_fwd": steps * FWD_PER_STEP
+            + eval_batches * DEPTH,
+            "flash_attention_bwd": steps * BWD_PER_STEP,
+            "gather1d": steps * GATHER_PER_STEP}
+    log(f"phase 4: train_main, vit_tiny FixMatch (flash, device_augment, "
+        f"{config['precision']}, batch {BATCH} + {BATCH}), {TRAIN_EPOCHS} "
+        f"epochs of {steps_per_epoch} steps, then the test pass; entering "
+        f"with {tf32_flags(torch)}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    test_metrics = train_main(["-f", config_path])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = read_counts()
+    log(f"  train_main: {seconds:.2f} s, launches {launches} (expected "
+        f"{want}: per step {FWD_PER_STEP} forward, {BWD_PER_STEP} backward,"
+        f" {GATHER_PER_STEP} gather; {DEPTH} forward per eval batch x "
+        f"{eval_batches}); test metrics {test_metrics}")
+    if launches != want:
+        raise SystemExit(f"phase 4 failed: launches {launches}, expected "
+                         f"{want}")
+
+    out_dir = os.path.join(WORK, "exps", "fixmatch")
+    for name in ("log.txt", "best-loss.ckpt", "best-MeanIoU.ckpt",
+                 "test_metrics.csv", "test_outputs.npy", "test_labels.npy"):
+        if not os.path.exists(os.path.join(out_dir, name)):
+            raise SystemExit(f"phase 4 failed: train_main wrote no {name}")
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        epochs = [json.loads(line) for line in f]
+    if len(epochs) != TRAIN_EPOCHS or not all(
+            math.isfinite(e[k]) for e in epochs for k in e
+            if "loss" in k):
+        raise SystemExit(f"phase 4 failed: log.txt epochs {epochs}")
+    log(f"  log.txt: {[{k: round(v, 4) for k, v in e.items()} for e in epochs]}")
+
+    normalized = normalize_config(copy.deepcopy(config))
+    init = dict(init_model(normalized, torch.device("cpu"))
+                .named_parameters())
+    trained = ckpt.model_state_dict(ckpt.load_checkpoint(
+        os.path.join(out_dir, "best-loss.ckpt"))["model"])
+    moved = max((trained[k] - v.detach()).abs().max().item()
+                for k, v in init.items())
+    if not moved > 0:
+        raise SystemExit("phase 4 failed: the parameters did not move")
+
+    reset_counts()
+    probs = inference_main(["-f", config_path, "--model_path",
+                            os.path.join(out_dir, "best-MeanIoU.ckpt"),
+                            "--exp_name", "fixmatch_served"])
+    served = read_counts()["flash_attention_fwd"]
+    check_probs("served trained ckpt", probs, TRAIN_TEST)
+    if served != DEPTH * math.ceil(TRAIN_TEST / BATCH):
+        raise SystemExit(f"phase 4 failed: serving the trained ckpt made "
+                         f"{served} forward launches")
+    log(f"  parameters moved by up to {moved:.4g}; inference_main served "
+        f"best-MeanIoU.ckpt with {served} forward launches")
+
+    result = {"seconds": seconds, "launches": launches,
+              "launches_expected": want, "steps": steps,
+              "eval_batches": eval_batches, "test_metrics": test_metrics,
+              "log": epochs, "max_param_move": moved,
+              "served_launches": served}
+    result["gradients"] = check_gradients(torch, normalized)
+    result["lockstep"] = check_lockstep(torch, normalized)
+    result["augment"] = check_augment(torch, normalized)
+    result["profile"] = {
+        "bf16": profile_train_step(torch, normalized, "bf16"),
+        "fp32": profile_train_step(torch, normalized, "fp32")}
+    return result
+
+
+def set_attention(model, impl):
+    from semi_seg_ecg_tpu_torch.models.backbones.vision_transformer import (
+        Attention,
+    )
+
+    for module in model.modules():
+        if isinstance(module, Attention):
+            module.attention_impl = impl
+
+
+def device_batch(torch, seed, n=BATCH):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = lambda: torch.randn((n, 1, SIGNAL_LENGTH), generator=gen,
+                            device="cuda")
+    return {"ecg": x(), "target": torch.randint(
+                0, 4, (n, SIGNAL_LENGTH), generator=gen, device="cuda"),
+            "ecg_u_w": x(), "ecg_u_s": x()}
+
+
+def check_gradients(torch, config):
+    """One fp32 forward/backward of the full model in train mode through
+    the flash kernels and through the dense path: every parameter's
+    gradient agrees within GRAD_RTOL of its largest element."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        full_fp32,
+        init_model,
+    )
+    from semi_seg_ecg_tpu_torch.ops.losses import cross_entropy
+
+    cfg = copy.deepcopy(config)
+    cfg["decode_head"]["FCNHead"]["dropout_ratio"] = 0.0
+    model = init_model(cfg, torch.device("cuda")).train()
+    batch = device_batch(torch, 5, n=2 * BATCH)
+    grads = {}
+    with full_fp32():
+        for impl in ("flash", "xla"):
+            set_attention(model, impl)
+            model.zero_grad(set_to_none=True)
+            loss = cross_entropy(model(batch["ecg"])["seg_logits"],
+                                 batch["target"])
+            loss.backward()
+            grads[impl] = {k: p.grad.clone()
+                           for k, p in model.named_parameters()}
+    worst = max(((grads["flash"][k] - g).abs().max().item()
+                 / max(g.abs().max().item(), 1e-30), k)
+                for k, g in grads["xla"].items())
+    log(f"  gradients, fp32, batch {2 * BATCH}, flash vs dense: worst "
+        f"max|diff| / max|grad| {worst[0]:.3g} ({worst[1]})")
+    if not worst[0] <= GRAD_RTOL:
+        raise SystemExit(f"phase 4 failed: flash gradients differ from the "
+                         f"dense path's by {worst[0]} of {worst[1]}")
+    return {"worst_relative": worst[0], "worst_param": worst[1],
+            "rtol": GRAD_RTOL}
+
+
+def check_lockstep(torch, config):
+    """LOCKSTEP_STEPS fp32 FixMatch steps from one init, dropout 0, on
+    fixed device batches: the flash kernels against the dense path."""
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        Trainer,
+        full_fp32,
+        init_model,
+    )
+
+    results = {}
+    for impl in ("flash", "xla"):
+        cfg = copy.deepcopy(config)
+        cfg["precision"] = "fp32"
+        cfg["decode_head"]["FCNHead"]["dropout_ratio"] = 0.0
+        cfg["backbone"]["vit_tiny"]["attention_impl"] = impl
+        cfg["dataset"]["device_augment"] = False
+        cfg["train"]["conf_thresh"] = LOCKSTEP_CONF_THRESH
+        with full_fp32():
+            model = init_model(cfg, torch.device("cuda"))
+            trainer = Trainer(cfg, fixmatch.SPEC, torch.device("cuda"), 4,
+                              model=model)
+            metrics = [{k: v.item() for k, v in trainer.train_step(
+                device_batch(torch, 10 + s)).items()}
+                for s in range(LOCKSTEP_STEPS)]
+        results[impl] = (metrics, {k: v.detach().clone() for k, v in
+                                   model.state_dict().items()})
+    (m_f, sd_f), (m_d, sd_d) = results["flash"], results["xla"]
+    lr = config["train"]["lr"]
+    worst_key_bias = worst_other = 0.0
+    worst_name = None
+    for k, v in sd_d.items():
+        if not v.is_floating_point():
+            continue
+        err = (sd_f[k] - v).abs().max().item()
+        if "running" in k:
+            if err > 1e-4 + 1e-4 * v.abs().max().item():
+                raise SystemExit(f"phase 4 failed: lockstep {k} {err}")
+            continue
+        err /= lr
+        if k.endswith(KEY_BIAS):
+            worst_key_bias = max(worst_key_bias, err)
+        elif err > worst_other:
+            worst_other, worst_name = err, k
+    loss_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                   for a, b in zip(m_f, m_d)
+                   for k in ("loss_x", "loss_u_s"))
+    pixels = [(round(a["mask_ratio"] * BATCH * SIGNAL_LENGTH),
+               round(b["mask_ratio"] * BATCH * SIGNAL_LENGTH))
+              for a, b in zip(m_f, m_d)]
+    log(f"  lockstep, {LOCKSTEP_STEPS} fp32 FixMatch steps, flash vs dense:"
+        f" params within {worst_other:.3g} lr ({worst_name}), key bias "
+        f"{worst_key_bias:.3g} lr; losses within {loss_rel:.3g} relative; "
+        f"confident pixels {pixels}")
+    if not (worst_other <= LOCKSTEP_TIGHT_ATOL_LR
+            and worst_key_bias <= LOCKSTEP_ATOL_LR and loss_rel <= 1e-4
+            and any(a > 0 for a, _ in pixels)
+            and all(abs(a - b) <= 4 for a, b in pixels)):
+        raise SystemExit("phase 4 failed: flash and dense training steps "
+                         "disagree")
+    return {"params_lr": worst_other, "param": worst_name,
+            "key_bias_lr": worst_key_bias, "loss_rel": loss_rel,
+            "confident_pixels": pixels, "metrics_flash": m_f,
+            "metrics_dense": m_d, "tight_atol_lr": LOCKSTEP_TIGHT_ATOL_LR,
+            "atol_lr": LOCKSTEP_ATOL_LR}
+
+
+def ulps_of(torch, got, want, mag):
+    """|got - want| in fp32 ulps of the interpolated magnitude."""
+    spacing = (torch.nextafter(mag, torch.full_like(mag, math.inf))
+               - mag).double()
+    return ((got.double() - want.double()).abs() / spacing).max().item()
+
+
+def check_augment(torch, config):
+    """One set of draws made on a CPU generator, applied on the card (the
+    gather kernel) and on the CPU (its plain version): the resize-crop
+    bit-equal where it reads whole samples, within one ulp where it
+    interpolates, labels exact; the whole FixMatch augmentation within
+    CHAIN_ATOL (sin and the standardize reductions of two libraries)."""
+    from semi_seg_ecg_tpu_torch.ops import gather1d
+    from semi_seg_ecg_tpu_torch.ops import preprocess as pre
+
+    plan = pre.plan_device_augment(config["dataset"])
+    cpu = {k: v.cpu() for k, v in device_batch(torch, 20).items()}
+    del cpu["ecg_u_s"]
+    draws = plan.sample(torch.Generator().manual_seed(0), cpu)
+    cuda = {k: v.cuda() for k, v in cpu.items()}
+    before = gather1d.LAUNCHES
+    on_card = plan.apply(draws, cuda)
+    torch.cuda.synchronize()
+    launched = gather1d.LAUNCHES - before
+    on_cpu = plan.apply(draws, cpu)
+    chain = {k: (on_card[k].cpu().double() - on_cpu[k].double()).abs()
+             .max().item() for k in ("ecg", "ecg_u_w", "ecg_u_s")}
+    whole = max(chain.values())
+    # each strong op alone, card vs CPU, on the CPU's weak view
+    ra = config["dataset"]["strong_augmentations"][0]["RandAugment"]
+    u = pre._apply_chain(draws["unlab"], [pre._make_device_op(
+        *pre._entry_name_kwargs(e)) for e in
+        config["dataset"]["augmentations"]], cpu["ecg_u_w"])[0]
+    per_op = {}
+    for entry, op_draws in zip(ra["ops"], draws["strong"][0]["ops"]):
+        name, kw = pre._entry_name_kwargs(entry)
+        op = pre._make_device_op(name, kw, level=ra.get("level", 10))
+        a = op.apply(op_draws, u.cuda(), None)[0].cpu()
+        b = op.apply(op_draws, u, None)[0]
+        per_op[name] = (a.double() - b.double()).abs().max().item()
+    labels_equal = torch.equal(on_card["target"].cpu(), on_cpu["target"])
+
+    rrc = draws["lab"][0]
+    kw = config["dataset"]["augmentations"][0]["random_resize_crop"]
+    x_card, y_card = pre.random_resize_crop_apply(rrc, cuda["ecg"],
+                                                  cuda["target"], **kw)
+    x_cpu, y_cpu = pre.random_resize_crop_apply(rrc, cpu["ecg"],
+                                                cpu["target"], **kw)
+    mag, _ = pre.random_resize_crop_apply(rrc, cpu["ecg"].abs(), None, **kw)
+    rrc_ulps = ulps_of(torch, x_card.cpu(), x_cpu, mag)
+    rrc_equal = torch.equal(x_card.cpu(), x_cpu)
+    log(f"  augmentation, CPU draws: card vs CPU resize-crop bit-equal "
+        f"{rrc_equal} ({rrc_ulps:.3g} ulp), labels equal "
+        f"{torch.equal(y_card.cpu(), y_cpu)} / {labels_equal}; whole "
+        f"FixMatch chain max |diff| {chain}; strong ops alone {per_op}; "
+        f"{launched} gather launches")
+    if not (rrc_ulps <= 1.0 and torch.equal(y_card.cpu(), y_cpu)
+            and labels_equal and whole <= CHAIN_ATOL
+            and launched == GATHER_PER_STEP):
+        raise SystemExit("phase 4 failed: the card's augmentation differs "
+                         "from the CPU's on the same draws")
+    return {"resize_crop_bit_equal": rrc_equal, "resize_crop_ulps": rrc_ulps,
+            "labels_equal": labels_equal, "chain_max_abs_diff": chain,
+            "strong_op_max_abs_diff": per_op,
+            "gather_launches": launched}
+
+
+def profile_train_step(torch, config, precision, steps=10):
+    """Where one FixMatch step's time goes at full width: synchronized
+    host-clock ms per ``Trainer.train_step`` (device augmentation
+    included) and, from a trace of the same loop, device busy time, idle
+    share, the top kernels and the per-step ms of each ported kernel."""
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        Trainer,
+        full_fp32,
+        init_model,
+    )
+
+    cfg = copy.deepcopy(config)
+    cfg["precision"] = precision
+    batch = device_batch(torch, 30)
+    del batch["ecg_u_s"]
+    with full_fp32():
+        trainer = Trainer(cfg, fixmatch.SPEC, torch.device("cuda"), 4,
+                          model=init_model(cfg, torch.device("cuda")))
+        step = lambda: trainer.train_step(batch)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        per_step = {k: v / steps for k, v in read_counts().items()}
+        traced_ms, per_kernel, events = trace_device(torch, step, steps)
+    busy_ms = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    out = {
+        "wall_ms_per_step": wall_ms,
+        "windows_per_s": 2 * BATCH / (wall_ms / 1e3),
+        "launches_per_step": per_step,
+        "traced_wall_ms_per_step": traced_ms,
+        "device_events_per_step": events,
+        "device_busy_ms_per_step": busy_ms if per_kernel else None,
+        "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel
+        else None,
+        "flash_fwd_ms_per_step": kernel_ms(per_kernel, "flash_fwd_kernel"),
+        "flash_bwd_ms_per_step": kernel_ms(per_kernel, "flash_bwd_"),
+        "gather_ms_per_step": kernel_ms(per_kernel, "gather_lerp_kernel",
+                                        "gather_index_kernel"),
+        "top_kernels_ms_per_step": [(k[:80], v) for k, v in top],
+    }
+    log(f"  train step, {precision}, {BATCH} + {BATCH} windows: "
+        f"{wall_ms:.3f} ms wall ({out['windows_per_s']:.1f} windows/s), "
+        f"launches/step {per_step}; traced: {events:.0f} device events, "
+        f"device busy {out['device_busy_ms_per_step']} ms, idle share "
+        f"{out['device_idle_share']}; flash fwd "
+        f"{out['flash_fwd_ms_per_step']} ms, flash bwd "
+        f"{out['flash_bwd_ms_per_step']} ms, gather "
+        f"{out['gather_ms_per_step']} ms per step")
+    for kernel, ms in top:
+        log(f"    {ms:.4f} ms  {kernel[:80]}")
+    want = {"flash_attention_fwd": FWD_PER_STEP,
+            "flash_attention_bwd": BWD_PER_STEP,
+            "gather1d": GATHER_PER_STEP}
+    if per_step != want:
+        raise SystemExit(f"phase 4 failed: {precision} step launches "
+                         f"{per_step}, expected {want}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Report
+# ---------------------------------------------------------------------------
+
+
+def kernel_entry(name, rows, launches, serve_launches=None):
+    main = rows[0]
+    entry = {"name": name, "route": "cuda", "source": CSRC.format(name),
+             "replaces": REPLACES[name], "launches": launches,
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+             "library_ms": main["library_ms"], "shapes": rows}
+    if serve_launches is not None:
+        entry["launches_serving"] = serve_launches
+    return entry
+
+
 def main():
     import torch
 
@@ -391,34 +1060,32 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
-
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
     t_start = time.time()
-    build_s = phase_build(fa)
-    rows = phase_kernels(torch, fa)
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    build_s = phase_build()
+    rows = phase_kernels(torch)
     slice_result = phase_slice(torch)
-    main_row = rows[0]
-    kernels = [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-        "launches": slice_result["runs"]["flash_fp32"]["launches"],
-        "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shapes": rows,
-    }]
+    train_result = phase_train(torch)
+    launches = train_result["launches"]
+    kernels = [
+        kernel_entry("flash_attention_fwd", rows["flash_attention_fwd"],
+                     launches["flash_attention_fwd"],
+                     slice_result["runs"]["flash_fp32"]["launches"]),
+        kernel_entry("flash_attention_bwd", rows["flash_attention_bwd"],
+                     launches["flash_attention_bwd"]),
+        kernel_entry("gather1d", rows["gather1d"], launches["gather1d"]),
+    ]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    os.makedirs(os.path.dirname(OUT_JSON), exist_ok=True)
     with open(OUT_JSON, "w") as f:
         json.dump({"nvidia_smi": smi, "torch": torch.__version__,
                    "build_s": build_s, "kernels": kernels,
-                   "slice": slice_result,
+                   "slice": slice_result, "train": train_result,
                    "seconds": time.time() - t_start}, f, indent=1)
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -3,9 +3,10 @@
 
 ``backbone: {name: kwargs}`` and ``decode_head: {name: kwargs}`` pick entries
 from :data:`BACKBONES` / :data:`DECODE_HEADS` and are wrapped in an
-:class:`EncoderDecoder`. Only what serving the ViT needs is ported; every
-other part of the JAX registry raises "not yet ported" instead of building
-something else.
+:class:`EncoderDecoder`, with ``auxiliary_heads`` attached for training
+builds. The ViT family and the FCN head are ported; the rest of the JAX
+registry (ResNet, the ReCo latent projection, int8 serving) raises "not yet
+ported" instead of building something else.
 """
 
 from __future__ import annotations
@@ -46,16 +47,16 @@ def compute_dtype(config: Dict[str, Any]) -> torch.dtype:
     return _DTYPES[config.get("precision", "bf16")]
 
 
-def build_model_from_config(config: Dict[str, Any]) -> EncoderDecoder:
-    """The eval-mode model of a config (``init_model_from_cfg`` parity).
-    What the port cannot build yet raises ``NotImplementedError``."""
-    if config.get("quantize", None):
+def build_model_from_config(config: Dict[str, Any],
+                            train: bool = False) -> EncoderDecoder:
+    """A config's model (``init_model_from_cfg`` parity), in eval mode.
+    ``train=True`` builds the training graph: auxiliary heads are attached
+    only then, and ``quantize`` (a serving option) is ignored, as in the JAX
+    package. What the port cannot build yet raises ``NotImplementedError``."""
+    if config.get("quantize", None) and not train:
         raise NotImplementedError(
             f"quantize: {config['quantize']!r} is not yet ported to the "
             "torch package")
-    if config.get("auxiliary_heads", None):
-        raise NotImplementedError(
-            "auxiliary_heads are not yet ported to the torch package")
     if config.get("use_latent_projection", False):
         raise NotImplementedError(
             "use_latent_projection (ReCo) is not yet ported to the torch "
@@ -74,7 +75,19 @@ def build_model_from_config(config: Dict[str, Any]) -> EncoderDecoder:
     if decoder_name not in DECODE_HEADS:
         raise ValueError(f"Unsupported decode head name: {decoder_name}")
     decode_head = DECODE_HEADS[decoder_name](**(decoder_kwargs or {}))
-    return EncoderDecoder(backbone=backbone, decode_head=decode_head)
+
+    auxiliary_heads = None
+    if config.get("auxiliary_heads", None) and train:
+        auxiliary_heads = []
+        for aux_cfg in config["auxiliary_heads"]:
+            aux_name, aux_kwargs = list(aux_cfg.items())[0]
+            if aux_name not in DECODE_HEADS:
+                raise ValueError(
+                    f"Unsupported auxiliary head name: {aux_name}")
+            auxiliary_heads.append(DECODE_HEADS[aux_name](
+                **(aux_kwargs or {})))
+    return EncoderDecoder(backbone=backbone, decode_head=decode_head,
+                          auxiliary_heads=auxiliary_heads).eval()
 
 
 __all__ = ["BACKBONES", "DECODE_HEADS", "EncoderDecoder", "FCNHead",

@@ -6,6 +6,10 @@ features at ``out_indices`` (cls token dropped), the NCW layout the FCN head
 convolves. Patchify keeps the reference's ``'(p c)'`` element order, then
 LN/Linear/LN embedding, learned cls + pos embeddings, pre-norm blocks with
 optional qk-norm and LayerScale, stochastic depth, an optional final norm.
+In training, dropout and DropPath draw from the generator the trainer sets
+(``models/dropout.py``), the flash path is differentiable through both
+kernels (``ops/flash_attention.FlashAttention``), and the first
+``frozen_stages`` blocks run deterministically, as in the JAX package.
 
 Module names follow the reference's torch keys (``to_patch_embedding.{1,2,3}``,
 ``block{i}.attn.norm``, ``block{i}.attn.fn.to_qkv``, ``...to_out.0``,
@@ -28,32 +32,14 @@ import torch
 import torch.nn as nn
 
 from ...ops.attention import dense_attention
-from ...ops.flash_attention import flash_attention_forward
+from ...ops.flash_attention import flash_attention
+from ..dropout import DropPath, Dropout
 
 LN_EPS = 1e-6
 
 
 def _layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
-
-
-class DropPath(nn.Module):
-    """Per-sample stochastic depth; the identity in eval mode."""
-
-    def __init__(self, rate: float, scale_by_keep: bool = True):
-        super().__init__()
-        self.rate = rate
-        self.scale_by_keep = scale_by_keep
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.rate <= 0.0 or not self.training:
-            return x
-        keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = x.new_empty(shape).bernoulli_(keep)
-        if self.scale_by_keep:
-            mask = mask / keep
-        return x * mask
 
 
 class PreNorm(nn.Module):
@@ -74,8 +60,8 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
         self.net = nn.Sequential(
-            nn.Linear(dim, hidden_dim), nn.GELU(), nn.Dropout(dropout),
-            nn.Linear(hidden_dim, dim), nn.Dropout(dropout))
+            nn.Linear(dim, hidden_dim), nn.GELU(), Dropout(dropout),
+            nn.Linear(hidden_dim, dim), Dropout(dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
@@ -104,10 +90,10 @@ class Attention(nn.Module):
             self.k_norm = _layer_norm(dim_head)
         else:
             self.q_norm = self.k_norm = None
-        self.attn_drop = nn.Dropout(attn_dropout)
+        self.attn_drop = Dropout(attn_dropout)
         project_out = not (heads == 1 and dim_head == input_dim)
         self.to_out = (nn.Sequential(nn.Linear(inner_dim, output_dim),
-                                     nn.Dropout(dropout))
+                                     Dropout(dropout))
                        if project_out else None)
 
     def _use_flash(self, n: int, on_cuda: bool) -> bool:
@@ -142,7 +128,7 @@ class Attention(nn.Module):
             mm_dtype = torch.float32
         scale = self.dim_head ** -0.5
         if self._use_flash(n, x.is_cuda):
-            out, _ = flash_attention_forward(
+            out = flash_attention(
                 q.to(mm_dtype).contiguous(), k.to(mm_dtype).contiguous(),
                 v.to(mm_dtype).contiguous(), scale)
         else:
@@ -211,15 +197,14 @@ class VisionTransformer1D(nn.Module):
                  out_indices: Sequence[int] = (3, 5, 7, 11),
                  final_norm: bool = False, output_cls_token: bool = False,
                  remat: bool = False):
-        # frozen_stages (no dropout in frozen blocks) and remat (activation
-        # checkpointing) act only in training, which is not ported yet; an
-        # eval forward is the same with or without them
         super().__init__()
         if seq_len % patch_size != 0:
             raise ValueError("The sequence length must be divisible by the "
                              "patch size.")
         self.width = width
         self.depth = depth
+        self.frozen_stages = frozen_stages
+        self.remat = remat
         self.out_indices = tuple(out_indices)
         self.output_cls_token = output_cls_token
         num_patches = seq_len // patch_size
@@ -230,7 +215,7 @@ class VisionTransformer1D(nn.Module):
         self.pos_embedding = nn.Parameter(
             torch.randn(1, num_patches + 1, width))
         self.cls_embedding = nn.Parameter(torch.randn(width))
-        self.dropout = nn.Dropout(drop_out_rate)
+        self.dropout = Dropout(drop_out_rate)
         dpr = ([drop_path_rate] * depth if uniform_dpr
                else np.linspace(0, drop_path_rate, depth).tolist())
         for i in range(depth):
@@ -243,7 +228,22 @@ class VisionTransformer1D(nn.Module):
                 layer_scale=layer_scale))
         self.norm = _layer_norm(width) if final_norm else None
 
+    def train(self, mode: bool = True):
+        """Frozen blocks (index < ``frozen_stages``) stay in eval mode, so
+        they run without dropout or DropPath (the JAX package's
+        ``block_train = train and i >= frozen_stages``); freezing their
+        parameters is the optimizer's job."""
+        super().train(mode)
+        for i in range(min(max(self.frozen_stages, 0), self.depth)):
+            getattr(self, f"block{i}").train(False)
+        return self
+
     def forward(self, x: torch.Tensor) -> Tuple:
+        if self.remat and self.training and torch.is_grad_enabled():
+            # an eval forward is the same with or without checkpointing
+            raise NotImplementedError(
+                "remat (activation checkpointing) is not yet ported to the "
+                "torch package's training")
         b = x.shape[0]
         x = self.to_patch_embedding(x)
         n = x.shape[1]

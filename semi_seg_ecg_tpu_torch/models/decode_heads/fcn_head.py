@@ -6,7 +6,9 @@ Pick feature ``inputs[in_index]``, run ``num_convs`` Conv-BN-ReLU blocks
 ``conv_cat``, drop out, and classify with a 1x1 conv. ``align_corners`` is
 read by the EncoderDecoder's logit interpolation. Module names follow the
 reference's keys (``convs.{i}.0``/``.1``, ``conv_cat.0``/``.1``,
-``cls_seg``).
+``cls_seg``). In training the BatchNorms use batch statistics and fold
+them into the running ones (``models/norm.py``), and the dropout draws from
+the trainer's generator (``models/dropout.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..backbones.resnet import ConvBN
+from ..dropout import Dropout
 
 
 class FCNHead(nn.Module):
@@ -41,7 +44,7 @@ class FCNHead(nn.Module):
             for i in range(num_convs))
         self.conv_cat = (ConvBN(in_channels + channels, channels,
                                 kernel_size) if concat_input else None)
-        self.dropout = nn.Dropout(dropout_ratio)
+        self.dropout = Dropout(dropout_ratio)
         self.cls_seg = nn.Conv1d(channels, num_classes, 1)
 
     def forward(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:

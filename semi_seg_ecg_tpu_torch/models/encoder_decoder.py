@@ -1,31 +1,68 @@
 """EncoderDecoder wrapper (counterpart of
-``semi_seg_ecg_tpu/models/encoder_decoder.py``), eval path.
+``semi_seg_ecg_tpu/models/encoder_decoder.py``).
 
 Contract as in the JAX package: inputs ``(B, leads, T)`` in, ``seg_logits``
 ``(B, num_classes, T)`` out — backbone feature tuple, decode head, logits
-linearly interpolated back to the input length. Losses, latents and
-auxiliary heads belong to training, which is not ported yet.
+linearly interpolated back to the input length. With ``return_loss`` the
+output also holds the cross-entropy ``loss`` against ``labels``. Auxiliary
+heads (attached by ``build_model_from_config`` for training builds only)
+run in train mode and add ``aux_seg_logits``, one entry per head, and with
+labels ``loss_aux``, one loss per head: the JAX package's correction of the
+reference's auxiliary-head block. The ReCo latent projection is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from ..ops.interpolate import linear_interpolate
+from ..ops.losses import cross_entropy
 
 
 class EncoderDecoder(nn.Module):
-    def __init__(self, backbone: nn.Module, decode_head: nn.Module):
+    def __init__(self, backbone: nn.Module, decode_head: nn.Module,
+                 auxiliary_heads: Optional[Sequence[nn.Module]] = None):
         super().__init__()
         self.backbone = backbone
         self.decode_head = decode_head
+        self.auxiliary_heads = (nn.ModuleList(auxiliary_heads)
+                                if auxiliary_heads else None)
 
-    def forward(self, inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+    @property
+    def with_auxiliary_heads(self) -> bool:
+        return self.auxiliary_heads is not None
+
+    def forward(self, inputs: torch.Tensor,
+                labels: Optional[torch.Tensor] = None,
+                return_loss: bool = False,
+                train: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+        """``train`` selects the module mode for this call (the JAX
+        package's ``train=`` flag); left as None, the mode is the module's
+        own (``model.train()`` / ``model.eval()``)."""
+        if train is not None and train != self.training:
+            was = self.training
+            self.train(train)
+            try:
+                return self.forward(inputs, labels, return_loss)
+            finally:
+                self.train(was)
+        seq_len = inputs.shape[2]
         feats = self.backbone(inputs)
         seg = self.decode_head(feats)  # (B, classes, t)
-        seg = linear_interpolate(seg, inputs.shape[2],
+        seg = linear_interpolate(seg, seq_len,
                                  align_corners=self.decode_head.align_corners)
-        return {"seg_logits": seg}
+        outputs = {"seg_logits": seg}
+        if return_loss:
+            outputs["loss"] = cross_entropy(seg, labels)
+        if self.training and self.with_auxiliary_heads:
+            aux_logits = [linear_interpolate(head(feats), seq_len,
+                                             align_corners=head.align_corners)
+                          for head in self.auxiliary_heads]
+            outputs["aux_seg_logits"] = aux_logits
+            if return_loss and labels is not None:
+                outputs["loss_aux"] = [cross_entropy(a, labels)
+                                       for a in aux_logits]
+        return outputs

@@ -4,7 +4,9 @@ The JAX package writes its own ``TorchBatchNorm`` to reproduce torch's
 convention: normalize with the biased batch variance, fold the unbiased one
 into ``running_var``, momentum 0.1 in torch's sense, eps 1e-5. Here that
 convention is ``nn.BatchNorm1d`` itself, so the module only pins the
-defaults. Serving runs it in eval mode, on the running statistics.
+defaults. Eval mode normalizes with the running statistics; train mode with
+the batch's, updating ``running_mean``/``running_var`` as the JAX module
+updates ``mean``/``var`` (its flax momentum 0.9 is torch's 0.1).
 """
 
 from __future__ import annotations

@@ -1,18 +1,25 @@
-"""Flash-attention forward: a CUDA kernel for Hopper and its plain version.
+"""Flash attention, forward and backward: CUDA kernels for Hopper and their
+plain versions.
 
-Counterpart of ``semi_seg_ecg_tpu/ops/pallas/flash_attention.py``
-``_fwd_kernel`` / ``_flash_forward``: ``softmax(q kᵀ · scale) v`` without the
-(N, N) score matrix in device memory, plus the fp32 row logsumexp that a
-backward pass consumes. The kernel is ``csrc/flash_attention_fwd.cu``; its
-header gives the design and what bounds it on the card. The TPU's block
-picking (``pick_blocks``, ``fits_vmem``, the VMEM budget and the padding of
-D to 128) encodes VMEM and has no counterpart: the kernel tiles 64 q rows
-by 64 keys and takes any N and any D up to 128.
+Counterpart of ``semi_seg_ecg_tpu/ops/pallas/flash_attention.py``:
+
+- ``_fwd_kernel`` / ``_flash_forward``: ``softmax(q kᵀ · scale) v`` without
+  the (N, N) score matrix in device memory, plus the fp32 row logsumexp
+  that the backward consumes (``csrc/flash_attention_fwd.cu``);
+- ``_bwd_kernel`` / ``_flash_backward``: dq, dk, dv recomputed blockwise
+  from that logsumexp, with Δ = rowsum(dO ⊙ O) computed outside the kernel
+  as the JAX package does (``csrc/flash_attention_bwd.cu``);
+- the custom VJP ``flash_attention``: :class:`FlashAttention`, a
+  ``torch.autograd.Function`` that saves ``(q, k, v, out, lse)``.
+
+Each kernel file's header gives its design and what bounds it on the card.
+The TPU's block picking (``pick_blocks``, ``fits_vmem``, the VMEM budget and
+the padding of D to 128) encodes VMEM and has no counterpart: the kernels
+tile 64 rows by 64 keys and take any N and any D up to 128.
 
 Dispatch follows the device of the tensors: CPU tensors take
-:func:`flash_attention_plain`; CUDA tensors launch the kernel or raise. The
-backward kernel is not ported yet, so a CUDA input that needs a gradient
-raises.
+:func:`flash_attention_plain` and :func:`flash_attention_backward_plain`;
+CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -26,11 +33,13 @@ from .attention import dense_attention
 
 MAX_HEAD_DIM = 128
 
-# kernel launches since import (or since a caller reset it): a run reads it
-# to show that its attention went through the kernel
+# kernel launches since import (or since a caller reset them): a run reads
+# them to show that its attention went through the kernels
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _FN = None
+_BWD_FN = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -45,8 +54,29 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), lse
 
 
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, out: torch.Tensor,
+                                   lse: torch.Tensor, dout: torch.Tensor,
+                                   scale: float
+                                   ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel's function in plain PyTorch: ``(dq, dk, dv)`` in
+    the inputs' dtypes, all arithmetic in fp32, P recomputed from ``lse``."""
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, vf = q.float(), k.float(), v.float()
+        dof = dout.float()
+        delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+        s = torch.einsum("bhnd,bhmd->bhnm", qf, kf) * scale
+        p = torch.exp(s - lse.unsqueeze(-1))
+        dv = torch.einsum("bhnm,bhnd->bhmd", p, dof)
+        dp = torch.einsum("bhnd,bhmd->bhnm", dof, vf)
+        ds = p * (dp - delta)
+        dq = torch.einsum("bhnm,bhmd->bhnd", ds, kf) * scale
+        dk = torch.einsum("bhnm,bhnd->bhmd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def load_kernel():
-    """Build (at first use) and bind the kernel's C function."""
+    """Build (at first use) and bind the forward kernel's C function."""
     global _FN
     if _FN is None:
         from .cuda_build import load_library
@@ -57,6 +87,20 @@ def load_kernel():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def load_backward_kernel():
+    """Build (at first use) and bind the backward kernels' C function."""
+    global _BWD_FN
+    if _BWD_FN is None:
+        from .cuda_build import load_library
+
+        fn = load_library("flash_attention_bwd").flash_attention_bwd
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BWD_FN = fn
+    return _BWD_FN
 
 
 def _check(q, k, v):
@@ -82,12 +126,6 @@ def _check(q, k, v):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_forward: q, k, v must be "
                          "contiguous")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention_forward: backward not yet ported (the CUDA "
-            "kernel is forward-only); run under torch.no_grad() or use "
-            "attention_impl: xla")
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
@@ -114,3 +152,69 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                            f"{err}")
     LAUNCHES += 1
     return out, lse
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor,
+                             scale: float) -> Tuple[torch.Tensor, ...]:
+    """``(dq, dk, dv)`` in the inputs' dtype for the forward's ``(out,
+    lse)`` and the output gradient ``dout``. CPU tensors take the plain
+    version; CUDA tensors compute Δ in PyTorch and launch the backward
+    kernels on the current stream."""
+    global BWD_LAUNCHES
+    if not (q.is_cuda or k.is_cuda or v.is_cuda):
+        return flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
+    _check(q, k, v)
+    dout = dout.to(q.dtype).contiguous()
+    out = out.contiguous()
+    if dout.shape != q.shape or out.shape != q.shape or \
+            lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_backward: out and dout must be "
+                         "(B, H, N, D) like q, lse (B, H, N) float32")
+    if not (out.is_cuda and dout.is_cuda and lse.is_cuda):
+        raise ValueError("flash_attention_backward: out, lse and dout must "
+                         "lie on q's device")
+    fn = load_backward_kernel()
+    b, h, n, d = q.shape
+    delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b * h, n, d, float(scale),
+                 _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``softmax(q kᵀ · scale) v`` with the flash kernels in both
+    directions: the JAX package's ``jax.custom_vjp`` ``flash_attention``.
+    Under ``torch.no_grad()`` nothing is saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
+                                              ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Differentiable flash attention over ``(B, H, N, D)``; the output is
+    in q's dtype."""
+    return FlashAttention.apply(q, k, v, scale)

@@ -5,8 +5,9 @@ The JAX package stores a model as two nested dicts of NumPy arrays,
 the reference's torch key space, the same one
 ``semi_seg_ecg_tpu/utils/torch_interop.py`` maps those trees to; this module
 is the port's own copy of that spec walker, for the families the port
-builds: the ViT-1D backbone and the FCN head. ResNet trees, auxiliary heads
-and the ReCo latent projection raise "not yet ported".
+builds: the ViT-1D backbone and the FCN head, as the decode head and as
+auxiliary heads. ResNet trees and the ReCo latent projection raise "not yet
+ported".
 
 Layouts: Linear torch ``(out, in)`` from flax ``(in, out)``; Conv1d torch
 ``(out, in, k)`` from flax ``(k, in, out)``; norms take ``scale`` →
@@ -147,6 +148,11 @@ def model_specs(params: Dict[str, Any],
             yield from _vit_specs((top,), tree[top], "backbone.")
         elif top == "decode_head":
             yield from _fcn_head_specs((top,), tree[top], "decode_head.")
+        elif top.startswith("auxiliary_head"):
+            # flax's auxiliary_heads_{i}: the reference's ModuleList
+            i = top.split("_")[-1] if top[-1].isdigit() else "0"
+            yield from _fcn_head_specs((top,), tree[top],
+                                       f"auxiliary_heads.{i}.")
         else:
             raise NotImplementedError(
                 f"{top} weights: not yet ported to the torch package")

@@ -1,10 +1,15 @@
-"""The port's flash-attention forward against the JAX package's.
+"""The port's flash attention, forward and backward, against the JAX
+package's.
 
-On the CPU the port's wrapper runs the kernel's plain version
-(``flash_attention_plain``); it is held against the JAX ``_flash_forward``
-with its Pallas kernel in interpret mode, out and lse, at fp32 within atol
-1e-5 (two fp32 softmax formulations, sums in another order). The CUDA
-kernel is held against the plain version in ``tests/test_torch_cuda.py``,
+On the CPU the port's wrappers run the kernels' plain versions
+(``flash_attention_plain``, ``flash_attention_backward_plain``); they are
+held against the JAX ``_flash_forward`` / ``_flash_backward`` with their
+Pallas kernels in interpret mode. Forward: out and lse at fp32 within atol
+1e-5 (two fp32 softmax formulations, sums in another order). Backward: dq,
+dk, dv at fp32 within atol 1e-5 + rtol 1e-4 (sums over N products in
+another order), and in bf16 within one bf16 ulp of each other (rtol 2^-7:
+both round an fp32 result once). The CUDA
+kernels are held against the plain versions in ``tests/test_torch_cuda.py``,
 which imports nothing of JAX, so that it also runs where a CUDA card is
 and the JAX package's dependencies are not.
 """
@@ -16,7 +21,10 @@ import jax.numpy as jnp
 import torch
 
 from semi_seg_ecg_tpu.ops.attention import dense_attention as jax_dense
-from semi_seg_ecg_tpu.ops.pallas.flash_attention import _flash_forward
+from semi_seg_ecg_tpu.ops.pallas.flash_attention import (
+    _flash_backward,
+    _flash_forward,
+)
 from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
 from semi_seg_ecg_tpu_torch.ops.attention import dense_attention
 
@@ -65,3 +73,70 @@ def test_plain_forward_bf16_keeps_dtype_and_fp32_math():
     torch.testing.assert_close(out, ref_out.to(torch.bfloat16))
     torch.testing.assert_close(lse, ref_lse)
 
+
+
+def jax_flash_grads(q, k, v, dout, scale):
+    """dq, dk, dv of the JAX custom VJP's backward, Pallas in interpret
+    mode, from its own forward's out and lse."""
+    q, k, v, dout = (jnp.asarray(a) for a in (q, k, v, dout))
+    out, lse = _flash_forward(q, k, v, scale, None, None, True)
+    return [np.asarray(g, np.float32) for g in _flash_backward(
+        q, k, v, out, lse, dout, scale, None, None, True)]
+
+
+@pytest.mark.parametrize("n", [37, 64])
+@pytest.mark.parametrize("d", [16, 32])
+def test_plain_backward_matches_jax_flash_backward(n, d):
+    q, k, v = qkv((2, 2, n, d), seed=3)
+    dout = qkv((2, 2, n, d), seed=4)[0]
+    scale = d ** -0.5
+    ref = jax_flash_grads(q, k, v, dout, scale)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, dout))
+    out, lse = fa.flash_attention_forward(tq, tk, tv, scale)
+    before = fa.BWD_LAUNCHES
+    grads = fa.flash_attention_backward(tq, tk, tv, out, lse, tdo, scale)
+    assert fa.BWD_LAUNCHES == before  # CPU tensors never launch
+    for name, got, want in zip("qkv", grads, ref):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-4,
+                                   err_msg=f"d{name}")
+    # and against autograd through the dense formulation
+    tq, tk, tv = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    dense_attention(tq, tk, tv, scale).backward(tdo)
+    for name, got, t in zip("qkv", grads, (tq, tk, tv)):
+        np.testing.assert_allclose(got.numpy(), t.grad.numpy(), atol=1e-5,
+                                   rtol=1e-4, err_msg=f"d{name} dense")
+
+
+def test_plain_backward_bf16_within_one_ulp_of_jax():
+    q, k, v = qkv((1, 2, 64, 32), seed=5)
+    dout = qkv((1, 2, 64, 32), seed=6)[0]
+    bf = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, dout)]
+    ref = jax_flash_grads(*bf, 0.2)
+    tq, tk, tv, tdo = (torch.from_numpy(np.asarray(a.astype(jnp.float32)))
+                       .to(torch.bfloat16) for a in bf)
+    out, lse = fa.flash_attention_forward(tq, tk, tv, 0.2)
+    grads = fa.flash_attention_backward(tq, tk, tv, out, lse, tdo, 0.2)
+    for name, got, want in zip("qkv", grads, ref):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want, atol=1e-5,
+                                   rtol=2.0 ** -7, err_msg=f"d{name}")
+
+
+def test_flash_attention_function_gradients_are_the_plain_backward():
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in qkv((2, 3, 40, 16), seed=7))
+    dout = torch.from_numpy(qkv((2, 3, 40, 16), seed=8)[0])
+    out = fa.flash_attention(q, k, v, 0.25)
+    ref_out, lse = fa.flash_attention_plain(q.detach(), k.detach(),
+                                            v.detach(), 0.25)
+    torch.testing.assert_close(out.detach(), ref_out, rtol=0, atol=0)
+    out.backward(dout)
+    want = fa.flash_attention_backward_plain(
+        q.detach(), k.detach(), v.detach(), ref_out, lse, dout, 0.25)
+    for name, t, w in zip("qkv", (q, k, v), want):
+        torch.testing.assert_close(t.grad, w, rtol=0, atol=0,
+                                   msg=f"d{name}")
+    # under no_grad nothing is saved and nothing needs a graph
+    with torch.no_grad():
+        assert not fa.flash_attention(q, k, v, 0.25).requires_grad

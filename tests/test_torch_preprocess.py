@@ -1,0 +1,308 @@
+"""The port's device augmentation against the JAX package's, on the CPU.
+
+PyTorch and JAX generators give different numbers, so each port op takes
+its random draws as an argument (``DeviceOp.sample`` / ``DeviceOp.apply``).
+Here the draws are made with the same ``jax.random`` calls, on the same
+keys and split in the same order, as the JAX op makes them
+(:func:`jax_op_draws` mirrors ``semi_seg_ecg_tpu/ops/preprocess.py``), and
+handed to the port's ``apply``. The JAX gathers run their Pallas kernel in
+interpret mode; the port's run the kernel's plain version.
+
+Tolerances: labels and integer geometry exactly; signals within atol 1e-5
+/ rtol 1e-5 (a ``sin`` from another library, the gather's one-ulp lerp
+rounding, a standardize that divides by a std summed in another order).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from semi_seg_ecg_tpu.ops import preprocess as jax_pre
+from semi_seg_ecg_tpu.ops.pallas import gather1d as jax_gather
+from semi_seg_ecg_tpu_torch.ops import gather1d
+from semi_seg_ecg_tpu_torch.ops import preprocess as pre
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B, T = 4, 300
+RA_OPS = [{"AmplitudeScaling": {"sigma": 0.5}},
+          {"AdaptivePowerlineNoise": {"fs": 250}},
+          {"RandomPartialWhiteNoise": {"amplitude": 1, "ratio": 0.5}},
+          {"RandomPartialSineNoise": {"amplitude": 1, "ratio": 0.5}}]
+PARTIAL = {"partial_sine_noise", "RandomPartialSineNoise",
+           "partial_square_noise", "RandomPartialSquareNoise",
+           "partial_white_noise", "RandomPartialWhiteNoise"}
+
+
+@pytest.fixture(autouse=True)
+def interpret_impl(monkeypatch):
+    monkeypatch.setattr(jax_gather, "GATHER_IMPL", "interpret")
+
+
+def jax_op_draws(name, kwargs, key, shape, level=None):
+    """The draws the JAX op ``name`` makes from ``key``, as the port's
+    ``apply`` takes them."""
+    b = shape[0]
+    kwargs = kwargs or {}
+    if name in ("amplitude_scaling", "AmplitudeScaling"):
+        return {"normal": jax.random.normal(key, shape)}
+    if name in ("adaptive_powerline_noise", "AdaptivePowerlineNoise"):
+        return {"u": jax.random.uniform(key, (b, 1, 1))}
+    if name in PARTIAL:
+        k1, k2 = jax.random.split(key)
+        k_count, k_start = jax.random.split(k2)  # _uniform_span
+        white = "white" in name.lower()
+        return {"u_count": jax.random.uniform(k_count, (b,)),
+                "u_start": jax.random.uniform(k_start, (b,)),
+                "normal": jax.random.normal(k1, shape) if white else None}
+    if name in ("standardize", "Standardize"):
+        return None
+    if name in ("random_resize_crop", "RandomResizeCrop"):
+        k_ratio, k_start = jax.random.split(key)
+        return {"ratio": jax.random.uniform(
+                    k_ratio, (b,), minval=kwargs.get("scale_min", 0.5),
+                    maxval=kwargs.get("scale_max", 2.0)),
+                "u_start": jax.random.uniform(k_start, (b,))}
+    if name == "RandAugment":
+        ops = kwargs["ops"]
+        k_sel, k_prob, k_ops = jax.random.split(key, 3)
+        op_keys = jax.random.split(k_ops, len(ops))
+        return {"gumbel": jax.random.gumbel(k_sel, (b, len(ops))),
+                "u_prob": jax.random.uniform(k_prob, (b, len(ops))),
+                "ops": [jax_op_draws(*pre._entry_name_kwargs(e), k, shape,
+                                     level=kwargs.get("level", 10))
+                        for e, k in zip(ops, op_keys)]}
+    raise AssertionError(f"no draws written for {name}")
+
+
+def jax_chain_draws(entries, key, shape):
+    """``_apply_chain``'s key split, op by op."""
+    if not entries:
+        return []
+    return [jax_op_draws(*pre._entry_name_kwargs(e), k, shape)
+            for e, k in zip(entries, jax.random.split(key, len(entries)))]
+
+
+def to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_torch(v) for v in tree]
+    if tree is None:
+        return None
+    return torch.from_numpy(np.array(tree))
+
+
+def signal(seed, b=B, c=1, t=T):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, c, t)).astype(np.float32)
+    y = rng.integers(0, 4, (b, t)).astype(np.int32)
+    return x, y
+
+
+def assert_signal_close(ours, theirs):
+    np.testing.assert_allclose(np.asarray(ours), np.asarray(theirs),
+                               atol=1e-5, rtol=1e-5)
+
+
+SHIPPED_OPS = [
+    ("random_resize_crop", {"target_length": T, "scale_min": 0.5,
+                            "scale_max": 2.0}, None),
+    ("standardize", {"axis": [-1, -2]}, None),
+    ("AmplitudeScaling", {"sigma": 0.5}, None),
+    ("AmplitudeScaling", {"sigma": 0.5}, 10),
+    ("AdaptivePowerlineNoise", {"fs": 250}, None),
+    ("RandomPartialWhiteNoise", {"amplitude": 1, "ratio": 0.5}, 10),
+    ("RandomPartialSineNoise", {"amplitude": 1, "ratio": 0.5}, 10),
+    ("RandomPartialSineNoise", {"amplitude": 0.5, "ratio": 0.3,
+                                "freq": 0.2}, None),
+    ("partial_square_noise", {"ratio": 0.4}, 7),
+]
+
+
+@pytest.mark.parametrize("name,kwargs,level", SHIPPED_OPS,
+                         ids=[f"{n}-{lv}" for n, _, lv in SHIPPED_OPS])
+def test_op_matches_jax_under_injected_draws(name, kwargs, level):
+    x, y = signal(0)
+    key = jax.random.key(11)
+    jop = jax_pre._make_device_op(name, kwargs, level)
+    op = pre._make_device_op(name, kwargs, level)
+    assert op.label_changeable == jop.label_changeable
+    jx, jy = jop.apply(key, jnp.asarray(x), jnp.asarray(y))
+    draws = to_torch(jax_op_draws(name, kwargs, key, x.shape, level))
+    tx, ty = op.apply(draws, torch.from_numpy(x), torch.from_numpy(y).long())
+    assert tx.shape == x.shape and tx.dtype == torch.float32
+    assert_signal_close(tx, jx)
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("AdaptivePowerlineNoise", {"fs": 250}),
+    ("RandomPartialSineNoise", {"amplitude": 1, "ratio": 0.5}),
+    ("partial_square_noise", {"ratio": 0.5, "freq": 0.3})])
+def test_noise_ops_match_jax_at_the_recipe_length(name, kwargs):
+    """2,500 samples at 250 Hz: the powerline's sin takes arguments up to
+    2 pi 60 x 10, where one ulp of the time grid (k / fs, a division, not a
+    multiply by 1 / fs) moves the noise by ~4e-4."""
+    x, _ = signal(6, t=2500)
+    key = jax.random.key(13)
+    jx, _ = jax_pre._make_device_op(name, kwargs, 10).apply(
+        key, jnp.asarray(x), None)
+    draws = to_torch(jax_op_draws(name, kwargs, key, x.shape, 10))
+    tx, _ = pre._make_device_op(name, kwargs, 10).apply(
+        draws, torch.from_numpy(x), None)
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_resize_crop_geometry_is_exact():
+    """Integer geometry (resized length, pad, start) and the labels are
+    exact, and every output sample outside the content is 0 on both
+    sides; the scale range covers both shrink and stretch."""
+    x, y = signal(1, b=8)
+    key = jax.random.key(3)
+    kw = {"target_length": T, "scale_min": 0.5, "scale_max": 2.0}
+    jx, jy = jax_pre.random_resize_crop_batch(key, jnp.asarray(x),
+                                              jnp.asarray(y), **kw)
+    draws = to_torch(jax_op_draws("random_resize_crop", kw, key, x.shape))
+    ratio = draws["ratio"].numpy()
+    assert (ratio < 1).any() and (ratio > 1).any()
+    before = gather1d.LAUNCHES
+    tx, ty = pre.random_resize_crop_apply(draws, torch.from_numpy(x),
+                                          torch.from_numpy(y).long(), **kw)
+    assert gather1d.LAUNCHES == before  # CPU tensors: the plain version
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(tx.numpy() == 0, np.asarray(jx) == 0)
+    assert_signal_close(tx, jx)
+    with pytest.raises(ValueError, match="keeps the length"):
+        pre.random_resize_crop_apply(draws, torch.from_numpy(x),
+                                     target_length=T // 2)
+
+
+def test_rand_augment_selection_matches_jax():
+    """N-of-K selection and the prob gate: with every member op at work,
+    the whole RandAugment output agrees sample by sample, and the number
+    of ops each sample saw is the JAX package's."""
+    x, _ = signal(2, b=16)
+    kwargs = {"ops": RA_OPS, "level": 10, "num_layers": 3, "prob": 0.5}
+    key = jax.random.key(5)
+    jop = jax_pre._make_device_op("RandAugment", kwargs)
+    op = pre._make_device_op("RandAugment", kwargs)
+    jx, _ = jop.apply(key, jnp.asarray(x), None)
+    draws = to_torch(jax_op_draws("RandAugment", kwargs, key, x.shape))
+    tx, _ = op.apply(draws, torch.from_numpy(x), None)
+    assert_signal_close(tx, jx)
+    gumbel, u_prob = draws["gumbel"], draws["u_prob"]
+    selected = gumbel >= torch.sort(gumbel, dim=1).values[:, 1:2]
+    assert (selected.sum(dim=1) == 3).all()
+    applied = (selected & (u_prob < 0.5)).sum(dim=1)
+    assert set(applied.tolist()) > {0}  # some samples changed, some not
+    unchanged = (tx.numpy() == x).all(axis=(1, 2))
+    np.testing.assert_array_equal(unchanged, applied.numpy() == 0)
+
+
+def fixmatch_dataset_cfg(length=T):
+    with open(os.path.join(REPO, "configs", "base", "vit_tiny",
+                           "fixmatch.yaml")) as f:
+        ds = yaml.safe_load(f)["dataset"]
+    ds = dict(ds, device_augment=True)
+    ds["augmentations"] = [{"random_resize_crop": dict(
+        ds["augmentations"][0]["random_resize_crop"], target_length=length)}]
+    return ds
+
+
+def test_fixmatch_augment_matches_jax():
+    """The shipped FixMatch chain end to end: six key streams (labeled
+    weak, unlabeled weak, strong, and each view's standardize), the strong
+    view built on the weak one."""
+    ds = fixmatch_dataset_cfg()
+    x, y = signal(3)
+    u, _ = signal(4)
+    batch = {"ecg": x, "target": y, "ecg_u_w": u}
+    key = jax.random.key(7)
+    theirs = jax_pre.plan_device_augment(ds).augment(
+        key, {k: jnp.asarray(v) for k, v in batch.items()})
+    k_lab, k_unlab, k_strong, k_fl, k_fu, k_fs = jax.random.split(key, 6)
+    shape = x.shape
+    final = [e for e in ds["transforms"] if "to_tensor" not in e]
+    draws = to_torch({
+        "lab": jax_chain_draws(ds["augmentations"], k_lab, shape),
+        "fl": jax_chain_draws(final, k_fl, shape),
+        "unlab": jax_chain_draws(ds["augmentations"], k_unlab, shape),
+        "fu": jax_chain_draws(final, k_fu, shape),
+        "strong": jax_chain_draws(ds["strong_augmentations"], k_strong,
+                                  shape),
+        "fs": jax_chain_draws(final, k_fs, shape)})
+    plan = pre.plan_device_augment(ds)
+    ours = plan.apply(draws, {"ecg": torch.from_numpy(x),
+                              "target": torch.from_numpy(y).long(),
+                              "ecg_u_w": torch.from_numpy(u)})
+    assert set(ours) == set(theirs) == {"ecg", "target", "ecg_u_w",
+                                        "ecg_u_s"}
+    np.testing.assert_array_equal(ours["target"].numpy(),
+                                  np.asarray(theirs["target"]))
+    for k in ("ecg", "ecg_u_w", "ecg_u_s"):
+        assert_signal_close(ours[k], theirs[k])
+    # the port's own draws: the same structure, reproducible from a seed
+    torch_batch = {"ecg": torch.from_numpy(x),
+                   "target": torch.from_numpy(y).long(),
+                   "ecg_u_w": torch.from_numpy(u)}
+    gen = torch.Generator().manual_seed(0)
+    a = plan.augment(gen, torch_batch)
+    b = plan.augment(gen.manual_seed(0), torch_batch)
+    for k in a:
+        torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+        assert a[k].shape == ours[k].shape and a[k].dtype == ours[k].dtype
+
+
+@pytest.mark.parametrize("backbone", ["vit_tiny", "resnet18"])
+@pytest.mark.parametrize("recipe", ["fixmatch", "scratch"])
+def test_plan_matches_jax_for_shipped_configs(backbone, recipe):
+    with open(os.path.join(REPO, "configs", "base", backbone,
+                           f"{recipe}.yaml")) as f:
+        ds = dict(yaml.safe_load(f)["dataset"], device_augment=True)
+    ours, theirs = pre.plan_device_augment(ds), jax_pre.plan_device_augment(ds)
+    assert ours.summary == theirs.summary
+    assert ours.labeled_overrides == theirs.labeled_overrides
+    assert ours.unlabeled_overrides == theirs.unlabeled_overrides
+    assert (ours.augment is None) == (theirs.augment is None)
+
+
+def test_standardize_is_population_std():
+    x, _ = signal(5, c=3)
+    x[1] = 2.5  # a constant sample standardizes to 0
+    theirs = np.asarray(jax_pre.standardize_batch(jnp.asarray(x)))
+    ours = pre.standardize_batch(torch.from_numpy(x)).numpy()
+    assert (ours[1] == 0).all()
+    np.testing.assert_allclose(ours, theirs, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("entry", [
+    "xflip", {"cutout": {"mask_ratio": 0.3}}, {"shift": {}},
+    {"RandomApply": {"transform": "yflip"}}, {"sine_noise": {}},
+    {"RandAugment": {"ops": ["AmplitudeScaling", "YFlip"]}}])
+def test_unported_ops_raise(entry):
+    name, kwargs = pre._entry_name_kwargs(entry)
+    assert jax_pre._make_device_op(name, kwargs) is not None
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        pre._make_device_op(name, kwargs)
+    ds = dict(fixmatch_dataset_cfg(), augmentations=[entry])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        pre.plan_device_augment(ds)
+
+
+def test_host_only_ops_stay_on_the_host():
+    for name, kwargs in (("highpass_filter", {"fs": 250, "cutoff": 0.67}),
+                         ("random_crop", {"length": 100}),
+                         ("standardize", {"axis": -1})):
+        assert jax_pre._make_device_op(name, kwargs) is None
+        assert pre._make_device_op(name, kwargs) is None
+    ds = dict(fixmatch_dataset_cfg(),
+              transforms=[{"standardize": {"axis": -1}}])
+    assert pre.plan_device_augment(ds).summary == \
+        jax_pre.plan_device_augment(ds).summary == \
+        "host-only (unsupported transforms)"

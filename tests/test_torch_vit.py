@@ -150,7 +150,14 @@ def test_unported_parts_raise():
     bad = dict(cfg, backbone={"resnet18": {"num_leads": 1}})
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model_from_config(bad)
-    for extra in ({"quantize": "int8"}, {"use_latent_projection": True},
-                  {"auxiliary_heads": [{"FCNHead": {}}]}):
+    for extra in ({"quantize": "int8"}, {"use_latent_projection": True}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             build_model_from_config(dict(cfg, **extra))
+    # remat (activation checkpointing) changes nothing in eval and is not
+    # ported for training
+    model = build_model_from_config(vit_config(remat=True), train=True)
+    x = torch.zeros(2, 1, SEQ)
+    with torch.no_grad():
+        model(x)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        model.train()(x)
