@@ -9,12 +9,14 @@ JAX or of the JAX package. Phases, each of which stops the script with a
 non-zero exit when it fails:
 
 1. build every CUDA kernel of the ported paths from ``csrc/`` (one nvcc per
-   source, all started together), and print the build time and the
-   compiler's register report;
+   source, all started together), print the build time and the compiler's
+   register report, and count each flash kernel's tensor-core (HMMA)
+   instructions in its SASS: the bf16 kernels must have some;
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the serving and training paths give it and at long and ragged
-   shapes; time kernel, plain version and the one-call PyTorch equivalent,
-   and compute the card's bound for the same work;
+   shapes the serving and training paths give it (q, k, v contiguous and
+   as the ViT hands them over) and at long and ragged shapes, bf16 flash
+   within its error bound; time kernel, plain version and the one-call
+   PyTorch equivalent, and compute the card's bound for the same work;
 3. serve the full-width ``vit_tiny`` + FCNHead recipe
    (``configs/base/vit_tiny/scratch.yaml``, ``attention_impl: flash``) on a
    synthetic test split through ``inference_main``, at fp32 and under bf16
@@ -29,7 +31,7 @@ non-zero exit when it fails:
    serve the trained checkpoint; hold the flash path's gradients and three
    fp32 FixMatch steps against the dense path on the card, and the card's
    augmentation against the CPU's on the same draws; profile one bf16 and
-   one fp32 train step.
+   one fp32 train step (device events, copy and elementwise kernels).
 
 The line before the last prints the card's name and power limit as
 nvidia-smi gives them; the line before that, a JSON object with one entry
@@ -41,6 +43,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -66,6 +69,16 @@ REPLACES = {
     "flash_attention_bwd": "semi_seg_ecg_tpu/ops/pallas/flash_attention.py:209",
     "gather1d": "semi_seg_ecg_tpu/ops/pallas/gather1d.py:91",
 }
+# the phase-2 row each kernel's entry in the kernels line reports (named in
+# the entry's "row"): the shape and dtype of the trained recipe's main path
+# (bf16 autocast), whose run the launch counts come from
+MAIN_ROW = {"flash_attention_fwd": "train_bf16",
+            "flash_attention_bwd": "train_bf16",
+            "gather1d": "train_resize_crop"}
+# the training shape once more, with q, k, v the transposed chunks of one
+# (B, N, 3·H·D) projection and dO a (B, N, H, D) gradient, as the ViT hands
+# them over
+STRIDED = ("train_bf16_strided", (32, 3, 101, 64), "bfloat16")
 # (label, (B, H, N, D), dtype): the serving shape of vit_tiny at batch 16
 # first, in both precisions the entry runs; the training student pass
 # (labeled + strong, 32 windows); then a long and ragged shapes
@@ -79,6 +92,8 @@ FLASH_SHAPES = [
     # one head of the serving shape: 2 CTAs instead of 96, the same work
     # per CTA, so its time against slice_fp32 shows what one CTA costs
     ("one_head_fp32", (1, 1, 101, 64), "float32"),
+    ("one_head_bf16", (1, 1, 101, 64), "bfloat16"),
+    STRIDED,
 ]
 # the backward at the training step's shape (32 windows, bf16 under the
 # recipe's autocast, fp32 in the fp32 checks) first, then long and ragged
@@ -88,6 +103,9 @@ BWD_SHAPES = [
     ("long_bf16", (8, 12, 2048, 64), "bfloat16"),
     ("ragged_fp32", (4, 3, 1000, 64), "float32"),
     ("ragged_bf16_d100", (2, 4, 257, 100), "bfloat16"),
+    # 2 + 2 CTAs with the training shape's work per CTA (see one_head_fp32)
+    ("one_head_bf16", (1, 1, 101, 64), "bfloat16"),
+    STRIDED,
 ]
 # (label, kind, (B, C, T_in), J, slope): the training step's three calls
 # (resize-crop of the signal, of the labels, the partial-sine roll over a
@@ -98,14 +116,15 @@ GATHER_SHAPES = [
     ("train_sine_roll", "roll", (16, 1, 5000), 2500, 1.0),
     ("leads12_long", "lerp", (256, 12, 5000), 5000, 2.0),
 ]
-# kernel vs plain, |kernel - plain| <= atol + rtol |plain|. Forward: fp32
-# sums in another order; bf16 output is the same fp32 value rounded once,
-# so the two are at most one bf16 ulp (2^-7 of the value) apart. Backward:
-# each gradient sums N products, so atol 1e-4 in fp32 and one bf16 ulp on
-# top in bf16. Gather: bit for bit.
-TOL_OUT = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
-ATOL_LSE = 1e-4
-TOL_BWD = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2.0 ** -7)}
+# kernel vs plain, |kernel - plain| <= tolerance, element by element, from
+# ops/flash_attention.forward_tolerance and backward_tolerance: fp32 atol +
+# rtol |plain| (FWD_TOL_FP32, BWD_TOL_FP32); bf16 the error bound of
+# forward_error_bound and backward_error_bound (the kernels round P and dS
+# to bf16 as tensor-core operands; the bound is that rounding, doubled,
+# plus one bf16 ulp of the result). lse within LSE_ATOL in both. Gather:
+# bit for bit.
+TOL_NAMES = {"float32": "fp32 atol + rtol |plain|",
+             "bfloat16": "bf16 error bound"}
 
 NUM_TEST, SIGNAL_LENGTH, BATCH, DEPTH = 64, 2500, 16, 12
 # training split and run: 4 steps of 16 + 16 windows per epoch
@@ -139,12 +158,16 @@ def log(*args):
 
 def device_ms(torch, fn, iters):
     """Device time per call: CUDA events around ``iters`` calls queued
-    behind a sleep kernel, so the host's enqueue cost stays off the clock."""
-    fn()
+    behind a sleep kernel, so the host's enqueue cost stays off the clock.
+    The sleep lasts about a millisecond per call: SDPA's backward through
+    autograd costs the host hundreds of microseconds a call in a fresh
+    process, and a shorter sleep let that into its time."""
+    for _ in range(3):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(max(100_000_000, 2_000_000 * iters))
     start.record()
     for _ in range(iters):
         fn()
@@ -180,11 +203,26 @@ def attention_bwd_bound(shape, dtype):
                  10 * b * h * n * n * d, dtype)
 
 
-def excess_over(got, want, atol, rtol):
-    """How far the worst element is past its tolerance (<= 0 passes)."""
+def excess_over(got, want, tol):
+    """The worst |got - want| and the worst |got - want| / tolerance, element
+    by element (<= 1 passes)."""
     diff = (got.float() - want.float()).abs()
-    return diff.max().item(), ((diff - rtol * want.float().abs()).max()
-                               .item() - atol)
+    return diff.max().item(), (diff / tol).max().item()
+
+
+def flash_inputs(torch, gen, label, shape, dtype, count):
+    """``count`` random (B, H, N, D) operands: contiguous, or for a
+    ``_strided`` label q, k, v as the transposed chunks of one (B, N,
+    3·H·D) tensor and the rest as views of (B, N, H, D) memory."""
+    b, h, n, d = shape
+    make = lambda *size: torch.randn(size, generator=gen, device="cuda",
+                                     dtype=dtype)
+    if not label.endswith("_strided"):
+        return [make(*shape) for _ in range(count)]
+    qkv = make(b, n, 3 * h * d)
+    return ([t.reshape(b, n, h, d).transpose(1, 2)
+             for t in qkv.chunk(3, dim=-1)]
+            + [make(b, n, h, d).transpose(1, 2) for _ in range(count - 3)])
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +253,37 @@ def phase_build():
                     log(f"  ptxas {stem}:", line.split("'")[1][:90])
                 elif "registers" in line or "spill" in line:
                     log("   ", line.strip())
-    return seconds
+    hmma = {stem: hmma_counts(library_path(stem)) for stem in STEMS[:2]}
+    for stem, counts in hmma.items():
+        log(f"  HMMA instructions in {stem}: {counts}")
+        mma = {k: c for k, c in counts.items() if "_mma" in k}
+        if not mma or not all(mma.values()):
+            raise SystemExit(f"phase 1 failed: the bf16 kernels of {stem} "
+                             f"hold no tensor-core instructions ({counts})")
+    return seconds, hmma
+
+
+def hmma_counts(path):
+    """HMMA (tensor-core) instructions per kernel in a library's SASS, from
+    ``cuobjdump --dump-sass``; kernels named by function and template
+    arguments."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "--dump-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            found = re.search(r"(flash_[fb]wd_[a-z0-9_]+?)I((?:Li\d+E)+)E",
+                              mangled)
+            name = mangled
+            if found:
+                args = re.findall(r"Li(\d+)E", found.group(2))
+                name = f"{found.group(1)}<{','.join(args)}>"
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +301,7 @@ def phase_kernels(torch):
     with full_fp32():
         log(f"phase 2: {tf32_flags(torch)}")
         gen = torch.Generator(device="cuda").manual_seed(0)
-        rows = {
+        return {
             "flash_attention_fwd": [check_kernel(torch, fa, gen, *case)
                                     for case in FLASH_SHAPES],
             "flash_attention_bwd": [check_backward(torch, fa, gen, *case)
@@ -241,7 +309,6 @@ def phase_kernels(torch):
             "gather1d": [check_gather(torch, gather1d, *case)
                          for case in GATHER_SHAPES],
         }
-    return rows
 
 
 def tf32_flags(torch):
@@ -257,17 +324,17 @@ def check_kernel(torch, fa, gen, label, shape, dtype_name):
     import torch.nn.functional as F
 
     dtype = getattr(torch, dtype_name)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
-               for _ in range(3))
+    q, k, v = flash_inputs(torch, gen, label, shape, dtype, 3)
     scale = shape[-1] ** -0.5
     out, lse = fa.flash_attention_forward(q, k, v, scale)
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_attention_plain(q, k, v, scale)
-    atol, rtol = TOL_OUT[dtype_name]
-    err_out, excess = excess_over(out, ref_out, atol, rtol)
+    tol_name = TOL_NAMES[dtype_name]
+    err_out, ratio = excess_over(out, ref_out, fa.forward_tolerance(
+        q, k, v, scale, ref_out))
     err_lse = (lse - ref_lse).abs().max().item()
-    ok = (math.isfinite(err_out) and excess <= 0
-          and math.isfinite(err_lse) and err_lse <= ATOL_LSE)
+    ok = (math.isfinite(err_out) and ratio <= 1
+          and math.isfinite(err_lse) and err_lse <= fa.LSE_ATOL)
     long = shape[2] >= 1000
     kernel_ms = device_ms(torch, lambda: fa.flash_attention_forward(
         q, k, v, scale), 20 if long else 200)
@@ -277,43 +344,51 @@ def check_kernel(torch, fa, gen, label, shape, dtype_name):
         q, k, v, scale=scale), 20 if long else 200)
     bound_ms, bound_by = attention_bound(shape, dtype_name)
     log(f"  fwd {label} {shape} {dtype_name}: err out {err_out:.3g} "
-        f"(tolerance excess {excess:.3g}) lse {err_lse:.3g} | kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"({ratio:.3g} of the tolerance, {tol_name}) lse {err_lse:.3g} | "
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
         f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     if not ok:
         raise SystemExit(f"phase 2 failed: forward {label} disagrees with "
-                         f"the plain version (out {err_out}, lse {err_lse})")
+                         f"the plain version (out {err_out}, {ratio} of the "
+                         f"tolerance; lse {err_lse})")
     return {"shape": label, "bhnd": list(shape), "dtype": dtype_name,
             "max_abs_err": err_out, "max_abs_err_lse": err_lse,
-            "atol": atol, "rtol": rtol, "atol_lse": ATOL_LSE,
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "tolerance": tol_name, "max_tolerance_ratio": ratio,
+            "atol_lse": fa.LSE_ATOL, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def check_backward(torch, fa, gen, label, shape, dtype_name):
-    """One backward shape: ``flash_attention_backward`` (Δ in PyTorch, then
-    the two kernels) against the plain backward on the kernel forward's
-    ``(out, lse)``; times of the wrapper, the plain version and the backward
-    of SDPA alone, and the card's bound."""
+    """One backward shape: ``flash_attention_backward`` (the two kernels, Δ
+    included) against the plain backward on the kernel forward's ``(out,
+    lse)``; times of the wrapper, the plain version and the backward of
+    SDPA alone, and the card's bound."""
     import torch.nn.functional as F
 
     dtype = getattr(torch, dtype_name)
-    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda",
-                                 dtype=dtype) for _ in range(4))
+    q, k, v, dout = flash_inputs(torch, gen, label, shape, dtype, 4)
     scale = shape[-1] ** -0.5
     out, lse = fa.flash_attention_forward(q, k, v, scale)
     grads = fa.flash_attention_backward(q, k, v, out, lse, dout, scale)
     torch.cuda.synchronize()
     want = fa.flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
-    atol, rtol = TOL_BWD[dtype_name]
-    errs, excess = [], -math.inf
-    for got, ref in zip(grads, want):
+    tols = fa.backward_tolerance(q, k, v, out, lse, dout, scale, want)
+    tol_name = TOL_NAMES[dtype_name]
+    errs, ratio = [], 0.0
+    for got, ref, tol in zip(grads, want, tols):
         if got.dtype != dtype:
             raise SystemExit(f"phase 2 failed: backward {label} returned "
                              f"{got.dtype}, not {dtype}")
-        err, ex = excess_over(got, ref, atol, rtol)
+        err, r = excess_over(got, ref, tol)
         errs.append(err)
-        excess = max(excess, ex)
+        ratio = max(ratio, r)
+    del tols
+    # the fp32 kernels sum in the order of cuBLAS's FFMA GEMMs at D = 64
+    bit_equal = all(torch.equal(g, w) for g, w in zip(grads, want))
+    if dtype_name == "float32" and shape[-1] == 64 and not bit_equal:
+        raise SystemExit(f"phase 2 failed: fp32 backward {label} is no "
+                         "longer bit-equal to the plain version")
     long = shape[2] >= 1000
     kernel_ms = device_ms(torch, lambda: fa.flash_attention_backward(
         q, k, v, out, lse, dout, scale), 20 if long else 200)
@@ -326,18 +401,21 @@ def check_backward(torch, fa, gen, label, shape, dtype_name):
     bound_ms, bound_by = attention_bwd_bound(shape, dtype_name)
     err = max(errs)
     log(f"  bwd {label} {shape} {dtype_name}: err dq/dk/dv "
-        f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tolerance excess "
-        f"{excess:.3g}) | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms,"
-        f" sdpa backward {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by})")
-    if not (math.isfinite(err) and excess <= 0):
+        f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} ({ratio:.3g} of the "
+        f"tolerance, {tol_name}; bit-equal {bit_equal}) | kernel "
+        f"{kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by})")
+    if not (math.isfinite(err) and ratio <= 1):
         raise SystemExit(f"phase 2 failed: backward {label} disagrees with "
-                         f"the plain version (max error {err})")
+                         f"the plain version (max error {err}, {ratio} of "
+                         "the tolerance)")
     return {"shape": label, "bhnd": list(shape), "dtype": dtype_name,
             "max_abs_err": err, "max_abs_err_dq_dk_dv": errs,
-            "atol": atol, "rtol": rtol, "ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "tolerance": tol_name, "max_tolerance_ratio": ratio,
+            "bit_equal": bit_equal, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def gather_positions(torch, kind, b, t_in, j, slope):
@@ -529,7 +607,7 @@ def trace_device(torch, fn, steps):
             fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / steps
-    per_kernel, count = {}, 0
+    per_kernel, count, kinds = {}, 0, {"copy": 0, "elementwise": 0}
     for event in prof.events():
         # user annotations (the optimizer's step range) span kernels that
         # the trace also lists, so they are not device work of their own
@@ -538,8 +616,22 @@ def trace_device(torch, fn, steps):
             count += 1
             per_kernel[event.name] = (per_kernel.get(event.name, 0.0)
                                       + event.time_range.elapsed_us() / 1e3)
+            kind = kernel_kind(event.name)
+            if kind:
+                kinds[kind] += 1
     return (traced_ms, {k: v / steps for k, v in per_kernel.items()},
-            count / steps)
+            count / steps, {k: v / steps for k, v in kinds.items()})
+
+
+def kernel_kind(name):
+    """'copy' for PyTorch's copy and cast kernels (and memcpys), else
+    'elementwise' for its other elementwise kernels, else None."""
+    low = name.lower()
+    if "copy" in low or "memcpy" in low:
+        return "copy"
+    if "elementwise" in low:
+        return "elementwise"
+    return None
 
 
 def kernel_ms(per_kernel, *needles):
@@ -577,7 +669,8 @@ def profile_model(torch, config, model_path, amp, steps=20):
         forward()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    traced_ms, per_kernel, events = trace_device(torch, forward, steps)
+    traced_ms, per_kernel, events, kinds = trace_device(torch, forward,
+                                                         steps)
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
@@ -585,13 +678,14 @@ def profile_model(torch, config, model_path, amp, steps=20):
         "windows_per_s": BATCH / (wall_ms / 1e3),
         "traced_wall_ms_per_batch": traced_ms,
         "device_events_per_batch": events,
+        "copy_kernels_per_batch": kinds["copy"],
+        "elementwise_kernels_per_batch": kinds["elementwise"],
         "device_busy_ms_per_batch": busy_ms if per_kernel else None,
         # busy time from the trace over the untraced wall time: tracing
         # slows the host, not the kernels
         "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel
         else None,
-        "flash_kernel_ms_per_batch": kernel_ms(per_kernel,
-                                               "flash_fwd_kernel"),
+        "flash_kernel_ms_per_batch": kernel_ms(per_kernel, "flash_fwd_"),
         "top_kernels_ms_per_batch": [(k[:80], v) for k, v in top],
     }
 
@@ -654,7 +748,11 @@ def phase_slice(torch):
     for name, m in model.items():
         log(f"  model forward, batch {BATCH}, {name}: "
             f"{m['wall_ms_per_batch']:.3f} ms wall "
-            f"({m['windows_per_s']:.1f} windows/s); traced: device busy "
+            f"({m['windows_per_s']:.1f} windows/s); traced: "
+            f"{m['device_events_per_batch']:.0f} device events "
+            f"({m['copy_kernels_per_batch']:.0f} copy, "
+            f"{m['elementwise_kernels_per_batch']:.0f} other elementwise), "
+            "device busy "
             f"{m['device_busy_ms_per_batch']} ms, idle share "
             f"{m['device_idle_share']}, flash kernel "
             f"{m['flash_kernel_ms_per_batch']} ms")
@@ -998,7 +1096,8 @@ def profile_train_step(torch, config, precision, steps=10):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         per_step = {k: v / steps for k, v in read_counts().items()}
-        traced_ms, per_kernel, events = trace_device(torch, step, steps)
+        traced_ms, per_kernel, events, kinds = trace_device(torch, step,
+                                                            steps)
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     out = {
@@ -1007,10 +1106,12 @@ def profile_train_step(torch, config, precision, steps=10):
         "launches_per_step": per_step,
         "traced_wall_ms_per_step": traced_ms,
         "device_events_per_step": events,
+        "copy_kernels_per_step": kinds["copy"],
+        "elementwise_kernels_per_step": kinds["elementwise"],
         "device_busy_ms_per_step": busy_ms if per_kernel else None,
         "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel
         else None,
-        "flash_fwd_ms_per_step": kernel_ms(per_kernel, "flash_fwd_kernel"),
+        "flash_fwd_ms_per_step": kernel_ms(per_kernel, "flash_fwd_"),
         "flash_bwd_ms_per_step": kernel_ms(per_kernel, "flash_bwd_"),
         "gather_ms_per_step": kernel_ms(per_kernel, "gather_lerp_kernel",
                                         "gather_index_kernel"),
@@ -1018,7 +1119,9 @@ def profile_train_step(torch, config, precision, steps=10):
     }
     log(f"  train step, {precision}, {BATCH} + {BATCH} windows: "
         f"{wall_ms:.3f} ms wall ({out['windows_per_s']:.1f} windows/s), "
-        f"launches/step {per_step}; traced: {events:.0f} device events, "
+        f"launches/step {per_step}; traced: {events:.0f} device events "
+        f"({kinds['copy']:.0f} copy, {kinds['elementwise']:.0f} other "
+        "elementwise), "
         f"device busy {out['device_busy_ms_per_step']} ms, idle share "
         f"{out['device_idle_share']}; flash fwd "
         f"{out['flash_fwd_ms_per_step']} ms, flash bwd "
@@ -1041,9 +1144,10 @@ def profile_train_step(torch, config, precision, steps=10):
 
 
 def kernel_entry(name, rows, launches, serve_launches=None):
-    main = rows[0]
+    main = next(r for r in rows if r["shape"] == MAIN_ROW[name])
     entry = {"name": name, "route": "cuda", "source": CSRC.format(name),
              "replaces": REPLACES[name], "launches": launches,
+             "row": main["shape"],
              "max_abs_err": max(r["max_abs_err"] for r in rows),
              "ms": main["ms"], "plain_ms": main["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1065,7 +1169,7 @@ def main():
     t_start = time.time()
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    build_s = phase_build()
+    build_s, hmma = phase_build()
     rows = phase_kernels(torch)
     slice_result = phase_slice(torch)
     train_result = phase_train(torch)
@@ -1084,7 +1188,7 @@ def main():
         check=True).stdout.strip()
     with open(OUT_JSON, "w") as f:
         json.dump({"nvidia_smi": smi, "torch": torch.__version__,
-                   "build_s": build_s, "kernels": kernels,
+                   "build_s": build_s, "hmma": hmma, "kernels": kernels,
                    "slice": slice_result, "train": train_result,
                    "seconds": time.time() - t_start}, f, indent=1)
     log(f"done in {time.time() - t_start:.1f} s")

@@ -1,58 +1,290 @@
-// Flash-attention forward for NVIDIA Hopper (sm_90a), fp32 and bf16 inputs.
+// Flash-attention forward for NVIDIA Hopper (sm_90a), bf16 and fp32 inputs.
 //
 // Replaces the TPU kernel semi_seg_ecg_tpu/ops/pallas/flash_attention.py
 // `_fwd_kernel` (launched by `_flash_forward`): out = softmax(q kᵀ · scale) v
 // with an online softmax, so the (N, N) score matrix never reaches device
-// memory, plus the row logsumexp `lse` that the backward pass consumes.
-// Key columns >= N are masked to -inf. q, k, v, out are (B·H, N, D)
-// contiguous; lse is (B·H, N) fp32. All arithmetic is fp32: bf16 inputs are
-// widened with __bfloat162float, and fp32 inputs use full fp32 FMA (no TF32),
-// as the Pallas kernel upcasts every block to fp32.
+// memory, plus the fp32 row logsumexp `lse` that the backward consumes. Key
+// columns >= N are masked to -inf, as `_fwd_kernel` masks them. q, k, v and
+// out are (B, H, N, D) operands in any layout whose last dimension has
+// stride 1 (the strides of B, H and N are arguments: the ViT hands over the
+// transposed chunks of its qkv projection as they are, and the wrapper
+// allocates out as (B, N, H, D) memory); lse is (B·H, N) fp32.
 //
-// What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
-// cores, 989 TFLOP/s bf16 in them). The work is 4·B·H·N²·D flops over
-// 4·B·H·N·D elements moved. At the ViT-tiny serving shape (B=16, H=3, N=101,
-// D=64, fp32) that is 0.125 GFLOP and 5 MB: about 1.9 us of fp32 FMA and
-// 1.5 us of memory. There the grid is 96 CTAs, one wave with one CTA per
-// SM, so a call takes the latency of one CTA: its K/V tiles are loaded
-// without overlap with the products, and each thread runs its ~2k FMAs
-// per tile in sequence with only 8 warps per SM to hide the latency. Overlap
-// (double-buffered K/V) and more warps per SM (smaller q tiles) are the
-// steps for that regime. At long N the flops dominate: (8, 12, 2048, 64)
-// bf16 needs 103 GFLOP, 0.10 ms on the tensor cores.
+// What bounds it on an H100 (3.35 TB/s; 989 TFLOP/s bf16 on the tensor
+// cores, 67 TFLOP/s fp32 outside them). At the training student pass, bf16
+// (B=32, H=3, N=101, D=64), the work is 0.25 GFLOP over 5.0 MB moved: the
+// bound is 1.49 us of memory (0.25 us of tensor-core time). On an NVIDIA
+// H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 2; PERF.md §6) this
+// kernel takes 7.7 us there, against 24.0 us for the CUDA-core kernel it
+// replaces (and 7.1-7.2 us for SDPA), and 0.519 ms at (8, 12, 2048, 64),
+// against 3.67-3.74 ms (199 TFLOP/s; SDPA 0.23 ms).
 //
-// Design. One CTA of 256 threads per (batch·head, 64-row q tile); K/V stream
-// through shared memory in 64-row tiles; the running max, running sum and
-// the output accumulator stay in fp32 registers. The threads form a 16x16
-// grid: thread (ty, tx) owns q rows 4ty..4ty+3, score columns tx+16j of the
-// current tile and output columns tx+16e, so each shared-memory read feeds
-// four FMAs (q and p tiles are stored transposed and read as float4) and a
-// row reduction is a 16-lane shuffle. It uses CUDA cores only: the score
-// and value products in the tensor cores (wgmma, with TMA loads) are the
-// step that makes it fast, and are left for later.
+// bf16 design (flash_fwd_mma). One CTA of 4 warps per (batch·head, 64-row
+// q tile), 16 q rows per warp (32-row tiles of 2 warps, twice the CTAs,
+// were 6.5% slower at the training shape on that card: 8.19 against
+// 7.68 us, PERF.md):
+//   - the tensor cores: S = Q Kᵀ and O += P V are mma.sync m16n8k16 with bf16
+//     operands and fp32 accumulators. Q's fragments are loaded once with
+//     ldmatrix and stay in registers for the whole key loop; K fragments
+//     come through ldmatrix, V's through ldmatrix.trans.
+//   - the softmax runs on the fp32 S fragments, in base 2: scale·log2(e) is
+//     applied to fp32 S (never to bf16 Q, which would round it when scale is
+//     not a power of two, as at D = 100). A row is spread over the four
+//     lanes of a quad, so a row max is two __shfl_xor_sync; the row sum is
+//     kept per lane and reduced once at the end.
+//   - P is rounded to bf16 in registers and fed straight back as the A
+//     operand of P V: the accumulator layout of two 16x8 tiles is the A
+//     layout of one 16x16 tile, so P never touches shared memory.
+//   - the load latency: K/V tiles of 64 keys stream through a 2-stage ring
+//     in shared memory with cp.async (16 bytes a thread where the operand's
+//     base and strides allow it, else 4), so tile kb+1 loads while tile kb
+//     computes; at N = 101 the Q tile and both K/V tiles are in flight at
+//     once. Rows are padded by 16 bytes, which puts the 8 rows an ldmatrix
+//     reads on distinct banks. Rows and keys >= N and columns >= D are
+//     zero-filled by the copy's src-size; D is rounded up to a multiple of
+//     16 (64 or 128) for the k-steps.
+//
+// fp32 (flash_fwd_fp32): the CUDA-core kernel of the first port, its
+// arithmetic unchanged (full fp32 FMA, no TF32, as the Pallas kernel upcasts
+// every block to fp32), with strided addressing. 256 threads form a 16x16
+// grid: thread (ty, tx) owns q rows 4ty..4ty+3, score columns tx+16j and
+// output columns tx+16e; q and p tiles are stored transposed and read as
+// float4, k rows are padded to D+1 floats.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <initializer_list>
 #include <math.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;           // q rows per CTA
-constexpr int BLOCK_N = 64;           // keys per streamed K/V tile
-constexpr int THREADS = 256;          // 16 x 16 thread grid
-constexpr int TSTRIDE = BLOCK_M + 4;  // row stride of the transposed tiles
+using bf16 = __nv_bfloat16;
+using flash::head_offset;
+using flash::LN2;
+using flash::LOG2E;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow_store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow_store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+constexpr int BLOCK_N = 64;  // keys per streamed K/V tile
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int WARPS = 4;
+constexpr int BM = WARPS * 16;  // q rows per CTA
+constexpr int MMA_THREADS = WARPS * 32;
+
+template <int DMAX>
+constexpr size_t mma_smem_bytes() {
+  // q tile, then two stages of k and v tiles, rows padded by 8 elements
+  return sizeof(bf16) * (BM + 4 * BLOCK_N) * (DMAX + 8);
 }
 
 template <int DMAX>
-constexpr size_t smem_bytes() {
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
+              float* __restrict__ lse, int heads, int n, int d,
+              float scale_log2, bool vec16) {
+  constexpr int LD = DMAX + 8;    // padded row, in elements
+  constexpr int KS = DMAX / 16;   // k-steps over the head dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]
+  bf16* ks = qs + BM * LD;                        // [2][BLOCK_N][LD]
+  bf16* vs = ks + 2 * BLOCK_N * LD;               // [2][BLOCK_N][LD]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BM;
+  const int wrow = warp * 16;
+  const bf16* qh = static_cast<const bf16*>(q.ptr) + head_offset(q, bh, heads);
+  const bf16* kh = static_cast<const bf16*>(k.ptr) + head_offset(k, bh, heads);
+  const bf16* vh = static_cast<const bf16*>(v.ptr) + head_offset(v, bh, heads);
+  const int num_kb = (n + BLOCK_N - 1) / BLOCK_N;
+
+  // group 0: the q tile and K/V tile 0; group 1: K/V tile 1 (maybe empty)
+  flash::load_tile<BM, DMAX, LD, MMA_THREADS>(qs, qh, q.sn, q0, n, d, vec16);
+  for (int kb = 0; kb < 2; ++kb) {
+    if (kb < num_kb) {
+      flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
+          ks + kb * BLOCK_N * LD, kh, k.sn, kb * BLOCK_N, n, d, vec16);
+      flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
+          vs + kb * BLOCK_N * LD, vh, v.sn, kb * BLOCK_N, n, d, vec16);
+    }
+    flash::cp_async_commit();
+  }
+  flash::cp_async_wait<1>();
+  __syncthreads();
+
+  // a warp whose 16 rows all lie past N only helps with the loads
+  const bool live = q0 + wrow < n;
+  uint32_t qf[KS][4];
+  if (live) {
+#pragma unroll
+    for (int s = 0; s < KS; ++s)
+      flash::ldmatrix_x4(qf[s], &qs[(wrow + (lane & 15)) * LD + 16 * s +
+                                    (lane >> 4) * 8]);
+  }
+
+  float m[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sum
+  float acc[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kb = 0; kb < num_kb; ++kb) {
+    if (kb > 0) {
+      flash::cp_async_wait<1>();  // tile kb has landed; kb+1 may be in flight
+      __syncthreads();
+    }
+    const bf16* kt = ks + (kb & 1) * BLOCK_N * LD;
+    const bf16* vt = vs + (kb & 1) * BLOCK_N * LD;
+    const int k0 = kb * BLOCK_N;
+    if (live) {
+      // S = Q Kᵀ: 16 rows x 64 keys, 8 C tiles
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int st = 0; st < KS; ++st) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          uint32_t b[4];
+          flash::ldmatrix_x4(
+              b, &kt[(16 * p + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                     16 * st + ((lane >> 3) & 1) * 8]);
+          flash::mma_bf16(s[2 * p], qf[st], b[0], b[1]);
+          flash::mma_bf16(s[2 * p + 1], qf[st], b[2], b[3]);
+        }
+      }
+      // scale in fp32, then mask the keys past N
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+      }
+      if (k0 + BLOCK_N > n) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (k0 + 8 * j + 2 * t + e >= n) s[j][e] = s[j][2 + e] = -INFINITY;
+          }
+        }
+      }
+      // online softmax over rows g (e = 0, 1) and g + 8 (e = 2, 3); the
+      // tile holds key k0 < N, so both maxima are finite and exp2(-inf)
+      // clears the masked keys and the first tile's correction
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+          l[e >> 1] += s[j][e];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < DMAX / 8; ++j) {
+        acc[j][0] *= corr[0];
+        acc[j][1] *= corr[0];
+        acc[j][2] *= corr[1];
+        acc[j][3] *= corr[1];
+      }
+      // O += P V, P from registers as bf16
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        flash::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int p = 0; p < DMAX / 16; ++p) {
+          uint32_t b[4];
+          flash::ldmatrix_x4_trans(
+              b, &vt[(16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                     16 * p + (lane >> 4) * 8]);
+          flash::mma_bf16(acc[2 * p], a, b[0], b[1]);
+          flash::mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (kb + 2 < num_kb) {
+      flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
+          ks + (kb & 1) * BLOCK_N * LD, kh, k.sn, (kb + 2) * BLOCK_N, n, d,
+          vec16);
+      flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
+          vs + (kb & 1) * BLOCK_N * LD, vh, v.sn, (kb + 2) * BLOCK_N, n, d,
+          vec16);
+    }
+    flash::cp_async_commit();
+  }
+
+  if (!live) return;
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / l[i];
+  }
+  bf16* oh = static_cast<bf16*>(o.ptr) + head_offset(o, bh, heads);
+  flash::store_rows<DMAX>(oh, o.sn, acc, q0 + wrow, n, d, inv[0], inv[1]);
+  if (t == 0) {
+    const int g = lane >> 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = q0 + wrow + g + 8 * i;
+      if (r < n) lse[(size_t)bh * n + r] = m[i] * LN2 + logf(l[i]);
+    }
+  }
+}
+
+template <int DMAX>
+cudaError_t launch_mma(const Tensor4& q, const Tensor4& k, const Tensor4& v,
+                       const Tensor4& o, float* lse, int bh, int heads, int n,
+                       int d, float scale, cudaStream_t stream) {
+  // the attribute belongs to the current device, so it is set on every
+  // launch rather than cached once per process
+  constexpr size_t smem = mma_smem_bytes<DMAX>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const bool vec16 = flash::aligned_to(q, 2, 16) &&
+                     flash::aligned_to(k, 2, 16) &&
+                     flash::aligned_to(v, 2, 16);
+  const dim3 grid((n + BM - 1) / BM, bh);
+  flash_fwd_mma<DMAX><<<grid, MMA_THREADS, smem, stream>>>(
+      q, k, v, o, lse, heads, n, d, scale * LOG2E, vec16);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int BLOCK_M = 64;           // q rows per CTA
+constexpr int THREADS = 256;          // 16 x 16 thread grid
+constexpr int TSTRIDE = BLOCK_M + 4;  // row stride of the transposed tiles
+
+template <int DMAX>
+constexpr size_t fp32_smem_bytes() {
   return sizeof(float) * (DMAX * TSTRIDE            // q tile, transposed
                           + BLOCK_N * (DMAX + 1)    // k tile, padded rows
                           + BLOCK_N * DMAX          // v tile
@@ -61,11 +293,11 @@ constexpr size_t smem_bytes() {
 
 // DMAX (64 or 128) fixes the register tile; the runtime head dim d <= DMAX
 // is zero-padded in shared memory.
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int n, int d, float scale) {
+flash_fwd_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
+               float* __restrict__ lse, int heads, int n, int d,
+               float scale) {
   constexpr int EPT = DMAX / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                       // [DMAX][TSTRIDE]
@@ -77,19 +309,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid & 15;
   const int ty = tid >> 4;
   const int q0 = blockIdx.x * BLOCK_M;
-  const size_t head = (size_t)blockIdx.y * n * d;
-  const T* qh = q + head;
-  const T* kh = k + head;
-  const T* vh = v + head;
+  const int bh = blockIdx.y;
+  const float* qh =
+      static_cast<const float*>(q.ptr) + head_offset(q, bh, heads);
+  const float* kh =
+      static_cast<const float*>(k.ptr) + head_offset(k, bh, heads);
+  const float* vh =
+      static_cast<const float*>(v.ptr) + head_offset(v, bh, heads);
 
   // q tile, pre-scaled as in the Pallas kernel; rows >= n and columns >= d
   // are zero
-  for (int idx = tid; idx < BLOCK_M * DMAX; idx += THREADS) {
-    const int r = idx / DMAX, c = idx % DMAX;
-    float x = 0.f;
-    if (q0 + r < n && c < d) x = widen(qh[(size_t)(q0 + r) * d + c]) * scale;
-    qt[c * TSTRIDE + r] = x;
-  }
+  flash::load_fp32<BLOCK_M, DMAX, THREADS, false>(
+      qh, q.sn, qh, q.sn, q0, n, d, [&](int r, int c, float x, float) {
+        qt[c * TSTRIDE + r] = x * scale;
+      });
 
   float m_i[4], l_i[4], acc[4][EPT];
 #pragma unroll
@@ -104,17 +337,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kb = 0; kb < num_kb; ++kb) {
     const int k0 = kb * BLOCK_N;
     __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BLOCK_N * DMAX; idx += THREADS) {
-      const int r = idx / DMAX, c = idx % DMAX;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + r < n && c < d) {
-        const size_t off = (size_t)(k0 + r) * d + c;
-        kx = widen(kh[off]);
-        vx = widen(vh[off]);
-      }
-      ks[r * (DMAX + 1) + c] = kx;
-      vs[r * DMAX + c] = vx;
-    }
+    flash::load_fp32<BLOCK_N, DMAX, THREADS, true>(
+        kh, k.sn, vh, v.sn, k0, n, d, [&](int r, int c, float kx, float vx) {
+          ks[r * (DMAX + 1) + c] = kx;
+          vs[r * DMAX + c] = vx;
+        });
     __syncthreads();
 
     // s = (q·scale) kᵀ for rows 4ty+i, columns tx+16j
@@ -190,8 +417,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* oh = out + head;
-  float* lh = lse + (size_t)blockIdx.y * n;
+  float* oh = static_cast<float*>(o.ptr) + head_offset(o, bh, heads);
+  float* lh = lse + (size_t)bh * n;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + 4 * ty + i;
@@ -200,49 +427,53 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
       const int c = tx + 16 * e;
-      if (c < d) narrow_store(&oh[(size_t)r * d + c], acc[i][e] / l);
+      if (c < d) oh[r * o.sn + c] = acc[i][e] / l;
     }
     if (tx == 0) lh[r] = m_i[i] + logf(l);
   }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int bh, int n, int d, float scale,
-                   cudaStream_t stream) {
-  // the attribute belongs to the current device, so it is set on every
-  // launch rather than cached once per process
-  constexpr size_t smem = smem_bytes<DMAX>();
+template <int DMAX>
+cudaError_t launch_fp32(const Tensor4& q, const Tensor4& k, const Tensor4& v,
+                        const Tensor4& o, float* lse, int bh, int heads,
+                        int n, int d, float scale, cudaStream_t stream) {
+  constexpr size_t smem = fp32_smem_bytes<DMAX>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DMAX>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_fp32<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + BLOCK_M - 1) / BLOCK_M, bh);
-  flash_fwd_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), n, d, scale);
+  flash_fwd_fp32<DMAX><<<grid, THREADS, smem, stream>>>(q, k, v, o, lse,
+                                                        heads, n, d, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface for ctypes. Returns a cudaError_t (0 on success). dtype: 0 is
-// fp32, 1 is bf16. The caller allocates out (q's dtype) and lse (fp32).
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, void* lse,
-                                   int bh, int n, int d, float scale,
-                                   int dtype, void* stream) {
-  if (bh <= 0 || bh > 65535 || n <= 0 || d <= 0 || d > 128 ||
-      (dtype != 0 && dtype != 1))
+// C interface for ctypes. Returns a cudaError_t (0 on success). q, k, v and
+// out are (batch, heads, n, d) descriptors with unit stride along d; lse is
+// (batch·heads, n) fp32. dtype: 0 is fp32, 1 is bf16; a bf16 operand needs
+// a 4-byte aligned base and even strides. The caller allocates out and lse.
+extern "C" int flash_attention_fwd(const Tensor4* q, const Tensor4* k,
+                                   const Tensor4* v, const Tensor4* out,
+                                   void* lse, int batch, int heads, int n,
+                                   int d, float scale, int dtype, void* stream) {
+  const long long bh = (long long)batch * heads;
+  if (batch <= 0 || heads <= 0 || bh > 65535 || n <= 0 || d <= 0 ||
+      d > 128 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0) {
     return (int)(d <= 64
-        ? launch<float, 64>(q, k, v, out, lse, bh, n, d, scale, s)
-        : launch<float, 128>(q, k, v, out, lse, bh, n, d, scale, s));
+        ? launch_fp32<64>(*q, *k, *v, *out, l, (int)bh, heads, n, d, scale, s)
+        : launch_fp32<128>(*q, *k, *v, *out, l, (int)bh, heads, n, d, scale,
+                           s));
+  }
+  for (const Tensor4* t : {q, k, v, out}) {
+    if (!flash::aligned_to(*t, 2, 4)) return (int)cudaErrorMisalignedAddress;
   }
   return (int)(d <= 64
-      ? launch<__nv_bfloat16, 64>(q, k, v, out, lse, bh, n, d, scale, s)
-      : launch<__nv_bfloat16, 128>(q, k, v, out, lse, bh, n, d, scale, s));
+      ? launch_mma<64>(*q, *k, *v, *out, l, (int)bh, heads, n, d, scale, s)
+      : launch_mma<128>(*q, *k, *v, *out, l, (int)bh, heads, n, d, scale, s));
 }

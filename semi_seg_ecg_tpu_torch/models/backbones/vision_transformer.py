@@ -128,9 +128,14 @@ class Attention(nn.Module):
             mm_dtype = torch.float32
         scale = self.dim_head ** -0.5
         if self._use_flash(n, x.is_cuda):
-            out = flash_attention(
-                q.to(mm_dtype).contiguous(), k.to(mm_dtype).contiguous(),
-                v.to(mm_dtype).contiguous(), scale)
+            # the kernels take the transposed chunks of the qkv projection
+            # (and the q/k norms' outputs) as they lie and write out as
+            # (B, N, H, D) memory, so no copy is made on either side. A
+            # .contiguous() would not help where the wrapper refuses a
+            # layout: that is an odd bf16 dim_head, whose rows are
+            # misaligned for the kernel's 4-byte copies in any layout
+            out = flash_attention(q.to(mm_dtype), k.to(mm_dtype),
+                                  v.to(mm_dtype), scale)
         else:
             out = dense_attention(q, k, v, scale, mm_dtype=mm_dtype,
                                   attn_transform=self.attn_drop)

@@ -2,10 +2,12 @@
 
 Each ``csrc/<stem>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) at
 first use, into ``build/torch_kernels/<stem>-<hash>.so`` at the root of the
-checkout, and loaded with ``ctypes``. The hash covers the source and the
-flags, so an edited kernel is rebuilt and an unchanged one is reused. The
-compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
-kept beside the library as ``<stem>-<hash>.log``.
+checkout, and loaded with ``ctypes``. The hash covers the source, the
+``csrc/`` headers it includes (``#include "..."``, followed through the
+headers' own includes) and the flags, so an edited kernel or header is
+rebuilt and an unchanged one is reused. The compiler's report (``-Xptxas
+-v``: registers, shared memory, spills) is kept beside the library as
+``<stem>-<hash>.log``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -20,6 +23,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC_DIR)),
                          "build", "torch_kernels")
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,9 +40,19 @@ def _nvcc() -> str:
 
 
 def library_path(stem: str) -> str:
-    """Where ``csrc/<stem>.cu`` builds to, keyed by source and flags."""
-    with open(os.path.join(CSRC_DIR, f"{stem}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    """Where ``csrc/<stem>.cu`` builds to, keyed by the source, the headers
+    of ``csrc/`` that it includes, and the flags."""
+    digest = hashlib.sha256()
+    todo, seen = [f"{stem}.cu"], set()
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            text = f.read()
+        digest.update(name.encode() + b"\0" + text)
+        todo.extend(sorted(m.decode() for m in _INCLUDE.findall(text)))
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

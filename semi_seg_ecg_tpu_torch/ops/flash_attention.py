@@ -7,15 +7,19 @@ Counterpart of ``semi_seg_ecg_tpu/ops/pallas/flash_attention.py``:
   the (N, N) score matrix in device memory, plus the fp32 row logsumexp
   that the backward consumes (``csrc/flash_attention_fwd.cu``);
 - ``_bwd_kernel`` / ``_flash_backward``: dq, dk, dv recomputed blockwise
-  from that logsumexp, with Δ = rowsum(dO ⊙ O) computed outside the kernel
-  as the JAX package does (``csrc/flash_attention_bwd.cu``);
+  from that logsumexp (``csrc/flash_attention_bwd.cu``; Δ = rowsum(dO ⊙ O),
+  which the JAX package computes outside its kernel, is the bf16 kernel's
+  own work);
 - the custom VJP ``flash_attention``: :class:`FlashAttention`, a
   ``torch.autograd.Function`` that saves ``(q, k, v, out, lse)``.
 
 Each kernel file's header gives its design and what bounds it on the card.
 The TPU's block picking (``pick_blocks``, ``fits_vmem``, the VMEM budget and
 the padding of D to 128) encodes VMEM and has no counterpart: the kernels
-tile 64 rows by 64 keys and take any N and any D up to 128.
+tile 64 rows by 64 keys and take any N and any D up to 128, in the layout
+the operands come in (:func:`check_layout`). bf16 runs on the tensor cores
+and rounds P and dS to bf16 as operands; :func:`forward_error_bound` and
+:func:`backward_error_bound` give the tolerance that follows from that.
 
 Dispatch follows the device of the tensors: CPU tensors take
 :func:`flash_attention_plain` and :func:`flash_attention_backward_plain`;
@@ -75,6 +79,97 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+class _Tensor4(ctypes.Structure):
+    """The kernels' ``Tensor4``: a (B, H, N, D) operand's base pointer and
+    its element strides along B, H and N (D has stride 1)."""
+
+    _fields_ = [("ptr", ctypes.c_void_p), ("sb", ctypes.c_longlong),
+                ("sh", ctypes.c_longlong), ("sn", ctypes.c_longlong)]
+
+
+def _desc(t: torch.Tensor):
+    return ctypes.byref(_Tensor4(t.data_ptr(), *t.stride()[:3]))
+
+
+# unit roundoff of bf16 (8 significant bits), and one bf16 ulp relative to
+# the value, the rounding of the result itself
+BF16_UNIT_ROUNDOFF = 2.0 ** -8
+BF16_ULP = 2.0 ** -7
+# the fp32 kernels against the plain versions, (atol, rtol): the forward
+# sums in fp32 in another order; each backward gradient sums N products.
+# lse within LSE_ATOL in both dtypes
+FWD_TOL_FP32 = (1e-5, 0.0)
+BWD_TOL_FP32 = (1e-4, 1e-4)
+LSE_ATOL = 1e-4
+
+
+def forward_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """Per-element tolerance of the bf16 kernel's ``out`` against
+    :func:`flash_attention_plain`, in plain fp32: the kernel rounds each
+    probability (a relative error of at most u = 2^-8) before P V, so
+    ``|out − plain| <= u · (P |V|)``, doubled for the fp32 sums; plus one
+    bf16 ulp of the result (both round it) and 1e-5."""
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, vf = q.float(), k.float(), v.float()
+        p = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", qf, kf) * scale,
+                          dim=-1)
+        plain = p @ vf
+        return (2 * BF16_UNIT_ROUNDOFF * (p @ vf.abs())
+                + BF16_ULP * plain.abs() + 1e-5)
+
+
+def backward_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, lse: torch.Tensor,
+                         dout: torch.Tensor, scale: float
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Per-element tolerances ``(dq, dk, dv)`` of the bf16 backward kernels
+    against :func:`flash_attention_backward_plain`, in plain fp32: the
+    kernels round P and dS to bf16 as operands (relative error u = 2^-8),
+    so dV is within u · (Pᵀ |dO|), dQ within u · scale · (|dS| |K|) and dK
+    within u · scale · (|dS|ᵀ |Q|), each doubled for the fp32 sums; plus
+    one bf16 ulp of the result and 1e-4, the fp32 tolerance."""
+    u2 = 2 * BF16_UNIT_ROUNDOFF
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+        delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+        p = torch.exp(torch.einsum("bhnd,bhmd->bhnm", qf, kf) * scale
+                      - lse.unsqueeze(-1))
+        ds = p * (dof @ vf.transpose(-1, -2) - delta)
+        pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
+        return tuple(
+            u2 * term + BF16_ULP * grad.abs() + 1e-4 for term, grad in (
+                (scale * (ds.abs() @ kf.abs()), scale * (ds @ kf)),
+                (scale * (dst.abs() @ qf.abs()), scale * (dst @ qf)),
+                (pt @ dof.abs(), pt @ dof)))
+
+
+def forward_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float, plain_out: torch.Tensor) -> torch.Tensor:
+    """Per-element tolerance of the forward kernel's ``out`` against
+    ``plain_out`` (:func:`flash_attention_plain`'s): atol + rtol·|plain| of
+    ``FWD_TOL_FP32`` in fp32, :func:`forward_error_bound` in bf16."""
+    if q.dtype == torch.float32:
+        atol, rtol = FWD_TOL_FP32
+        return atol + rtol * plain_out.float().abs()
+    return forward_error_bound(q, k, v, scale)
+
+
+def backward_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, lse: torch.Tensor,
+                       dout: torch.Tensor, scale: float,
+                       plain_grads: Tuple[torch.Tensor, ...]
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Per-element tolerances ``(dq, dk, dv)`` of the backward kernels
+    against ``plain_grads`` (:func:`flash_attention_backward_plain`'s):
+    atol + rtol·|plain| of ``BWD_TOL_FP32`` in fp32,
+    :func:`backward_error_bound` in bf16."""
+    if q.dtype == torch.float32:
+        atol, rtol = BWD_TOL_FP32
+        return tuple(atol + rtol * g.float().abs() for g in plain_grads)
+    return backward_error_bound(q, k, v, out, lse, dout, scale)
+
+
 def load_kernel():
     """Build (at first use) and bind the forward kernel's C function."""
     global _FN
@@ -82,7 +177,7 @@ def load_kernel():
         from .cuda_build import load_library
 
         fn = load_library("flash_attention_fwd").flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
@@ -96,11 +191,34 @@ def load_backward_kernel():
         from .cuda_build import load_library
 
         fn = load_library("flash_attention_bwd").flash_attention_bwd
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _BWD_FN = fn
     return _BWD_FN
+
+
+def layout_fault(t: torch.Tensor):
+    """Why the kernels cannot read or write ``t`` where it lies, or None.
+    They need unit stride along D, and a base and B, H, N strides that are
+    multiples of 4 bytes (a bf16 row is copied in 4-byte pieces at least;
+    16-byte pieces where every operand allows it)."""
+    if t.stride(3) != 1:
+        return f"needs unit stride along D; got strides {tuple(t.stride())}"
+    size = t.element_size()
+    if t.data_ptr() % 4 or any(s * size % 4 for s in t.stride()[:3]):
+        return (f"is misaligned for the kernel: base and (B, H, N) strides "
+                f"{tuple(t.stride()[:3])} x {size} bytes must be multiples "
+                "of 4 bytes")
+    return None
+
+
+def check_layout(name: str, t: torch.Tensor) -> None:
+    """Raise unless the kernels take ``t`` in its layout
+    (:func:`layout_fault`)."""
+    fault = layout_fault(t)
+    if fault:
+        raise ValueError(f"flash_attention: {name} {fault}")
 
 
 def _check(q, k, v):
@@ -123,9 +241,24 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention_forward: shape {tuple(q.shape)} "
                          f"outside the kernel's range (1 <= D <= "
                          f"{MAX_HEAD_DIM}, N >= 1, 1 <= B*H <= 65535)")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_forward: q, k, v must be "
-                         "contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_layout(name, t)
+
+
+def _empty_bnhd(like: torch.Tensor) -> torch.Tensor:
+    """An uninitialised (B, H, N, D) tensor over (B, N, H, D) memory: the
+    layout the ViT merges heads from and takes its qkv gradient in, so
+    that the transposes and reshapes around the kernels are views."""
+    b, h, n, d = like.shape
+    return torch.empty((b, n, h, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _launch(fn, name, device, *args):
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
@@ -133,23 +266,20 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` for ``(B, H, N, D)`` q, k, v: ``out`` in q's dtype,
     ``lse`` fp32 ``(B, H, N)``. CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream."""
+    tensors launch the kernel on the current stream, which reads q, k, v
+    in their own layouts (see :func:`check_layout`) and writes ``out`` as
+    a (B, H, N, D) view of (B, N, H, D) memory."""
     global LAUNCHES
     if not (q.is_cuda or k.is_cuda or v.is_cuda):
         return flash_attention_plain(q, k, v, scale)
     _check(q, k, v)
     fn = load_kernel()
     b, h, n, d = q.shape
-    out = torch.empty_like(q)
+    out = _empty_bnhd(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b * h, n, d, float(scale),
-                 _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+    _launch(fn, "flash_attention_fwd", q.device, _desc(q), _desc(k),
+            _desc(v), _desc(out), lse.data_ptr(), b, h, n, d, float(scale),
+            _DTYPE_CODES[q.dtype])
     LAUNCHES += 1
     return out, lse
 
@@ -160,35 +290,42 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              scale: float) -> Tuple[torch.Tensor, ...]:
     """``(dq, dk, dv)`` in the inputs' dtype for the forward's ``(out,
     lse)`` and the output gradient ``dout``. CPU tensors take the plain
-    version; CUDA tensors compute Δ in PyTorch and launch the backward
-    kernels on the current stream."""
+    version; CUDA tensors launch the backward kernels on the current
+    stream, which read every operand in its own layout and write dq, dk,
+    dv as (B, H, N, D) views of (B, N, H, D) memory. Δ = rowsum(dO ⊙ O) is
+    the bf16 dQ kernel's work; for fp32 it is computed here exactly as the
+    plain version computes it, which keeps the fp32 kernels' gradients the
+    plain version's bit for bit at D = 64."""
     global BWD_LAUNCHES
     if not (q.is_cuda or k.is_cuda or v.is_cuda):
         return flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
     _check(q, k, v)
-    dout = dout.to(q.dtype).contiguous()
-    out = out.contiguous()
     if dout.shape != q.shape or out.shape != q.shape or \
             lse.shape != q.shape[:3] or lse.dtype != torch.float32:
         raise ValueError("flash_attention_backward: out and dout must be "
                          "(B, H, N, D) like q, lse (B, H, N) float32")
-    if not (out.is_cuda and dout.is_cuda and lse.is_cuda):
+    if not (out.device == dout.device == lse.device == q.device):
         raise ValueError("flash_attention_backward: out, lse and dout must "
                          "lie on q's device")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError("flash_attention_backward: out and dout must have "
+                        f"q's dtype {q.dtype}; got {out.dtype}, "
+                        f"{dout.dtype}")
+    if not lse.is_contiguous():
+        raise ValueError("flash_attention_backward: lse must be contiguous")
+    check_layout("out", out)
+    check_layout("dout", dout)
     fn = load_backward_kernel()
     b, h, n, d = q.shape
-    delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
-    lse = lse.contiguous()
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), b * h, n, d, float(scale),
-                 _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
-                           f"{err}")
+    if q.dtype == torch.float32:
+        delta = (dout * out).sum(dim=-1).contiguous()
+    else:
+        delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (_empty_bnhd(t) for t in (q, k, v))
+    _launch(fn, "flash_attention_bwd", q.device, _desc(q), _desc(k),
+            _desc(v), _desc(out), _desc(dout), lse.data_ptr(),
+            delta.data_ptr(), _desc(dq), _desc(dk), _desc(dv), b, h, n, d,
+            float(scale), _DTYPE_CODES[q.dtype])
     BWD_LAUNCHES += 1
     return dq, dk, dv
 
@@ -196,7 +333,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 class FlashAttention(torch.autograd.Function):
     """``softmax(q kᵀ · scale) v`` with the flash kernels in both
     directions: the JAX package's ``jax.custom_vjp`` ``flash_attention``.
-    Under ``torch.no_grad()`` nothing is saved."""
+    Under ``torch.no_grad()`` nothing is saved. The caller picks the layouts
+    of q, k and v, and the wrappers refuse one the kernels do not take;
+    autograd picks ``dout``'s (a sum's backward hands over an expand of
+    stride 0), so a ``dout`` the kernels do not take is copied here."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -208,6 +348,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        if layout_fault(dout):
+            dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
                                               ctx.scale)
         return dq, dk, dv, None

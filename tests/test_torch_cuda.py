@@ -6,13 +6,19 @@ conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances. Flash forward: fp32 atol 1e-5 (the kernel's fp32 FMA sums
-against the plain version's fp32 matmuls, another order); bf16 ``out``
-within one bf16 ulp (rtol 2^-7, atol 1e-5: both round the same fp32 value
-once); 1e-4 on ``lse``. Flash backward: each gradient is a sum over N
-products, so fp32 within atol 1e-4 + rtol 1e-4; bf16 within one bf16 ulp
-on top (rtol 2^-7). Gather: bit for bit (the kernel's arithmetic is the
-plain version's, rounded at the same places).
+Tolerances, element by element, from ``forward_tolerance`` and
+``backward_tolerance`` of ``ops/flash_attention.py``, as in chip_smoke.py.
+Flash forward: fp32 atol 1e-5 (the kernel's fp32 FMA sums against the
+plain version's fp32 matmuls, another order); 1e-4 on ``lse``. Flash
+backward: each gradient is a sum over N products, so fp32 within atol
+1e-4 + rtol 1e-4. bf16, both directions: within the error bound of
+``forward_error_bound`` / ``backward_error_bound`` (the tensor-core kernels
+round P and dS to bf16 as operands; the bound is that rounding, doubled,
+plus one bf16 ulp of the result). Layouts: a strided
+call equals the contiguous one bit for bit, in both dtypes (the kernels
+read the same values into the same tiles). Gather: bit for bit (the
+kernel's arithmetic is the plain version's, rounded at the same
+places).
 """
 
 import numpy as np
@@ -40,6 +46,44 @@ def qkv(shape, dtype, seed=0):
             .to("cuda", dtype) for _ in range(3)]
 
 
+def chunked_qkv(shape, dtype, seed=0):
+    """q, k, v as the ViT hands them over: the transposed chunks of one
+    (B, N, 3·H·D) projection output."""
+    b, h, n, d = shape
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(
+        np.float32)).to("cuda", dtype)
+    return [t.reshape(b, n, h, d).transpose(1, 2) for t in x.chunk(3, -1)]
+
+
+def assert_within(got, want, tol, msg=""):
+    excess = ((got.float() - want.float()).abs() - tol).max().item()
+    assert excess <= 0, f"{msg}: {excess} past the error bound"
+
+
+def check_forward(q, k, v, scale):
+    out, lse = fa.flash_attention_forward(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and lse.dtype == torch.float32
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, scale)
+    assert_within(out, ref_out, fa.forward_tolerance(q, k, v, scale,
+                                                     ref_out), "out")
+    torch.testing.assert_close(lse, ref_lse, atol=fa.LSE_ATOL, rtol=0)
+    return out, lse
+
+
+def check_backward(q, k, v, dout, scale):
+    out, lse = fa.flash_attention_forward(q, k, v, scale)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
+    tols = fa.backward_tolerance(q, k, v, out, lse, dout, scale, ref)
+    for name, got, want, tol in zip("qkv", grads, ref, tols):
+        assert got.dtype == q.dtype, name
+        assert_within(got, want, tol, f"d{name}")
+    return grads
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [
     ((16, 3, 101, 64), torch.float32),
@@ -51,17 +95,54 @@ def qkv(shape, dtype, seed=0):
 ])
 def test_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = qkv(shape, dtype)
-    scale = shape[-1] ** -0.5
     before = fa.LAUNCHES
-    out, lse = fa.flash_attention_forward(q, k, v, scale)
-    torch.cuda.synchronize()
+    check_forward(q, k, v, shape[-1] ** -0.5)
     assert fa.LAUNCHES == before + 1
-    assert out.dtype == dtype and lse.dtype == torch.float32
-    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, scale)
-    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
-    torch.testing.assert_close(out.float(), ref_out.float(), atol=1e-5,
-                               rtol=rtol)
-    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 101, 130, 1000])
+@pytest.mark.parametrize("d", [8, 64, 100, 128])
+def test_bf16_kernels_within_the_error_bound(cuda, n, d):
+    shape = (2, 3, n, d)
+    q, k, v = qkv(shape, torch.bfloat16, seed=n + d)
+    dout = qkv(shape, torch.bfloat16, seed=n + d + 1)[0]
+    check_forward(q, k, v, d ** -0.5)
+    check_backward(q, k, v, dout, d ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_calls_equal_the_contiguous_ones(cuda, dtype):
+    shape = (4, 3, 101, 64)
+    q, k, v = chunked_qkv(shape, dtype)
+    assert not q.is_contiguous()
+    b, h, n, d = shape
+    dout = qkv((b, n, h, d), dtype, seed=1)[0].transpose(1, 2)
+    scale = d ** -0.5
+    out, lse = check_forward(q, k, v, scale)
+    grads = check_backward(q, k, v, dout, scale)
+    assert out.transpose(1, 2).is_contiguous()  # (B, N, H, D) memory
+    assert all(g.transpose(1, 2).is_contiguous() for g in grads)
+    cq, ck, cv, cdo = (t.contiguous() for t in (q, k, v, dout))
+    c_out, c_lse = fa.flash_attention_forward(cq, ck, cv, scale)
+    assert torch.equal(out, c_out) and torch.equal(lse, c_lse)
+    c_grads = fa.flash_attention_backward(cq, ck, cv, c_out, c_lse, cdo,
+                                          scale)
+    for name, a, c in zip("qkv", grads, c_grads):
+        assert torch.equal(a, c), f"d{name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_is_deterministic(cuda, dtype):
+    q, k, v = qkv((8, 3, 300, 64), dtype)
+    dout = qkv((8, 3, 300, 64), dtype, seed=1)[0]
+    out, lse = fa.flash_attention_forward(q, k, v, 0.125)
+    first = fa.flash_attention_backward(q, k, v, out, lse, dout, 0.125)
+    second = fa.flash_attention_backward(q, k, v, out, lse, dout, 0.125)
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), f"d{name}"
 
 
 @pytest.mark.cuda
@@ -74,9 +155,18 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fa.flash_attention_forward(q, k.cpu(), v, 0.1)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention_forward(q.half(), k.half(), v.half(), 0.1)
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(ValueError, match="unit stride along D"):
         fa.flash_attention_forward(q.transpose(2, 3), k.transpose(2, 3),
                                    v.transpose(2, 3), 0.1)
+    # bf16 rows of 65 elements (130 bytes), and a base 2 bytes off
+    wide = qkv((2, 2, 16, 65), torch.bfloat16)
+    with pytest.raises(ValueError, match="misaligned"):
+        fa.flash_attention_forward(*(t[..., :64] for t in wide), 0.1)
+    flat = torch.zeros(2 * 2 * 16 * 64 + 1, dtype=torch.bfloat16,
+                       device="cuda")
+    shifted = flat[1:].view(2, 2, 16, 64)
+    with pytest.raises(ValueError, match="misaligned"):
+        fa.flash_attention_forward(shifted, shifted, shifted, 0.1)
     big = qkv((1, 1, 8, 160), torch.float32)
     with pytest.raises(ValueError, match="range"):
         fa.flash_attention_forward(*big, 0.1)
@@ -117,18 +207,9 @@ def test_vit_flash_matches_dense_on_the_card(cuda):
 def test_backward_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = qkv(shape, dtype)
     dout = qkv(shape, dtype, seed=1)[0]
-    scale = shape[-1] ** -0.5
-    out, lse = fa.flash_attention_forward(q, k, v, scale)
     before = fa.BWD_LAUNCHES
-    grads = fa.flash_attention_backward(q, k, v, out, lse, dout, scale)
-    torch.cuda.synchronize()
+    check_backward(q, k, v, dout, shape[-1] ** -0.5)
     assert fa.BWD_LAUNCHES == before + 1
-    ref = fa.flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
-    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
-    for name, got, want in zip("qkv", grads, ref):
-        assert got.dtype == dtype, name
-        torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
-                                   rtol=rtol, msg=f"d{name}")
 
 
 @pytest.mark.cuda
@@ -147,6 +228,24 @@ def test_flash_gradients_match_dense_autograd(cuda):
     for name, a, b in zip("qkv", got, (q.grad, k.grad, v.grad)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
                                    msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_output_gradient_of_any_layout(cuda, dtype):
+    """``.sum().backward()`` hands the backward an expanded ``dout`` of
+    stride 0, which the kernels do not take: the autograd Function copies
+    it, and the gradients are the kernels' on the dense ``dout``."""
+    q, k, v = (t.requires_grad_() for t in qkv((2, 3, 101, 64), dtype))
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+    fa.flash_attention(q, k, v, 0.125).sum().backward()
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    out, lse = fa.flash_attention_forward(q.detach(), k.detach(),
+                                          v.detach(), 0.125)
+    want = fa.flash_attention_backward(q.detach(), k.detach(), v.detach(),
+                                       out, lse, torch.ones_like(out), 0.125)
+    for name, t, w in zip("qkv", (q, k, v), want):
+        assert torch.equal(t.grad, w), f"d{name}"
 
 
 def monotone_pos(rng, b, t, max_slope, j=None):

@@ -140,3 +140,134 @@ def test_flash_attention_function_gradients_are_the_plain_backward():
     # under no_grad nothing is saved and nothing needs a graph
     with torch.no_grad():
         assert not fa.flash_attention(q, k, v, 0.25).requires_grad
+
+
+def test_autograd_dout_reaches_the_backward_in_a_layout_the_kernels_take(
+        monkeypatch):
+    """``.sum().backward()`` hands the Function an expanded ``dout`` of
+    stride 0; the Function copies it before the backward wrapper, which on
+    a card refuses such a layout, and the gradients stay the plain ones."""
+    seen, real = [], fa.flash_attention_backward
+
+    def spy(q, k, v, out, lse, dout, scale):
+        seen.append(dout)
+        return real(q, k, v, out, lse, dout, scale)
+
+    monkeypatch.setattr(fa, "flash_attention_backward", spy)
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in qkv((2, 3, 40, 16), seed=9))
+    fa.flash_attention(q, k, v, 0.25).sum().backward()
+    (dout,) = seen
+    assert fa.layout_fault(dout) is None
+    assert torch.equal(dout, torch.ones_like(dout))
+    out, lse = fa.flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                        0.25)
+    want = fa.flash_attention_backward_plain(
+        q.detach(), k.detach(), v.detach(), out, lse, torch.ones_like(out),
+        0.25)
+    for name, t, w in zip("qkv", (q, k, v), want):
+        torch.testing.assert_close(t.grad, w, rtol=0, atol=0,
+                                   msg=f"d{name}")
+
+
+def test_layout_fault_names_what_the_kernels_do_not_take():
+    b, h, n, d = 2, 3, 40, 16
+    x = torch.zeros(b, n, 3 * h * d, dtype=torch.bfloat16)
+    chunks = [t.reshape(b, n, h, d).transpose(1, 2) for t in x.chunk(3, -1)]
+    assert all(fa.layout_fault(t) is None for t in chunks)
+    assert "unit stride" in fa.layout_fault(chunks[0].transpose(2, 3))
+    assert "unit stride" in fa.layout_fault(
+        torch.ones(()).expand(b, h, n, d))
+    odd = torch.zeros(b, h, n, d + 1, dtype=torch.bfloat16)[..., :d]
+    assert "misaligned" in fa.layout_fault(odd)  # 34-byte rows
+    assert fa.layout_fault(odd.float()) is None  # fp32 rows: 4-byte pieces
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tolerances_follow_the_dtype(dtype):
+    """fp32 kernels are held to atol + rtol·|plain|, bf16 ones to their
+    error bound: one definition for the card tests and chip_smoke.py."""
+    shape, scale = (2, 2, 37, 16), 0.25
+    q, k, v, dout = (torch.from_numpy(a).to(dtype)
+                     for a in qkv(shape, seed=3) + qkv(shape, seed=4)[:1])
+    out, lse = fa.flash_attention_plain(q, k, v, scale)
+    grads = fa.flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
+    fwd = fa.forward_tolerance(q, k, v, scale, out)
+    bwd = fa.backward_tolerance(q, k, v, out, lse, dout, scale, grads)
+    if dtype == torch.float32:
+        atol, rtol = fa.FWD_TOL_FP32
+        torch.testing.assert_close(fwd, atol + rtol * out.abs())
+        atol, rtol = fa.BWD_TOL_FP32
+        want = [atol + rtol * g.abs() for g in grads]
+    else:
+        torch.testing.assert_close(fwd, fa.forward_error_bound(q, k, v,
+                                                               scale))
+        want = fa.backward_error_bound(q, k, v, out, lse, dout, scale)
+    for got, w in zip(bwd, want):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, w)
+
+
+def emulate_forward_bf16(q, k, v, scale, block=64):
+    """The bf16 forward kernel's rounding, in plain fp32 PyTorch: fp32
+    scores of bf16 operands, the online softmax over 64-key tiles, each
+    tile's probabilities rounded to bf16 before P V, fp32 sums, the
+    output rounded to bf16."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    s = torch.einsum("bhnd,bhmd->bhnm", qf, kf) * scale
+    m = torch.full(s.shape[:-1] + (1,), -np.inf)
+    l, acc = torch.zeros_like(m), torch.zeros_like(qf)
+    for k0 in range(0, s.shape[-1], block):
+        tile = s[..., k0:k0 + block]
+        m_new = torch.maximum(m, tile.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(tile - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p.bfloat16().float() @ vf[..., k0:k0 + block, :]
+        m = m_new
+    return (acc / l).bfloat16()
+
+
+def emulate_backward_bf16(q, k, v, out, lse, dout, scale):
+    """The bf16 backward kernels' rounding: P and dS computed in fp32 and
+    rounded to bf16 as the operands of dV, dK and dQ; results in bf16."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    p = torch.exp(torch.einsum("bhnd,bhmd->bhnm", qf, kf) * scale
+                  - lse.unsqueeze(-1))
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    return ((dsb @ kf * scale).bfloat16(),
+            (dsb.transpose(-1, -2) @ qf * scale).bfloat16(),
+            (pb.transpose(-1, -2) @ dof).bfloat16())
+
+
+@pytest.mark.parametrize("magnitude", [1.0, 8.0])
+@pytest.mark.parametrize("d", [64, 100])
+@pytest.mark.parametrize("n", [101, 257])
+def test_error_bounds_hold_for_the_kernels_bf16_rounding(n, d, magnitude):
+    """An emulation of where the bf16 kernels round (P and dS as
+    tensor-core operands) stays within forward_error_bound and
+    backward_error_bound of the plain versions, the tolerances the card
+    tests and chip_smoke.py hold the kernels to."""
+    scale = d ** -0.5
+    worst = 0.0
+    for seed in (11, 12):
+        q, k, v, dout = (torch.from_numpy(magnitude * a).bfloat16()
+                         for a in qkv((2, 2, n, d), seed) + qkv(
+                             (2, 2, n, d), seed + 100)[:1])
+        ref_out, lse = fa.flash_attention_plain(q, k, v, scale)
+        out = emulate_forward_bf16(q, k, v, scale)
+        ratio = ((out.float() - ref_out.float()).abs()
+                 / fa.forward_error_bound(q, k, v, scale)).max().item()
+        assert ratio <= 1, f"out at {ratio} of the bound"
+        worst = max(worst, ratio)
+        want = fa.flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                                 scale)
+        got = emulate_backward_bf16(q, k, v, out, lse, dout, scale)
+        bounds = fa.backward_error_bound(q, k, v, out, lse, dout, scale)
+        for name, g, w, b in zip("qkv", got, want, bounds):
+            ratio = ((g.float() - w.float()).abs() / b).max().item()
+            assert ratio <= 1, f"d{name} at {ratio} of the bound"
+            worst = max(worst, ratio)
+    assert worst > 0  # the rounding shows, and the bound is not vacuous

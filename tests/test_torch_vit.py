@@ -161,3 +161,46 @@ def test_unported_parts_raise():
         model(x)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         model.train()(x)
+
+
+def test_flash_path_hands_the_kernel_views_of_the_projection(monkeypatch):
+    """q, k, v reach the flash wrapper as the transposed chunks of the qkv
+    projection's output, sharing its storage (no copy), and the wrapper's
+    (B, N, H, D)-memory output reaches the out projection as a view."""
+    from semi_seg_ecg_tpu_torch.models.backbones import vision_transformer
+
+    heads, dim_head = 2, 32
+    attn = Attention(64, 64, heads=heads, dim_head=dim_head,
+                     attention_impl="flash").eval()
+    seen = {}
+    attn.to_qkv.register_forward_hook(
+        lambda module, args, out: seen.update(qkv=out))
+    attn.to_out[0].register_forward_pre_hook(
+        lambda module, args: seen.update(merged=args[0]))
+
+    def fake_flash(q, k, v, scale):
+        seen.update(q=q, k=k, v=v)
+        out = torch_flash.flash_attention_plain(q, k, v, scale)[0]
+        seen["out"] = out.transpose(1, 2).contiguous().transpose(1, 2)
+        return seen["out"]
+
+    monkeypatch.setattr(vision_transformer, "flash_attention", fake_flash)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 11, 64)).astype(np.float32))
+    with torch.no_grad():
+        got = attn(x)
+    qkv, inner = seen["qkv"], heads * dim_head
+    for i, name in enumerate("qkv"):
+        t = seen[name]
+        assert t.shape == (3, heads, 11, dim_head), name
+        assert not t.is_contiguous(), name
+        assert (t.untyped_storage().data_ptr()
+                == qkv.untyped_storage().data_ptr()), name
+        assert t.data_ptr() == qkv.data_ptr() + i * inner * 4, name
+        assert t.stride() == (11 * 3 * inner, dim_head, 3 * inner, 1), name
+    assert (seen["merged"].untyped_storage().data_ptr()
+            == seen["out"].untyped_storage().data_ptr())
+    # and the module's output is the dense path's
+    attn.attention_impl = "xla"
+    with torch.no_grad():
+        np.testing.assert_allclose(got.numpy(), attn(x).numpy(), atol=1e-6)
