@@ -11,10 +11,12 @@ non-zero exit when it fails:
 1. build every CUDA kernel of the ported paths from ``csrc/`` (one nvcc per
    source, all started together), print the build time and the compiler's
    register report, and count each flash kernel's tensor-core (HMMA)
-   instructions in its SASS: the bf16 kernels must have some;
+   instructions in its SASS: every flash kernel must have some (bf16
+   m16n8k16, and TF32 m16n8k8 for the 3xTF32 fp32 kernels);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving and training paths give it (q, k, v contiguous and
-   as the ViT hands them over) and at long and ragged shapes, bf16 flash
+   as the ViT hands them over) and at long and ragged shapes, in both
+   dtypes: fp32 flash within atol (+ rtol) of the plain version, bf16
    within its error bound; time kernel, plain version and the one-call
    PyTorch equivalent, and compute the card's bound for the same work;
 3. serve the full-width ``vit_tiny`` + FCNHead recipe
@@ -57,10 +59,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 OUT_JSON = os.path.join(WORK, "chip_smoke.json")
 
-# H100 SXM data-sheet peaks (dense): device memory and, per input type, the
-# rate of the units that type runs on
+# H100 SXM data-sheet peaks (dense): device memory and the rate of the units
+# a kernel's products run on: fp32 on the CUDA cores (the gather), bf16 on
+# the tensor cores, and fp32-accurate products on the tensor cores as three
+# TF32 products each (3xTF32: 495 / 3 TFLOP/s, the fastest fp32-accurate
+# product the card has, so the fp32 flash kernels' bound)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "3xtf32": 495e12 / 3}
+# the PEAK_FLOPS entry each flash dtype is bounded by
+FLASH_PEAK = {"float32": "3xtf32", "bfloat16": "bfloat16"}
 
 STEMS = ("flash_attention_fwd", "flash_attention_bwd", "gather1d")
 CSRC = "semi_seg_ecg_tpu_torch/csrc/{}.cu"
@@ -75,17 +82,25 @@ REPLACES = {
 MAIN_ROW = {"flash_attention_fwd": "train_bf16",
             "flash_attention_bwd": "train_bf16",
             "gather1d": "train_resize_crop"}
+# the fp32 row of each flash kernel's entry (its "fp32" object): the
+# serving entry's shape for the forward (fp32 unless test.use_amp), the
+# fp32 train step's for the backward
+FP32_ROW = {"flash_attention_fwd": "slice_fp32",
+            "flash_attention_bwd": "train_fp32"}
 # the training shape once more, with q, k, v the transposed chunks of one
 # (B, N, 3·H·D) projection and dO a (B, N, H, D) gradient, as the ViT hands
 # them over
-STRIDED = ("train_bf16_strided", (32, 3, 101, 64), "bfloat16")
+STRIDED = [("train_bf16_strided", (32, 3, 101, 64), "bfloat16"),
+           ("train_fp32_strided", (32, 3, 101, 64), "float32")]
 # (label, (B, H, N, D), dtype): the serving shape of vit_tiny at batch 16
 # first, in both precisions the entry runs; the training student pass
-# (labeled + strong, 32 windows); then a long and ragged shapes
+# (labeled + strong, 32 windows; fp32 under precision: fp32); then a long
+# and ragged shapes
 FLASH_SHAPES = [
     ("slice_fp32", (16, 3, 101, 64), "float32"),
     ("slice_bf16", (16, 3, 101, 64), "bfloat16"),
     ("train_bf16", (32, 3, 101, 64), "bfloat16"),
+    ("train_fp32", (32, 3, 101, 64), "float32"),
     ("long_bf16", (8, 12, 2048, 64), "bfloat16"),
     ("ragged_fp32", (4, 3, 1000, 64), "float32"),
     ("ragged_bf16_d100", (2, 4, 257, 100), "bfloat16"),
@@ -93,7 +108,7 @@ FLASH_SHAPES = [
     # per CTA, so its time against slice_fp32 shows what one CTA costs
     ("one_head_fp32", (1, 1, 101, 64), "float32"),
     ("one_head_bf16", (1, 1, 101, 64), "bfloat16"),
-    STRIDED,
+    *STRIDED,
 ]
 # the backward at the training step's shape (32 windows, bf16 under the
 # recipe's autocast, fp32 in the fp32 checks) first, then long and ragged
@@ -105,7 +120,7 @@ BWD_SHAPES = [
     ("ragged_bf16_d100", (2, 4, 257, 100), "bfloat16"),
     # 2 + 2 CTAs with the training shape's work per CTA (see one_head_fp32)
     ("one_head_bf16", (1, 1, 101, 64), "bfloat16"),
-    STRIDED,
+    *STRIDED,
 ]
 # (label, kind, (B, C, T_in), J, slope): the training step's three calls
 # (resize-crop of the signal, of the labels, the partial-sine roll over a
@@ -118,7 +133,8 @@ GATHER_SHAPES = [
 ]
 # kernel vs plain, |kernel - plain| <= tolerance, element by element, from
 # ops/flash_attention.forward_tolerance and backward_tolerance: fp32 atol +
-# rtol |plain| (FWD_TOL_FP32, BWD_TOL_FP32); bf16 the error bound of
+# rtol |plain| (FWD_TOL_FP32, BWD_TOL_FP32; the kernels' 3xTF32 products
+# are within a few fp32 roundings of fp32 ones); bf16 the error bound of
 # forward_error_bound and backward_error_bound (the kernels round P and dS
 # to bf16 as tensor-core operands; the bound is that rounding, doubled,
 # plus one bf16 ulp of the result). lse within LSE_ATOL in both. Gather:
@@ -176,31 +192,32 @@ def device_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, flops, dtype):
+def bound(nbytes, flops, peak):
     """The card's least time in ms for moving ``nbytes`` and doing
-    ``flops`` at the peak of ``dtype``, and which of the two bounds it."""
+    ``flops`` at ``PEAK_FLOPS[peak]``, and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
 def attention_bound(shape, dtype):
     """softmax(q kᵀ) v plus its logsumexp: each of q, k, v, out moved once
-    (lse too), against 4·B·H·N²·D flops."""
+    (lse too), against 4·B·H·N²·D flops at the dtype's FLASH_PEAK."""
     b, h, n, d = shape
     elem = 4 if dtype == "float32" else 2
     return bound(4 * b * h * n * d * elem + b * h * n * 4,
-                 4 * b * h * n * n * d, dtype)
+                 4 * b * h * n * n * d, FLASH_PEAK[dtype])
 
 
 def attention_bwd_bound(shape, dtype):
     """dq, dk, dv: q, k, v, o, dO read and dq, dk, dv written once (and
-    lse), against 10·B·H·N²·D flops (S, dP, dV, dQ, dK products)."""
+    lse), against 10·B·H·N²·D flops (S, dP, dV, dQ, dK products) at the
+    dtype's FLASH_PEAK."""
     b, h, n, d = shape
     elem = 4 if dtype == "float32" else 2
     return bound(8 * b * h * n * d * elem + b * h * n * 4,
-                 10 * b * h * n * n * d, dtype)
+                 10 * b * h * n * n * d, FLASH_PEAK[dtype])
 
 
 def excess_over(got, want, tol):
@@ -256,10 +273,12 @@ def phase_build():
     hmma = {stem: hmma_counts(library_path(stem)) for stem in STEMS[:2]}
     for stem, counts in hmma.items():
         log(f"  HMMA instructions in {stem}: {counts}")
-        mma = {k: c for k, c in counts.items() if "_mma" in k}
-        if not mma or not all(mma.values()):
-            raise SystemExit(f"phase 1 failed: the bf16 kernels of {stem} "
-                             f"hold no tensor-core instructions ({counts})")
+        flash = [k for k in counts if k.startswith("flash_")]
+        if (not any("_mma" in k for k in flash)
+                or not any("_fp32" in k for k in flash)
+                or not all(counts[k] for k in flash)):
+            raise SystemExit(f"phase 1 failed: a flash kernel of {stem} "
+                             f"holds no tensor-core instructions ({counts})")
     return seconds, hmma
 
 
@@ -346,7 +365,8 @@ def check_kernel(torch, fa, gen, label, shape, dtype_name):
     log(f"  fwd {label} {shape} {dtype_name}: err out {err_out:.3g} "
         f"({ratio:.3g} of the tolerance, {tol_name}) lse {err_lse:.3g} | "
         f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{FLASH_PEAK[dtype_name]})")
     if not ok:
         raise SystemExit(f"phase 2 failed: forward {label} disagrees with "
                          f"the plain version (out {err_out}, {ratio} of the "
@@ -356,7 +376,7 @@ def check_kernel(torch, fa, gen, label, shape, dtype_name):
             "tolerance": tol_name, "max_tolerance_ratio": ratio,
             "atol_lse": fa.LSE_ATOL, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "bound_peak": FLASH_PEAK[dtype_name]}
 
 
 def check_backward(torch, fa, gen, label, shape, dtype_name):
@@ -384,11 +404,8 @@ def check_backward(torch, fa, gen, label, shape, dtype_name):
         errs.append(err)
         ratio = max(ratio, r)
     del tols
-    # the fp32 kernels sum in the order of cuBLAS's FFMA GEMMs at D = 64
+    # a reading only: no kernel sums in the plain version's order
     bit_equal = all(torch.equal(g, w) for g, w in zip(grads, want))
-    if dtype_name == "float32" and shape[-1] == 64 and not bit_equal:
-        raise SystemExit(f"phase 2 failed: fp32 backward {label} is no "
-                         "longer bit-equal to the plain version")
     long = shape[2] >= 1000
     kernel_ms = device_ms(torch, lambda: fa.flash_attention_backward(
         q, k, v, out, lse, dout, scale), 20 if long else 200)
@@ -405,7 +422,7 @@ def check_backward(torch, fa, gen, label, shape, dtype_name):
         f"tolerance, {tol_name}; bit-equal {bit_equal}) | kernel "
         f"{kernel_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound "
-        f"{bound_ms:.5f} ms ({bound_by})")
+        f"{bound_ms:.5f} ms ({bound_by}, {FLASH_PEAK[dtype_name]})")
     if not (math.isfinite(err) and ratio <= 1):
         raise SystemExit(f"phase 2 failed: backward {label} disagrees with "
                          f"the plain version (max error {err}, {ratio} of "
@@ -415,7 +432,7 @@ def check_backward(torch, fa, gen, label, shape, dtype_name):
             "tolerance": tol_name, "max_tolerance_ratio": ratio,
             "bit_equal": bit_equal, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "bound_peak": FLASH_PEAK[dtype_name]}
 
 
 def gather_positions(torch, kind, b, t_in, j, slope):
@@ -1152,6 +1169,11 @@ def kernel_entry(name, rows, launches, serve_launches=None):
              "ms": main["ms"], "plain_ms": main["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
              "library_ms": main["library_ms"], "shapes": rows}
+    if name in FP32_ROW:
+        row = next(r for r in rows if r["shape"] == FP32_ROW[name])
+        entry["fp32"] = {"row": row["shape"], **{
+            k: row[k] for k in ("ms", "bound_ms", "bound_by", "bound_peak",
+                                "library_ms")}}
     if serve_launches is not None:
         entry["launches_serving"] = serve_launches
     return entry

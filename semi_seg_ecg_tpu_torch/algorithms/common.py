@@ -19,7 +19,10 @@ returns the body of one step. Around it, the loop:
 - evaluates after each epoch and writes ``best-loss.ckpt`` /
   ``best-{metric}.ckpt`` and a ``log.txt`` line.
 
-Precision: the whole run is full fp32 (no TF32, ``full_fp32``); with
+Precision: the whole run is full fp32 (no TF32 in cuBLAS and cuDNN,
+``full_fp32``; the flash kernels form fp32 products from three TF32
+products each, 3xTF32 with fp32 accumulation, to fp32 accuracy, which
+``full_fp32`` does not govern); with
 ``precision: bf16`` the forwards and losses run under bf16 autocast, with
 fp32 parameters and optimizer and no loss scaling, as the JAX package
 computes in bf16 with fp32 parameters. ``train.fused_state`` and
@@ -603,8 +606,10 @@ def run_test(config: Dict[str, Any]) -> Dict[str, float]:
 
 def run_inference(config: Dict[str, Any]) -> np.ndarray:
     """Softmax of ``seg_logits`` over the test split, in dataset order →
-    ``test_outputs.npy`` (no labels, no metrics). Full fp32 (no TF32)
-    unless ``test.use_amp``, which runs the model under bf16 autocast."""
+    ``test_outputs.npy`` (no labels, no metrics). Full fp32 unless
+    ``test.use_amp``, which runs the model under bf16 autocast: no TF32 in
+    cuBLAS and cuDNN, and the flash kernels' 3xTF32 products (fp32
+    accumulation, fp32 accuracy) are outside what ``full_fp32`` sets."""
     device = resolve_device(config)
     out_dir = experiment_dir(config)
     if out_dir:

@@ -33,6 +33,14 @@
 // with Δ in PyTorch (SDPA's backward: 18.1 us), and 1.71 ms at
 // (8, 12, 2048, 64), against 11.63 ms (151 TFLOP/s; SDPA 0.65 ms).
 //
+// In fp32 (3xTF32, 165 TFLOP/s of fp32-accurate products) the training
+// shape moves 19.9 MB and does 0.63 GFLOP: the bound is 5.94 us of memory
+// (3.8 us of 3xTF32 time). On the same card (chip_smoke.py phase 2, parent
+// and these kernels in one call; PERF.md §6) the fp32 kernels take 52.5 us
+// there, Δ included, against 75.8-76.0 us for the CUDA-core kernels with Δ
+// in PyTorch (SDPA's backward 59.1-71.4 us), and 340 us at
+// (4, 3, 1000, 64), against 498.5 us (23 TFLOP/s; SDPA 336-338 us).
+//
 // bf16 design (flash_bwd_dq_mma, then flash_bwd_dkdv_mma; 4 warps, 16 rows
 // or keys per warp):
 //   - every product is mma.sync m16n8k16 with bf16 operands and fp32
@@ -54,16 +62,27 @@
 //     zero-filled by the copy's src-size, D is rounded up to 64 or 128.
 //   - scale·log2(e) multiplies the fp32 scores, and P = exp2(S' − lse·log2 e).
 //
-// fp32 (flash_bwd_dkdv_fp32, flash_bwd_dq_fp32): the CUDA-core kernels of the
-// first port, their arithmetic unchanged (Δ from the caller, computed as the
-// plain version computes it, so the gradients stay the plain version's bit
-// for bit at D = 64), with strided addressing. 256 threads form a 16 x 16
-// grid: in dK/dV thread (ty, tx) owns key rows 4ty..4ty+3 and query columns
-// tx+16j of the transposed score tile, and key rows 4ty..4ty+3, columns
-// tx+16e of the accumulators; in dQ query rows 4ty.., key columns tx+16j,
-// and dQ columns tx+16e. Operands read four rows at a time are stored
-// transposed and read as float4; operands read by column are stored with
-// rows padded to D+1 floats.
+// fp32 design (flash_bwd_dq_fp32, then flash_bwd_dkdv_fp32): the bf16
+// kernels' structure, with every product in 3xTF32 (mma.sync m16n8k8, three
+// products of the tf32-split operands each, fp32 accumulators;
+// flash_common.cuh), which keeps fp32's accuracy and is the kernels' own
+// contract, whatever the TF32 flags of cuBLAS and cuDNN say:
+//   - Pᵀ, dS and dSᵀ are fed to the next product from registers, split
+//     there, with the contracted index relabelled as in the fp32 forward (a
+//     C tile's columns 2t, 2t+1 are the A operand's t, t+4; the B operand's
+//     rows are read in that order). P and dS = P (dP − Δ) are fp32.
+//   - Δ is the dQ kernel's, in fp32, from the O and dO tiles it streams; the
+//     O tile lands in the second K stage and is read before K tile 1 is
+//     loaded there, so the kernel takes 6 tiles of shared memory: 2 CTAs
+//     per SM at D = 64 (104,960 bytes), and it fits at D = 128.
+//   - the products and fragments are the forward's (flash_common.cuh:
+//     gemm_abt_tf32x3 for S, dP and their transposes, gemm_cb_tf32x3 for
+//     the products fed from registers); tiles stream through the same
+//     2-stage cp.async ring; columns >= D are zero-filled.
+//   - results differ from the plain version's in the last bits (3xTF32
+//     products, another summation order): within atol 1e-4 + rtol 1e-4.
+//     The same tiles and no atomics keep them deterministic, and a strided
+//     call equals the contiguous one bit for bit.
 
 #include <initializer_list>
 #include <math.h>
@@ -421,334 +440,285 @@ cudaError_t launch_mma(const Tensor4& q, const Tensor4& k, const Tensor4& v,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32: tensor cores, 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int THREADS = 256;       // 16 x 16 thread grid
-constexpr int TSTRIDE = BLOCK + 4; // row stride of the transposed tiles
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// `tiles` fp32 tiles of BLOCK rows padded by 4 floats, then `vectors` fp32
+// vectors of BLOCK
+template <int DMAX>
+constexpr size_t fp32_smem_bytes(int tiles, int vectors) {
+  return sizeof(float) * (tiles * BLOCK * (DMAX + 4) + vectors * BLOCK);
 }
 
+// dQ for one 64-query tile of one (batch, head); computes and stores Δ
 template <int DMAX>
-constexpr size_t dkdv_smem_floats() {
-  return 2 * DMAX * TSTRIDE           // k, v tiles, transposed
-         + 2 * BLOCK * (DMAX + 1)     // q (pre-scaled), dO tiles, padded rows
-         + 2 * BLOCK * TSTRIDE        // P, dS tiles, [q row][key]
-         + 2 * BLOCK;                 // lse, Δ
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dq_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
+                  const float* __restrict__ lse, float* __restrict__ delta,
+                  Tensor4 dq, int heads, int n, int d, float scale,
+                  bool vec16) {
+  constexpr int LD = DMAX + 4;  // padded row, in floats (4 modulo 32)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [BLOCK][LD]
+  float* dos = qs + BLOCK * LD;                     // [BLOCK][LD]
+  float* ks = dos + BLOCK * LD;                     // [2][BLOCK][LD]
+  float* vs = ks + 2 * BLOCK * LD;                  // [2][BLOCK][LD]
+  float* lse_s = vs + 2 * BLOCK * LD;               // [BLOCK]
+  float* delta_s = lse_s + BLOCK;                   // [BLOCK]
+  // the O tile is only read for Δ, before K tile 1 needs the space: an own
+  // buffer would take a second CTA off each SM
+  float* os = ks + BLOCK * LD;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BLOCK;
+  const int wrow = warp * 16;
+  const float* qh = static_cast<const float*>(q.ptr) + head_offset(q, bh, heads);
+  const float* kh = static_cast<const float*>(k.ptr) + head_offset(k, bh, heads);
+  const float* vh = static_cast<const float*>(v.ptr) + head_offset(v, bh, heads);
+  const float* oh = static_cast<const float*>(o.ptr) + head_offset(o, bh, heads);
+  const float* doh =
+      static_cast<const float*>(dout.ptr) + head_offset(dout, bh, heads);
+  const int num_kb = (n + BLOCK - 1) / BLOCK;
+
+  // group 0: q, dO, O and K/V tile 0
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(qs, qh, q.sn, q0, n, d, vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(dos, doh, dout.sn, q0, n, d,
+                                                 vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(os, oh, o.sn, q0, n, d,
+                                                 vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(ks, kh, k.sn, 0, n, d, vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(vs, vh, v.sn, 0, n, d, vec16);
+  flash::cp_async_commit();
+  if (tid < BLOCK)
+    lse_s[tid] = q0 + tid < n ? lse[(size_t)bh * n + q0 + tid] * LOG2E : 0.f;
+  flash::cp_async_wait<0>();
+  __syncthreads();
+
+  // Δ = rowsum(dO ⊙ O) in fp32 from the tiles (zero past d): two lanes per
+  // row, each over half the columns
+  {
+    const int r = tid >> 1, c0 = (tid & 1) * (DMAX / 2);
+    float sum = 0.f;
+#pragma unroll 8
+    for (int c = c0; c < c0 + DMAX / 2; ++c)
+      sum = fmaf(os[r * LD + c], dos[r * LD + c], sum);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((tid & 1) == 0) {
+      delta_s[r] = sum;
+      if (q0 + r < n) delta[(size_t)bh * n + q0 + r] = sum;
+    }
+  }
+  __syncthreads();  // O is read and Δ is in shared memory
+  // group 1: K/V tile 1 (maybe empty), over O
+  if (num_kb > 1) {
+    flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(ks + BLOCK * LD, kh, k.sn,
+                                                   BLOCK, n, d, vec16);
+    flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(vs + BLOCK * LD, vh, v.sn,
+                                                   BLOCK, n, d, vec16);
+  }
+  flash::cp_async_commit();
+
+  const bool live = q0 + wrow < n;
+  float lse2[2], dlt[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wrow + g + 8 * i;
+    row_ok[i] = q0 + r < n;
+    lse2[i] = lse_s[r];
+    dlt[i] = delta_s[r];
+  }
+  const float scale_log2 = scale * LOG2E;
+  float acc[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kb = 0; kb < num_kb; ++kb) {
+    if (kb > 0) {
+      flash::cp_async_wait<1>();
+      __syncthreads();
+    }
+    const float* kt = ks + (kb & 1) * BLOCK * LD;
+    const float* vt = vs + (kb & 1) * BLOCK * LD;
+    const int k0 = kb * BLOCK;
+    if (live) {
+      float s[8][4], dp[8][4];
+      flash::gemm_abt_tf32x3<DMAX, LD>(s, qs + wrow * LD, kt, lane);
+      flash::gemm_abt_tf32x3<DMAX, LD>(dp, dos + wrow * LD, vt, lane);
+      // P and dS = P (dP − Δ), rows g (e < 2) and g + 8
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const bool ok = row_ok[i] && k0 + 8 * j + 2 * t + (e & 1) < n;
+          const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[i]) : 0.f;
+          dp[j][e] = p * (dp[j][e] - dlt[i]);
+        }
+      }
+      flash::gemm_cb_tf32x3<DMAX, LD>(acc, dp, kt, lane);  // dQ += dS K
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (kb + 2 < num_kb) {
+      flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
+          ks + (kb & 1) * BLOCK * LD, kh, k.sn, (kb + 2) * BLOCK, n, d,
+          vec16);
+      flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
+          vs + (kb & 1) * BLOCK * LD, vh, v.sn, (kb + 2) * BLOCK, n, d,
+          vec16);
+    }
+    flash::cp_async_commit();
+  }
+
+  if (!live) return;
+  float* dqh = static_cast<float*>(dq.ptr) + head_offset(dq, bh, heads);
+  flash::store_rows<DMAX>(dqh, dq.sn, acc, q0 + wrow, n, d, scale, scale);
 }
 
+// dK and dV for one 64-key tile of one (batch, head); reads the Δ that the
+// dQ kernel stored
 template <int DMAX>
-constexpr size_t dq_smem_floats() {
-  return 2 * DMAX * TSTRIDE           // q (pre-scaled), dO tiles, transposed
-         + 2 * BLOCK * (DMAX + 1)     // k, v tiles, padded rows
-         + BLOCK * TSTRIDE;           // dS tile, [key][q row]
-}
-
-// dK and dV for one 64-key tile of one (batch, head)
-template <int DMAX>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dkdv_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, Tensor4 dk, Tensor4 dv,
-                    int heads, int n, int d, float scale) {
-  constexpr int EPT = DMAX / 16;  // accumulator columns per thread
-  constexpr int QS = DMAX + 1;    // padded row stride
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                       // [DMAX][TSTRIDE]
-  float* vt = kt + DMAX * TSTRIDE;        // [DMAX][TSTRIDE]
-  float* qs = vt + DMAX * TSTRIDE;        // [BLOCK][QS]
-  float* dos = qs + BLOCK * QS;           // [BLOCK][QS]
-  float* pt = dos + BLOCK * QS;           // [BLOCK q][TSTRIDE keys]
-  float* dst = pt + BLOCK * TSTRIDE;      // [BLOCK q][TSTRIDE keys]
-  float* lse_s = dst + BLOCK * TSTRIDE;   // [BLOCK]
-  float* delta_s = lse_s + BLOCK;         // [BLOCK]
+                    int heads, int n, int d, float scale, bool vec16) {
+  constexpr int LD = DMAX + 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);  // [BLOCK][LD]
+  float* vs = ks + BLOCK * LD;                      // [BLOCK][LD]
+  float* qs = vs + BLOCK * LD;                      // [2][BLOCK][LD]
+  float* dos = qs + 2 * BLOCK * LD;                 // [2][BLOCK][LD]
+  float* lse_s = dos + 2 * BLOCK * LD;              // [2][BLOCK]
+  float* delta_s = lse_s + 2 * BLOCK;               // [2][BLOCK]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int k0 = blockIdx.x * BLOCK;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
-  const float* qh =
-      static_cast<const float*>(q.ptr) + head_offset(q, bh, heads);
-  const float* kh =
-      static_cast<const float*>(k.ptr) + head_offset(k, bh, heads);
-  const float* vh =
-      static_cast<const float*>(v.ptr) + head_offset(v, bh, heads);
+  const int k0 = blockIdx.x * BLOCK;
+  const int wrow = warp * 16;
+  const float* qh = static_cast<const float*>(q.ptr) + head_offset(q, bh, heads);
+  const float* kh = static_cast<const float*>(k.ptr) + head_offset(k, bh, heads);
+  const float* vh = static_cast<const float*>(v.ptr) + head_offset(v, bh, heads);
   const float* doh =
       static_cast<const float*>(dout.ptr) + head_offset(dout, bh, heads);
   const float* lh = lse + (size_t)bh * n;
   const float* dh = delta + (size_t)bh * n;
-
-  flash::load_fp32<BLOCK, DMAX, THREADS, true>(
-      kh, k.sn, vh, v.sn, k0, n, d, [&](int r, int c, float kx, float vx) {
-        kt[c * TSTRIDE + r] = kx;
-        vt[c * TSTRIDE + r] = vx;
-      });
-
-  float acc_dk[4][EPT], acc_dv[4][EPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) acc_dk[i][e] = acc_dv[i][e] = 0.f;
-
   const int num_qb = (n + BLOCK - 1) / BLOCK;
-  for (int qb = 0; qb < num_qb; ++qb) {
-    const int q0 = qb * BLOCK;
-    __syncthreads();  // the previous tile's readers are done
-    flash::load_fp32<BLOCK, DMAX, THREADS, true>(
-        qh, q.sn, doh, dout.sn, q0, n, d,
-        [&](int r, int c, float qx, float dx) {
-          qs[r * QS + c] = qx * scale;  // pre-scaled, as in the forward
-          dos[r * QS + c] = dx;
-        });
+
+  auto load_q_tile = [&](int qb) {
+    const int stage = qb & 1;
+    flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
+        qs + stage * BLOCK * LD, qh, q.sn, qb * BLOCK, n, d, vec16);
+    flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
+        dos + stage * BLOCK * LD, doh, dout.sn, qb * BLOCK, n, d, vec16);
     if (tid < BLOCK) {
-      const bool ok = q0 + tid < n;
-      lse_s[tid] = ok ? lh[q0 + tid] : 0.f;
-      delta_s[tid] = ok ? dh[q0 + tid] : 0.f;
+      const int row = qb * BLOCK + tid;
+      const bool ok = row < n;
+      flash::cp_async4(lse_s + stage * BLOCK + tid, ok ? lh + row : lh,
+                       ok ? 4 : 0);
+      flash::cp_async4(delta_s + stage * BLOCK + tid, ok ? dh + row : dh,
+                       ok ? 4 : 0);
     }
-    __syncthreads();
+  };
 
-    // Sᵀ and dPᵀ for key rows 4ty+i, query columns tx+16j; the sums run
-    // over c in the forward's order, so S is bit-equal to the S its lse
-    // was taken over
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      const float4 k4 = ld4(&kt[c * TSTRIDE + 4 * ty]);
-      const float4 v4 = ld4(&vt[c * TSTRIDE + 4 * ty]);
-      const float kr[4] = {k4.x, k4.y, k4.z, k4.w};
-      const float vr[4] = {v4.x, v4.y, v4.z, v4.w};
-      float qc[4], dc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qc[j] = qs[(tx + 16 * j) * QS + c];
-        dc[j] = dos[(tx + 16 * j) * QS + c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qc[j], kr[i], s[i][j]);
-          dp[i][j] = fmaf(dc[j], vr[i], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qr = tx + 16 * j;
-      const bool row_ok = q0 + qr < n;
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool ok = row_ok && k0 + 4 * ty + i < n;
-        p[i] = ok ? expf(s[i][j] - lse_s[qr]) : 0.f;
-        ds[i] = p[i] * (dp[i][j] - delta_s[qr]);
-      }
-      *reinterpret_cast<float4*>(&pt[qr * TSTRIDE + 4 * ty]) =
-          make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(&dst[qr * TSTRIDE + 4 * ty]) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(ks, kh, k.sn, k0, n, d, vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(vs, vh, v.sn, k0, n, d, vec16);
+  load_q_tile(0);
+  flash::cp_async_commit();
+  if (num_qb > 1) load_q_tile(1);
+  flash::cp_async_commit();
 
-    // dV += Pᵀ dO and dK += dSᵀ (q · scale) over this tile's valid rows
-    const int qn = min(BLOCK, n - q0);
-    for (int r = 0; r < qn; ++r) {
-      const float4 p4 = ld4(&pt[r * TSTRIDE + 4 * ty]);
-      const float4 d4 = ld4(&dst[r * TSTRIDE + 4 * ty]);
+  const bool live = k0 + wrow < n;
+  bool key_ok[2];
 #pragma unroll
-      for (int e = 0; e < EPT; ++e) {
-        const float dov = dos[r * QS + tx + 16 * e];
-        const float qv = qs[r * QS + tx + 16 * e];
-        acc_dv[0][e] = fmaf(p4.x, dov, acc_dv[0][e]);
-        acc_dv[1][e] = fmaf(p4.y, dov, acc_dv[1][e]);
-        acc_dv[2][e] = fmaf(p4.z, dov, acc_dv[2][e]);
-        acc_dv[3][e] = fmaf(p4.w, dov, acc_dv[3][e]);
-        acc_dk[0][e] = fmaf(d4.x, qv, acc_dk[0][e]);
-        acc_dk[1][e] = fmaf(d4.y, qv, acc_dk[1][e]);
-        acc_dk[2][e] = fmaf(d4.z, qv, acc_dk[2][e]);
-        acc_dk[3][e] = fmaf(d4.w, qv, acc_dk[3][e]);
-      }
-    }
+  for (int i = 0; i < 2; ++i) key_ok[i] = k0 + wrow + g + 8 * i < n;
+  const float scale_log2 = scale * LOG2E;
+  float acc_dk[DMAX / 8][4], acc_dv[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
   }
 
+  for (int qb = 0; qb < num_qb; ++qb) {
+    flash::cp_async_wait<1>();  // tile qb has landed; qb+1 may be in flight
+    __syncthreads();
+    const int stage = qb & 1;
+    const float* qt = qs + stage * BLOCK * LD;
+    const float* dot = dos + stage * BLOCK * LD;
+    const float* lse_t = lse_s + stage * BLOCK;
+    const float* dlt_t = delta_s + stage * BLOCK;
+    const int q0 = qb * BLOCK;
+    if (live) {
+      // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: 16 keys x 64 queries
+      float s[8][4], dp[8][4];
+      flash::gemm_abt_tf32x3<DMAX, LD>(s, ks + wrow * LD, qt, lane);
+      flash::gemm_abt_tf32x3<DMAX, LD>(dp, vs + wrow * LD, dot, lane);
+      // Pᵀ and dSᵀ = Pᵀ (dPᵀ − Δ); keys g (e < 2) and g + 8, queries
+      // 8j + 2t + (e & 1)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          const bool ok = key_ok[e >> 1] && q0 + c < n;
+          const float p =
+              ok ? exp2f(s[j][e] * scale_log2 - lse_t[c] * LOG2E) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dlt_t[c]);
+        }
+      }
+      flash::gemm_cb_tf32x3<DMAX, LD>(acc_dv, s, dot, lane);  // dV += Pᵀ dO
+      flash::gemm_cb_tf32x3<DMAX, LD>(acc_dk, dp, qt, lane);  // dK += dSᵀ Q
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (qb + 2 < num_qb) load_q_tile(qb + 2);
+    flash::cp_async_commit();
+  }
+
+  if (!live) return;
   float* dkh = static_cast<float*>(dk.ptr) + head_offset(dk, bh, heads);
   float* dvh = static_cast<float*>(dv.ptr) + head_offset(dv, bh, heads);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + 4 * ty + i;
-    if (r >= n) continue;
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int c = tx + 16 * e;
-      if (c < d) {
-        dkh[r * dk.sn + c] = acc_dk[i][e];
-        dvh[r * dv.sn + c] = acc_dv[i][e];
-      }
-    }
-  }
-}
-
-// dQ for one 64-query tile of one (batch, head)
-template <int DMAX>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, Tensor4 dq, int heads,
-                  int n, int d, float scale) {
-  constexpr int EPT = DMAX / 16;
-  constexpr int KS = DMAX + 1;
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                       // [DMAX][TSTRIDE]
-  float* dot = qt + DMAX * TSTRIDE;       // [DMAX][TSTRIDE]
-  float* ks = dot + DMAX * TSTRIDE;       // [BLOCK][KS]
-  float* vs = ks + BLOCK * KS;            // [BLOCK][KS]
-  float* dst = vs + BLOCK * KS;           // [BLOCK keys][TSTRIDE q rows]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BLOCK;
-  const int bh = blockIdx.y;
-  const float* qh =
-      static_cast<const float*>(q.ptr) + head_offset(q, bh, heads);
-  const float* kh =
-      static_cast<const float*>(k.ptr) + head_offset(k, bh, heads);
-  const float* vh =
-      static_cast<const float*>(v.ptr) + head_offset(v, bh, heads);
-  const float* doh =
-      static_cast<const float*>(dout.ptr) + head_offset(dout, bh, heads);
-
-  flash::load_fp32<BLOCK, DMAX, THREADS, true>(
-      qh, q.sn, doh, dout.sn, q0, n, d,
-      [&](int r, int c, float qx, float dx) {
-        qt[c * TSTRIDE + r] = qx * scale;
-        dot[c * TSTRIDE + r] = dx;
-      });
-  float lse_r[4], delta_r[4];
-  bool row_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    row_ok[i] = r < n;
-    lse_r[i] = row_ok[i] ? lse[(size_t)bh * n + r] : 0.f;
-    delta_r[i] = row_ok[i] ? delta[(size_t)bh * n + r] : 0.f;
-  }
-
-  float acc[4][EPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) acc[i][e] = 0.f;
-
-  const int num_kb = (n + BLOCK - 1) / BLOCK;
-  for (int kb = 0; kb < num_kb; ++kb) {
-    const int k0 = kb * BLOCK;
-    __syncthreads();  // the previous tile's readers are done
-    flash::load_fp32<BLOCK, DMAX, THREADS, true>(
-        kh, k.sn, vh, v.sn, k0, n, d, [&](int r, int c, float kx, float vx) {
-          ks[r * KS + c] = kx;
-          vs[r * KS + c] = vx;
-        });
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      const float4 q4 = ld4(&qt[c * TSTRIDE + 4 * ty]);
-      const float4 d4 = ld4(&dot[c * TSTRIDE + 4 * ty]);
-      const float qr[4] = {q4.x, q4.y, q4.z, q4.w};
-      const float dr[4] = {d4.x, d4.y, d4.z, d4.w};
-      float kc[4], vc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kc[j] = ks[(tx + 16 * j) * KS + c];
-        vc[j] = vs[(tx + 16 * j) * KS + c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
-          dp[i][j] = fmaf(dr[i], vc[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool col_ok = k0 + tx + 16 * j < n;
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p =
-            (row_ok[i] && col_ok) ? expf(s[i][j] - lse_r[i]) : 0.f;
-        ds[i] = p * (dp[i][j] - delta_r[i]);
-      }
-      *reinterpret_cast<float4*>(&dst[(tx + 16 * j) * TSTRIDE + 4 * ty]) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();
-
-    // dQ += dS K over this tile's valid keys
-    const int kn = min(BLOCK, n - k0);
-    for (int r = 0; r < kn; ++r) {
-      const float4 d4 = ld4(&dst[r * TSTRIDE + 4 * ty]);
-#pragma unroll
-      for (int e = 0; e < EPT; ++e) {
-        const float kv = ks[r * KS + tx + 16 * e];
-        acc[0][e] = fmaf(d4.x, kv, acc[0][e]);
-        acc[1][e] = fmaf(d4.y, kv, acc[1][e]);
-        acc[2][e] = fmaf(d4.z, kv, acc[2][e]);
-        acc[3][e] = fmaf(d4.w, kv, acc[3][e]);
-      }
-    }
-  }
-
-  float* dqh = static_cast<float*>(dq.ptr) + head_offset(dq, bh, heads);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!row_ok[i]) continue;
-    const int r = q0 + 4 * ty + i;
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int c = tx + 16 * e;
-      if (c < d) dqh[r * dq.sn + c] = acc[i][e] * scale;
-    }
-  }
+  flash::store_rows<DMAX>(dkh, dk.sn, acc_dk, k0 + wrow, n, d, scale, scale);
+  flash::store_rows<DMAX>(dvh, dv.sn, acc_dv, k0 + wrow, n, d, 1.f, 1.f);
 }
 
 template <int DMAX>
 cudaError_t launch_fp32(const Tensor4& q, const Tensor4& k, const Tensor4& v,
-                        const Tensor4& dout, const float* lse,
-                        const float* delta, const Tensor4& dq,
+                        const Tensor4& o, const Tensor4& dout,
+                        const float* lse, float* delta, const Tensor4& dq,
                         const Tensor4& dk, const Tensor4& dv, int bh,
                         int heads, int n, int d, float scale,
                         cudaStream_t stream) {
-  constexpr size_t smem_a = sizeof(float) * dkdv_smem_floats<DMAX>();
-  constexpr size_t smem_b = sizeof(float) * dq_smem_floats<DMAX>();
+  // dQ: q, dO and two stages of K and V (O lands in K's second stage);
+  // lse and Δ. dK/dV: K, V and two stages of q and dO; two stages of lse
+  // and Δ.
+  constexpr size_t smem_dq = fp32_smem_bytes<DMAX>(6, 2);
+  constexpr size_t smem_dkdv = fp32_smem_bytes<DMAX>(6, 4);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_fp32<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_a);
+      flash_bwd_dq_fp32<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_dq);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_fp32<DMAX>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_fp32<DMAX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_b);
+                             (int)smem_dkdv);
   if (err != cudaSuccess) return err;
+  bool vec16 = true;
+  for (const Tensor4* t : {&q, &k, &v, &o, &dout})
+    vec16 = vec16 && flash::aligned_to(*t, 4, 16);
   const dim3 grid((n + BLOCK - 1) / BLOCK, bh);
-  flash_bwd_dkdv_fp32<DMAX><<<grid, THREADS, smem_a, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, heads, n, d, scale);
+  flash_bwd_dq_fp32<DMAX><<<grid, MMA_THREADS, smem_dq, stream>>>(
+      q, k, v, o, dout, lse, delta, dq, heads, n, d, scale, vec16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_fp32<DMAX><<<grid, THREADS, smem_b, stream>>>(
-      q, k, v, dout, lse, delta, dq, heads, n, d, scale);
+  flash_bwd_dkdv_fp32<DMAX><<<grid, MMA_THREADS, smem_dkdv, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, heads, n, d, scale, vec16);
   return cudaGetLastError();
 }
 
@@ -758,9 +728,8 @@ cudaError_t launch_fp32(const Tensor4& q, const Tensor4& k, const Tensor4& v,
 // out, dout, dq, dk, dv are (batch, heads, n, d) descriptors with unit
 // stride along d; lse and delta are (batch·heads, n) fp32. dtype: 0 is fp32,
 // 1 is bf16 (a bf16 operand needs a 4-byte aligned base and even strides).
-// bf16: delta is scratch that the dQ kernel fills from out and dout. fp32:
-// delta holds Δ, computed by the caller, and out is not read. The caller
-// allocates dq, dk, dv (and delta).
+// delta is scratch that the dQ kernel fills from out and dout, and the
+// dK/dV kernel reads. The caller allocates dq, dk, dv and delta.
 extern "C" int flash_attention_bwd(const Tensor4* q, const Tensor4* k,
                                    const Tensor4* v, const Tensor4* out,
                                    const Tensor4* dout, const void* lse,
@@ -777,10 +746,10 @@ extern "C" int flash_attention_bwd(const Tensor4* q, const Tensor4* k,
   float* dl = static_cast<float*>(delta);
   if (dtype == 0) {
     return (int)(d <= 64
-        ? launch_fp32<64>(*q, *k, *v, *dout, l, dl, *dq, *dk, *dv, (int)bh,
-                          heads, n, d, scale, s)
-        : launch_fp32<128>(*q, *k, *v, *dout, l, dl, *dq, *dk, *dv, (int)bh,
-                           heads, n, d, scale, s));
+        ? launch_fp32<64>(*q, *k, *v, *out, *dout, l, dl, *dq, *dk, *dv,
+                          (int)bh, heads, n, d, scale, s)
+        : launch_fp32<128>(*q, *k, *v, *out, *dout, l, dl, *dq, *dk, *dv,
+                           (int)bh, heads, n, d, scale, s));
   }
   for (const Tensor4* t : {q, k, v, out, dout, dq, dk, dv}) {
     if (!flash::aligned_to(*t, 2, 4)) return (int)cudaErrorMisalignedAddress;

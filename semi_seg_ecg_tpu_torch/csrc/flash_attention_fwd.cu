@@ -19,6 +19,15 @@
 // replaces (and 7.1-7.2 us for SDPA), and 0.519 ms at (8, 12, 2048, 64),
 // against 3.67-3.74 ms (199 TFLOP/s; SDPA 0.23 ms).
 //
+// In fp32 the card's fastest fp32-accurate product is three TF32 products
+// (495 / 3 = 165 TFLOP/s). At the serving shape, fp32 (16, 3, 101, 64), the
+// work is 0.125 GFLOP over 5.0 MB: the bound is 1.49 us of memory (0.76 us
+// of 3xTF32 time). On the same card (chip_smoke.py phase 2, parent and this
+// kernel in one call; PERF.md §6) flash_fwd_fp32 takes 10.6 us there,
+// against 15.6 us for the CUDA-core kernel it replaces (SDPA 16.9 us), and
+// 88 us at (4, 3, 1000, 64), against 160.5 us (35 TFLOP/s of fp32-accurate
+// products; SDPA 148 us).
+//
 // bf16 design (flash_fwd_mma). One CTA of 4 warps per (batch·head, 64-row
 // q tile), 16 q rows per warp (32-row tiles of 2 warps, twice the CTAs,
 // were 6.5% slower at the training shape on that card: 8.19 against
@@ -44,12 +53,32 @@
 //     zero-filled by the copy's src-size; D is rounded up to a multiple of
 //     16 (64 or 128) for the k-steps.
 //
-// fp32 (flash_fwd_fp32): the CUDA-core kernel of the first port, its
-// arithmetic unchanged (full fp32 FMA, no TF32, as the Pallas kernel upcasts
-// every block to fp32), with strided addressing. 256 threads form a 16x16
-// grid: thread (ty, tx) owns q rows 4ty..4ty+3, score columns tx+16j and
-// output columns tx+16e; q and p tiles are stored transposed and read as
-// float4, k rows are padded to D+1 floats.
+// fp32 design (flash_fwd_fp32): the same CTA, pipeline and online softmax
+// on the tensor cores, with every product in 3xTF32 (flash_common.cuh):
+//   - S = Q Kᵀ and O += P V are mma.sync m16n8k8 with tf32 operands and fp32
+//     accumulators, three per product (lo·hi, hi·lo, hi·hi of the split
+//     operands), so the results keep fp32's accuracy, not TF32's. The split
+//     is the kernel's own contract, independent of the TF32 flags of cuBLAS
+//     and cuDNN (algorithms/common.full_fp32).
+//   - the three products of the 8 n-tiles of a k-step are issued as three
+//     passes over the tiles, so no mma waits on the one before it: in the
+//     first design each tile's three products were chained, and at the
+//     serving shape (one warp per scheduler, nothing else to issue) the
+//     kernel took 23.8 us; with this order, the split of flash_common.cuh
+//     and an unguarded k-step loop it takes 10.6 us (PERF.md §6).
+//   - P from registers: the m16n8k8 accumulator gives a lane columns 2t and
+//     2t+1, the A operand wants t and t+4. P V contracts over the keys, so
+//     the keys are relabelled instead of shuffled: C's column 2t is A's
+//     column t, 2t+1 is t+4, and V's rows are read in that order.
+//   - fragments: Q's (A) and K's (B of S) come through ldmatrix.x4, whose
+//     8 x 16-byte matrices are 8 x 4 fp32 quarters of a tf32 fragment; V's
+//     relabelled rows are plain 32-bit loads. Rows of D + 4 floats put every
+//     load on distinct banks. All operands are split in registers as they
+//     are read: hi and lo in shared memory would double K/V and leave one
+//     CTA per SM (87,040 bytes now at D = 64, two per SM).
+//   - K/V tiles stream through the 2-stage cp.async ring as in bf16;
+//     columns >= D are zero-filled, and every k-step of DMAX runs.
+//   - scale·log2(e) multiplies fp32 S; Q is not pre-scaled.
 
 #include <initializer_list>
 #include <math.h>
@@ -276,160 +305,153 @@ cudaError_t launch_mma(const Tensor4& q, const Tensor4& k, const Tensor4& v,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32: tensor cores, 3xTF32
 // ---------------------------------------------------------------------------
-
-constexpr int BLOCK_M = 64;           // q rows per CTA
-constexpr int THREADS = 256;          // 16 x 16 thread grid
-constexpr int TSTRIDE = BLOCK_M + 4;  // row stride of the transposed tiles
 
 template <int DMAX>
 constexpr size_t fp32_smem_bytes() {
-  return sizeof(float) * (DMAX * TSTRIDE            // q tile, transposed
-                          + BLOCK_N * (DMAX + 1)    // k tile, padded rows
-                          + BLOCK_N * DMAX          // v tile
-                          + BLOCK_N * TSTRIDE);     // p tile, transposed
+  // q tile, then two stages of k and v tiles, rows padded by 4 floats
+  return sizeof(float) * (BM + 4 * BLOCK_N) * (DMAX + 4);
 }
 
-// DMAX (64 or 128) fixes the register tile; the runtime head dim d <= DMAX
-// is zero-padded in shared memory.
 template <int DMAX>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
                float* __restrict__ lse, int heads, int n, int d,
-               float scale) {
-  constexpr int EPT = DMAX / 16;  // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                       // [DMAX][TSTRIDE]
-  float* ks = qt + DMAX * TSTRIDE;        // [BLOCK_N][DMAX + 1]
-  float* vs = ks + BLOCK_N * (DMAX + 1);  // [BLOCK_N][DMAX]
-  float* pt = vs + BLOCK_N * DMAX;        // [BLOCK_N][TSTRIDE]
+               float scale_log2, bool vec16) {
+  constexpr int LD = DMAX + 4;   // padded row, in floats (4 modulo 32)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [BM][LD]
+  float* ks = qs + BM * LD;                         // [2][BLOCK_N][LD]
+  float* vs = ks + 2 * BLOCK_N * LD;                // [2][BLOCK_N][LD]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BLOCK_M;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
   const int bh = blockIdx.y;
-  const float* qh =
-      static_cast<const float*>(q.ptr) + head_offset(q, bh, heads);
-  const float* kh =
-      static_cast<const float*>(k.ptr) + head_offset(k, bh, heads);
-  const float* vh =
-      static_cast<const float*>(v.ptr) + head_offset(v, bh, heads);
-
-  // q tile, pre-scaled as in the Pallas kernel; rows >= n and columns >= d
-  // are zero
-  flash::load_fp32<BLOCK_M, DMAX, THREADS, false>(
-      qh, q.sn, qh, q.sn, q0, n, d, [&](int r, int c, float x, float) {
-        qt[c * TSTRIDE + r] = x * scale;
-      });
-
-  float m_i[4], l_i[4], acc[4][EPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) acc[i][e] = 0.f;
-  }
-
+  const int q0 = blockIdx.x * BM;
+  const int wrow = warp * 16;
+  const float* qh = static_cast<const float*>(q.ptr) + head_offset(q, bh, heads);
+  const float* kh = static_cast<const float*>(k.ptr) + head_offset(k, bh, heads);
+  const float* vh = static_cast<const float*>(v.ptr) + head_offset(v, bh, heads);
   const int num_kb = (n + BLOCK_N - 1) / BLOCK_N;
+
+  // group 0: the q tile and K/V tile 0; group 1: K/V tile 1 (maybe empty)
+  flash::load_tile<BM, DMAX, LD, MMA_THREADS>(qs, qh, q.sn, q0, n, d, vec16);
+  for (int kb = 0; kb < 2; ++kb) {
+    if (kb < num_kb) {
+      flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
+          ks + kb * BLOCK_N * LD, kh, k.sn, kb * BLOCK_N, n, d, vec16);
+      flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
+          vs + kb * BLOCK_N * LD, vh, v.sn, kb * BLOCK_N, n, d, vec16);
+    }
+    flash::cp_async_commit();
+  }
+  flash::cp_async_wait<1>();
+  __syncthreads();
+
+  // a warp whose 16 rows all lie past N only helps with the loads
+  const bool live = q0 + wrow < n;
+
+  float m[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sum
+  float acc[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
   for (int kb = 0; kb < num_kb; ++kb) {
+    if (kb > 0) {
+      flash::cp_async_wait<1>();  // tile kb has landed; kb+1 may be in flight
+      __syncthreads();
+    }
+    const float* kt = ks + (kb & 1) * BLOCK_N * LD;
+    const float* vt = vs + (kb & 1) * BLOCK_N * LD;
     const int k0 = kb * BLOCK_N;
-    __syncthreads();  // the previous tile's readers are done
-    flash::load_fp32<BLOCK_N, DMAX, THREADS, true>(
-        kh, k.sn, vh, v.sn, k0, n, d, [&](int r, int c, float kx, float vx) {
-          ks[r * (DMAX + 1) + c] = kx;
-          vs[r * DMAX + c] = vx;
-        });
-    __syncthreads();
-
-    // s = (q·scale) kᵀ for rows 4ty+i, columns tx+16j
-    float s[4][4];
+    if (live) {
+      // S = Q Kᵀ: 16 rows x 64 keys, 8 C tiles
+      float s[8][4];
+      flash::gemm_abt_tf32x3<DMAX, LD>(s, qs + wrow * LD, kt, lane);
+      // scale in fp32, then mask the keys past N
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      const float4 qv = *reinterpret_cast<const float4*>(&qt[c * TSTRIDE + 4 * ty]);
-      const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-      float kc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kc[j] = ks[(tx + 16 * j) * (DMAX + 1) + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
-    }
-
-    // online softmax; tile kb always holds column k0 < n, so every row max
-    // is finite and exp(-inf - m) = 0 clears both masked columns and the
-    // first tile's correction
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (k0 + tx + 16 * j >= n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = -INFINITY;
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
       }
-    }
+      if (k0 + BLOCK_N > n) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+        for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float corr = expf(m_i[i] - m_new);
-      float rs = 0.f;
+          for (int e = 0; e < 2; ++e) {
+            if (k0 + 8 * j + 2 * t + e >= n) s[j][e] = s[j][2 + e] = -INFINITY;
+          }
+        }
+      }
+      // online softmax over rows g (e = 0, 1) and g + 8 (e = 2, 3), as in
+      // flash_fwd_mma
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
+      for (int j = 0; j < 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr[i];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * corr + rs;
-      m_i[i] = m_new;
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < EPT; ++e) acc[i][e] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(&pt[(tx + 16 * j) * TSTRIDE + 4 * ty]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
-
-    // acc += p v over this tile's valid keys
-    const int kn = min(BLOCK_N, n - k0);
-    for (int c = 0; c < kn; ++c) {
-      const float4 pv = *reinterpret_cast<const float4*>(&pt[c * TSTRIDE + 4 * ty]);
-#pragma unroll
-      for (int e = 0; e < EPT; ++e) {
-        const float vv = vs[c * DMAX + tx + 16 * e];
-        acc[0][e] = fmaf(pv.x, vv, acc[0][e]);
-        acc[1][e] = fmaf(pv.y, vv, acc[1][e]);
-        acc[2][e] = fmaf(pv.z, vv, acc[2][e]);
-        acc[3][e] = fmaf(pv.w, vv, acc[3][e]);
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+          l[e >> 1] += s[j][e];
+        }
       }
+#pragma unroll
+      for (int j = 0; j < DMAX / 8; ++j) {
+        acc[j][0] *= corr[0];
+        acc[j][1] *= corr[0];
+        acc[j][2] *= corr[1];
+        acc[j][3] *= corr[1];
+      }
+      // O += P V, P split from registers with the keys relabelled
+      flash::gemm_cb_tf32x3<DMAX, LD>(acc, s, vt, lane);
     }
+    __syncthreads();  // every warp is done with this stage
+    if (kb + 2 < num_kb) {
+      flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
+          ks + (kb & 1) * BLOCK_N * LD, kh, k.sn, (kb + 2) * BLOCK_N, n, d,
+          vec16);
+      flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
+          vs + (kb & 1) * BLOCK_N * LD, vh, v.sn, (kb + 2) * BLOCK_N, n, d,
+          vec16);
+    }
+    flash::cp_async_commit();
   }
 
+  if (!live) return;
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / l[i];
+  }
   float* oh = static_cast<float*>(o.ptr) + head_offset(o, bh, heads);
-  float* lh = lse + (size_t)bh * n;
+  flash::store_rows<DMAX>(oh, o.sn, acc, q0 + wrow, n, d, inv[0], inv[1]);
+  if (t == 0) {
+    const int g = lane >> 2;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    if (r >= n) continue;
-    const float l = fmaxf(l_i[i], 1e-30f);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const int c = tx + 16 * e;
-      if (c < d) oh[r * o.sn + c] = acc[i][e] / l;
+    for (int i = 0; i < 2; ++i) {
+      const int r = q0 + wrow + g + 8 * i;
+      if (r < n) lse[(size_t)bh * n + r] = m[i] * LN2 + logf(l[i]);
     }
-    if (tx == 0) lh[r] = m_i[i] + logf(l);
   }
 }
 
@@ -442,9 +464,12 @@ cudaError_t launch_fp32(const Tensor4& q, const Tensor4& k, const Tensor4& v,
       flash_fwd_fp32<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BLOCK_M - 1) / BLOCK_M, bh);
-  flash_fwd_fp32<DMAX><<<grid, THREADS, smem, stream>>>(q, k, v, o, lse,
-                                                        heads, n, d, scale);
+  const bool vec16 = flash::aligned_to(q, 4, 16) &&
+                     flash::aligned_to(k, 4, 16) &&
+                     flash::aligned_to(v, 4, 16);
+  const dim3 grid((n + BM - 1) / BM, bh);
+  flash_fwd_fp32<DMAX><<<grid, MMA_THREADS, smem, stream>>>(
+      q, k, v, o, lse, heads, n, d, scale * LOG2E, vec16);
   return cudaGetLastError();
 }
 

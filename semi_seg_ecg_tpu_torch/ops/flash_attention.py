@@ -8,7 +8,7 @@ Counterpart of ``semi_seg_ecg_tpu/ops/pallas/flash_attention.py``:
   that the backward consumes (``csrc/flash_attention_fwd.cu``);
 - ``_bwd_kernel`` / ``_flash_backward``: dq, dk, dv recomputed blockwise
   from that logsumexp (``csrc/flash_attention_bwd.cu``; Δ = rowsum(dO ⊙ O),
-  which the JAX package computes outside its kernel, is the bf16 kernel's
+  which the JAX package computes outside its kernel, is the dQ kernel's
   own work);
 - the custom VJP ``flash_attention``: :class:`FlashAttention`, a
   ``torch.autograd.Function`` that saves ``(q, k, v, out, lse)``.
@@ -17,9 +17,13 @@ Each kernel file's header gives its design and what bounds it on the card.
 The TPU's block picking (``pick_blocks``, ``fits_vmem``, the VMEM budget and
 the padding of D to 128) encodes VMEM and has no counterpart: the kernels
 tile 64 rows by 64 keys and take any N and any D up to 128, in the layout
-the operands come in (:func:`check_layout`). bf16 runs on the tensor cores
-and rounds P and dS to bf16 as operands; :func:`forward_error_bound` and
-:func:`backward_error_bound` give the tolerance that follows from that.
+the operands come in (:func:`check_layout`). Both dtypes run on the tensor
+cores. bf16 rounds P and dS to bf16 as operands; :func:`forward_error_bound`
+and :func:`backward_error_bound` give the tolerance that follows from that.
+fp32 forms every product from three TF32 products of operands split into a
+high and a low TF32 part (3xTF32), which keeps fp32's accuracy: the kernels
+are held to fp32 tolerances (``FWD_TOL_FP32``, ``BWD_TOL_FP32``), and the
+TF32 flags of cuBLAS and cuDNN do not apply to them.
 
 Dispatch follows the device of the tensors: CPU tensors take
 :func:`flash_attention_plain` and :func:`flash_attention_backward_plain`;
@@ -95,8 +99,9 @@ def _desc(t: torch.Tensor):
 # the value, the rounding of the result itself
 BF16_UNIT_ROUNDOFF = 2.0 ** -8
 BF16_ULP = 2.0 ** -7
-# the fp32 kernels against the plain versions, (atol, rtol): the forward
-# sums in fp32 in another order; each backward gradient sums N products.
+# the fp32 kernels against the plain versions, (atol, rtol): the forward's
+# 3xTF32 products are within a few fp32 roundings of fp32 ones and are
+# summed in another order; each backward gradient sums N products.
 # lse within LSE_ATOL in both dtypes
 FWD_TOL_FP32 = (1e-5, 0.0)
 BWD_TOL_FP32 = (1e-4, 1e-4)
@@ -293,9 +298,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     version; CUDA tensors launch the backward kernels on the current
     stream, which read every operand in its own layout and write dq, dk,
     dv as (B, H, N, D) views of (B, N, H, D) memory. Δ = rowsum(dO ⊙ O) is
-    the bf16 dQ kernel's work; for fp32 it is computed here exactly as the
-    plain version computes it, which keeps the fp32 kernels' gradients the
-    plain version's bit for bit at D = 64."""
+    the dQ kernel's work in both dtypes (summed in fp32 from the O and dO
+    tiles it streams, and kept in ``delta`` for the dK/dV kernel), so no
+    PyTorch arithmetic runs here."""
     global BWD_LAUNCHES
     if not (q.is_cuda or k.is_cuda or v.is_cuda):
         return flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
@@ -317,10 +322,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     check_layout("dout", dout)
     fn = load_backward_kernel()
     b, h, n, d = q.shape
-    if q.dtype == torch.float32:
-        delta = (dout * out).sum(dim=-1).contiguous()
-    else:
-        delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     dq, dk, dv = (_empty_bnhd(t) for t in (q, k, v))
     _launch(fn, "flash_attention_bwd", q.device, _desc(q), _desc(k),
             _desc(v), _desc(out), _desc(dout), lse.data_ptr(),

@@ -8,7 +8,9 @@ Pallas kernels in interpret mode. Forward: out and lse at fp32 within atol
 1e-5 (two fp32 softmax formulations, sums in another order). Backward: dq,
 dk, dv at fp32 within atol 1e-5 + rtol 1e-4 (sums over N products in
 another order), and in bf16 within one bf16 ulp of each other (rtol 2^-7:
-both round an fp32 result once). The CUDA
+both round an fp32 result once). Emulations of where the kernels round
+(bf16 P and dS; the fp32 kernels' 3xTF32 split) hold the tolerances the
+card is checked with. The CUDA
 kernels are held against the plain versions in ``tests/test_torch_cuda.py``,
 which imports nothing of JAX, so that it also runs where a CUDA card is
 and the JAX package's dependencies are not.
@@ -271,3 +273,152 @@ def test_error_bounds_hold_for_the_kernels_bf16_rounding(n, d, magnitude):
             assert ratio <= 1, f"d{name} at {ratio} of the bound"
             worst = max(worst, ratio)
     assert worst > 0  # the rounding shows, and the bound is not vacuous
+
+
+def tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the nearest
+    value with 10 mantissa bits, ties away from zero (on the int32 view of
+    the fp32 bits: add half of the 13 dropped bits, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x):
+    """x = hi + lo as the fp32 kernels split it: hi rounded to TF32, lo the
+    exact rest, which the tensor core reads truncated to TF32 (its top 19
+    bits)."""
+    hi = tf32(x)
+    lo = (x - hi).contiguous().view(torch.int32) & -0x2000
+    return hi, lo.view(torch.float32)
+
+
+def mm_tf32x3(a, b):
+    """``a @ b`` as the fp32 kernels form it: each operand split into TF32
+    hi and lo parts, lo·hi + hi·lo + hi·hi (lo·lo dropped), fp32 sums."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def emulate_forward_tf32x3(q, k, v, scale, block=64):
+    """The fp32 forward kernel's arithmetic: S = Q Kᵀ and P V in 3xTF32,
+    the online softmax over 64-key tiles in fp32. Returns (out, lse)."""
+    s = mm_tf32x3(q, k.transpose(-1, -2)) * scale
+    m = torch.full(s.shape[:-1] + (1,), -np.inf)
+    l, acc = torch.zeros_like(m), torch.zeros_like(q)
+    for k0 in range(0, s.shape[-1], block):
+        tile = s[..., k0:k0 + block]
+        m_new = torch.maximum(m, tile.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(tile - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + mm_tf32x3(p, v[..., k0:k0 + block, :])
+        m = m_new
+    return acc / l, (m + torch.log(l)).squeeze(-1)
+
+
+def emulate_backward_tf32x3(q, k, v, out, lse, dout, scale):
+    """The fp32 backward kernels' arithmetic: Δ, P and dS in fp32, every
+    product (S, dP, dV, dQ, dK) in 3xTF32."""
+    delta = (dout * out).sum(dim=-1, keepdim=True)
+    p = torch.exp(mm_tf32x3(q, k.transpose(-1, -2)) * scale
+                  - lse.unsqueeze(-1))
+    ds = p * (mm_tf32x3(dout, v.transpose(-1, -2)) - delta)
+    return (mm_tf32x3(ds, k) * scale,
+            mm_tf32x3(ds.transpose(-1, -2), q) * scale,
+            mm_tf32x3(p.transpose(-1, -2), dout))
+
+
+# the fp32 rows of chip_smoke.py phase 2 and tests/test_torch_cuda.py at
+# batch 1-2: the serving and training shape (also one head of it, and the
+# strided case, which reads the same values), N = 1000, D = 100 and 128,
+# and a single row
+FP32_SHAPES = [(2, 3, 101, 64), (1, 3, 1000, 64), (2, 4, 257, 100),
+               (1, 1, 130, 128), (1, 2, 1, 8)]
+
+
+def fp32_inputs(shape, magnitude, seed):
+    q, k, v = qkv(shape, seed)
+    dout = qkv(shape, seed + 100)[0]
+    return [torch.from_numpy(magnitude * a) for a in (q, k, v)] + [
+        torch.from_numpy(dout)]
+
+
+@pytest.mark.parametrize("magnitude", [0.25, 1.0])
+@pytest.mark.parametrize("shape", FP32_SHAPES)
+def test_tf32x3_split_holds_the_fp32_tolerances(shape, magnitude):
+    """An emulation of the fp32 kernels' 3xTF32 products stays within
+    forward_tolerance, LSE_ATOL and backward_tolerance of the plain
+    versions at the shapes the card checks, with inputs at the scale of
+    those checks (unit normal) and below; the plain versions still match
+    the JAX flash forward and backward there (Pallas in interpret mode, N
+    cut to 300)."""
+    scale = shape[-1] ** -0.5
+    q, k, v, dout = fp32_inputs(shape, magnitude, seed=21)
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, scale)
+    out, lse = emulate_forward_tf32x3(q, k, v, scale)
+    ratio = ((out - ref_out).abs() / fa.forward_tolerance(
+        q, k, v, scale, ref_out)).max().item()
+    assert ratio <= 1, f"out at {ratio} of the tolerance"
+    assert (lse - ref_lse).abs().max().item() <= fa.LSE_ATOL
+    want = fa.flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
+    got = emulate_backward_tf32x3(q, k, v, out, lse, dout, scale)
+    tols = fa.backward_tolerance(q, k, v, out, lse, dout, scale, want)
+    for name, g, w, t in zip("qkv", got, want, tols):
+        ratio = ((g - w).abs() / t).max().item()
+        assert ratio <= 1, f"d{name} at {ratio} of the tolerance"
+
+    cut = [a[:, :, :300] for a in (q, k, v, dout)]
+    jq, jk, jv = (jnp.asarray(a.numpy()) for a in cut[:3])
+    j_out, j_lse = _flash_forward(jq, jk, jv, scale, None, None, True)
+    p_out, p_lse = fa.flash_attention_plain(*cut[:3], scale)
+    np.testing.assert_allclose(p_out.numpy(), np.asarray(j_out), atol=1e-5)
+    np.testing.assert_allclose(p_lse.numpy(), np.asarray(j_lse), atol=1e-5)
+    p_grads = fa.flash_attention_backward_plain(*cut[:3], p_out, p_lse,
+                                                cut[3], scale)
+    for name, got, want in zip("qkv", p_grads, jax_flash_grads(
+            *(a.numpy() for a in cut), scale)):
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-4,
+                                   err_msg=f"d{name}")
+
+
+def attention64(q, k, v, dout, scale):
+    """out, lse and dq, dk, dv in float64: the truth both fp32
+    computations are measured against."""
+    q, k, v, dout = (t.double() for t in (q, k, v, dout))
+    s = q @ k.transpose(-1, -2) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse.unsqueeze(-1))
+    out = p @ v
+    ds = p * (dout @ v.transpose(-1, -2)
+              - (dout * out).sum(dim=-1, keepdim=True))
+    return (out, lse, ds @ k * scale, ds.transpose(-1, -2) @ q * scale,
+            p.transpose(-1, -2) @ dout)
+
+
+@pytest.mark.parametrize("magnitude", [1.0, 4.0])
+@pytest.mark.parametrize("shape", FP32_SHAPES[:-1])
+def test_tf32x3_split_is_as_accurate_as_fp32(shape, magnitude):
+    """Against a float64 truth, the 3xTF32 emulation's forward and
+    gradients are off by at most three times what the plain fp32 versions
+    are off (plus four fp32 ulps of the largest value), at either input
+    scale: the split keeps fp32's accuracy, not TF32's. At magnitude 4 both
+    miss the fp32 atol of 1e-5, which does not scale with the inputs
+    (scores of standard deviation 16). Not at N = 1, where the plain
+    softmax is exact."""
+    scale = shape[-1] ** -0.5
+    q, k, v, dout = fp32_inputs(shape, magnitude, seed=22)
+    truth = attention64(q, k, v, dout, scale)
+    plain_out, plain_lse = fa.flash_attention_plain(q, k, v, scale)
+    plain = (plain_out, plain_lse) + fa.flash_attention_backward_plain(
+        q, k, v, plain_out, plain_lse, dout, scale)
+    emu_out, emu_lse = emulate_forward_tf32x3(q, k, v, scale)
+    emu = (emu_out, emu_lse) + emulate_backward_tf32x3(
+        q, k, v, emu_out, emu_lse, dout, scale)
+    for name, t, p, e in zip(("out", "lse", "dq", "dk", "dv"), truth, plain,
+                             emu):
+        err_plain = (p.double() - t).abs().max().item()
+        err_emu = (e.double() - t).abs().max().item()
+        ulp = 2.0 ** -24 * t.abs().max().item()
+        assert err_emu <= 3 * err_plain + 4 * ulp, (
+            f"{name}: 3xTF32 off by {err_emu}, fp32 by {err_plain}")
