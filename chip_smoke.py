@@ -123,10 +123,12 @@ BWD_SHAPES = [
     *STRIDED,
 ]
 # (label, kind, (B, C, T_in), J, slope): the training step's three calls
-# (resize-crop of the signal, of the labels, the partial-sine roll over a
-# doubled wave) and a 12-lead batch of long records
+# (resize-crop of the signal and its labels in one launch, the signal alone
+# as the unlabeled view takes it, the partial-sine roll over a doubled
+# wave), the labels alone, and a 12-lead batch of long records
 GATHER_SHAPES = [
     ("train_resize_crop", "lerp", (16, 1, 2500), 2500, 2.0),
+    ("train_resize_crop_pair", "pair", (16, 1, 2500), 2500, 2.0),
     ("train_labels", "index", (16, 1, 2500), 2500, 2.0),
     ("train_sine_roll", "roll", (16, 1, 5000), 2500, 1.0),
     ("leads12_long", "lerp", (256, 12, 5000), 5000, 2.0),
@@ -149,7 +151,7 @@ TRAIN_EPOCHS = 2
 # kernel launches per FixMatch step of vit_tiny: a flash forward per block
 # in the pseudo-label pass and in the student pass, a backward per block,
 # and the gathers of the device augmentation (see phase_train)
-FWD_PER_STEP, BWD_PER_STEP, GATHER_PER_STEP = 2 * DEPTH, DEPTH, 4
+FWD_PER_STEP, BWD_PER_STEP, GATHER_PER_STEP = 2 * DEPTH, DEPTH, 3
 # flash vs dense after LOCKSTEP_STEPS fp32 AdamW steps, in units of lr:
 # the key bias has a gradient that is zero in exact arithmetic, so Adam
 # turns its rounding noise into O(lr) updates of either sign
@@ -319,6 +321,9 @@ def phase_kernels(torch):
     # 4 start from PyTorch's defaults, so that the entries set their own
     with full_fp32():
         log(f"phase 2: {tf32_flags(torch)}")
+        floor_ms = launch_floor(torch, gather1d)
+        log(f"  launch floor: an empty kernel, timed as the kernels are, "
+            f"{floor_ms * 1e3:.3f} us")
         gen = torch.Generator(device="cuda").manual_seed(0)
         return {
             "flash_attention_fwd": [check_kernel(torch, fa, gen, *case)
@@ -327,7 +332,22 @@ def phase_kernels(torch):
                                     for case in BWD_SHAPES],
             "gather1d": [check_gather(torch, gather1d, *case)
                          for case in GATHER_SHAPES],
-        }
+        }, floor_ms
+
+
+def launch_floor(torch, gather1d):
+    """Device time per launch of a kernel that does nothing (1 block of 32
+    threads), queued and timed as ``device_ms`` times every kernel: what a
+    launch costs the card before any work."""
+    lib = gather1d.load_kernels()
+
+    def empty():
+        err = lib.gather1d_empty(torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"phase 2 failed: the empty kernel's launch "
+                             f"returned CUDA error {err}")
+
+    return device_ms(torch, empty, 200)
 
 
 def tf32_flags(torch):
@@ -435,7 +455,7 @@ def check_backward(torch, fa, gen, label, shape, dtype_name):
             "bound_by": bound_by, "bound_peak": FLASH_PEAK[dtype_name]}
 
 
-def gather_positions(torch, kind, b, t_in, j, slope):
+def gather_positions(kind, b, t_in, j, slope):
     """Positions as the training path makes them: the resize-crop's
     monotone map from one draw of its scale (slope up to ``slope``), or the
     partial-sine roll's integral slope-1 map over a doubled wave."""
@@ -455,59 +475,86 @@ def gather_positions(torch, kind, b, t_in, j, slope):
     return pos
 
 
+def touched(rows):
+    """Distinct elements that the rows of indices ``rows`` read, summed
+    over the rows: each is read once in the bound."""
+    return sum(len(np.unique(r)) for r in rows)
+
+
 def check_gather(torch, gather1d, label, kind, shape, j, slope):
     """One gather shape: the kernel against its plain version, bit for bit;
     times of kernel, plain version and the one-call library equivalent
-    (``F.grid_sample`` for the interpolation, ``torch.gather`` for labels);
-    the bound over the bytes this run's positions read."""
+    (``F.grid_sample`` for the interpolation, ``torch.gather`` for labels;
+    for the pair, the signal's and the labels' launches one after the
+    other instead); the bound over the bytes this run's positions read."""
     import torch.nn.functional as F
 
     b, c, t = shape
     rng = np.random.default_rng(1)
-    pos_np = gather_positions(torch, kind, b, t, j, slope)
+    pos_np = gather_positions("lerp" if kind == "pair" else kind, b, t, j,
+                              slope)
     pos = torch.from_numpy(pos_np).cuda()
-    # bytes of x the positions touch (i0 and its clamped neighbour), once
+    # elements of x the positions touch (i0 and its clamped neighbour) and
+    # of y the rounded positions touch, each read once
     i0 = np.floor(pos_np).astype(np.int64)
-    touched = sum(len(np.union1d(r, np.minimum(r + 1, t - 1))) for r in i0)
+    x_touched = touched(np.concatenate([i0, np.minimum(i0 + 1, t - 1)], 1))
+    idx = torch.from_numpy(np.round(pos_np).astype(np.int32)).cuda()
+    y_touched = touched(np.round(pos_np).astype(np.int64))
+    x = torch.from_numpy(rng.standard_normal((b, c, t)).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 4, (b, t))).cuda()
+    idx64 = idx.long()
+    lerp_bytes = x_touched * c * 4 + b * j * 4 + b * c * j * 4
+    index_bytes = y_touched * 8 + b * j * (4 + 8)
+    grid = torch.stack([pos / (t - 1) * 2 - 1, torch.zeros_like(pos)],
+                       dim=-1)[:, None]
+    x4 = x[:, :, None, :]
+    grid_sample = lambda: F.grid_sample(x4, grid, mode="bilinear",
+                                        padding_mode="border",
+                                        align_corners=True)
+    separate_ms = None
     if kind == "index":
-        y = torch.from_numpy(rng.integers(0, 4, (b, t))).cuda()
-        idx = pos.to(torch.int32)
-        idx64 = idx.long()
         run = lambda: gather1d.monotonic_gather_int(y, idx, max_slope=slope)
         plain = lambda: torch.gather(y, 1, idx.long())
         library = lambda: torch.gather(y, 1, idx64)
-        nbytes = touched * 8 + b * j * (4 + 8)
-        flops = 0
-        want = library()
+        nbytes, flops = index_bytes, 0
+    elif kind == "pair":
+        run = lambda: gather1d.monotonic_gather_pair(x, pos, y, idx)
+        plain = lambda: (gather1d.monotonic_gather_plain(x, pos),
+                         torch.gather(y, 1, idx.long()))
+        library = None
+        nbytes, flops = lerp_bytes + index_bytes, 3 * b * c * j
     else:
-        x = torch.from_numpy(rng.standard_normal((b, c, t)).astype(
-            np.float32)).cuda()
         run = lambda: gather1d.monotonic_gather(x, pos, max_slope=slope)
         plain = lambda: gather1d.monotonic_gather_plain(x, pos)
-        grid = torch.stack([pos / (t - 1) * 2 - 1, torch.zeros_like(pos)],
-                           dim=-1)[:, None]
-        x4 = x[:, :, None, :]
-        library = lambda: F.grid_sample(x4, grid, mode="bilinear",
-                                        padding_mode="border",
-                                        align_corners=True)
-        nbytes = touched * c * 4 + b * j * 4 + b * c * j * 4
-        flops = 3 * b * c * j
-        want = plain()
-    got = run()
+        library = grid_sample
+        nbytes, flops = lerp_bytes, 3 * b * c * j
+    got, want = run(), plain()
     torch.cuda.synchronize()
-    exact = torch.equal(got, want)
-    err = (got.double() - want.double()).abs().max().item()
+    if kind != "pair":
+        got, want = (got,), (want,)
+    exact = all(g.dtype == w.dtype and torch.equal(g, w)
+                for g, w in zip(got, want))
+    err = max((g.double() - w.double()).abs().max().item()
+              for g, w in zip(got, want))
     lib_err = None
     if kind != "index":
-        lib_err = (library()[:, :, 0, :] - want).abs().max().item()
+        lib_err = (grid_sample()[:, :, 0, :] - want[0]).abs().max().item()
     kernel_ms = device_ms(torch, run, 200)
     plain_ms = device_ms(torch, plain, 50)
-    library_ms = device_ms(torch, library, 200)
+    library_ms = device_ms(torch, library, 200) if library else None
+    if kind == "pair":
+        separate_ms = device_ms(torch, lambda: (
+            gather1d.monotonic_gather(x, pos, max_slope=slope),
+            gather1d.monotonic_gather_int(y, idx, max_slope=slope)), 200)
     bound_ms, bound_by = bound(nbytes, flops, "float32")
+    versus = (f"library {library_ms * 1e3:.3f} us" if library else
+              f"two separate launches {separate_ms * 1e3:.3f} us")
     log(f"  gather {label} x{tuple(shape)} -> {j} ({kind}, slope "
         f"{slope}): bit-equal {exact} (max err {err:.3g}; grid_sample err "
-        f"{lib_err}) | kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        f"{lib_err}) | kernel {kernel_ms * 1e3:.3f} us, plain "
+        f"{plain_ms * 1e3:.3f} us, {versus}, bound {bound_ms * 1e3:.4f} us "
+        f"({bound_by})")
     if not exact:
         raise SystemExit(f"phase 2 failed: gather {label} differs from the "
                          f"plain version (max error {err})")
@@ -515,8 +562,8 @@ def check_gather(torch, gather1d, label, kind, shape, j, slope):
             "max_slope": slope, "max_abs_err": err,
             "library_max_abs_err": lib_err, "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes}
+            "separate_launches_ms": separate_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes}
 
 
 # ---------------------------------------------------------------------------
@@ -1130,8 +1177,7 @@ def profile_train_step(torch, config, precision, steps=10):
         else None,
         "flash_fwd_ms_per_step": kernel_ms(per_kernel, "flash_fwd_"),
         "flash_bwd_ms_per_step": kernel_ms(per_kernel, "flash_bwd_"),
-        "gather_ms_per_step": kernel_ms(per_kernel, "gather_lerp_kernel",
-                                        "gather_index_kernel"),
+        "gather_ms_per_step": kernel_ms(per_kernel, "gather1d_kernel"),
         "top_kernels_ms_per_step": [(k[:80], v) for k, v in top],
     }
     log(f"  train step, {precision}, {BATCH} + {BATCH} windows: "
@@ -1152,6 +1198,13 @@ def profile_train_step(torch, config, precision, steps=10):
     if per_step != want:
         raise SystemExit(f"phase 4 failed: {precision} step launches "
                          f"{per_step}, expected {want}")
+    # a trace with device events must find each ported kernel by its name
+    unnamed = [k for k in ("flash_fwd_ms_per_step", "flash_bwd_ms_per_step",
+                           "gather_ms_per_step")
+               if per_kernel and not out[k]]
+    if unnamed:
+        raise SystemExit(f"phase 4 failed: the {precision} step's trace "
+                         f"holds no time under {unnamed}")
     return out
 
 
@@ -1192,7 +1245,7 @@ def main():
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     build_s, hmma = phase_build()
-    rows = phase_kernels(torch)
+    rows, floor_ms = phase_kernels(torch)
     slice_result = phase_slice(torch)
     train_result = phase_train(torch)
     launches = train_result["launches"]
@@ -1210,7 +1263,8 @@ def main():
         check=True).stdout.strip()
     with open(OUT_JSON, "w") as f:
         json.dump({"nvidia_smi": smi, "torch": torch.__version__,
-                   "build_s": build_s, "hmma": hmma, "kernels": kernels,
+                   "build_s": build_s, "hmma": hmma,
+                   "launch_floor_ms": floor_ms, "kernels": kernels,
                    "slice": slice_result, "train": train_result,
                    "seconds": time.time() - t_start}, f, indent=1)
     log(f"done in {time.time() - t_start:.1f} s")

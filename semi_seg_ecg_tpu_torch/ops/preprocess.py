@@ -38,7 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from .gather1d import monotonic_gather, monotonic_gather_int
+from .gather1d import monotonic_gather, monotonic_gather_pair
 from .select import exact_quantiles
 
 MAX_LEVEL = 10  # RandAugment magnitude scale (transforms.py set_level)
@@ -128,19 +128,21 @@ def random_resize_crop_apply(draws: Dict[str, torch.Tensor], x: torch.Tensor,
     sf = s[:, None].float()
     t_orig = coord.float() * (torch.full_like(sf, t) / sf)
     t_orig = torch.clamp(t_orig, 0.0, t - 1)
-    s_min = max(int(t * scale_min), 1)
-    x_out = monotonic_gather(x.contiguous(), t_orig.contiguous(),
-                             max_slope=t / s_min)
-    x_out = torch.where(inside[:, None, :], x_out, 0.0)
     if y is None:
-        return x_out, None
-    denom = torch.clamp(s - 1, min=1).float()[:, None]
-    y_coord = coord.float() * (torch.full_like(denom, t - 1) / denom)
-    yi = torch.clamp(torch.round(y_coord).to(torch.int32), 0, t - 1)
-    y_out = monotonic_gather_int(y.contiguous(), yi.contiguous(),
-                                 max_slope=(t - 1) / max(s_min - 1, 1))
-    y_out = torch.where(inside, y_out, 0)
-    return x_out, y_out
+        s_min = max(int(t * scale_min), 1)
+        x_out = monotonic_gather(x.contiguous(), t_orig.contiguous(),
+                                 max_slope=t / s_min)
+        y_out = None
+    else:
+        denom = torch.clamp(s - 1, min=1).float()[:, None]
+        y_coord = coord.float() * (torch.full_like(denom, t - 1) / denom)
+        yi = torch.clamp(torch.round(y_coord).to(torch.int32), 0, t - 1)
+        # the signal and the labels in one kernel launch
+        x_out, y_out = monotonic_gather_pair(
+            x.contiguous(), t_orig.contiguous(), y.contiguous(),
+            yi.contiguous())
+        y_out = torch.where(inside, y_out, 0)
+    return torch.where(inside[:, None, :], x_out, 0.0), y_out
 
 
 def random_resize_crop_batch(gen: torch.Generator, x: torch.Tensor,

@@ -258,12 +258,24 @@ def monotone_pos(rng, b, t, max_slope, j=None):
     return np.clip(pos, 0, t - 1).astype(np.float32)
 
 
+def assert_launches_once(fn, *args):
+    """``fn(*args)`` on the card, synchronised; exactly one gather launch."""
+    before = gather1d.LAUNCHES
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert gather1d.LAUNCHES == before + 1
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,c,t,j,slope,integral", [
     (16, 1, 2500, 2500, 2.0, False),   # resize-crop of the signal
     (16, 1, 5000, 2500, 1.0, True),    # the partial-sine roll
     (256, 12, 5000, 5000, 2.0, False),
-    (3, 2, 7, 9, 1.5, False),
+    (3, 2, 7, 9, 1.5, False),          # J under one tile of 256
+    (2, 12, 3000, 2049, 4.0, False),   # slope 4, 12 leads, J % 4 == 1
+    (5, 3, 40, 1, 1.0, False),         # one output per row
+    (4, 5, 600, 1022, 0.5, False),     # J % 4 == 2, a ragged last tile
 ])
 def test_gather_kernel_matches_plain(cuda, b, c, t, j, slope, integral):
     rng = np.random.default_rng(0)
@@ -274,26 +286,80 @@ def test_gather_kernel_matches_plain(cuda, b, c, t, j, slope, integral):
         pos = np.floor(pos)
     pos[:, -1] = t - 1  # the last position reads in bounds
     pos = torch.from_numpy(pos).cuda()
-    before = gather1d.LAUNCHES
-    out = gather1d.monotonic_gather(x, pos, max_slope=slope)
-    torch.cuda.synchronize()
-    assert gather1d.LAUNCHES == before + 1
+    out = assert_launches_once(
+        lambda: gather1d.monotonic_gather(x, pos, max_slope=slope))
     torch.testing.assert_close(out, gather1d.monotonic_gather_plain(x, pos),
                                atol=0, rtol=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("j", [1023, 1024, 2048, 3001])
+def test_gather_kernel_reads_any_map(cuda, j):
+    """No monotone map or slope bound is assumed: a random permutation of
+    fractional positions, and T - 1 on both sides of a tile edge (outputs
+    1023 and 1024 are the last of one 256-output block and the first of
+    the next)."""
+    rng = np.random.default_rng(3)
+    b, c, t = 3, 12, 4096
+    x = torch.from_numpy(rng.standard_normal((b, c, t)).astype(
+        np.float32)).cuda()
+    pos = rng.permutation(np.linspace(0, t - 1, j * b)).reshape(b, j)
+    pos[:, 1022:1026] = t - 1
+    pos[:, :3] = [0.0, t - 1.5, 0.5]
+    pos = torch.from_numpy(pos.astype(np.float32)).cuda()
+    out = assert_launches_once(gather1d.monotonic_gather, x, pos)
+    want = gather1d.monotonic_gather_plain(x, pos)
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+    edge = out[:, :, 1022:1026] if j > 1022 else out[:, :, :0]
+    assert torch.equal(edge, x[:, :, t - 1:].expand_as(edge))
+
+
+def label_rows(dtype, b, t, j, seed=1):
+    rng = np.random.default_rng(seed)
+    y = torch.from_numpy(rng.integers(0, 4, (b, t))).to("cuda", dtype)
+    idx = np.clip(np.round(monotone_pos(rng, b, t, 2.0, j)), 0, t - 1)
+    idx[:, -1] = t - 1
+    return y, torch.from_numpy(idx.astype(np.int32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32, torch.float32])
 def test_gather_int_kernel_matches_plain(cuda, dtype):
-    rng = np.random.default_rng(1)
-    y = torch.from_numpy(rng.integers(0, 4, (16, 2500))).to("cuda", dtype)
-    idx = np.clip(np.round(monotone_pos(rng, 16, 2500, 2.0)), 0, 2499)
-    idx = torch.from_numpy(idx.astype(np.int32)).cuda()
+    for b, t, j in [(16, 2500, 2500), (3, 900, 1027)]:  # J % 256 == 3
+        y, idx = label_rows(dtype, b, t, j)
+        out = assert_launches_once(
+            lambda: gather1d.monotonic_gather_int(y, idx, max_slope=2.0))
+        assert out.dtype == dtype
+        torch.testing.assert_close(out, torch.gather(y, 1, idx.long()),
+                                   atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32, torch.float32])
+@pytest.mark.parametrize("c,t,j,ty,jy", [
+    (1, 2500, 2500, 2500, 2500),       # the resize-crop's pair
+    (12, 3000, 2049, 700, 5),          # the two parts of unequal sizes
+])
+def test_gather_pair_equals_two_calls(cuda, dtype, c, t, j, ty, jy):
+    rng = np.random.default_rng(2)
+    b = 4
+    x = torch.from_numpy(rng.standard_normal((b, c, t)).astype(
+        np.float32)).cuda()
+    pos = torch.from_numpy(monotone_pos(rng, b, t, 2.0, j)).cuda()
+    y, idx = label_rows(dtype, b, ty, jy)
+    x_out, y_out = assert_launches_once(gather1d.monotonic_gather_pair, x,
+                                        pos, y, idx)
     before = gather1d.LAUNCHES
-    out = gather1d.monotonic_gather_int(y, idx, max_slope=2.0)
+    x_want = gather1d.monotonic_gather(x, pos)
+    y_want = gather1d.monotonic_gather_int(y, idx)
     torch.cuda.synchronize()
-    assert gather1d.LAUNCHES == before + 1 and out.dtype == dtype
-    torch.testing.assert_close(out, torch.gather(y, 1, idx.long()),
+    assert gather1d.LAUNCHES == before + 2
+    assert y_out.dtype == dtype
+    torch.testing.assert_close(x_out, x_want, atol=0, rtol=0)
+    torch.testing.assert_close(y_out, y_want, atol=0, rtol=0)
+    torch.testing.assert_close(x_out, gather1d.monotonic_gather_plain(
+        x, pos), atol=0, rtol=0)
+    torch.testing.assert_close(y_out, torch.gather(y, 1, idx.long()),
                                atol=0, rtol=0)
 
 
@@ -324,7 +390,9 @@ def test_fixmatch_augmentation_on_the_card_matches_the_cpu(cuda):
     before = gather1d.LAUNCHES
     on_card = plan.apply(draws, {k: v.cuda() for k, v in cpu.items()})
     torch.cuda.synchronize()
-    assert gather1d.LAUNCHES == before + 4
+    # the labeled resize-crop (signal and labels in one launch), the weak
+    # view's resize-crop and the strong view's partial-sine roll
+    assert gather1d.LAUNCHES == before + 3
     on_cpu = plan.apply(draws, cpu)
     assert torch.equal(on_card["target"].cpu(), on_cpu["target"])
     for k in ("ecg", "ecg_u_w", "ecg_u_s"):

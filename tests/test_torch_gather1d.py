@@ -112,3 +112,69 @@ def test_shapes_are_checked():
     with pytest.raises(ValueError, match="monotonic_gather_int"):
         gather1d.monotonic_gather_int(torch.zeros(2, 5, dtype=torch.long),
                                       torch.zeros(3, 5, dtype=torch.int32))
+    x, pos = torch.zeros(2, 1, 5), torch.zeros(2, 5)
+    y, idx = torch.zeros(3, 5, dtype=torch.long), torch.zeros(
+        3, 5, dtype=torch.int32)
+    with pytest.raises(ValueError, match="different batch sizes"):
+        gather1d.monotonic_gather_pair(x, pos, y, idx)
+    with pytest.raises(ValueError, match="monotonic_gather_pair"):
+        gather1d.monotonic_gather_pair(x, pos, y[:2, :, None], idx[:2])
+
+
+def resize_crop_maps(t, ratio, u_start):
+    """The resize-crop's signal positions and label indices for one scale
+    ``ratio`` per sample, as ``random_resize_crop`` computes them: clipped
+    into [0, T-1], so a shrink has flat runs at 0 and at T-1."""
+    s = np.floor(t * ratio).astype(np.int32)
+    canvas = np.maximum(s, t)
+    left_pad = np.maximum((t - s) // 2, 0)
+    start = np.minimum((u_start * (canvas - t + 1)).astype(np.int32),
+                       canvas - t)
+    coord = (start[:, None] + np.arange(t)[None, :]
+             - left_pad[:, None]).astype(np.float32)
+    pos = np.clip(coord * (np.float32(t) / s[:, None].astype(np.float32)),
+                  0, t - 1).astype(np.float32)
+    denom = np.maximum(s - 1, 1).astype(np.float32)[:, None]
+    idx = np.clip(np.round(coord * (np.float32(t - 1) / denom)), 0,
+                  t - 1).astype(np.int32)
+    return pos, idx
+
+
+@pytest.mark.parametrize("ratio", [0.5, 1.0, 2.0])
+@pytest.mark.parametrize("label_dtype", [np.int32, np.int64])
+def test_pair_equals_the_two_gathers(interpret_impl, ratio, label_dtype):
+    """The resize-crop's pair entry on CPU tensors: the two plain calls,
+    and the JAX package's gathers (interpret mode), on the maps of scales
+    0.5 (flat runs at both ends), 1 and 2."""
+    rng = np.random.default_rng(4)
+    b, c, t = 3, 2, 300
+    x = rng.standard_normal((b, c, t)).astype(np.float32)
+    y = rng.integers(0, 4, (b, t)).astype(label_dtype)
+    pos, idx = resize_crop_maps(t, np.full(b, ratio, np.float32),
+                                np.array([0.0, 0.5, 0.999], np.float32))
+    if ratio == 0.5:
+        assert (pos[:, 0] == 0).all() and (pos[:, -1] == t - 1).all()
+    before = gather1d.LAUNCHES
+    x_out, y_out = gather1d.monotonic_gather_pair(
+        torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(y),
+        torch.from_numpy(idx))
+    assert gather1d.LAUNCHES == before  # CPU tensors never launch
+    assert y_out.dtype == torch.from_numpy(y).dtype
+    np.testing.assert_array_equal(x_out.numpy(), gather1d.monotonic_gather(
+        torch.from_numpy(x), torch.from_numpy(pos)).numpy())
+    np.testing.assert_array_equal(y_out.numpy(), gather1d.monotonic_gather_int(
+        torch.from_numpy(y), torch.from_numpy(idx)).numpy())
+    np.testing.assert_array_equal(x_out.numpy(), np.asarray(
+        jax_gather._xla_gather(jnp.asarray(x), jnp.asarray(pos))))
+    slope = 1.0 / ratio
+    pallas = np.asarray(jax_gather.monotonic_gather(
+        jnp.asarray(x), jnp.asarray(pos), max_slope=slope, block_j=128))
+    integral = np.broadcast_to((pos == np.floor(pos))[:, None, :],
+                               x_out.shape)
+    np.testing.assert_array_equal(x_out.numpy()[integral], pallas[integral])
+    # (scale 0.5 reads whole samples only)
+    assert np.max(ulps(x_out.numpy(), pallas, x, pos)[~integral],
+                  initial=0.0) <= 1.0
+    np.testing.assert_array_equal(y_out.numpy(), np.asarray(
+        jax_gather.monotonic_gather_int(jnp.asarray(y), jnp.asarray(idx),
+                                        max_slope=slope, block_j=128)))

@@ -183,6 +183,26 @@ def test_resize_crop_geometry_is_exact():
                                      target_length=T // 2)
 
 
+def test_resize_crop_gathers_once_per_call(monkeypatch):
+    """With labels, the signal and the labels go through one pair call (one
+    kernel launch on the card); without, the signal through one
+    ``monotonic_gather``, to the same signal."""
+    calls = []
+    for name in ("monotonic_gather", "monotonic_gather_pair"):
+        real = getattr(pre, name)
+        monkeypatch.setattr(pre, name, lambda *a, _f=real, _n=name, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    x, y = signal(7, b=6)
+    draws = pre.sample_resize_crop(torch.Generator().manual_seed(0), 6)
+    tx, ty = pre.random_resize_crop_apply(draws, torch.from_numpy(x),
+                                          torch.from_numpy(y).long())
+    assert calls == ["monotonic_gather_pair"]
+    tx_alone, none = pre.random_resize_crop_apply(draws, torch.from_numpy(x))
+    assert calls == ["monotonic_gather_pair", "monotonic_gather"]
+    assert none is None and torch.equal(tx_alone, tx)
+    assert ty.dtype == torch.int64 and ty.shape == (6, T)
+
+
 def test_rand_augment_selection_matches_jax():
     """N-of-K selection and the prob gate: with every member op at work,
     the whole RandAugment output agrees sample by sample, and the number
