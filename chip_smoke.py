@@ -33,7 +33,21 @@ non-zero exit when it fails:
    serve the trained checkpoint; hold the flash path's gradients and three
    fp32 FixMatch steps against the dense path on the card, and the card's
    augmentation against the CPU's on the same draws; profile one bf16 and
-   one fp32 train step (device events, copy and elementwise kernels).
+   one fp32 train step (device events, copy and elementwise kernels);
+5. ResNet18 at full width (``configs/base/resnet18/*.yaml``: stem and base
+   64, four stages, FCN head 512 -> 128): serve the scratch recipe with
+   seed-0 weights through ``inference_main`` (fp32 against the CPU, bf16
+   autocast against fp32, the phase-3 profile columns); train the FixMatch
+   recipe with ``device_augment: true`` through ``train_main`` (3 gather
+   launches per step, no flash), serve its checkpoint, hold three fp32
+   steps on the card against the CPU, profile a bf16 and an fp32 step; the
+   stem pool's gradient on a tie-heavy input equal to the CPU's bit for
+   bit;
+6. Mean Teacher and CPS: ``train_main`` on
+   ``configs/base/{vit_tiny,resnet18}/{mean_teacher,cps}.yaml`` (flash
+   attention for the ViT, ``device_augment: true``) with exact launch
+   counts, the teacher or the peer in the checkpoint, and the trained
+   checkpoint served.
 
 The line before the last prints the card's name and power limit as
 nvidia-smi gives them; the line before that, a JSON object with one entry
@@ -42,6 +56,7 @@ to ``build/chip_smoke/chip_smoke.json``.
 """
 
 import copy
+import functools
 import json
 import math
 import os
@@ -148,10 +163,6 @@ NUM_TEST, SIGNAL_LENGTH, BATCH, DEPTH = 64, 2500, 16, 12
 # training split and run: 4 steps of 16 + 16 windows per epoch
 TRAIN_LABELED, TRAIN_UNLABELED, TRAIN_VALID, TRAIN_TEST = 64, 64, 16, 16
 TRAIN_EPOCHS = 2
-# kernel launches per FixMatch step of vit_tiny: a flash forward per block
-# in the pseudo-label pass and in the student pass, a backward per block,
-# and the gathers of the device augmentation (see phase_train)
-FWD_PER_STEP, BWD_PER_STEP, GATHER_PER_STEP = 2 * DEPTH, DEPTH, 3
 # flash vs dense after LOCKSTEP_STEPS fp32 AdamW steps, in units of lr:
 # the key bias has a gradient that is zero in exact arithmetic, so Adam
 # turns its rounding noise into O(lr) updates of either sign
@@ -162,12 +173,26 @@ KEY_BIAS = "attn.fn.to_qkv.bias"
 # a fresh random model is confident nowhere near the recipe's 0.8 on
 # random inputs; the lockstep's threshold lets the unlabeled loss work
 LOCKSTEP_CONF_THRESH = 0.5
+# the fresh ResNet18's confidences on random inputs lie in 0.27-0.39
+RESNET_LOCKSTEP_CONF_THRESH = 0.33
 # the whole FixMatch augmentation, card vs CPU on the same draws: the two
 # libraries' sin and standardize reductions round apart (check_augment)
 CHAIN_ATOL = 1e-5
 # flash vs dense gradients of one fp32 forward/backward of the full model:
 # per parameter, max |difference| <= GRAD_RTOL x max |dense gradient|
 GRAD_RTOL = 1e-3
+# phases 5 and 6: the recipes trained through train_main; per step, flash
+# forward passes of the ViT (pseudo-label or teacher pass and the student
+# pass; CPS: both networks' of each) and backward passes, and the gather
+# launches of the device augmentation (the labeled resize-crop's pair, the
+# weak view's resize-crop, and with a strong view its partial-sine roll)
+RECIPE_PASSES = {"fixmatch": (2, 1), "mean_teacher": (2, 1), "cps": (4, 2)}
+RECIPE_GATHERS = {"fixmatch": 3, "mean_teacher": 3, "cps": 2}
+# what the checkpoint of each algorithm holds beside the model
+CKPT_EXTRAS = {"fixmatch": set(), "mean_teacher": {"model_ema"},
+               "cps": {"model_peer", "peer_optimizer"}}
+# the stem pool's tie-routing check: (B, C, T) of the ResNet18 stem output
+POOL_SHAPE = (BATCH, 64, SIGNAL_LENGTH // 2)
 
 
 def log(*args):
@@ -571,28 +596,38 @@ def check_gather(torch, gather1d, label, kind, shape, j, slope):
 # ---------------------------------------------------------------------------
 
 
-def write_slice_config():
-    from semi_seg_ecg_tpu_torch.config import load_config
+@functools.lru_cache(maxsize=None)
+def synthetic_split(name, **sizes):
+    """A synthetic dataset under ``WORK/name``, written once per run."""
     from semi_seg_ecg_tpu_torch.data.synthetic import make_synthetic_dataset
 
-    data = make_synthetic_dataset(
-        os.path.join(WORK, "data"), num_train_labeled=1,
-        num_train_unlabeled=1, num_valid=1, num_test=NUM_TEST,
-        length=SIGNAL_LENGTH, seed=0)
-    config = load_config(os.path.join(REPO, "configs", "base", "vit_tiny",
+    return make_synthetic_dataset(os.path.join(WORK, name),
+                                  length=SIGNAL_LENGTH, **sizes)
+
+
+def write_slice_config(family="vit_tiny"):
+    """The shipped scratch recipe of ``family`` (the ViT with flash
+    attention) on a synthetic test split, batch 16."""
+    from semi_seg_ecg_tpu_torch.config import load_config
+
+    data = synthetic_split("data", num_train_labeled=1,
+                           num_train_unlabeled=1, num_valid=1,
+                           num_test=NUM_TEST, seed=0)
+    config = load_config(os.path.join(REPO, "configs", "base", family,
                                       "scratch.yaml"))
-    config["backbone"]["vit_tiny"]["attention_impl"] = "flash"
+    if family == "vit_tiny":
+        config["backbone"]["vit_tiny"]["attention_impl"] = "flash"
     config["dataset"].update(data)
     config["dataloader"]["batch_size"] = BATCH
     config["output_dir"] = os.path.join(WORK, "exps")
-    path = os.path.join(WORK, "vit_tiny_flash.yaml")
+    path = os.path.join(WORK, f"{family}_serving.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(config, f)
     return path, config
 
 
 def write_random_weights(config, path):
-    """vit_tiny + FCNHead at full width, weights from seed 0, as a .pth."""
+    """The config's model at full width, weights from seed 0, as a .pth."""
     import torch
 
     from semi_seg_ecg_tpu_torch.config import normalize_config
@@ -623,7 +658,8 @@ def read_counts():
 
 def serve(config_path, model_path, name, **override):
     """One ``inference_main`` call with an override file; returns the
-    outputs, the forward kernel launches it made and its wall seconds."""
+    outputs, the kernel launches it made (by kernel) and its wall
+    seconds."""
     import torch
 
     from semi_seg_ecg_tpu_torch.cli import inference_main
@@ -638,7 +674,7 @@ def serve(config_path, model_path, name, **override):
                               "--model_path", model_path,
                               "--exp_name", name])
     seconds = time.time() - t0
-    launches = read_counts()["flash_attention_fwd"]
+    launches = read_counts()
     saved = np.load(os.path.join(WORK, "exps", name, "test_outputs.npy"))
     if not np.array_equal(saved, outputs):
         raise SystemExit(f"{name}: test_outputs.npy differs from the "
@@ -754,6 +790,26 @@ def profile_model(torch, config, model_path, amp, steps=20):
     }
 
 
+def profile_models(torch, config, model_path):
+    """``profile_model`` at fp32 and under bf16 autocast, logged."""
+    model = {"fp32": profile_model(torch, config, model_path, False),
+             "bf16_autocast": profile_model(torch, config, model_path, True)}
+    for name, m in model.items():
+        log(f"  model forward, batch {BATCH}, {name}: "
+            f"{m['wall_ms_per_batch']:.3f} ms wall "
+            f"({m['windows_per_s']:.1f} windows/s); traced: "
+            f"{m['device_events_per_batch']:.0f} device events "
+            f"({m['copy_kernels_per_batch']:.0f} copy, "
+            f"{m['elementwise_kernels_per_batch']:.0f} other elementwise), "
+            "device busy "
+            f"{m['device_busy_ms_per_batch']} ms, idle share "
+            f"{m['device_idle_share']}, flash kernel "
+            f"{m['flash_kernel_ms_per_batch']} ms")
+        for kernel, ms in m["top_kernels_ms_per_batch"]:
+            log(f"    {ms:.4f} ms  {kernel}")
+    return model
+
+
 def phase_slice(torch):
     config_path, config = write_slice_config()
     model_path = os.path.join(WORK, "vit_tiny_seed0.pth")
@@ -775,19 +831,23 @@ def phase_slice(torch):
             # the first call in a process pays cuDNN/cuBLAS set-up; this
             # one reads the entry's warm cost
             ("flash_fp32_warm", {})):
-        probs, launches, seconds = serve(config_path, model_path, name,
-                                         **override)
+        probs, counts, seconds = serve(config_path, model_path, name,
+                                       **override)
+        launches = counts["flash_attention_fwd"]
         row_err = check_probs(name, probs)
         runs[name] = {"probs": probs, "launches": launches,
+                      "launches_by_kernel": counts,
                       "seconds": seconds, "windows_per_s": NUM_TEST / seconds,
                       "row_sum_err": row_err}
         log(f"  {name}: {launches} kernel launches, {seconds:.3f} s entry "
             f"wall time, {NUM_TEST / seconds:.2f} windows/s end to end")
         on_card_flash = name.startswith("flash") and not name.endswith("cpu")
-        if launches != (want if on_card_flash else 0):
-            raise SystemExit(f"{name}: {launches} flash kernel launches, "
-                             f"expected {want if on_card_flash else 0} "
-                             f"({DEPTH} blocks x {n_batches} batches)")
+        if launches != (want if on_card_flash else 0) or \
+                counts["flash_attention_bwd"] or counts["gather1d"]:
+            raise SystemExit(f"{name}: launches {counts}, expected "
+                             f"{want if on_card_flash else 0} flash forward "
+                             f"({DEPTH} blocks x {n_batches} batches) and "
+                             "no other")
 
     ref = runs["flash_fp32"]["probs"]
     diffs = {
@@ -807,21 +867,7 @@ def phase_slice(torch):
         raise SystemExit(f"phase 3 failed: bf16 autocast agrees with fp32 "
                          f"on {agree:.3f} of the samples' classes")
 
-    model = {"fp32": profile_model(torch, config, model_path, False),
-             "bf16_autocast": profile_model(torch, config, model_path, True)}
-    for name, m in model.items():
-        log(f"  model forward, batch {BATCH}, {name}: "
-            f"{m['wall_ms_per_batch']:.3f} ms wall "
-            f"({m['windows_per_s']:.1f} windows/s); traced: "
-            f"{m['device_events_per_batch']:.0f} device events "
-            f"({m['copy_kernels_per_batch']:.0f} copy, "
-            f"{m['elementwise_kernels_per_batch']:.0f} other elementwise), "
-            "device busy "
-            f"{m['device_busy_ms_per_batch']} ms, idle share "
-            f"{m['device_idle_share']}, flash kernel "
-            f"{m['flash_kernel_ms_per_batch']} ms")
-        for kernel, ms in m["top_kernels_ms_per_batch"]:
-            log(f"    {ms:.4f} ms  {kernel}")
+    model = profile_models(torch, config, model_path)
     summary = {name: {k: v for k, v in r.items() if k != "probs"}
                for name, r in runs.items()}
     return {"runs": summary, "diffs": diffs, "amp_argmax_agreement": agree,
@@ -834,45 +880,62 @@ def phase_slice(torch):
 # ---------------------------------------------------------------------------
 
 
-def write_train_config():
-    """The shipped vit_tiny FixMatch recipe with flash attention and device
-    augmentation, on a synthetic split, for ``TRAIN_EPOCHS`` epochs."""
+def write_train_config(family="vit_tiny", algorithm="fixmatch"):
+    """The shipped ``family``/``algorithm`` recipe (the ViT with flash
+    attention) with device augmentation, on a synthetic split, for
+    ``TRAIN_EPOCHS`` epochs."""
     from semi_seg_ecg_tpu_torch.config import load_config
-    from semi_seg_ecg_tpu_torch.data.synthetic import make_synthetic_dataset
 
-    data = make_synthetic_dataset(
-        os.path.join(WORK, "train_data"), num_train_labeled=TRAIN_LABELED,
-        num_train_unlabeled=TRAIN_UNLABELED, num_valid=TRAIN_VALID,
-        num_test=TRAIN_TEST, length=SIGNAL_LENGTH, seed=1)
-    config = load_config(os.path.join(REPO, "configs", "base", "vit_tiny",
-                                      "fixmatch.yaml"))
-    config["backbone"]["vit_tiny"]["attention_impl"] = "flash"
+    data = synthetic_split("train_data", num_train_labeled=TRAIN_LABELED,
+                           num_train_unlabeled=TRAIN_UNLABELED,
+                           num_valid=TRAIN_VALID, num_test=TRAIN_TEST,
+                           seed=1)
+    config = load_config(os.path.join(REPO, "configs", "base", family,
+                                      f"{algorithm}.yaml"))
+    if family == "vit_tiny":
+        config["backbone"]["vit_tiny"]["attention_impl"] = "flash"
     config["dataset"].update(data, device_augment=True)
     config["output_dir"] = os.path.join(WORK, "exps")
-    config["exp_name"] = "fixmatch"
+    config["exp_name"] = f"{family}_{algorithm}"
     config["train"].update(epochs=TRAIN_EPOCHS, warmup_epochs=0)
-    path = os.path.join(WORK, "vit_tiny_fixmatch.yaml")
+    path = os.path.join(WORK, f"{family}_{algorithm}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(config, f)
     return path, config
 
 
-def phase_train(torch):
+def launches_per_step(family, algorithm):
+    """Kernel launches of one train step of a recipe (RECIPE_PASSES)."""
+    depth = DEPTH if family == "vit_tiny" else 0
+    fwd, bwd = RECIPE_PASSES[algorithm]
+    return {"flash_attention_fwd": fwd * depth,
+            "flash_attention_bwd": bwd * depth,
+            "gather1d": RECIPE_GATHERS[algorithm]}
+
+
+def train_recipe(torch, phase, family, algorithm):
+    """``train_main`` on a recipe (``write_train_config``) with the launch
+    counters zeroed just before and read just after, held to the counts
+    per step and per eval batch; then its files, its log, the parameters'
+    move, what the checkpoint holds beside the model, and the trained
+    checkpoint served through ``inference_main``. Returns the result and
+    the normalized config."""
     from semi_seg_ecg_tpu_torch.algorithms.common import init_model
     from semi_seg_ecg_tpu_torch.cli import inference_main, train_main
     from semi_seg_ecg_tpu_torch.config import normalize_config
     from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
 
-    config_path, config = write_train_config()
+    config_path, config = write_train_config(family, algorithm)
+    name = config["exp_name"]
     steps_per_epoch = TRAIN_LABELED // BATCH
     steps = steps_per_epoch * TRAIN_EPOCHS
     eval_batches = (TRAIN_EPOCHS * math.ceil(TRAIN_VALID / BATCH)
                     + math.ceil(TRAIN_TEST / BATCH))
-    want = {"flash_attention_fwd": steps * FWD_PER_STEP
-            + eval_batches * DEPTH,
-            "flash_attention_bwd": steps * BWD_PER_STEP,
-            "gather1d": steps * GATHER_PER_STEP}
-    log(f"phase 4: train_main, vit_tiny FixMatch (flash, device_augment, "
+    eval_depth = DEPTH if family == "vit_tiny" else 0
+    per_step = launches_per_step(family, algorithm)
+    want = {k: steps * v for k, v in per_step.items()}
+    want["flash_attention_fwd"] += eval_batches * eval_depth
+    log(f"phase {phase}: train_main, {name} (device_augment, "
         f"{config['precision']}, batch {BATCH} + {BATCH}), {TRAIN_EPOCHS} "
         f"epochs of {steps_per_epoch} steps, then the test pass; entering "
         f"with {tf32_flags(torch)}")
@@ -884,53 +947,69 @@ def phase_train(torch):
     seconds = time.time() - t0
     launches = read_counts()
     log(f"  train_main: {seconds:.2f} s, launches {launches} (expected "
-        f"{want}: per step {FWD_PER_STEP} forward, {BWD_PER_STEP} backward,"
-        f" {GATHER_PER_STEP} gather; {DEPTH} forward per eval batch x "
-        f"{eval_batches}); test metrics {test_metrics}")
+        f"{want}: per step {per_step}; {eval_depth} forward per eval batch "
+        f"x {eval_batches}); test metrics {test_metrics}")
     if launches != want:
-        raise SystemExit(f"phase 4 failed: launches {launches}, expected "
-                         f"{want}")
+        raise SystemExit(f"phase {phase} failed: {name} launches "
+                         f"{launches}, expected {want}")
 
-    out_dir = os.path.join(WORK, "exps", "fixmatch")
-    for name in ("log.txt", "best-loss.ckpt", "best-MeanIoU.ckpt",
-                 "test_metrics.csv", "test_outputs.npy", "test_labels.npy"):
-        if not os.path.exists(os.path.join(out_dir, name)):
-            raise SystemExit(f"phase 4 failed: train_main wrote no {name}")
+    out_dir = os.path.join(WORK, "exps", name)
+    for f in ("log.txt", "best-loss.ckpt", "best-MeanIoU.ckpt",
+              "test_metrics.csv", "test_outputs.npy", "test_labels.npy"):
+        if not os.path.exists(os.path.join(out_dir, f)):
+            raise SystemExit(f"phase {phase} failed: {name}: train_main "
+                             f"wrote no {f}")
     with open(os.path.join(out_dir, "log.txt")) as f:
         epochs = [json.loads(line) for line in f]
     if len(epochs) != TRAIN_EPOCHS or not all(
             math.isfinite(e[k]) for e in epochs for k in e
             if "loss" in k):
-        raise SystemExit(f"phase 4 failed: log.txt epochs {epochs}")
+        raise SystemExit(f"phase {phase} failed: {name} log.txt epochs "
+                         f"{epochs}")
     log(f"  log.txt: {[{k: round(v, 4) for k, v in e.items()} for e in epochs]}")
 
     normalized = normalize_config(copy.deepcopy(config))
     init = dict(init_model(normalized, torch.device("cpu"))
                 .named_parameters())
-    trained = ckpt.model_state_dict(ckpt.load_checkpoint(
-        os.path.join(out_dir, "best-loss.ckpt"))["model"])
+    payload = ckpt.load_checkpoint(os.path.join(out_dir, "best-loss.ckpt"))
+    trained = ckpt.model_state_dict(payload["model"])
     moved = max((trained[k] - v.detach()).abs().max().item()
                 for k, v in init.items())
     if not moved > 0:
-        raise SystemExit("phase 4 failed: the parameters did not move")
+        raise SystemExit(f"phase {phase} failed: {name}: the parameters "
+                         "did not move")
+    extras = {"model_ema", "model_peer", "peer_optimizer"} & set(payload)
+    if extras != CKPT_EXTRAS[algorithm]:
+        raise SystemExit(f"phase {phase} failed: {name}: the checkpoint "
+                         f"holds {extras} beside the model, expected "
+                         f"{CKPT_EXTRAS[algorithm]}")
 
     reset_counts()
     probs = inference_main(["-f", config_path, "--model_path",
                             os.path.join(out_dir, "best-MeanIoU.ckpt"),
-                            "--exp_name", "fixmatch_served"])
-    served = read_counts()["flash_attention_fwd"]
-    check_probs("served trained ckpt", probs, TRAIN_TEST)
-    if served != DEPTH * math.ceil(TRAIN_TEST / BATCH):
-        raise SystemExit(f"phase 4 failed: serving the trained ckpt made "
-                         f"{served} forward launches")
-    log(f"  parameters moved by up to {moved:.4g}; inference_main served "
-        f"best-MeanIoU.ckpt with {served} forward launches")
+                            "--exp_name", f"{name}_served"])
+    served = read_counts()
+    check_probs(f"{name}: served trained ckpt", probs, TRAIN_TEST)
+    want_served = {"flash_attention_fwd": eval_depth * math.ceil(
+        TRAIN_TEST / BATCH), "flash_attention_bwd": 0, "gather1d": 0}
+    if served != want_served:
+        raise SystemExit(f"phase {phase} failed: serving {name}'s "
+                         f"checkpoint made {served} launches, expected "
+                         f"{want_served}")
+    log(f"  parameters moved by up to {moved:.4g}; checkpoint holds "
+        f"{sorted(extras) or 'the model only'}; inference_main served "
+        f"best-MeanIoU.ckpt with {served['flash_attention_fwd']} forward "
+        "launches")
+    return {"seconds": seconds, "launches": launches,
+            "launches_expected": want, "launches_per_step": per_step,
+            "steps": steps, "eval_batches": eval_batches,
+            "test_metrics": test_metrics, "log": epochs,
+            "max_param_move": moved, "checkpoint_extras": sorted(extras),
+            "served_launches": served["flash_attention_fwd"]}, normalized
 
-    result = {"seconds": seconds, "launches": launches,
-              "launches_expected": want, "steps": steps,
-              "eval_batches": eval_batches, "test_metrics": test_metrics,
-              "log": epochs, "max_param_move": moved,
-              "served_launches": served}
+
+def phase_train(torch):
+    result, normalized = train_recipe(torch, 4, "vit_tiny", "fixmatch")
     result["gradients"] = check_gradients(torch, normalized)
     result["lockstep"] = check_lockstep(torch, normalized)
     result["augment"] = check_augment(torch, normalized)
@@ -995,9 +1074,16 @@ def check_gradients(torch, config):
             "rtol": GRAD_RTOL}
 
 
-def check_lockstep(torch, config):
+def check_lockstep(torch, config, runs=(("flash", "cuda"), ("xla", "cuda")),
+                   phase=4, sgd=False, conf_thresh=LOCKSTEP_CONF_THRESH):
     """LOCKSTEP_STEPS fp32 FixMatch steps from one init, dropout 0, on
-    fixed device batches: the flash kernels against the dense path."""
+    fixed batches, in two runs: ``(attention_impl, device)`` each (phase 4:
+    the flash kernels against the dense path on the card; phase 5: the
+    ResNet on the card against the CPU, ``attention_impl`` unused). With
+    ``sgd`` the steps take SGD with momentum instead of the recipe's AdamW,
+    whose first update is lr·sign(g): a gradient element within rounding
+    noise of 0, of which a ResNet's BatchNorm-fed convs have many, moves by
+    up to 2 lr either way."""
     from semi_seg_ecg_tpu_torch.algorithms import fixmatch
     from semi_seg_ecg_tpu_torch.algorithms.common import (
         Trainer,
@@ -1006,23 +1092,29 @@ def check_lockstep(torch, config):
     )
 
     results = {}
-    for impl in ("flash", "xla"):
+    for impl, device_name in runs:
+        device = torch.device(device_name)
         cfg = copy.deepcopy(config)
         cfg["precision"] = "fp32"
         cfg["decode_head"]["FCNHead"]["dropout_ratio"] = 0.0
-        cfg["backbone"]["vit_tiny"]["attention_impl"] = impl
+        if "vit_tiny" in cfg["backbone"]:
+            cfg["backbone"]["vit_tiny"]["attention_impl"] = impl
         cfg["dataset"]["device_augment"] = False
-        cfg["train"]["conf_thresh"] = LOCKSTEP_CONF_THRESH
+        cfg["train"]["conf_thresh"] = conf_thresh
+        if sgd:
+            cfg["train"].update(optimizer="sgd",
+                                optimizer_kwargs={"momentum": 0.9})
         with full_fp32():
-            model = init_model(cfg, torch.device("cuda"))
-            trainer = Trainer(cfg, fixmatch.SPEC, torch.device("cuda"), 4,
-                              model=model)
+            model = init_model(cfg, device)
+            trainer = Trainer(cfg, fixmatch.SPEC, device, 4, model=model)
             metrics = [{k: v.item() for k, v in trainer.train_step(
-                device_batch(torch, 10 + s)).items()}
+                {k: v.to(device) for k, v in device_batch(
+                    torch, 10 + s).items()}).items()}
                 for s in range(LOCKSTEP_STEPS)]
-        results[impl] = (metrics, {k: v.detach().clone() for k, v in
+        results[impl] = (metrics, {k: v.detach().cpu().clone() for k, v in
                                    model.state_dict().items()})
-    (m_f, sd_f), (m_d, sd_d) = results["flash"], results["xla"]
+    (m_f, sd_f), (m_d, sd_d) = (results[impl] for impl, _ in runs)
+    what = " vs ".join(f"{impl} on {dev}" for impl, dev in runs)
     lr = config["train"]["lr"]
     worst_key_bias = worst_other = 0.0
     worst_name = None
@@ -1032,7 +1124,8 @@ def check_lockstep(torch, config):
         err = (sd_f[k] - v).abs().max().item()
         if "running" in k:
             if err > 1e-4 + 1e-4 * v.abs().max().item():
-                raise SystemExit(f"phase 4 failed: lockstep {k} {err}")
+                raise SystemExit(f"phase {phase} failed: lockstep {k} "
+                                 f"{err}")
             continue
         err /= lr
         if k.endswith(KEY_BIAS):
@@ -1045,20 +1138,22 @@ def check_lockstep(torch, config):
     pixels = [(round(a["mask_ratio"] * BATCH * SIGNAL_LENGTH),
                round(b["mask_ratio"] * BATCH * SIGNAL_LENGTH))
               for a, b in zip(m_f, m_d)]
-    log(f"  lockstep, {LOCKSTEP_STEPS} fp32 FixMatch steps, flash vs dense:"
-        f" params within {worst_other:.3g} lr ({worst_name}), key bias "
+    log(f"  lockstep, {LOCKSTEP_STEPS} fp32 FixMatch steps "
+        f"({'SGD' if sgd else 'AdamW'}), {what}: params within "
+        f"{worst_other:.3g} lr ({worst_name}), key bias "
         f"{worst_key_bias:.3g} lr; losses within {loss_rel:.3g} relative; "
         f"confident pixels {pixels}")
     if not (worst_other <= LOCKSTEP_TIGHT_ATOL_LR
             and worst_key_bias <= LOCKSTEP_ATOL_LR and loss_rel <= 1e-4
             and any(a > 0 for a, _ in pixels)
             and all(abs(a - b) <= 4 for a, b in pixels)):
-        raise SystemExit("phase 4 failed: flash and dense training steps "
-                         "disagree")
-    return {"params_lr": worst_other, "param": worst_name,
+        raise SystemExit(f"phase {phase} failed: the training steps of "
+                         f"{what} disagree")
+    return {"runs": [list(r) for r in runs], "sgd": sgd,
+            "params_lr": worst_other, "param": worst_name,
             "key_bias_lr": worst_key_bias, "loss_rel": loss_rel,
-            "confident_pixels": pixels, "metrics_flash": m_f,
-            "metrics_dense": m_d, "tight_atol_lr": LOCKSTEP_TIGHT_ATOL_LR,
+            "confident_pixels": pixels, "metrics": [m_f, m_d],
+            "tight_atol_lr": LOCKSTEP_TIGHT_ATOL_LR,
             "atol_lr": LOCKSTEP_ATOL_LR}
 
 
@@ -1121,7 +1216,7 @@ def check_augment(torch, config):
         f"{launched} gather launches")
     if not (rrc_ulps <= 1.0 and torch.equal(y_card.cpu(), y_cpu)
             and labels_equal and whole <= CHAIN_ATOL
-            and launched == GATHER_PER_STEP):
+            and launched == RECIPE_GATHERS["fixmatch"]):
         raise SystemExit("phase 4 failed: the card's augmentation differs "
                          "from the CPU's on the same draws")
     return {"resize_crop_bit_equal": rrc_equal, "resize_crop_ulps": rrc_ulps,
@@ -1130,7 +1225,8 @@ def check_augment(torch, config):
             "gather_launches": launched}
 
 
-def profile_train_step(torch, config, precision, steps=10):
+def profile_train_step(torch, config, precision, phase=4,
+                       family="vit_tiny", steps=10):
     """Where one FixMatch step's time goes at full width: synchronized
     host-clock ms per ``Trainer.train_step`` (device augmentation
     included) and, from a trace of the same loop, device busy time, idle
@@ -1192,20 +1288,130 @@ def profile_train_step(torch, config, precision, steps=10):
         f"{out['gather_ms_per_step']} ms per step")
     for kernel, ms in top:
         log(f"    {ms:.4f} ms  {kernel[:80]}")
-    want = {"flash_attention_fwd": FWD_PER_STEP,
-            "flash_attention_bwd": BWD_PER_STEP,
-            "gather1d": GATHER_PER_STEP}
+    want = launches_per_step(family, "fixmatch")
     if per_step != want:
-        raise SystemExit(f"phase 4 failed: {precision} step launches "
+        raise SystemExit(f"phase {phase} failed: {precision} step launches "
                          f"{per_step}, expected {want}")
-    # a trace with device events must find each ported kernel by its name
-    unnamed = [k for k in ("flash_fwd_ms_per_step", "flash_bwd_ms_per_step",
-                           "gather_ms_per_step")
-               if per_kernel and not out[k]]
+    # a trace with device events must find each launched kernel by its name
+    unnamed = [k for k, kernel in (
+        ("flash_fwd_ms_per_step", "flash_attention_fwd"),
+        ("flash_bwd_ms_per_step", "flash_attention_bwd"),
+        ("gather_ms_per_step", "gather1d"))
+        if per_kernel and want[kernel] and not out[k]]
     if unnamed:
-        raise SystemExit(f"phase 4 failed: the {precision} step's trace "
-                         f"holds no time under {unnamed}")
+        raise SystemExit(f"phase {phase} failed: the {precision} step's "
+                         f"trace holds no time under {unnamed}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: ResNet18
+# ---------------------------------------------------------------------------
+
+
+def phase_resnet(torch):
+    """ResNet18 + FCNHead at full width: serving, FixMatch training, three
+    steps on the card against the CPU, step profiles, and the stem pool's
+    tie routing."""
+    config_path, config = write_slice_config("resnet18")
+    model_path = os.path.join(WORK, "resnet18_seed0.pth")
+    n_params = write_random_weights(config, model_path)
+    n_batches = math.ceil(NUM_TEST / BATCH)
+    log(f"phase 5: resnet18 + FCNHead ({n_params} parameters, stem and "
+        f"base 64, four stages, FCN head 512 -> 128), {NUM_TEST} windows "
+        f"of {SIGNAL_LENGTH} in {n_batches} batches of {BATCH}")
+    runs = {}
+    for name, override in (
+            ("resnet_fp32", {}),
+            ("resnet_amp", {"test": {"use_amp": True}}),
+            ("resnet_fp32_cpu", {"device": "cpu"}),
+            ("resnet_fp32_warm", {})):
+        probs, counts, seconds = serve(config_path, model_path, name,
+                                       **override)
+        row_err = check_probs(name, probs)
+        runs[name] = {"probs": probs, "launches": counts,
+                      "seconds": seconds, "windows_per_s": NUM_TEST / seconds,
+                      "row_sum_err": row_err}
+        log(f"  {name}: launches {counts}, {seconds:.3f} s entry wall time, "
+            f"{NUM_TEST / seconds:.2f} windows/s end to end")
+        if any(counts.values()):
+            raise SystemExit(f"phase 5 failed: serving ResNet18 launched "
+                             f"{counts}; its path holds no ported kernel")
+    ref = runs["resnet_fp32"]["probs"]
+    diffs = {
+        "card_vs_cpu_fp32": float(np.abs(ref - runs["resnet_fp32_cpu"]
+                                         ["probs"]).max()),
+        "amp_vs_fp32": float(np.abs(ref - runs["resnet_amp"]["probs"])
+                             .max())}
+    agree = float((ref.argmax(1) == runs["resnet_amp"]["probs"].argmax(1))
+                  .mean())
+    log(f"  max |diff|: {diffs}; bf16 autocast argmax agreement {agree:.5f}")
+    if diffs["card_vs_cpu_fp32"] > 1e-4:
+        raise SystemExit(f"phase 5 failed: card vs CPU fp32 "
+                         f"{diffs['card_vs_cpu_fp32']} > 1e-4")
+    if agree < 0.9:
+        raise SystemExit(f"phase 5 failed: bf16 autocast agrees with fp32 "
+                         f"on {agree:.3f} of the samples' classes")
+    model = profile_models(torch, config, model_path)
+    serving = {"runs": {name: {k: v for k, v in r.items() if k != "probs"}
+                        for name, r in runs.items()},
+               "diffs": diffs, "amp_argmax_agreement": agree,
+               "batches": n_batches, "model": model}
+
+    train, normalized = train_recipe(torch, 5, "resnet18", "fixmatch")
+    train["lockstep"] = check_lockstep(
+        torch, normalized, runs=(("card", "cuda"), ("cpu", "cpu")),
+        phase=5, sgd=True, conf_thresh=RESNET_LOCKSTEP_CONF_THRESH)
+    train["profile"] = {
+        precision: profile_train_step(torch, normalized, precision, phase=5,
+                                      family="resnet18")
+        for precision in ("bf16", "fp32")}
+    return {"serving": serving, "train": train,
+            "pool": check_pool_ties(torch)}
+
+
+def check_pool_ties(torch):
+    """The ResNet stem's max pool (k3/s2/p1) on a tie-heavy input, flat
+    lines of 10 equal samples with a spike every 37: the card's gradient
+    equals the CPU's bit for bit (ties to the earliest element)."""
+    from semi_seg_ecg_tpu_torch.models.backbones.resnet import resnet18
+
+    b, c, t = POOL_SHAPE
+    rng = np.random.default_rng(2)
+    levels = rng.integers(-2, 3, (b, c, t // 10 + 1)).astype(np.float32)
+    x = np.repeat(levels, 10, axis=-1)[..., :t]
+    x[:, :, ::37] += rng.standard_normal(x[:, :, ::37].shape).astype(
+        np.float32)
+    g = torch.from_numpy(rng.standard_normal((b, c, (t + 1) // 2)).astype(
+        np.float32))
+    pool = resnet18(1).maxpool
+    grads = {}
+    for device in ("cuda", "cpu"):
+        xt = torch.from_numpy(x).to(device).requires_grad_()
+        pool(xt).backward(g.to(device))
+        grads[device] = xt.grad.cpu()
+    equal = torch.equal(grads["cuda"], grads["cpu"])
+    routed = (grads["cpu"] != 0).float().mean().item()
+    log(f"  stem max pool {POOL_SHAPE}, flat-line input: card gradient "
+        f"bit-equal to the CPU's {equal}; {routed:.3f} of the inputs "
+        "receive a gradient")
+    if not equal:
+        raise SystemExit("phase 5 failed: the card's max-pool gradient "
+                         "routes ties unlike the CPU's")
+    return {"shape": list(POOL_SHAPE), "bit_equal": equal,
+            "routed_share": routed}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: Mean Teacher and CPS
+# ---------------------------------------------------------------------------
+
+
+def phase_algorithms(torch):
+    return {f"{family}_{algorithm}": train_recipe(torch, 6, family,
+                                                  algorithm)[0]
+            for family in ("vit_tiny", "resnet18")
+            for algorithm in ("mean_teacher", "cps")}
 
 
 # ---------------------------------------------------------------------------
@@ -1213,22 +1419,27 @@ def profile_train_step(torch, config, precision, steps=10):
 # ---------------------------------------------------------------------------
 
 
-def kernel_entry(name, rows, launches, serve_launches=None):
+def kernel_entry(name, rows, by_path):
+    """A kernel's entry of the kernels line: ``launches`` on the main path
+    (phase 4's vit_tiny FixMatch ``train_main``), ``launches_by_path`` on
+    each path the script drives, the main row's times and bound."""
     main = next(r for r in rows if r["shape"] == MAIN_ROW[name])
+    launches = by_path["vit_tiny_fixmatch"][name]
     entry = {"name": name, "route": "cuda", "source": CSRC.format(name),
              "replaces": REPLACES[name], "launches": launches,
              "row": main["shape"],
              "max_abs_err": max(r["max_abs_err"] for r in rows),
              "ms": main["ms"], "plain_ms": main["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-             "library_ms": main["library_ms"], "shapes": rows}
+             "library_ms": main["library_ms"],
+             "launches_by_path": {path: counts[name]
+                                  for path, counts in by_path.items()},
+             "shapes": rows}
     if name in FP32_ROW:
         row = next(r for r in rows if r["shape"] == FP32_ROW[name])
         entry["fp32"] = {"row": row["shape"], **{
             k: row[k] for k in ("ms", "bound_ms", "bound_by", "bound_peak",
                                 "library_ms")}}
-    if serve_launches is not None:
-        entry["launches_serving"] = serve_launches
     return entry
 
 
@@ -1248,15 +1459,18 @@ def main():
     rows, floor_ms = phase_kernels(torch)
     slice_result = phase_slice(torch)
     train_result = phase_train(torch)
-    launches = train_result["launches"]
-    kernels = [
-        kernel_entry("flash_attention_fwd", rows["flash_attention_fwd"],
-                     launches["flash_attention_fwd"],
-                     slice_result["runs"]["flash_fp32"]["launches"]),
-        kernel_entry("flash_attention_bwd", rows["flash_attention_bwd"],
-                     launches["flash_attention_bwd"]),
-        kernel_entry("gather1d", rows["gather1d"], launches["gather1d"]),
-    ]
+    resnet_result = phase_resnet(torch)
+    algorithm_results = phase_algorithms(torch)
+    # each path's launches, counted from 0 just before it and read after
+    by_path = {
+        "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
+            "launches_by_kernel"],
+        "vit_tiny_fixmatch": train_result["launches"],
+        "resnet18_serving": resnet_result["serving"]["runs"]["resnet_fp32"][
+            "launches"],
+        "resnet18_fixmatch": resnet_result["train"]["launches"],
+        **{path: r["launches"] for path, r in algorithm_results.items()}}
+    kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1266,6 +1480,8 @@ def main():
                    "build_s": build_s, "hmma": hmma,
                    "launch_floor_ms": floor_ms, "kernels": kernels,
                    "slice": slice_result, "train": train_result,
+                   "resnet18": resnet_result,
+                   "algorithms": algorithm_results,
                    "seconds": time.time() - t_start}, f, indent=1)
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,20 @@
 """Algorithm registry (counterpart of
 ``semi_seg_ecg_tpu/algorithms/__init__.py``): each algorithm is a module
-with ``train(config)`` and ``test(config)``. ``base`` and ``fixmatch`` are
-ported; the JAX package's other four raise "not yet ported".
+with ``train(config)`` and ``test(config)``. ``base``, ``mean_teacher``,
+``fixmatch`` and ``cps`` are ported; ``reco`` and ``stpp`` raise "not yet
+ported".
 """
 
-from . import base, fixmatch
+from . import base, cps, fixmatch, mean_teacher
 
 ALGORITHMS = {
     "base": base,
+    "mean_teacher": mean_teacher,
     "fixmatch": fixmatch,
+    "cps": cps,
 }
 
-NOT_YET_PORTED = ("mean_teacher", "cps", "reco", "stpp")
+NOT_YET_PORTED = ("reco", "stpp")
 
 
 def get_algorithm(name: str):

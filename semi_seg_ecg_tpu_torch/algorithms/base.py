@@ -18,8 +18,9 @@ def aux_loss_weights(train_cfg, n):
     return list(ws)[:n] if n else []
 
 
-def make_train_step(model, optimizer, config, amp):
-    train_cfg = config["train"]
+def make_train_step(trainer):
+    model, optimizer, amp = trainer.model, trainer.optimizer, trainer.amp
+    train_cfg = trainer.config["train"]
 
     def train_step(batch):
         model.train()

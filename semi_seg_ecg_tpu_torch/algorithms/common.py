@@ -4,20 +4,31 @@
 One process, one device: the config's ``device`` (``resolve_device``), the
 CUDA card unless it says ``cpu``. The training loop exists once; an
 algorithm contributes a :class:`AlgorithmSpec` whose ``make_train_step``
-returns the body of one step. Around it, the loop:
+returns the body of one step, and says whether the run keeps an EMA teacher
+(Mean Teacher) or a peer with its own optimizer (CPS), which the
+:class:`Trainer` holds beside the model. Around the step, the loop:
 
 - builds the loaders, with the device-augment plan's host overrides;
 - moves each batch to the device from pinned memory without blocking, one
   batch ahead of the step that uses it;
-- reseeds two generators every step from ``(seed, step)``: one for dropout
-  and DropPath (``models/dropout.py``), and, for ``device_augment``, one
-  from ``seed + 0x5EED`` for the augmentation draws (``ops/preprocess.py``)
-  — the JAX package's ``fold_in(key, step)``;
-- sets the scheduled lr of each update (``utils/optimizer.py``);
+- reseeds its generators every step from ``(seed, step)``: one for dropout
+  and DropPath (``models/dropout.py``), the teacher's from a stream of its
+  own, the peer's from ``seed + 1``, and, for ``device_augment``, one from
+  ``seed + 0x5EED`` for the augmentation draws (``ops/preprocess.py``) —
+  the JAX package's ``fold_in(key, step)``;
+- sets the scheduled lr of each update, on the peer's optimizer too
+  (``utils/optimizer.py``);
 - drains the step metrics every ``PRINT_FREQ`` steps, aborting on a
   non-finite loss, and prints the progress line;
-- evaluates after each epoch and writes ``best-loss.ckpt`` /
-  ``best-{metric}.ckpt`` and a ``log.txt`` line.
+- evaluates the model (the student, CPS's model 1) after each epoch and
+  writes ``best-loss.ckpt`` / ``best-{metric}.ckpt`` (teacher or peer
+  included) and a ``log.txt`` line.
+
+``mode`` other than ``scratch`` warm-starts the backbone of the model (and
+of the peer) from ``pretrained_backbone`` (:func:`load_pretrained_backbone`);
+``debug.nan_checks`` runs training under autograd's anomaly detection, the
+counterpart of ``jax_debug_nans`` (slow, for debugging); ``async_checkpoint``
+writes synchronously (``utils/checkpoint.save_checkpoint``).
 
 Precision: the whole run is full fp32 (no TF32 in cuBLAS and cuDNN,
 ``full_fp32``; the flash kernels form fp32 products from three TF32
@@ -27,13 +38,14 @@ products each, 3xTF32 with fp32 accumulation, to fp32 accuracy, which
 fp32 parameters and optimizer and no loss scaling, as the JAX package
 computes in bf16 with fp32 parameters. ``train.fused_state`` and
 ``train.scan_steps`` are accepted and do nothing (XLA dispatch devices).
-Resume, gradient accumulation, ``device_cache`` and multi-device training
-are not ported yet and raise.
+Resume, gradient accumulation, ``device_cache``, multi-device training,
+``checkpoint_backend: orbax`` and ``profile`` are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import datetime
 import math
@@ -62,21 +74,33 @@ from ..ops.metrics import (
 from ..utils import checkpoint as ckpt
 from ..utils.logging import JsonlLogger, MetricLogger, TensorBoardWriter, log
 from ..utils.optimizer import build_optimizer, make_lr_schedule, resolve_lr
+from ..utils.weights import jax_trees_to_state_dict
 
 PRINT_FREQ = 20
 AUGMENT_SEED_OFFSET = 0x5EED
+# the CPS peer's init seed (the JAX package's ``seed + 10_000``) and the
+# offset of its dropout seed
+PEER_INIT_SEED_OFFSET = 10_000
+PEER_SEED_OFFSET = 1
+# the Mean Teacher's train-mode forward draws its dropout from this stream
+# of ``(seed, step)`` (the JAX package folds 3 into the step key)
+TEACHER_STREAM = 3
 
 
 @dataclass
 class AlgorithmSpec:
-    """What varies between algorithms. ``make_train_step(model, optimizer,
-    config, amp)`` returns ``step(batch) -> metrics`` (0-d tensors on the
-    device), which runs the forward(s) under ``amp()``, the backward and
-    one optimizer update."""
+    """What varies between algorithms. ``make_train_step(trainer)`` returns
+    ``step(batch) -> metrics`` (0-d tensors on the device), which runs the
+    forward(s) under ``trainer.amp()``, the backward(s) and the optimizer
+    update(s) on what the :class:`Trainer` holds: ``model`` and
+    ``optimizer``, with ``uses_ema`` the ``teacher``, with ``uses_peer``
+    the ``peer`` and ``peer_optimizer``."""
 
     name: str
     make_train_step: Callable[..., Callable]
     uses_unlabeled: bool = False
+    uses_ema: bool = False
+    uses_peer: bool = False
 
 
 def loader_workers(dataloader_cfg: Dict[str, Any]) -> int:
@@ -114,20 +138,61 @@ def amp_context(config: Dict[str, Any], device: torch.device) -> Callable:
     return lambda: torch.autocast(device.type, dtype=dtype, enabled=enabled)
 
 
-def step_seed(seed: int, step: int) -> int:
-    """A generator seed for one step of a run: distinct across steps and
-    seeds, the same on every replay."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(
+def step_seed(seed: int, step: int, stream: int = 0) -> int:
+    """A generator seed for one step of a run: distinct across steps,
+    seeds and streams, the same on every replay."""
+    entropy = [seed, step] + ([stream] if stream else [])
+    return int(np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0])
 
 
 def init_model(config: Dict[str, Any], device: torch.device,
-               train: bool = True) -> torch.nn.Module:
-    """The config's model with PyTorch's default initialisation drawn from
-    ``seed``; the process's global RNG state is left as it was."""
+               train: bool = True,
+               seed: Optional[int] = None) -> torch.nn.Module:
+    """The config's model initialised from ``seed`` (default: the config's):
+    PyTorch's default initialisation, the ResNet's Kaiming fan-out convs;
+    the process's global RNG state is left as it was."""
     with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(config.get("seed", 0))
+        torch.manual_seed(config.get("seed", 0) if seed is None else seed)
         model = build_model_from_config(config, train=train)
+    return model.to(device)
+
+
+def load_pretrained_backbone(config: Dict[str, Any],
+                             model: torch.nn.Module) -> None:
+    """Warm-start ``model.backbone`` from ``pretrained_backbone``, in place
+    (the JAX package's ``load_pretrained_backbone``; reference
+    base.py:289-303). Three kinds of file: a JAX ``.ckpt`` whose
+    ``model.params`` holds a ``backbone`` subtree or is a bare backbone
+    tree; a reference ``.pth`` (or flat ``.ckpt``) holding the full model,
+    whose ``backbone.*`` keys are taken; or one holding the bare backbone.
+    The load is strict: a key missing or left over raises."""
+    path = config["pretrained_backbone"]
+    payload = ckpt.load_checkpoint(path)
+    log(f"Load backbone from {path}")
+    source = payload.get("model", payload)
+    target = model.backbone.state_dict().keys()
+    if "params" in source:
+        params, stats = source["params"], source.get("batch_stats", {})
+        if "backbone" in params:
+            params, stats = params["backbone"], stats.get("backbone", {})
+        state = jax_trees_to_state_dict(params, stats, target,
+                                        backbone_only=True)
+    else:
+        state = {k: torch.as_tensor(v) for k, v in source.items()}
+        if any(k.startswith("backbone.") for k in state):
+            state = {k[len("backbone."):]: v for k, v in state.items()
+                     if k.startswith("backbone.")}
+    model.backbone.load_state_dict(state)
+
+
+def init_train_model(config: Dict[str, Any], device: torch.device,
+                     seed: int) -> torch.nn.Module:
+    """A training model from ``seed``, its backbone warm-started unless
+    ``mode`` is ``scratch``."""
+    model = init_model(config, torch.device("cpu"), seed=seed)
+    if config.get("mode", "scratch") != "scratch":
+        load_pretrained_backbone(config, model)
     return model.to(device)
 
 
@@ -150,6 +215,16 @@ def _refuse_unported(config: Dict[str, Any]) -> None:
     if config["dataset"].get("device_cache", False):
         raise NotImplementedError(
             "dataset.device_cache is not yet ported to the torch package")
+    if config.get("checkpoint_backend", "pickle") not in ("pickle", None):
+        raise NotImplementedError(
+            f"checkpoint_backend: {config['checkpoint_backend']!r} is not "
+            "yet ported to the torch package, which writes pickle .ckpt "
+            "files (the JAX package reads them); an orbax checkpoint "
+            "converts with `python tools/convert_checkpoint.py to-torch`")
+    if config.get("profile"):
+        raise NotImplementedError(
+            "profile (the training trace schedule) is not yet ported to the "
+            "torch package")
 
 
 # ---------------------------------------------------------------------------
@@ -334,25 +409,44 @@ def device_memory_mb(device: torch.device) -> Optional[float]:
 
 
 class Trainer:
-    """The state of one run: model, optimizer, generators and the
-    per-step function, so that a caller (the training loop, a test, a
-    profile) can run single steps."""
+    """The state of one run: model and optimizer, the Mean Teacher's
+    ``teacher`` or the CPS ``peer`` and ``peer_optimizer`` where the
+    algorithm keeps one, the generators, and the per-step function, so
+    that a caller (the training loop, a test, a profile) can run single
+    steps. ``model`` / ``peer`` given are used as they are (no warm
+    start); else they are initialised from ``seed`` / ``seed + 10_000``."""
 
     def __init__(self, config: Dict[str, Any], spec: AlgorithmSpec,
                  device: torch.device, updates_per_epoch: int,
-                 model: Optional[torch.nn.Module] = None):
+                 model: Optional[torch.nn.Module] = None,
+                 peer: Optional[torch.nn.Module] = None):
         self.config = config
         self.device = device
         self.seed = config["seed"]
-        self.model = model if model is not None else init_model(config,
-                                                                device)
+        self.model = model if model is not None else init_train_model(
+            config, device, self.seed)
         self.optimizer = build_optimizer(config, self.model,
                                          updates_per_epoch)
         self.amp = amp_context(config, device)
-        self.inner_step = spec.make_train_step(self.model, self.optimizer,
-                                               config, self.amp)
+        self.teacher = self.teacher_gen = None
+        if spec.uses_ema:
+            # the teacher starts as a copy of the student
+            # (mean_teacher.py:281-291) and learns only through the EMA
+            self.teacher = copy.deepcopy(self.model).requires_grad_(False)
+            self.teacher_gen = torch.Generator(device=device)
+            use_generator(self.teacher, self.teacher_gen)
+        self.peer = self.peer_optimizer = self.peer_gen = None
+        if spec.uses_peer:
+            # an independently initialised second network (cps.py:270-276)
+            self.peer = peer if peer is not None else init_train_model(
+                config, device, self.seed + PEER_INIT_SEED_OFFSET)
+            self.peer_optimizer = build_optimizer(config, self.peer,
+                                                  updates_per_epoch)
+            self.peer_gen = torch.Generator(device=device)
+            use_generator(self.peer, self.peer_gen)
         self.dropout_gen = torch.Generator(device=device)
         use_generator(self.model, self.dropout_gen)
+        self.inner_step = spec.make_train_step(self)
         self.augment = None
         self.augment_gen = None
         if config["dataset"].get("device_augment", False):
@@ -369,6 +463,12 @@ class Trainer:
                    ) -> Dict[str, torch.Tensor]:
         """One step on a device batch; advances the step counter."""
         self.dropout_gen.manual_seed(step_seed(self.seed, self.step))
+        if self.teacher_gen is not None:
+            self.teacher_gen.manual_seed(step_seed(self.seed, self.step,
+                                                   TEACHER_STREAM))
+        if self.peer_gen is not None:
+            self.peer_gen.manual_seed(step_seed(
+                self.seed + PEER_SEED_OFFSET, self.step))
         if self.augment is not None:
             self.augment_gen.manual_seed(step_seed(
                 self.seed + AUGMENT_SEED_OFFSET, self.step))
@@ -409,8 +509,9 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec) -> None:
     num_epochs = config["train"]["epochs"]
     best_loss = float("inf")
     lr_fn = make_lr_schedule(config["train"], steps_per_epoch)
+    nan_checks = bool((config.get("debug") or {}).get("nan_checks", False))
     try:
-        with full_fp32():
+        with full_fp32(), torch.autograd.set_detect_anomaly(nan_checks):
             trainer = Trainer(config, spec, device, steps_per_epoch)
             log(f"Start training for {num_epochs} epochs on {device}"
                 f" (seed {seed})")
@@ -451,7 +552,9 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec) -> None:
                         trainer.optimizer, config=config,
                         metrics={"loss": curr_loss, **metrics},
                         best={"loss": best_loss, **best_metrics},
-                        step=trainer.step)
+                        step=trainer.step, ema_model=trainer.teacher,
+                        peer_model=trainer.peer,
+                        peer_optimizer=trainer.peer_optimizer)
 
                 if log_writer is not None:
                     log_writer.add_scalar("perf/valid_loss", curr_loss,
@@ -553,7 +656,8 @@ def load_eval_model(config: Dict[str, Any],
     if not os.path.exists(checkpoint_path):
         raise FileNotFoundError(f"Checkpoint not found: {checkpoint_path}")
     payload = ckpt.load_checkpoint(checkpoint_path)
-    state = {k: v for k, v in ckpt.model_state_dict(payload["model"]).items()
+    state = {k: v for k, v in ckpt.model_state_dict(
+        payload["model"], model.state_dict().keys()).items()
              if not k.startswith("auxiliary_heads.")}
     model.load_state_dict(state)
     log(f"Loaded checkpoint {checkpoint_path}")

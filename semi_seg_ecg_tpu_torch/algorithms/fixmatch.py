@@ -15,8 +15,9 @@ from .base import aux_loss_weights
 from .common import AlgorithmSpec, run_test, run_training
 
 
-def make_train_step(model, optimizer, config, amp):
-    train_cfg = config["train"]
+def make_train_step(trainer):
+    model, optimizer, amp = trainer.model, trainer.optimizer, trainer.amp
+    train_cfg = trainer.config["train"]
     conf_thresh = train_cfg["conf_thresh"]
 
     def train_step(batch):

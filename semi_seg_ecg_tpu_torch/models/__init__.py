@@ -4,8 +4,8 @@
 ``backbone: {name: kwargs}`` and ``decode_head: {name: kwargs}`` pick entries
 from :data:`BACKBONES` / :data:`DECODE_HEADS` and are wrapped in an
 :class:`EncoderDecoder`, with ``auxiliary_heads`` attached for training
-builds. The ViT family and the FCN head are ported; the rest of the JAX
-registry (ResNet, the ReCo latent projection, int8 serving) raises "not yet
+builds. The whole JAX registry is ported (ResNet-1D and ViT-1D families,
+the FCN head); the ReCo latent projection and int8 serving raise "not yet
 ported" instead of building something else.
 """
 
@@ -15,6 +15,14 @@ from typing import Any, Dict
 
 import torch
 
+from .backbones.resnet import (
+    ResNet1D,
+    resnet18,
+    resnet34,
+    resnet50,
+    resnet101,
+    resnet152,
+)
 from .backbones.vision_transformer import (
     VisionTransformer1D,
     vit_base,
@@ -25,6 +33,11 @@ from .decode_heads.fcn_head import FCNHead
 from .encoder_decoder import EncoderDecoder
 
 BACKBONES = {
+    "resnet18": resnet18,
+    "resnet34": resnet34,
+    "resnet50": resnet50,
+    "resnet101": resnet101,
+    "resnet152": resnet152,
     "vit_tiny": vit_tiny,
     "vit_small": vit_small,
     "vit_base": vit_base,
@@ -33,10 +46,6 @@ BACKBONES = {
 DECODE_HEADS = {
     "FCNHead": FCNHead,
 }
-
-# names the JAX package builds that this package does not build yet
-NOT_YET_PORTED = ("resnet18", "resnet34", "resnet50", "resnet101",
-                  "resnet152")
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32,
            "fp16": torch.float16}
@@ -63,10 +72,6 @@ def build_model_from_config(config: Dict[str, Any],
             "package")
 
     backbone_name, backbone_kwargs = list(config["backbone"].items())[0]
-    if backbone_name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"backbone {backbone_name!r} is not yet ported to the torch "
-            "package")
     if backbone_name not in BACKBONES:
         raise ValueError(f"Unsupported model name: {backbone_name}")
     backbone = BACKBONES[backbone_name](**(backbone_kwargs or {}))
@@ -91,5 +96,5 @@ def build_model_from_config(config: Dict[str, Any],
 
 
 __all__ = ["BACKBONES", "DECODE_HEADS", "EncoderDecoder", "FCNHead",
-           "VisionTransformer1D", "build_model_from_config",
+           "ResNet1D", "VisionTransformer1D", "build_model_from_config",
            "compute_dtype"]

@@ -5,7 +5,9 @@ Two formats come in:
 - a ``.ckpt``: a pickle with NumPy leaves. The JAX package writes ``{epoch,
   model: {params, batch_stats}, config, ...}``; the port's trainer writes
   :func:`save_checkpoint`'s ``{epoch, step, model: <flat state_dict>,
-  optimizer, config, metrics, best}``. Either is read with an unpickler
+  optimizer, config, metrics, best}``, with Mean Teacher's ``model_ema``
+  and CPS's ``model_peer`` / ``peer_optimizer`` under the JAX package's
+  payload keys. Either is read with an unpickler
   that admits only NumPy's array and dtype constructors, so a file that
   names a JAX class (or anything else) is refused rather than imported;
   JAX ``model`` trees go through ``utils/weights.py``. A flat state_dict
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Collection, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -53,19 +55,23 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: orbax directory checkpoints are not yet ported to the "
-            "torch package")
+            "torch package; convert one with "
+            "`python tools/convert_checkpoint.py to-torch`")
     with open(path, "rb") as f:
         return _NumpyOnlyUnpickler(f).load()
 
 
-def model_state_dict(payload_model: Dict[str, Any]
+def model_state_dict(payload_model: Dict[str, Any],
+                     target_keys: Optional[Collection[str]] = None
                      ) -> Dict[str, torch.Tensor]:
     """A checkpoint's ``model`` entry as the port's ``state_dict``: JAX
-    ``{params, batch_stats}`` trees are translated, a flat state_dict (of
-    tensors or NumPy arrays) is taken key for key."""
+    ``{params, batch_stats}`` trees are translated (``target_keys``, the
+    receiving model's keys, resolve the ResNet ``avg_down`` names), a flat
+    state_dict (of tensors or NumPy arrays) is taken key for key."""
     if isinstance(payload_model, dict) and "params" in payload_model:
         return jax_trees_to_state_dict(payload_model["params"],
-                                       payload_model.get("batch_stats", {}))
+                                       payload_model.get("batch_stats", {}),
+                                       target_keys)
     return {k: torch.as_tensor(v) for k, v in payload_model.items()}
 
 
@@ -86,10 +92,19 @@ def save_checkpoint(path: Union[str, Sequence[str]], epoch: int,
                     config: Optional[Dict[str, Any]] = None,
                     metrics: Optional[Dict[str, Any]] = None,
                     best: Optional[Dict[str, Any]] = None,
-                    step: Optional[int] = None) -> None:
+                    step: Optional[int] = None,
+                    ema_model: Optional[torch.nn.Module] = None,
+                    peer_model: Optional[torch.nn.Module] = None,
+                    peer_optimizer: Optional[torch.optim.Optimizer] = None
+                    ) -> None:
     """Write one training checkpoint, a pickle with NumPy leaves, to each
     of ``path`` (one payload, fetched from the device once), atomically
-    (temporary file, then rename)."""
+    (temporary file, then rename). The Mean Teacher's teacher goes under
+    ``model_ema``, the CPS peer and its optimizer under ``model_peer`` and
+    ``peer_optimizer``, each model a flat state_dict. The write is
+    synchronous: ``async_checkpoint`` (the JAX package's background writer)
+    changes when the file appears, not what it holds, so the port accepts
+    it and writes here."""
     paths = [path] if isinstance(path, str) else list(path)
     payload: Dict[str, Any] = {
         "epoch": epoch,
@@ -99,6 +114,12 @@ def save_checkpoint(path: Union[str, Sequence[str]], epoch: int,
     }
     if optimizer is not None:
         payload["optimizer"] = _to_numpy(optimizer.state_dict())
+    if ema_model is not None:
+        payload["model_ema"] = _to_numpy(ema_model.state_dict())
+    if peer_model is not None:
+        payload["model_peer"] = _to_numpy(peer_model.state_dict())
+    if peer_optimizer is not None:
+        payload["peer_optimizer"] = _to_numpy(peer_optimizer.state_dict())
     if metrics is not None:
         payload["metrics"] = {k: float(v) for k, v in metrics.items()}
     if best is not None:

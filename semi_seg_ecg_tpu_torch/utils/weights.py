@@ -5,9 +5,16 @@ The JAX package stores a model as two nested dicts of NumPy arrays,
 the reference's torch key space, the same one
 ``semi_seg_ecg_tpu/utils/torch_interop.py`` maps those trees to; this module
 is the port's own copy of that spec walker, for the families the port
-builds: the ViT-1D backbone and the FCN head, as the decode head and as
-auxiliary heads. ResNet trees and the ReCo latent projection raise "not yet
+builds: the ResNet-1D and ViT-1D backbones and the FCN head, as the decode
+head and as auxiliary heads. The ReCo latent projection raises "not yet
 ported".
+
+The JAX tree does not record ``avg_down``: a block's ``Downsample_0/ConvBN_0``
+is the same either way, while the torch keys shift by one when an
+``AvgPool1d`` leads the downsample (``downsample.{1,2}`` for ``.{0,1}``).
+Given the target model's keys, the walker takes the shifted names where the
+unshifted conv key is absent; without them it names the unshifted ones, as
+``torch_interop.trees_to_torch_sd`` does.
 
 Layouts: Linear torch ``(out, in)`` from flax ``(in, out)``; Conv1d torch
 ``(out, in, k)`` from flax ``(k, in, out)``; norms take ``scale`` →
@@ -17,7 +24,7 @@ Layouts: Linear torch ``(out, in)`` from flax ``(in, out)``; Conv1d torch
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Collection, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +54,46 @@ def _convbn_specs(path, conv: str, bn: str) -> Iterator[Spec]:
     yield path + ("Conv_0", "kernel"), f"{conv}.weight", _CONV
     for leaf in ("scale", "bias", "mean", "var"):
         yield path + ("BatchNorm_0", leaf), _norm_key(bn, leaf), _DIRECT
+
+
+def _resnet_specs(path, tree, prefix: str,
+                  target_keys: Optional[Collection[str]]) -> Iterator[Spec]:
+    for name in tree:
+        if name.startswith("stem_"):
+            i = int(name.split("_")[1])
+            yield from _convbn_specs(path + (name,), f"{prefix}stem.{3 * i}",
+                                     f"{prefix}stem.{3 * i + 1}")
+            continue
+        m = re.fullmatch(r"layer(\d+)_block(\d+)", name)
+        if m is None:
+            raise KeyError(
+                f"unexpected ResNet leaf {'/'.join(path + (name,))}")
+        base = f"{prefix}layer{m.group(1)}.{m.group(2)}"
+        for sub in tree[name]:
+            if sub.startswith("ConvBN_"):
+                k = int(sub.split("_")[1]) + 1
+                yield from _convbn_specs(path + (name, sub), f"{base}.conv{k}",
+                                         f"{base}.bn{k}")
+            elif sub == "Downsample_0":
+                i = 0
+                if target_keys is not None and \
+                        f"{base}.downsample.0.weight" not in target_keys:
+                    i = 1  # avg_down: the AvgPool1d is downsample.0
+                yield from _convbn_specs(
+                    path + (name, sub, "ConvBN_0"),
+                    f"{base}.downsample.{i}", f"{base}.downsample.{i + 1}")
+            else:
+                raise KeyError(
+                    f"unexpected ResNet leaf {'/'.join(path + (name, sub))}")
+
+
+def _backbone_specs(path, tree, prefix: str,
+                    target_keys: Optional[Collection[str]]
+                    ) -> Iterator[Spec]:
+    if any(n.startswith("stem_") for n in tree):
+        yield from _resnet_specs(path, tree, prefix, target_keys)
+    else:
+        yield from _vit_specs(path, tree, prefix)
 
 
 def _vit_specs(path, tree, prefix: str) -> Iterator[Spec]:
@@ -134,18 +181,21 @@ def _merge_trees(params, batch_stats):
     return out
 
 
-def model_specs(params: Dict[str, Any],
-                batch_stats: Dict[str, Any]) -> Iterator[Spec]:
+def model_specs(params: Dict[str, Any], batch_stats: Dict[str, Any],
+                target_keys: Optional[Collection[str]] = None,
+                backbone_only: bool = False) -> Iterator[Spec]:
     """Yield ``(tree_path, torch_key, kind)`` for every leaf of a JAX
-    EncoderDecoder's trees."""
+    EncoderDecoder's trees, or with ``backbone_only`` of a bare backbone's
+    (keys without the ``backbone.`` prefix). ``target_keys``: the keys of
+    the model the weights go into (resolves ``avg_down``)."""
     tree = _merge_trees(params, batch_stats)
+    if backbone_only:
+        yield from _backbone_specs((), tree, "", target_keys)
+        return
     for top in tree:
         if top == "backbone":
-            if any(n.startswith("stem_") for n in tree[top]):
-                raise NotImplementedError(
-                    "ResNet weights: the ResNet backbone is not yet ported "
-                    "to the torch package")
-            yield from _vit_specs((top,), tree[top], "backbone.")
+            yield from _backbone_specs((top,), tree[top], "backbone.",
+                                       target_keys)
         elif top == "decode_head":
             yield from _fcn_head_specs((top,), tree[top], "decode_head.")
         elif top.startswith("auxiliary_head"):
@@ -173,13 +223,17 @@ def _to_torch_layout(arr: np.ndarray, kind: str) -> np.ndarray:
 
 
 def jax_trees_to_state_dict(params: Dict[str, Any],
-                            batch_stats: Dict[str, Any]
+                            batch_stats: Dict[str, Any],
+                            target_keys: Optional[Collection[str]] = None,
+                            backbone_only: bool = False
                             ) -> Dict[str, torch.Tensor]:
     """The JAX package's ``(params, batch_stats)`` NumPy trees as the port's
     ``state_dict`` (fp32 CPU tensors; ``num_batches_tracked`` zeros beside
-    each norm's running stats, so a strict ``load_state_dict`` takes it)."""
+    each norm's running stats, so a strict ``load_state_dict`` takes it).
+    ``target_keys`` and ``backbone_only`` as in :func:`model_specs`."""
     sd: Dict[str, torch.Tensor] = {}
-    for path, key, kind in model_specs(params, batch_stats):
+    for path, key, kind in model_specs(params, batch_stats, target_keys,
+                                       backbone_only):
         tree = batch_stats if path[-1] in _STAT_LEAVES else params
         arr = _to_torch_layout(np.asarray(_tree_get(tree, path)), kind)
         sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))

@@ -398,3 +398,90 @@ def test_fixmatch_augmentation_on_the_card_matches_the_cpu(cuda):
     for k in ("ecg", "ecg_u_w", "ecg_u_s"):
         torch.testing.assert_close(on_card[k].cpu(), on_cpu[k], atol=1e-5,
                                    rtol=0, msg=k)
+
+
+@pytest.mark.cuda
+def test_resnet18_forward_on_the_card_matches_the_cpu(cuda):
+    """Full-width ResNet18 + FCNHead (the shipped recipe's model), seed-0
+    weights, fp32 without TF32: the card's logits within 1e-4 of the CPU's
+    (cuDNN sums the convolutions in another order)."""
+    cfg = {"backbone": {"resnet18": {"num_leads": 1}},
+           "decode_head": {"FCNHead": {
+               "in_channels": 512, "in_index": 3, "channels": 128,
+               "num_convs": 1, "concat_input": False, "num_classes": 4}}}
+    torch.manual_seed(0)
+    model = build_model_from_config(cfg).eval()
+    x = torch.randn(4, 1, 2500, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want = model(x)["seg_logits"]
+        got = model.to(cuda)(x.to(cuda))["seg_logits"]
+    assert got.shape == (4, 4, 2500)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_stem_pool_routes_ties_on_the_card_as_on_the_cpu(cuda):
+    """The stem's k3/s2/p1 max pool over flat lines (most windows tie):
+    the card's gradient equals the CPU's bit for bit, so ties go to the
+    earliest element there too (the JAX package's routing, pinned against
+    ``jax.grad`` in ``tests/test_torch_resnet.py``)."""
+    from semi_seg_ecg_tpu_torch.models.backbones.resnet import resnet18
+
+    rng = np.random.default_rng(0)
+    x = np.repeat(rng.integers(-2, 3, (4, 8, 126)).astype(np.float32), 10,
+                  axis=-1)[..., :1251]
+    g = torch.from_numpy(rng.standard_normal((4, 8, 626)).astype(
+        np.float32))
+    grads = []
+    for device in (cuda, torch.device("cpu")):
+        xt = torch.from_numpy(x).to(device).requires_grad_()
+        resnet18(1).maxpool(xt).backward(g.to(device))
+        grads.append(xt.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert (grads[1] == 0).float().mean() > 0.3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,per_step", [
+    ("mean_teacher", (2, 1, 3)),  # teacher + student, student; 3 gathers
+    ("cps", (4, 2, 2)),  # two eval + two student passes; no strong view
+])
+def test_mean_teacher_and_cps_steps_launch_the_kernels(cuda, algorithm,
+                                                       per_step):
+    """One step of the shipped vit_tiny recipe (depth cut to 2) with flash
+    attention and device augmentation: flash forward launches per block in
+    each pass, backward per block of each student pass, the gathers of the
+    augmentation; nothing else."""
+    import os
+
+    import yaml
+
+    from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
+    from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, init_model
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "base", "vit_tiny",
+        f"{algorithm}.yaml")
+    with open(path) as f:
+        cfg = normalize_config(yaml.safe_load(f))
+    depth = 2
+    cfg["backbone"]["vit_tiny"].update(depth=depth, out_indices=[1],
+                                       attention_impl="flash")
+    cfg["decode_head"]["FCNHead"]["in_index"] = 0
+    cfg["dataset"]["device_augment"] = True
+    trainer = Trainer(cfg, get_algorithm(algorithm).SPEC, cuda, 4,
+                      model=init_model(cfg, cuda))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"ecg": torch.randn(16, 1, 2500, generator=gen, device=cuda),
+             "target": torch.randint(0, 4, (16, 2500), generator=gen,
+                                     device=cuda),
+             "ecg_u_w": torch.randn(16, 1, 2500, generator=gen, device=cuda)}
+    before = fa.LAUNCHES, fa.BWD_LAUNCHES, gather1d.LAUNCHES
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    after = fa.LAUNCHES, fa.BWD_LAUNCHES, gather1d.LAUNCHES
+    fwd, bwd, gathers = per_step
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        fwd * depth, bwd * depth, gathers)
+    assert torch.isfinite(metrics["loss"])

@@ -22,14 +22,20 @@ FixMatch's ``confidence >= 0.8`` mask would flip on a confidence within
 float noise of the threshold; the test asserts that no confidence of its
 seed lies within 1e-4 of it, so it cannot be flaky.
 
+The ResNet18 (width 8) FixMatch and base locksteps take SGD with momentum
+(``resnet_lockstep_config``) and are held to the same bounds.
+
 End to end. ``train_main`` with ``device: cpu`` trains on a tiny synthetic
 split with ``device_augment: true`` and flash attention, writes its files,
 serves its checkpoint through the port's ``inference_main``, and the JAX
 package's ``load_eval_model`` reads the same ``.ckpt`` to logits within
-atol 2e-4 of the port's.
+atol 2e-4 of the port's. The config keys the port once dropped (orbax
+checkpoints, ``profile``, ``debug.nan_checks``, ``async_checkpoint``)
+either work or raise.
 """
 
 import copy
+import functools
 import json
 import os
 
@@ -90,13 +96,33 @@ def lockstep_config(attention_impl, algorithm):
     }
 
 
-def perturbed_state(model, seed):
+def resnet_lockstep_config(algorithm):
+    """A ResNet18 of stem and base width 8 with the lockstep's head, trained
+    by SGD with momentum: its update is proportional to the gradient, so
+    the two packages' rounding stays rounding-sized through every BN layer
+    and each parameter is held within TIGHT_ATOL_LR. (Adam's first update is
+    lr·sign(g): a gradient element within rounding noise of 0 moves by up
+    to 2 lr either way, and a ResNet has many; the ViT locksteps hold
+    AdamW.)"""
+    cfg = lockstep_config("xla", algorithm)
+    cfg["backbone"] = {"resnet18": {"num_leads": 1, "stem_channels": 8,
+                                    "base_channels": 8}}
+    cfg["decode_head"]["FCNHead"]["in_channels"] = 64
+    cfg["decode_head"]["FCNHead"]["in_index"] = 3
+    cfg["train"].update(optimizer="sgd", optimizer_kwargs={"momentum": 0.9})
+    return cfg
+
+
+def perturbed_state(model, seed, jit=False):
+    """The model's init trees plus numpy noise. ``jit`` compiles the init
+    once (a ResNet's op-by-op init is slow); its trees round apart from the
+    op-by-op ones, so the ViT locksteps keep the latter."""
     # auxiliary heads exist only in a train-mode graph
-    variables = model.init(
+    init = functools.partial(model.init, train=model.with_auxiliary_heads)
+    variables = (jax.jit(init) if jit else init)(
         {"params": jax.random.key(0), "dropout": jax.random.key(1),
          "droppath": jax.random.key(2)},
-        jnp.zeros((2, 1, SEQ), jnp.float32),
-        train=model.with_auxiliary_heads)
+        jnp.zeros((2, 1, SEQ), jnp.float32))
     rng = np.random.default_rng(seed)
 
     def noisy(tree, positive=False):
@@ -121,30 +147,62 @@ def batches(seed):
 
 
 def lockstep(attention_impl, algorithm, jax_algo, port_algo, seed,
-             **extra):
+             cfg=None, **extra):
     """K steps through both packages; returns per-step metrics of each and
-    the final state of each, as flat reference-key state_dicts."""
-    cfg = dict(lockstep_config(attention_impl, algorithm), **extra)
+    the final model state of each, as flat reference-key state_dicts."""
+    theirs, ours, jax_sds, port_sds = lockstep_states(
+        attention_impl, algorithm, jax_algo, port_algo, seed, cfg, **extra)
+    return theirs, ours, jax_sds["model"], port_sds["model"]
+
+
+def port_model(cfg, params, stats):
+    model = build_model_from_config(cfg, train=True)
+    model.load_state_dict(jax_trees_to_state_dict(
+        params, stats, model.state_dict().keys()))
+    return model
+
+
+def lockstep_states(attention_impl, algorithm, jax_algo, port_algo, seed,
+                    cfg=None, **extra):
+    """``lockstep`` with every network of the run: the final states are
+    dicts of ``model``, and the Mean Teacher's ``ema`` or the CPS ``peer``
+    (initialised from other noise), as the algorithm keeps them."""
+    cfg = dict(cfg or lockstep_config(attention_impl, algorithm), **extra)
     jmodel = jax_build(cfg, train=True)
-    params, stats = perturbed_state(jmodel, seed)
+    jit = "resnet18" in cfg["backbone"]
+    params, stats = perturbed_state(jmodel, seed, jit)
     tx = jax_optimizer(cfg, params, K, model=jmodel)
+    spec = port_algo.SPEC
+    ema = peer = peer_opt = peer_module = None
+    if spec.uses_ema:
+        ema = ModelState(params, stats)
+    if spec.uses_peer:
+        peer = ModelState(*perturbed_state(jmodel, seed + 100, jit))
+        peer_opt = tx.init(peer.params)
+        peer_module = port_model(cfg, peer.params, peer.batch_stats)
     state = TrainState(step=jnp.asarray(0, jnp.int32),
                        model=ModelState(params, stats),
-                       opt_state=tx.init(params))
+                       opt_state=tx.init(params), ema=ema, peer=peer,
+                       peer_opt_state=peer_opt)
     jax_step = jax.jit(jax_algo.make_train_step(jmodel, tx, cfg, K))
 
-    model = build_model_from_config(cfg, train=True)
-    model.load_state_dict(jax_trees_to_state_dict(params, stats))
-    trainer = Trainer(copy.deepcopy(cfg), port_algo.SPEC,
-                      torch.device("cpu"), K, model=model)
+    trainer = Trainer(copy.deepcopy(cfg), spec, torch.device("cpu"), K,
+                      model=port_model(cfg, params, stats), peer=peer_module)
 
+    eval_logits = jax.jit(lambda ms, x: apply_eval(jmodel, ms, x)[
+        "seg_logits"])
     theirs, ours = [], []
     for batch in batches(seed):
+        u_w = jnp.asarray(batch["ecg_u_w"])
         if algorithm == "fixmatch":
-            logits = apply_eval(jmodel, state.model,
-                                jnp.asarray(batch["ecg_u_w"]))["seg_logits"]
+            logits = eval_logits(state.model, u_w)
             conf = np.asarray(jax.nn.softmax(logits, axis=1).max(axis=1))
             assert np.abs(conf - CONF_THRESH).min() > 1e-4
+        if algorithm == "cps":
+            # no pseudo-label within float noise of a tie
+            for ms in (state.model, state.peer):
+                top2 = np.sort(np.asarray(eval_logits(ms, u_w)), axis=1)
+                assert (top2[:, -1] - top2[:, -2]).min() > 1e-4
         state, metrics = jax_step(state, {k: jnp.asarray(v)
                                           for k, v in batch.items()})
         theirs.append({k: float(v) for k, v in metrics.items()})
@@ -154,12 +212,21 @@ def lockstep(attention_impl, algorithm, jax_algo, port_algo, seed,
                                       for k, v in batch.items()})
         ours.append({k: float(v) for k, v in metrics.items()})
     assert int(state.step) == trainer.step == K
-    jax_sd = jax_trees_to_state_dict(state.model.params,
-                                     state.model.batch_stats)
-    return theirs, ours, jax_sd, trainer.model.state_dict()
+    roles = {"model": (state.model, trainer.model),
+             "ema": (state.ema, trainer.teacher),
+             "peer": (state.peer, trainer.peer)}
+    jax_sds, port_sds = {}, {}
+    for role, (jax_state, module) in roles.items():
+        if module is not None:
+            port_sds[role] = module.state_dict()
+            jax_sds[role] = jax_trees_to_state_dict(
+                jax_state.params, jax_state.batch_stats, port_sds[role].keys())
+    return theirs, ours, jax_sds, port_sds
 
 
 def assert_states_agree(jax_sd, port_sd):
+    """BN statistics within 1e-5; every parameter within PARAM_ATOL_LR x lr
+    and every one but the key bias within TIGHT_ATOL_LR x lr."""
     assert jax_sd.keys() <= port_sd.keys()
     for key, want in jax_sd.items():
         got = port_sd[key].detach().numpy()
@@ -208,6 +275,29 @@ def test_base_lockstep_matches_jax():
     assert_states_agree(jax_sd, port_sd)
 
 
+@pytest.mark.parametrize("algorithm", ["fixmatch", "base"])
+def test_resnet_lockstep_matches_jax(algorithm):
+    """ResNet18 (width 8) FixMatch and base: batch-statistic BatchNorm in
+    every student pass, eval-mode pseudo-labels from running statistics."""
+    jax_algo, port_algo = {"fixmatch": (jax_fixmatch, fixmatch),
+                           "base": (jax_base, base)}[algorithm]
+    theirs, ours, jax_sd, port_sd = lockstep(
+        "xla", algorithm, jax_algo, port_algo, seed=8,
+        cfg=resnet_lockstep_config(algorithm))
+    assert "backbone.layer4.1.bn2.running_var" in jax_sd
+    if algorithm == "fixmatch":
+        assert any(0 < m["mask_ratio"] < 1 for m in theirs)
+    for step, (a, b) in enumerate(zip(ours, theirs)):
+        assert a.keys() == b.keys()
+        for k in a:
+            if k == "mask_ratio":
+                assert round(a[k] * BATCH * SEQ) == \
+                    round(b[k] * BATCH * SEQ), step
+            else:
+                assert a[k] == pytest.approx(b[k], rel=1e-5), (step, k)
+    assert_states_agree(jax_sd, port_sd)
+
+
 def test_train_step_draws_dropout_from_the_trainer_generator():
     """With dropout on, a step is a function of ``(seed, step)``: two
     trainers from one init take the same step, whatever the global RNG
@@ -247,40 +337,65 @@ def test_train_flag_sets_the_mode_for_one_call():
 
 
 def test_unported_algorithms_and_options_raise():
-    for name in ("mean_teacher", "cps", "reco", "stpp"):
+    for name in ("reco", "stpp"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             get_algorithm(name)
     with pytest.raises(ValueError, match="Invalid algorithm"):
         get_algorithm("nope")
+    # remat (activation checkpointing): an eval forward is the same with or
+    # without it, a training forward raises
+    cfg = resnet_lockstep_config("base")
+    cfg["backbone"]["resnet18"]["remat"] = True
+    model = build_model_from_config(cfg, train=True)
+    x = torch.zeros(2, 1, SEQ)
+    with torch.no_grad():
+        model(x)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        model.train()(x)
+
+
+def tiny_recipe(root, family, algorithm, exp_name, data_seed=3):
+    """A shipped base recipe (``configs/base/{family}/{algorithm}.yaml``)
+    on the CPU, cut to a tiny synthetic split and a narrow model, with
+    device augmentation (and flash attention for the ViT); writes it
+    under ``root`` and returns ``(config, path)``."""
+    from semi_seg_ecg_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    data = make_synthetic_dataset(str(root / f"data{data_seed}"),
+                                  num_train_labeled=4, num_train_unlabeled=4,
+                                  num_valid=2, num_test=3, length=SEQ,
+                                  seed=data_seed)
+    with open(os.path.join(REPO, "configs", "base", family,
+                           f"{algorithm}.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(device="cpu", output_dir=str(root / "exps"),
+               exp_name=exp_name)
+    if family == "vit_tiny":
+        cfg["backbone"]["vit_tiny"].update(
+            seq_len=SEQ, width=WIDTH, depth=2, heads=2, dim_head=32,
+            mlp_dim=128, out_indices=[1], attention_impl="flash")
+        cfg["decode_head"]["FCNHead"].update(in_channels=WIDTH, in_index=0,
+                                             channels=16)
+    else:
+        cfg["backbone"]["resnet18"].update(stem_channels=8, base_channels=8)
+        cfg["decode_head"]["FCNHead"].update(in_channels=64, channels=16)
+    cfg["dataset"].update(data, device_augment=True, signal_length=SEQ)
+    cfg["dataset"]["augmentations"][0]["random_resize_crop"][
+        "target_length"] = SEQ
+    cfg["dataloader"] = {"batch_size": 2, "num_workers": 0}
+    cfg["train"].update(epochs=1, warmup_epochs=0)
+    path = str(root / f"{exp_name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return cfg, path
 
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     """One CPU training run of the slice's recipe, cut to a tiny split and a
     depth-2 model: FixMatch, device augmentation, flash attention."""
-    from semi_seg_ecg_tpu_torch.data.synthetic import make_synthetic_dataset
-
     root = tmp_path_factory.mktemp("torch_train")
-    data = make_synthetic_dataset(str(root / "data"), num_train_labeled=4,
-                                  num_train_unlabeled=4, num_valid=2,
-                                  num_test=3, length=SEQ, seed=3)
-    with open(os.path.join(REPO, "configs", "base", "vit_tiny",
-                           "fixmatch.yaml")) as f:
-        cfg = yaml.safe_load(f)
-    cfg.update(device="cpu", output_dir=str(root / "exps"), exp_name="fm")
-    cfg["backbone"]["vit_tiny"].update(
-        seq_len=SEQ, width=WIDTH, depth=2, heads=2, dim_head=32,
-        mlp_dim=128, out_indices=[1], attention_impl="flash")
-    cfg["decode_head"]["FCNHead"].update(in_channels=WIDTH, in_index=0,
-                                         channels=16)
-    cfg["dataset"].update(data, device_augment=True, signal_length=SEQ)
-    cfg["dataset"]["augmentations"][0]["random_resize_crop"][
-        "target_length"] = SEQ
-    cfg["dataloader"] = {"batch_size": 2, "num_workers": 0}
-    cfg["train"].update(epochs=1, warmup_epochs=0)
-    path = str(root / "fixmatch.yaml")
-    with open(path, "w") as f:
-        yaml.safe_dump(cfg, f)
+    cfg, path = tiny_recipe(root, "vit_tiny", "fixmatch", "fm")
     launches = gather1d.LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES
     metrics = train_main(["-f", path])
     assert (gather1d.LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES) == launches
@@ -342,3 +457,46 @@ def test_trained_ckpt_is_served_by_both_packages(trained, tmp_path):
     with torch.no_grad():
         ours = model(torch.from_numpy(x))["seg_logits"].numpy()
     np.testing.assert_allclose(ours, theirs, atol=2e-4)
+
+
+@pytest.mark.parametrize("key", ["checkpoint_backend", "profile",
+                                 "nan_checks", "async_checkpoint"])
+def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
+    """Keys the JAX package reads and the port used to drop: orbax
+    checkpoints and the trace schedule raise "not yet ported";
+    ``debug.nan_checks`` trains under autograd's anomaly detection;
+    ``async_checkpoint`` writes the same checkpoint synchronously."""
+    from semi_seg_ecg_tpu_torch.algorithms import common
+
+    cfg, path = tiny_recipe(tmp_path, "resnet18", "scratch", key)
+    override = {"checkpoint_backend": {"checkpoint_backend": "orbax"},
+                "profile": {"profile": {"start_step": 1, "num_steps": 2}},
+                "nan_checks": {"debug": {"nan_checks": True}},
+                "async_checkpoint": {"async_checkpoint": True}}[key]
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(cfg, **override), f)
+    if key in ("checkpoint_backend", "profile"):
+        match = "to-torch" if key == "checkpoint_backend" else \
+            "not yet ported"
+        with pytest.raises(NotImplementedError, match=match):
+            train_main(["-f", path])
+        if key == "checkpoint_backend":
+            os.makedirs(tmp_path / "orbax.ckpt")
+            with pytest.raises(NotImplementedError, match="to-torch"):
+                torch_ckpt.load_checkpoint(str(tmp_path / "orbax.ckpt"))
+        return
+    anomaly = []
+    step = common.Trainer.train_step
+
+    def spy(self, batch):
+        anomaly.append(torch.is_anomaly_enabled())
+        return step(self, batch)
+
+    monkeypatch.setattr(common.Trainer, "train_step", spy)
+    train_main(["-f", path])
+    assert anomaly == [key == "nan_checks"] * 2
+    assert not torch.is_anomaly_enabled()
+    payload = torch_ckpt.load_checkpoint(os.path.join(
+        str(tmp_path / "exps"), key, "best-MeanIoU.ckpt"))
+    assert payload["step"] == 2 and "backbone.stem.0.weight" in \
+        payload["model"]

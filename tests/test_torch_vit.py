@@ -147,7 +147,9 @@ def test_linear_interpolate_matches_jax(align_corners, in_len, out_len):
 
 def test_unported_parts_raise():
     cfg = vit_config()
-    bad = dict(cfg, backbone={"resnet18": {"num_leads": 1}})
+    # int8 convolutions, named in the backbone's own kwargs
+    bad = dict(cfg, backbone={"resnet18": {"num_leads": 1,
+                                           "quantize": "int8"}})
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model_from_config(bad)
     for extra in ({"quantize": "int8"}, {"use_latent_projection": True}):
