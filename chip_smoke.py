@@ -47,7 +47,16 @@ non-zero exit when it fails:
    ``configs/base/{vit_tiny,resnet18}/{mean_teacher,cps}.yaml`` (flash
    attention for the ViT, ``device_augment: true``) with exact launch
    counts, the teacher or the peer in the checkpoint, and the trained
-   checkpoint served.
+   checkpoint served;
+7. ReCo and ST++: ``train_main`` on
+   ``configs/base/{vit_tiny,resnet18}/{reco,stpp}.yaml`` as in phase 6, with
+   exact launch counts (ST++: per stage and in the ranking pass), ST++'s
+   stage files, the teacher in the checkpoint and the checkpoint served;
+   the ReCo loss at the recipe's shape: one call with host syncs raising,
+   the card's loss core on the CPU's indices against the CPU (value and
+   latent gradient within 1e-5 relative), the card's own sampler against
+   the CPU's on the same draws, its time; a profile of a ViT ReCo bf16
+   step.
 
 The line before the last prints the card's name and power limit as
 nvidia-smi gives them; the line before that, a JSON object with one entry
@@ -55,6 +64,7 @@ per kernel. The last line is ``{"ok": true, "device": {...}}``. Details go
 to ``build/chip_smoke/chip_smoke.json``.
 """
 
+import contextlib
 import copy
 import functools
 import json
@@ -186,11 +196,22 @@ GRAD_RTOL = 1e-3
 # pass; CPS: both networks' of each) and backward passes, and the gather
 # launches of the device augmentation (the labeled resize-crop's pair, the
 # weak view's resize-crop, and with a strong view its partial-sine roll)
-RECIPE_PASSES = {"fixmatch": (2, 1), "mean_teacher": (2, 1), "cps": (4, 2)}
-RECIPE_GATHERS = {"fixmatch": 3, "mean_teacher": 3, "cps": 2}
+# (ReCo as Mean Teacher; ST++'s stage 1 is "base", its stages 2-3 "stpp":
+# the teacher's and the student's pass, no strong view)
+RECIPE_PASSES = {"fixmatch": (2, 1), "mean_teacher": (2, 1), "cps": (4, 2),
+                 "reco": (2, 1), "base": (1, 1), "stpp": (2, 1)}
+RECIPE_GATHERS = {"fixmatch": 3, "mean_teacher": 3, "cps": 2, "reco": 3,
+                  "base": 1, "stpp": 2}
 # what the checkpoint of each algorithm holds beside the model
 CKPT_EXTRAS = {"fixmatch": set(), "mean_teacher": {"model_ema"},
-               "cps": {"model_peer", "peer_optimizer"}}
+               "cps": {"model_peer", "peer_optimizer"},
+               "reco": {"model_ema"}, "stpp": {"model_ema"}}
+# ST++'s ranking pass: one eval forward of each stage-1 snapshot per batch
+STPP_SNAPSHOTS = 3
+# a uniform within this of a CDF value may round to the other side of it;
+# two class scores within this of each other may order either way
+CDF_ROUNDING = 4 * 2.0 ** -23
+SCORE_TIE = 1e-5
 # the stem pool's tie-routing check: (B, C, T) of the ResNet18 stem output
 POOL_SHAPE = (BATCH, 64, SIGNAL_LENGTH // 2)
 
@@ -693,10 +714,12 @@ def check_probs(name, probs, n=NUM_TEST):
     return row_err
 
 
-def trace_device(torch, fn, steps):
+def trace_device(torch, fn, steps, region=None):
     """Device time of ``steps`` calls of ``fn`` from a torch.profiler
-    trace: busy ms per call and per kernel, and device events per call.
-    Empty when the trace holds no device events."""
+    trace: busy ms per call and per kernel, device events per call and,
+    with a ``region`` (see :func:`region_device_us`), the region's device
+    ms per call (else None). Empty when the trace holds no device
+    events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -707,6 +730,8 @@ def trace_device(torch, fn, steps):
             fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / steps
+    region_ms = (region_device_us(prof.events(), *region) / 1e3 / steps
+                 if region else None)
     per_kernel, count, kinds = {}, 0, {"copy": 0, "elementwise": 0}
     for event in prof.events():
         # user annotations (the optimizer's step range) span kernels that
@@ -720,7 +745,63 @@ def trace_device(torch, fn, steps):
             if kind:
                 kinds[kind] += 1
     return (traced_ms, {k: v / steps for k, v in per_kernel.items()},
-            count / steps, {k: v / steps for k, v in kinds.items()})
+            count / steps, {k: v / steps for k, v in kinds.items()},
+            region_ms)
+
+
+def region_device_us(events, range_name, sequence_nrs):
+    """Device µs of a region of a traced run: the kernels launched inside
+    the host ranges named ``range_name`` (its forward) and inside the
+    backward's ``evaluate_function`` ranges of the autograd nodes whose
+    sequence numbers are ``sequence_nrs`` (its backward, each node's
+    gradient accumulation included)."""
+    from torch.autograd import DeviceType
+
+    backward = "autograd::engine::evaluate_function:"
+    total = 0.0
+    for event in events:
+        if event.device_type != DeviceType.CPU:
+            continue
+        if event.name == range_name or (
+                event.name.startswith(backward)
+                and event.sequence_nr in sequence_nrs):
+            total += event.device_time_total
+    return total
+
+
+@contextlib.contextmanager
+def reco_loss_region(torch):
+    """Inside, ReCo's draws and loss run in host ranges ``reco_loss``, and
+    the sequence numbers of the loss's autograd nodes (down to, not
+    including, the latent's own node) gather in the yielded set: the
+    ``region`` that :func:`trace_device` attributes."""
+    from semi_seg_ecg_tpu_torch.ops import reco_loss as rl
+
+    name, seqs = "reco_loss", set()
+    draws_fn, loss_fn = rl.reco_draws, rl.compute_reco_loss
+
+    def draws(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return draws_fn(*args, **kwargs)
+
+    def loss(draws_, latent, *args, **kwargs):
+        with torch.profiler.record_function(name):
+            out = loss_fn(draws_, latent, *args, **kwargs)
+        stack, seen = [out.grad_fn], set()
+        while stack:
+            node = stack.pop()
+            if node is None or node is latent.grad_fn or node in seen:
+                continue
+            seen.add(node)
+            seqs.add(node._sequence_nr())
+            stack.extend(n for n, _ in node.next_functions)
+        return out
+
+    rl.reco_draws, rl.compute_reco_loss = draws, loss
+    try:
+        yield name, seqs
+    finally:
+        rl.reco_draws, rl.compute_reco_loss = draws_fn, loss_fn
 
 
 def kernel_kind(name):
@@ -769,8 +850,8 @@ def profile_model(torch, config, model_path, amp, steps=20):
         forward()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    traced_ms, per_kernel, events, kinds = trace_device(torch, forward,
-                                                         steps)
+    traced_ms, per_kernel, events, kinds, _ = trace_device(torch, forward,
+                                                            steps)
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
@@ -913,13 +994,78 @@ def launches_per_step(family, algorithm):
             "gather1d": RECIPE_GATHERS[algorithm]}
 
 
+def recipe_launches(family, algorithm):
+    """The launches a ``train_main`` run of a recipe makes, by part: the
+    training (its steps and an eval pass per epoch) and the test pass; for
+    ST++ its three stages (stage 2 on the reliable half) and the ranking
+    pass in their place."""
+    depth = DEPTH if family == "vit_tiny" else 0
+
+    def training(step_kind, steps_per_epoch):
+        steps = steps_per_epoch * TRAIN_EPOCHS
+        want = {k: steps * v for k, v in
+                launches_per_step(family, step_kind).items()}
+        want["flash_attention_fwd"] += (TRAIN_EPOCHS * depth
+                                        * math.ceil(TRAIN_VALID / BATCH))
+        return want
+
+    def forwards(n):
+        return {"flash_attention_fwd": n * depth, "flash_attention_bwd": 0,
+                "gather1d": 0}
+
+    test = forwards(math.ceil(TRAIN_TEST / BATCH))
+    if algorithm != "stpp":
+        return {"train": training(algorithm, TRAIN_LABELED // BATCH),
+                "test": test}
+    return {"stage1": training("base", TRAIN_LABELED // BATCH),
+            "ranking": forwards(STPP_SNAPSHOTS
+                                * math.ceil(TRAIN_UNLABELED / BATCH)),
+            "stage2": training("stpp", TRAIN_UNLABELED // 2 // BATCH),
+            "stage3": training("stpp", TRAIN_UNLABELED // BATCH),
+            "test": test}
+
+
+@contextlib.contextmanager
+def launches_by_part(algorithm, parts):
+    """Inside, the algorithm's parts (``train`` and ``test``; ST++'s
+    ``train_sup``, ``prepare_semisup`` and each ``train_semisup`` for
+    ``train``) write the launches each made into ``parts``."""
+    from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
+
+    module = get_algorithm(algorithm)
+    names = {"train_sup": "stage1", "prepare_semisup": "ranking",
+             "train_semisup": "stage", "test": "test"} if \
+        algorithm == "stpp" else {"train": "train", "test": "test"}
+    saved = {name: getattr(module, name) for name in names}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            before = read_counts()
+            out = fn(*args, **kwargs)
+            part = names[name]
+            if part == "stage":
+                part += str(kwargs["stage_id"])
+            parts[part] = {k: v - before[k] for k, v in read_counts().items()}
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, counted(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
 def train_recipe(torch, phase, family, algorithm):
     """``train_main`` on a recipe (``write_train_config``) with the launch
     counters zeroed just before and read just after, held to the counts
-    per step and per eval batch; then its files, its log, the parameters'
-    move, what the checkpoint holds beside the model, and the trained
-    checkpoint served through ``inference_main``. Returns the result and
-    the normalized config."""
+    per step and per eval batch, part by part (``recipe_launches``); then
+    its files (ST++'s stage snapshots and best checkpoints too), its log,
+    the parameters' move, what the checkpoint holds beside the model, and
+    the trained checkpoint served through ``inference_main``. Returns the
+    result and the normalized config."""
     from semi_seg_ecg_tpu_torch.algorithms.common import init_model
     from semi_seg_ecg_tpu_torch.cli import inference_main, train_main
     from semi_seg_ecg_tpu_torch.config import normalize_config
@@ -933,29 +1079,38 @@ def train_recipe(torch, phase, family, algorithm):
                     + math.ceil(TRAIN_TEST / BATCH))
     eval_depth = DEPTH if family == "vit_tiny" else 0
     per_step = launches_per_step(family, algorithm)
-    want = {k: steps * v for k, v in per_step.items()}
-    want["flash_attention_fwd"] += eval_batches * eval_depth
+    want_parts = recipe_launches(family, algorithm)
+    want = {k: sum(p[k] for p in want_parts.values()) for k in per_step}
     log(f"phase {phase}: train_main, {name} (device_augment, "
         f"{config['precision']}, batch {BATCH} + {BATCH}), {TRAIN_EPOCHS} "
         f"epochs of {steps_per_epoch} steps, then the test pass; entering "
         f"with {tf32_flags(torch)}")
+    parts = {}
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.time()
-    test_metrics = train_main(["-f", config_path])
+    with launches_by_part(algorithm, parts):
+        test_metrics = train_main(["-f", config_path])
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = read_counts()
     log(f"  train_main: {seconds:.2f} s, launches {launches} (expected "
-        f"{want}: per step {per_step}; {eval_depth} forward per eval batch "
-        f"x {eval_batches}); test metrics {test_metrics}")
-    if launches != want:
+        f"{want}: per step {per_step}; {eval_depth} forward per eval batch); "
+        f"by part {parts} (expected {want_parts}); test metrics "
+        f"{test_metrics}")
+    if launches != want or parts != want_parts:
         raise SystemExit(f"phase {phase} failed: {name} launches "
-                         f"{launches}, expected {want}")
+                         f"{launches} by part {parts}, expected {want} by "
+                         f"part {want_parts}")
 
     out_dir = os.path.join(WORK, "exps", name)
+    stage_files = ((*(f"stage1/checkpoint-{e}.ckpt"
+                      for e in range(1, TRAIN_EPOCHS + 1)),
+                    "stage1/best-MeanIoU.ckpt", "stage2/best-MeanIoU.ckpt")
+                   if algorithm == "stpp" else ())
     for f in ("log.txt", "best-loss.ckpt", "best-MeanIoU.ckpt",
-              "test_metrics.csv", "test_outputs.npy", "test_labels.npy"):
+              "test_metrics.csv", "test_outputs.npy", "test_labels.npy",
+              *stage_files):
         if not os.path.exists(os.path.join(out_dir, f)):
             raise SystemExit(f"phase {phase} failed: {name}: train_main "
                              f"wrote no {f}")
@@ -1002,6 +1157,7 @@ def train_recipe(torch, phase, family, algorithm):
         "launches")
     return {"seconds": seconds, "launches": launches,
             "launches_expected": want, "launches_per_step": per_step,
+            "launches_by_part": parts,
             "steps": steps, "eval_batches": eval_batches,
             "test_metrics": test_metrics, "log": epochs,
             "max_param_move": moved, "checkpoint_extras": sorted(extras),
@@ -1226,12 +1382,16 @@ def check_augment(torch, config):
 
 
 def profile_train_step(torch, config, precision, phase=4,
-                       family="vit_tiny", steps=10):
-    """Where one FixMatch step's time goes at full width: synchronized
-    host-clock ms per ``Trainer.train_step`` (device augmentation
-    included) and, from a trace of the same loop, device busy time, idle
-    share, the top kernels and the per-step ms of each ported kernel."""
-    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+                       family="vit_tiny", steps=10, algorithm="fixmatch",
+                       region=None):
+    """Where one step of ``algorithm`` (FixMatch unless given) goes at full
+    width: synchronized host-clock ms per ``Trainer.train_step`` (device
+    augmentation included), the peak of allocated device memory and, from
+    a trace of the same loop, device busy time, idle share, the top kernels,
+    the per-step ms of each ported kernel and, with ``region`` (a context
+    manager yielding :func:`trace_device`'s region), the region's device ms
+    per step."""
+    from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
     from semi_seg_ecg_tpu_torch.algorithms.common import (
         Trainer,
         full_fp32,
@@ -1243,26 +1403,32 @@ def profile_train_step(torch, config, precision, phase=4,
     batch = device_batch(torch, 30)
     del batch["ecg_u_s"]
     with full_fp32():
-        trainer = Trainer(cfg, fixmatch.SPEC, torch.device("cuda"), 4,
+        trainer = Trainer(cfg, get_algorithm(algorithm).SPEC,
+                          torch.device("cuda"), 4,
                           model=init_model(cfg, torch.device("cuda")))
         step = lambda: trainer.train_step(batch)
         for _ in range(3):
             step()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
         per_step = {k: v / steps for k, v in read_counts().items()}
-        traced_ms, per_kernel, events, kinds = trace_device(torch, step,
-                                                            steps)
+        with region() if region else contextlib.nullcontext() as traced:
+            traced_ms, per_kernel, events, kinds, region_ms = trace_device(
+                torch, step, steps, traced)
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     out = {
+        "algorithm": algorithm,
         "wall_ms_per_step": wall_ms,
         "windows_per_s": 2 * BATCH / (wall_ms / 1e3),
+        "peak_memory_mb": peak_mb,
         "launches_per_step": per_step,
         "traced_wall_ms_per_step": traced_ms,
         "device_events_per_step": events,
@@ -1274,10 +1440,12 @@ def profile_train_step(torch, config, precision, phase=4,
         "flash_fwd_ms_per_step": kernel_ms(per_kernel, "flash_fwd_"),
         "flash_bwd_ms_per_step": kernel_ms(per_kernel, "flash_bwd_"),
         "gather_ms_per_step": kernel_ms(per_kernel, "gather1d_kernel"),
+        "region_ms_per_step": region_ms if per_kernel else None,
         "top_kernels_ms_per_step": [(k[:80], v) for k, v in top],
     }
-    log(f"  train step, {precision}, {BATCH} + {BATCH} windows: "
+    log(f"  {algorithm} train step, {precision}, {BATCH} + {BATCH} windows: "
         f"{wall_ms:.3f} ms wall ({out['windows_per_s']:.1f} windows/s), "
+        f"peak memory {peak_mb:.1f} MiB, "
         f"launches/step {per_step}; traced: {events:.0f} device events "
         f"({kinds['copy']:.0f} copy, {kinds['elementwise']:.0f} other "
         "elementwise), "
@@ -1288,7 +1456,7 @@ def profile_train_step(torch, config, precision, phase=4,
         f"{out['gather_ms_per_step']} ms per step")
     for kernel, ms in top:
         log(f"    {ms:.4f} ms  {kernel[:80]}")
-    want = launches_per_step(family, "fixmatch")
+    want = launches_per_step(family, algorithm)
     if per_step != want:
         raise SystemExit(f"phase {phase} failed: {precision} step launches "
                          f"{per_step}, expected {want}")
@@ -1298,6 +1466,8 @@ def profile_train_step(torch, config, precision, phase=4,
         ("flash_bwd_ms_per_step", "flash_attention_bwd"),
         ("gather_ms_per_step", "gather1d"))
         if per_kernel and want[kernel] and not out[k]]
+    if region and per_kernel and not region_ms:
+        unnamed.append("region")
     if unnamed:
         raise SystemExit(f"phase {phase} failed: the {precision} step's "
                          f"trace holds no time under {unnamed}")
@@ -1415,6 +1585,204 @@ def phase_algorithms(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: ReCo and ST++
+# ---------------------------------------------------------------------------
+
+
+def reco_inputs(torch, config, seed=7):
+    """The ReCo loss's inputs at a recipe step's shape, on the CPU: the
+    strong half's latents (B, D, T), teacher probabilities peaked at a
+    random class (confident at most pixels), student probabilities, one
+    call's draws, and the recipe's thresholds."""
+    from semi_seg_ecg_tpu_torch.ops import reco_loss as rl
+
+    train = config["train"]
+    gen = torch.Generator().manual_seed(seed)
+    shape = (BATCH, 4, SIGNAL_LENGTH)
+    latent = torch.randn(BATCH, config["projection_out_dim"], SIGNAL_LENGTH,
+                         generator=gen)
+    logits_t = torch.randn(shape, generator=gen)
+    logits_t.scatter_add_(1, torch.randint(0, 4, (BATCH, 1, SIGNAL_LENGTH),
+                                           generator=gen),
+                          torch.full((BATCH, 1, SIGNAL_LENGTH), 3.0))
+    prob_t = torch.softmax(logits_t, dim=1)
+    prob_s = torch.softmax(torch.randn(shape, generator=gen), dim=1)
+    q, n = train["contr_num_queries"], train["contr_num_negatives"]
+    draws = rl.reco_draws(gen, 4, q, n, torch.device("cpu"))
+    args = (train["eash_conf_thresh"], train["hard_conf_thresh"],
+            train["contr_temp"])
+    return latent, prob_t, prob_s, draws, args
+
+
+def check_reco_loss(torch, config):
+    """The ReCo loss at the recipe's shape (``reco_inputs``): one call on
+    the card with host syncs raising (the backward's syncs are counted, not
+    refused); the card's loss core fed the CPU's indices against the CPU's,
+    value and latent gradient within 1e-5 relative; the card's own sampler
+    against the CPU's on the same draws, each difference at a CDF step or a
+    tie of class scores; the time of one call with its backward."""
+    import warnings
+
+    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+    from semi_seg_ecg_tpu_torch.ops import reco_loss as rl
+
+    latent, prob_t, prob_s, draws, (easy, hard, temp) = reco_inputs(
+        torch, config)
+    cuda = torch.device("cuda")
+    p = BATCH * SIGNAL_LENGTH
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(p, x.shape[1])
+
+    with full_fp32():
+        card_draws = rl.reco_draws(torch.Generator(device=cuda).manual_seed(
+            7), 4, *draws.gumbel.shape[1:3], cuda)
+        lat = latent.detach().to(cuda).requires_grad_()
+        pt, ps = prob_t.to(cuda), prob_s.to(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = rl.compute_reco_loss(card_draws, lat, pt, ps, easy, hard,
+                                        temp)
+        except RuntimeError as e:
+            raise SystemExit(f"phase 7 failed: the ReCo loss waits on the "
+                             f"card: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                loss.backward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        backward_syncs = sum("synchroniz" in str(w.message) for w in caught)
+
+        results = []
+        for device in (torch.device("cpu"), cuda):
+            x = flat(latent.to(device)).requires_grad_()
+            regions = rl.reco_regions(x.detach(), flat(prob_t.to(device)),
+                                      flat(prob_s.to(device)), easy, hard)
+            dev_draws = rl.RecoDraws(*(d.to(device) for d in draws))
+            if not results:  # the CPU's indices, for both
+                cpu_idx = rl.reco_sample(dev_draws, regions, temp)
+            core = rl.reco_loss_core(x, regions.protos,
+                                     *(i.to(device) for i in cpu_idx),
+                                     regions.active, regions.valid_seg, temp)
+            core.backward()
+            results.append({
+                "loss": core.item(), "grad": x.grad.cpu(),
+                "pools": rl.masked_sample(regions.valid,
+                                           dev_draws.pool_u).cpu(),
+                "anchors": rl.masked_sample(regions.hard,
+                                             dev_draws.anchor_u).cpu(),
+                "scores": rl.negative_class_scores(dev_draws, regions,
+                                                   temp).cpu(),
+                "negatives": rl.reco_sample(dev_draws, regions,
+                                            temp)[1].cpu(),
+                "valid": regions.valid.cpu(), "hard": regions.hard.cpu(),
+                "valid_seg": int(regions.valid_seg)})
+    cpu, card = results
+    value_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_rel = ((card["grad"] - cpu["grad"]).abs().max()
+                / cpu["grad"].abs().max()).item()
+
+    def off_step(got, want, mask, u):
+        """Differing indices, and those not at a CDF step of the CPU's."""
+        cdf = rl.masked_cdf(mask)
+        rows, cols = (got != want).nonzero(as_tuple=True)
+        step = torch.minimum(got, want)[rows, cols]
+        gap = (cdf[rows, step] - u[rows, cols]).abs()
+        return len(rows), int((gap > CDF_ROUNDING).sum())
+
+    pools = off_step(card["pools"], cpu["pools"], cpu["valid"], draws.pool_u)
+    anchors = off_step(card["anchors"], cpu["anchors"], cpu["hard"],
+                       draws.anchor_u)
+    cls_cpu = cpu["scores"].argmax(-1)
+    cls_card = card["scores"].argmax(-1)
+    top2 = cpu["scores"].topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= SCORE_TIE
+    classes = (int((cls_card != cls_cpu).sum()),
+               int(((cls_card != cls_cpu) & ~tie).sum()))
+    q, n = draws.gumbel.shape[1:3]
+    slot = torch.arange(q * n).view(q, n)
+    pool_diff = (card["pools"] != cpu["pools"]).view(-1)
+    explained = (cls_card != cls_cpu) | pool_diff[cls_cpu * q * n + slot] \
+        | pool_diff[cls_card * q * n + slot]
+    neg_diff = card["negatives"] != cpu["negatives"]
+    negatives = (int(neg_diff.sum()), int((neg_diff & ~explained).sum()))
+
+    on_card = latent.to(cuda)
+
+    def loss_and_backward():  # the inputs on the card, as in a step
+        x = on_card.detach().requires_grad_()
+        rl.compute_reco_loss(card_draws, x, pt, ps, easy, hard,
+                             temp).backward()
+
+    with full_fp32():
+        # few calls: their host enqueue stays inside device_ms's sleep
+        ms = device_ms(torch, loss_and_backward, 5)
+        traced_ms, per_kernel, events, _, _ = trace_device(
+            torch, loss_and_backward, 10)
+    busy_ms = sum(per_kernel.values()) if per_kernel else None
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    out = {"loss_cpu": cpu["loss"], "loss_card": card["loss"],
+           "valid_seg": cpu["valid_seg"], "value_rel": value_rel,
+           "grad_rel": grad_rel, "backward_syncs": backward_syncs,
+           "sampler_differences": {
+               "pools": pools, "anchors": anchors, "classes": classes,
+               "negatives": negatives, "of": {
+                   "pools": cpu["pools"].numel(),
+                   "anchors": cpu["anchors"].numel(),
+                   "negatives": cpu["negatives"].numel()}},
+           "ms_with_backward": ms, "busy_ms_with_backward": busy_ms,
+           "device_events": events,
+           "top_kernels_ms": [(k[:80], v) for k, v in top]}
+    log(f"  ReCo loss, latent {tuple(latent.shape)},"
+        f" Q {q}, Nn {n}: no host sync in the call; backward syncs "
+        f"{backward_syncs}; card core on the CPU's indices: loss "
+        f"{card['loss']:.7g} vs {cpu['loss']:.7g} ({value_rel:.3g} rel), "
+        f"gradient {grad_rel:.3g} of its largest; the card's sampler vs the "
+        f"CPU's (differing, of them off a CDF step or score tie): pools "
+        f"{pools}, anchors {anchors}, classes {classes}, negatives "
+        f"{negatives}; {ms:.4f} ms a call with its backward, {events:.0f} "
+        f"device events, {busy_ms} ms busy")
+    for kernel, kernel_ms_ in top:
+        log(f"    {kernel_ms_:.4f} ms  {kernel[:80]}")
+    if not (value_rel <= 1e-5 and grad_rel <= 1e-5 and cpu["loss"] > 0
+            and cpu["valid_seg"] > 1 and pools[1] == anchors[1]
+            == classes[1] == negatives[1] == 0):
+        raise SystemExit(f"phase 7 failed: the card's ReCo loss differs "
+                         f"from the CPU's: {out}")
+    return out
+
+
+def phase_reco_stpp(torch):
+    """ReCo and ST++ on both backbones through ``train_main``; the ReCo loss
+    on the card; a profile of the ViT ReCo bf16 step, with the share of its
+    busy time that the loss's draws, forward and backward take in its own
+    trace."""
+    recipes, configs = {}, {}
+    for family in ("vit_tiny", "resnet18"):
+        for algorithm in ("reco", "stpp"):
+            name = f"{family}_{algorithm}"
+            recipes[name], configs[name] = train_recipe(torch, 7, family,
+                                                        algorithm)
+    loss = check_reco_loss(torch, configs["vit_tiny_reco"])
+    profile = profile_train_step(torch, configs["vit_tiny_reco"], "bf16",
+                                 phase=7, algorithm="reco",
+                                 region=functools.partial(reco_loss_region,
+                                                          torch))
+    busy, region_ms = (profile["device_busy_ms_per_step"],
+                       profile["region_ms_per_step"])
+    profile["reco_loss_busy_share"] = region_ms / busy if busy else None
+    log(f"  the ReCo loss in the step (draws, forward, backward): "
+        f"{region_ms} ms a step, {profile['reco_loss_busy_share']} of the "
+        f"step's busy time")
+    return {"recipes": recipes, "reco_loss": loss, "profile": profile}
+
+
+# ---------------------------------------------------------------------------
 # Report
 # ---------------------------------------------------------------------------
 
@@ -1461,6 +1829,7 @@ def main():
     train_result = phase_train(torch)
     resnet_result = phase_resnet(torch)
     algorithm_results = phase_algorithms(torch)
+    reco_stpp = phase_reco_stpp(torch)
     # each path's launches, counted from 0 just before it and read after
     by_path = {
         "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
@@ -1469,7 +1838,9 @@ def main():
         "resnet18_serving": resnet_result["serving"]["runs"]["resnet_fp32"][
             "launches"],
         "resnet18_fixmatch": resnet_result["train"]["launches"],
-        **{path: r["launches"] for path, r in algorithm_results.items()}}
+        **{path: r["launches"] for path, r in algorithm_results.items()},
+        **{path: r["launches"]
+           for path, r in reco_stpp["recipes"].items()}}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1482,6 +1853,7 @@ def main():
                    "slice": slice_result, "train": train_result,
                    "resnet18": resnet_result,
                    "algorithms": algorithm_results,
+                   "reco_stpp": reco_stpp,
                    "seconds": time.time() - t_start}, f, indent=1)
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

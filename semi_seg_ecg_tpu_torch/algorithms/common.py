@@ -13,9 +13,10 @@ returns the body of one step, and says whether the run keeps an EMA teacher
   batch ahead of the step that uses it;
 - reseeds its generators every step from ``(seed, step)``: one for dropout
   and DropPath (``models/dropout.py``), the teacher's from a stream of its
-  own, the peer's from ``seed + 1``, and, for ``device_augment``, one from
-  ``seed + 0x5EED`` for the augmentation draws (``ops/preprocess.py``) —
-  the JAX package's ``fold_in(key, step)``;
+  own, the peer's from ``seed + 1``, the loss's draws (ReCo's samples) from
+  another stream, and, for ``device_augment``, one from ``seed + 0x5EED``
+  for the augmentation draws (``ops/preprocess.py``) — the JAX package's
+  ``fold_in(key, step)``;
 - sets the scheduled lr of each update, on the peer's optimizer too
   (``utils/optimizer.py``);
 - drains the step metrics every ``PRINT_FREQ`` steps, aborting on a
@@ -23,6 +24,11 @@ returns the body of one step, and says whether the run keeps an EMA teacher
 - evaluates the model (the student, CPS's model 1) after each epoch and
   writes ``best-loss.ckpt`` / ``best-{metric}.ckpt`` (teacher or peer
   included) and a ``log.txt`` line.
+
+For ST++'s stages, :func:`run_training` also takes an output subdirectory,
+a subset of the unlabeled rows, the epochs after which it writes
+``checkpoint-{epoch + 1}.ckpt`` snapshots, and a hook that gets the built
+:class:`Trainer` (it loads the stage teacher).
 
 ``mode`` other than ``scratch`` warm-starts the backbone of the model (and
 of the peer) from ``pretrained_backbone`` (:func:`load_pretrained_backbone`);
@@ -85,6 +91,9 @@ PEER_SEED_OFFSET = 1
 # the Mean Teacher's train-mode forward draws its dropout from this stream
 # of ``(seed, step)`` (the JAX package folds 3 into the step key)
 TEACHER_STREAM = 3
+# the stream of a loss's own draws (ReCo's samples; the JAX package draws
+# them from ``fold_in(key(seed + 7), step)``)
+LOSS_STREAM = 7
 
 
 @dataclass
@@ -94,7 +103,8 @@ class AlgorithmSpec:
     forward(s) under ``trainer.amp()``, the backward(s) and the optimizer
     update(s) on what the :class:`Trainer` holds: ``model`` and
     ``optimizer``, with ``uses_ema`` the ``teacher``, with ``uses_peer``
-    the ``peer`` and ``peer_optimizer``."""
+    the ``peer`` and ``peer_optimizer``, and the ``loss_gen`` generator for
+    a loss's random draws."""
 
     name: str
     make_train_step: Callable[..., Callable]
@@ -446,6 +456,7 @@ class Trainer:
             use_generator(self.peer, self.peer_gen)
         self.dropout_gen = torch.Generator(device=device)
         use_generator(self.model, self.dropout_gen)
+        self.loss_gen = torch.Generator(device=device)
         self.inner_step = spec.make_train_step(self)
         self.augment = None
         self.augment_gen = None
@@ -469,6 +480,8 @@ class Trainer:
         if self.peer_gen is not None:
             self.peer_gen.manual_seed(step_seed(
                 self.seed + PEER_SEED_OFFSET, self.step))
+        self.loss_gen.manual_seed(step_seed(self.seed, self.step,
+                                            LOSS_STREAM))
         if self.augment is not None:
             self.augment_gen.manual_seed(step_seed(
                 self.seed + AUGMENT_SEED_OFFSET, self.step))
@@ -478,20 +491,31 @@ class Trainer:
         return metrics
 
 
-def run_training(config: Dict[str, Any], spec: AlgorithmSpec) -> None:
+def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
+                 output_subdir: Optional[str] = None,
+                 unlabeled_subset_ids=None, snapshot_epochs=(),
+                 state_hook: Optional[Callable[[Trainer], None]] = None
+                 ) -> None:
     """End-to-end training: epochs of steps, per-epoch validation, best
-    checkpoints and ``log.txt``."""
+    checkpoints and ``log.txt``. ST++'s stages add ``output_subdir`` (the
+    run's files go there, under the experiment directory),
+    ``unlabeled_subset_ids`` (the unlabeled rows to train on),
+    ``snapshot_epochs`` (after epoch ``e - 1``, for each ``e`` in it, a
+    ``checkpoint-{e}.ckpt``) and ``state_hook`` (called with the built
+    Trainer)."""
     _refuse_unported(config)
     device = resolve_device(config)
     log(f"job dir: {os.getcwd()}")
     log(yaml.dump(config, default_flow_style=False, sort_keys=False))
     seed = config["seed"]
 
-    loaders = build_train_loaders(config, spec)
+    loaders = build_train_loaders(config, spec, unlabeled_subset_ids)
     steps_per_epoch = len(loaders["labeled"])
     if steps_per_epoch <= 0:
         raise ValueError("empty train loader")
     out_dir = experiment_dir(config)
+    if out_dir and output_subdir:
+        out_dir = os.path.join(out_dir, output_subdir)
     log_writer = None
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -513,6 +537,8 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec) -> None:
     try:
         with full_fp32(), torch.autograd.set_detect_anomaly(nan_checks):
             trainer = Trainer(config, spec, device, steps_per_epoch)
+            if state_hook is not None:
+                state_hook(trainer)
             log(f"Start training for {num_epochs} epochs on {device}"
                 f" (seed {seed})")
             start_time = time.time()
@@ -530,6 +556,9 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec) -> None:
                 curr_loss = valid_stats["loss"]
 
                 save_paths = []
+                if out_dir and (epoch + 1) in snapshot_epochs:
+                    save_paths.append(os.path.join(
+                        out_dir, f"checkpoint-{epoch + 1}.ckpt"))
                 if out_dir and curr_loss < best_loss:
                     best_loss = curr_loss
                     save_paths.append(os.path.join(out_dir,
@@ -639,13 +668,22 @@ def _train_one_epoch(trainer: Trainer, loaders, spec: AlgorithmSpec,
 # ---------------------------------------------------------------------------
 
 
+def load_eval_weights(model: torch.nn.Module, checkpoint_path: str) -> None:
+    """Restore a checkpoint's ``model`` (a JAX or port ``.ckpt`` or a torch
+    ``.pth``) into an eval build, strictly; auxiliary-head weights of a
+    training checkpoint are dropped, as the JAX package drops them."""
+    payload = ckpt.load_checkpoint(checkpoint_path)
+    state = {k: v for k, v in ckpt.model_state_dict(
+        payload["model"], model.state_dict().keys()).items()
+             if not k.startswith("auxiliary_heads.")}
+    model.load_state_dict(state)
+
+
 def load_eval_model(config: Dict[str, Any],
                     device: torch.device) -> torch.nn.Module:
     """Build the eval-mode model and restore the requested checkpoint
     (``test.model_path``, else ``best-{target_metric}.ckpt`` in the
-    experiment directory): a JAX or port ``.ckpt`` or a torch ``.pth``.
-    Auxiliary-head weights of a training checkpoint are dropped, as the
-    JAX package drops them."""
+    experiment directory) with :func:`load_eval_weights`."""
     model = build_model_from_config(config)
     if test_cfg(config).get("model_path", None):
         checkpoint_path = config["test"]["model_path"]
@@ -655,11 +693,7 @@ def load_eval_model(config: Dict[str, Any],
                                        f"best-{target_metric}.ckpt")
     if not os.path.exists(checkpoint_path):
         raise FileNotFoundError(f"Checkpoint not found: {checkpoint_path}")
-    payload = ckpt.load_checkpoint(checkpoint_path)
-    state = {k: v for k, v in ckpt.model_state_dict(
-        payload["model"], model.state_dict().keys()).items()
-             if not k.startswith("auxiliary_heads.")}
-    model.load_state_dict(state)
+    load_eval_weights(model, checkpoint_path)
     log(f"Loaded checkpoint {checkpoint_path}")
     return model.to(device).eval()
 

@@ -4,9 +4,10 @@
 ``backbone: {name: kwargs}`` and ``decode_head: {name: kwargs}`` pick entries
 from :data:`BACKBONES` / :data:`DECODE_HEADS` and are wrapped in an
 :class:`EncoderDecoder`, with ``auxiliary_heads`` attached for training
-builds. The whole JAX registry is ported (ResNet-1D and ViT-1D families,
-the FCN head); the ReCo latent projection and int8 serving raise "not yet
-ported" instead of building something else.
+builds, and the ReCo :class:`LatentProjection` with
+``use_latent_projection``. The whole JAX registry is ported (ResNet-1D and
+ViT-1D families, the FCN head); int8 serving raises "not yet ported"
+instead of building something else.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from .backbones.vision_transformer import (
     vit_tiny,
 )
 from .decode_heads.fcn_head import FCNHead
-from .encoder_decoder import EncoderDecoder
+from .encoder_decoder import EncoderDecoder, LatentProjection
 
 BACKBONES = {
     "resnet18": resnet18,
@@ -61,15 +62,13 @@ def build_model_from_config(config: Dict[str, Any],
     """A config's model (``init_model_from_cfg`` parity), in eval mode.
     ``train=True`` builds the training graph: auxiliary heads are attached
     only then, and ``quantize`` (a serving option) is ignored, as in the JAX
-    package. What the port cannot build yet raises ``NotImplementedError``."""
+    package. The latent projection is built for either, so that a ReCo
+    checkpoint loads strictly into an eval build. What the port cannot
+    build yet raises ``NotImplementedError``."""
     if config.get("quantize", None) and not train:
         raise NotImplementedError(
             f"quantize: {config['quantize']!r} is not yet ported to the "
             "torch package")
-    if config.get("use_latent_projection", False):
-        raise NotImplementedError(
-            "use_latent_projection (ReCo) is not yet ported to the torch "
-            "package")
 
     backbone_name, backbone_kwargs = list(config["backbone"].items())[0]
     if backbone_name not in BACKBONES:
@@ -91,10 +90,16 @@ def build_model_from_config(config: Dict[str, Any],
                     f"Unsupported auxiliary head name: {aux_name}")
             auxiliary_heads.append(DECODE_HEADS[aux_name](
                 **(aux_kwargs or {})))
+
+    latent_projection = None
+    if config.get("use_latent_projection", False):
+        latent_projection = LatentProjection(config["projection_in_dim"],
+                                             config["projection_out_dim"])
     return EncoderDecoder(backbone=backbone, decode_head=decode_head,
-                          auxiliary_heads=auxiliary_heads).eval()
+                          auxiliary_heads=auxiliary_heads,
+                          latent_projection=latent_projection).eval()
 
 
 __all__ = ["BACKBONES", "DECODE_HEADS", "EncoderDecoder", "FCNHead",
-           "ResNet1D", "VisionTransformer1D", "build_model_from_config",
-           "compute_dtype"]
+           "LatentProjection", "ResNet1D", "VisionTransformer1D",
+           "build_model_from_config", "compute_dtype"]

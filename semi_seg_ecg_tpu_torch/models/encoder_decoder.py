@@ -22,14 +22,32 @@ from ..ops.interpolate import linear_interpolate
 from ..ops.losses import cross_entropy
 
 
+class LatentProjection(nn.Sequential):
+    """The ReCo projection head: Conv(k3) → ReLU → BN → Conv(k1), both
+    convolutions bias-free, the reference's ReLU-before-BN order kept
+    (reference encoder_decoder.py:31-48). Its keys are the reference's,
+    ``latent_projection.{0,2,3}.*``. ``in_channels`` is the config's
+    ``projection_in_dim`` (flax infers it)."""
+
+    def __init__(self, in_channels: int, out_dim: int):
+        super().__init__(
+            nn.Conv1d(in_channels, out_dim, 3, padding=1, bias=False),
+            nn.ReLU(),
+            # flax's momentum 0.9 is torch's 0.1
+            nn.BatchNorm1d(out_dim, eps=1e-5, momentum=0.1),
+            nn.Conv1d(out_dim, out_dim, 1, bias=False))
+
+
 class EncoderDecoder(nn.Module):
     def __init__(self, backbone: nn.Module, decode_head: nn.Module,
-                 auxiliary_heads: Optional[Sequence[nn.Module]] = None):
+                 auxiliary_heads: Optional[Sequence[nn.Module]] = None,
+                 latent_projection: Optional[nn.Module] = None):
         super().__init__()
         self.backbone = backbone
         self.decode_head = decode_head
         self.auxiliary_heads = (nn.ModuleList(auxiliary_heads)
                                 if auxiliary_heads else None)
+        self.latent_projection = latent_projection
 
     @property
     def with_auxiliary_heads(self) -> bool:
@@ -38,6 +56,7 @@ class EncoderDecoder(nn.Module):
     def forward(self, inputs: torch.Tensor,
                 labels: Optional[torch.Tensor] = None,
                 return_loss: bool = False,
+                return_latent: bool = False,
                 train: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         """``train`` selects the module mode for this call (the JAX
         package's ``train=`` flag); left as None, the mode is the module's
@@ -46,15 +65,23 @@ class EncoderDecoder(nn.Module):
             was = self.training
             self.train(train)
             try:
-                return self.forward(inputs, labels, return_loss)
+                return self.forward(inputs, labels, return_loss,
+                                    return_latent)
             finally:
                 self.train(was)
         seq_len = inputs.shape[2]
         feats = self.backbone(inputs)
+        outputs = {}
+        if return_latent:
+            latent = feats[-1]
+            if self.latent_projection is not None:
+                latent = self.latent_projection(latent)
+            outputs["latent"] = linear_interpolate(
+                latent, seq_len, align_corners=self.decode_head.align_corners)
         seg = self.decode_head(feats)  # (B, classes, t)
         seg = linear_interpolate(seg, seq_len,
                                  align_corners=self.decode_head.align_corners)
-        outputs = {"seg_logits": seg}
+        outputs["seg_logits"] = seg
         if return_loss:
             outputs["loss"] = cross_entropy(seg, labels)
         if self.training and self.with_auxiliary_heads:

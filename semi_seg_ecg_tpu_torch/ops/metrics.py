@@ -6,7 +6,8 @@ device. The metric objects are host-side NumPy and copied from the JAX
 package as they are: per update (one eval batch) the batch mean of the
 per-sample scores, and ``compute()`` the mean over updates, which is
 torchmetrics' ``MeanIoU`` accumulation. Division by an empty union or sum
-gives 0.
+gives 0. :func:`per_sample_miou` is the one definition of a sample's mean
+IoU that ``MeanIoU`` and ST++'s reliability ranking share.
 """
 
 from __future__ import annotations
@@ -35,6 +36,17 @@ def _safe_divide(num: np.ndarray, den: np.ndarray) -> np.ndarray:
     return np.divide(
         num, den, out=np.zeros(np.broadcast(num, den).shape), where=den != 0
     )
+
+
+def per_sample_miou(inter: np.ndarray, psum: np.ndarray, tsum: np.ndarray,
+                    include_background: bool = True) -> np.ndarray:
+    """(B,) per-sample mean IoU with the 0-where-union-0 convention — the
+    single definition shared by the MeanIoU metric and ST++'s reliability
+    ranking (reference stpp.py:32-42)."""
+    if not include_background:
+        inter, psum, tsum = inter[:, 1:], psum[:, 1:], tsum[:, 1:]
+    union = psum + tsum - inter
+    return _safe_divide(inter, union).mean(axis=1)
 
 
 class SegmentationMetric:
@@ -86,9 +98,11 @@ class MeanIoU(SegmentationMetric):
     0-where-union-0, classes averaged (or kept with ``per_class``)."""
 
     def _per_sample(self, inter, psum, tsum):
+        if not self.per_class:
+            return per_sample_miou(inter, psum, tsum,
+                                   self.include_background)
         union = psum + tsum - inter
-        iou = _safe_divide(self._slice(inter), self._slice(union))
-        return iou if self.per_class else iou.mean(axis=1)
+        return _safe_divide(self._slice(inter), self._slice(union))
 
 
 class DiceScore(SegmentationMetric):

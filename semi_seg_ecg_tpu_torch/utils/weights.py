@@ -5,9 +5,8 @@ The JAX package stores a model as two nested dicts of NumPy arrays,
 the reference's torch key space, the same one
 ``semi_seg_ecg_tpu/utils/torch_interop.py`` maps those trees to; this module
 is the port's own copy of that spec walker, for the families the port
-builds: the ResNet-1D and ViT-1D backbones and the FCN head, as the decode
-head and as auxiliary heads. The ReCo latent projection raises "not yet
-ported".
+builds: the ResNet-1D and ViT-1D backbones, the FCN head, as the decode
+head and as auxiliary heads, and the ReCo latent projection.
 
 The JAX tree does not record ``avg_down``: a block's ``Downsample_0/ConvBN_0``
 is the same either way, while the torch keys shift by one when an
@@ -171,6 +170,22 @@ def _fcn_head_specs(path, tree, prefix: str) -> Iterator[Spec]:
                            f"{'/'.join(path + (name,))}")
 
 
+def _latent_projection_specs(path, tree, prefix: str) -> Iterator[Spec]:
+    """The ReCo projection, ``Sequential(conv, ReLU, BN, conv)``."""
+    for name in tree:
+        if name == "Conv_0":
+            yield path + (name, "kernel"), f"{prefix}0.weight", _CONV
+        elif name == "Conv_1":
+            yield path + (name, "kernel"), f"{prefix}3.weight", _CONV
+        elif name == "BatchNorm_0":
+            for leaf in tree[name]:
+                yield path + (name, leaf), _norm_key(f"{prefix}2", leaf), \
+                    _DIRECT
+        else:
+            raise KeyError(f"unexpected latent projection leaf "
+                           f"{'/'.join(path + (name,))}")
+
+
 def _merge_trees(params, batch_stats):
     """Union of params and batch_stats (their leaf names are disjoint)."""
     if not isinstance(params, dict):
@@ -203,9 +218,11 @@ def model_specs(params: Dict[str, Any], batch_stats: Dict[str, Any],
             i = top.split("_")[-1] if top[-1].isdigit() else "0"
             yield from _fcn_head_specs((top,), tree[top],
                                        f"auxiliary_heads.{i}.")
+        elif top == "latent_projection":
+            yield from _latent_projection_specs((top,), tree[top],
+                                                "latent_projection.")
         else:
-            raise NotImplementedError(
-                f"{top} weights: not yet ported to the torch package")
+            raise KeyError(f"unexpected model leaf {top}")
 
 
 def _tree_get(tree, path):

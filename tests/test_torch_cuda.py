@@ -445,6 +445,8 @@ def test_stem_pool_routes_ties_on_the_card_as_on_the_cpu(cuda):
 @pytest.mark.parametrize("algorithm,per_step", [
     ("mean_teacher", (2, 1, 3)),  # teacher + student, student; 3 gathers
     ("cps", (4, 2, 2)),  # two eval + two student passes; no strong view
+    ("reco", (2, 1, 3)),  # as Mean Teacher
+    ("stpp", (2, 1, 2)),  # stage 2-3: teacher + student; no strong view
 ])
 def test_mean_teacher_and_cps_steps_launch_the_kernels(cuda, algorithm,
                                                        per_step):
@@ -470,8 +472,9 @@ def test_mean_teacher_and_cps_steps_launch_the_kernels(cuda, algorithm,
                                        attention_impl="flash")
     cfg["decode_head"]["FCNHead"]["in_index"] = 0
     cfg["dataset"]["device_augment"] = True
-    trainer = Trainer(cfg, get_algorithm(algorithm).SPEC, cuda, 4,
-                      model=init_model(cfg, cuda))
+    module = get_algorithm(algorithm)
+    spec = module.SEMISUP_SPEC if algorithm == "stpp" else module.SPEC
+    trainer = Trainer(cfg, spec, cuda, 4, model=init_model(cfg, cuda))
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = {"ecg": torch.randn(16, 1, 2500, generator=gen, device=cuda),
              "target": torch.randint(0, 4, (16, 2500), generator=gen,
@@ -485,3 +488,59 @@ def test_mean_teacher_and_cps_steps_launch_the_kernels(cuda, algorithm,
     assert tuple(a - b for a, b in zip(after, before)) == (
         fwd * depth, bwd * depth, gathers)
     assert torch.isfinite(metrics["loss"])
+
+
+@pytest.mark.cuda
+def test_reco_loss_on_the_card(cuda):
+    """The ReCo loss at B = 4 (D = 128, T = 2500, Q = 256, Nn = 512): no
+    host sync in a call; fed the CPU's indices, the card's loss core equals
+    the CPU's in value and latent gradient within 1e-5 relative; the card's
+    own sampler picks the CPU's anchors and pools (the CDF is exact
+    integer counts over one division on either device)."""
+    from semi_seg_ecg_tpu_torch.ops import reco_loss
+
+    b, d, t, c, q, n = 4, 128, 2500, 4, 256, 512
+    gen = torch.Generator().manual_seed(0)
+    latent = torch.randn(b, d, t, generator=gen)
+    logits_t = torch.randn(b, c, t, generator=gen)
+    logits_t.scatter_add_(1, torch.randint(0, c, (b, 1, t), generator=gen),
+                          torch.full((b, 1, t), 4.0))
+    prob_t = torch.softmax(logits_t, dim=1)
+    prob_s = torch.softmax(torch.randn(b, c, t, generator=gen), dim=1)
+    draws = reco_loss.reco_draws(gen, c, q, n, torch.device("cpu"))
+    args = (0.65, 0.8)
+
+    def flat(x, device):
+        return x.to(device).transpose(1, 2).reshape(b * t, x.shape[1])
+
+    results = {}
+    for device in ("cpu", cuda):
+        lat = flat(latent, device).requires_grad_()
+        regions = reco_loss.reco_regions(lat.detach(), flat(prob_t, device),
+                                         flat(prob_s, device), *args)
+        dev_draws = reco_loss.RecoDraws(*(x.to(device) for x in draws))
+        sampled = reco_loss.reco_sample(dev_draws, regions, 0.25)
+        pools = reco_loss.masked_sample(regions.valid, dev_draws.pool_u)
+        if device == "cpu":
+            cpu_idx = sampled
+        loss = reco_loss.reco_loss_core(
+            lat, regions.protos, *(i.to(device) for i in cpu_idx),
+            regions.active, regions.valid_seg, 0.25)
+        loss.backward()
+        results[str(device)] = (float(loss), lat.grad.cpu(),
+                                sampled[0].cpu(), pools.cpu())
+    (l0, g0, a0, p0), (l1, g1, a1, p1) = results.values()
+    assert l1 == pytest.approx(l0, rel=1e-5) and l0 > 0
+    assert (g1 - g0).abs().max() <= 1e-5 * g0.abs().max()
+    assert torch.equal(a0, a1) and torch.equal(p0, p1)
+
+    inputs = [x.to(cuda) for x in (latent, prob_t, prob_s)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card_draws = reco_loss.reco_draws(
+            torch.Generator(device=cuda).manual_seed(1), c, q, n, cuda)
+        loss = reco_loss.compute_reco_loss(card_draws, *inputs, *args, 0.25)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(loss)

@@ -15,13 +15,17 @@ The train-mode teacher (the default) normalizes with the batch's
 statistics and leaves its running statistics alone: after a step they are
 the EMA of their old values and the student's, bit for bit.
 
-End to end: seven of the eight recipes the port runs,
-``resnet18/{scratch, mean_teacher, fixmatch, cps}`` and
-``vit_tiny/{scratch, mean_teacher, cps}`` (``test_torch_train_slice.py``
-runs ``vit_tiny/fixmatch``), train through ``train_main`` on the CPU at a
-tiny size with device augmentation, run their test pass, write
-``model_ema`` or ``model_peer`` and ``peer_optimizer`` into the checkpoint,
-and serve it through ``inference_main`` and ``test_main``.
+End to end: eleven of the twelve shipped base recipes,
+``resnet18/{scratch, mean_teacher, fixmatch, cps, reco, stpp}`` and
+``vit_tiny/{scratch, mean_teacher, cps, reco, stpp}``
+(``test_torch_train_slice.py`` runs ``vit_tiny/fixmatch``), train through
+``train_main`` on the CPU at a tiny size with device augmentation, run
+their test pass, write ``model_ema`` (the teacher: Mean Teacher's and
+ReCo's EMA, ST++'s stage teacher) or ``model_peer`` and ``peer_optimizer``
+into the checkpoint, and serve it through ``inference_main`` and
+``test_main``. ST++ also writes its stage directories, trains stage 2 on
+exactly the reliable half that its ranking chose, and starts stage 2 with
+stage 1's best model as the teacher.
 """
 
 import os
@@ -32,7 +36,7 @@ import torch
 
 from semi_seg_ecg_tpu.algorithms import cps as jax_cps
 from semi_seg_ecg_tpu.algorithms import mean_teacher as jax_mt
-from semi_seg_ecg_tpu_torch.algorithms import cps, mean_teacher
+from semi_seg_ecg_tpu_torch.algorithms import common, cps, mean_teacher, stpp
 from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, init_model
 from semi_seg_ecg_tpu_torch.cli import inference_main, train_main
 from semi_seg_ecg_tpu_torch.cli import test_main as port_test_main
@@ -103,15 +107,60 @@ def test_teacher_forward_leaves_its_statistics_alone(teacher_eval):
 
 RECIPES = [("resnet18", "scratch"), ("resnet18", "mean_teacher"),
            ("resnet18", "fixmatch"), ("resnet18", "cps"),
+           ("resnet18", "reco"), ("resnet18", "stpp"),
            ("vit_tiny", "scratch"), ("vit_tiny", "mean_teacher"),
-           ("vit_tiny", "cps")]
+           ("vit_tiny", "cps"), ("vit_tiny", "reco"), ("vit_tiny", "stpp")]
+TEACHER_ALGORITHMS = ("mean_teacher", "reco", "stpp")
+
+
+def spy_on_stages(monkeypatch):
+    """Record ST++'s ranking and the unlabeled rows each stage trains on."""
+    seen = {"reliable": [], "unlabeled": []}
+    rank, build = stpp.prepare_semisup, common.build_train_loaders
+
+    def ranked(config):
+        seen["reliable"].append(rank(config))
+        return seen["reliable"][-1]
+
+    def loaders(config, spec, unlabeled_subset_ids=None):
+        out = build(config, spec, unlabeled_subset_ids)
+        if "unlabeled" in out:
+            ds = out["unlabeled"].dataset
+            seen["unlabeled"].append(list(getattr(ds, "indices",
+                                                  range(len(ds)))))
+        return out
+
+    monkeypatch.setattr(stpp, "prepare_semisup", ranked)
+    monkeypatch.setattr(common, "build_train_loaders", loaders)
+    return seen
+
+
+def check_stages(out_dir, seen):
+    for f in ("stage1/checkpoint-1.ckpt", "stage1/best-MeanIoU.ckpt",
+              "stage2/best-MeanIoU.ckpt", "stage2/log.txt"):
+        assert os.path.exists(os.path.join(out_dir, f)), f
+    (reliable,) = seen["reliable"]
+    assert len(reliable) == 2 and len(set(reliable)) == 2
+    # stage 2 on the reliable half, stage 3 on every unlabeled row
+    assert seen["unlabeled"] == [reliable, [0, 1, 2, 3]]
+    stage1 = torch_ckpt.load_checkpoint(os.path.join(
+        out_dir, "stage1", "best-MeanIoU.ckpt"))
+    stage2 = torch_ckpt.load_checkpoint(os.path.join(
+        out_dir, "stage2", "best-MeanIoU.ckpt"))
+    assert "model_ema" not in stage1
+    assert stage2["model_ema"].keys() == stage1["model"].keys()
+    for key, value in stage1["model"].items():
+        np.testing.assert_array_equal(stage2["model_ema"][key], value,
+                                      err_msg=key)
 
 
 @pytest.mark.parametrize("family,algorithm", RECIPES,
                          ids=["/".join(r) for r in RECIPES])
-def test_recipe_trains_tests_and_serves(family, algorithm, tmp_path):
+def test_recipe_trains_tests_and_serves(family, algorithm, tmp_path,
+                                        monkeypatch):
     name = f"{family}_{algorithm}"
     cfg, path = tiny_recipe(tmp_path, family, algorithm, name)
+    seen = spy_on_stages(monkeypatch) if algorithm == "stpp" else None
     metrics = train_main(["-f", path])
     out_dir = os.path.join(str(tmp_path / "exps"), name)
     for f in ("log.txt", "best-loss.ckpt", "best-MeanIoU.ckpt",
@@ -121,15 +170,19 @@ def test_recipe_trains_tests_and_serves(family, algorithm, tmp_path):
     ckpt_path = os.path.join(out_dir, "best-MeanIoU.ckpt")
     payload = torch_ckpt.load_checkpoint(ckpt_path)
     assert payload["step"] == 2
-    extras = {"mean_teacher": {"model_ema"},
-              "cps": {"model_peer", "peer_optimizer"}}.get(algorithm, set())
+    extras = ({"model_ema"} if algorithm in TEACHER_ALGORITHMS else
+              {"cps": {"model_peer", "peer_optimizer"}}.get(algorithm, set()))
     assert extras == {"model_ema", "model_peer",
                       "peer_optimizer"} & set(payload)
     init = init_model(dict(cfg, seed=0), torch.device("cpu")).state_dict()
     trained = torch_ckpt.model_state_dict(payload["model"])
     assert max((trained[k] - v).abs().max().item() for k, v in init.items()
                if v.is_floating_point()) > 0
-    if algorithm == "mean_teacher":
+    if algorithm == "reco":
+        assert "latent_projection.2.running_var" in payload["model"]
+    if algorithm == "stpp":
+        check_stages(out_dir, seen)
+    if algorithm in TEACHER_ALGORITHMS:
         teacher = payload["model_ema"]
         assert teacher.keys() == payload["model"].keys()
         assert any(not np.array_equal(teacher[k], payload["model"][k])

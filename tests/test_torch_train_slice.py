@@ -113,16 +113,37 @@ def resnet_lockstep_config(algorithm):
     return cfg
 
 
-def perturbed_state(model, seed, jit=False):
-    """The model's init trees plus numpy noise. ``jit`` compiles the init
-    once (a ResNet's op-by-op init is slow); its trees round apart from the
-    op-by-op ones, so the ViT locksteps keep the latter."""
-    # auxiliary heads exist only in a train-mode graph
-    init = functools.partial(model.init, train=model.with_auxiliary_heads)
-    variables = (jax.jit(init) if jit else init)(
+def init_variables(model):
+    """The model's init trees, op by op."""
+    # auxiliary heads exist only in a train-mode graph, the ReCo projection
+    # only in a graph that returns the latent
+    return functools.partial(model.init, train=model.with_auxiliary_heads,
+                             return_latent=model.with_projection)(
         {"params": jax.random.key(0), "dropout": jax.random.key(1),
          "droppath": jax.random.key(2)},
         jnp.zeros((2, 1, SEQ), jnp.float32))
+
+
+# (model, trees) of each compiled init; a model equal to one here shares it
+JIT_INITS = []
+
+
+def jit_init_variables(model):
+    """:func:`init_variables` compiled, once per (equal) model: a ResNet's
+    op-by-op init is slow. Its trees round apart from the op-by-op ones, so
+    the ViT locksteps keep the latter."""
+    for known, trees in JIT_INITS:
+        if known == model:
+            return trees
+    JIT_INITS.append((model, jax.jit(functools.partial(init_variables,
+                                                       model))()))
+    return JIT_INITS[-1][1]
+
+
+def perturbed_state(model, seed, jit=False):
+    """The model's init trees plus numpy noise; ``jit`` takes them from
+    :func:`jit_init_variables`."""
+    variables = jit_init_variables(model) if jit else init_variables(model)
     rng = np.random.default_rng(seed)
 
     def noisy(tree, positive=False):
@@ -166,7 +187,9 @@ def lockstep_states(attention_impl, algorithm, jax_algo, port_algo, seed,
                     cfg=None, **extra):
     """``lockstep`` with every network of the run: the final states are
     dicts of ``model``, and the Mean Teacher's ``ema`` or the CPS ``peer``
-    (initialised from other noise), as the algorithm keeps them."""
+    (initialised from other noise), as the algorithm keeps them. ReCo's
+    and ST++'s ``ema`` starts as the student, as the JAX package's and
+    the port's trainers start it."""
     cfg = dict(cfg or lockstep_config(attention_impl, algorithm), **extra)
     jmodel = jax_build(cfg, train=True)
     jit = "resnet18" in cfg["backbone"]
@@ -194,13 +217,16 @@ def lockstep_states(attention_impl, algorithm, jax_algo, port_algo, seed,
     theirs, ours = [], []
     for batch in batches(seed):
         u_w = jnp.asarray(batch["ecg_u_w"])
-        if algorithm == "fixmatch":
-            logits = eval_logits(state.model, u_w)
+        if algorithm in ("fixmatch", "reco"):
+            # no confidence within float noise of the threshold
+            logits = eval_logits(
+                state.ema if algorithm == "reco" else state.model, u_w)
             conf = np.asarray(jax.nn.softmax(logits, axis=1).max(axis=1))
-            assert np.abs(conf - CONF_THRESH).min() > 1e-4
-        if algorithm == "cps":
+            assert np.abs(conf - cfg["train"]["conf_thresh"]).min() > 1e-4
+        if algorithm in ("cps", "stpp"):
             # no pseudo-label within float noise of a tie
-            for ms in (state.model, state.peer):
+            for ms in ((state.model, state.peer) if algorithm == "cps"
+                       else (state.ema,)):
                 top2 = np.sort(np.asarray(eval_logits(ms, u_w)), axis=1)
                 assert (top2[:, -1] - top2[:, -2]).min() > 1e-4
         state, metrics = jax_step(state, {k: jnp.asarray(v)
@@ -337,9 +363,6 @@ def test_train_flag_sets_the_mode_for_one_call():
 
 
 def test_unported_algorithms_and_options_raise():
-    for name in ("reco", "stpp"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_algorithm(name)
     with pytest.raises(ValueError, match="Invalid algorithm"):
         get_algorithm("nope")
     # remat (activation checkpointing): an eval forward is the same with or
@@ -379,6 +402,8 @@ def tiny_recipe(root, family, algorithm, exp_name, data_seed=3):
     else:
         cfg["backbone"]["resnet18"].update(stem_channels=8, base_channels=8)
         cfg["decode_head"]["FCNHead"].update(in_channels=64, channels=16)
+    if cfg.get("use_latent_projection"):  # ReCo: the narrow last feature
+        cfg.update(projection_in_dim=64, projection_out_dim=16)
     cfg["dataset"].update(data, device_augment=True, signal_length=SEQ)
     cfg["dataset"]["augmentations"][0]["random_resize_crop"][
         "target_length"] = SEQ
