@@ -56,7 +56,19 @@ non-zero exit when it fails:
    the card's loss core on the CPU's indices against the CPU (value and
    latent gradient within 1e-5 relative), the card's own sampler against
    the CPU's on the same draws, its time; a profile of a ViT ReCo bf16
-   step.
+   step;
+8. long-record serving through ``infer-longrec`` (``infer_longrec_main``)
+   with phase 4's ViT checkpoint (flash attention) and phase 5's ResNet18,
+   on synthetic records at 250 Hz, windows of 2,500 at hop 1,250, 64 a
+   batch: 1 hour at fp32 and under bf16 autocast (ViT) and at fp32
+   (ResNet18), each held to its exact launches (12 flash forwards per ViT
+   batch), its probabilities, labels and files, and to sensitivity 1.0
+   when ``--eval-labels`` scores it against its own labels; 2 minutes on
+   the card against the CPU; the single-cover identity (hop = window, flat
+   taper); 8 live streams of 10 minutes through ``StreamingSegmenter``
+   against the offline stitcher; a 24-hour record per model with its
+   throughput, the filter chain's host time and peak device memory; a
+   profile of one hour.
 
 The line before the last prints the card's name and power limit as
 nvidia-smi gives them; the line before that, a JSON object with one entry
@@ -134,6 +146,11 @@ FLASH_SHAPES = [
     ("one_head_fp32", (1, 1, 101, 64), "float32"),
     ("one_head_bf16", (1, 1, 101, 64), "bfloat16"),
     *STRIDED,
+    # phase 8: a batch of 64 long-record windows, in both precisions the
+    # entry runs, and one step of 8 live streams
+    ("longrec_fp32", (64, 3, 101, 64), "float32"),
+    ("longrec_bf16", (64, 3, 101, 64), "bfloat16"),
+    ("stream_fp32", (8, 3, 101, 64), "float32"),
 ]
 # the backward at the training step's shape (32 windows, bf16 under the
 # recipe's autocast, fp32 in the fp32 checks) first, then long and ragged
@@ -214,6 +231,17 @@ CDF_ROUNDING = 4 * 2.0 ** -23
 SCORE_TIE = 1e-5
 # the stem pool's tie-routing check: (B, C, T) of the ResNet18 stem output
 POOL_SHAPE = (BATCH, 64, SIGNAL_LENGTH // 2)
+# phase 8: records at 250 Hz (the shipped recipes' rate) through the
+# long-record entry, windows of SIGNAL_LENGTH at 50% overlap, 64 a batch;
+# one hour, two minutes, eight live streams of ten minutes fed a second at
+# a time, and a 24-hour Holter record
+FS = 250
+LONGREC_BATCH, LONGREC_HOP = 64, SIGNAL_LENGTH // 2
+HOUR_S, SHORT_S, STREAM_S, HOLTER_S = 3600, 120, 600, 24 * 3600
+STREAMS, STREAM_CHUNK = 8, FS
+# card against the CPU (the serving phases' bound); a stream against the
+# offline stitcher on the card (the same arithmetic at batch 8 and 64)
+LONGREC_CPU_ATOL, STREAM_ATOL = 1e-4, 1e-5
 
 
 def log(*args):
@@ -1783,6 +1811,394 @@ def phase_reco_stpp(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: long-record serving
+# ---------------------------------------------------------------------------
+
+
+def holter_record(seconds, seed):
+    """A (1, T) ECG-shaped record at ``FS``: a sharp pulse every 0.8 s
+    (75 bpm), 0.05 Hz baseline wander and noise, from ``seed`` (the
+    generator of ``tools/bench_holter.py``, its time axis in float64 so
+    that a 24-hour record keeps its shape)."""
+    n = int(round(seconds * FS))
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float64) / FS
+    beat_phase = (t % 0.8) / 0.8
+    qrs = np.exp(-((beat_phase - 0.5) ** 2) / 2e-4)
+    wander = 0.2 * np.sin(2 * np.pi * 0.05 * t)
+    noise = rng.normal(0.0, 0.05, n)
+    return (qrs + wander + noise).astype(np.float32)[None, :]
+
+
+def save_record(name, seconds, seed):
+    path = os.path.join(WORK, "longrec", f"{name}.npy")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    record = holter_record(seconds, seed)
+    np.save(path, record)
+    return path, record
+
+
+def longrec_launches(family, total, hop=LONGREC_HOP):
+    """The launches of one long-record entry: ``DEPTH`` flash forwards per
+    batch of windows for the ViT (the last batch may be short), none for
+    ResNet18, nothing else."""
+    from semi_seg_ecg_tpu_torch.ops.stitch import plan_windows
+
+    n_win = plan_windows(total, SIGNAL_LENGTH, hop, LONGREC_BATCH)[0]
+    depth = DEPTH if family == "vit_tiny" else 0
+    return {"flash_attention_fwd": depth * math.ceil(n_win / LONGREC_BATCH),
+            "flash_attention_bwd": 0, "gather1d": 0}, n_win
+
+
+def longrec_entry(torch, family, config_path, model_path, record_path,
+                  name, *args, override=None):
+    """One ``infer_longrec_main`` call with the launch counters zeroed just
+    before and read just after, held to ``longrec_launches``; its outputs
+    checked (shape, finite, rows summing to 1 within 1e-5, labels the
+    argmax, the files it wrote). Returns the outputs and the run's
+    numbers."""
+    from semi_seg_ecg_tpu_torch.cli import infer_longrec_main
+
+    out_dir = os.path.join(WORK, "longrec", name)
+    argv = ["-f", config_path, "--model_path", model_path, "--record",
+            record_path, "--batch", str(LONGREC_BATCH), "--out-dir",
+            out_dir, *args]
+    if override:
+        override_path = os.path.join(WORK, "longrec", f"{name}.yaml")
+        with open(override_path, "w") as f:
+            yaml.safe_dump(override, f)
+        argv += ["-o", override_path]
+    total = np.load(record_path, mmap_mode="r").shape[-1]
+    hop = int(args[args.index("--hop") + 1]) if "--hop" in args \
+        else LONGREC_HOP
+    want, n_win = longrec_launches(family, total, hop)
+    if (override or {}).get("device") == "cpu":  # no kernel off the card
+        want = dict.fromkeys(want, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    out = infer_longrec_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = read_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    probs, labels = out["probs"], out["labels"]
+    if probs.shape != (4, total) or labels.shape != (total,) or \
+            not np.isfinite(probs).all():
+        raise SystemExit(f"phase 8 failed: {name}: probs {probs.shape}, "
+                         f"labels {labels.shape} for {total} samples, or "
+                         "not finite")
+    row_err = float(np.abs(probs.sum(axis=0) - 1.0).max())
+    if row_err > 1e-5:
+        raise SystemExit(f"phase 8 failed: {name}: probabilities sum to 1 "
+                         f"+- {row_err}")
+    if not np.array_equal(labels, probs.argmax(axis=0)):
+        raise SystemExit(f"phase 8 failed: {name}: labels are not the "
+                         "argmax of the probabilities")
+    if not np.array_equal(np.load(os.path.join(out_dir, "labels.npy")),
+                          labels):
+        raise SystemExit(f"phase 8 failed: {name}: labels.npy differs from "
+                         "the returned labels")
+    if "--intervals" in args and not os.path.exists(
+            os.path.join(out_dir, "intervals.csv")):
+        raise SystemExit(f"phase 8 failed: {name}: no intervals.csv")
+    if launches != want:
+        raise SystemExit(f"phase 8 failed: {name}: launches {launches}, "
+                         f"expected {want} ({n_win} windows, batch "
+                         f"{LONGREC_BATCH})")
+    hours = total / FS / 3600
+    result = {"samples": total, "windows": n_win, "seconds": seconds,
+              "windows_per_s": n_win / seconds,
+              "ecg_hours_per_s": hours / seconds, "launches": launches,
+              "peak_allocated_mib": peak_mb, "row_sum_err": row_err}
+    log(f"  {name}: {total} samples, {n_win} windows, {seconds:.3f} s entry "
+        f"wall time, {n_win / seconds:.1f} windows/s, "
+        f"{hours / seconds:.3f} h of ECG/s, peak allocated "
+        f"{peak_mb:.1f} MiB, launches {launches}")
+    return out, result
+
+
+def self_score(torch, family, config_path, model_path, record_path, name,
+               labels, override=None):
+    """The entry once more with ``--eval-labels`` on its own labels (and no
+    blip filter): every boundary must match, sensitivity 1.0."""
+    truth = os.path.join(WORK, "longrec", f"{name}_truth.npy")
+    np.save(truth, labels)
+    out, _ = longrec_entry(torch, family, config_path, model_path,
+                           record_path, f"{name}_self", "--eval-labels",
+                           truth, "--min-duration-ms", "0",
+                           override=override)
+    overall = out["delineation"]["overall"]
+    if overall["sensitivity"] != 1.0 or overall["ppv"] != 1.0:
+        raise SystemExit(f"phase 8 failed: {name}: --eval-labels on its "
+                         f"own labels scores {overall}")
+    return overall
+
+
+def top2_ties(probs, tol):
+    top2 = np.sort(probs, axis=0)[-2:]
+    return (top2[1] - top2[0]) <= tol
+
+
+def labels_off(got, want, probs, tol):
+    """Samples whose labels differ where the top two probabilities are
+    more than ``tol`` apart."""
+    return int(((got != want) & ~top2_ties(probs, tol)).sum())
+
+
+def serving_fn(config_path, model_path):
+    from semi_seg_ecg_tpu_torch.config import load_config, normalize_config
+    from semi_seg_ecg_tpu_torch.serving import make_serving_fn
+
+    config = normalize_config(load_config(config_path))
+    config["test"] = dict(config.get("test") or {}, model_path=model_path)
+    return make_serving_fn(config)[0], config
+
+
+def filtered(config, record):
+    from semi_seg_ecg_tpu_torch.data.transforms import (
+        get_transforms_from_config,
+    )
+
+    for t in get_transforms_from_config(config["dataset"]["filter"]):
+        record = t(record)
+    return np.ascontiguousarray(record, dtype=np.float32)
+
+
+def check_single_cover(torch, config_path, model_path, record_path):
+    """``hop = window`` with the flat taper on the card: the stitched field
+    is the model's softmax on the pre-cut, standardized windows (w/w = 1)
+    within 1e-6; the card's standardization against numpy's."""
+    from semi_seg_ecg_tpu_torch.ops.stitch import standardize_windows
+
+    out, run = longrec_entry(torch, "vit_tiny", config_path, model_path,
+                             record_path, "single_cover", "--hop",
+                             str(SIGNAL_LENGTH), "--taper", "flat")
+    infer, config = serving_fn(config_path, model_path)
+    x = filtered(config, np.load(record_path))
+    wins = np.ascontiguousarray(
+        x.reshape(1, -1, SIGNAL_LENGTH).transpose(1, 0, 2))
+    on_card = standardize_windows(torch.from_numpy(wins).cuda())
+    want = infer(on_card).cpu().numpy().transpose(1, 0, 2).reshape(4, -1)
+    err = float(np.abs(out["probs"] - want).max())
+    ref = (wins - wins.mean(axis=(1, 2), keepdims=True, dtype=np.float64)) \
+        / wins.std(axis=(1, 2), keepdims=True, dtype=np.float64)
+    std_err = float(np.abs(on_card.cpu().numpy() - ref).max())
+    log(f"  single cover (hop {SIGNAL_LENGTH}, flat): stitched vs the "
+        f"model's softmax on the standardized windows {err:.3g}; the "
+        f"card's standardization vs float64 numpy {std_err:.3g}")
+    if err > 1e-6 or std_err > 1e-5:
+        raise SystemExit(f"phase 8 failed: single cover {err} > 1e-6 or "
+                         f"standardization {std_err} > 1e-5")
+    return dict(run, max_abs_err=err, standardize_err=std_err)
+
+
+def check_streaming(torch, config_path, model_path):
+    """``STREAMS`` live records of ``STREAM_S`` seconds pushed
+    ``STREAM_CHUNK`` samples at a time through ``StreamingSegmenter``, the
+    counters zeroed just before and read just after (``DEPTH`` flash
+    forwards per window step); each stream against the offline stitcher on
+    its record within ``STREAM_ATOL``."""
+    from semi_seg_ecg_tpu_torch.ops.stitch import (
+        overlap_add_infer,
+        plan_windows,
+    )
+    from semi_seg_ecg_tpu_torch.serving import StreamingSegmenter
+
+    infer, config = serving_fn(config_path, model_path)
+    records = np.stack([filtered(config, holter_record(STREAM_S, 10 + s))
+                        for s in range(STREAMS)])  # (S, 1, T)
+    total = records.shape[-1]
+    n_win = plan_windows(total, SIGNAL_LENGTH, LONGREC_HOP, 1)[0]
+    want = {"flash_attention_fwd": DEPTH * n_win, "flash_attention_bwd": 0,
+            "gather1d": 0}
+    seg = StreamingSegmenter(infer, window=SIGNAL_LENGTH, hop=LONGREC_HOP,
+                             num_streams=STREAMS)
+    probs, labels, pushes = [], [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    for off in range(0, total, STREAM_CHUNK):
+        t_push = time.perf_counter()
+        p, l = seg.push(records[:, :, off:off + STREAM_CHUNK])
+        if p.shape[-1]:
+            pushes.append(time.perf_counter() - t_push)
+        probs.append(p)
+        labels.append(l)
+    p, l = seg.flush()
+    seconds = time.time() - t0
+    launches = read_counts()
+    probs = np.concatenate(probs + [p], axis=2)
+    labels = np.concatenate(labels + [l], axis=1)
+    if launches != want or probs.shape != (STREAMS, 4, total):
+        raise SystemExit(f"phase 8 failed: streaming launches {launches} "
+                         f"(expected {want}: {n_win} window steps), probs "
+                         f"{probs.shape}")
+    errs, off_labels = [], 0
+    for s in range(STREAMS):
+        ref, ref_labels = overlap_add_infer(
+            infer, records[s], window=SIGNAL_LENGTH, hop=LONGREC_HOP,
+            batch=LONGREC_BATCH)
+        ref, ref_labels = ref.cpu().numpy(), ref_labels.cpu().numpy()
+        errs.append(float(np.abs(probs[s] - ref).max()))
+        off_labels += labels_off(labels[s], ref_labels, ref, STREAM_ATOL)
+    result = {"streams": STREAMS, "samples_per_stream": total,
+              "window_steps": n_win, "seconds": seconds,
+              "step_ms_mean": float(np.mean(pushes)) * 1e3,
+              "step_ms_max": float(np.max(pushes)) * 1e3,
+              "ecg_hours_per_s": STREAMS * total / FS / 3600 / seconds,
+              "launches": launches, "max_abs_err_by_stream": errs,
+              "labels_off": off_labels}
+    log(f"  streaming: {STREAMS} streams x {total} samples in chunks of "
+        f"{STREAM_CHUNK}, {n_win} window steps, {seconds:.3f} s "
+        f"({result['step_ms_mean']:.3f} ms a push that runs a step, max "
+        f"{result['step_ms_max']:.3f}), launches {launches}; vs the "
+        f"offline stitcher max |diff| {max(errs):.3g}, labels off "
+        f"{off_labels}")
+    if max(errs) > STREAM_ATOL or off_labels:
+        raise SystemExit(f"phase 8 failed: a stream differs from the "
+                         f"offline stitcher: {errs}, {off_labels} labels")
+    return result
+
+
+def profile_longrec(torch, config_path, model_path, record, reps=3):
+    """Where one hour's ``long_record_inference`` goes (checkpoint loaded
+    before). Each timed call runs the path in its two stages, the host
+    filter chain and then the rest (``long_record_inference`` on the
+    filtered record with an empty filter chain), so the filter's share and
+    the wall time come from the same ``reps`` calls; a trace of the second
+    stage (the filter runs on the host and launches nothing) gives device
+    busy time, the idle share over the whole wall and over the wall after
+    the filter, and device events per batch of windows."""
+    from semi_seg_ecg_tpu_torch.ops.stitch import plan_windows
+    from semi_seg_ecg_tpu_torch.serving import long_record_inference
+
+    infer, config = serving_fn(config_path, model_path)
+    bare = dict(config, dataset=dict(config["dataset"], filter=[]))
+    rest = lambda ecg: long_record_inference(bare, ecg, batch=LONGREC_BATCH,
+                                             infer=infer)
+    rest(filtered(config, record))
+    filter_s, rest_s = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ecg = filtered(config, record)
+        t1 = time.perf_counter()
+        rest(ecg)  # ends in the fetch of the result
+        filter_s.append(t1 - t0)
+        rest_s.append(time.perf_counter() - t1)
+    filter_ms = float(np.mean(filter_s)) * 1e3
+    after_ms = float(np.mean(rest_s)) * 1e3
+    wall_ms = filter_ms + after_ms
+    _, per_kernel, events, kinds, _ = trace_device(
+        torch, lambda: rest(ecg), reps)
+    busy_ms = sum(per_kernel.values())
+    batches = math.ceil(plan_windows(record.shape[-1], SIGNAL_LENGTH,
+                                     LONGREC_HOP, 1)[0] / LONGREC_BATCH)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    return {"reps": reps, "wall_ms": wall_ms,
+            "wall_ms_each": [1e3 * (f + r) for f, r in zip(filter_s, rest_s)],
+            "filter_ms": filter_ms, "after_filter_ms": after_ms,
+            "device_busy_ms": busy_ms if per_kernel else None,
+            "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel
+            else None,
+            "device_idle_share_after_filter": (
+                1 - busy_ms / after_ms) if per_kernel else None,
+            "device_events_per_batch": events / batches,
+            "copy_kernels_per_batch": kinds["copy"] / batches,
+            "flash_kernel_ms": kernel_ms(per_kernel, "flash_fwd_"),
+            "top_kernels_ms": [(k[:80], v) for k, v in top]}
+
+
+def phase_longrec(torch):
+    """Long-record serving through ``infer-longrec`` at full width: the
+    phase-4 ViT FixMatch checkpoint with flash attention (fp32 and bf16
+    autocast) and phase 5's ResNet18 (fp32) on a 1-hour record; card
+    against CPU on 2 minutes; the single-cover identity; eight live
+    streams; a 24-hour Holter record per model, and a profile of 1 hour."""
+    from semi_seg_ecg_tpu_torch.config import load_config
+
+    vit = (os.path.join(WORK, "vit_tiny_fixmatch.yaml"),
+           os.path.join(WORK, "exps", "vit_tiny_fixmatch",
+                        "best-MeanIoU.ckpt"))
+    resnet = (os.path.join(WORK, "resnet18_serving.yaml"),
+              os.path.join(WORK, "resnet18_seed0.pth"))
+    hour_path, hour = save_record("hour", HOUR_S, 1)
+    log(f"phase 8: infer-longrec, windows of {SIGNAL_LENGTH} at hop "
+        f"{LONGREC_HOP}, batch {LONGREC_BATCH}; entering with "
+        f"{tf32_flags(torch)}")
+    runs, scores = {}, {}
+    outs = {}
+    for name, family, paths, override in (
+            ("vit_hour_fp32", "vit_tiny", vit, None),
+            ("vit_hour_bf16", "vit_tiny", vit, {"test": {"use_amp": True}}),
+            ("resnet_hour_fp32", "resnet18", resnet, None)):
+        outs[name], runs[name] = longrec_entry(
+            torch, family, *paths, hour_path, name, "--intervals",
+            override=override)
+        scores[name] = self_score(torch, family, *paths, hour_path, name,
+                                  outs[name]["labels"], override=override)
+    fp32, bf16 = outs["vit_hour_fp32"], outs["vit_hour_bf16"]
+    agree = float((fp32["labels"] == bf16["labels"]).mean())
+    amp_diff = float(np.abs(fp32["probs"] - bf16["probs"]).max())
+    sensitivity = {k: v["sensitivity"] for k, v in scores.items()}
+    log(f"  bf16 autocast vs fp32 (1 hour): argmax agreement {agree:.5f}, "
+        f"max |diff| {amp_diff:.3g}; --eval-labels on their own labels: "
+        f"sensitivity {sensitivity}")
+    if agree < 0.9:
+        raise SystemExit(f"phase 8 failed: bf16 autocast agrees with fp32 "
+                         f"on {agree:.3f} of the samples' classes")
+
+    short_path, _ = save_record("two_minutes", SHORT_S, 3)
+    card, runs["vit_2min_fp32"] = longrec_entry(torch, "vit_tiny", *vit,
+                                                short_path, "vit_2min_fp32")
+    cpu, runs["vit_2min_cpu"] = longrec_entry(
+        torch, "vit_tiny", *vit, short_path, "vit_2min_cpu",
+        override={"device": "cpu"})
+    cpu_diff = float(np.abs(card["probs"] - cpu["probs"]).max())
+    cpu_off = labels_off(card["labels"], cpu["labels"], cpu["probs"],
+                         LONGREC_CPU_ATOL)
+    log(f"  2 minutes, card vs the CPU's plain path: max |diff| "
+        f"{cpu_diff:.3g}, labels off {cpu_off}")
+    if cpu_diff > LONGREC_CPU_ATOL or cpu_off:
+        raise SystemExit(f"phase 8 failed: card vs CPU {cpu_diff} > "
+                         f"{LONGREC_CPU_ATOL} or {cpu_off} labels off")
+    single = check_single_cover(torch, *vit, short_path)
+    streaming = check_streaming(torch, *vit)
+
+    holter_path, holter = save_record("holter_24h", HOLTER_S, 2)
+    t0 = time.perf_counter()
+    filtered(load_config(resnet[0]), holter)
+    filter_s = time.perf_counter() - t0
+    log(f"  24 h record: {holter.shape[-1]} samples; the filter chain "
+        f"alone {filter_s:.3f} s on the host")
+    for name, family, paths in (("vit_holter_fp32", "vit_tiny", vit),
+                                ("resnet_holter_fp32", "resnet18", resnet)):
+        _, runs[name] = longrec_entry(torch, family, *paths, holter_path,
+                                      name)
+        runs[name]["filter_s"] = filter_s
+    profile = {"vit_tiny_fp32": profile_longrec(torch, *vit, hour),
+               "resnet18_fp32": profile_longrec(torch, *resnet, hour)}
+    for name, m in profile.items():
+        each = ", ".join(f"{w:.1f}" for w in m["wall_ms_each"])
+        log(f"  profile, 1 hour, {name}: {m['wall_ms']:.1f} ms wall, mean "
+            f"of {m['reps']} ({each}; filter {m['filter_ms']:.1f} ms), "
+            f"device busy "
+            f"{m['device_busy_ms']} ms, idle share {m['device_idle_share']} "
+            f"({m['device_idle_share_after_filter']} after the filter), "
+            f"{m['device_events_per_batch']:.1f} device events a batch "
+            f"({m['copy_kernels_per_batch']:.1f} copy), flash "
+            f"{m['flash_kernel_ms']} ms")
+        for kernel, ms in m["top_kernels_ms"]:
+            log(f"    {ms:.4f} ms  {kernel}")
+    return {"runs": runs, "self_scores": scores,
+            "amp_argmax_agreement": agree, "amp_max_abs_diff": amp_diff,
+            "card_vs_cpu_max_abs_diff": cpu_diff, "single_cover": single,
+            "streaming": streaming, "holter_filter_s": filter_s,
+            "profile": profile}
+
+
+# ---------------------------------------------------------------------------
 # Report
 # ---------------------------------------------------------------------------
 
@@ -1830,6 +2246,7 @@ def main():
     resnet_result = phase_resnet(torch)
     algorithm_results = phase_algorithms(torch)
     reco_stpp = phase_reco_stpp(torch)
+    longrec = phase_longrec(torch)
     # each path's launches, counted from 0 just before it and read after
     by_path = {
         "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
@@ -1840,7 +2257,10 @@ def main():
         "resnet18_fixmatch": resnet_result["train"]["launches"],
         **{path: r["launches"] for path, r in algorithm_results.items()},
         **{path: r["launches"]
-           for path, r in reco_stpp["recipes"].items()}}
+           for path, r in reco_stpp["recipes"].items()},
+        **{f"longrec_{path}": r["launches"]
+           for path, r in longrec["runs"].items()},
+        "longrec_streaming": longrec["streaming"]["launches"]}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1853,7 +2273,7 @@ def main():
                    "slice": slice_result, "train": train_result,
                    "resnet18": resnet_result,
                    "algorithms": algorithm_results,
-                   "reco_stpp": reco_stpp,
+                   "reco_stpp": reco_stpp, "longrec": longrec,
                    "seconds": time.time() - t_start}, f, indent=1)
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

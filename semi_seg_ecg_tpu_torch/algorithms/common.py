@@ -744,32 +744,27 @@ def run_test(config: Dict[str, Any]) -> Dict[str, float]:
 
 def run_inference(config: Dict[str, Any]) -> np.ndarray:
     """Softmax of ``seg_logits`` over the test split, in dataset order →
-    ``test_outputs.npy`` (no labels, no metrics). Full fp32 unless
-    ``test.use_amp``, which runs the model under bf16 autocast: no TF32 in
-    cuBLAS and cuDNN, and the flash kernels' 3xTF32 products (fp32
-    accumulation, fp32 accuracy) are outside what ``full_fp32`` sets."""
-    device = resolve_device(config)
+    ``test_outputs.npy`` (no labels, no metrics), through
+    :func:`serving.make_serving_fn` and so in its precision."""
+    # serving imports this module: import it when called
+    from ..serving import make_serving_fn
+
+    infer, _ = make_serving_fn(config)
     out_dir = experiment_dir(config)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     ds_test, loader = _test_loader(config)
-    use_amp = bool(test_cfg(config).get("use_amp", False))
-    amp_dtype = compute_dtype(config) if use_amp else torch.float32
-    model = load_eval_model(config, device)
 
     outputs = None
     mat = loader.step_indices()
     try:
-        with torch.inference_mode(), full_fp32(), torch.autocast(
-                device.type, dtype=amp_dtype, enabled=use_amp):
-            for step, batch in enumerate(loader):
-                x = torch.from_numpy(batch["ecg"]).to(device)
-                logits = model(x)["seg_logits"]
-                probs = torch.softmax(logits.float(), dim=1).cpu().numpy()
-                if outputs is None:
-                    outputs = np.zeros((len(ds_test),) + probs.shape[1:],
-                                       np.float32)
-                outputs[mat[step].reshape(-1)] = probs
+        for step, batch in enumerate(loader):
+            x = torch.from_numpy(batch["ecg"]).to(infer.device)
+            probs = infer(x).cpu().numpy()
+            if outputs is None:
+                outputs = np.zeros((len(ds_test),) + probs.shape[1:],
+                                   np.float32)
+            outputs[mat[step].reshape(-1)] = probs
     finally:
         loader.close()
     if out_dir:

@@ -117,3 +117,57 @@ def make_synthetic_dataset(
         cfg.pop("signal_length")
     return cfg
 
+
+def make_synthetic_wfdb(
+    root: str,
+    num_records: int = 12,
+    fs: int = 500,
+    seconds: float = 10.0,
+    seed: int = 0,
+    ann_ext: str = "i",
+) -> Dict[str, object]:
+    """Write genuine WFDB records with LUDB-style delineation annotations.
+
+    LUDB's on-disk reality (the dataset pipeline the reference outsources,
+    reference README.md:46-65): 10 s records @ 500 Hz, signal format 16,
+    per-lead annotation files named by lead (``<rec>.i`` etc.) carrying
+    ``(`` p/N/t ``)`` boundary triplets. This generator reproduces that
+    format exactly — alternating fmt 16 / fmt 212 (QTDB's container) so
+    both decode paths get rehearsed — from the same :func:`synth_ecg`
+    waveforms the pkl fixtures use, so ``tools/prepare_data.py`` →
+    train → test → ``ecg-infer-longrec --eval-labels`` can run end to end
+    on the real format before real data ever arrives.
+
+    Returns {"records_dir", "record_names", "ann_ext", "fs", "masks"}
+    (masks: per-record dense label fields for ground-truth comparison).
+    """
+    from .wfdb_io import wrann, wrsamp
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    length = int(round(fs * seconds))
+    cls_symbol = {1: "p", 2: "N", 3: "t"}
+    names, masks = [], {}
+    for r in range(num_records):
+        x, y = synth_ecg(rng, length, fs)
+        name = f"rec_{r}"
+        fmt = 16 if r % 2 == 0 else 212
+        wrsamp(os.path.join(root, name), fs, x[:, None], fmt=fmt,
+               gain=200.0, sig_names=["i"])
+        samples, symbols = [], []
+        # boundary triplets per wave run: '(' onset, peak, ')' offset —
+        # the exact stream prepare_data.annotations_to_mask inverts
+        bounds = np.flatnonzero(np.diff(y) != 0) + 1
+        for a, b in zip(np.concatenate([[0], bounds]),
+                        np.concatenate([bounds, [length]])):
+            c = int(y[a])
+            if c == 0:
+                continue
+            samples += [int(a), int((a + b) // 2), int(b - 1)]
+            symbols += ["(", cls_symbol[c], ")"]
+        wrann(os.path.join(root, name), ann_ext,
+              np.asarray(samples), symbols)
+        names.append(name)
+        masks[name] = y
+    return {"records_dir": root, "record_names": names,
+            "ann_ext": ann_ext, "fs": fs, "masks": masks}

@@ -94,6 +94,10 @@ def check_backward(q, k, v, dout, scale):
     ((1, 2, 1, 8), torch.float32),
     ((3, 1, 130, 128), torch.float32),
     ((2, 4, 257, 100), torch.float32),
+    # long-record serving: a batch of 64 windows, a step of 8 streams
+    ((64, 3, 101, 64), torch.float32),
+    ((64, 3, 101, 64), torch.bfloat16),
+    ((8, 3, 101, 64), torch.float32),
 ])
 def test_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = qkv(shape, dtype)
@@ -544,3 +548,56 @@ def test_reco_loss_on_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(loss)
+
+
+def small_vit_serving(device):
+    """A depth-2 ViT-1D (flash attention) + FCNHead with seed-0 weights,
+    as ``serving.ServingFn`` at fp32, on ``device``."""
+    from semi_seg_ecg_tpu_torch.serving import ServingFn
+
+    torch.manual_seed(0)
+    model = build_model_from_config({
+        "backbone": {"vit_tiny": {
+            "num_leads": 1, "seq_len": 500, "patch_size": 25, "width": 64,
+            "depth": 2, "heads": 2, "dim_head": 32, "mlp_dim": 128,
+            "out_indices": [1], "attention_impl": "flash"}},
+        "decode_head": {"FCNHead": {
+            "in_channels": 64, "in_index": 0, "channels": 16,
+            "num_convs": 1, "concat_input": False, "num_classes": 4}}})
+    return ServingFn(model.to(device).eval(), device, False, torch.float32)
+
+
+@pytest.mark.cuda
+def test_stitcher_and_streaming_on_the_card_match_the_cpu(cuda):
+    """The long-record stitcher through the flash ViT on the card against
+    the CPU's plain path within 1e-4 (the serving bound), launching 2 flash
+    forwards per batch of windows; the streaming segmenter on the card
+    against the card's offline stitcher within 1e-5, with 2 launches per
+    window step, and its stream carries kept on the card."""
+    from semi_seg_ecg_tpu_torch.ops.stitch import overlap_add_infer
+    from semi_seg_ecg_tpu_torch.serving import StreamingSegmenter
+
+    rng = np.random.default_rng(3)
+    records = rng.standard_normal((3, 1, 4321)).astype(np.float32)
+    card, cpu = small_vit_serving(cuda), small_vit_serving(
+        torch.device("cpu"))
+    before = fa.LAUNCHES
+    probs, labels = overlap_add_infer(card, records[0], window=500, hop=250,
+                                      batch=4)
+    assert fa.LAUNCHES == before + 2 * 5  # 17 windows in 5 batches
+    assert probs.is_cuda and labels.dtype == torch.int32
+    want, _ = overlap_add_infer(cpu, records[0], window=500, hop=250,
+                                batch=4)
+    torch.testing.assert_close(probs.cpu(), want, atol=1e-4, rtol=0)
+
+    seg = StreamingSegmenter(card, window=500, hop=250, num_streams=3)
+    assert seg._acc.is_cuda
+    before = fa.LAUNCHES
+    got = [seg.push(records[:, :, i:i + 300])[0]
+           for i in range(0, 4321, 300)] + [seg.flush()[0]]
+    assert fa.LAUNCHES == before + 2 * 17
+    got = np.concatenate(got, axis=2)
+    for s in range(3):
+        ref, _ = overlap_add_infer(card, records[s], window=500, hop=250,
+                                   batch=4)
+        np.testing.assert_allclose(got[s], ref.cpu().numpy(), atol=1e-5)

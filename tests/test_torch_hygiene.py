@@ -15,7 +15,7 @@ import pytest
 import torch
 import yaml
 
-from semi_seg_ecg_tpu_torch.cli import inference_main
+from semi_seg_ecg_tpu_torch.cli import infer_longrec_main, inference_main
 from semi_seg_ecg_tpu_torch.config import normalize_config, resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,6 +68,17 @@ def test_entry_without_device_key_asks_for_cuda(tmp_path):
     path.write_text(yaml.dump({"dataset": {}, "dataloader": {}}))
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         inference_main(["-f", str(path)])
+
+
+def test_infer_longrec_without_device_key_asks_for_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("the card is there: the entry would run on it")
+    path = tmp_path / "config.yaml"
+    path.write_text(yaml.dump({"dataset": {"signal_length": 250},
+                               "backbone": {"resnet18": {}}}))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        infer_longrec_main(["-f", str(path), "--record",
+                            str(tmp_path / "missing.npy")])
 
 
 def test_explicit_cpu_is_honoured():
