@@ -68,7 +68,20 @@ non-zero exit when it fails:
    taper); 8 live streams of 10 minutes through ``StreamingSegmenter``
    against the offline stitcher; a 24-hour record per model with its
    throughput, the filter chain's host time and peak device memory; a
-   profile of one hour.
+   profile of one hour;
+9. the serving deployment: ``export_serving`` (``torch.export``, the flash
+   forward as the PyTorch operator) of phase 4's trained ViT and phase 5's
+   ResNet18 with a symbolic batch, no launch while tracing, ``load_serving``
+   at batches 1, 16, 37 and 64 with ``DEPTH`` flash forwards a ViT call,
+   within 1e-5 of ``ServingFn``; a pinned batch that refuses another; a
+   bf16 autocast artifact that says so and agrees with fp32 on >= 90% of
+   the argmaxes; int8 with dynamic and calibrated scales on both backbones
+   (card against the CPU, int8 against fp32 by the JAX package's rule, no
+   activation reduction in a calibrated call, one per int8 layer in a
+   dynamic one); ``make_http_server`` (metadata, a POST of 37 rows within
+   1e-6 of the artifact, 400 on a wrong shape, round trips); the 1 h record
+   under int8; windows/s, busy, idle share, events and top kernel of
+   ``ServingFn`` and each artifact at batches 16 and 64.
 
 The line before the last prints the card's name and power limit as
 nvidia-smi gives them; the line before that, a JSON object with one entry
@@ -151,6 +164,10 @@ FLASH_SHAPES = [
     ("longrec_fp32", (64, 3, 101, 64), "float32"),
     ("longrec_bf16", (64, 3, 101, 64), "bfloat16"),
     ("stream_fp32", (8, 3, 101, 64), "float32"),
+    # the 3xTF32 forward's error margin at long N, where attention_impl:
+    # auto sends fp32 from N = 512
+    ("long_fp32_2048", (2, 3, 2048, 64), "float32"),
+    ("long_fp32_4096", (1, 3, 4096, 64), "float32"),
 ]
 # the backward at the training step's shape (32 windows, bf16 under the
 # recipe's autocast, fp32 in the fp32 checks) first, then long and ragged
@@ -242,6 +259,19 @@ STREAMS, STREAM_CHUNK = 8, FS
 # card against the CPU (the serving phases' bound); a stream against the
 # offline stitcher on the card (the same arithmetic at batch 8 and 64)
 LONGREC_CPU_ATOL, STREAM_ATOL = 1e-4, 1e-5
+# phase 9: int8 serving, card against the CPU on the same weights and batch.
+# Each int8 layer on the card's own input against the same layer on the CPU
+# (the int8 op tolerance of tests/test_torch_cuda.py: the same codes, exact
+# int32 sums, outputs within 1e-6 relative). The whole model: a code flips
+# wherever the two devices' fp32 arithmetic ahead of a layer (3xTF32
+# flash, cuBLAS's and cuDNN's sum orders) moves an activation across a .5
+# boundary, and a flip moves everything after it by a quantization step,
+# so the two int8 runs are two quantizations of one fp32 computation and
+# are held to the rule that holds int8 against fp32
+# (tests/test_quantization.py): argmax agreement above 0.9 overall and
+# 0.995 where the fp32 margin is above its median, relative norm below 0.1
+INT8_LAYER_RTOL = 1e-6
+INT8_AGREE, INT8_AGREE_CONFIDENT, INT8_REL_NORM = 0.9, 0.995, 0.1
 
 
 def log(*args):
@@ -2199,6 +2229,453 @@ def phase_longrec(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the serving deployment
+# ---------------------------------------------------------------------------
+
+
+def deploy_config(family, model_path, **override):
+    """The serving config of ``family`` at full width (the ViT's with flash
+    attention; the shipped scratch recipe's model, which is every recipe's)
+    on phase 3's synthetic test split (``NUM_TEST`` windows, batch
+    ``BATCH``), serving ``model_path``; ``override`` on top."""
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    _, config = write_slice_config(family)
+    config = normalize_config(copy.deepcopy(config))
+    config["test"] = dict(config.get("test") or {}, model_path=model_path)
+    config["exp_name"] = f"deploy_{family}"
+    return {**config, **override}
+
+
+def timed_export(torch, config, path, flash=False, **kwargs):
+    """``export_serving`` with the launch counters zeroed before and read
+    after: tracing launches nothing, so the only launches are the
+    calibration forwards of ``quantize_calibration`` batches (``DEPTH``
+    flash forwards each for the ViT, ``flash``); returns the header and
+    seconds."""
+    from semi_seg_ecg_tpu_torch.serving import export_serving
+
+    n_cal = int(config.get("quantize_calibration", 0) or 0) \
+        if config.get("quantize") == "int8" else 0
+    want = {"flash_attention_fwd": DEPTH * n_cal if flash else 0,
+            "flash_attention_bwd": 0, "gather1d": 0}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    header = export_serving(config, path, **kwargs)
+    seconds = time.perf_counter() - t0
+    if read_counts() != want:
+        raise SystemExit(f"phase 9 failed: exporting {path} launched "
+                         f"{read_counts()}, expected {want} (the "
+                         "calibration forwards; tracing launches none)")
+    return header, seconds
+
+
+def card_batch(torch, n, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(n, 1, SIGNAL_LENGTH, generator=gen, device="cuda")
+
+
+def served(torch, serve, x, flash):
+    """``serve(x)`` with the counters zeroed before and read after: ``DEPTH``
+    flash forwards a call for the ViT (``flash``), none for ResNet18, and
+    no other launch."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = serve(x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {"flash_attention_fwd": DEPTH if flash else 0,
+            "flash_attention_bwd": 0, "gather1d": 0}
+    if counts != want:
+        raise SystemExit(f"phase 9 failed: a call of batch {x.shape[0]} "
+                         f"launched {counts}, expected {want}")
+    return out
+
+
+def int8_agreement(fp32, int8):
+    """The JAX package's int8 rule (``tests/test_quantization.py``): argmax
+    agreement overall, and where the fp32 margin (top two log-probabilities:
+    the logits' margin) is above its median."""
+    pred_fp, pred_q = fp32.argmax(1), int8.argmax(1)
+    top2 = np.sort(np.log(np.maximum(fp32, 1e-30)), axis=1)[:, -2:, :]
+    margin = top2[:, 1] - top2[:, 0]
+    confident = margin > np.median(margin)
+    return (float((pred_fp == pred_q).mean()),
+            float((pred_fp == pred_q)[confident].mean()))
+
+
+def int8_layers_on(model, fn, x):
+    """``fn(x)`` with each int8 layer of ``model`` recording its input and
+    output: ``(out, {name: (input, output)})``."""
+    from semi_seg_ecg_tpu_torch.models.quant_layers import int8_modules
+
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, name=name: seen.__setitem__(
+            name, (args[0].detach(), out.detach())))
+        for name, m in int8_modules(model)]
+    try:
+        out = fn(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, seen
+
+
+def int8_card_vs_cpu(torch, card, cpu, x):
+    """The int8 model on the card (``ServingFn`` ``card``) against the same
+    weights on the CPU (``cpu``) on batch ``x``: each int8 layer of the
+    CPU model run on the card layer's own input (and the card's absmax,
+    where calibrated) within ``INT8_LAYER_RTOL`` of the card layer's
+    output; the codes of the layers' inputs in the two whole runs (flips
+    from the fp32 arithmetic ahead of them); the whole outputs by the
+    int8 rule (``int8_agreement``)."""
+    from semi_seg_ecg_tpu_torch.models.quant_layers import int8_modules
+    from semi_seg_ecg_tpu_torch.ops import quant
+
+    got, card_seen = int8_layers_on(card.model, card, x)
+    want, cpu_seen = int8_layers_on(cpu.model, cpu, x.cpu())
+    cpu_layers = dict(int8_modules(cpu.model))
+    layer_err, flips = 0.0, []
+    with torch.no_grad():
+        for name, (x_card, y_card) in card_seen.items():
+            layer = cpu_layers[name]
+            saved = layer.act_absmax
+            card_absmax = dict(int8_modules(card.model))[name].act_absmax
+            layer.act_absmax = (None if card_absmax is None
+                                else card_absmax.cpu())
+            try:
+                y_cpu = layer(x_card.cpu())
+            finally:
+                layer.act_absmax = saved
+            ref = y_card.cpu().float()
+            layer_err = max(layer_err, ((y_cpu.float() - ref).abs().max()
+                                        / ref.abs().max()).item())
+            q_card, _ = quant.quantize_symmetric(x_card.cpu())
+            q_cpu, _ = quant.quantize_symmetric(cpu_seen[name][0])
+            flips.append(int((q_card != q_cpu).sum()))
+    got, want = got.cpu().numpy(), want.numpy()
+    agree, confident = int8_agreement(want, got)
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    first = next((i for i, f in enumerate(flips) if f), None)
+    return {"layer_max_rel_err": layer_err, "code_flips_by_layer": flips,
+            "first_layer_with_flips": first, "rel_norm": rel,
+            "argmax_agreement": agree, "argmax_agreement_confident":
+            confident}
+
+
+def activation_reductions(torch, fn, x):
+    """``aten.amax`` calls over a whole tensor in one call of ``fn`` (the
+    int8 layers' per-tensor activation scales; the weights' are per output
+    channel), counted at the dispatcher."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    count = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is torch.ops.aten.amax.default:
+                dims = args[1] if len(args) > 1 else kwargs.get("dim", ())
+                if len(dims) == args[0].dim():
+                    count[0] += 1
+            return func(*args, **kwargs)
+
+    with Count():
+        fn(x)
+    torch.cuda.synchronize()
+    return count[0]
+
+
+def profile_serving(torch, fn, n, steps=10):
+    """One serving call's time at batch ``n``: host-clock wall per call
+    (synchronized), and from a torch.profiler trace of the same loop the
+    card's busy time, idle share, device events and top kernel."""
+    x = card_batch(torch, n, 90 + n)
+    fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn(x)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    _, per_kernel, events, kinds, _ = trace_device(torch, lambda: fn(x),
+                                                    steps)
+    busy_ms = sum(per_kernel.values())
+    top = max(per_kernel.items(), key=lambda kv: kv[1]) if per_kernel \
+        else (None, None)
+    return {"batch": n, "wall_ms": wall_ms,
+            "windows_per_s": n / (wall_ms / 1e3),
+            "device_busy_ms": busy_ms if per_kernel else None,
+            "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel
+            else None,
+            "device_events": events, "copy_kernels": kinds["copy"],
+            "flash_kernel_ms": kernel_ms(per_kernel, "flash_fwd_"),
+            "top_kernel": (top[0] or "")[:80], "top_kernel_ms": top[1]}
+
+
+def http_round_trip(port, x, reps=5):
+    """POST ``x`` as ``.npy`` to the server ``reps`` times; the answer and
+    the ms of each round trip."""
+    import io
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.save(buf, x)
+    body, ms = buf.getvalue(), []
+    for _ in range(reps):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/predict",
+                                     data=body, method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out = np.load(io.BytesIO(r.read()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def check_http(torch, path, header):
+    """``make_http_server`` on 127.0.0.1:0 in a thread: the metadata is the
+    header, a POST of 37 rows answers the artifact's own ``serve_batched``
+    within 1e-6, a wrong shape gets 400; round trips of 16 and 64 rows."""
+    import json as json_
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from semi_seg_ecg_tpu_torch.serving import (
+        load_serving,
+        make_http_server,
+        serve_batched,
+    )
+
+    buckets = (16, 64)
+    server = make_http_server(path, port=0, bucket_sizes=buckets)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/v1/metadata", timeout=60) as r:
+            meta = json_.loads(r.read())
+        if {k: meta[k] for k in header} != header or \
+                meta["bucket_sizes"] != list(buckets):
+            raise SystemExit(f"phase 9 failed: /v1/metadata {meta} is not "
+                             f"the header {header}")
+        x = card_batch(torch, 37, 7).cpu().numpy()
+        got, _ = http_round_trip(port, x, reps=1)
+        serve, _ = load_serving(path)
+        want = serve_batched(serve, x, buckets)
+        err = float(np.abs(got - want).max())
+        try:
+            bad = np.zeros((2, 1, SIGNAL_LENGTH + 1), np.float32)
+            http_round_trip(port, bad, reps=1)
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+        times = {n: http_round_trip(port, card_batch(torch, n, n).cpu()
+                                    .numpy())[1] for n in (16, 64)}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    log(f"  HTTP: metadata = header, POST of 37 rows vs the artifact's "
+        f"serve_batched max |diff| {err:.3g}, wrong shape -> {code}; round "
+        f"trip ms: 16 rows {[round(t, 3) for t in times[16]]}, 64 rows "
+        f"{[round(t, 3) for t in times[64]]}")
+    if err > 1e-6 or code != 400:
+        raise SystemExit(f"phase 9 failed: HTTP predict off by {err} or a "
+                         f"wrong shape answered {code}")
+    return {"predict_37_max_abs_diff": err, "wrong_shape_code": code,
+            "round_trip_ms": {str(n): t for n, t in times.items()},
+            "alive_after_shutdown": thread.is_alive()}
+
+
+def phase_deploy(torch, vit_model, resnet_model):
+    """The serving deployment at full width: ``export_serving`` of the ViT
+    (``vit_model``, flash attention) and of ResNet18 (``resnet_model``),
+    fp32, bf16 autocast, int8 with dynamic and calibrated scales;
+    ``load_serving``; the HTTP server; the 1 h record under int8; the
+    timings of each serving form at batches 16 and 64."""
+    from semi_seg_ecg_tpu_torch.models.quant_layers import int8_modules
+    from semi_seg_ecg_tpu_torch.serving import load_serving, make_serving_fn
+
+    art = os.path.join(WORK, "artifacts")
+    os.makedirs(art, exist_ok=True)
+    t_phase = time.perf_counter()
+    models = {"vit_tiny": vit_model, "resnet18": resnet_model}
+    log(f"phase 9: the serving deployment; vit_tiny from {vit_model}, "
+        f"resnet18 from {resnet_model}; entering with {tf32_flags(torch)}")
+    result, exports, serve_fns = {}, {}, {}
+
+    # fp32 artifacts of both backbones against ServingFn
+    for family, flash in (("vit_tiny", True), ("resnet18", False)):
+        config = deploy_config(family, models[family])
+        path = os.path.join(art, f"{family}_fp32.pt2")
+        header, seconds = timed_export(torch, config, path, flash)
+        serve, loaded = load_serving(path)
+        infer, _ = make_serving_fn(config)
+        if loaded != header or header["input_shape"] != [
+                None, 1, SIGNAL_LENGTH] or header["precision"] != "fp32":
+            raise SystemExit(f"phase 9 failed: {family} header {header}, "
+                             f"loaded {loaded}")
+        errs = {}
+        for n in (1, 16, 37, 64):
+            x = card_batch(torch, n, n)
+            got = served(torch, serve, x, flash)
+            per_call = read_counts()
+            with torch.inference_mode():
+                want = infer(x)
+            errs[n] = (got - want).abs().max().item()
+            row = (got.sum(dim=1) - 1).abs().max().item()
+            if got.shape != (n, 4, SIGNAL_LENGTH) or errs[n] > 1e-5 or \
+                    row > 1e-5:
+                raise SystemExit(f"phase 9 failed: {family} artifact at "
+                                 f"batch {n}: {tuple(got.shape)}, vs "
+                                 f"ServingFn {errs[n]}, rows {row}")
+        result.setdefault("launches_per_call", {})[family] = per_call
+        log(f"  {family} fp32: exported in {seconds:.2f} s "
+            f"({os.path.getsize(path)} bytes), no launch while tracing; "
+            f"batches 1/16/37/64 with {DEPTH if flash else 0} flash "
+            f"forwards a call; vs ServingFn max |diff| {errs}")
+        exports[f"{family}_fp32"] = {"seconds": seconds,
+                                     "bytes": os.path.getsize(path),
+                                     "vs_serving_fn": errs}
+        serve_fns[family] = {"serving_fn_fp32": infer, "artifact_fp32": serve}
+
+    # a pinned batch refuses another; bf16 autocast states its precision
+    config = deploy_config("resnet18", resnet_model)
+    path = os.path.join(art, "resnet18_b16.pt2")
+    header, _ = timed_export(torch, config, path, batch_size=BATCH)
+    serve, _ = load_serving(path)
+    served(torch, serve, card_batch(torch, BATCH, 1), False)
+    try:
+        serve(card_batch(torch, 37, 1))
+        raise SystemExit("phase 9 failed: the pinned artifact served 37")
+    except ValueError as e:
+        refused = str(e)
+    config = deploy_config("vit_tiny", vit_model, test={
+        "model_path": vit_model, "use_amp": True})
+    path = os.path.join(art, "vit_tiny_amp.pt2")
+    header, seconds = timed_export(torch, config, path, True)
+    amp, _ = load_serving(path)
+    test_x = torch.from_numpy(np.concatenate(_test_batches(config))).cuda()
+    probs_fp32 = serve_fns["vit_tiny"]["artifact_fp32"](test_x).cpu().numpy()
+    probs_amp = served(torch, amp, test_x, True).cpu().numpy()
+    amp_agree = float((probs_fp32.argmax(1) == probs_amp.argmax(1)).mean())
+    log(f"  pinned batch {BATCH}: refuses 37 ({refused}); bf16 autocast "
+        f"artifact: header precision {header['precision']}, exported in "
+        f"{seconds:.2f} s, argmax agreement with fp32 {amp_agree:.5f} on "
+        f"{test_x.shape[0]} test windows")
+    if header["precision"] != "bf16" or amp_agree < 0.9:
+        raise SystemExit(f"phase 9 failed: bf16 artifact header "
+                         f"{header['precision']}, agreement {amp_agree}")
+    result["pinned_refusal"] = refused
+    result["amp"] = {"precision": header["precision"],
+                     "argmax_agreement": amp_agree}
+
+    # int8, both backbones, dynamic and calibrated: card against the CPU,
+    # int8 against fp32, the calibrated graph without activation reductions
+    int8 = {}
+    for family, flash in (("vit_tiny", True), ("resnet18", False)):
+        for kind, n_cal in (("dynamic", 0), ("static", 2)):
+            override = {"quantize": "int8", "quantize_calibration": n_cal}
+            config = deploy_config(family, models[family], **override)
+            path = os.path.join(art, f"{family}_int8_{kind}.pt2")
+            header, seconds = timed_export(torch, config, path, flash)
+            serve, _ = load_serving(path)
+            infer, model = make_serving_fn(config)
+            cpu, _ = make_serving_fn({**config, "device": "cpu"})
+            x = torch.from_numpy(_test_batches(config)[0]).cuda()
+            got = served(torch, serve, x, flash)
+            with torch.inference_mode():
+                eager = infer(x)
+            vs_eager = (got - eager).abs().max().item()
+            vs_cpu = int8_card_vs_cpu(torch, infer, cpu, x)
+            n_layers = len(int8_modules(model))
+            reductions = activation_reductions(torch, serve, x)
+            entry = {"export_s": seconds, "act_scales": header["act_scales"],
+                     "card_vs_cpu": vs_cpu,
+                     "artifact_vs_serving_fn": vs_eager,
+                     "int8_layers": n_layers,
+                     "activation_reductions_per_call": reductions}
+            if family == "vit_tiny":
+                fp32 = serve_fns[family]["artifact_fp32"](test_x)
+                q = served(torch, serve, test_x, flash)
+                entry["vs_fp32_agreement"], entry["vs_fp32_confident"] = \
+                    int8_agreement(fp32.cpu().numpy(), q.cpu().numpy())
+            log(f"  {family} int8 {kind}: exported in {seconds:.2f} s, "
+                f"header act_scales {header['act_scales']}; card vs CPU: "
+                f"each layer on the card's input within "
+                f"{vs_cpu['layer_max_rel_err']:.3g} relative, code flips "
+                f"from the first at layer {vs_cpu['first_layer_with_flips']}"
+                f" ({sum(vs_cpu['code_flips_by_layer'])} in all), whole "
+                f"model rel norm {vs_cpu['rel_norm']:.3g}, argmax agreement "
+                f"{vs_cpu['argmax_agreement']:.5f}, "
+                f"{vs_cpu['argmax_agreement_confident']:.5f} where "
+                f"confident; artifact vs ServingFn {vs_eager:.3g}; "
+                f"{reductions} activation reductions a call "
+                f"({n_layers} int8 layers)"
+                + (f"; vs fp32 agreement {entry['vs_fp32_agreement']:.5f}, "
+                   f"{entry['vs_fp32_confident']:.5f} where confident"
+                   if family == "vit_tiny" else ""))
+            if header["act_scales"] != kind or vs_eager > 1e-5 or \
+                    vs_cpu["layer_max_rel_err"] > INT8_LAYER_RTOL or \
+                    vs_cpu["argmax_agreement"] <= INT8_AGREE or \
+                    vs_cpu["argmax_agreement_confident"] \
+                    <= INT8_AGREE_CONFIDENT or \
+                    vs_cpu["rel_norm"] >= INT8_REL_NORM or \
+                    reductions != (0 if n_cal else n_layers):
+                raise SystemExit(f"phase 9 failed: {family} int8 {kind}: "
+                                 f"{entry}")
+            if family == "vit_tiny" and (
+                    entry["vs_fp32_agreement"] <= INT8_AGREE
+                    or entry["vs_fp32_confident"] <= INT8_AGREE_CONFIDENT):
+                raise SystemExit(f"phase 9 failed: int8 ViT vs fp32 "
+                                 f"{entry}")
+            int8[f"{family}_{kind}"] = entry
+            serve_fns[family][f"artifact_int8_{kind}"] = serve
+    result["int8"] = int8
+
+    result["http"] = check_http(
+        torch, os.path.join(art, "vit_tiny_fp32.pt2"),
+        load_serving(os.path.join(art, "vit_tiny_fp32.pt2"))[1])
+
+    # the 1 h record under int8 (dynamic scales), both backbones
+    hour_path, _ = save_record("hour_int8", HOUR_S, 1)
+    longrec = {}
+    for family in models:
+        _, longrec[family] = longrec_entry(
+            torch, family, write_slice_config(family)[0], models[family],
+            hour_path, f"{family}_hour_int8", override={"quantize": "int8"})
+    result["longrec_int8"] = longrec
+
+    timings = {}
+    for family, fns in serve_fns.items():
+        for form, fn in fns.items():
+            for n in (BATCH, 64):
+                m = profile_serving(torch, fn, n)
+                timings[f"{family}/{form}/{n}"] = m
+                log(f"  {family} {form} batch {n}: {m['wall_ms']:.3f} ms "
+                    f"wall ({m['windows_per_s']:.1f} windows/s), busy "
+                    f"{m['device_busy_ms']} ms, idle share "
+                    f"{m['device_idle_share']}, {m['device_events']:.0f} "
+                    f"device events ({m['copy_kernels']:.0f} copy), top "
+                    f"{m['top_kernel_ms']} ms {m['top_kernel']}")
+    result["timings"] = timings
+    result["exports"] = exports
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 9 in {result['seconds']:.1f} s")
+    return result
+
+
+def _test_batches(config):
+    from semi_seg_ecg_tpu_torch.serving import _calibration_batches
+
+    return _calibration_batches(config, NUM_TEST)
+
+
+# ---------------------------------------------------------------------------
 # Report
 # ---------------------------------------------------------------------------
 
@@ -2247,6 +2724,10 @@ def main():
     algorithm_results = phase_algorithms(torch)
     reco_stpp = phase_reco_stpp(torch)
     longrec = phase_longrec(torch)
+    deploy = phase_deploy(
+        torch, os.path.join(WORK, "exps", "vit_tiny_fixmatch",
+                            "best-MeanIoU.ckpt"),
+        os.path.join(WORK, "resnet18_seed0.pth"))
     # each path's launches, counted from 0 just before it and read after
     by_path = {
         "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
@@ -2260,7 +2741,11 @@ def main():
            for path, r in reco_stpp["recipes"].items()},
         **{f"longrec_{path}": r["launches"]
            for path, r in longrec["runs"].items()},
-        "longrec_streaming": longrec["streaming"]["launches"]}
+        "longrec_streaming": longrec["streaming"]["launches"],
+        **{f"longrec_{family}_hour_int8": r["launches"]
+           for family, r in deploy["longrec_int8"].items()},
+        **{f"artifact_{family}_per_call": counts
+           for family, counts in deploy["launches_per_call"].items()}}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2274,6 +2759,7 @@ def main():
                    "resnet18": resnet_result,
                    "algorithms": algorithm_results,
                    "reco_stpp": reco_stpp, "longrec": longrec,
+                   "deploy": deploy,
                    "seconds": time.time() - t_start}, f, indent=1)
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,10 @@ the same path as its counterpart there and is held against it by the
 pandas and yaml, and nothing of JAX or of the JAX package; the
 framework-neutral host code (``config.py``, ``data/*``) is its own copy.
 
-Ported so far: test-split serving of the ViT-1D + FCNHead segmentor
-(``cli.inference_main`` → ``algorithms.common.run_inference``), with the
-Pallas flash-attention forward replaced by a hand-written CUDA kernel
-(``csrc/flash_attention_fwd.cu``). Every entry runs on the CUDA device
-unless its config says ``device: cpu``.
+Ported so far: training, testing and serving of the ResNet-1D and ViT-1D
+segmentors with the six algorithms (``cli.py``), long-record serving,
+int8 serving, and the deployment unit (``serving.export_serving`` /
+``load_serving`` / ``make_http_server``), with the three Pallas kernels
+replaced by hand-written CUDA kernels (``csrc/``). Every entry runs on the
+CUDA device unless its config says ``device: cpu``.
 """

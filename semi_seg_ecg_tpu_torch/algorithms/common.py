@@ -681,10 +681,11 @@ def load_eval_weights(model: torch.nn.Module, checkpoint_path: str) -> None:
 
 def load_eval_model(config: Dict[str, Any],
                     device: torch.device) -> torch.nn.Module:
-    """Build the eval-mode model and restore the requested checkpoint
-    (``test.model_path``, else ``best-{target_metric}.ckpt`` in the
-    experiment directory) with :func:`load_eval_weights`."""
-    model = build_model_from_config(config)
+    """Build the eval-mode serving model (``quantize: int8`` honoured) and
+    restore the requested checkpoint (``test.model_path``, else
+    ``best-{target_metric}.ckpt`` in the experiment directory) with
+    :func:`load_eval_weights`."""
+    model = build_model_from_config(config, serving=True)
     if test_cfg(config).get("model_path", None):
         checkpoint_path = config["test"]["model_path"]
     else:

@@ -1,19 +1,28 @@
 """Console entry points of the port (counterpart of
 ``semi_seg_ecg_tpu/cli.py`` ``train_main``, ``test_main``,
-``inference_main`` and ``infer_longrec_main``).
+``inference_main`` and ``infer_longrec_main``, and of
+``tools/export_model.py`` and ``tools/serve.py``).
 
     python -m semi_seg_ecg_tpu_torch.cli {train,test,inference} -f CONFIG
         [-o OVERRIDE] [--output_dir DIR] [--exp_name NAME] ...
     python -m semi_seg_ecg_tpu_torch.cli infer-longrec -f CONFIG
         --record RECORD [--out-dir DIR] [--intervals] ...
+    python -m semi_seg_ecg_tpu_torch.cli export -f CONFIG [-o OVERRIDE]
+        [--model_path CKPT] [--out ARTIFACT] [--batch N] [--platforms cuda]
+    python -m semi_seg_ecg_tpu_torch.cli serve ARTIFACT [--host H]
+        [--port P] [--buckets 16 64 256]
 
 ``train`` runs the config's algorithm and, when the config's ``test:`` is
 truthy, the test pass on its best checkpoint; ``test`` evaluates a
 checkpoint on the test split (``test_metrics.csv``, ``test_outputs.npy``,
 ``test_labels.npy``); ``inference`` writes ``test_outputs.npy``;
 ``infer-longrec`` segments raw records of any length (``probs.npy``,
-``labels.npy``, optionally ``intervals.csv``). Each runs on the CUDA device
-unless the config says ``device: cpu``.
+``labels.npy``, optionally ``intervals.csv``); ``export`` writes the
+serving artifact of a checkpoint (``serving.export_serving``) and prints a
+line of JSON; ``serve`` serves an artifact over HTTP
+(``serving.make_http_server``). Each runs on the CUDA device unless the
+config says ``device: cpu`` (``serve``: the device the artifact was
+exported for).
 """
 
 import sys
@@ -296,8 +305,107 @@ def infer_longrec_main(argv=None):
         out["delineation"] = m
     return out
 
+def export_main(argv=None):
+    """Export a checkpoint to a self-contained serving artifact (the JAX
+    package's ``tools/export_model.py``): the program with its weights
+    baked in, loaded by ``serving.load_serving`` without the model code or
+    the checkpoint. Prints one line of JSON: the artifact's path, its size
+    and its header. Returns the header."""
+    import argparse
+    import json
+    import os
+
+    ap = argparse.ArgumentParser("ECG segmentation model export")
+    ap.add_argument("-f", "--config_path", required=True, metavar="FILE")
+    ap.add_argument("-o", "--override_config_path", default=None,
+                    metavar="FILE")
+    ap.add_argument("--model_path", default="", metavar="PATH",
+                    help="checkpoint to export (default: the config's "
+                         "best-{target_metric}.ckpt)")
+    ap.add_argument("--out", default="", metavar="PATH",
+                    help="artifact path (default: "
+                         "{exp_dir}/serving-{exp_name}.pt2)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="pin the batch dimension (default: symbolic, one "
+                         "artifact serves any batch size)")
+    ap.add_argument("--platforms", nargs="+", default=None,
+                    help="the artifact's platform (default: the config's "
+                         "device; one platform only)")
+    args = ap.parse_args(argv if argv is not None else sys.argv[1:])
+
+    from .config import (
+        experiment_dir,
+        load_config,
+        normalize_config,
+        test_cfg,
+    )
+    from .serving import export_serving
+
+    config = load_config(args.config_path, args.override_config_path)
+    if args.model_path:
+        config["test"] = test_cfg(config)
+        config["test"]["model_path"] = args.model_path
+    config = normalize_config(config)
+    out = args.out
+    if not out:
+        exp_dir = experiment_dir(config)
+        if not exp_dir:
+            ap.error("config has no output_dir/exp_name to derive an "
+                     "artifact path from - pass --out PATH")
+        out = os.path.join(
+            exp_dir, f"serving-{config.get('exp_name', 'model')}.pt2")
+    header = export_serving(config, out, batch_size=args.batch,
+                            platforms=args.platforms)
+    print(json.dumps({"artifact": out,
+                      "bytes": os.path.getsize(out), **header}), flush=True)
+    return header
+
+
+def serve_main(argv=None):
+    """Serve an exported artifact over HTTP (the JAX package's
+    ``tools/serve.py``): ``GET /v1/metadata`` (the header and buckets) and
+    ``POST /v1/predict`` (``.npy`` float32 ``(B, leads, T)`` in, ``.npy``
+    softmax ``(B, C, T)`` out). Prints one line of JSON when listening, then
+    serves until interrupted.
+
+    Client example::
+
+        import io, urllib.request, numpy as np
+        buf = io.BytesIO(); np.save(buf, x)          # x: (B, 1, T) float32
+        req = urllib.request.Request("http://host:8000/v1/predict",
+                                     data=buf.getvalue(), method="POST")
+        probs = np.load(io.BytesIO(urllib.request.urlopen(req).read()))
+    """
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser("ECG segmentation model server")
+    ap.add_argument("artifact", help="path to a serving artifact (export)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--buckets", type=int, nargs="+", default=[16, 64, 256],
+                    help="batch buckets for symbolic-batch artifacts")
+    args = ap.parse_args(argv if argv is not None else sys.argv[1:])
+
+    from .serving import make_http_server
+
+    server = make_http_server(args.artifact, host=args.host, port=args.port,
+                              bucket_sizes=tuple(args.buckets))
+    print(json.dumps({"listening": f"http://{args.host}:"
+                                   f"{server.server_address[1]}",
+                      "artifact": args.artifact,
+                      "buckets": args.buckets}), flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+
+
 _ENTRIES = {"train": train_main, "test": test_main,
-            "inference": inference_main, "infer-longrec": infer_longrec_main}
+            "inference": inference_main, "infer-longrec": infer_longrec_main,
+            "export": export_main, "serve": serve_main}
 
 if __name__ == "__main__":
     if len(sys.argv) < 2 or sys.argv[1] not in _ENTRIES:

@@ -6,8 +6,8 @@ from :data:`BACKBONES` / :data:`DECODE_HEADS` and are wrapped in an
 :class:`EncoderDecoder`, with ``auxiliary_heads`` attached for training
 builds, and the ReCo :class:`LatentProjection` with
 ``use_latent_projection``. The whole JAX registry is ported (ResNet-1D and
-ViT-1D families, the FCN head); int8 serving raises "not yet ported"
-instead of building something else.
+ViT-1D families, the FCN head), with int8 serving (``quantize: int8``,
+``models/quant_layers.py``) for explicit serving builds.
 """
 
 from __future__ import annotations
@@ -57,28 +57,37 @@ def compute_dtype(config: Dict[str, Any]) -> torch.dtype:
     return _DTYPES[config.get("precision", "bf16")]
 
 
-def build_model_from_config(config: Dict[str, Any],
-                            train: bool = False) -> EncoderDecoder:
+def build_model_from_config(config: Dict[str, Any], train: bool = False,
+                            serving: bool = False) -> EncoderDecoder:
     """A config's model (``init_model_from_cfg`` parity), in eval mode.
     ``train=True`` builds the training graph: auxiliary heads are attached
-    only then, and ``quantize`` (a serving option) is ignored, as in the JAX
-    package. The latent projection is built for either, so that a ReCo
-    checkpoint loads strictly into an eval build. What the port cannot
-    build yet raises ``NotImplementedError``."""
-    if config.get("quantize", None) and not train:
-        raise NotImplementedError(
-            f"quantize: {config['quantize']!r} is not yet ported to the "
-            "torch package")
+    only then. The latent projection is built for either, so that a ReCo
+    checkpoint loads strictly into an eval build.
+
+    ``serving=True`` marks a test or inference entry's build
+    (``algorithms.common.load_eval_model``), the only builds that honour
+    the config's ``quantize: int8``, as in the JAX package: eval builds
+    inside the training pipeline (in-loop evaluation, ST++'s snapshot
+    ranking) stay float, so a ``quantize`` key in a training config cannot
+    shift pseudo-label selection. An unknown ``quantize`` raises
+    ``ValueError``. A ``quantize`` in the backbone's own kwargs reaches the
+    backbone as written."""
+    quantize = config.get("quantize", None) if serving and not train \
+        else None
+    if quantize not in (None, "int8"):
+        raise ValueError(f"Unsupported quantize: {quantize!r}")
+    extra = {"quantize": quantize} if quantize else {}
 
     backbone_name, backbone_kwargs = list(config["backbone"].items())[0]
     if backbone_name not in BACKBONES:
         raise ValueError(f"Unsupported model name: {backbone_name}")
-    backbone = BACKBONES[backbone_name](**(backbone_kwargs or {}))
+    backbone = BACKBONES[backbone_name](**(backbone_kwargs or {}), **extra)
 
     decoder_name, decoder_kwargs = list(config["decode_head"].items())[0]
     if decoder_name not in DECODE_HEADS:
         raise ValueError(f"Unsupported decode head name: {decoder_name}")
-    decode_head = DECODE_HEADS[decoder_name](**(decoder_kwargs or {}))
+    decode_head = DECODE_HEADS[decoder_name](**(decoder_kwargs or {}),
+                                             **extra)
 
     auxiliary_heads = None
     if config.get("auxiliary_heads", None) and train:

@@ -21,7 +21,9 @@ gradient to the earliest element, as the JAX package's closed-form VJP
 (``ops/pooling.py``) does. The stem and the first ``frozen_stages`` stages
 stay in eval mode in training (batch statistics neither used nor updated),
 as in the JAX package; freezing their parameters is the optimizer's job.
-``remat`` (training) and ``quantize`` are not ported yet and raise.
+``remat`` (training) is not ported yet and raises. ``quantize='int8'``
+(serving) runs every convolution in int8 (``models/quant_layers.py``), as
+the JAX package quantizes every ``ConvBN``.
 """
 
 from __future__ import annotations
@@ -33,13 +35,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..norm import TorchBatchNorm
+from ..quant_layers import conv1d
 
 
 def _conv(in_channels: int, features: int, kernel_size: int,
-          stride: int = 1, dilation: int = 1) -> nn.Conv1d:
+          stride: int = 1, dilation: int = 1,
+          quantize: Optional[str] = None) -> nn.Conv1d:
+    """The conv of a Conv-BN pair (the JAX package's ``ConvBN``), in int8
+    with ``quantize='int8'``."""
     pad = (kernel_size // 2) * dilation
-    return nn.Conv1d(in_channels, features, kernel_size, stride=stride,
-                     padding=pad, dilation=dilation, bias=False)
+    return conv1d(quantize, in_channels, features, kernel_size,
+                  stride=stride, padding=pad, dilation=dilation, bias=False)
 
 
 class ConvBN(nn.Sequential):
@@ -47,15 +53,18 @@ class ConvBN(nn.Sequential):
     are ``0.weight`` (conv) and ``1.*`` (norm), the reference's layout."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
-                 stride: int = 1, dilation: int = 1):
+                 stride: int = 1, dilation: int = 1,
+                 quantize: Optional[str] = None):
         super().__init__(
-            _conv(in_channels, features, kernel_size, stride, dilation),
+            _conv(in_channels, features, kernel_size, stride, dilation,
+                  quantize),
             TorchBatchNorm(features),
         )
 
 
 def _downsample(in_channels: int, features: int, stride: int,
-                avg_down: bool) -> nn.Sequential:
+                avg_down: bool,
+                quantize: Optional[str] = None) -> nn.Sequential:
     """The identity path's projection: a strided 1x1 Conv-BN, or with
     ``avg_down`` (and a stride) an average pool, then a 1x1 Conv-BN."""
     layers = []
@@ -63,7 +72,7 @@ def _downsample(in_channels: int, features: int, stride: int,
         layers.append(nn.AvgPool1d(stride, stride=stride, ceil_mode=True,
                                    count_include_pad=False))
         stride = 1
-    layers += [_conv(in_channels, features, 1, stride),
+    layers += [_conv(in_channels, features, 1, stride, quantize=quantize),
                TorchBatchNorm(features)]
     return nn.Sequential(*layers)
 
@@ -73,13 +82,14 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, has_downsample: bool = False,
-                 avg_down: bool = False):
+                 avg_down: bool = False, quantize: Optional[str] = None):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride, dilation)
+        self.conv1 = _conv(inplanes, planes, 3, stride, dilation, quantize)
         self.bn1 = TorchBatchNorm(planes)
-        self.conv2 = _conv(planes, planes, 3)
+        self.conv2 = _conv(planes, planes, 3, quantize=quantize)
         self.bn2 = TorchBatchNorm(planes)
-        self.downsample = (_downsample(inplanes, planes, stride, avg_down)
+        self.downsample = (_downsample(inplanes, planes, stride, avg_down,
+                                       quantize)
                            if has_downsample else None)
 
     @property
@@ -98,16 +108,17 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, has_downsample: bool = False,
-                 avg_down: bool = False):
+                 avg_down: bool = False, quantize: Optional[str] = None):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = _conv(inplanes, planes, 1)
+        self.conv1 = _conv(inplanes, planes, 1, quantize=quantize)
         self.bn1 = TorchBatchNorm(planes)
-        self.conv2 = _conv(planes, planes, 3, stride, dilation)
+        self.conv2 = _conv(planes, planes, 3, stride, dilation, quantize)
         self.bn2 = TorchBatchNorm(planes)
-        self.conv3 = _conv(planes, out, 1)
+        self.conv3 = _conv(planes, out, 1, quantize=quantize)
         self.bn3 = TorchBatchNorm(out)
-        self.downsample = (_downsample(inplanes, out, stride, avg_down)
+        self.downsample = (_downsample(inplanes, out, stride, avg_down,
+                                       quantize)
                            if has_downsample else None)
 
     @property
@@ -136,10 +147,6 @@ class ResNet1D(nn.Module):
                  out_indices: Sequence[int] = (0, 1, 2, 3),
                  remat: bool = False, quantize: Optional[str] = None):
         super().__init__()
-        if quantize:
-            raise NotImplementedError(
-                f"quantize: {quantize!r} is not yet ported to the torch "
-                "package")
         if not 1 <= num_stages <= 4:
             raise ValueError("num_stages should be in [1, 4]")
         if not len(strides) == len(dilations) == num_stages:
@@ -162,7 +169,8 @@ class ResNet1D(nn.Module):
             plan = [(num_leads, stem_channels, 7, 2)]
         stem = []
         for cin, cout, kernel_size, stride in plan:
-            stem += [_conv(cin, cout, kernel_size, stride),
+            stem += [_conv(cin, cout, kernel_size, stride,
+                           quantize=quantize),
                      TorchBatchNorm(cout), nn.ReLU()]
         self.stem = nn.Sequential(*stem)
         self.maxpool = nn.MaxPool1d(3, stride=2, padding=1)
@@ -182,12 +190,13 @@ class ResNet1D(nn.Module):
                 inplanes, planes, strides[i], first,
                 has_downsample=(strides[i] != 1
                                 or inplanes != planes * block_cls.expansion),
-                avg_down=avg_down)]
+                avg_down=avg_down, quantize=quantize)]
             inplanes = planes * block_cls.expansion
             for j in range(1, num_blocks):
                 blocks.append(block_cls(
                     inplanes, planes,
-                    dilation=dilation if grid is None else grid[j]))
+                    dilation=dilation if grid is None else grid[j],
+                    quantize=quantize))
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.num_layers = len(stage_blocks)
         self._init_weights(zero_init_residual)

@@ -8,7 +8,7 @@ LN/Linear/LN embedding, learned cls + pos embeddings, pre-norm blocks with
 optional qk-norm and LayerScale, stochastic depth, an optional final norm.
 In training, dropout and DropPath draw from the generator the trainer sets
 (``models/dropout.py``), the flash path is differentiable through both
-kernels (``ops/flash_attention.FlashAttention``), and the first
+kernels (``ops/flash_attention.flash_attention``), and the first
 ``frozen_stages`` blocks run deterministically, as in the JAX package.
 
 Module names follow the reference's torch keys (``to_patch_embedding.{1,2,3}``,
@@ -20,7 +20,9 @@ JAX package uses everywhere.
 
 Precision: parameters stay fp32; under ``torch.autocast`` the linears run in
 the autocast dtype, and attention's matmuls follow it when ``fp16_enabled``
-(else fp32). The softmax is always fp32.
+(else fp32). The softmax is always fp32. ``quantize='int8'`` (serving)
+runs the patch embedding, qkv, output projection and both MLP layers in
+int8 (``models/quant_layers.py``), the layers the JAX package quantizes.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch.nn as nn
 from ...ops.attention import dense_attention
 from ...ops.flash_attention import flash_attention
 from ..dropout import DropPath, Dropout
+from ..quant_layers import linear
 
 LN_EPS = 1e-6
 
@@ -57,11 +60,12 @@ class PreNorm(nn.Module):
 class FeedForward(nn.Module):
     """Linear → GELU (exact) → dropout → Linear → dropout."""
 
-    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
+                 quantize: Optional[str] = None):
         super().__init__()
         self.net = nn.Sequential(
-            nn.Linear(dim, hidden_dim), nn.GELU(), Dropout(dropout),
-            nn.Linear(hidden_dim, dim), Dropout(dropout))
+            linear(quantize, dim, hidden_dim), nn.GELU(), Dropout(dropout),
+            linear(quantize, hidden_dim, dim), Dropout(dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
@@ -74,7 +78,8 @@ class Attention(nn.Module):
                  dim_head: int = 64, qkv_bias: bool = True,
                  qk_norm: bool = False, fp16_enabled: bool = True,
                  dropout: float = 0.0, attn_dropout: float = 0.0,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto",
+                 quantize: Optional[str] = None):
         super().__init__()
         if attention_impl not in ("auto", "xla", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
@@ -84,7 +89,8 @@ class Attention(nn.Module):
         self.fp16_enabled = fp16_enabled
         self.attn_dropout = attn_dropout
         self.attention_impl = attention_impl
-        self.to_qkv = nn.Linear(input_dim, inner_dim * 3, bias=qkv_bias)
+        self.to_qkv = linear(quantize, input_dim, inner_dim * 3,
+                             bias=qkv_bias)
         if qk_norm:
             self.q_norm = _layer_norm(dim_head)
             self.k_norm = _layer_norm(dim_head)
@@ -92,7 +98,8 @@ class Attention(nn.Module):
             self.q_norm = self.k_norm = None
         self.attn_drop = Dropout(attn_dropout)
         project_out = not (heads == 1 and dim_head == input_dim)
-        self.to_out = (nn.Sequential(nn.Linear(inner_dim, output_dim),
+        self.to_out = (nn.Sequential(linear(quantize, inner_dim,
+                                            output_dim),
                                      Dropout(dropout))
                        if project_out else None)
 
@@ -151,13 +158,16 @@ class TransformerBlock(nn.Module):
                  qk_norm: bool = False, fp16_enabled: bool = True,
                  dropout: float = 0.0, attn_dropout: float = 0.0,
                  attention_impl: str = "auto", drop_path: float = 0.0,
-                 layer_scale: Optional[float] = None):
+                 layer_scale: Optional[float] = None,
+                 quantize: Optional[str] = None):
         super().__init__()
         self.attn = PreNorm(dim, Attention(
             dim, dim, heads=heads, dim_head=dim_head, qkv_bias=qkv_bias,
             qk_norm=qk_norm, fp16_enabled=fp16_enabled, dropout=dropout,
-            attn_dropout=attn_dropout, attention_impl=attention_impl))
-        self.ff = PreNorm(dim, FeedForward(dim, hidden_dim, dropout))
+            attn_dropout=attn_dropout, attention_impl=attention_impl,
+            quantize=quantize))
+        self.ff = PreNorm(dim, FeedForward(dim, hidden_dim, dropout,
+                                           quantize))
         if layer_scale is not None:
             self.ls_1 = nn.Parameter(torch.full((dim,), float(layer_scale)))
             self.ls_2 = nn.Parameter(torch.full((dim,), float(layer_scale)))
@@ -201,7 +211,7 @@ class VisionTransformer1D(nn.Module):
                  attention_impl: str = "auto", frozen_stages: int = -1,
                  out_indices: Sequence[int] = (3, 5, 7, 11),
                  final_norm: bool = False, output_cls_token: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, quantize: Optional[str] = None):
         super().__init__()
         if seq_len % patch_size != 0:
             raise ValueError("The sequence length must be divisible by the "
@@ -216,7 +226,7 @@ class VisionTransformer1D(nn.Module):
         patch_dim = patch_size * num_leads
         self.to_patch_embedding = nn.Sequential(
             Patchify(patch_size), _layer_norm(patch_dim),
-            nn.Linear(patch_dim, width), _layer_norm(width))
+            linear(quantize, patch_dim, width), _layer_norm(width))
         self.pos_embedding = nn.Parameter(
             torch.randn(1, num_patches + 1, width))
         self.cls_embedding = nn.Parameter(torch.randn(width))
@@ -230,7 +240,7 @@ class VisionTransformer1D(nn.Module):
                 fp16_enabled=fp16_enabled, dropout=drop_out_rate,
                 attn_dropout=attn_drop_out_rate,
                 attention_impl=attention_impl, drop_path=dpr[i],
-                layer_scale=layer_scale))
+                layer_scale=layer_scale, quantize=quantize))
         self.norm = _layer_norm(width) if final_norm else None
 
     def train(self, mode: bool = True):

@@ -6,14 +6,15 @@ Pick feature ``inputs[in_index]``, run ``num_convs`` Conv-BN-ReLU blocks
 ``conv_cat``, drop out, and classify with a 1x1 conv. ``align_corners`` is
 read by the EncoderDecoder's logit interpolation. Module names follow the
 reference's keys (``convs.{i}.0``/``.1``, ``conv_cat.0``/``.1``,
-``cls_seg``). In training the BatchNorms use batch statistics and fold
+``cls_seg``). ``quantize='int8'`` (serving) runs the Conv-BN convolutions in
+int8; the classifier stays float. In training the BatchNorms use batch statistics and fold
 them into the running ones (``models/norm.py``), and the dropout draws from
 the trainer's generator (``models/dropout.py``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -28,7 +29,8 @@ class FCNHead(nn.Module):
                  num_convs: int, kernel_size: int = 3,
                  concat_input: bool = True, dilation: int = 1,
                  in_index: int = -1, dropout_ratio: float = 0.1,
-                 align_corners: bool = False):
+                 align_corners: bool = False,
+                 quantize: Optional[str] = None):
         super().__init__()
         if num_convs < 0 or dilation <= 0:
             raise ValueError(f"FCNHead: num_convs={num_convs}, "
@@ -40,11 +42,14 @@ class FCNHead(nn.Module):
         self.align_corners = align_corners
         self.convs = nn.ModuleList(
             ConvBN(in_channels if i == 0 else channels, channels,
-                   kernel_size, dilation=dilation)
+                   kernel_size, dilation=dilation, quantize=quantize)
             for i in range(num_convs))
         self.conv_cat = (ConvBN(in_channels + channels, channels,
-                                kernel_size) if concat_input else None)
+                                kernel_size, quantize=quantize)
+                         if concat_input else None)
         self.dropout = Dropout(dropout_ratio)
+        # the classifier stays float, as in the JAX package: its logits feed
+        # the argmax, where quantization error would show
         self.cls_seg = nn.Conv1d(channels, num_classes, 1)
 
     def forward(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:

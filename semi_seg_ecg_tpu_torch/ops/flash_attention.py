@@ -10,8 +10,11 @@ Counterpart of ``semi_seg_ecg_tpu/ops/pallas/flash_attention.py``:
   from that logsumexp (``csrc/flash_attention_bwd.cu``; Δ = rowsum(dO ⊙ O),
   which the JAX package computes outside its kernel, is the dQ kernel's
   own work);
-- the custom VJP ``flash_attention``: :class:`FlashAttention`, a
-  ``torch.autograd.Function`` that saves ``(q, k, v, out, lse)``.
+- the custom VJP ``flash_attention``: the forward is the PyTorch operator
+  ``semi_seg_ecg_tpu_torch::flash_attention_forward`` (``torch.library``,
+  with a fake that gives ``torch.export`` its output's shapes and strides),
+  whose autograd formula saves ``(q, k, v, out, lse)`` and launches the
+  backward kernels.
 
 Each kernel file's header gives its design and what bounds it on the card.
 The TPU's block picking (``pick_blocks``, ``fits_vmem``, the VMEM budget and
@@ -27,7 +30,9 @@ TF32 flags of cuBLAS and cuDNN do not apply to them.
 
 Dispatch follows the device of the tensors: CPU tensors take
 :func:`flash_attention_plain` and :func:`flash_attention_backward_plain`;
-CUDA tensors launch the kernels or raise.
+CUDA tensors launch the kernels or raise. A traced or exported program
+(``serving.export_serving``) calls the operator, so it launches the kernel
+as an eager forward does, and tracing it launches nothing.
 """
 
 from __future__ import annotations
@@ -266,17 +271,27 @@ def _launch(fn, name, device, *args):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, scale: float
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out, lse)`` for ``(B, H, N, D)`` q, k, v: ``out`` in q's dtype,
-    ``lse`` fp32 ``(B, H, N)``. CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream, which reads q, k, v
-    in their own layouts (see :func:`check_layout`) and writes ``out`` as
-    a (B, H, N, D) view of (B, N, H, D) memory."""
+# the forward as a PyTorch operator, so that ``torch.export`` traces it
+# (a ctypes call is opaque to the tracer): the fake gives the output's
+# strides, the CPU implementation is the plain version, the CUDA one
+# launches the kernel, and the autograd formula calls the backward kernels
+OP_NAME = "semi_seg_ecg_tpu_torch::flash_attention_forward"
+
+
+@torch.library.custom_op(OP_NAME, mutates_args=(), device_types="cpu",
+                         schema="(Tensor q, Tensor k, Tensor v, float scale)"
+                                " -> (Tensor, Tensor)")
+def _forward_op(q, k, v, scale):
+    """CPU tensors: :func:`flash_attention_plain`, with ``out`` in the
+    kernel's (B, N, H, D) memory, so that a traced graph's views of it hold
+    on either device."""
+    out, lse = flash_attention_plain(q, k, v, scale)
+    return _empty_bnhd(q).copy_(out), lse
+
+
+@_forward_op.register_kernel("cuda")
+def _forward_cuda(q, k, v, scale):
     global LAUNCHES
-    if not (q.is_cuda or k.is_cuda or v.is_cuda):
-        return flash_attention_plain(q, k, v, scale)
     _check(q, k, v)
     fn = load_kernel()
     b, h, n, d = q.shape
@@ -287,6 +302,49 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
             _DTYPE_CODES[q.dtype])
     LAUNCHES += 1
     return out, lse
+
+
+@_forward_op.register_fake
+def _forward_fake(q, k, v, scale):
+    b, h, n, _ = q.shape
+    return _empty_bnhd(q), q.new_empty((b, h, n), dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.scale = scale
+    # lse is not differentiable (the JAX custom VJP returns out alone), so
+    # no zeros are materialized for its gradient
+    ctx.mark_non_differentiable(output[1])
+    ctx.set_materialize_grads(False)
+
+
+def _backward(ctx, dout, _dlse):
+    """Autograd picks ``dout``'s layout (a sum's backward hands over an
+    expand of stride 0), so a ``dout`` the kernels do not take is copied
+    here."""
+    q, k, v, out, lse = ctx.saved_tensors
+    if layout_fault(dout):
+        dout = dout.clone(memory_format=torch.contiguous_format)
+    dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout, ctx.scale)
+    return dq, dk, dv, None
+
+
+_forward_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` for ``(B, H, N, D)`` q, k, v: ``out`` in q's dtype,
+    ``lse`` fp32 ``(B, H, N)``, through the operator ``OP_NAME``. CPU
+    tensors take the plain version; CUDA tensors launch the kernel on the
+    current stream, which reads q, k, v in their own layouts (see
+    :func:`check_layout`); ``out`` is a (B, H, N, D) view of (B, N, H, D)
+    memory on both devices. Differentiable: the backward launches the
+    backward kernels (:func:`flash_attention_backward`)."""
+    return _forward_op(q, k, v, float(scale))
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
@@ -332,33 +390,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """``softmax(q kᵀ · scale) v`` with the flash kernels in both
-    directions: the JAX package's ``jax.custom_vjp`` ``flash_attention``.
-    Under ``torch.no_grad()`` nothing is saved. The caller picks the layouts
-    of q, k and v, and the wrappers refuse one the kernels do not take;
-    autograd picks ``dout``'s (a sum's backward hands over an expand of
-    stride 0), so a ``dout`` the kernels do not take is copied here."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_attention_forward(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        if layout_fault(dout):
-            dout = dout.clone(memory_format=torch.contiguous_format)
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
-                                              ctx.scale)
-        return dq, dk, dv, None
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """Differentiable flash attention over ``(B, H, N, D)``; the output is
-    in q's dtype."""
-    return FlashAttention.apply(q, k, v, scale)
+    """Differentiable flash attention over ``(B, H, N, D)``, the JAX
+    package's ``jax.custom_vjp`` ``flash_attention``; the output is in q's
+    dtype. Under ``torch.no_grad()`` nothing is saved. The caller picks the
+    layouts of q, k and v, and the kernels refuse one they do not take."""
+    return flash_attention_forward(q, k, v, scale)[0]

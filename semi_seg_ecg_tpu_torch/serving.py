@@ -3,20 +3,41 @@
 
 - :func:`make_serving_fn`: a config's eval model with its checkpoint, as a
   callable ``infer(ecg) -> softmax (B, C, T)`` on the config's device, with
-  ``run_inference``'s precision rule (fp32 unless ``test.use_amp``).
+  ``run_inference``'s precision rule (fp32 unless ``test.use_amp``) and
+  ``quantize: int8`` (dynamic scales, or static ones calibrated on the
+  first ``quantize_calibration`` test batches).
 - :func:`long_record_inference`: one record of any length, filtered once at
   full length and stitched by :func:`ops.stitch.overlap_add_infer`.
 - :class:`StreamingSegmenter`: the same stitch, live, chunk by chunk, for
   one or many concurrent streams.
 - :func:`serve_batched`: fixed batch buckets for ragged request sizes.
+- :func:`export_serving` / :func:`load_serving`: the deployment unit, one
+  file holding the serving program with its weights baked in
+  (``torch.export``), loaded and run without the model code or the
+  checkpoint; :func:`make_http_server` serves it over HTTP.
 
-The StableHLO export (``export_serving`` / ``load_serving``) and the HTTP
-server (``make_http_server``) are not ported yet.
+Artifact layout, the JAX package's with a magic of its own: ``ECGTEXP1``,
+a 4-byte little-endian JSON-header length, the JSON header (shapes,
+classes, precision, quantization, platforms), then the
+``torch.export.save`` bytes. The program is the eval model followed by
+the float softmax, as :class:`ServingFn` computes it; its batch is
+symbolic unless pinned. The ViT's flash attention is the PyTorch operator
+``semi_seg_ecg_tpu_torch::flash_attention_forward`` in the program, so the
+loaded artifact launches the CUDA kernel as the eager model does (12 times
+a batch for vit_tiny). The JAX package's cross-platform export (one
+artifact for several backends) has no counterpart: ``platforms`` names
+the config's device only.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence
+import contextlib
+import io
+import json
+import os
+import struct
+import threading
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,28 +66,63 @@ class ServingFn:
         self.use_amp, self.amp_dtype = use_amp, amp_dtype
         self.num_classes = int(model.decode_head.cls_seg.out_channels)
 
-    def __call__(self, ecg: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode(), common.full_fp32(), torch.autocast(
+    @contextlib.contextmanager
+    def precision(self):
+        """The forward's precision: TF32 off, autocast when ``use_amp``."""
+        with common.full_fp32(), torch.autocast(
                 self.device.type, dtype=self.amp_dtype,
                 enabled=self.use_amp):
+            yield
+
+    def __call__(self, ecg: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode(), self.precision():
             logits = self.model(ecg)["seg_logits"]
         return torch.softmax(logits.float(), dim=1)
 
 
+def _calibration_batches(config: Dict[str, Any], n: int):
+    """The first ``n`` test-split batches (``(B, leads, T)`` float32
+    numpy), for int8 activation calibration."""
+    from .data.dataset import build_seg_dataset
+    from .data.loader import get_dataloader
+
+    ds = build_seg_dataset(config["dataset"], split="test")
+    loader = get_dataloader(
+        ds, mode="test", batch_size=config["dataloader"]["batch_size"],
+        seed=config.get("seed", 0), num_workers=0)
+    out = []
+    try:
+        for i, b in enumerate(loader):
+            if i >= n:
+                break
+            out.append(b["ecg"])
+    finally:
+        loader.close()
+    return out
+
+
 def make_serving_fn(config: Dict[str, Any]):
     """``(infer, model)`` for a config: the eval-mode model with the
-    requested checkpoint restored (``algorithms.common.load_eval_model``),
-    on the config's device (the CUDA card unless it says ``device: cpu``),
-    and its :class:`ServingFn`."""
-    if config.get("quantize", None):
-        raise NotImplementedError(
-            f"quantize: {config['quantize']!r} is not yet ported to the "
-            "torch package")
+    requested checkpoint restored (``algorithms.common.load_eval_model``,
+    which builds ``quantize: int8`` in int8), on the config's device (the
+    CUDA card unless it says ``device: cpu``), and its :class:`ServingFn`.
+    ``quantize: int8`` with ``quantize_calibration: N`` calibrates static
+    activation scales on the first N test batches
+    (``utils/calibrate.py``), in the serving precision."""
     device = resolve_device(config)
     use_amp = bool(test_cfg(config).get("use_amp", False))
     amp_dtype = compute_dtype(config) if use_amp else torch.float32
     model = common.load_eval_model(config, device)
-    return ServingFn(model, device, use_amp, amp_dtype), model
+    infer = ServingFn(model, device, use_amp, amp_dtype)
+    n_cal = int(config.get("quantize_calibration", 0) or 0)
+    if config.get("quantize") == "int8" and n_cal > 0:
+        from .utils.calibrate import calibrate_quant
+
+        batches = [torch.from_numpy(b).to(device)
+                   for b in _calibration_batches(config, n_cal)]
+        with infer.precision():
+            calibrate_quant(model, batches)
+    return infer, model
 
 
 def long_record_inference(
@@ -296,14 +352,16 @@ def serve_batched(serve: Callable, ecg: np.ndarray,
                   bucket_sizes: Sequence[int] = (16, 64, 256)):
     """Run ``serve`` on an arbitrary-size batch through fixed size buckets.
 
-    ``serve`` maps a numpy ``(n, leads, T)`` batch to ``(n, C, T)``. The
-    batch is padded up to the smallest admitting bucket (largest bucket
-    repeated for the overflow), so ``serve`` only ever sees
+    ``serve`` maps a numpy ``(n, leads, T)`` batch to ``(n, C, T)``, numpy
+    or a tensor (a loaded artifact's :class:`ArtifactFn`); the result is
+    numpy. The batch is padded up to the smallest admitting bucket (largest
+    bucket repeated for the overflow), so ``serve`` only ever sees
     ``len(bucket_sizes)`` batch sizes, and the padding is sliced back off.
-    Rows are independent in this model family, so padding rows never change
-    real outputs. An eager forward gains nothing from it (the padding is
-    extra work); it is for a serving artifact traced at fixed batch sizes,
-    which the port does not have yet (ROADMAP queue 1 item 6)."""
+    Rows are independent in this model family at float precision, so
+    padding rows never change real outputs (int8 with dynamic scales
+    quantizes each batch with the whole batch's absmax, as in the JAX
+    package). An eager forward gains nothing from it (the padding is extra
+    work); it serves a symbolic-batch artifact at a few batch sizes."""
     if not bucket_sizes:
         raise ValueError("bucket_sizes must be non-empty")
     buckets = sorted(bucket_sizes)
@@ -312,7 +370,7 @@ def serve_batched(serve: Callable, ecg: np.ndarray,
         # output row shape (C, T) is only knowable from the program: run
         # the smallest bucket once and keep zero rows
         probe = np.zeros((buckets[0],) + tuple(ecg.shape[1:]), ecg.dtype)
-        return np.asarray(serve(probe))[:0]
+        return _numpy(serve(probe))[:0]
     outs = []
     off = 0
     while off < n:
@@ -324,6 +382,262 @@ def serve_batched(serve: Callable, ecg: np.ndarray,
             pad = np.zeros((size - take,) + tuple(ecg.shape[1:]),
                            dtype=ecg.dtype)
             chunk = np.concatenate([np.asarray(chunk), pad], axis=0)
-        outs.append(np.asarray(serve(chunk))[:take])
+        outs.append(_numpy(serve(chunk))[:take])
         off += take
     return np.concatenate(outs, axis=0)
+
+
+def _numpy(out) -> np.ndarray:
+    return out.cpu().numpy() if torch.is_tensor(out) else np.asarray(out)
+
+
+# ---------------------------------------------------------------------------
+# The serving artifact
+# ---------------------------------------------------------------------------
+
+_MAGIC = b"ECGTEXP1"
+# the largest batch a symbolic-batch artifact takes
+MAX_BATCH = 65535
+
+
+class _ServingProgram(torch.nn.Module):
+    """What the artifact computes: the eval model under the serving
+    precision, then the float softmax over classes (:class:`ServingFn`'s
+    forward). Autocast is entered inside, so the exported graph holds it."""
+
+    def __init__(self, infer: ServingFn):
+        super().__init__()
+        self.model = infer.model
+        self.device_type = infer.device.type
+        self.amp_dtype = infer.amp_dtype if infer.use_amp else None
+
+    def forward(self, ecg: torch.Tensor) -> torch.Tensor:
+        if self.amp_dtype is None:
+            logits = self.model(ecg)["seg_logits"]
+        else:
+            with torch.autocast(self.device_type, dtype=self.amp_dtype):
+                logits = self.model(ecg)["seg_logits"]
+        return torch.softmax(logits.float(), dim=1)
+
+
+def _export_platforms(platforms: Optional[Sequence[str]],
+                      device: torch.device):
+    """The artifact's one platform, the config's device type; anything else
+    raises (the JAX package's multi-platform export is not ported)."""
+    own = [device.type]
+    if platforms is None:
+        return own
+    if list(platforms) != own:
+        raise NotImplementedError(
+            f"export_serving(platforms={list(platforms)}) is not yet ported "
+            f"to the torch package: an artifact runs on the config's device "
+            f"only ({own[0]})")
+    return own
+
+
+def export_serving(config: Dict[str, Any], out_path: str,
+                   batch_size: Optional[int] = None,
+                   platforms: Optional[Sequence[str]] = None
+                   ) -> Dict[str, Any]:
+    """Export the config's serving program to ``out_path`` (atomically);
+    returns the artifact header. The program is :func:`make_serving_fn`'s
+    (its checkpoint, precision, ``quantize`` and calibrated scales), traced
+    by ``torch.export`` on the config's device with the weights and
+    calibrated scales as the program's state; tracing launches no kernel.
+    The batch is symbolic (1 to ``MAX_BATCH``) unless ``batch_size`` pins
+    it. ``platforms``
+    defaults to the config's device; another raises "not yet ported"."""
+    device = resolve_device(config)
+    platforms = _export_platforms(platforms, device)
+    infer, _ = make_serving_fn(config)
+    program = _ServingProgram(infer)
+    for p in program.parameters():
+        p.requires_grad_(False)
+
+    num_leads = 1
+    length = int(config["dataset"].get("signal_length", 2500))
+    example = torch.zeros((batch_size or 2, num_leads, length),
+                          dtype=torch.float32, device=device)
+    dynamic = None
+    if batch_size is None:
+        # the CUDA convolutions' trace bounds the batch at 65535
+        dynamic = {"ecg": {0: torch.export.Dim("batch", min=1,
+                                               max=MAX_BATCH)}}
+    with common.full_fp32():
+        exported = torch.export.export(program, (example,),
+                                       dynamic_shapes=dynamic)
+    buf = io.BytesIO()
+    torch.export.save(exported, buf)
+    blob = buf.getvalue()
+
+    quantize = config.get("quantize", None)
+    static = (quantize == "int8"
+              and int(config.get("quantize_calibration", 0) or 0) > 0)
+    header = {
+        "format": "torch.export",
+        "input_shape": [batch_size, num_leads, length],
+        "num_classes": infer.num_classes,
+        "output": "softmax_probs (B, C, T) float32",
+        # the precision of the traced graph: fp32 unless test.use_amp
+        "precision": (config.get("precision", "bf16") if infer.use_amp
+                      else "fp32"),
+        "quantize": quantize,
+        "act_scales": ("static" if static else
+                       "dynamic" if quantize == "int8" else None),
+        "platforms": platforms,
+        "torch_version": torch.__version__,
+    }
+    payload = json.dumps(header).encode("utf-8")
+    tmp = out_path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(_MAGIC)
+        f.write(struct.pack("<I", len(payload)))
+        f.write(payload)
+        f.write(blob)
+    os.replace(tmp, out_path)  # atomic, as checkpoints are written
+    return header
+
+
+class ArtifactFn:
+    """A loaded artifact as a serving function: ``serve(ecg) -> softmax
+    (B, C, T)`` float32 on :attr:`device`, for a ``(B, leads, T)`` float32
+    tensor or numpy array; run under inference mode with TF32 off (process
+    state the program does not hold: PyTorch's default lets cuDNN use TF32
+    for fp32 convolutions). It carries :attr:`device` and
+    :attr:`num_classes`, so the long-record stitcher and the streaming
+    segmenter take it as they take :class:`ServingFn`."""
+
+    def __init__(self, program: torch.nn.Module, header: Dict[str, Any],
+                 device: torch.device):
+        self.program, self.header, self.device = program, header, device
+        self.num_classes = int(header["num_classes"])
+
+    def __call__(self, ecg) -> torch.Tensor:
+        """Raises ``ValueError`` on a shape the artifact does not take (a
+        pinned artifact takes its own batch size only)."""
+        if not torch.is_tensor(ecg):
+            ecg = torch.from_numpy(np.asarray(ecg, np.float32))
+        want = self.header["input_shape"]
+        if ecg.dim() != 3 or list(ecg.shape[1:]) != want[1:] or (
+                want[0] is not None and ecg.shape[0] != want[0]):
+            raise ValueError(f"expected shape {want}, got {list(ecg.shape)}")
+        ecg = ecg.to(self.device, torch.float32)
+        with torch.inference_mode(), common.full_fp32():
+            return self.program(ecg)
+
+
+def load_serving(path: str) -> Tuple[ArtifactFn, Dict[str, Any]]:
+    """Load an exported artifact: ``(serve, header)`` with ``serve`` an
+    :class:`ArtifactFn` on the artifact's device (``platforms``: the
+    current CUDA device, or the CPU). Needs the flash-attention operator
+    registered (``ops/flash_attention.py``), none of the model code.
+    Refuses a file that is not an artifact of this package (a JAX
+    ``ECGSHLO1`` artifact included), a truncated one, and a corrupt
+    header."""
+    from .ops import flash_attention  # noqa: F401  registers the operator
+
+    with open(path, "rb") as f:
+        magic = f.read(len(_MAGIC))
+        if magic != _MAGIC:
+            raise ValueError(f"{path}: not a serving artifact "
+                             f"(bad magic {magic!r})")
+        raw_len = f.read(4)
+        if len(raw_len) != 4:
+            raise ValueError(f"{path}: truncated serving artifact")
+        (hlen,) = struct.unpack("<I", raw_len)
+        raw_header = f.read(hlen)
+        blob = f.read()
+        if len(raw_header) != hlen or not blob:
+            raise ValueError(f"{path}: truncated serving artifact")
+        try:
+            header = json.loads(raw_header.decode("utf-8"))
+        except (UnicodeDecodeError, json.JSONDecodeError) as e:
+            raise ValueError(f"{path}: corrupt artifact header: {e}") from e
+    device = torch.device("cuda" if "cuda" in header["platforms"] else "cpu")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{path}: a CUDA artifact, and torch sees no CUDA "
+                           "device")
+    program = torch.export.load(io.BytesIO(blob)).module()
+    return ArtifactFn(program, header, device), header
+
+
+def make_http_server(artifact_path: str, host: str = "127.0.0.1",
+                     port: int = 8000,
+                     bucket_sizes: Sequence[int] = (16, 64, 256)):
+    """An HTTP server over an exported artifact (``cli.py serve``).
+
+    Endpoints:
+    - ``GET /v1/metadata`` → the artifact header (JSON) + bucket sizes;
+    - ``POST /v1/predict`` with an ``.npy``-serialized float32 array
+      ``(B, leads, T)`` body → ``.npy`` softmax probabilities ``(B, C, T)``.
+
+    A symbolic-batch artifact serves requests through
+    :func:`serve_batched` (its ``bucket_sizes``), a pinned one at its own
+    batch; one request at a time runs on the device (a lock), inside
+    ``torch.cuda.device`` of the artifact's device; HTTP I/O is threaded.
+    400 on a body that is not an ``.npy`` array of the input shape, 404 on
+    an unknown path. Returns the server; call ``serve_forever()`` (and
+    ``shutdown()``)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    serve, header = load_serving(artifact_path)
+    meta = json.dumps({**header, "bucket_sizes": list(bucket_sizes),
+                       "endpoints": ["GET /v1/metadata",
+                                     "POST /v1/predict"]}).encode()
+    device_lock = threading.Lock()
+
+    def on_device():
+        return (torch.cuda.device(serve.device)
+                if serve.device.type == "cuda" else contextlib.nullcontext())
+
+    def run(x: np.ndarray) -> np.ndarray:
+        return _numpy(serve(x))
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):  # quiet: stdout is the CLI's channel
+            pass
+
+        def _reply(self, code, body, ctype):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _error(self, code, msg):
+            self._reply(code, json.dumps({"error": msg}).encode(),
+                        "application/json")
+
+        def do_GET(self):
+            if self.path == "/v1/metadata":
+                self._reply(200, meta, "application/json")
+            else:
+                self._error(404, f"unknown path {self.path}")
+
+        def do_POST(self):
+            if self.path != "/v1/predict":
+                self._error(404, f"unknown path {self.path}")
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                x = np.load(io.BytesIO(self.rfile.read(length)),
+                            allow_pickle=False)
+                x = np.ascontiguousarray(x, np.float32)
+            except (ValueError, TypeError, OSError, EOFError) as e:
+                self._error(400, f"body must be a .npy array: {e}")
+                return
+            want = header["input_shape"]
+            if (x.ndim != 3 or list(x.shape[1:]) != want[1:] or
+                    (want[0] is not None and x.shape[0] != want[0])):
+                self._error(400, f"expected shape {want}, got {list(x.shape)}")
+                return
+            with device_lock, on_device():
+                if want[0] is not None:  # pinned batch: exact size, no pad
+                    probs = run(x)
+                else:
+                    probs = serve_batched(run, x, bucket_sizes)
+            buf = io.BytesIO()
+            np.save(buf, probs, allow_pickle=False)
+            self._reply(200, buf.getvalue(), "application/x-npy")
+
+    return ThreadingHTTPServer((host, port), Handler)

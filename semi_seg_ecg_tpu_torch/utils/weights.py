@@ -18,6 +18,9 @@ unshifted conv key is absent; without them it names the unshifted ones, as
 Layouts: Linear torch ``(out, in)`` from flax ``(in, out)``; Conv1d torch
 ``(out, in, k)`` from flax ``(k, in, out)``; norms take ``scale`` →
 ``weight`` and the running ``mean``/``var`` → ``running_mean``/``running_var``.
+The int8 serving model's calibrated activation absmax (the JAX ``quant``
+collection) maps to the port's int8 module names by the same walk
+(:func:`jax_quant_to_absmax`).
 """
 
 from __future__ import annotations
@@ -258,3 +261,33 @@ def jax_trees_to_state_dict(params: Dict[str, Any],
             sd[key[:-len("running_var")] + "num_batches_tracked"] = \
                 torch.zeros((), dtype=torch.long)
     return sd
+
+
+def _rename_leaves(tree, old: str, new: str):
+    if not isinstance(tree, dict):
+        return tree
+    return {(new if k == old else k): _rename_leaves(v, old, new)
+            for k, v in tree.items()}
+
+
+def jax_quant_to_absmax(quant: Dict[str, Any],
+                        target_keys: Optional[Collection[str]] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``quant`` collection (each int8 layer's
+    ``act_absmax``, beside where its ``kernel`` lies in ``params``) as
+    ``{port module name: absmax}`` (fp32 0-d tensors), the names
+    ``models.quant_layers.int8_modules`` gives and
+    ``utils.calibrate.calibrate_quant`` returns. ``target_keys`` as in
+    :func:`model_specs`."""
+    as_params = _rename_leaves(quant, "act_absmax", "kernel")
+    out: Dict[str, torch.Tensor] = {}
+    for path, key, _ in model_specs(as_params, {}, target_keys):
+        if path[-1] != "kernel":
+            continue
+        try:
+            value = _tree_get(quant, path[:-1] + ("act_absmax",))
+        except KeyError:
+            continue
+        out[key[:-len(".weight")]] = torch.tensor(
+            float(np.asarray(value)), dtype=torch.float32)
+    return out

@@ -19,7 +19,11 @@ plus one bf16 ulp of the result). Layouts: a strided
 call equals the contiguous one bit for bit, in both dtypes (the kernels
 read the same values into the same tiles). Gather: bit for bit (the
 kernel's arithmetic is the plain version's, rounded at the same
-places).
+places). int8 serving (``ops/quant.py``): the card's codes and int32
+accumulators equal the CPU's (true divisions, ``torch._int_mm`` exact on
+both), the dequantized outputs within 1e-6 relative. A serving artifact
+exported and loaded on the card: within 1e-5 of ``ServingFn`` (the same
+kernels, traced).
 """
 
 import numpy as np
@@ -98,6 +102,10 @@ def check_backward(q, k, v, dout, scale):
     ((64, 3, 101, 64), torch.float32),
     ((64, 3, 101, 64), torch.bfloat16),
     ((8, 3, 101, 64), torch.float32),
+    # the 3xTF32 forward's error margin at long N (the fp32 path that
+    # attention_impl: auto takes from N = 512)
+    ((2, 3, 2048, 64), torch.float32),
+    ((1, 3, 4096, 64), torch.float32),
 ])
 def test_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = qkv(shape, dtype)
@@ -601,3 +609,113 @@ def test_stitcher_and_streaming_on_the_card_match_the_cpu(cuda):
         ref, _ = overlap_add_infer(card, records[s], window=500, hop=250,
                                    batch=4)
         np.testing.assert_allclose(got[s], ref.cpu().numpy(), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The serving deployment: the flash operator, int8, the artifact
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+def test_flash_operator_on_the_card(cuda, strided):
+    """The forward as the PyTorch operator: the kernel (one launch), within
+    the forward tolerance of the plain version, its output in the fake's
+    (B, N, H, D) memory; the operator's schema, fake and autograd
+    registration pass ``torch.library.opcheck``."""
+    shape = (16, 3, 101, 64)
+    q, k, v = (chunked_qkv if strided else qkv)(shape, torch.float32)
+    op = torch.ops.semi_seg_ecg_tpu_torch.flash_attention_forward
+    before = fa.LAUNCHES
+    out, lse = op(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, 0.125)
+    assert_within(out, ref, fa.forward_tolerance(q, k, v, 0.125, ref), "out")
+    torch.testing.assert_close(lse, ref_lse, atol=fa.LSE_ATOL, rtol=0)
+    b, h, n, d = shape
+    assert out.stride() == (n * h * d, d, h * d, 1)
+    torch.library.opcheck(fa._forward_op, (q, k, v, 0.125), test_utils=(
+        "test_schema", "test_autograd_registration", "test_faketensor"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,cin,k,cout", [
+    (17, 1, 7, 64),     # m just above 16; the ResNet stem's k = 7
+    (16, 1, 15, 64),    # m = 16 (padded to 17); k = 15
+    (40, 1, 25, 192),   # the patch embedding's k = 25
+    (101, 64, 3, 64),   # a 3-tap conv of the ResNet's first stage
+    (33, 192, 1, 576),  # the qkv projection's shape
+])
+def test_int8_ops_on_the_card_match_the_cpu(cuda, m, cin, k, cout):
+    """``int8_conv1d`` (im2col rows: B · L = m, k = C_in · K) and
+    ``int8_linear`` at the shapes the card's integer GEMM takes only
+    padded: the card's int32 accumulators equal the CPU's, outputs within
+    1e-6 relative."""
+    from semi_seg_ecg_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(m + k)
+    w = torch.from_numpy((rng.standard_normal((cout, cin, k)) * 0.2).astype(
+        np.float32))
+    x = torch.from_numpy(rng.standard_normal((1, cin, m * 2)).astype(
+        np.float32))
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    pad = k // 2
+    # stride 2 with this padding: exactly m output positions
+    want = quant.int8_conv1d(x, w, bias, stride=2, padding=pad)
+    got = quant.int8_conv1d(x.to(cuda), w.to(cuda), bias.to(cuda), stride=2,
+                            padding=pad)
+    assert got.shape == want.shape == (1, cout, m)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+    xq, _ = quant.quantize_symmetric(x)
+    kq, _ = quant.quantize_symmetric(w, dim=(1, 2))
+    acc = quant.int_conv1d(xq.to(cuda), kq.to(cuda), 2, pad)
+    assert torch.equal(acc.cpu(), quant.int_conv1d(xq, kq, 2, pad))
+    xl = torch.from_numpy(rng.standard_normal((m, cin * k)).astype(
+        np.float32))
+    wl = w.reshape(cout, cin * k)
+    torch.testing.assert_close(
+        quant.int8_linear(xl.to(cuda), wl.to(cuda), bias.to(cuda)).cpu(),
+        quant.int8_linear(xl, wl, bias), rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_serving_artifact_on_the_card(cuda, tmp_path):
+    """A depth-2 flash ViT exported on the card and loaded: tracing it
+    launches nothing, each call launches the flash forward once per block,
+    and its output is ``ServingFn``'s within 1e-5 at batches 1, 3 and 17;
+    an int8 artifact within 1e-5 of the int8 ``ServingFn``."""
+    from semi_seg_ecg_tpu_torch import serving
+    from semi_seg_ecg_tpu_torch.utils.checkpoint import save_torch_checkpoint
+
+    config = {
+        "device": "cuda", "precision": "fp32", "seed": 0,
+        "dataset": {"signal_length": 500},
+        "test": {"model_path": str(tmp_path / "vit.pth")},
+        "backbone": {"vit_tiny": {
+            "num_leads": 1, "seq_len": 500, "patch_size": 25, "width": 64,
+            "depth": 2, "heads": 2, "dim_head": 32, "mlp_dim": 128,
+            "out_indices": [1], "attention_impl": "flash"}},
+        "decode_head": {"FCNHead": {
+            "in_channels": 64, "in_index": 0, "channels": 16,
+            "num_convs": 1, "concat_input": False, "num_classes": 4}}}
+    torch.manual_seed(0)
+    save_torch_checkpoint(config["test"]["model_path"],
+                          build_model_from_config(config), epoch=0)
+    for quantize in (None, "int8"):
+        cfg = dict(config, quantize=quantize)
+        path = str(tmp_path / f"{quantize}.pt2")
+        before = fa.LAUNCHES
+        header = serving.export_serving(cfg, path)
+        assert fa.LAUNCHES == before
+        assert header["platforms"] == ["cuda"]
+        serve, _ = serving.load_serving(path)
+        infer, _ = serving.make_serving_fn(cfg)
+        for n in (1, 3, 17):
+            x = torch.randn(n, 1, 500, device=cuda)
+            before = fa.LAUNCHES
+            got = serve(x)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES == before + 2
+            assert got.is_cuda and got.shape == (n, 4, 500)
+            torch.testing.assert_close(got, infer(x), atol=1e-5, rtol=0)

@@ -307,7 +307,7 @@ def test_serve_batched_is_the_jax_one(n):
     assert set(seen["ours"]) <= {16, 64, 256}
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(models):
     infer = ConvInfer()
     with pytest.raises(NotImplementedError, match="not yet ported"):
         stitch.overlap_add_infer(infer, record(0, 64), window=WINDOW,
@@ -318,8 +318,17 @@ def test_unported_options_raise():
         serving.long_record_inference(
             {"dataset": {"signal_length": WINDOW}}, record(0, 64),
             infer=infer, mesh=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serving.make_serving_fn({"quantize": "int8", "device": "cpu"})
+    # int8 serving is ported (tests/test_torch_quant.py holds it against
+    # the JAX package): the serving function runs the int8 model
+    from semi_seg_ecg_tpu_torch.models.quant_layers import int8_modules
+
+    config, _ = models[0]["resnet"]
+    infer, model = serving.make_serving_fn(normalize_config(
+        {**config, "quantize": "int8"}))
+    # the stem, 4 + 4 block convs and a downsample, the head's ConvBN
+    assert len(int8_modules(model)) == 1 + 8 + 1 + 1
+    probs = infer(torch.from_numpy(record(2, SIG, leads=1)[None]))
+    np.testing.assert_allclose(probs.sum(dim=1).numpy(), 1.0, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

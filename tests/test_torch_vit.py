@@ -146,14 +146,20 @@ def test_linear_interpolate_matches_jax(align_corners, in_len, out_len):
 
 
 def test_unported_parts_raise():
+    from semi_seg_ecg_tpu_torch.models.quant_layers import int8_modules
+
     cfg = vit_config()
-    # int8 convolutions, named in the backbone's own kwargs
-    bad = dict(cfg, backbone={"resnet18": {"num_leads": 1,
-                                           "quantize": "int8"}})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model_from_config(bad)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model_from_config(dict(cfg, quantize="int8"))
+    # int8 convolutions, named in the backbone's own kwargs, reach the
+    # backbone (ported; tests/test_torch_quant.py holds them against JAX)
+    resnet = dict(cfg, backbone={"resnet18": {"num_leads": 1,
+                                              "quantize": "int8"}})
+    assert int8_modules(build_model_from_config(resnet).backbone)
+    # the config's quantize: only a serving build quantizes
+    assert not int8_modules(build_model_from_config(dict(cfg,
+                                                         quantize="int8")))
+    assert len(int8_modules(build_model_from_config(
+        dict(cfg, quantize="int8"), serving=True))) == 1 + 4 * 2 + 2
+    # (the patch embedding, 4 linears a block, the head's two ConvBNs)
     # remat (activation checkpointing) changes nothing in eval and is not
     # ported for training
     model = build_model_from_config(vit_config(remat=True), train=True)
