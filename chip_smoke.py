@@ -81,7 +81,22 @@ non-zero exit when it fails:
    dynamic one); ``make_http_server`` (metadata, a POST of 37 rows within
    1e-6 of the artifact, 400 on a wrong shape, round trips); the 1 h record
    under int8; windows/s, busy, idle share, events and top kernel of
-   ``ServingFn`` and each artifact at batches 16 and 64.
+   ``ServingFn`` and each artifact at batches 16 and 64;
+10. data-parallel training through the port's own path (``parallel/``,
+   ``train_main`` under a process group), two ranks: over NCCL on two
+   cards (``torch.distributed.run``) where there are two, else over gloo
+   with CUDA tensors on one card (two rank processes this script starts,
+   ``chip_smoke.py --rank``; NCCL refuses two ranks on one device).
+   Three fp32 FixMatch steps of each backbone (ViT with flash attention,
+   device augmentation, SGD with momentum), 2 ranks x 8 rows against one
+   process holding both shards on the card: losses within 1e-5 relative,
+   parameters and BN statistics within 5e-4 relative + 1e-5, exact
+   launches per rank per step; ``train_main`` for one bf16 epoch of the
+   ViT FixMatch, CPS and ReCo recipes: each rank's launches, finite
+   losses, files from rank 0 only, the checkpoint served, the sharded
+   validation metrics equal to one process's evaluation of it; ST++'s
+   ranking under 2 ranks equal to one process's; with NCCL, the bf16 step's
+   ms and its collectives' device time.
 
 The line before the last prints the card's name and power limit as
 nvidia-smi gives them; the line before that, a JSON object with one entry
@@ -95,8 +110,11 @@ import functools
 import json
 import math
 import os
+import pickle
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import time
@@ -1498,6 +1516,9 @@ def profile_train_step(torch, config, precision, phase=4,
         "flash_fwd_ms_per_step": kernel_ms(per_kernel, "flash_fwd_"),
         "flash_bwd_ms_per_step": kernel_ms(per_kernel, "flash_bwd_"),
         "gather_ms_per_step": kernel_ms(per_kernel, "gather1d_kernel"),
+        # under a process group: the collectives' kernels (phase 10)
+        "collectives_ms_per_step": kernel_ms(per_kernel, "nccl"),
+        "allreduce_ms_per_step": kernel_ms(per_kernel, "AllReduce"),
         "region_ms_per_step": region_ms if per_kernel else None,
         "top_kernels_ms_per_step": [(k[:80], v) for k, v in top],
     }
@@ -2676,6 +2697,587 @@ def _test_batches(config):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: data-parallel training
+# ---------------------------------------------------------------------------
+
+# two ranks; the step comparison gives each DP_ROWS rows of DP_STEPS global
+# batches and trains by SGD with momentum, whose update is proportional to
+# the gradient (AdamW's first update lr·sign(g) would move a parameter whose
+# gradient is rounding noise, the ViT's key bias among them, by O(lr)
+# either way); losses, parameters and BatchNorm statistics within the JAX
+# package's bound for a sharded step against one device
+# (tests/test_parallel.py)
+DP_WORLD, DP_ROWS, DP_STEPS = 2, 8, 3
+DP_LOSS_RTOL, DP_RTOL, DP_ATOL = 1e-5, 5e-4, 1e-5
+# confident pixels may differ where the ranks' smaller eval batch rounds a
+# confidence to the other side of the threshold
+DP_PIXELS = 4
+# the recipes trained by 2-rank train_main, one epoch each
+DP_RECIPES = ("fixmatch", "cps", "reco")
+DP_SNAPSHOT_SEEDS = (21, 22, 23)
+DP_TIMEOUT = 600
+
+
+def nvidia_smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def dp_layout(torch):
+    """``(backend, description)``: NCCL over two cards where there are two,
+    else gloo with CUDA tensors on one card (NCCL refuses two ranks on one
+    device)."""
+    if torch.cuda.device_count() >= DP_WORLD:
+        return "nccl", (f"{DP_WORLD} ranks on cuda:0-{DP_WORLD - 1}, "
+                        "launched by torch.distributed.run")
+    return "gloo", (f"{DP_WORLD} ranks on cuda:0 (one card), each with "
+                    "LOCAL_RANK=0, started by chip_smoke.py")
+
+
+def dp_step_config(family, backend):
+    """The family's FixMatch recipe for the step comparison: fp32, no
+    dropout, no warmup, SGD with momentum, device augmentation (and flash
+    attention for the ViT)."""
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    _, config = write_train_config(family, "fixmatch")
+    cfg = normalize_config(copy.deepcopy(config))
+    cfg["precision"] = "fp32"
+    cfg["decode_head"]["FCNHead"]["dropout_ratio"] = 0.0
+    cfg["train"].update(
+        warmup_epochs=0, optimizer="sgd", optimizer_kwargs={"momentum": 0.9},
+        conf_thresh=(LOCKSTEP_CONF_THRESH if family == "vit_tiny"
+                     else RESNET_LOCKSTEP_CONF_THRESH))
+    cfg["ddp"] = {"dist_backend": backend}
+    return cfg
+
+
+def dp_global_batches(seed):
+    """DP_STEPS global batches of DP_WORLD x DP_ROWS rows, as the loader
+    hands them to a device-augment step (the strong view is built on the
+    card)."""
+    rng = np.random.default_rng(seed)
+    n = DP_WORLD * DP_ROWS
+    x = lambda: rng.standard_normal((n, 1, SIGNAL_LENGTH)).astype(np.float32)
+    return [{"ecg": x(), "target": rng.integers(0, 4, (n, SIGNAL_LENGTH)),
+             "ecg_u_w": x()} for _ in range(DP_STEPS)]
+
+
+def dp_steps(torch, config, batches, rows=None):
+    """DP_STEPS FixMatch steps of the seed-0 model on ``rows`` of each
+    global batch (default: this rank's DP_ROWS): the metrics of each step
+    (their mean over the ranks under a process group), the launches of
+    each step and the final state."""
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        Trainer,
+        full_fp32,
+        init_model,
+    )
+    from semi_seg_ecg_tpu_torch.parallel.dist import all_reduce_mean, get_rank
+
+    if rows is None:
+        rows = slice(get_rank() * DP_ROWS, (get_rank() + 1) * DP_ROWS)
+    device = torch.device("cuda", torch.cuda.current_device())
+    metrics, launches = [], []
+    with full_fp32():
+        trainer = Trainer(copy.deepcopy(config), fixmatch.SPEC, device, 4,
+                          model=init_model(config, device))
+        for batch in batches:
+            on_card = {k: torch.from_numpy(v[rows]).to(device)
+                       for k, v in batch.items()}
+            torch.cuda.synchronize()
+            reset_counts()
+            step = trainer.train_step(on_card)
+            launches.append(read_counts())
+            metrics.append({k: all_reduce_mean(v).item()
+                            for k, v in step.items()})
+    state = {k: v.detach().cpu().numpy()
+             for k, v in trainer.model.state_dict().items()}
+    return {"metrics": metrics, "launches": launches, "state": state}
+
+
+def dp_entry_config(algorithm, backend):
+    """The vit_tiny recipe of ``algorithm`` as phase 4 trains it (bf16,
+    flash, device augmentation, phase 4's split), for one epoch, with the
+    layout's backend."""
+    _, config = write_train_config("vit_tiny", algorithm)
+    config["train"]["epochs"] = 1
+    config["exp_name"] = f"dp_vit_tiny_{algorithm}"
+    config["ddp"] = {"dist_backend": backend}
+    path = os.path.join(WORK, f"dp_vit_tiny_{algorithm}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def dp_entry_launches(algorithm):
+    """A rank's launches in one epoch of ``algorithm``'s train_main: its
+    steps, and one eval batch of its shards of the validation and the test
+    splits."""
+    steps = TRAIN_LABELED // (DP_WORLD * BATCH)
+    evals = (math.ceil(TRAIN_VALID / DP_WORLD / BATCH)
+             + math.ceil(TRAIN_TEST / DP_WORLD / BATCH))
+    want = {k: steps * v for k, v in
+            launches_per_step("vit_tiny", algorithm).items()}
+    want["flash_attention_fwd"] += DEPTH * evals
+    return want
+
+
+def dp_train(torch, config_path):
+    from semi_seg_ecg_tpu_torch.cli import train_main
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    metrics = train_main(["-f", config_path])
+    torch.cuda.synchronize()
+    return {"seconds": time.time() - t0, "launches": read_counts(),
+            "test_metrics": metrics}
+
+
+def dp_snapshots():
+    """Three seeded vit_tiny models saved as ST++ stage-1 snapshots, and
+    the config that ranks phase 4's unlabeled split with them."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import init_model
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+    from semi_seg_ecg_tpu_torch.utils.checkpoint import save_torch_checkpoint
+
+    import torch
+
+    _, config = write_train_config("vit_tiny", "stpp")
+    config = normalize_config(copy.deepcopy(config))
+    paths = []
+    for seed in DP_SNAPSHOT_SEEDS:
+        path = os.path.join(WORK, f"dp_snapshot_{seed}.pth")
+        save_torch_checkpoint(path, init_model(config, torch.device("cpu"),
+                                               train=False, seed=seed))
+        paths.append(path)
+    return config, paths
+
+
+def dp_rank(torch, config, paths):
+    """ST++'s reliability ranking of the unlabeled split (each rank on its
+    shards): the reliable ids and the reliabilities."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        amp_context,
+        eval_loader,
+        full_fp32,
+        load_eval_weights,
+    )
+    from semi_seg_ecg_tpu_torch.algorithms.stpp import select_reliable
+    from semi_seg_ecg_tpu_torch.data.dataset import build_seg_dataset
+    from semi_seg_ecg_tpu_torch.models import build_model_from_config
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    models = []
+    for path in paths:
+        model = build_model_from_config(config)
+        load_eval_weights(model, path)
+        models.append(model.to(device))
+    ds = build_seg_dataset(config["dataset"], split="train_unlabeled",
+                           mode="eval")
+    loader = eval_loader(config, ds, mode="eval")
+    try:
+        with full_fp32():
+            reliable, _, reliability = select_reliable(
+                models, loader, config["metric"]["num_classes"], device,
+                amp_context(config, device))
+    finally:
+        loader.close()
+    return {"reliable": reliable, "reliability": reliability}
+
+
+def dp_profile_config(algorithm="fixmatch"):
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    _, config = write_train_config("vit_tiny", algorithm)
+    return normalize_config(config)
+
+
+def dp_profiles(torch):
+    """The recipe's bf16 vit_tiny FixMatch and ReCo steps (BATCH + BATCH
+    windows): ms per step, peak memory and, from the trace, the
+    collectives' device time."""
+    return {algorithm: profile_train_step(
+        torch, dp_profile_config(algorithm), "bf16", phase=10,
+        algorithm=algorithm) for algorithm in ("fixmatch", "reco")}
+
+
+def dp_reco_sync_free(torch):
+    """One ReCo loss call on the inputs gathered from every rank
+    (``gather_batch``, as the ReCo step calls it), with host syncs raising;
+    the syncs of its backward counted."""
+    import warnings
+
+    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+    from semi_seg_ecg_tpu_torch.ops import reco_loss as rl
+    from semi_seg_ecg_tpu_torch.parallel.dist import gather_batch, get_rank
+
+    config = dp_profile_config("reco")
+    # each rank's own rows; one call's draws, the same on every rank
+    latent, prob_t, prob_s, _, (easy, hard, temp) = reco_inputs(
+        torch, config, seed=8 + get_rank())
+    draws = reco_inputs(torch, config)[3]
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    with full_fp32():
+        card_draws = rl.RecoDraws(*(d.to(cuda) for d in draws))
+        lat = latent.to(cuda).requires_grad_()
+        pt, ps = prob_t.to(cuda), prob_s.to(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = rl.compute_reco_loss(card_draws, gather_batch(lat),
+                                        gather_batch(pt), gather_batch(ps),
+                                        easy, hard, temp)
+        except RuntimeError as e:
+            raise SystemExit(f"phase 10 failed: the gathered ReCo loss "
+                             f"waits on the card: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                loss.backward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return {"loss": loss.item(), "backward_syncs": sum(
+        "synchroniz" in str(w.message) for w in caught),
+        "rows": DP_WORLD * BATCH}
+
+
+def dp_events_ms(torch, fn, reps):
+    """CUDA-event ms per call of ``fn`` over ``reps`` calls, after a warm
+    call and a barrier."""
+    from semi_seg_ecg_tpu_torch.parallel.dist import barrier
+
+    fn()
+    barrier()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def dp_profile(torch, reps=20):
+    """On each rank: :func:`dp_profiles` (the collectives' device time
+    includes a rank's wait for the other); the gradient all-reduce alone
+    (``all_reduce_grads_`` on the model's gradients: flatten, NCCL, divide,
+    copy back) and NCCL's all-reduce of the same bytes as one flat buffer,
+    each by :func:`dp_events_ms`; :func:`dp_reco_sync_free`."""
+    import torch.distributed as dist
+
+    from semi_seg_ecg_tpu_torch.models import build_model_from_config
+    from semi_seg_ecg_tpu_torch.parallel.dist import all_reduce_grads_
+
+    out = dp_profiles(torch)
+    model = build_model_from_config(dp_profile_config(), train=True).cuda()
+    params = list(model.parameters())
+    for p in params:
+        p.grad = torch.ones_like(p)
+    flat = torch.ones(sum(p.numel() for p in params), device="cuda")
+    out["grad_allreduce_alone_ms"] = dp_events_ms(
+        torch, lambda: all_reduce_grads_(params), reps)
+    out["nccl_allreduce_ms"] = dp_events_ms(
+        torch, lambda: dist.all_reduce(flat), reps)
+    out["grad_allreduce_bytes"] = 4 * flat.numel()
+    out["reco_loss_gathered"] = dp_reco_sync_free(torch)
+    return out
+
+
+RANK_TASKS = {"steps": dp_steps, "train": dp_train, "rank": dp_rank,
+              "profile": dp_profile}
+
+
+def rank_main(job, out_dir):
+    """One rank of phase 10 (``chip_smoke.py --rank JOB OUT_DIR``, with
+    torchrun's variables): its output to ``OUT_DIR/rank{RANK}.log``, the
+    group joined with the job's backend, the job's tasks run in order and
+    their results written to ``OUT_DIR/rank{RANK}.pkl``."""
+    import torch
+
+    from semi_seg_ecg_tpu_torch.parallel import dist as pdist
+
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(out_dir, f"rank{rank}.log"), "w") as f:
+        os.dup2(f.fileno(), 1)
+        os.dup2(f.fileno(), 2)
+    with open(job, "rb") as f:
+        spec = pickle.load(f)
+    pdist.init_distributed_mode({"dist_backend": spec["backend"]}, "cuda")
+    results = [RANK_TASKS[name](torch, **kwargs)
+               for name, kwargs in spec["tasks"]]
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    pdist.destroy_process_group()
+    return 0
+
+
+def dp_run_ranks(tasks, backend):
+    """Phase 10's ranks on ``tasks``, each task's results by rank; fails
+    the phase if a rank fails or the group outlives DP_TIMEOUT (then every
+    process of it is killed)."""
+    work = os.path.join(WORK, "dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    job = os.path.join(work, "job.pkl")
+    with open(job, "wb") as f:
+        pickle.dump({"backend": backend, "tasks": tasks}, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    args = [os.path.abspath(__file__), "--rank", job, work]
+    if backend == "nccl":
+        commands = [([sys.executable, "-m", "torch.distributed.run",
+                      f"--nproc_per_node={DP_WORLD}",
+                      "--master_addr=127.0.0.1", f"--master_port={port}",
+                      *args], {})]
+    else:
+        commands = [([sys.executable, *args],
+                     {"RANK": str(r), "WORLD_SIZE": str(DP_WORLD),
+                      "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                      "MASTER_PORT": str(port)}) for r in range(DP_WORLD)]
+    procs = []
+    with open(os.path.join(work, "launcher.log"), "w") as out:
+        for cmd, env in commands:
+            procs.append(subprocess.Popen(
+                cmd, cwd=REPO, env={**os.environ, **env}, stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True))
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.01))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    logs = {}
+    for name in ["launcher"] + [f"rank{r}" for r in range(DP_WORLD)]:
+        path = os.path.join(work, f"{name}.log")
+        logs[name] = open(path).read() if os.path.exists(path) else ""
+    codes = [p.returncode for p in procs]
+    if codes != [0] * len(procs):
+        for name, text in logs.items():
+            log(f"  {name}'s output ends:\n{text[-3000:]}")
+        raise SystemExit(f"phase 10 failed: the ranks exited {codes} "
+                         f"(timeout {DP_TIMEOUT} s)")
+    results = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return [list(by_task) for by_task in zip(*results)], logs
+
+
+def dp_check_steps(family, ranks, single):
+    """The ranks' steps against one process holding both shards: losses,
+    confident pixels, launches per step, the state; the ranks' states
+    equal."""
+    want_launches = launches_per_step(family, "fixmatch")
+    for r, got in enumerate(ranks):
+        if got["launches"] != [want_launches] * DP_STEPS:
+            raise SystemExit(f"phase 10 failed: {family} rank {r} launched "
+                             f"{got['launches']}, expected {want_launches} "
+                             "a step")
+    first = ranks[0]
+    for k, v in first["state"].items():
+        if not np.array_equal(v, ranks[1]["state"][k]):
+            raise SystemExit(f"phase 10 failed: {family}: the ranks' {k} "
+                             "differ")
+    loss_rel, pixels = 0.0, []
+    n = DP_WORLD * DP_ROWS * SIGNAL_LENGTH
+    for a, b in zip(first["metrics"], single["metrics"]):
+        for k in ("loss", "loss_x", "loss_u_s", "loss_total"):
+            loss_rel = max(loss_rel, abs(a[k] - b[k]) / max(abs(b[k]),
+                                                             1e-12))
+        pixels.append((round(a["mask_ratio"] * n),
+                       round(b["mask_ratio"] * n)))
+    worst, worst_key = 0.0, None
+    for k, want in single["state"].items():
+        if want.dtype.kind != "f":
+            continue
+        excess = float((np.abs(first["state"][k] - want)
+                        - DP_RTOL * np.abs(want)).max())
+        if excess > worst or worst_key is None:
+            worst, worst_key = excess, k
+    log(f"  {family} FixMatch, {DP_STEPS} fp32 SGD steps, {DP_WORLD} ranks "
+        f"x {DP_ROWS} rows against one process with num_shards="
+        f"{DP_WORLD}: losses within {loss_rel:.3g} relative; parameters "
+        f"and BN statistics: max(|diff| - {DP_RTOL} |one process|) = "
+        f"{worst:.3g} ({worst_key}); confident pixels {pixels}; launches "
+        f"per rank per step {want_launches}")
+    if not (loss_rel <= DP_LOSS_RTOL and worst <= DP_ATOL
+            and all(abs(a - b) <= DP_PIXELS for a, b in pixels)):
+        raise SystemExit(f"phase 10 failed: {family}: {DP_WORLD} ranks "
+                         "disagree with one process")
+    return {"loss_rel": loss_rel, "state_excess": worst,
+            "state_worst": worst_key, "confident_pixels": pixels,
+            "launches_per_rank_step": want_launches,
+            "metrics": [first["metrics"], single["metrics"]]}
+
+
+def dp_evaluate(torch, config_path, checkpoint):
+    """One process's validation of ``checkpoint``, as the training loop
+    evaluates: the loss and the metrics."""
+    from semi_seg_ecg_tpu_torch.algorithms import common
+    from semi_seg_ecg_tpu_torch.config import load_config, normalize_config
+    from semi_seg_ecg_tpu_torch.data.dataset import build_seg_dataset
+    from semi_seg_ecg_tpu_torch.ops.metrics import build_metric_fn
+
+    config = normalize_config(load_config(config_path))
+    config["test"] = dict(config["test"], model_path=checkpoint)
+    device = torch.device("cuda")
+    ds = build_seg_dataset(config["dataset"], split="valid")
+    loader = common.eval_loader(config, ds, mode="valid")
+    metric_fn, _ = build_metric_fn(config["metric"])
+    try:
+        with common.full_fp32():
+            stats, metrics, _, _ = common.evaluate(
+                common.load_eval_model(config, device), loader, metric_fn,
+                config["metric"]["num_classes"], device,
+                common.amp_context(config, device), collect_outputs=False)
+    finally:
+        loader.close()
+    return {"loss": stats["loss"], **metrics}
+
+
+def dp_check_entry(torch, algorithm, config_path, ranks):
+    """A 2-rank train_main run: each rank's launches, losses finite, one
+    log.txt line, rank 1 silent, the checkpoint served by phase 3's path
+    and its recorded validation metrics equal to one process's evaluation
+    of it."""
+    name = f"dp_vit_tiny_{algorithm}"
+    want = dp_entry_launches(algorithm)
+    for r, got in enumerate(ranks):
+        if got["launches"] != want:
+            raise SystemExit(f"phase 10 failed: {name} rank {r} launched "
+                             f"{got['launches']}, expected {want}")
+    out_dir = os.path.join(WORK, "exps", name)
+    for f in ("log.txt", "best-loss.ckpt", "best-MeanIoU.ckpt",
+              "test_metrics.csv", "test_outputs.npy"):
+        if not os.path.exists(os.path.join(out_dir, f)):
+            raise SystemExit(f"phase 10 failed: {name} wrote no {f}")
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        epochs = [json.loads(line) for line in f]
+    if len(epochs) != 1 or not all(math.isfinite(v) for k, v in
+                                   epochs[0].items() if "loss" in k):
+        raise SystemExit(f"phase 10 failed: {name} log.txt {epochs}")
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    checkpoint = os.path.join(out_dir, "best-loss.ckpt")
+    recorded = ckpt.load_checkpoint(checkpoint)["metrics"]
+    single = dp_evaluate(torch, config_path, checkpoint)
+    if recorded != single:
+        raise SystemExit(f"phase 10 failed: {name}: the sharded validation "
+                         f"{recorded} differs from one process's {single}")
+    probs, served, _ = serve(config_path, checkpoint, f"{name}_served")
+    check_probs(f"{name}: served", probs, TRAIN_TEST)
+    want_served = {"flash_attention_fwd": DEPTH * math.ceil(
+        TRAIN_TEST / BATCH), "flash_attention_bwd": 0, "gather1d": 0}
+    if served != want_served:
+        raise SystemExit(f"phase 10 failed: serving {name} made {served}")
+    log(f"  train_main {name}, {DP_WORLD} ranks, 1 epoch bf16: "
+        f"{ranks[0]['seconds']:.2f} s; launches per rank {want}; log.txt "
+        f"{ {k: round(v, 4) for k, v in epochs[0].items()} }; sharded "
+        f"validation equals one process's: {single}; served with "
+        f"{served['flash_attention_fwd']} forward launches")
+    return {"seconds": [r["seconds"] for r in ranks],
+            "launches_per_rank": want, "log": epochs[0],
+            "validation": single, "test_metrics": ranks[0]["test_metrics"]}
+
+
+def phase_parallel(torch):
+    """Phase 10: data-parallel training through the port's own path
+    (``parallel/``, ``train_main`` under a process group), two ranks."""
+    t_phase = time.perf_counter()
+    backend, layout = dp_layout(torch)
+    smi = nvidia_smi().replace("\n", "; ")
+    log(f"phase 10: {torch.cuda.device_count()} card(s), {smi}; "
+        f"backend {backend}; {layout}")
+    batches = dp_global_batches(40)
+    step_configs = {family: dp_step_config(family, backend)
+                    for family in ("vit_tiny", "resnet18")}
+    entry_paths = {algorithm: dp_entry_config(algorithm, backend)
+                   for algorithm in DP_RECIPES}
+    rank_config, snapshots = dp_snapshots()
+    # one process holding both shards (num_shards=2, local_shards=2), on
+    # the card, before the ranks start
+    single_steps = {family: dp_steps(torch, cfg, batches, slice(None))
+                    for family, cfg in step_configs.items()}
+    single_rank = dp_rank(torch, rank_config, snapshots)
+    one_rank = dp_profiles(torch) if backend == "nccl" else None
+
+    tasks = ([("steps", {"config": cfg, "batches": batches})
+              for cfg in step_configs.values()]
+             + [("train", {"config_path": path})
+                for path in entry_paths.values()]
+             + [("rank", {"config": rank_config, "paths": snapshots})]
+             + ([("profile", {})] if backend == "nccl" else []))
+    t0 = time.perf_counter()
+    by_task, logs = dp_run_ranks(tasks, backend)
+    ranks_s = time.perf_counter() - t0
+    printed = re.findall(r"^\[\d{4}-\d\d-\d\d [\d:]+\] (.*)$",
+                         logs["rank1"], re.MULTILINE)
+    if len(printed) != 1 or "distributed init" not in printed[0]:
+        raise SystemExit(f"phase 10 failed: rank 1 printed {printed}")
+
+    result = {"backend": backend, "layout": layout,
+              "device_count": torch.cuda.device_count(),
+              "nvidia_smi": smi, "ranks_seconds": ranks_s,
+              "steps": {}, "entries": {}}
+    for i, family in enumerate(step_configs):
+        result["steps"][family] = dp_check_steps(family, by_task[i],
+                                                 single_steps[family])
+    for i, (algorithm, path) in enumerate(entry_paths.items()):
+        result["entries"][algorithm] = dp_check_entry(
+            torch, algorithm, path, by_task[len(step_configs) + i])
+    ranked = by_task[len(step_configs) + len(entry_paths)]
+    for r, got in enumerate(ranked):
+        if got["reliable"] != single_rank["reliable"] or not np.array_equal(
+                got["reliability"], single_rank["reliability"]):
+            raise SystemExit(f"phase 10 failed: rank {r}'s ST++ ranking "
+                             "differs from one process's")
+    log(f"  ST++ ranking of {len(single_rank['reliability'])} unlabeled "
+        f"windows by {len(snapshots)} snapshots: every rank keeps one "
+        f"process's {len(single_rank['reliable'])} reliable ids")
+    result["stpp_reliable"] = len(single_rank["reliable"])
+    if backend == "nccl":
+        profiles = by_task[-1]
+        result["profile"] = {"ranks": profiles, "one_rank": one_rank}
+        for who, p in [("one process", one_rank)] + [
+                (f"rank {r}", p) for r, p in enumerate(profiles)]:
+            for algorithm in ("fixmatch", "reco"):
+                m = p[algorithm]
+                log(f"  {who}: bf16 {algorithm} step "
+                    f"{m['wall_ms_per_step']:.3f} ms wall, busy "
+                    f"{m['device_busy_ms_per_step']} ms, peak memory "
+                    f"{m['peak_memory_mb']:.1f} MiB, collectives "
+                    f"{m['collectives_ms_per_step']} ms of device time "
+                    f"(all-reduce {m['allreduce_ms_per_step']} ms)")
+            if who != "one process":
+                log(f"  {who}: the gradient all-reduce alone "
+                    f"({p['grad_allreduce_bytes']} bytes) "
+                    f"{p['grad_allreduce_alone_ms']:.4f} ms, NCCL's "
+                    f"all-reduce of one flat buffer of as many bytes "
+                    f"{p['nccl_allreduce_ms']:.4f} ms; the ReCo loss "
+                    f"on {p['reco_loss_gathered']['rows']} gathered rows: "
+                    "no host sync in the call, backward syncs "
+                    f"{p['reco_loss_gathered']['backward_syncs']}")
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 10 in {result['seconds']:.1f} s (ranks {ranks_s:.1f} s)")
+    return result
+
+
+# ---------------------------------------------------------------------------
 # Report
 # ---------------------------------------------------------------------------
 
@@ -2728,6 +3330,7 @@ def main():
         torch, os.path.join(WORK, "exps", "vit_tiny_fixmatch",
                             "best-MeanIoU.ckpt"),
         os.path.join(WORK, "resnet18_seed0.pth"))
+    parallel = phase_parallel(torch)
     # each path's launches, counted from 0 just before it and read after
     by_path = {
         "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
@@ -2745,12 +3348,14 @@ def main():
         **{f"longrec_{family}_hour_int8": r["launches"]
            for family, r in deploy["longrec_int8"].items()},
         **{f"artifact_{family}_per_call": counts
-           for family, counts in deploy["launches_per_call"].items()}}
+           for family, counts in deploy["launches_per_call"].items()},
+        # phase 10: one rank's launches (every rank's are checked equal)
+        **{f"dp_{family}_fixmatch_per_rank_step": r["launches_per_rank_step"]
+           for family, r in parallel["steps"].items()},
+        **{f"dp_vit_tiny_{algorithm}_per_rank": r["launches_per_rank"]
+           for algorithm, r in parallel["entries"].items()}}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
         json.dump({"nvidia_smi": smi, "torch": torch.__version__,
                    "build_s": build_s, "hmma": hmma,
@@ -2759,7 +3364,7 @@ def main():
                    "resnet18": resnet_result,
                    "algorithms": algorithm_results,
                    "reco_stpp": reco_stpp, "longrec": longrec,
-                   "deploy": deploy,
+                   "deploy": deploy, "parallel": parallel,
                    "seconds": time.time() - t_start}, f, indent=1)
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -2771,4 +3376,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(*sys.argv[2:]))
     sys.exit(main())

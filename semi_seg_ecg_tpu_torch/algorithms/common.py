@@ -1,14 +1,19 @@
 """Shared training and evaluation machinery (counterpart of
 ``semi_seg_ecg_tpu/algorithms/common.py``).
 
-One process, one device: the config's ``device`` (``resolve_device``), the
-CUDA card unless it says ``cpu``. The training loop exists once; an
-algorithm contributes a :class:`AlgorithmSpec` whose ``make_train_step``
-returns the body of one step, and says whether the run keeps an EMA teacher
-(Mean Teacher) or a peer with its own optimizer (CPS), which the
-:class:`Trainer` holds beside the model. Around the step, the loop:
+One process per device: the config's ``device`` (``resolve_device``), the
+CUDA card unless it says ``cpu``; under ``torchrun`` (or SLURM) each rank
+takes its own card and trains data-parallel (``parallel/``), as the JAX
+package trains over the data axis of its mesh. The training loop exists
+once; an algorithm contributes a :class:`AlgorithmSpec` whose
+``make_train_step`` returns the body of one step, and says whether the run
+keeps an EMA teacher (Mean Teacher) or a peer with its own optimizer (CPS),
+which the :class:`Trainer` holds beside the model. Around the step, the
+loop:
 
-- builds the loaders, with the device-augment plan's host overrides;
+- builds the loaders, with the device-augment plan's host overrides, each
+  rank loading its own shards of every global batch (``batch_size`` rows
+  a rank; the lr scales with the global batch, ``resolve_lr``);
 - moves each batch to the device from pinned memory without blocking, one
   batch ahead of the step that uses it;
 - reseeds its generators every step from ``(seed, step)``: one for dropout
@@ -19,11 +24,22 @@ returns the body of one step, and says whether the run keeps an EMA teacher
   ``fold_in(key, step)``;
 - sets the scheduled lr of each update, on the peer's optimizer too
   (``utils/optimizer.py``);
-- drains the step metrics every ``PRINT_FREQ`` steps, aborting on a
-  non-finite loss, and prints the progress line;
-- evaluates the model (the student, CPS's model 1) after each epoch and
-  writes ``best-loss.ckpt`` / ``best-{metric}.ckpt`` (teacher or peer
-  included) and a ``log.txt`` line.
+- drains the step metrics every ``PRINT_FREQ`` steps, their mean over the
+  ranks, aborting on a non-finite loss (every rank at once), and prints
+  the progress line;
+- evaluates the model (the student, CPS's model 1) after each epoch, each
+  rank on its shards of the split, the rows exchanged
+  (``parallel.dist.all_gather_rows``), and writes ``best-loss.ckpt`` /
+  ``best-{metric}.ckpt`` (teacher or peer included) and a ``log.txt``
+  line, on rank 0 only.
+
+Data parallelism as the JAX package's data mesh computes it: rank 0's
+weights are broadcast at the start, each step's gradients averaged over
+the ranks before clipping (``utils/optimizer.TrainOptimizer``), BatchNorm
+statistics taken over the global batch (``models/norm.py``) and per-row
+random draws made for the global batch (``parallel.dist.global_rows``).
+N ranks with ``batch_size`` b take the steps of one process holding N
+shards of b rows (the loader's ``num_shards=N, local_shards=N``).
 
 For ST++'s stages, :func:`run_training` also takes an output subdirectory,
 a subset of the unlabeled rows, the epochs after which it writes
@@ -44,8 +60,10 @@ products each, 3xTF32 with fp32 accumulation, to fp32 accuracy, which
 fp32 parameters and optimizer and no loss scaling, as the JAX package
 computes in bf16 with fp32 parameters. ``train.fused_state`` and
 ``train.scan_steps`` are accepted and do nothing (XLA dispatch devices).
-Resume, gradient accumulation, ``device_cache``, multi-device training,
-``checkpoint_backend: orbax`` and ``profile`` are not ported yet and raise.
+Resume, gradient accumulation, ``device_cache``, ``parallel.model_parallel``
+and ``seq_parallel`` above 1, ``parallel.shard_optimizer`` (ZeRO-1) across
+ranks, ``checkpoint_backend: orbax`` and ``profile`` are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -77,6 +95,8 @@ from ..ops.metrics import (
     is_best_metric,
     segmentation_stats,
 )
+from ..parallel import dist as pdist
+from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt
 from ..utils.logging import JsonlLogger, MetricLogger, TensorBoardWriter, log
 from ..utils.optimizer import build_optimizer, make_lr_schedule, resolve_lr
@@ -206,19 +226,22 @@ def init_train_model(config: Dict[str, Any], device: torch.device,
     return model.to(device)
 
 
-def _refuse_unported(config: Dict[str, Any]) -> None:
+def _refuse_unported(config: Dict[str, Any], world_size: int) -> None:
     if config.get("resume"):
         raise NotImplementedError(
             "resume is not yet ported to the torch package")
-    ddp = config.get("ddp") or {}
-    if ddp.get("distributed") or (ddp.get("world_size") or 1) > 1:
+    parallel = config.get("parallel") or {}
+    for axis in ("model_parallel", "seq_parallel"):
+        if (parallel.get(axis) or 1) > 1:
+            raise NotImplementedError(
+                f"parallel.{axis} > 1 is not yet ported to the torch "
+                "package")
+    if parallel.get("shard_optimizer") and world_size > 1:
+        # the JAX package shards the optimizer only over more than one
+        # data-parallel replica
         raise NotImplementedError(
-            "multi-GPU training is not yet ported to the torch package")
-    if (config.get("parallel") or {}).get("model_parallel", 1) not in (1,
-                                                                       None):
-        raise NotImplementedError(
-            "parallel.model_parallel > 1 is not yet ported to the torch "
-            "package")
+            "parallel.shard_optimizer (ZeRO-1) is not yet ported to the "
+            "torch package")
     if (config["train"].get("accum_iter", 1) or 1) > 1:
         raise NotImplementedError(
             "train.accum_iter > 1 is not yet ported to the torch package")
@@ -256,9 +279,11 @@ def build_train_loaders(config: Dict[str, Any], spec: AlgorithmSpec,
         unlab_cfg = {**ds_cfg, **plan.unlabeled_overrides}
     seed = config["seed"]
     batch_size = config["dataloader"]["batch_size"]
-    common = dict(batch_size=batch_size, seed=seed,
+    num_shards = pmesh.data_parallel_size()
+    common = dict(batch_size=batch_size, seed=seed, num_shards=num_shards,
                   num_workers=loader_workers(config["dataloader"]),
-                  worker_type=loader_worker_type(config["dataloader"]))
+                  worker_type=loader_worker_type(config["dataloader"]),
+                  **pmesh.host_shard_args(num_shards))
     drop_last = config["dataloader"].get("drop_last", None)
 
     loaders: Dict[str, Any] = {}
@@ -352,11 +377,13 @@ def evaluate(model: torch.nn.Module, loader, metric_fn, num_classes: int,
              device: torch.device, amp: Callable,
              eval_batch_size: Optional[int] = None,
              collect_outputs: bool = True):
-    """Full-dataset evaluation. Returns ``(valid_stats, metric_dict,
-    outputs, labels_onehot)``: ``outputs`` are softmax probabilities ``(N,
-    C, T)`` in dataset order and ``labels_onehot`` ``(N, C, T)`` int64, the
-    arrays ``run_test`` saves. Metric updates are replayed in the
-    reference's eval batch grouping, as in the JAX package."""
+    """Full-dataset evaluation, each rank on the shards its ``loader``
+    holds, the rows then exchanged so that every rank has all of them.
+    Returns ``(valid_stats, metric_dict, outputs, labels_onehot)``:
+    ``outputs`` are softmax probabilities ``(N, C, T)`` in dataset order
+    and ``labels_onehot`` ``(N, C, T)`` int64, the arrays ``run_test``
+    saves. Metric updates are replayed in the reference's eval batch
+    grouping, as in the JAX package."""
     n = len(loader.dataset)
     mat = loader.step_indices()
     loss_ps = np.zeros(n)
@@ -389,6 +416,10 @@ def evaluate(model: torch.nn.Module, loader, metric_fn, num_classes: int,
                     labels_np[flat] = batch["target"].cpu().numpy()
     finally:
         model.train(was_training)
+    arrays = [loss_ps, inter, psum, tsum]
+    if collect_outputs:
+        arrays += [outputs, labels_np]
+    pdist.all_gather_rows(mat.reshape(-1), arrays)
     if eval_batch_size is None:
         eval_batch_size = loader.batch_size
     for lo in range(0, n, eval_batch_size):
@@ -468,6 +499,10 @@ class Trainer:
             if plan.augment is not None:
                 self.augment = plan.augment
                 self.augment_gen = torch.Generator(device=device)
+        # every rank starts from rank 0's weights (warm starts included)
+        for module in (self.model, self.teacher, self.peer):
+            if module is not None:
+                pdist.broadcast_module_(module)
         self.step = 0
 
     def train_step(self, batch: Dict[str, torch.Tensor]
@@ -502,9 +537,11 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
     ``unlabeled_subset_ids`` (the unlabeled rows to train on),
     ``snapshot_epochs`` (after epoch ``e - 1``, for each ``e`` in it, a
     ``checkpoint-{e}.ckpt``) and ``state_hook`` (called with the built
-    Trainer)."""
-    _refuse_unported(config)
+    Trainer). Rank 0 writes the files; every rank returns after them."""
+    pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
+    _refuse_unported(config, pdist.get_world_size())
     device = resolve_device(config)
+    main = pdist.is_main_process()
     log(f"job dir: {os.getcwd()}")
     log(yaml.dump(config, default_flow_style=False, sort_keys=False))
     seed = config["seed"]
@@ -517,12 +554,12 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
     if out_dir and output_subdir:
         out_dir = os.path.join(out_dir, output_subdir)
     log_writer = None
-    if out_dir:
+    if out_dir and main:
         os.makedirs(out_dir, exist_ok=True)
         log_writer = TensorBoardWriter(out_dir)
-    jsonl = JsonlLogger(out_dir)
+    jsonl = JsonlLogger(out_dir if main else None)
 
-    resolve_lr(config, 1)
+    resolve_lr(config, pmesh.data_parallel_size())
     eff = config["train"]["eff_batch_size"]
     log(f"base lr: {config['train']['lr'] * 256 / eff}")
     log(f"actual lr: {config['train']['lr']}")
@@ -540,7 +577,7 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
             if state_hook is not None:
                 state_hook(trainer)
             log(f"Start training for {num_epochs} epochs on {device}"
-                f" (seed {seed})")
+                f" (seed {seed}, {pdist.get_world_size()} rank(s))")
             start_time = time.time()
             for epoch in range(config.get("start_epoch", 0), num_epochs):
                 for name in ("labeled", "unlabeled"):
@@ -575,7 +612,7 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
                             out_dir, f"best-{metric_name}.ckpt"))
                     log(f"Best {metric_name}: "
                         f"{best_metrics[metric_name]:.3f}")
-                if save_paths:
+                if save_paths and main:
                     ckpt.save_checkpoint(
                         save_paths, epoch, trainer.model,
                         trainer.optimizer, config=config,
@@ -601,6 +638,8 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
             total = str(datetime.timedelta(
                 seconds=int(time.time() - start_time)))
             log(f"Training time {total}")
+        # the other ranks read what rank 0 wrote only once it is there
+        pdist.barrier()
     finally:
         for loader in loaders.values():
             loader.close()
@@ -622,8 +661,11 @@ def _train_one_epoch(trainer: Trainer, loaders, spec: AlgorithmSpec,
         if not pending:
             return
         keys = list(pending[0][1])
-        host = torch.stack([torch.stack([m[k].float() for k in keys])
-                            for _, m in pending]).cpu().tolist()
+        # the global batch's metrics: every rank sees the same values and
+        # so aborts on a non-finite loss together
+        host = pdist.all_reduce_mean(torch.stack([
+            torch.stack([m[k].float() for k in keys])
+            for _, m in pending])).cpu().tolist()
         for (i, _), values in zip(pending, host):
             scalars = dict(zip(keys, values))
             if not math.isfinite(scalars.get("loss",
@@ -699,22 +741,31 @@ def load_eval_model(config: Dict[str, Any],
     return model.to(device).eval()
 
 
+def eval_loader(config: Dict[str, Any], dataset, mode: str = "test"):
+    """An evaluation loader of ``dataset``, sharded over the ranks."""
+    num_shards = pmesh.data_parallel_size()
+    return get_dataloader(
+        dataset, mode=mode, batch_size=config["dataloader"]["batch_size"],
+        seed=config["seed"], num_shards=num_shards,
+        num_workers=loader_workers(config["dataloader"]),
+        worker_type=loader_worker_type(config["dataloader"]),
+        **pmesh.host_shard_args(num_shards))
+
+
 def _test_loader(config: Dict[str, Any]):
     ds_test = build_seg_dataset(config["dataset"], split="test")
-    return ds_test, get_dataloader(
-        ds_test, mode="test", batch_size=config["dataloader"]["batch_size"],
-        seed=config["seed"],
-        num_workers=loader_workers(config["dataloader"]),
-        worker_type=loader_worker_type(config["dataloader"]))
+    return ds_test, eval_loader(config, ds_test)
 
 
 def run_test(config: Dict[str, Any]) -> Dict[str, float]:
     """Evaluate the best checkpoint on the test split and write
     ``test_metrics.csv`` (the ``csv`` module, values as ``%.4f``),
-    ``test_outputs.npy`` and ``test_labels.npy``. The forward runs in the
-    config's precision, as the JAX package's test pass does."""
+    ``test_outputs.npy`` and ``test_labels.npy`` (rank 0; each rank
+    evaluates its shards). The forward runs in the config's precision, as
+    the JAX package's test pass does."""
+    pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
     device = resolve_device(config)
-    out_dir = experiment_dir(config)
+    out_dir = experiment_dir(config) if pdist.is_main_process() else None
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     _, loader = _test_loader(config)
@@ -745,13 +796,15 @@ def run_test(config: Dict[str, Any]) -> Dict[str, float]:
 
 def run_inference(config: Dict[str, Any]) -> np.ndarray:
     """Softmax of ``seg_logits`` over the test split, in dataset order →
-    ``test_outputs.npy`` (no labels, no metrics), through
-    :func:`serving.make_serving_fn` and so in its precision."""
+    ``test_outputs.npy`` (no labels, no metrics; rank 0 writes, each rank
+    serves its shards), through :func:`serving.make_serving_fn` and so in
+    its precision."""
     # serving imports this module: import it when called
     from ..serving import make_serving_fn
 
+    pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
     infer, _ = make_serving_fn(config)
-    out_dir = experiment_dir(config)
+    out_dir = experiment_dir(config) if pdist.is_main_process() else None
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     ds_test, loader = _test_loader(config)
@@ -768,6 +821,7 @@ def run_inference(config: Dict[str, Any]) -> np.ndarray:
             outputs[mat[step].reshape(-1)] = probs
     finally:
         loader.close()
+    pdist.all_gather_rows(mat.reshape(-1), [outputs])
     if out_dir:
         np.save(os.path.join(out_dir, "test_outputs.npy"), outputs)
     log("Done!")

@@ -14,6 +14,14 @@ probabilities, its samples drawn from ``Trainer.loss_gen``. After the
 optimizer update the teacher becomes the EMA of the whole student,
 projection included (``train.ema_decay``, 0.99 by default).
 
+The JAX package computes the ReCo loss over the global batch (its regions,
+prototypes and samples span every shard of the data mesh), so under a
+process group the loss's inputs are gathered from every rank
+(``parallel.dist.gather_batch``, differentiable) and every rank computes
+the same global loss. The gather's backward sums the ranks' gradients of
+it, and the optimizer's mean over the ranks then leaves the gradient of
+the loss once.
+
 Config keys and defaults as the JAX package reads them (reference
 reco.py:253-262): ``conf_thresh``, ``easy_conf_thresh`` or the reference's
 typo key ``eash_conf_thresh`` (0.65), ``hard_conf_thresh`` (0.80),
@@ -27,6 +35,7 @@ import torch
 
 from ..ops import reco_loss
 from ..ops.losses import cross_entropy, soft_cross_entropy
+from ..parallel.dist import gather_batch
 from ..utils.train_state import ema_update
 from .base import aux_loss_weights
 from .common import AlgorithmSpec, run_test, run_training
@@ -74,8 +83,10 @@ def make_train_step(trainer):
             draws = reco_loss.reco_draws(gen, prob_u_w.shape[1], num_queries,
                                          num_negatives, prob_u_w.device)
             contr = reco_loss.compute_reco_loss(
-                draws, latent_u_s, prob_u_w,
-                torch.softmax(pred_u_s.detach().float(), dim=1),
+                draws, gather_batch(latent_u_s),
+                gather_batch(prob_u_w),
+                gather_batch(torch.softmax(pred_u_s.detach().float(),
+                                           dim=1)),
                 easy_threshold=easy_thresh, hard_threshold=hard_thresh,
                 temp=temp)
             loss = (loss_x + loss_u_s + contr) / 3.0

@@ -20,9 +20,11 @@ stage hook) is frozen and predicts in eval mode; the student learns from
 its hard labels on the *weak* view: ``loss = (loss_x + CE(weak, teacher
 labels)) / 2``, auxiliary heads weighted into ``loss_x``, no EMA. The
 spec keeps the teacher (``uses_ema``), so the checkpoints of stages 2 and 3
-hold it as ``model_ema``, as the JAX package's do. One process, one
-device: the JAX package's multi-host exchange of the ranking is not
-ported.
+hold it as ``model_ema``, as the JAX package's do. Under a process group
+each rank ranks its shards of the unlabeled split and the ranks exchange
+their rows (``parallel.dist.all_gather_rows``, the JAX package's
+multi-host exchange), so every rank sorts the same reliabilities and keeps
+the same reliable ids.
 """
 
 from __future__ import annotations
@@ -35,20 +37,19 @@ import torch
 
 from ..config import experiment_dir, resolve_device, test_cfg
 from ..data.dataset import build_seg_dataset
-from ..data.loader import get_dataloader
 from ..models import build_model_from_config
 from ..ops.losses import cross_entropy
 from ..ops.metrics import per_sample_miou, segmentation_stats
+from ..parallel.dist import all_gather_rows
 from ..utils import checkpoint as ckpt
 from ..utils.logging import log
 from .base import SPEC as BASE_SPEC, aux_loss_weights
 from .common import (
     AlgorithmSpec,
     amp_context,
+    eval_loader,
     full_fp32,
     load_eval_weights,
-    loader_worker_type,
-    loader_workers,
     prefetched,
     run_test,
     run_training,
@@ -59,9 +60,10 @@ def select_reliable(models: List[torch.nn.Module], loader, num_classes: int,
                     device: torch.device, amp):
     """Reliability ranking (reference stpp.py:45-88): per batch, each
     snapshot's eval-mode argmax, the per-sample mIoU of each earlier one
-    against the last, averaged; a stable descending sort; the top half.
-    Returns ``(reliable_ids, unreliable_ids, reliability)``, the last per
-    sample in dataset order."""
+    against the last, averaged; the ranks' rows exchanged; a stable
+    descending sort; the top half. Returns ``(reliable_ids,
+    unreliable_ids, reliability)``, the last per sample in dataset
+    order."""
     n = len(loader.dataset)
     mat = loader.step_indices()
     reliability = np.zeros(n)
@@ -78,6 +80,7 @@ def select_reliable(models: List[torch.nn.Module], loader, num_classes: int,
                                                         num_classes))
                 mious.append(per_sample_miou(inter, psum, tsum))
             reliability[mat[step].reshape(-1)] = np.mean(mious, axis=0)
+    all_gather_rows(mat.reshape(-1), [reliability])
     order = np.argsort(-reliability, kind="stable")
     half = len(order) // 2
     return order[:half].tolist(), order[half:].tolist(), reliability
@@ -98,11 +101,7 @@ def prepare_semisup(config: Dict[str, Any]) -> List[int]:
     device = resolve_device(config)
     ds = build_seg_dataset(config["dataset"], split="train_unlabeled",
                            mode="eval")
-    loader = get_dataloader(
-        ds, mode="eval", batch_size=config["dataloader"]["batch_size"],
-        seed=config["seed"],
-        num_workers=loader_workers(config["dataloader"]),
-        worker_type=loader_worker_type(config["dataloader"]))
+    loader = eval_loader(config, ds, mode="eval")
     stage1 = os.path.join(experiment_dir(config), "stage1")
     models = []
     for e in snapshot_epoch_list(config["train"]["epochs"]):

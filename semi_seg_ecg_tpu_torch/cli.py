@@ -23,9 +23,33 @@ line of JSON; ``serve`` serves an artifact over HTTP
 (``serving.make_http_server``). Each runs on the CUDA device unless the
 config says ``device: cpu`` (``serve``: the device the artifact was
 exported for).
+
+``train``, ``test`` and ``inference`` run data-parallel under ``torchrun``
+(one process per GPU, ``torchrun --nproc_per_node N -m
+semi_seg_ecg_tpu_torch.cli train -f CONFIG``, or ``scripts/torch_train.sh``)
+or SLURM: rank 0 prints and writes the files, and an entry that made the
+process group destroys it before it returns (a caller's group stays).
 """
 
+import contextlib
 import sys
+
+
+@contextlib.contextmanager
+def _process_group():
+    """Inside, the entry's run; after it, the process group the run made
+    (``parallel.dist.init_distributed_mode``) is destroyed, unless there
+    was one before."""
+    import torch.distributed as dist
+
+    from .parallel.dist import destroy_process_group
+
+    had_group = dist.is_initialized()
+    try:
+        yield
+    finally:
+        if not had_group:
+            destroy_process_group()
 
 
 def train_main(argv=None):
@@ -34,9 +58,10 @@ def train_main(argv=None):
 
     config = parse_train_args(argv if argv is not None else sys.argv[1:])
     algo = get_algorithm(config.get("algorithm"))
-    algo.train(config)
-    if config.get("test", False):
-        return algo.test(config)
+    with _process_group():
+        algo.train(config)
+        if config.get("test", False):
+            return algo.test(config)
     return None
 
 
@@ -46,7 +71,8 @@ def test_main(argv=None):
 
     config = parse_eval_args(argv if argv is not None else sys.argv[1:],
                              prog="ECG segmentation test")
-    return get_algorithm(config.get("algorithm")).test(config)
+    with _process_group():
+        return get_algorithm(config.get("algorithm")).test(config)
 
 
 def inference_main(argv=None):
@@ -55,7 +81,8 @@ def inference_main(argv=None):
 
     config = parse_eval_args(argv if argv is not None else sys.argv[1:],
                              prog="ECG segmentation inference")
-    return run_inference(config)
+    with _process_group():
+        return run_inference(config)
 
 
 def load_record(path: str):

@@ -147,9 +147,12 @@ def normalize_config(config: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def resolve_device(config: Dict[str, Any]):
-    """The torch device a normalized config asks for. Raises when it asks
-    for CUDA and there is none: an entry never drops to the CPU unasked."""
+    """The torch device a normalized config asks for: under a process
+    group, the rank's card ``cuda:{LOCAL_RANK}``. Raises when it asks for
+    CUDA and there is none, or when the host has no card of that index:
+    an entry never drops to the CPU unasked."""
     import torch
+    import torch.distributed as dist
 
     device = config.get("device") or "cuda"
     if device == "cuda" and not torch.cuda.is_available():
@@ -157,6 +160,10 @@ def resolve_device(config: Dict[str, Any]):
             "config asks for the CUDA device (device: cuda/gpu/tpu or no "
             "device key) but torch.cuda.is_available() is False; set "
             "device: cpu to run on the CPU")
+    if device == "cuda" and dist.is_initialized():
+        from .parallel.dist import cuda_device
+
+        return cuda_device()
     return torch.device(device)
 
 

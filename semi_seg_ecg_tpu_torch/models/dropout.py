@@ -6,6 +6,10 @@ trainer fills with one ``torch.Generator`` on the training device
 (:func:`use_generator`) and reseeds every step, so a run's masks follow
 from its ``seed`` and not from PyTorch's global RNG. With the slot empty
 the global RNG is used. Both modules are the identity in eval mode.
+
+Under a process group a mask is drawn for the global batch and sliced to
+the rank's rows (``parallel.dist.global_rows``), as the JAX package's
+masks under a data mesh are drawn for the global array.
 """
 
 from __future__ import annotations
@@ -15,10 +19,13 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..parallel.dist import global_rows
+
 
 def _keep_mask(x: torch.Tensor, shape, keep: float,
                generator: Optional[torch.Generator]) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, device=x.device) < keep
+    return global_rows(lambda s: torch.rand(s, generator=generator,
+                                            device=x.device), shape) < keep
 
 
 class Dropout(nn.Module):

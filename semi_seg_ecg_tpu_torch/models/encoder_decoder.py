@@ -8,7 +8,8 @@ output also holds the cross-entropy ``loss`` against ``labels``. Auxiliary
 heads (attached by ``build_model_from_config`` for training builds only)
 run in train mode and add ``aux_seg_logits``, one entry per head, and with
 labels ``loss_aux``, one loss per head: the JAX package's correction of the
-reference's auxiliary-head block. The ReCo latent projection is not ported.
+reference's auxiliary-head block. With ``return_latent`` it holds the ReCo
+projection's ``latent`` too.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.nn as nn
 
 from ..ops.interpolate import linear_interpolate
 from ..ops.losses import cross_entropy
+from .norm import TorchBatchNorm
 
 
 class LatentProjection(nn.Sequential):
@@ -34,7 +36,7 @@ class LatentProjection(nn.Sequential):
             nn.Conv1d(in_channels, out_dim, 3, padding=1, bias=False),
             nn.ReLU(),
             # flax's momentum 0.9 is torch's 0.1
-            nn.BatchNorm1d(out_dim, eps=1e-5, momentum=0.1),
+            TorchBatchNorm(out_dim, eps=1e-5, momentum=0.1),
             nn.Conv1d(out_dim, out_dim, 1, bias=False))
 
 

@@ -15,7 +15,10 @@ the tests make the draws with the same ``jax.random`` calls and keys the
 JAX op makes, hand them to ``apply`` and hold its output against the JAX
 op's. Draws are made in the shapes and (for the uniform ones) on the
 ``[0, 1)`` scale that the JAX op draws, and the arithmetic after them
-follows the JAX op operation for operation.
+follows the JAX op operation for operation. Every draw has the batch as
+its leading axis; under a process group it is drawn for the global batch
+and sliced to the rank's rows (``parallel.dist.global_rows``), so a
+rank's draws are those of its rows in one process holding every rank's.
 
 Ported ops: ``random_resize_crop`` (the time-axis gathers go through the
 gather kernel, ``ops/gather1d.py``), ``amplitude_scaling``,
@@ -38,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.dist import global_rows
 from .gather1d import monotonic_gather, monotonic_gather_pair
 from .select import exact_quantiles
 
@@ -52,11 +56,13 @@ NOT_YET_PORTED = (
 
 
 def _rand(gen: torch.Generator, shape) -> torch.Tensor:
-    return torch.rand(shape, generator=gen, device=gen.device)
+    return global_rows(lambda s: torch.rand(s, generator=gen,
+                                            device=gen.device), shape)
 
 
 def _randn(gen: torch.Generator, shape) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device)
+    return global_rows(lambda s: torch.randn(s, generator=gen,
+                                             device=gen.device), shape)
 
 
 def _gumbel(gen: torch.Generator, shape) -> torch.Tensor:

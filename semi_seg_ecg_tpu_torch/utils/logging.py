@@ -30,7 +30,8 @@ class SmoothedValue:
     """Track a series of values with a windowed median/avg and global stats.
 
     Mirrors misc.SmoothedValue (misc.py:14-73) minus the torch.distributed
-    sync: the port trains on one device, so there is nothing to reduce.
+    sync: the trainer all-reduces each step's metrics before they get
+    here, so every rank's meters hold the global means.
     """
 
     def __init__(self, window_size: int = 20, fmt: str = "{median:.4f} ({global_avg:.4f})"):
@@ -100,7 +101,19 @@ class MetricLogger:
         return {k: m.global_avg for k, m in self.meters.items()}
 
 
-def log(*args) -> None:
+_ENABLED = True
+
+
+def set_logging_enabled(enabled: bool) -> None:
+    """Rank-0-only printing: the process group turns the other ranks'
+    :func:`log` off (the reference's ``setup_for_distributed``)."""
+    global _ENABLED
+    _ENABLED = enabled
+
+
+def log(*args, force: bool = False) -> None:
+    if not (_ENABLED or force):
+        return
     now = datetime.datetime.now().strftime("[%Y-%m-%d %H:%M:%S]")
     print(now, *args, flush=True)
 

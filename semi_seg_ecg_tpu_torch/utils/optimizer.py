@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, List
 
 import torch
 
+from ..parallel.dist import all_reduce_grads_
 from . import lr_sched
 
 
@@ -41,7 +42,8 @@ def make_lr_schedule(train_cfg: Dict[str, Any],
 
 def resolve_lr(config: Dict[str, Any], mesh_data_size: int = 1) -> None:
     """Linear-scaling rule: ``lr = blr · eff_batch / 256`` when ``lr`` is
-    unset. Mutates the config in place like the reference."""
+    unset, the effective batch counting every data-parallel replica's
+    ``batch_size``. Mutates the config in place like the reference."""
     train_cfg = config["train"]
     eff = config["dataloader"]["batch_size"]
     eff *= train_cfg.get("accum_iter", 1)
@@ -65,7 +67,8 @@ def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float) -> None:
 
 class TrainOptimizer:
     """A ``torch.optim`` optimizer driven by the schedule: :meth:`step`
-    sets the lr of update ``count``, clips, steps and counts."""
+    sets the lr of update ``count``, averages the gradients over the
+    process group's ranks, clips, steps and counts."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float], max_norm=None):
@@ -82,6 +85,9 @@ class TrainOptimizer:
         lr = self.schedule(self.count)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+        # the mean over the ranks first, so every rank clips and applies
+        # the global batch's gradient (one rank: nothing to do)
+        all_reduce_grads_(self.params)
         if self.max_norm is not None:
             clip_by_global_norm_(self.params, self.max_norm)
         self.optimizer.step()

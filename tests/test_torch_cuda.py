@@ -719,3 +719,70 @@ def test_serving_artifact_on_the_card(cuda, tmp_path):
             assert fa.LAUNCHES == before + 2
             assert got.is_cuda and got.shape == (n, 4, 500)
             torch.testing.assert_close(got, infer(x), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_two_ranks_step_as_one_process_holding_both_shards(cuda, tmp_path):
+    """Data parallelism on the card: three fp32 steps of the vit_tiny
+    FixMatch recipe (depth cut to 2, flash attention, device augmentation,
+    dropout off, SGD with momentum) under two ranks of
+    ``tests/torch_dist_worker.py`` with 8 rows each (NCCL on two cards, else
+    gloo with CUDA tensors on one) against one process holding both shards:
+    losses within 1e-5 relative, parameters and BN statistics within 5e-4
+    relative + 1e-5 (the JAX package's bound for a sharded step), the two
+    ranks' states equal, each rank launching per step the kernels of its
+    own rows (two passes of 2 flash forwards, one of 2 backwards, 3
+    gathers)."""
+    import copy
+    import os
+
+    import yaml
+
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, init_model
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+    # tests/ is on the path of a pytest run (a package named "tests" that
+    # another distribution installs would shadow "tests.torch_dist_worker")
+    from torch_dist_worker import run_ranks
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "base", "vit_tiny",
+        "fixmatch.yaml")
+    with open(path) as f:
+        cfg = normalize_config(yaml.safe_load(f))
+    cfg["precision"] = "fp32"
+    cfg["backbone"]["vit_tiny"].update(depth=2, out_indices=[1],
+                                       attention_impl="flash")
+    cfg["decode_head"]["FCNHead"].update(in_index=0, dropout_ratio=0.0)
+    cfg["dataset"]["device_augment"] = True
+    cfg["train"].update(warmup_epochs=0, optimizer="sgd", conf_thresh=0.5,
+                        optimizer_kwargs={"momentum": 0.9})
+    rng = np.random.default_rng(0)
+    x = lambda: rng.standard_normal((16, 1, 2500)).astype(np.float32)
+    batches = [{"ecg": x(), "target": rng.integers(0, 4, (16, 2500)),
+                "ecg_u_w": x()} for _ in range(3)]
+    model = init_model(cfg, torch.device("cpu"))
+    run = {"config": cfg, "batches": batches,
+           "states": {"model": {k: v.numpy() for k, v in
+                                model.state_dict().items()}}}
+    two_cards = torch.cuda.device_count() >= 2
+    ranks = run_ranks([("steps", {"runs": [run], "device": "cuda"})],
+                      str(tmp_path), timeout=300, device="cuda",
+                      backend="nccl" if two_cards else "gloo",
+                      one_card=not two_cards)
+    trainer = Trainer(copy.deepcopy(cfg), fixmatch.SPEC, cuda, 3,
+                      model=model.to(cuda))
+    want = [{k: v.item() for k, v in trainer.train_step(
+        {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}).items()}
+        for b in batches]
+    first, second = (r[0][0] for r in ranks)
+    assert first["launches"] == second["launches"] == [[4, 2, 3]] * 3
+    for a, b in zip(first["metrics"], want):
+        for k in ("loss", "loss_x", "loss_u_s"):
+            assert a[k] == pytest.approx(b[k], rel=1e-5), k
+    for k, v in trainer.model.state_dict().items():
+        got = first["states"]["model"][k]
+        np.testing.assert_array_equal(got, second["states"]["model"][k])
+        if v.is_floating_point():
+            np.testing.assert_allclose(got, v.cpu().numpy(), rtol=5e-4,
+                                       atol=1e-5, err_msg=k)
