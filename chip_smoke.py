@@ -96,7 +96,22 @@ non-zero exit when it fails:
    losses, files from rank 0 only, the checkpoint served, the sharded
    validation metrics equal to one process's evaluation of it; ST++'s
    ranking under 2 ranks equal to one process's; with NCCL, the bf16 step's
-   ms and its collectives' device time.
+   ms and its collectives' device time;
+11. remat, layer decay and freezing, convergence. Three fp32 FixMatch
+   steps of the full-width ViT (flash attention, device augmentation,
+   dropout and drop-path on) and ResNet18 recipes with ``remat`` off and
+   on: launches per step (the recompute adds a flash forward per block:
+   36 / 12 / 3 against 24 / 12 / 3), ms per step and peak memory; in a
+   process of its own under deterministic algorithms (``--remat``) remat
+   on equal to off bit for bit (losses, gradients, parameters, BatchNorm
+   statistics), a second off run too. Three bf16 steps with
+   ``layer_decay: 0.75`` and ``frozen_stages: 2`` (ViT) and with
+   ``mode: freeze_backbone`` and ``frozen_stages: 1`` (ResNet18): frozen
+   parameters and the eval-mode stages' BatchNorm statistics
+   bit-unchanged and in no param group, every group's lr the schedule's
+   times its scale, AdamW's last update replayed from its state.
+   ``tools/validate_ssl``'s base and FixMatch at seed 0 (bf16, 25 epochs):
+   fails when FixMatch lies outside its tolerance of the JAX row.
 
 The line before the last prints the card's name and power limit as
 nvidia-smi gives them; the line before that, a JSON object with one entry
@@ -107,6 +122,7 @@ to ``build/chip_smoke/chip_smoke.json``.
 import contextlib
 import copy
 import functools
+import gc
 import json
 import math
 import os
@@ -3278,6 +3294,376 @@ def phase_parallel(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: remat, layer decay and freezing, the convergence gate
+# ---------------------------------------------------------------------------
+
+# remat on against off: REMAT_STEPS fp32 FixMatch steps of each recipe from
+# seed 0 on the same batches, dropout and drop-path on. Equality: in a
+# process of its own under PyTorch's deterministic algorithms (and cuBLAS's
+# fixed workspace, CUBLAS_WORKSPACE_CONFIG), because the card's default
+# algorithms need not repeat a run bit for bit (atomics in some backward
+# kernels, which FixMatch's mask amplifies); there the recompute runs the
+# same kernels on the same inputs, so remat on must equal off bit for bit
+# (losses, the last step's gradients, parameters, BatchNorm statistics),
+# and a second off run equal the first. Launches, step times and peak
+# memory: in this process, on the default algorithms
+REMAT_STEPS = 3
+REMAT_TIMEOUT = 300
+REMAT_FAMILIES = ("vit_tiny", "resnet18")
+VIT_DROPOUT = {"drop_out_rate": 0.1, "drop_path_rate": 0.1}
+# the optimizer options: OPTION_STEPS bf16 steps; the ViT with layer decay
+# and its first blocks frozen, ResNet18 with its backbone frozen and its
+# stem and first stage in eval mode; AdamW's last update replayed from its
+# state and the group's lr within OPTION_REPLAY_RTOL of max |parameter|
+OPTION_STEPS = 3
+LAYER_DECAY, VIT_FROZEN_STAGES, RESNET_FROZEN_STAGES = 0.75, 2, 1
+OPTION_REPLAY_RTOL = 1e-6
+# the convergence gate: tools/validate_ssl's recipe at seed 0; the phase
+# fails when FixMatch lies outside its tolerance
+SSL_GATE, SSL_SEED, SSL_EPOCHS = ("base", "fixmatch"), 0, 25
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def remat_batches(torch, seed, steps):
+    """Device batches of the FixMatch step with device augmentation (the
+    strong view is made on the card)."""
+    return [{k: v for k, v in device_batch(torch, seed + s).items()
+             if k != "ecg_u_s"} for s in range(steps)]
+
+
+def option_steps(torch, cfg, batches, model=None):
+    """FixMatch steps of ``cfg`` on the card (a model from seed 0 unless
+    given): per step the metrics, the kernel launches (counted from 0 just
+    before the step and read just after) and the wall ms; the peak memory
+    of the steps and the trainer."""
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, init_model
+
+    device = torch.device("cuda")
+    if model is None:
+        model = init_model(cfg, device)
+    trainer = Trainer(copy.deepcopy(cfg), fixmatch.SPEC, device, 4,
+                      model=model)
+    # an earlier run's trainer (a reference cycle through its step) goes
+    # before the peak is reset
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for batch in batches:
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append({"launches": read_counts(), "ms": ms,
+                      "metrics": {k: v.item() for k, v in metrics.items()}})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    return steps, peak, trainer
+
+
+def state_excess(got, want):
+    """The worst tensor of two state_dicts: max |got - want| / max |want|
+    (integers: equal or inf)."""
+    worst, name = 0.0, None
+    for k, v in want.items():
+        if v.is_floating_point():
+            err = ((got[k] - v).abs().max().item()
+                   / max(v.abs().max().item(), 1e-30))
+        else:
+            err = 0.0 if torch_equal(got[k], v) else math.inf
+        if err > worst or name is None:
+            worst, name = err, k
+    return worst, name
+
+
+def torch_equal(a, b):
+    return bool((a == b).all().item())
+
+
+def remat_base(family):
+    """The family's FixMatch recipe of phase 11 (``write_train_config``),
+    normalized, with the lockstep's confidence threshold."""
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    _, config = write_train_config(family, "fixmatch")
+    base = normalize_config(config)
+    base["train"]["conf_thresh"] = (RESNET_LOCKSTEP_CONF_THRESH
+                                    if family == "resnet18"
+                                    else LOCKSTEP_CONF_THRESH)
+    return base
+
+
+def remat_run(torch, family, base, remat, batches):
+    """REMAT_STEPS fp32 FixMatch steps with remat on or off: the steps
+    (launches held to the prediction: the recompute adds one flash
+    forward per block of the student pass), the peak memory and the
+    trainer."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+
+    cfg = copy.deepcopy(base)
+    cfg["precision"] = "fp32"
+    cfg["backbone"][family]["remat"] = remat
+    if family == "vit_tiny":
+        cfg["backbone"][family].update(VIT_DROPOUT)
+    with full_fp32():
+        steps, peak, trainer = option_steps(torch, cfg, batches)
+    depth = DEPTH if family == "vit_tiny" else 0
+    want = {"flash_attention_fwd": (3 if remat else 2) * depth,
+            "flash_attention_bwd": depth, "gather1d": 3}
+    got = [s["launches"] for s in steps]
+    if any(g != want for g in got):
+        raise SystemExit(f"phase 11 failed: {family} remat {remat} "
+                         f"launched {got}, not {want} a step")
+    return steps, peak, trainer
+
+
+def check_remat(torch, family, base):
+    """Remat off and on on the card's default algorithms: launches per
+    step, ms per step and peak memory of each."""
+    batches = remat_batches(torch, 20, REMAT_STEPS)
+    result = {}
+    for label, remat in (("off", False), ("on", True)):
+        steps, peak, trainer = remat_run(torch, family, base, remat,
+                                         batches)
+        del trainer
+        result[label] = {"peak_mib": peak,
+                         "ms_per_step": [s["ms"] for s in steps],
+                         "launches_per_step": steps[-1]["launches"]}
+        log(f"  remat {label}, {family} FixMatch fp32: launches per step "
+            f"{steps[-1]['launches']}, peak {peak:.1f} MiB, ms per step "
+            f"{[round(s['ms'], 3) for s in steps]}")
+    return result
+
+
+def remat_equal(torch, family):
+    """Remat off, on and off again under deterministic algorithms (the
+    ``--remat`` process): every loss, the last step's gradients and the
+    whole state of on and of off again equal off's bit for bit."""
+    base = remat_base(family)
+    batches = remat_batches(torch, 20, REMAT_STEPS)
+    runs = {}
+    for label, remat in (("off", False), ("on", True), ("off_again", False)):
+        with cudnn_deterministic(torch):
+            steps, _, trainer = remat_run(torch, family, base, remat,
+                                          batches)
+        model = trainer.model
+        runs[label] = ([s["metrics"] for s in steps], {
+            **{k: v.detach().clone() for k, v in model.state_dict().items()},
+            **{f"{k}.grad": p.grad.detach().clone()
+               for k, p in model.named_parameters() if p.grad is not None}})
+        del trainer, model
+    result = {}
+    for other in ("off_again", "on"):
+        losses_equal = runs[other][0] == runs["off"][0]
+        worst, name = state_excess(runs[other][1], runs["off"][1])
+        result[other] = {"losses_equal": losses_equal, "state_rel": worst,
+                         "state_key": name}
+        log(f"  remat {other} vs off, {family}, deterministic algorithms: "
+            f"losses {'equal' if losses_equal else 'DIFFER'}, state and "
+            f"gradients within {worst:.3g} of max|off| ({name})")
+        if not (losses_equal and worst == 0.0):
+            raise SystemExit(f"phase 11 failed: {family} remat {other} "
+                             f"differs from remat off ({name}: {worst})")
+    return result
+
+
+def remat_main(out_path):
+    """Phase 11's equality runs (``chip_smoke.py --remat OUT``, started
+    with CUBLAS_WORKSPACE_CONFIG set): under deterministic algorithms,
+    :func:`remat_equal` of each family, the results to ``OUT``."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    result = {family: remat_equal(torch, family) for family in REMAT_FAMILIES}
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_remat_equal():
+    """:func:`remat_main` in a process of its own, killed past
+    REMAT_TIMEOUT; its results."""
+    out = os.path.join(WORK, "remat_equal.json")
+    try:
+        done = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--remat", out],
+            cwd=REPO, env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+            timeout=REMAT_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"phase 11 failed: the remat equality runs took "
+                         f"more than {REMAT_TIMEOUT} s")
+    if done.returncode != 0:
+        raise SystemExit(f"phase 11 failed: the remat equality runs exited "
+                         f"{done.returncode}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def check_options(torch, family, base):
+    """OPTION_STEPS bf16 FixMatch steps with the optimizer options: the
+    frozen parameters (and the BatchNorm statistics of the stages in eval
+    mode) bit-unchanged and out of the optimizer, the rest moved; every
+    group's lr the schedule's times its ``lr_scale``, which is the layer
+    decay factor of each of its parameters; AdamW's last update replayed
+    from its state and the group's lr."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import init_model
+    from semi_seg_ecg_tpu_torch.utils.lr_decay import param_lr_scales_and_wd
+    from semi_seg_ecg_tpu_torch.utils.optimizer import frozen_parameter_names
+
+    cfg = copy.deepcopy(base)
+    cfg["precision"] = "bf16"
+    if family == "vit_tiny":
+        cfg["train"]["layer_decay"] = LAYER_DECAY
+        cfg["backbone"][family]["frozen_stages"] = VIT_FROZEN_STAGES
+        eval_prefixes = ()
+    else:
+        cfg["mode"] = "freeze_backbone"
+        cfg["backbone"][family]["frozen_stages"] = RESNET_FROZEN_STAGES
+        eval_prefixes = ("backbone.stem.", "backbone.layer1.")
+    device = torch.device("cuda")
+    model = init_model(cfg, device)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    frozen = frozen_parameter_names(cfg, model)
+    scales = (param_lr_scales_and_wd(model, LAYER_DECAY)
+              if family == "vit_tiny" else {})
+    batches = remat_batches(torch, 30, OPTION_STEPS)
+    steps, peak, trainer = option_steps(torch, cfg, batches[:-1], model)
+    opt = trainer.optimizer
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    prev = {n: p.detach().clone() for n, p in model.named_parameters()}
+    reset_counts()
+    last = trainer.train_step(batches[-1])
+    torch.cuda.synchronize()
+    launches_last = read_counts()
+    in_groups = set()
+    worst_replay, worst_name = -1.0, None
+    b1, b2 = opt.optimizer.defaults["betas"]
+    eps = opt.optimizer.defaults["eps"]
+    for group in opt.optimizer.param_groups:
+        want_lr = opt.schedule(opt.count - 1) * group["lr_scale"]
+        if group["lr"] != want_lr:
+            raise SystemExit(f"phase 11 failed: a group's lr {group['lr']} "
+                             f"is not {want_lr}")
+        for p in group["params"]:
+            name = name_of[id(p)]
+            in_groups.add(name)
+            if scales and scales[name][0] != group["lr_scale"]:
+                raise SystemExit(f"phase 11 failed: {name} has lr scale "
+                                 f"{group['lr_scale']}, not "
+                                 f"{scales[name][0]}")
+            st = opt.optimizer.state[p]
+            t = float(st["step"])
+            lr, wd = group["lr"], group["weight_decay"]
+            denom = (st["exp_avg_sq"].sqrt() / math.sqrt(1 - b2 ** t)) + eps
+            replay = (prev[name] * (1 - lr * wd)
+                      - (lr / (1 - b1 ** t)) * st["exp_avg"] / denom)
+            err = ((replay - p.detach()).abs().max().item()
+                   / max(p.detach().abs().max().item(), 1e-30))
+            if err > worst_replay:
+                worst_replay, worst_name = err, name
+    after = model.state_dict()
+    moved_frozen = [k for k in frozen if not torch_equal(after[k], before[k])]
+    moved_eval_stats = [k for k in after if k.startswith(eval_prefixes)
+                        and "running" in k
+                        and not torch_equal(after[k], before[k])]
+    trainable = [n for n, _ in model.named_parameters() if n not in frozen]
+    still = [n for n in trainable if torch_equal(after[n], before[n])]
+    moved_stats = sorted({k.rsplit(".", 2)[0] for k in after
+                          if "running_mean" in k and k.startswith("backbone.")
+                          and not torch_equal(after[k], before[k])})
+    options = (f"layer_decay {LAYER_DECAY}, " if scales else
+               "mode: freeze_backbone, ")
+    log(f"  {family} {options}"
+        f"frozen_stages {cfg['backbone'][family]['frozen_stages']}, bf16: "
+        f"{len(frozen)} frozen tensors unchanged and in no group "
+        f"({len(in_groups)} in {len(opt.optimizer.param_groups)} groups), "
+        f"{len(trainable) - len(still)}/{len(trainable)} trainable moved, "
+        f"AdamW's last update replayed within {worst_replay:.3g} "
+        f"({worst_name}); backbone BN stats moved in {len(moved_stats)} "
+        f"norms; last step's launches {launches_last}; peak {peak:.1f} MiB")
+    if (moved_frozen or moved_eval_stats or in_groups & frozen
+            or any(p.requires_grad for n, p in model.named_parameters()
+                   if n in frozen)
+            or not frozen or worst_replay > OPTION_REPLAY_RTOL
+            or not math.isfinite(last["loss"].item())
+            or (family == "vit_tiny"
+                and "backbone.cls_embedding" in still)):
+        raise SystemExit(f"phase 11 failed: {family} options: frozen moved "
+                         f"{moved_frozen[:3]}, eval-mode stats moved "
+                         f"{moved_eval_stats[:3]}, replay {worst_replay}, "
+                         f"unmoved trainable {still[:3]}")
+    return {"frozen_tensors": len(frozen), "groups": [
+                {"lr_scale": g["lr_scale"], "weight_decay": g["weight_decay"],
+                 "lr": g["lr"], "params": len(g["params"])}
+                for g in opt.optimizer.param_groups],
+            "unmoved_trainable": still, "replay_rel": worst_replay,
+            "replay_param": worst_name, "bn_stats_moved": moved_stats,
+            "launches_last_step": launches_last, "peak_mib": peak,
+            "metrics": [s["metrics"] for s in steps]
+            + [{k: v.item() for k, v in last.items()}]}
+
+
+def check_convergence(torch):
+    """``tools/validate_ssl``'s runs of SSL_GATE at SSL_SEED for
+    SSL_EPOCHS epochs on the card (bf16, the JAX rows' global batch):
+    fails when FixMatch lies outside its tolerance of the JAX row."""
+    from semi_seg_ecg_tpu_torch.tools import validate_ssl
+
+    root = os.path.join(WORK, "ssl")
+    t0 = time.perf_counter()
+    data = validate_ssl.make_split(root)
+    lines = [validate_ssl.run(algo, SSL_SEED, root, data, SSL_EPOCHS,
+                              "cuda") for algo in SSL_GATE]
+    rows = validate_ssl.summarize({line["algorithm"]: [line["MeanIoU"]]
+                                   for line in lines})
+    wall = time.perf_counter() - t0
+    for line in lines:
+        row = rows[line["algorithm"]]
+        log(f"  validate_ssl {line['algorithm']} seed {SSL_SEED}, "
+            f"{SSL_EPOCHS} epochs, batch {line['batch_size']}, bf16: test "
+            f"MeanIoU {line['MeanIoU']:.4f} against the JAX package's "
+            f"{row['jax_mean']} (tolerance {row['tol']:.4f}: "
+            f"{'within' if row['within'] else 'OUTSIDE'}), "
+            f"{line['wall_s']:.1f} s")
+    log(f"  convergence gate in {wall:.1f} s")
+    if not rows["fixmatch"]["within"]:
+        raise SystemExit("phase 11 failed: FixMatch's test MeanIoU "
+                         f"{rows['fixmatch']['mean']:.4f} lies outside "
+                         f"{rows['fixmatch']['tol']} of the JAX package's "
+                         f"{rows['fixmatch']['jax_mean']}")
+    return {"runs": lines, "rows": rows, "seconds": wall}
+
+
+def phase_remat(torch):
+    """Phase 11: remat on and off at full width, the optimizer options,
+    the convergence gate."""
+    t_phase = time.perf_counter()
+    log("phase 11: remat, layer decay and freezing, convergence")
+    result = {"remat": {}, "options": {}}
+    for family in REMAT_FAMILIES:
+        base = remat_base(family)
+        result["remat"][family] = check_remat(torch, family, base)
+        result["options"][family] = check_options(torch, family, base)
+    result["remat_equal"] = run_remat_equal()
+    result["convergence"] = check_convergence(torch)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11 in {result['seconds']:.1f} s")
+    return result
+
+
+# ---------------------------------------------------------------------------
 # Report
 # ---------------------------------------------------------------------------
 
@@ -3331,6 +3717,7 @@ def main():
                             "best-MeanIoU.ckpt"),
         os.path.join(WORK, "resnet18_seed0.pth"))
     parallel = phase_parallel(torch)
+    remat = phase_remat(torch)
     # each path's launches, counted from 0 just before it and read after
     by_path = {
         "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
@@ -3353,7 +3740,11 @@ def main():
         **{f"dp_{family}_fixmatch_per_rank_step": r["launches_per_rank_step"]
            for family, r in parallel["steps"].items()},
         **{f"dp_vit_tiny_{algorithm}_per_rank": r["launches_per_rank"]
-           for algorithm, r in parallel["entries"].items()}}
+           for algorithm, r in parallel["entries"].items()},
+        # phase 11: one step's launches, remat off and on
+        **{f"remat_{family}_fixmatch_{label}_per_step": r[label][
+            "launches_per_step"]
+           for family, r in remat["remat"].items() for label in ("off", "on")}}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -3365,7 +3756,8 @@ def main():
                    "algorithms": algorithm_results,
                    "reco_stpp": reco_stpp, "longrec": longrec,
                    "deploy": deploy, "parallel": parallel,
-                   "seconds": time.time() - t_start}, f, indent=1)
+                   "remat": remat, "seconds": time.time() - t_start}, f,
+                  indent=1)
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -3378,4 +3770,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--remat"]:
+        sys.exit(remat_main(*sys.argv[2:]))
     sys.exit(main())

@@ -168,6 +168,20 @@ def amp_context(config: Dict[str, Any], device: torch.device) -> Callable:
     return lambda: torch.autocast(device.type, dtype=dtype, enabled=enabled)
 
 
+def forward_parts(model: torch.nn.Module, parts, **kwargs):
+    """``model(cat(parts), **kwargs)``: one forward of the parts' rows
+    (BatchNorm statistics over all of them) whose per-row draws under a
+    process group are those one process holding every rank's rows of each
+    part makes (``parallel.dist.concatenated_rows``), which needs parts of
+    equal rows."""
+    if pdist.get_world_size() > 1 and len({p.shape[0] for p in parts}) > 1:
+        raise ValueError("a concatenated batch under a process group needs "
+                         "parts of equal rows, not "
+                         f"{[p.shape[0] for p in parts]}")
+    with pdist.concatenated_rows(len(parts)):
+        return model(torch.cat(parts, dim=0), **kwargs)
+
+
 def step_seed(seed: int, step: int, stream: int = 0) -> int:
     """A generator seed for one step of a run: distinct across steps,
     seeds and streams, the same on every replay."""

@@ -19,7 +19,7 @@ import torch
 
 from ..ops.losses import cross_entropy
 from .base import aux_loss_weights
-from .common import AlgorithmSpec, run_test, run_training
+from .common import AlgorithmSpec, forward_parts, run_test, run_training
 
 
 def make_train_step(trainer):
@@ -33,7 +33,7 @@ def make_train_step(trainer):
         num_lb = ecg_x.shape[0]
         with amp():
             model.train()
-            out = model(torch.cat([ecg_x, ecg_u_w], dim=0))
+            out = forward_parts(model, [ecg_x, ecg_u_w])
             pred_x = out["seg_logits"][:num_lb]
             pred_u = out["seg_logits"][num_lb:]
             loss_x = cross_entropy(pred_x, mask_x)

@@ -12,7 +12,7 @@ import torch
 
 from ..ops.losses import cross_entropy
 from .base import aux_loss_weights
-from .common import AlgorithmSpec, run_test, run_training
+from .common import AlgorithmSpec, forward_parts, run_test, run_training
 
 
 def make_train_step(trainer):
@@ -35,7 +35,7 @@ def make_train_step(trainer):
                 conf_mask = (conf_u_w >= conf_thresh).float()
 
             model.train()
-            out = model(torch.cat([ecg_x, ecg_u_s], dim=0))
+            out = forward_parts(model, [ecg_x, ecg_u_s])
             pred_x = out["seg_logits"][:num_lb]
             pred_u_s = out["seg_logits"][num_lb:]
             loss_x = cross_entropy(pred_x, mask_x)

@@ -29,7 +29,7 @@ from ..models.norm import batch_statistics_only
 from ..ops.losses import cross_entropy, soft_cross_entropy
 from ..utils.train_state import ema_update
 from .base import aux_loss_weights
-from .common import AlgorithmSpec, run_test, run_training
+from .common import AlgorithmSpec, forward_parts, run_test, run_training
 
 
 def make_train_step(trainer):
@@ -51,7 +51,7 @@ def make_train_step(trainer):
                 prob_u_w = torch.softmax(logits_u_w.float(), dim=1)
 
             model.train()
-            out = model(torch.cat([ecg_x, ecg_u_s], dim=0))
+            out = forward_parts(model, [ecg_x, ecg_u_s])
             pred_x = out["seg_logits"][:num_lb]
             pred_u_s = out["seg_logits"][num_lb:]
             loss_x = cross_entropy(pred_x, mask_x)

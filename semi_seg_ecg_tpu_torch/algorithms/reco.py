@@ -38,7 +38,7 @@ from ..ops.losses import cross_entropy, soft_cross_entropy
 from ..parallel.dist import gather_batch
 from ..utils.train_state import ema_update
 from .base import aux_loss_weights
-from .common import AlgorithmSpec, run_test, run_training
+from .common import AlgorithmSpec, forward_parts, run_test, run_training
 
 
 def make_train_step(trainer):
@@ -67,8 +67,8 @@ def make_train_step(trainer):
                              >= conf_thresh).float()
 
             model.train()
-            out = model(torch.cat([ecg_x, ecg_u_s], dim=0),
-                        return_latent=True)
+            out = forward_parts(model, [ecg_x, ecg_u_s],
+                                return_latent=True)
             pred_x = out["seg_logits"][:num_lb]
             pred_u_s = out["seg_logits"][num_lb:]
             latent_u_s = out["latent"][num_lb:]

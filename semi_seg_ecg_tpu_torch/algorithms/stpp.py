@@ -48,6 +48,7 @@ from .common import (
     AlgorithmSpec,
     amp_context,
     eval_loader,
+    forward_parts,
     full_fp32,
     load_eval_weights,
     prefetched,
@@ -137,7 +138,7 @@ def make_train_step(trainer):
                 mask_u_w = torch.argmax(teacher(ecg_u_w)["seg_logits"],
                                         dim=1)
             model.train()
-            out = model(torch.cat([ecg_x, ecg_u_w], dim=0))
+            out = forward_parts(model, [ecg_x, ecg_u_w])
             pred_x = out["seg_logits"][:num_lb]
             pred_u = out["seg_logits"][num_lb:]
             loss_x = cross_entropy(pred_x, mask_x)

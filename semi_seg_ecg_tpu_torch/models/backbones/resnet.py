@@ -21,7 +21,8 @@ gradient to the earliest element, as the JAX package's closed-form VJP
 (``ops/pooling.py``) does. The stem and the first ``frozen_stages`` stages
 stay in eval mode in training (batch statistics neither used nor updated),
 as in the JAX package; freezing their parameters is the optimizer's job.
-``remat`` (training) is not ported yet and raises. ``quantize='int8'``
+With ``remat`` each residual block is checkpointed (``models/remat.py``),
+as the JAX package wraps each in ``nn.remat``. ``quantize='int8'``
 (serving) runs every convolution in int8 (``models/quant_layers.py``), as
 the JAX package quantizes every ``ConvBN``.
 """
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 
 from ..norm import TorchBatchNorm
 from ..quant_layers import conv1d
+from ..remat import remat_call
 
 
 def _conv(in_channels: int, features: int, kernel_size: int,
@@ -221,15 +223,16 @@ class ResNet1D(nn.Module):
             getattr(self, f"layer{i}").train(False)
         return self
 
+    def no_weight_decay(self) -> set:
+        return set()
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        if self.remat and self.training and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "remat (activation checkpointing) is not yet ported to the "
-                "torch package's training")
         x = self.maxpool(self.stem(x))
         outs = []
         for i in range(self.num_layers):
-            x = getattr(self, f"layer{i + 1}")(x)
+            for block in getattr(self, f"layer{i + 1}"):
+                x = (remat_call(block, x) if self.remat and self.training
+                     else block(x))
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)

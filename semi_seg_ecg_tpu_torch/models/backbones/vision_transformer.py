@@ -10,6 +10,8 @@ In training, dropout and DropPath draw from the generator the trainer sets
 (``models/dropout.py``), the flash path is differentiable through both
 kernels (``ops/flash_attention.flash_attention``), and the first
 ``frozen_stages`` blocks run deterministically, as in the JAX package.
+With ``remat`` each block is checkpointed (``models/remat.py``), as the
+JAX package wraps each in ``nn.remat``.
 
 Module names follow the reference's torch keys (``to_patch_embedding.{1,2,3}``,
 ``block{i}.attn.norm``, ``block{i}.attn.fn.to_qkv``, ``...to_out.0``,
@@ -37,6 +39,7 @@ from ...ops.attention import dense_attention
 from ...ops.flash_attention import flash_attention
 from ..dropout import DropPath, Dropout
 from ..quant_layers import linear
+from ..remat import remat_call
 
 LN_EPS = 1e-6
 
@@ -253,12 +256,10 @@ class VisionTransformer1D(nn.Module):
             getattr(self, f"block{i}").train(False)
         return self
 
+    def no_weight_decay(self) -> set:
+        return {"cls_embedding", "pos_embedding"}
+
     def forward(self, x: torch.Tensor) -> Tuple:
-        if self.remat and self.training and torch.is_grad_enabled():
-            # an eval forward is the same with or without checkpointing
-            raise NotImplementedError(
-                "remat (activation checkpointing) is not yet ported to the "
-                "torch package's training")
         b = x.shape[0]
         x = self.to_patch_embedding(x)
         n = x.shape[1]
@@ -268,7 +269,9 @@ class VisionTransformer1D(nn.Module):
         x = self.dropout(x)
         features = []
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            x = (remat_call(block, x) if self.remat and self.training
+                 else block(x))
             if i == self.depth - 1 and self.norm is not None:
                 x = self.norm(x)
             if i in self.out_indices:

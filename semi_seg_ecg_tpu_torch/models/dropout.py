@@ -10,11 +10,16 @@ the global RNG is used. Both modules are the identity in eval mode.
 Under a process group a mask is drawn for the global batch and sliced to
 the rank's rows (``parallel.dist.global_rows``), as the JAX package's
 masks under a data mesh are drawn for the global array.
+
+Under activation checkpointing (``models/remat.py``) a block's forward
+runs again in the backward. ``torch.utils.checkpoint`` restores only the
+global RNGs, so the recompute puts the block's generators back to where
+the forward found them (:func:`generators_of`), and draws the same masks.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -62,6 +67,17 @@ class DropPath(nn.Module):
         if self.scale_by_keep:
             mask = mask / keep
         return x * mask
+
+
+def generators_of(module: nn.Module) -> List[torch.Generator]:
+    """The distinct generators the :class:`Dropout` and :class:`DropPath`
+    modules of ``module`` draw from (empty slots left out)."""
+    gens: List[torch.Generator] = []
+    for m in module.modules():
+        if isinstance(m, (Dropout, DropPath)) and m.generator is not None \
+                and all(m.generator is not g for g in gens):
+            gens.append(m.generator)
+    return gens
 
 
 def use_generator(model: nn.Module,

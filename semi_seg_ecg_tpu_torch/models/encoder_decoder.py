@@ -55,6 +55,15 @@ class EncoderDecoder(nn.Module):
     def with_auxiliary_heads(self) -> bool:
         return self.auxiliary_heads is not None
 
+    def no_weight_decay(self) -> set:
+        """The names ``train.layer_decay`` exempts from weight decay: the
+        backbone's and the decode head's."""
+        names = set()
+        for m in (self.backbone, self.decode_head):
+            if hasattr(m, "no_weight_decay"):
+                names |= m.no_weight_decay()
+        return names
+
     def forward(self, inputs: torch.Tensor,
                 labels: Optional[torch.Tensor] = None,
                 return_loss: bool = False,

@@ -20,6 +20,12 @@ normalized with the biased variance and ``running_var`` takes the unbiased
 one of the global count. ``nn.SyncBatchNorm`` would do the same on CUDA
 tensors only; this one runs on both devices, so the CPU tests can hold it
 against the JAX package.
+
+:func:`running_stats_kept` runs a forward whose running-statistic updates
+go to scratch copies: the recompute of a checkpointed block
+(``models/remat.py``), which must not update the statistics a second
+time. The forward itself is unchanged, collectives included, so every
+rank of a process group issues the same ones.
 """
 
 from __future__ import annotations
@@ -94,3 +100,27 @@ def batch_statistics_only(model: nn.Module):
     finally:
         for m in norms:
             m.track_running_stats = True
+
+
+_RUNNING = ("running_mean", "running_var", "num_batches_tracked")
+
+
+@contextlib.contextmanager
+def running_stats_kept(module: nn.Module):
+    """Inside, the BatchNorms of ``module`` update copies of their
+    ``running_mean``/``running_var``/``num_batches_tracked`` and compute
+    as they would on the originals; on exit the originals come back,
+    untouched."""
+    saved = [(m, [getattr(m, n) for n in _RUNNING])
+             for m in module.modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm)
+             and m.track_running_stats]
+    for m, buffers in saved:
+        for n, b in zip(_RUNNING, buffers):
+            setattr(m, n, b.clone())
+    try:
+        yield
+    finally:
+        for m, buffers in saved:
+            for n, b in zip(_RUNNING, buffers):
+                setattr(m, n, b)

@@ -27,11 +27,16 @@ no ``ReduceOp.AVG`` and no ``reduce_scatter``):
 - :func:`global_rows`: a per-row random draw made for the global batch
   and sliced to this rank's rows, so that rank ``r`` of ``N`` with ``b``
   rows draws rows ``[r·b, (r+1)·b)`` of what one process with all ``N·b``
-  rows draws.
+  rows draws. A batch that concatenates ``k`` parts (the semi-supervised
+  student's labeled and unlabeled rows) says so with
+  :func:`concatenated_rows`: one process holds each part's ``N·b/k`` rows
+  one after the other, so rank ``r`` takes its block of each part.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -42,6 +47,10 @@ import torch.distributed as dist
 from ..utils.logging import log, set_logging_enabled
 
 BACKENDS = ("nccl", "gloo")
+
+# the parts the batch of the forward in progress concatenates
+_ROW_PARTS: contextvars.ContextVar = contextvars.ContextVar("row_parts",
+                                                           default=1)
 
 
 def _env_ranks() -> Optional[tuple]:
@@ -274,14 +283,34 @@ def all_gather_rows(rows: np.ndarray, arrays: Sequence[np.ndarray]):
     return arrays
 
 
+@contextlib.contextmanager
+def concatenated_rows(parts: int):
+    """Inside, a batch is the concatenation of ``parts`` equal parts, each
+    sharded over the ranks (for :func:`global_rows`)."""
+    token = _ROW_PARTS.set(parts)
+    try:
+        yield
+    finally:
+        _ROW_PARTS.reset(token)
+
+
+def row_parts() -> int:
+    """The ``parts`` of the innermost :func:`concatenated_rows`, else 1."""
+    return _ROW_PARTS.get()
+
+
 def global_rows(draw: Callable[[tuple], torch.Tensor],
                 shape: Sequence[int]) -> torch.Tensor:
     """``draw(shape)`` for this rank's rows of the global batch: the draw
     of ``(world·b, *shape[1:])`` sliced to rows ``[rank·b, (rank+1)·b)``,
-    ``b = shape[0]``."""
+    ``b = shape[0]``; under :func:`concatenated_rows`, this rank's block
+    of each part."""
     shape = tuple(shape)
     world = get_world_size()
     if world == 1:
         return draw(shape)
-    b, rank = shape[0], get_rank()
-    return draw((b * world,) + shape[1:])[rank * b:(rank + 1) * b]
+    parts, rank = row_parts(), get_rank()
+    b = shape[0] // parts
+    full = draw((shape[0] * world,) + shape[1:])
+    return full.reshape((parts, world, b) + shape[1:])[:, rank].reshape(
+        shape)

@@ -13,20 +13,36 @@ The JAX package chains optax transformations; here the same update is a
 ``adamw`` is ``torch.optim.AdamW``: decoupled weight decay scaled by the
 scheduled lr, ``p -= lr · (adam + wd · p)`` in optax's terms. ``sgd`` is
 ``torch.optim.SGD``, which couples weight decay into the gradient before
-the momentum buffer, as the optax chain does. Weight decay applies to every
-parameter (one group), as in the JAX package without ``layer_decay``.
-``layer_decay``, ``frozen_stages >= 0`` and ``mode: freeze_backbone`` are
-not ported yet and raise.
+the momentum buffer, as the optax chain does.
+
+Param groups (:func:`param_groups`). Without ``train.layer_decay`` every
+trainable parameter is in one group with the config's weight decay, as in
+the JAX package. With it, each parameter's lr is scaled by its layer's
+factor and weight decay skips 1-D parameters and the model's
+``no_weight_decay()`` names (``utils/lr_decay.py``): one group per (scale,
+decay) pair, each carrying its ``lr_scale``; :meth:`TrainOptimizer.step`
+sets ``lr · lr_scale`` on each. The JAX package multiplies the update by
+the scale after the decoupled decay, so the decay is scaled too, which is
+what a group's ``lr = lr0 · scale`` gives.
+
+Freezing (``mode: freeze_backbone``, ``frozen_stages >= 0``): the frozen
+set is the JAX package's ``frozen_param_mask``
+(:func:`frozen_parameter_names`).
+The JAX package zeroes their gradients before and after its optimizer, so
+they see neither an Adam step nor decay; here they are left out of every
+group and stop requiring gradients. (A zeroed ``.grad`` would not do:
+AdamW would still decay the parameter.)
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Set
 
 import torch
 
 from ..parallel.dist import all_reduce_grads_
 from . import lr_sched
+from .lr_decay import param_lr_scales_and_wd
 
 
 def make_lr_schedule(train_cfg: Dict[str, Any],
@@ -84,7 +100,7 @@ class TrainOptimizer:
     def step(self) -> None:
         lr = self.schedule(self.count)
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group["lr_scale"]
         # the mean over the ranks first, so every rank clips and applies
         # the global batch's gradient (one rank: nothing to do)
         all_reduce_grads_(self.params)
@@ -97,34 +113,75 @@ class TrainOptimizer:
         return self.optimizer.state_dict()
 
 
+def frozen_parameter_names(config: Dict[str, Any],
+                           model: torch.nn.Module) -> Set[str]:
+    """The ``named_parameters()`` names the JAX package's
+    ``frozen_param_mask`` freezes: with ``mode: freeze_backbone`` all of
+    ``backbone.*``; with the backbone's ``frozen_stages`` s >= 0, for the
+    ResNet the stem and ``layer1..s``, for the ViT ``pos_embedding``, the
+    patch embedding and blocks ``< s`` (not ``cls_embedding``)."""
+    backbone = getattr(model, "backbone", None)
+    stages = getattr(backbone, "frozen_stages", -1)
+    freeze_all = config.get("mode") == "freeze_backbone"
+    if backbone is None or (not freeze_all and stages < 0):
+        return set()
+    vit = hasattr(backbone, "to_patch_embedding")
+    frozen = set()
+    for name, _ in backbone.named_parameters():
+        head = name.split(".")[0]
+        if freeze_all:
+            hit = True
+        elif vit:
+            hit = head in ("pos_embedding", "to_patch_embedding") or (
+                head.startswith("block") and int(head[5:]) < stages)
+        else:
+            hit = head == "stem" or (head.startswith("layer")
+                                     and int(head[5:]) <= stages)
+        if hit:
+            frozen.add(f"backbone.{name}")
+    return frozen
+
+
+def param_groups(config: Dict[str, Any],
+                 model: torch.nn.Module) -> List[Dict[str, Any]]:
+    """The trainable parameters of ``model`` as param groups, each with its
+    ``lr_scale`` and ``weight_decay``; frozen parameters stop requiring
+    gradients and are in no group."""
+    train_cfg = config["train"]
+    weight_decay = train_cfg["weight_decay"] or 0.0
+    layer_decay = train_cfg.get("layer_decay", None)
+    scales = param_lr_scales_and_wd(model, layer_decay) if layer_decay \
+        else {}
+    frozen = frozen_parameter_names(config, model)
+    groups: Dict[tuple, List[torch.Tensor]] = {}
+    for name, p in model.named_parameters():
+        if name in frozen:
+            p.requires_grad_(False)
+            continue
+        scale, decays = scales.get(name, (1.0, True))
+        groups.setdefault((scale, weight_decay if decays else 0.0),
+                          []).append(p)
+    return [{"params": params, "lr_scale": scale, "weight_decay": wd}
+            for (scale, wd), params in groups.items()]
+
+
 def build_optimizer(config: Dict[str, Any], model: torch.nn.Module,
                     steps_per_epoch: int) -> TrainOptimizer:
-    """The config's optimizer over every parameter of ``model``."""
+    """The config's optimizer over the trainable parameters of ``model``,
+    in the groups of :func:`param_groups`."""
     train_cfg = config["train"]
-    if train_cfg.get("layer_decay", None):
-        raise NotImplementedError(
-            "train.layer_decay is not yet ported to the torch package")
-    backbone = getattr(model, "backbone", None)
-    if config.get("mode") == "freeze_backbone" or \
-            getattr(backbone, "frozen_stages", -1) >= 0:
-        raise NotImplementedError(
-            "backbone freezing (mode: freeze_backbone, frozen_stages >= 0) "
-            "is not yet ported to the torch package")
     opt_name = train_cfg["optimizer"]
-    weight_decay = train_cfg["weight_decay"] or 0.0
     kwargs = train_cfg.get("optimizer_kwargs", {}) or {}
-    params = list(model.parameters())
+    groups = param_groups(config, model)
     schedule = make_lr_schedule(train_cfg, steps_per_epoch)
     lr0 = schedule(0)
     if opt_name == "sgd":
-        opt = torch.optim.SGD(params, lr=lr0,
-                              momentum=kwargs.get("momentum", 0),
-                              weight_decay=weight_decay)
+        opt = torch.optim.SGD(groups, lr=lr0,
+                              momentum=kwargs.get("momentum", 0))
     elif opt_name == "adamw":
         b1, b2 = tuple(kwargs.get("betas", (0.9, 0.999)))
-        opt = torch.optim.AdamW(params, lr=lr0, betas=(b1, b2),
-                                eps=kwargs.get("eps", 1e-8),
-                                weight_decay=weight_decay)
+        opt = torch.optim.AdamW(groups, lr=lr0, betas=(b1, b2),
+                                eps=kwargs.get("eps", 1e-8))
     else:
         raise ValueError(f"Unknown optimizer: {opt_name}")
     return TrainOptimizer(opt, schedule, train_cfg.get("max_norm", None))

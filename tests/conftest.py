@@ -76,3 +76,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA device (the torch port's kernels); "
         "skips where there is none")
+    config.addinivalue_line(
+        "markers", "slow: a multi-process or long case, left out of the "
+        "tier-1 run (-m 'not slow')")

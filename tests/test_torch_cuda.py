@@ -23,7 +23,8 @@ places). int8 serving (``ops/quant.py``): the card's codes and int32
 accumulators equal the CPU's (true divisions, ``torch._int_mm`` exact on
 both), the dequantized outputs within 1e-6 relative. A serving artifact
 exported and loaded on the card: within 1e-5 of ``ServingFn`` (the same
-kernels, traced).
+kernels, traced). Remat: a step with it equals one without bit for bit,
+with one more flash forward per block.
 """
 
 import numpy as np
@@ -500,6 +501,73 @@ def test_mean_teacher_and_cps_steps_launch_the_kernels(cuda, algorithm,
     assert tuple(a - b for a, b in zip(after, before)) == (
         fwd * depth, bwd * depth, gathers)
     assert torch.isfinite(metrics["loss"])
+
+
+@pytest.mark.cuda
+def test_remat_recomputes_through_the_kernels(cuda):
+    """One fp32 FixMatch step of the shipped vit_tiny recipe (depth cut to
+    2) with flash attention, device augmentation, dropout and drop-path,
+    with remat off and on: the recompute launches the flash forward once
+    more per block (the student pass), nothing else changes; the metrics
+    equal remat off's bit for bit (the forward is the same), the
+    gradients and the state within 1e-5 of each tensor's largest element
+    (the card's default algorithms do not repeat a backward bit for bit;
+    chip_smoke.py phase 11 holds whole steps bit-equal under
+    deterministic algorithms)."""
+    import os
+
+    import yaml
+
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, init_model
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "base", "vit_tiny",
+        "fixmatch.yaml")
+    with open(path) as f:
+        cfg = normalize_config(yaml.safe_load(f))
+    depth = 2
+    cfg["precision"] = "fp32"
+    cfg["backbone"]["vit_tiny"].update(depth=depth, out_indices=[1],
+                                       attention_impl="flash",
+                                       drop_out_rate=0.1, drop_path_rate=0.1)
+    cfg["decode_head"]["FCNHead"]["in_index"] = 0
+    cfg["dataset"]["device_augment"] = True
+    cfg["train"]["conf_thresh"] = 0.5
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"ecg": torch.randn(16, 1, 2500, generator=gen, device=cuda),
+             "target": torch.randint(0, 4, (16, 2500), generator=gen,
+                                     device=cuda),
+             "ecg_u_w": torch.randn(16, 1, 2500, generator=gen, device=cuda)}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for remat in (False, True):
+            cfg["backbone"]["vit_tiny"]["remat"] = remat
+            trainer = Trainer(cfg, fixmatch.SPEC, cuda, 4,
+                              model=init_model(cfg, cuda))
+            before = fa.LAUNCHES, fa.BWD_LAUNCHES, gather1d.LAUNCHES
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            after = fa.LAUNCHES, fa.BWD_LAUNCHES, gather1d.LAUNCHES
+            assert tuple(a - b for a, b in zip(after, before)) == (
+                (3 if remat else 2) * depth, depth, 3)
+            runs.append((metrics, {k: p.grad for k, p in
+                                   trainer.model.named_parameters()},
+                         trainer.model.state_dict()))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (m0, g0, s0), (m1, g1, s1) = runs
+    for k in m0:
+        assert torch.equal(m0[k], m1[k]), k
+    for want, got in ((g0, g1), (s0, s1)):
+        for k, v in want.items():
+            if v.is_floating_point():
+                assert (got[k] - v).abs().max() <= 1e-5 * v.abs().max(), k
+            else:
+                assert torch.equal(got[k], v), k
 
 
 @pytest.mark.cuda

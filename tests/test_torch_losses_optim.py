@@ -193,10 +193,29 @@ def test_resolve_lr_and_unported_options():
     resolve_lr(config)
     assert config["train"]["lr"] == pytest.approx(1e-3)
     assert config["train"]["eff_batch_size"] == 16
-    model = Params({"w": np.zeros(3, np.float32)})
-    for extra in ({"train": dict(train_cfg("adamw"), layer_decay=0.75)},
-                  {"train": train_cfg("adamw"), "mode": "freeze_backbone"}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            build_optimizer(extra, model, 1)
+    # layer decay and freezing (ported; tests/test_torch_optim_options.py
+    # holds them on real models): without a backbone, layer decay is
+    # refused as the JAX package refuses it (no depth), and freezing
+    # freezes nothing, as the JAX mask, so one step equals optax's
+    arrays = {"w": np.full((2, 3), 0.5, np.float32)}
+    model = Params({"w": arrays["w"].copy()})
+    with pytest.raises(ValueError, match="depth"):
+        build_optimizer({"train": dict(train_cfg("adamw"),
+                                       layer_decay=0.75)}, model, 1)
+    with pytest.raises(AssertionError, match="depth"):
+        jax_optimizer({"train": dict(train_cfg("adamw"), layer_decay=0.75)},
+                      {"w": jnp.asarray(arrays["w"])}, 1)
+    cfg = {"train": train_cfg("adamw", warmup_epochs=0),
+           "mode": "freeze_backbone"}
+    opt = build_optimizer(cfg, model, 1)
+    tx = jax_optimizer(cfg, {"w": jnp.asarray(arrays["w"])}, 1)
+    grad = np.linspace(-1, 1, 6, dtype=np.float32).reshape(2, 3)
+    model.w.grad = torch.from_numpy(grad.copy())
+    opt.step()
+    params = {"w": jnp.asarray(arrays["w"])}
+    updates, _ = tx.update({"w": jnp.asarray(grad)}, tx.init(params), params)
+    np.testing.assert_allclose(
+        model.w.detach().numpy(),
+        np.asarray(optax.apply_updates(params, updates)["w"]), atol=1e-7)
     with pytest.raises(ValueError, match="Unknown optimizer"):
         build_optimizer({"train": train_cfg("lamb")}, model, 1)

@@ -365,16 +365,24 @@ def test_train_flag_sets_the_mode_for_one_call():
 def test_unported_algorithms_and_options_raise():
     with pytest.raises(ValueError, match="Invalid algorithm"):
         get_algorithm("nope")
-    # remat (activation checkpointing): an eval forward is the same with or
-    # without it, a training forward raises
-    cfg = resnet_lockstep_config("base")
-    cfg["backbone"]["resnet18"]["remat"] = True
-    model = build_model_from_config(cfg, train=True)
-    x = torch.zeros(2, 1, SEQ)
-    with torch.no_grad():
-        model(x)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        model.train()(x)
+    # remat (activation checkpointing, ported): an eval forward is the same
+    # with or without it, and so are a training forward and its gradients
+    # (tests/test_torch_remat.py holds whole steps)
+    outs = []
+    x = torch.from_numpy(batches(5)[0]["ecg"])
+    for remat in (False, True):
+        cfg = resnet_lockstep_config("base")
+        cfg["backbone"]["resnet18"]["remat"] = remat
+        torch.manual_seed(0)
+        model = build_model_from_config(cfg, train=True)
+        with torch.no_grad():
+            evaluated = model.eval()(x)["seg_logits"]
+        trained = model.train()(x)["seg_logits"]
+        trained.square().sum().backward()
+        outs.append((evaluated, trained, model.backbone.stem[0].weight.grad,
+                     model.backbone.layer4[1].bn2.running_var.clone()))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
     # what data-parallel training still refuses: ZeRO-1 across ranks, the
     # model and sequence axes, the device cache (the long-record mesh=
     # refusals: tests/test_torch_longrec.py)

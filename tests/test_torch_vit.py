@@ -160,14 +160,27 @@ def test_unported_parts_raise():
     assert len(int8_modules(build_model_from_config(
         dict(cfg, quantize="int8"), serving=True))) == 1 + 4 * 2 + 2
     # (the patch embedding, 4 linears a block, the head's two ConvBNs)
-    # remat (activation checkpointing) changes nothing in eval and is not
-    # ported for training
-    model = build_model_from_config(vit_config(remat=True), train=True)
-    x = torch.zeros(2, 1, SEQ)
-    with torch.no_grad():
-        model(x)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        model.train()(x)
+    # remat (activation checkpointing, ported) changes nothing in eval, nor
+    # in a training forward and its gradients, dropout on
+    # (tests/test_torch_remat.py holds whole steps)
+    from semi_seg_ecg_tpu_torch.models.dropout import use_generator
+
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 1, SEQ)).astype(np.float32))
+    outs = []
+    for remat in (False, True):
+        torch.manual_seed(0)
+        model = build_model_from_config(vit_config(
+            remat=remat, drop_out_rate=0.2, drop_path_rate=0.2), train=True)
+        use_generator(model, torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            evaluated = model.eval()(x)["seg_logits"]
+        trained = model.train()(x)["seg_logits"]
+        trained.square().sum().backward()
+        outs.append((evaluated, trained,
+                     model.backbone.to_patch_embedding[2].weight.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_flash_path_hands_the_kernel_views_of_the_projection(monkeypatch):
