@@ -111,7 +111,27 @@ non-zero exit when it fails:
    bit-unchanged and in no param group, every group's lr the schedule's
    times its scale, AdamW's last update replayed from its state.
    ``tools/validate_ssl``'s base and FixMatch at seed 0 (bf16, 25 epochs):
-   fails when FixMatch lies outside its tolerance of the JAX row.
+   fails when FixMatch lies outside its tolerance of the JAX row;
+12. gradient accumulation, resume and the trace schedule on the
+   full-width ``vit_tiny`` FixMatch recipe (flash attention, device
+   augmentation, bf16) at micro-batch 8 with ``accum_iter: 2`` on a split
+   of 3 micro-steps an epoch, so that a window spans the first epoch's
+   end: (a) 2 epochs through ``run_training`` with exact launches (24 /
+   12 / 3 a micro-step, 12 forwards an eval batch), 3 updates, the open
+   window in the first epoch's snapshot, the logged lr of update
+   ``global_step // 2``, and a Mean Teacher teacher that moves on the
+   window's last micro-step only; (b) in a process of its own under
+   deterministic algorithms (``--accum``), the same run and a second
+   resumed from its first snapshot through ``--resume``: the resumed
+   epoch's ``log.txt`` row and last snapshot (model, optimizer, open
+   window, step, best) equal the straight run's bit for bit, with its
+   launches; (c) four accumulated fp32 micro-steps, flash against the
+   dense path, within phase 4's bounds; (d) ``profile`` on steps 2-3 of a
+   4-micro-step ``train_main``: one trace file holding exactly those
+   steps' ranges and their kernel events of the three kernels; (e) one
+   window on phase 10's two ranks against one process holding both
+   shards, one gradient all-reduce a rank; the micro-step's wall time at
+   ``accum_iter`` 1 and 2, in turns.
 
 The line before the last prints the card's name and power limit as
 nvidia-smi gives them; the line before that, a JSON object with one entry
@@ -1323,9 +1343,11 @@ def check_gradients(torch, config):
 
 
 def check_lockstep(torch, config, runs=(("flash", "cuda"), ("xla", "cuda")),
-                   phase=4, sgd=False, conf_thresh=LOCKSTEP_CONF_THRESH):
-    """LOCKSTEP_STEPS fp32 FixMatch steps from one init, dropout 0, on
-    fixed batches, in two runs: ``(attention_impl, device)`` each (phase 4:
+                   phase=4, sgd=False, conf_thresh=LOCKSTEP_CONF_THRESH,
+                   steps=LOCKSTEP_STEPS):
+    """``steps`` fp32 FixMatch steps from one init, dropout 0, on
+    fixed batches (micro-steps under the config's ``accum_iter``), in two
+    runs: ``(attention_impl, device)`` each (phase 4:
     the flash kernels against the dense path on the card; phase 5: the
     ResNet on the card against the CPU, ``attention_impl`` unused). With
     ``sgd`` the steps take SGD with momentum instead of the recipe's AdamW,
@@ -1358,7 +1380,7 @@ def check_lockstep(torch, config, runs=(("flash", "cuda"), ("xla", "cuda")),
             metrics = [{k: v.item() for k, v in trainer.train_step(
                 {k: v.to(device) for k, v in device_batch(
                     torch, 10 + s).items()}).items()}
-                for s in range(LOCKSTEP_STEPS)]
+                for s in range(steps)]
         results[impl] = (metrics, {k: v.detach().cpu().clone() for k, v in
                                    model.state_dict().items()})
     (m_f, sd_f), (m_d, sd_d) = (results[impl] for impl, _ in runs)
@@ -1386,8 +1408,10 @@ def check_lockstep(torch, config, runs=(("flash", "cuda"), ("xla", "cuda")),
     pixels = [(round(a["mask_ratio"] * BATCH * SIGNAL_LENGTH),
                round(b["mask_ratio"] * BATCH * SIGNAL_LENGTH))
               for a, b in zip(m_f, m_d)]
-    log(f"  lockstep, {LOCKSTEP_STEPS} fp32 FixMatch steps "
-        f"({'SGD' if sgd else 'AdamW'}), {what}: params within "
+    accum = config["train"].get("accum_iter", 1)
+    log(f"  lockstep, {steps} fp32 FixMatch steps "
+        f"({'SGD' if sgd else 'AdamW'}, accum_iter {accum}), {what}: "
+        f"params within "
         f"{worst_other:.3g} lr ({worst_name}), key bias "
         f"{worst_key_bias:.3g} lr; losses within {loss_rel:.3g} relative; "
         f"confident pixels {pixels}")
@@ -1397,7 +1421,8 @@ def check_lockstep(torch, config, runs=(("flash", "cuda"), ("xla", "cuda")),
             and all(abs(a - b) <= 4 for a, b in pixels)):
         raise SystemExit(f"phase {phase} failed: the training steps of "
                          f"{what} disagree")
-    return {"runs": [list(r) for r in runs], "sgd": sgd,
+    return {"runs": [list(r) for r in runs], "sgd": sgd, "steps": steps,
+            "accum_iter": accum,
             "params_lr": worst_other, "param": worst_name,
             "key_bias_lr": worst_key_bias, "loss_rel": loss_rel,
             "confident_pixels": pixels, "metrics": [m_f, m_d],
@@ -3008,8 +3033,28 @@ def dp_profile(torch, reps=20):
     return out
 
 
+def dp_accum_steps(torch, config, batches):
+    """A rank's :func:`dp_steps` with the gradient all-reduce counted."""
+    from semi_seg_ecg_tpu_torch.utils import optimizer
+
+    calls = []
+    reduce = optimizer.all_reduce_grads_
+
+    def counted(params):
+        calls.append(1)
+        reduce(params)
+
+    optimizer.all_reduce_grads_ = counted
+    try:
+        result = dp_steps(torch, config, batches)
+    finally:
+        optimizer.all_reduce_grads_ = reduce
+    result["all_reduces"] = len(calls)
+    return result
+
+
 RANK_TASKS = {"steps": dp_steps, "train": dp_train, "rank": dp_rank,
-              "profile": dp_profile}
+              "profile": dp_profile, "accum_steps": dp_accum_steps}
 
 
 def rank_main(job, out_dir):
@@ -3094,21 +3139,21 @@ def dp_run_ranks(tasks, backend):
     return [list(by_task) for by_task in zip(*results)], logs
 
 
-def dp_check_steps(family, ranks, single):
-    """The ranks' steps against one process holding both shards: losses,
-    confident pixels, launches per step, the state; the ranks' states
-    equal."""
+def dp_check_steps(family, ranks, single, steps=DP_STEPS, phase=10):
+    """The ranks' ``steps`` steps against one process holding both shards:
+    losses, confident pixels, launches per step, the state; the ranks'
+    states equal."""
     want_launches = launches_per_step(family, "fixmatch")
     for r, got in enumerate(ranks):
-        if got["launches"] != [want_launches] * DP_STEPS:
-            raise SystemExit(f"phase 10 failed: {family} rank {r} launched "
-                             f"{got['launches']}, expected {want_launches} "
-                             "a step")
+        if got["launches"] != [want_launches] * steps:
+            raise SystemExit(f"phase {phase} failed: {family} rank {r} "
+                             f"launched {got['launches']}, expected "
+                             f"{want_launches} a step")
     first = ranks[0]
     for k, v in first["state"].items():
         if not np.array_equal(v, ranks[1]["state"][k]):
-            raise SystemExit(f"phase 10 failed: {family}: the ranks' {k} "
-                             "differ")
+            raise SystemExit(f"phase {phase} failed: {family}: the ranks' "
+                             f"{k} differ")
     loss_rel, pixels = 0.0, []
     n = DP_WORLD * DP_ROWS * SIGNAL_LENGTH
     for a, b in zip(first["metrics"], single["metrics"]):
@@ -3125,7 +3170,7 @@ def dp_check_steps(family, ranks, single):
                         - DP_RTOL * np.abs(want)).max())
         if excess > worst or worst_key is None:
             worst, worst_key = excess, k
-    log(f"  {family} FixMatch, {DP_STEPS} fp32 SGD steps, {DP_WORLD} ranks "
+    log(f"  {family} FixMatch, {steps} fp32 SGD steps, {DP_WORLD} ranks "
         f"x {DP_ROWS} rows against one process with num_shards="
         f"{DP_WORLD}: losses within {loss_rel:.3g} relative; parameters "
         f"and BN statistics: max(|diff| - {DP_RTOL} |one process|) = "
@@ -3133,11 +3178,13 @@ def dp_check_steps(family, ranks, single):
         f"per rank per step {want_launches}")
     if not (loss_rel <= DP_LOSS_RTOL and worst <= DP_ATOL
             and all(abs(a - b) <= DP_PIXELS for a, b in pixels)):
-        raise SystemExit(f"phase 10 failed: {family}: {DP_WORLD} ranks "
+        raise SystemExit(f"phase {phase} failed: {family}: {DP_WORLD} ranks "
                          "disagree with one process")
     return {"loss_rel": loss_rel, "state_excess": worst,
             "state_worst": worst_key, "confident_pixels": pixels,
-            "launches_per_rank_step": want_launches,
+            # measured: rank 0's first step (every step of every rank
+            # was checked equal to it above)
+            "launches_per_rank_step": first["launches"][0],
             "metrics": [first["metrics"], single["metrics"]]}
 
 
@@ -3664,6 +3711,392 @@ def phase_remat(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: gradient accumulation, resume, the trace schedule
+# ---------------------------------------------------------------------------
+
+# the vit_tiny FixMatch recipe (flash, device augmentation, bf16) at
+# micro-batch ACCUM_BATCH with accum_iter ACCUM_ITER, on a split of
+# ACCUM_STEPS micro-steps an epoch, so that a window spans the first
+# epoch's end; ACCUM_EPOCHS epochs make 3 updates
+ACCUM_BATCH, ACCUM_ITER, ACCUM_STEPS, ACCUM_EPOCHS = 8, 2, 3, 2
+ACCUM_VALID = ACCUM_TEST = 8
+ACCUM_TIMEOUT = 300
+# the micro-step's wall time at accum_iter 1 and 2, in turns, after
+# ACCUM_WARM_STEPS untimed ones
+ACCUM_TIMED_STEPS, ACCUM_WARM_STEPS = 20, 4
+# the trace: profile's window of global steps 2-3 in one epoch of 4
+# micro-steps; each ported kernel's name in the trace, and its kernel
+# events per launch (the backward launches a dQ and a dK/dV kernel)
+TRACE_START, TRACE_STEPS, TRACE_EPOCH_STEPS = 2, 2, 4
+TRACE_KERNELS = {"flash_attention_fwd": ("flash_fwd", 1),
+                 "flash_attention_bwd": ("flash_bwd", 2),
+                 "gather1d": ("gather1d", 1)}
+
+
+def write_accum_config(name, algorithm="fixmatch",
+                       steps_per_epoch=ACCUM_STEPS, epochs=ACCUM_EPOCHS,
+                       **extra):
+    """The shipped vit_tiny ``algorithm`` recipe with flash attention and
+    device augmentation at micro-batch ACCUM_BATCH and accum_iter
+    ACCUM_ITER, on a split of ``steps_per_epoch`` micro-steps an epoch,
+    for ``epochs`` epochs (``extra`` overrides top-level keys)."""
+    from semi_seg_ecg_tpu_torch.config import load_config
+
+    rows = steps_per_epoch * ACCUM_BATCH
+    data = synthetic_split(f"accum_data_{rows}", num_train_labeled=rows,
+                           num_train_unlabeled=rows, num_valid=ACCUM_VALID,
+                           num_test=ACCUM_TEST, seed=12)
+    config = load_config(os.path.join(REPO, "configs", "base", "vit_tiny",
+                                      f"{algorithm}.yaml"))
+    config["backbone"]["vit_tiny"]["attention_impl"] = "flash"
+    config["dataset"].update(data, device_augment=True)
+    config["dataloader"]["batch_size"] = ACCUM_BATCH
+    config["output_dir"] = os.path.join(WORK, "exps")
+    config["exp_name"] = name
+    config["train"].update(epochs=epochs, warmup_epochs=0,
+                           accum_iter=ACCUM_ITER)
+    config.update(extra)
+    path = os.path.join(WORK, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path, config
+
+
+def accum_launches(micro_steps, eval_batches):
+    """The launches of ``micro_steps`` FixMatch micro-steps and
+    ``eval_batches`` eval batches."""
+    want = {k: micro_steps * v for k, v in
+            launches_per_step("vit_tiny", "fixmatch").items()}
+    want["flash_attention_fwd"] += DEPTH * eval_batches
+    return want
+
+
+def accum_run(torch, argv, snapshot_epochs):
+    """``run_training`` of the command line ``argv`` (FixMatch) with the
+    launch counters zeroed just before and read just after; the
+    snapshots after the epochs in ``snapshot_epochs``."""
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import run_training
+    from semi_seg_ecg_tpu_torch.config import parse_train_args
+
+    config = parse_train_args(argv)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_training(config, fixmatch.SPEC, snapshot_epochs=snapshot_epochs)
+    torch.cuda.synchronize()
+    return {"launches": read_counts(), "seconds": time.perf_counter() - t0,
+            "start_epoch": config["start_epoch"], "train": config["train"]}
+
+
+def read_log(name):
+    """An experiment's ``log.txt`` rows without the wall clock."""
+    with open(os.path.join(WORK, "exps", name, "log.txt")) as f:
+        rows = [json.loads(line) for line in f]
+    for row in rows:
+        row.pop("wall_s")
+    return rows
+
+
+def payload_diff(got, want, path=""):
+    """The worst difference of two checkpoint payloads, ``(max |got -
+    want|, where)``: 0.0 when equal array for array, inf where the
+    structure, a dtype or a plain value differs."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            return math.inf, path
+        return max((payload_diff(got[k], want[k], f"{path}/{k}")
+                    for k in want), default=(0.0, path))
+    if isinstance(want, np.ndarray):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            return math.inf, path
+        if np.array_equal(got, want):
+            return 0.0, path
+        return float(np.abs(got.astype(np.float64)
+                            - want.astype(np.float64)).max()), path
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return math.inf, path
+        return max((payload_diff(g, w, f"{path}/{i}")
+                    for i, (g, w) in enumerate(zip(got, want))),
+                   default=(0.0, path))
+    return (0.0 if got == want else math.inf), path
+
+
+def accum_straight(torch):
+    """(a) ACCUM_EPOCHS epochs of the recipe through ``run_training``:
+    exact launches, 3 updates in the last snapshot, an open window in the
+    first, the logged lr of update ``global_step // accum_iter``."""
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+    from semi_seg_ecg_tpu_torch.utils.optimizer import (
+        make_lr_schedule,
+        updates_per_epoch,
+    )
+
+    path, _ = write_accum_config("accum_straight")
+    run = accum_run(torch, ["-f", path], {1, 2})
+    micro = ACCUM_STEPS * ACCUM_EPOCHS
+    want = accum_launches(micro, ACCUM_EPOCHS
+                          * math.ceil(ACCUM_VALID / ACCUM_BATCH))
+    first, last = (ckpt.load_checkpoint(os.path.join(
+        WORK, "exps", "accum_straight", f"checkpoint-{e}.ckpt"))
+        for e in (1, 2))
+    rows = read_log("accum_straight")
+    lr_fn = make_lr_schedule(run["train"], updates_per_epoch(
+        {"train": run["train"]}, ACCUM_STEPS))
+    lr_want = [float(np.mean([lr_fn(g // ACCUM_ITER) for g in range(
+        e * ACCUM_STEPS, (e + 1) * ACCUM_STEPS)]))
+        for e in range(ACCUM_EPOCHS)]
+    lr_got = [r["train_lr"] for r in rows]
+    log(f"  (a) run_training, vit_tiny FixMatch bf16, micro-batch "
+        f"{ACCUM_BATCH} + {ACCUM_BATCH}, accum_iter {ACCUM_ITER}, "
+        f"{ACCUM_EPOCHS} epochs of {ACCUM_STEPS} micro-steps: "
+        f"{run['seconds']:.2f} s, launches {run['launches']} (expected "
+        f"{want}); updates {last['optimizer']['count']}, the first "
+        f"snapshot's window at micro-step "
+        f"{first['optimizer']['micro_step']}; logged lr {lr_got} "
+        f"(expected {lr_want})")
+    if (run["launches"] != want or last["optimizer"]["count"] != 3
+            or last["step"] != micro
+            or first["optimizer"]["micro_step"] != 1
+            or not first["optimizer"].get("acc_grads")
+            or any(abs(a - b) > 1e-12 * max(abs(b), 1e-30)
+                   for a, b in zip(lr_got, lr_want))
+            or not all(math.isfinite(r["train_loss"]) for r in rows)):
+        raise SystemExit("phase 12 failed: the accumulated run's launches, "
+                         "updates, window or logged lr")
+    return {"seconds": run["seconds"], "launches": run["launches"],
+            "launches_expected": want, "updates": last["optimizer"]["count"],
+            "logged_lr": lr_got, "log": rows}
+
+
+def accum_teacher(torch):
+    """(a) The Mean Teacher's teacher over three micro-steps of its
+    recipe at accum_iter ACCUM_ITER: unchanged but after the window's
+    last micro-step (the second)."""
+    from semi_seg_ecg_tpu_torch.algorithms import mean_teacher
+    from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, init_model
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    _, config = write_accum_config("accum_teacher", "mean_teacher")
+    cfg = normalize_config(config)
+    device = torch.device("cuda")
+    trainer = Trainer(cfg, mean_teacher.SPEC, device, 4,
+                      model=init_model(cfg, device))
+    moved, launches = [], []
+    for s in range(3):
+        batch = device_batch(torch, 60 + s, n=ACCUM_BATCH)
+        del batch["ecg_u_s"]
+        before = [t.clone() for t in trainer.teacher.state_dict().values()]
+        reset_counts()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        launches.append(read_counts())
+        moved.append(any(not torch_equal(a, b) for a, b in zip(
+            trainer.teacher.state_dict().values(), before)))
+    want = launches_per_step("vit_tiny", "mean_teacher")
+    log(f"  (a) Mean Teacher, 3 micro-steps at accum_iter {ACCUM_ITER}: "
+        f"the teacher moved {moved} (expected [False, True, False]), "
+        f"launches {launches[-1]} a micro-step")
+    if moved != [False, True, False] or any(g != want for g in launches):
+        raise SystemExit(f"phase 12 failed: the teacher moved {moved}, "
+                         f"launches {launches}")
+    return {"teacher_moved": moved, "launches_per_step": want}
+
+
+def accum_resume_main(out_path):
+    """(b) in a process of its own (``chip_smoke.py --accum OUT``, with
+    CUBLAS_WORKSPACE_CONFIG set) under deterministic algorithms: the
+    recipe for ACCUM_EPOCHS epochs, then a run resumed from its first
+    snapshot through ``--resume``; the resumed epoch's ``log.txt`` row and
+    the last snapshots against each other, its launches; to ``OUT``."""
+    import torch
+
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    torch.use_deterministic_algorithms(True)
+    path, _ = write_accum_config("accum_det")
+    with cudnn_deterministic(torch):
+        straight = accum_run(torch, ["-f", path], {1, 2})
+        resumed = accum_run(torch, [
+            "-f", path, "--exp_name", "accum_resumed", "--resume",
+            os.path.join(WORK, "exps", "accum_det", "checkpoint-1.ckpt")],
+            {2})
+    want, got = (ckpt.load_checkpoint(os.path.join(
+        WORK, "exps", name, "checkpoint-2.ckpt"))
+        for name in ("accum_det", "accum_resumed"))
+    for payload in (want, got):
+        payload.pop("config")
+    diff, where = payload_diff(got, want)
+    rows = read_log("accum_resumed")
+    result = {"straight_launches": straight["launches"],
+              "launches": resumed["launches"],
+              "start_epoch": resumed["start_epoch"],
+              "seconds": resumed["seconds"],
+              "rows_equal": rows == read_log("accum_det")[1:],
+              "epochs": [r["epoch"] for r in rows],
+              "state_max_diff": diff, "state_where": where}
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def accum_resume(torch):
+    """(b) :func:`accum_resume_main` in a process of its own, killed past
+    ACCUM_TIMEOUT: the resumed epoch equals the straight run's second bit
+    for bit and launches the kernels of its 3 micro-steps and its eval
+    batch."""
+    out = os.path.join(WORK, "accum_resume.json")
+    try:
+        done = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--accum", out],
+            cwd=REPO, env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+            timeout=ACCUM_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"phase 12 failed: the resume runs took more than "
+                         f"{ACCUM_TIMEOUT} s")
+    if done.returncode != 0:
+        raise SystemExit(f"phase 12 failed: the resume runs exited "
+                         f"{done.returncode}")
+    with open(out) as f:
+        result = json.load(f)
+    want = accum_launches(ACCUM_STEPS, math.ceil(ACCUM_VALID / ACCUM_BATCH))
+    log(f"  (b) --resume of the first snapshot, deterministic algorithms: "
+        f"starts at epoch {result['start_epoch']}, {result['seconds']:.2f} "
+        f"s, launches {result['launches']} (expected {want}); its log.txt "
+        f"row {'equals' if result['rows_equal'] else 'DIFFERS FROM'} the "
+        f"straight run's; last snapshot (model, optimizer, open window, "
+        f"step, best) within {result['state_max_diff']} of the straight "
+        f"run's ({result['state_where']})")
+    if not (result["launches"] == want and result["rows_equal"]
+            and result["epochs"] == [1] and result["state_max_diff"] == 0.0
+            and result["straight_launches"] == accum_launches(
+                ACCUM_STEPS * ACCUM_EPOCHS,
+                ACCUM_EPOCHS * math.ceil(ACCUM_VALID / ACCUM_BATCH))):
+        raise SystemExit("phase 12 failed: the resumed run differs from "
+                         "the straight one")
+    return result
+
+
+def accum_trace(torch):
+    """(d) ``train_main`` of the recipe for one epoch of TRACE_EPOCH_STEPS
+    micro-steps with ``profile`` on global steps TRACE_START to
+    TRACE_START + TRACE_STEPS - 1: one trace file, which holds exactly
+    those steps' ranges and exactly their kernel events of the three
+    ported kernels."""
+    from semi_seg_ecg_tpu_torch.cli import train_main
+
+    trace_dir = os.path.join(WORK, "accum_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    path, _ = write_accum_config(
+        "accum_profiled", steps_per_epoch=TRACE_EPOCH_STEPS, epochs=1,
+        test=False, profile={"trace_dir": trace_dir,
+                             "start_step": TRACE_START,
+                             "num_steps": TRACE_STEPS})
+    train_main(["-f", path])
+    last = TRACE_START + TRACE_STEPS - 1
+    files = sorted(os.listdir(trace_dir))
+    want_file = f"rank0_steps{TRACE_START}-{last}.pt.trace.json"
+    with open(os.path.join(trace_dir, want_file)) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted({e["name"] for e in events
+                    if e.get("name", "").startswith("ProfilerStep#")})
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    per_step = launches_per_step("vit_tiny", "fixmatch")
+    got = {k: sum(needle in name for name in kernels)
+           for k, (needle, _) in TRACE_KERNELS.items()}
+    want = {k: TRACE_STEPS * per_step[k] * n
+            for k, (_, n) in TRACE_KERNELS.items()}
+    want_steps = [f"ProfilerStep#{s}" for s in range(TRACE_START, last + 1)]
+    log(f"  (d) profile steps {TRACE_START}-{last}: {files}, ranges "
+        f"{steps}, {len(kernels)} kernel events, of the ported kernels "
+        f"{got} (expected {want})")
+    if files != [want_file] or steps != want_steps or got != want:
+        raise SystemExit("phase 12 failed: the trace does not hold "
+                         "exactly the scheduled steps")
+    return {"file": want_file, "steps": steps, "kernel_events": len(kernels),
+            "ported_kernel_events": got}
+
+
+def accum_ranks(torch):
+    """(e) One window of ACCUM_ITER fp32 FixMatch micro-steps (phase 10's
+    step configuration) on DP_WORLD ranks against one process holding both
+    shards, with one gradient all-reduce a rank in the window."""
+    backend, layout = dp_layout(torch)
+    cfg = dp_step_config("vit_tiny", backend)
+    cfg["train"]["accum_iter"] = ACCUM_ITER
+    batches = dp_global_batches(41)[:ACCUM_ITER]
+    single = dp_steps(torch, cfg, batches, slice(None))
+    by_task, _ = dp_run_ranks([("accum_steps", {"config": cfg,
+                                                "batches": batches})],
+                              backend)
+    ranks = by_task[0]
+    checked = dp_check_steps("vit_tiny", ranks, single, steps=ACCUM_ITER,
+                             phase=12)
+    reduces = [r["all_reduces"] for r in ranks]
+    log(f"  (e) {layout}: one window of {ACCUM_ITER} micro-steps, gradient "
+        f"all-reduces a rank {reduces} (expected 1)")
+    if reduces != [1] * DP_WORLD:
+        raise SystemExit(f"phase 12 failed: the ranks all-reduced "
+                         f"{reduces} times in one window")
+    return {"backend": backend, "all_reduces": reduces, **checked}
+
+
+def accum_step_times(torch):
+    """The bf16 FixMatch micro-step's wall time at micro-batch ACCUM_BATCH
+    with accum_iter 1 and ACCUM_ITER, in turns (1, k, k, 1): ms per
+    micro-step over ACCUM_TIMED_STEPS after ACCUM_WARM_STEPS."""
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, init_model
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    _, config = write_accum_config("accum_timed")
+    device = torch.device("cuda")
+    batch = device_batch(torch, 70, n=ACCUM_BATCH)
+    del batch["ecg_u_s"]
+    times = []
+    for accum in (1, ACCUM_ITER, ACCUM_ITER, 1):
+        cfg = normalize_config(config)
+        cfg["train"]["accum_iter"] = accum
+        trainer = Trainer(cfg, fixmatch.SPEC, device, 4,
+                          model=init_model(cfg, device))
+        for _ in range(ACCUM_WARM_STEPS):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ACCUM_TIMED_STEPS):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((accum, (time.perf_counter() - t0) * 1e3
+                      / ACCUM_TIMED_STEPS))
+    log(f"  bf16 FixMatch micro-step, batch {ACCUM_BATCH} + {ACCUM_BATCH}, "
+        f"ms by accum_iter in turns: "
+        f"{[(a, round(ms, 3)) for a, ms in times]}")
+    return [{"accum_iter": a, "ms_per_micro_step": ms} for a, ms in times]
+
+
+def phase_accum(torch):
+    """Phase 12: gradient accumulation, resume and the trace schedule on
+    the full-width vit_tiny FixMatch recipe."""
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    t_phase = time.perf_counter()
+    log("phase 12: gradient accumulation, resume, the trace schedule")
+    result = {"straight": accum_straight(torch),
+              "teacher": accum_teacher(torch),
+              "resume": accum_resume(torch)}
+    _, config = write_accum_config("accum_lockstep")
+    result["lockstep"] = check_lockstep(torch, normalize_config(config),
+                                        phase=12, steps=2 * ACCUM_ITER)
+    result["trace"] = accum_trace(torch)
+    result["ranks"] = accum_ranks(torch)
+    result["step_times"] = accum_step_times(torch)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12 in {result['seconds']:.1f} s")
+    return result
+
+
+# ---------------------------------------------------------------------------
 # Report
 # ---------------------------------------------------------------------------
 
@@ -3718,6 +4151,7 @@ def main():
         os.path.join(WORK, "resnet18_seed0.pth"))
     parallel = phase_parallel(torch)
     remat = phase_remat(torch)
+    accum = phase_accum(torch)
     # each path's launches, counted from 0 just before it and read after
     by_path = {
         "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
@@ -3744,7 +4178,13 @@ def main():
         # phase 11: one step's launches, remat off and on
         **{f"remat_{family}_fixmatch_{label}_per_step": r[label][
             "launches_per_step"]
-           for family, r in remat["remat"].items() for label in ("off", "on")}}
+           for family, r in remat["remat"].items() for label in ("off", "on")},
+        # phase 12: the accumulated run, the resumed epoch (its own
+        # process), a rank's micro-step of the 2-rank window
+        "accum_vit_tiny_fixmatch": accum["straight"]["launches"],
+        "accum_vit_tiny_fixmatch_resumed": accum["resume"]["launches"],
+        "accum_dp_vit_tiny_per_rank_micro_step": accum["ranks"][
+            "launches_per_rank_step"]}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -3756,7 +4196,8 @@ def main():
                    "algorithms": algorithm_results,
                    "reco_stpp": reco_stpp, "longrec": longrec,
                    "deploy": deploy, "parallel": parallel,
-                   "remat": remat, "seconds": time.time() - t_start}, f,
+                   "remat": remat, "accum": accum,
+                   "seconds": time.time() - t_start}, f,
                   indent=1)
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -3772,4 +4213,6 @@ if __name__ == "__main__":
         sys.exit(rank_main(*sys.argv[2:]))
     if sys.argv[1:2] == ["--remat"]:
         sys.exit(remat_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--accum"]:
+        sys.exit(accum_resume_main(*sys.argv[2:]))
     sys.exit(main())

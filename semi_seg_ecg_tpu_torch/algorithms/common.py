@@ -23,10 +23,17 @@ loop:
   for the augmentation draws (``ops/preprocess.py``) — the JAX package's
   ``fold_in(key, step)``;
 - sets the scheduled lr of each update, on the peer's optimizer too
-  (``utils/optimizer.py``);
+  (``utils/optimizer.py``); with ``train.accum_iter`` k > 1 an update
+  takes the mean gradient of k micro-steps (a window counted on the global
+  micro-step, so it may span an epoch's end), the schedule counts
+  ``max(steps_per_epoch // k, 1)`` updates an epoch, and the EMA teacher
+  follows updates only;
 - drains the step metrics every ``PRINT_FREQ`` steps, their mean over the
-  ranks, aborting on a non-finite loss (every rank at once), and prints
-  the progress line;
+  ranks, aborting on a non-finite loss (every rank at once, naming the
+  last checkpoint written), and prints the progress line (the logged lr
+  is that of update ``global_step // k``; TensorBoard's scalars are
+  written on a window's last micro-step);
+- traces the steps ``profile:`` names (``utils/profiling.py``);
 - evaluates the model (the student, CPS's model 1) after each epoch, each
   rank on its shards of the split, the rows exchanged
   (``parallel.dist.all_gather_rows``), and writes ``best-loss.ckpt`` /
@@ -35,11 +42,20 @@ loop:
 
 Data parallelism as the JAX package's data mesh computes it: rank 0's
 weights are broadcast at the start, each step's gradients averaged over
-the ranks before clipping (``utils/optimizer.TrainOptimizer``), BatchNorm
+the ranks before clipping (``utils/optimizer.TrainOptimizer``; an
+accumulation window open at an epoch's end is averaged then, so rank 0's
+checkpoint holds the global batch's partial sum), BatchNorm
 statistics taken over the global batch (``models/norm.py``) and per-row
 random draws made for the global batch (``parallel.dist.global_rows``).
 N ranks with ``batch_size`` b take the steps of one process holding N
 shards of b rows (the loader's ``num_shards=N, local_shards=N``).
+
+``resume:`` (``--resume``) restarts a run from a checkpoint
+(``utils/checkpoint.maybe_resume``: the port's own ``.ckpt``, a JAX
+``.ckpt`` or a ``.pth``) before every rank takes rank 0's weights; the
+epoch after the file's is the first to run, and its best-so-far
+thresholds carry over, so the first resumed epoch does not overwrite the
+real ``best-*.ckpt``.
 
 For ST++'s stages, :func:`run_training` also takes an output subdirectory,
 a subset of the unlabeled rows, the epochs after which it writes
@@ -60,10 +76,9 @@ products each, 3xTF32 with fp32 accumulation, to fp32 accuracy, which
 fp32 parameters and optimizer and no loss scaling, as the JAX package
 computes in bf16 with fp32 parameters. ``train.fused_state`` and
 ``train.scan_steps`` are accepted and do nothing (XLA dispatch devices).
-Resume, gradient accumulation, ``device_cache``, ``parallel.model_parallel``
-and ``seq_parallel`` above 1, ``parallel.shard_optimizer`` (ZeRO-1) across
-ranks, ``checkpoint_backend: orbax`` and ``profile`` are not ported yet and
-raise.
+``device_cache``, ``parallel.model_parallel`` and ``seq_parallel`` above 1,
+``parallel.shard_optimizer`` (ZeRO-1) across ranks and
+``checkpoint_backend: orbax`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -99,7 +114,14 @@ from ..parallel import dist as pdist
 from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt
 from ..utils.logging import JsonlLogger, MetricLogger, TensorBoardWriter, log
-from ..utils.optimizer import build_optimizer, make_lr_schedule, resolve_lr
+from ..utils.optimizer import (
+    accum_iter,
+    build_optimizer,
+    make_lr_schedule,
+    resolve_lr,
+    updates_per_epoch,
+)
+from ..utils.profiling import ProfileSchedule, device_memory_mb
 from ..utils.weights import jax_trees_to_state_dict
 
 PRINT_FREQ = 20
@@ -241,9 +263,6 @@ def init_train_model(config: Dict[str, Any], device: torch.device,
 
 
 def _refuse_unported(config: Dict[str, Any], world_size: int) -> None:
-    if config.get("resume"):
-        raise NotImplementedError(
-            "resume is not yet ported to the torch package")
     parallel = config.get("parallel") or {}
     for axis in ("model_parallel", "seq_parallel"):
         if (parallel.get(axis) or 1) > 1:
@@ -256,9 +275,6 @@ def _refuse_unported(config: Dict[str, Any], world_size: int) -> None:
         raise NotImplementedError(
             "parallel.shard_optimizer (ZeRO-1) is not yet ported to the "
             "torch package")
-    if (config["train"].get("accum_iter", 1) or 1) > 1:
-        raise NotImplementedError(
-            "train.accum_iter > 1 is not yet ported to the torch package")
     if config["dataset"].get("device_cache", False):
         raise NotImplementedError(
             "dataset.device_cache is not yet ported to the torch package")
@@ -268,10 +284,6 @@ def _refuse_unported(config: Dict[str, Any], world_size: int) -> None:
             "yet ported to the torch package, which writes pickle .ckpt "
             "files (the JAX package reads them); an orbax checkpoint "
             "converts with `python tools/convert_checkpoint.py to-torch`")
-    if config.get("profile"):
-        raise NotImplementedError(
-            "profile (the training trace schedule) is not yet ported to the "
-            "torch package")
 
 
 # ---------------------------------------------------------------------------
@@ -457,19 +469,16 @@ def evaluate(model: torch.nn.Module, loader, metric_fn, num_classes: int,
 # ---------------------------------------------------------------------------
 
 
-def device_memory_mb(device: torch.device) -> Optional[float]:
-    if device.type != "cuda":
-        return None
-    return torch.cuda.max_memory_allocated(device) / 2 ** 20
-
-
 class Trainer:
     """The state of one run: model and optimizer, the Mean Teacher's
     ``teacher`` or the CPS ``peer`` and ``peer_optimizer`` where the
     algorithm keeps one, the generators, and the per-step function, so
     that a caller (the training loop, a test, a profile) can run single
     steps. ``model`` / ``peer`` given are used as they are (no warm
-    start); else they are initialised from ``seed`` / ``seed + 10_000``."""
+    start); else they are initialised from ``seed`` / ``seed + 10_000``.
+    A config with ``resume`` restores them (and the optimizers and the
+    step) from the checkpoint it names; ``resume_best`` holds that file's
+    best-so-far thresholds."""
 
     def __init__(self, config: Dict[str, Any], spec: AlgorithmSpec,
                  device: torch.device, updates_per_epoch: int,
@@ -513,11 +522,14 @@ class Trainer:
             if plan.augment is not None:
                 self.augment = plan.augment
                 self.augment_gen = torch.Generator(device=device)
-        # every rank starts from rank 0's weights (warm starts included)
+        self.step = 0
+        self.last_checkpoint = None  # the last checkpoint file written
+        self.resume_best = ckpt.maybe_resume(config, self)
+        # every rank starts from rank 0's weights (warm starts and resumes
+        # included)
         for module in (self.model, self.teacher, self.peer):
             if module is not None:
                 pdist.broadcast_module_(module)
-        self.step = 0
 
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
@@ -575,21 +587,32 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
 
     resolve_lr(config, pmesh.data_parallel_size())
     eff = config["train"]["eff_batch_size"]
+    updates = updates_per_epoch(config, steps_per_epoch)
     log(f"base lr: {config['train']['lr'] * 256 / eff}")
     log(f"actual lr: {config['train']['lr']}")
+    log(f"accumulate grad iterations: {accum_iter(config)}")
     log(f"effective batch size: {eff}")
 
     num_classes = config["metric"]["num_classes"]
     metric_fn, best_metrics = build_metric_fn(config["metric"])
     num_epochs = config["train"]["epochs"]
     best_loss = float("inf")
-    lr_fn = make_lr_schedule(config["train"], steps_per_epoch)
+    lr_fn = make_lr_schedule(config["train"], updates)
     nan_checks = bool((config.get("debug") or {}).get("nan_checks", False))
     try:
         with full_fp32(), torch.autograd.set_detect_anomaly(nan_checks):
-            trainer = Trainer(config, spec, device, steps_per_epoch)
+            trainer = Trainer(config, spec, device, updates)
             if state_hook is not None:
                 state_hook(trainer)
+            if trainer.resume_best:
+                # the thresholds from before the restart: the first resumed
+                # epoch must not overwrite the real best-*.ckpt files
+                best_loss = trainer.resume_best.get("loss", best_loss)
+                for k, v in trainer.resume_best.items():
+                    if k in best_metrics:
+                        best_metrics[k] = v
+                log(f"Resume: best-checkpoint thresholds restored: "
+                    f"{trainer.resume_best}")
             log(f"Start training for {num_epochs} epochs on {device}"
                 f" (seed {seed}, {pdist.get_world_size()} rank(s))")
             start_time = time.time()
@@ -600,6 +623,11 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
                 train_stats = _train_one_epoch(
                     trainer, loaders, spec, epoch, steps_per_epoch, lr_fn,
                     log_writer)
+                # a window open at the epoch's end: every rank holds the
+                # ranks' mean partial sum, the one rank 0's checkpoint keeps
+                for opt in (trainer.optimizer, trainer.peer_optimizer):
+                    if opt is not None:
+                        opt.average_window_()
                 valid_stats, metrics, _, _ = evaluate(
                     trainer.model, loaders["valid"], metric_fn,
                     num_classes, device, trainer.amp,
@@ -635,6 +663,8 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
                         step=trainer.step, ema_model=trainer.teacher,
                         peer_model=trainer.peer,
                         peer_optimizer=trainer.peer_optimizer)
+                if save_paths:
+                    trainer.last_checkpoint = save_paths[-1]
 
                 if log_writer is not None:
                     log_writer.add_scalar("perf/valid_loss", curr_loss,
@@ -664,11 +694,14 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
 def _train_one_epoch(trainer: Trainer, loaders, spec: AlgorithmSpec,
                      epoch: int, steps_per_epoch: int, lr_fn,
                      log_writer) -> Dict[str, float]:
+    accum = trainer.optimizer.accum
     logger = MetricLogger()
     pending = []  # (iteration, device metrics), drained at PRINT_FREQ
     t_epoch = time.time()
     t_last = time.time()
     data_wait = 0.0
+    profiler = ProfileSchedule(trainer.config.get("profile"), trainer.device,
+                               pdist.get_rank())
 
     def drain():
         nonlocal pending
@@ -685,11 +718,13 @@ def _train_one_epoch(trainer: Trainer, loaders, spec: AlgorithmSpec,
             if not math.isfinite(scalars.get("loss",
                                              scalars.get("loss_total", 0.0))):
                 log(f"Loss is {scalars}, stopping training")
+                if trainer.last_checkpoint:
+                    log(f"Last good checkpoint: {trainer.last_checkpoint}")
                 sys.exit(1)
-            update_step = epoch * steps_per_epoch + i
-            scalars["lr"] = float(lr_fn(update_step))
+            global_step = epoch * steps_per_epoch + i
+            scalars["lr"] = float(lr_fn(global_step // accum))
             logger.update(**scalars)
-            if log_writer is not None:
+            if log_writer is not None and (global_step + 1) % accum == 0:
                 epoch_1000x = int((epoch + i / steps_per_epoch) * 1000)
                 for k, v in scalars.items():
                     log_writer.add_scalar(k, v, epoch_1000x)
@@ -709,12 +744,14 @@ def _train_one_epoch(trainer: Trainer, loaders, spec: AlgorithmSpec,
     for batch in prefetched(combined_batches(loaders, spec), trainer.device):
         data_wait += time.time() - t_last
         it += 1
+        profiler.step(epoch * steps_per_epoch + it)
         pending.append((it, trainer.train_step(batch)))
         if (it + 1) % PRINT_FREQ == 0 or it == steps_per_epoch - 1:
             drain()
             progress(it)
         t_last = time.time()
     drain()
+    profiler.close()
     log(f"Averaged stats: {logger}")
     return logger.stats()
 

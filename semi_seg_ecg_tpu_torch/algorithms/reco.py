@@ -92,8 +92,10 @@ def make_train_step(trainer):
             loss = (loss_x + loss_u_s + contr) / 3.0
         optimizer.zero_grad()
         loss.backward()
-        optimizer.step()
-        ema_update(model, teacher, ema_decay)
+        # the teacher follows real updates only (a window's last
+        # micro-step under train.accum_iter)
+        if optimizer.step():
+            ema_update(model, teacher, ema_decay)
         loss = loss.detach()
         return {"loss_total": loss, "loss_x": loss_x.detach(),
                 "loss_u_s": loss_u_s.detach(), "contr_loss": contr.detach(),

@@ -24,7 +24,7 @@ hold it as ``model_ema``, as the JAX package's do. Under a process group
 each rank ranks its shards of the unlabeled split and the ranks exchange
 their rows (``parallel.dist.all_gather_rows``, the JAX package's
 multi-host exchange), so every rank sorts the same reliabilities and keeps
-the same reliable ids.
+the same reliable ids. ``resume`` is refused (:func:`train` says why).
 """
 
 from __future__ import annotations
@@ -197,6 +197,15 @@ def train_semisup(config, stage_id: int, unlabeled_subset_ids=None):
 
 
 def train(config):
+    if config.get("resume"):
+        # the JAX package keeps resume set through its three run_training
+        # calls, so every stage reloads the one checkpoint and starts at
+        # its epoch + 1, which resumes no stage where it stopped
+        raise ValueError(
+            "resume is refused under algorithm: stpp: its three stages "
+            "share one config, so each stage would reload the same "
+            "checkpoint and start at its epoch + 1 rather than where that "
+            "stage stopped")
     train_sup(config)
     reliable_ids = prepare_semisup(config)
     train_semisup(config, stage_id=2, unlabeled_subset_ids=reliable_ids)

@@ -16,6 +16,11 @@ Two formats come in:
 - a torch ``.pth`` in the reference layout, ``{model: state_dict, ...}``,
   which is what :func:`save_torch_checkpoint` writes and what the JAX
   package's own ``.pth`` loader reads.
+
+:func:`maybe_resume` restarts a run (``resume:`` / ``--resume``) from any
+of the three: the port's own ``.ckpt`` restores everything it holds, a JAX
+``.ckpt`` its trees and, through ``utils/optim_state.py``, its optax
+state, a ``.pth`` the model only.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from typing import Any, Collection, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .logging import log
+from .optim_state import load_optax_leaves
 from .weights import jax_trees_to_state_dict
 
 # what a NumPy-leaved pickle may name: array and scalar reconstruction,
@@ -144,3 +151,91 @@ def save_torch_checkpoint(path: str, model: torch.nn.Module,
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def resolve_checkpoint_url(path: str) -> str:
+    """URL-resume capability (reference misc.py:307-309 uses torch.hub).
+
+    This build runs with zero network egress, so URLs resolve against the
+    torch-hub download cache instead of the network: ``file://`` maps to the
+    local path, and ``http(s)://`` URLs are looked up by filename in
+    ``$TORCH_HOME/hub/checkpoints`` (the directory ``torch.hub`` populates).
+    A cache miss raises with instructions rather than attempting a fetch."""
+    if path.startswith("file://"):
+        return path[len("file://"):]
+    if not path.startswith(("http://", "https://")):
+        return path
+    fname = os.path.basename(path.split("?", 1)[0])
+    torch_home = os.environ.get(
+        "TORCH_HOME", os.path.join(os.path.expanduser("~"), ".cache", "torch")
+    )
+    cached = os.path.join(torch_home, "hub", "checkpoints", fname)
+    if os.path.exists(cached):
+        log(f"URL resume served from torch-hub cache: {cached}")
+        return cached
+    raise FileNotFoundError(
+        f"URL resume requires a pre-downloaded checkpoint (no network "
+        f"egress). Place the file at {cached} or pass a local path."
+    )
+
+
+def _restore_module(module: torch.nn.Module, payload_model) -> None:
+    module.load_state_dict(model_state_dict(payload_model,
+                                            module.state_dict().keys()))
+
+
+def maybe_resume(config: Dict[str, Any], trainer) -> Optional[Dict[str, Any]]:
+    """``--resume`` (the JAX package's ``maybe_resume``, reference
+    misc.py:305-321) into a built ``trainer`` (``algorithms/common.Trainer``),
+    in place: the model, and the teacher (``model_ema``) and peer
+    (``model_peer``) where both run and file have one. A torch ``.pth``
+    then restarts the optimizer; the port's ``.ckpt`` and a JAX ``.ckpt``
+    restore the optimizers (the update count and an open accumulation
+    window too) and the step. Sets ``config["start_epoch"]`` to the file's
+    epoch + 1. Returns the file's best-so-far thresholds (``best``), if
+    any."""
+    resume = config.get("resume")
+    if not resume:
+        return None
+    resume = resolve_checkpoint_url(str(resume))
+    payload = load_checkpoint(resume)
+    _restore_module(trainer.model, payload["model"])
+    for module, key in ((trainer.teacher, "model_ema"),
+                        (trainer.peer, "model_peer")):
+        if module is not None and key in payload:
+            _restore_module(module, payload[key])
+    log(f"Resume checkpoint {resume}")
+    if resume.endswith((".pth", ".pt")):
+        # a torch optimizer's state is keyed by the writer's param groups:
+        # the weights warm-start, the statistics restart; the epoch counter
+        # carries over (reference misc.py:315-320)
+        if payload.get("epoch") is not None:
+            config["start_epoch"] = payload["epoch"] + 1
+            log(f"Torch-format checkpoint: model restored, optimizer "
+                f"restarted, resuming at epoch {config['start_epoch']}")
+        else:
+            log("Torch-format checkpoint: model restored, optimizer "
+                "restarted")
+        return payload.get("best")
+    if "optimizer" in payload and payload.get("epoch") is not None:
+        jax_trees = "params" in payload["model"]
+        for optimizer, key, model_key, module in (
+                (trainer.optimizer, "optimizer", "model", trainer.model),
+                (trainer.peer_optimizer, "peer_optimizer", "model_peer",
+                 trainer.peer)):
+            if optimizer is None or key not in payload:
+                continue
+            if jax_trees:
+                load_optax_leaves(optimizer, payload[key],
+                                  payload[model_key]["params"],
+                                  module.state_dict().keys())
+            else:
+                # files written before accumulation was ported hold no
+                # count; every step was an update then
+                optimizer.load_state_dict(
+                    {"count": payload.get("step") or 0, **payload[key]})
+        if payload.get("step") is not None:
+            trainer.step = int(payload["step"])
+        config["start_epoch"] = payload["epoch"] + 1
+        log("With optim & sched!")
+    return payload.get("best")

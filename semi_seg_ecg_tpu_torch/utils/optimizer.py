@@ -25,6 +25,23 @@ sets ``lr · lr_scale`` on each. The JAX package multiplies the update by
 the scale after the decoupled decay, so the decay is scaled too, which is
 what a group's ``lr = lr0 · scale`` gives.
 
+Gradient accumulation (``train.accum_iter`` k > 1), the JAX package's
+``optax.MultiSteps``: a window of k micro-steps, counted on the global
+micro-step (so a window may span an epoch's end), makes one update.
+:meth:`TrainOptimizer.zero_grad` clears the gradients only at a window's
+start, so autograd sums the k micro-steps' gradients into ``.grad``;
+:meth:`TrainOptimizer.step` on the window's last micro-step divides the sum
+by k (optax keeps a running mean, ``acc + (g - acc) / (n + 1)``; the two
+round apart in the last bits), then all-reduces, clips, applies the update
+and counts it; on the other micro-steps it does nothing. The schedule
+counts updates: ``updates_per_epoch = max(steps_per_epoch // k, 1)``.
+Under a process group each rank's ``.grad`` holds its own partial sum
+until the window's last micro-step; :meth:`TrainOptimizer.average_window_`
+replaces it by the ranks' mean (the training loop calls it on every rank
+at an epoch's end), so a checkpoint, written by rank 0, holds the global
+batch's partial sum, which every rank of a resumed run continues from.
+The window's mean is linear in the gradients, so the update is the same.
+
 Freezing (``mode: freeze_backbone``, ``frozen_stages >= 0``): the frozen
 set is the JAX package's ``frozen_param_mask``
 (:func:`frozen_parameter_names`).
@@ -36,8 +53,9 @@ AdamW would still decay the parameter.)
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Set
+from typing import Any, Callable, Dict, List, Sequence, Set
 
+import numpy as np
 import torch
 
 from ..parallel.dist import all_reduce_grads_
@@ -84,20 +102,39 @@ def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float) -> None:
 class TrainOptimizer:
     """A ``torch.optim`` optimizer driven by the schedule: :meth:`step`
     sets the lr of update ``count``, averages the gradients over the
-    process group's ranks, clips, steps and counts."""
+    process group's ranks, clips, steps and counts, once every ``accum``
+    micro-steps (``micro_step`` of them taken in the open window).
+    ``names`` are the parameters' names, in the groups' order; a
+    checkpoint keys an open window's gradients by them."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
-                 schedule: Callable[[int], float], max_norm=None):
+                 schedule: Callable[[int], float], max_norm=None,
+                 accum: int = 1, names: Sequence[str] = ()):
         self.optimizer = optimizer
         self.schedule = schedule
         self.max_norm = max_norm
+        self.accum = accum
         self.count = 0
+        self.micro_step = 0
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.names = list(names)
 
     def zero_grad(self) -> None:
-        self.optimizer.zero_grad(set_to_none=True)
+        """Clear the gradients at the start of a window (every call when
+        ``accum`` is 1)."""
+        if self.micro_step == 0:
+            self.optimizer.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
+    def step(self) -> bool:
+        """End a micro-step; on a window's last, apply the update to the
+        window's mean gradient. Returns whether it applied one."""
+        self.micro_step += 1
+        if self.micro_step < self.accum:
+            return False
+        self.micro_step = 0
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if self.accum > 1 and grads:
+            torch._foreach_div_(grads, self.accum)
         lr = self.schedule(self.count)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_scale"]
@@ -108,9 +145,70 @@ class TrainOptimizer:
             clip_by_global_norm_(self.params, self.max_norm)
         self.optimizer.step()
         self.count += 1
+        return True
+
+    def average_window_(self) -> None:
+        """Replace an open window's summed gradients by their mean over the
+        process group's ranks, in place; every rank calls it (one rank:
+        nothing to do)."""
+        if self.micro_step:
+            all_reduce_grads_(self.params)
 
     def state_dict(self) -> Dict[str, Any]:
-        return self.optimizer.state_dict()
+        """The torch optimizer's state_dict, with the update ``count``, the
+        open window's ``micro_step`` and, when one is open, its summed
+        gradients by parameter name (``acc_grads``; under a process group
+        as :meth:`average_window_` left them)."""
+        state = dict(self.optimizer.state_dict(), count=self.count,
+                     micro_step=self.micro_step)
+        if self.micro_step:
+            state["acc_grads"] = {n: p.grad for n, p in
+                                  zip(self.names, self.params)
+                                  if p.grad is not None}
+        return state
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore :meth:`state_dict`'s output (tensors or NumPy arrays)."""
+        state = dict(state)
+        self.count = int(state.pop("count"))
+        self.micro_step = int(state.pop("micro_step", 0))
+        self.set_window(self.micro_step, state.pop("acc_grads", {}))
+        self.optimizer.load_state_dict(_as_tensors(state))
+
+    def set_window(self, micro_step: int,
+                   grads: Dict[str, Any]) -> None:
+        """Open a window at ``micro_step`` holding the summed ``grads`` (by
+        parameter name; a parameter left out has none)."""
+        if micro_step >= self.accum:
+            raise ValueError(f"a window of {self.accum} micro-steps cannot "
+                             f"be at micro-step {micro_step}")
+        self.micro_step = micro_step
+        by_name = dict(zip(self.names, self.params))
+        unknown = set(grads) - set(by_name)
+        if unknown:
+            raise KeyError(f"gradients of unknown parameters: "
+                           f"{sorted(unknown)[:5]}")
+        for name, p in by_name.items():
+            g = grads.get(name)
+            if g is not None and tuple(g.shape) != tuple(p.shape):
+                raise ValueError(f"the gradient of {name} has shape "
+                                 f"{tuple(g.shape)}, not {tuple(p.shape)}")
+            # in the parameter's own layout, as autograd lays a gradient
+            p.grad = None if g is None else torch.empty_like(p).copy_(
+                torch.as_tensor(g))
+
+
+def _as_tensors(obj):
+    """NumPy arrays → tensors through dicts and lists (a checkpoint's
+    optimizer state; torch's ``load_state_dict`` moves them to each
+    parameter's device)."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj.copy())
+    if isinstance(obj, dict):
+        return {k: _as_tensors(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_as_tensors(v) for v in obj)
+    return obj
 
 
 def frozen_parameter_names(config: Dict[str, Any],
@@ -165,15 +263,26 @@ def param_groups(config: Dict[str, Any],
             for (scale, wd), params in groups.items()]
 
 
+def accum_iter(config: Dict[str, Any]) -> int:
+    return int(config["train"].get("accum_iter", 1) or 1)
+
+
+def updates_per_epoch(config: Dict[str, Any], steps_per_epoch: int) -> int:
+    """The optimizer updates an epoch of ``steps_per_epoch`` micro-steps
+    makes under ``train.accum_iter`` (at least one)."""
+    return max(steps_per_epoch // accum_iter(config), 1)
+
+
 def build_optimizer(config: Dict[str, Any], model: torch.nn.Module,
-                    steps_per_epoch: int) -> TrainOptimizer:
+                    updates_per_epoch: int) -> TrainOptimizer:
     """The config's optimizer over the trainable parameters of ``model``,
-    in the groups of :func:`param_groups`."""
+    in the groups of :func:`param_groups`, its schedule counting
+    ``updates_per_epoch`` updates an epoch."""
     train_cfg = config["train"]
     opt_name = train_cfg["optimizer"]
     kwargs = train_cfg.get("optimizer_kwargs", {}) or {}
     groups = param_groups(config, model)
-    schedule = make_lr_schedule(train_cfg, steps_per_epoch)
+    schedule = make_lr_schedule(train_cfg, updates_per_epoch)
     lr0 = schedule(0)
     if opt_name == "sgd":
         opt = torch.optim.SGD(groups, lr=lr0,
@@ -184,4 +293,7 @@ def build_optimizer(config: Dict[str, Any], model: torch.nn.Module,
                                 eps=kwargs.get("eps", 1e-8))
     else:
         raise ValueError(f"Unknown optimizer: {opt_name}")
-    return TrainOptimizer(opt, schedule, train_cfg.get("max_norm", None))
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    names = [name_of[id(p)] for g in groups for p in g["params"]]
+    return TrainOptimizer(opt, schedule, train_cfg.get("max_norm", None),
+                          accum_iter(config), names)

@@ -24,7 +24,9 @@ accumulators equal the CPU's (true divisions, ``torch._int_mm`` exact on
 both), the dequantized outputs within 1e-6 relative. A serving artifact
 exported and loaded on the card: within 1e-5 of ``ServingFn`` (the same
 kernels, traced). Remat: a step with it equals one without bit for bit,
-with one more flash forward per block.
+with one more flash forward per block. Gradient accumulation: a window of
+two micro-steps through the kernels against the dense path, as phase 4 of
+chip_smoke.py holds three steps.
 """
 
 import numpy as np
@@ -568,6 +570,76 @@ def test_remat_recomputes_through_the_kernels(cuda):
                 assert (got[k] - v).abs().max() <= 1e-5 * v.abs().max(), k
             else:
                 assert torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+def test_accumulated_window_flash_matches_dense(cuda):
+    """One window of ``accum_iter: 2`` fp32 FixMatch micro-steps of the
+    shipped vit_tiny recipe (depth cut to 2, dropout off, device
+    augmentation) with flash attention and with the dense path: each
+    micro-step launches the kernels of a step (none on the dense path but
+    the gathers), the first applies nothing, the second the one update; the
+    losses within 1e-4 relative, the BN statistics within 1e-4, the
+    parameters within 0.5 lr (the key bias, whose gradient is zero in exact
+    arithmetic and whose Adam step is lr-sized noise, within 2 lr)."""
+    import os
+
+    import yaml
+
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, init_model
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "base", "vit_tiny",
+        "fixmatch.yaml")
+    with open(path) as f:
+        cfg = normalize_config(yaml.safe_load(f))
+    depth = 2
+    cfg["precision"] = "fp32"
+    cfg["backbone"]["vit_tiny"].update(depth=depth, out_indices=[1])
+    cfg["decode_head"]["FCNHead"].update(in_index=0, dropout_ratio=0.0)
+    cfg["dataset"]["device_augment"] = True
+    cfg["train"].update(conf_thresh=0.5, accum_iter=2, warmup_epochs=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = [{"ecg": torch.randn(8, 1, 2500, generator=gen, device=cuda),
+                "target": torch.randint(0, 4, (8, 2500), generator=gen,
+                                        device=cuda),
+                "ecg_u_w": torch.randn(8, 1, 2500, generator=gen,
+                                       device=cuda)} for _ in range(2)]
+    runs = {}
+    for impl, kernels in (("flash", (2 * depth, depth, 3)),
+                          ("xla", (0, 0, 3))):
+        cfg["backbone"]["vit_tiny"]["attention_impl"] = impl
+        trainer = Trainer(cfg, fixmatch.SPEC, cuda, 4,
+                          model=init_model(cfg, cuda))
+        start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        losses = []
+        for micro, batch in enumerate(batches):
+            before = fa.LAUNCHES, fa.BWD_LAUNCHES, gather1d.LAUNCHES
+            losses.append(trainer.train_step(batch)["loss"].item())
+            torch.cuda.synchronize()
+            after = fa.LAUNCHES, fa.BWD_LAUNCHES, gather1d.LAUNCHES
+            assert tuple(a - b for a, b in zip(after, before)) == kernels
+            assert trainer.optimizer.count == micro
+            if micro == 0:
+                for k, p in trainer.model.named_parameters():
+                    assert torch.equal(p.detach(), start[k]), k
+        assert trainer.optimizer.count == 1
+        assert trainer.optimizer.micro_step == 0
+        runs[impl] = losses, trainer.model.state_dict()
+    (lf, sf), (ld, sd) = runs["flash"], runs["xla"]
+    for a, b in zip(lf, ld):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    lr = cfg["train"]["lr"]
+    for k, v in sd.items():
+        if not v.is_floating_point():
+            continue
+        err = (sf[k] - v).abs().max().item()
+        if "running" in k:
+            assert err <= 1e-4 + 1e-4 * v.abs().max().item(), k
+        else:
+            assert err <= (2.0 if k.endswith("to_qkv.bias") else 0.5) * lr, k
 
 
 @pytest.mark.cuda

@@ -8,6 +8,9 @@ package's ``wrsamp`` / ``wrann`` are byte-equal and read back by the other's
 ``rdrecord`` / ``rdann`` bit for bit; ``make_synthetic_wfdb`` writes
 byte-equal records. ``ops/delineation.py`` gives exactly equal intervals,
 matches and metrics on seeded random label fields.
+``utils/checkpoint.resolve_checkpoint_url`` resolves ``file://``, a plain
+path and an http URL found in ``$TORCH_HOME/hub/checkpoints`` to the JAX
+package's paths, and a cache miss raises in both.
 """
 
 import glob
@@ -25,6 +28,9 @@ from semi_seg_ecg_tpu.data.synthetic import (
     make_synthetic_wfdb as jax_wfdb_make,
 )
 from semi_seg_ecg_tpu.ops import delineation as jax_delineation
+from semi_seg_ecg_tpu.utils.checkpoint import (
+    resolve_checkpoint_url as jax_resolve_url,
+)
 from semi_seg_ecg_tpu_torch import config as torch_config
 from semi_seg_ecg_tpu_torch.data.dataset import build_seg_dataset
 from semi_seg_ecg_tpu_torch.data.loader import get_dataloader
@@ -34,6 +40,7 @@ from semi_seg_ecg_tpu_torch.data.synthetic import (
     make_synthetic_wfdb,
 )
 from semi_seg_ecg_tpu_torch.ops import delineation
+from semi_seg_ecg_tpu_torch.utils.checkpoint import resolve_checkpoint_url
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.yaml"),
@@ -234,3 +241,18 @@ def test_delineation_is_the_jax_delineation(seed):
             np.testing.assert_equal(
                 delineation.delineation_metrics(p, t, **kw),
                 jax_delineation.delineation_metrics(p, t, **kw))
+
+
+def test_resolve_checkpoint_url_is_the_jax_one(tmp_path, monkeypatch):
+    monkeypatch.setenv("TORCH_HOME", str(tmp_path / "torch_home"))
+    cache = tmp_path / "torch_home" / "hub" / "checkpoints"
+    cache.mkdir(parents=True)
+    (cache / "model.pth").write_bytes(b"x")
+    local = str(tmp_path / "ckpt.bin")
+    for url, want in ((f"file://{local}", local), (local, local),
+                      ("https://example.com/weights/model.pth?dl=1",
+                       str(cache / "model.pth"))):
+        assert resolve_checkpoint_url(url) == jax_resolve_url(url) == want
+    for resolve in (resolve_checkpoint_url, jax_resolve_url):
+        with pytest.raises(FileNotFoundError, match="pre-downloaded"):
+            resolve("http://example.com/absent.pth")

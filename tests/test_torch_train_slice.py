@@ -31,7 +31,8 @@ serves its checkpoint through the port's ``inference_main``, and the JAX
 package's ``load_eval_model`` reads the same ``.ckpt`` to logits within
 atol 2e-4 of the port's. The config keys the port once dropped (orbax
 checkpoints, ``profile``, ``debug.nan_checks``, ``async_checkpoint``)
-either work or raise.
+either work or raise; ``profile``'s trace holds the steps of its window
+that the epoch reaches (``utils/profiling.ProfileSchedule``).
 """
 
 import copy
@@ -42,6 +43,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 import yaml
@@ -195,6 +197,10 @@ def lockstep_states(attention_impl, algorithm, jax_algo, port_algo, seed,
     jit = "resnet18" in cfg["backbone"]
     params, stats = perturbed_state(jmodel, seed, jit)
     tx = jax_optimizer(cfg, params, K, model=jmodel)
+    accum = cfg["train"].get("accum_iter", 1)
+    if accum > 1:
+        # as the JAX package's run_training wraps it
+        tx = optax.MultiSteps(tx, every_k_schedule=accum)
     spec = port_algo.SPEC
     ema = peer = peer_opt = peer_module = None
     if spec.uses_ema:
@@ -247,6 +253,19 @@ def lockstep_states(attention_impl, algorithm, jax_algo, port_algo, seed,
             port_sds[role] = module.state_dict()
             jax_sds[role] = jax_trees_to_state_dict(
                 jax_state.params, jax_state.batch_stats, port_sds[role].keys())
+    if accum > 1:
+        # the open window's gradients: optax's running mean of its
+        # mini_step gradients, the port's sum of them in .grad
+        mini = int(state.opt_state.mini_step)
+        assert trainer.optimizer.micro_step == mini
+        acc = jax_trees_to_state_dict(state.opt_state.acc_grads,
+                                      state.model.batch_stats,
+                                      port_sds["model"].keys())
+        grads = dict(trainer.model.named_parameters())
+        jax_sds["acc_grads"] = {k: v * mini for k, v in acc.items()
+                                if k in grads}
+        port_sds["acc_grads"] = {k: grads[k].grad for k in
+                                 jax_sds["acc_grads"]}
     return theirs, ours, jax_sds, port_sds
 
 
@@ -513,27 +532,27 @@ def test_trained_ckpt_is_served_by_both_packages(trained, tmp_path):
                                  "nan_checks", "async_checkpoint"])
 def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
     """Keys the JAX package reads and the port used to drop: orbax
-    checkpoints and the trace schedule raise "not yet ported";
+    checkpoints raise "not yet ported"; the trace schedule traces the
+    steps of its window up to the epoch's end (here step 1 of steps 0-1);
     ``debug.nan_checks`` trains under autograd's anomaly detection;
     ``async_checkpoint`` writes the same checkpoint synchronously."""
     from semi_seg_ecg_tpu_torch.algorithms import common
 
     cfg, path = tiny_recipe(tmp_path, "resnet18", "scratch", key)
+    trace_dir = tmp_path / "trace"
     override = {"checkpoint_backend": {"checkpoint_backend": "orbax"},
-                "profile": {"profile": {"start_step": 1, "num_steps": 2}},
+                "profile": {"profile": {"trace_dir": str(trace_dir),
+                                        "start_step": 1, "num_steps": 2}},
                 "nan_checks": {"debug": {"nan_checks": True}},
                 "async_checkpoint": {"async_checkpoint": True}}[key]
     with open(path, "w") as f:
         yaml.safe_dump(dict(cfg, **override), f)
-    if key in ("checkpoint_backend", "profile"):
-        match = "to-torch" if key == "checkpoint_backend" else \
-            "not yet ported"
-        with pytest.raises(NotImplementedError, match=match):
+    if key == "checkpoint_backend":
+        with pytest.raises(NotImplementedError, match="to-torch"):
             train_main(["-f", path])
-        if key == "checkpoint_backend":
-            os.makedirs(tmp_path / "orbax.ckpt")
-            with pytest.raises(NotImplementedError, match="to-torch"):
-                torch_ckpt.load_checkpoint(str(tmp_path / "orbax.ckpt"))
+        os.makedirs(tmp_path / "orbax.ckpt")
+        with pytest.raises(NotImplementedError, match="to-torch"):
+            torch_ckpt.load_checkpoint(str(tmp_path / "orbax.ckpt"))
         return
     anomaly = []
     step = common.Trainer.train_step
@@ -550,3 +569,41 @@ def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
         str(tmp_path / "exps"), key, "best-MeanIoU.ckpt"))
     assert payload["step"] == 2 and "backbone.stem.0.weight" in \
         payload["model"]
+    if key == "profile":
+        assert os.listdir(trace_dir) == ["rank0_steps1-1.pt.trace.json"]
+        assert traced_steps(trace_dir / "rank0_steps1-1.pt.trace.json") == \
+            {"ProfilerStep#1"}
+
+
+def traced_steps(path):
+    """The ``ProfilerStep#n`` ranges of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events
+            if e.get("name", "").startswith("ProfilerStep#")}
+
+
+def test_profile_schedule(tmp_path):
+    """The window of steps 2-3 of 0-5, then nothing more; without a
+    ``trace_dir`` no trace."""
+    from semi_seg_ecg_tpu_torch.utils.profiling import (
+        ProfileSchedule,
+        device_memory_mb,
+    )
+
+    cpu = torch.device("cpu")
+    sched = ProfileSchedule({"trace_dir": str(tmp_path / "trace"),
+                             "start_step": 2, "num_steps": 2}, cpu)
+    x = torch.ones(4)
+    for step in range(6):
+        sched.step(step)
+        x = x * 2
+    sched.close()
+    assert sched.path == str(tmp_path / "trace" / "rank0_steps2-3.pt.trace.json")
+    assert traced_steps(sched.path) == {"ProfilerStep#2", "ProfilerStep#3"}
+    idle = ProfileSchedule({"start_step": 0, "num_steps": 2}, cpu)
+    for step in range(3):
+        idle.step(step)
+    idle.close()
+    assert idle.path is None
+    assert device_memory_mb(cpu) is None

@@ -204,6 +204,20 @@ def task_train_main(argv, num_shards=None):
         return train_main(argv)
 
 
+def task_run_training(argv, snapshot_epochs=()):
+    """``run_training`` of the config ``argv`` names, writing a
+    ``checkpoint-{e}.ckpt`` after each epoch ``e - 1`` of
+    ``snapshot_epochs``."""
+    from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
+    from semi_seg_ecg_tpu_torch.algorithms.common import run_training
+    from semi_seg_ecg_tpu_torch.config import parse_train_args
+
+    config = parse_train_args(argv)
+    run_training(config, get_algorithm(config["algorithm"]).SPEC,
+                 snapshot_epochs=set(snapshot_epochs))
+    return {"start_epoch": config.get("start_epoch", 0)}
+
+
 def task_evaluate(config, checkpoint, split):
     """One evaluation of ``checkpoint`` on ``split`` through
     ``algorithms.common.evaluate``, as the training loop runs it: the
@@ -259,6 +273,7 @@ def task_nan_abort(argv, rank):
 TASKS = {"batchnorm": task_batchnorm, "draws": task_draws,
          "steps": task_steps, "select_reliable": task_select_reliable,
          "evaluate": task_evaluate, "train_main": task_train_main,
+         "run_training": task_run_training,
          "test_main": task_test_main,
          "inference_main": task_inference_main, "nan_abort": task_nan_abort}
 
