@@ -131,7 +131,26 @@ non-zero exit when it fails:
    steps' ranges and their kernel events of the three kernels; (e) one
    window on phase 10's two ranks against one process holding both
    shards, one gradient all-reduce a rank; the micro-step's wall time at
-   ``accum_iter`` 1 and 2, in turns.
+   ``accum_iter`` 1 and 2, in turns;
+13. the remaining device-augment ops, the device cache and ZeRO-1: (a)
+   each op ported after the shipped chains' (flips, drop, cutout, shift,
+   baseline shift, the whole-window noises, RandomApply) and each level
+   override on the card against the CPU under the same draws (signals
+   within 1e-5, labels exact, the gather launched once by shift, never by
+   the others); (b) phase 4's FixMatch recipe with the weak chain
+   [resize-crop, RandomApply(RandomShift)] and an 8-op strong RandAugment
+   of new ops through ``train_main``, 24 / 12 / 6 launches a step; (c)
+   the same run with ``device_cache: true``, both in a process of their
+   own under deterministic algorithms (``--cache``): losses and the final
+   model bit for bit, index batches, the traced steps' host-to-device
+   copies (none larger than an index batch), the cache's bytes and the
+   step's wall time both ways; (d) ZeRO-1 against the replicated
+   optimizer on phase 10's two ranks under deterministic algorithms, 3
+   fp32 steps of FixMatch (SGD with momentum) and CPS (AdamW, the peer's
+   optimizer too): networks, losses and the gathered optimizer state,
+   each rank's optimizer bytes (at most 0.6 of the replicated) and peak
+   memory, and each run's checkpoint resumed in one unsharded process for
+   a fourth step, the ZeRO-1 one against the replicated one.
 
 The line before the last prints the card's name and power limit as
 nvidia-smi gives them; the line before that, a JSON object with one entry
@@ -3054,7 +3073,8 @@ def dp_accum_steps(torch, config, batches):
 
 
 RANK_TASKS = {"steps": dp_steps, "train": dp_train, "rank": dp_rank,
-              "profile": dp_profile, "accum_steps": dp_accum_steps}
+              "profile": dp_profile, "accum_steps": dp_accum_steps,
+              "z1_steps": lambda torch, **kw: z1_steps(torch, **kw)}
 
 
 def rank_main(job, out_dir):
@@ -3081,10 +3101,10 @@ def rank_main(job, out_dir):
     return 0
 
 
-def dp_run_ranks(tasks, backend):
-    """Phase 10's ranks on ``tasks``, each task's results by rank; fails
-    the phase if a rank fails or the group outlives DP_TIMEOUT (then every
-    process of it is killed)."""
+def dp_run_ranks(tasks, backend, phase=10, env=None):
+    """Phase 10's ranks on ``tasks`` (``env`` added to their environment),
+    each task's results by rank; fails ``phase`` if a rank fails or the
+    group outlives DP_TIMEOUT (then every process of it is killed)."""
     work = os.path.join(WORK, "dp")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -3107,9 +3127,10 @@ def dp_run_ranks(tasks, backend):
                       "MASTER_PORT": str(port)}) for r in range(DP_WORLD)]
     procs = []
     with open(os.path.join(work, "launcher.log"), "w") as out:
-        for cmd, env in commands:
+        for cmd, rank_env in commands:
             procs.append(subprocess.Popen(
-                cmd, cwd=REPO, env={**os.environ, **env}, stdout=out,
+                cmd, cwd=REPO, env={**os.environ, **(env or {}), **rank_env},
+                stdout=out,
                 stderr=subprocess.STDOUT, start_new_session=True))
     deadline = time.monotonic() + DP_TIMEOUT
     try:
@@ -3130,7 +3151,7 @@ def dp_run_ranks(tasks, backend):
     if codes != [0] * len(procs):
         for name, text in logs.items():
             log(f"  {name}'s output ends:\n{text[-3000:]}")
-        raise SystemExit(f"phase 10 failed: the ranks exited {codes} "
+        raise SystemExit(f"phase {phase} failed: the ranks exited {codes} "
                          f"(timeout {DP_TIMEOUT} s)")
     results = []
     for r in range(DP_WORLD):
@@ -4097,6 +4118,473 @@ def phase_accum(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the remaining device-augment ops, the device cache, ZeRO-1
+# ---------------------------------------------------------------------------
+
+# (a) each device op ported after the shipped chains' and each level
+# override: (config entry, RandAugment level, gather launches a call);
+# signals within NEW_OP_TOL absolute and relative of the CPU, labels exact
+NEW_OPS = [
+    ("xflip", None, 0), ("yflip", None, 0), ("YFlip", 10, 0),
+    ({"drop": {"mask_ratio": 0.3}}, None, 0),
+    ({"cutout": {"mask_ratio": 0.3}}, None, 0),
+    ({"shift": {"mask_ratio": 0.3}}, None, 1),
+    ({"random_baseline_shift": {"ratio": 0.5, "scale": 3.0}}, None, 0),
+    ("RandomBaselineShift", 10, 0),
+    ({"sine_noise": {"amplitude": 1.0, "freq": 0.5}}, None, 0),
+    ("SineNoise", 10, 0),
+    ({"square_noise": {"amplitude": 1.0, "freq": 0.5}}, None, 0),
+    ("SquareNoise", 10, 0),
+    ({"white_noise": {"amplitude": 1.0}}, None, 0), ("WhiteNoise", 10, 0),
+    ({"RandomApply": {"transform": "RandomShift", "prob": 0.5}}, None, 1),
+    ({"RandomApply": {"transform": "RandomBaselineShift", "prob": 0.5}}, 7,
+     0),
+]
+NEW_OP_TOL = 1e-5
+# (b) phase 4's FixMatch recipe with the weak chain [resize-crop,
+# RandomApply(RandomShift)] and a strong RandAugment of new ops; gathers a
+# step: the labeled resize-crop and shift (pairs), the unlabeled view's
+# resize-crop and shift, the strong view's shift and partial-sine roll (a
+# gated op launches every step)
+NEW_WEAK = [{"RandomApply": {"transform": "RandomShift", "prob": 0.5}}]
+NEW_STRONG_OPS = [{"AmplitudeScaling": {"sigma": 0.5}}, "RandomShift",
+                  "Cutout", "YFlip", "RandomMask", "RandomBaselineShift",
+                  "SineNoise",
+                  {"RandomPartialSineNoise": {"amplitude": 1, "ratio": 0.5}}]
+NEW_GATHERS = 6
+# (c) the recipe streaming and with the device cache, in one process
+# under deterministic algorithms; the trace of the first CACHE_TRACE_STEPS
+# steps holds the host-to-device copies of as many batches (each batch is
+# copied a step ahead of its use)
+CACHE_TIMEOUT = 300
+CACHE_TRACE_START, CACHE_TRACE_STEPS = 0, 2
+# (d) ZeRO-1 against the replicated optimizer on DP_WORLD ranks under
+# deterministic algorithms: phase 10's fp32 FixMatch step (SGD with
+# momentum) and the CPS recipe's (AdamW, the peer's optimizer too), bit
+# for bit or within tests/test_zero1.py's bounds; a rank's optimizer state
+# at most Z1_BYTES_RATIO of the replicated one's
+Z1_ALGORITHMS = ("fixmatch", "cps")
+Z1_PARAM_ATOL, Z1_LOSS_RTOL, Z1_BYTES_RATIO = 5e-4, 1e-4, 0.6
+
+
+def check_new_ops(torch):
+    """(a) Each op of NEW_OPS under one set of draws made on a CPU
+    generator, on the card against the CPU, with labels and without."""
+    from semi_seg_ecg_tpu_torch.ops import gather1d
+    from semi_seg_ecg_tpu_torch.ops import preprocess as pre
+
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn((BATCH, 1, SIGNAL_LENGTH), generator=gen)
+    y = torch.randint(0, 4, (BATCH, SIGNAL_LENGTH), generator=gen)
+    result, bad = [], []
+    for entry, level, gathers in NEW_OPS:
+        name, kwargs = pre._entry_name_kwargs(entry)
+        op = pre._make_device_op(name, kwargs, level)
+        draws = op.sample(gen, tuple(x.shape))
+        row = {"op": name, "kwargs": kwargs, "level": level,
+               "label_changeable": op.label_changeable}
+        for labels in (y, None):
+            part = "labels" if labels is not None else "signal"
+            before = gather1d.LAUNCHES
+            cx, cy = op.apply(draws, x.cuda(), None if labels is None
+                              else labels.cuda())
+            torch.cuda.synchronize()
+            launched = gather1d.LAUNCHES - before
+            px, py = op.apply(draws, x, labels)
+            excess = float(((cx.cpu() - px).abs() - NEW_OP_TOL
+                            - NEW_OP_TOL * px.abs()).max())
+            labels_equal = (cy is None and py is None) or torch.equal(
+                cy.cpu(), py)
+            row[part] = {"gather_launches": launched,
+                         "max_abs_diff": float((cx.cpu() - px).abs().max()),
+                         "labels_equal": labels_equal}
+            if excess > 0 or not labels_equal or launched != gathers:
+                bad.append((name, level, part, excess, labels_equal,
+                            launched))
+        result.append(row)
+        log(f"  (a) {name} level {level}: card vs CPU max |diff| "
+            f"{row['labels']['max_abs_diff']:.3g} / "
+            f"{row['signal']['max_abs_diff']:.3g} (with labels / without), "
+            f"labels equal {row['labels']['labels_equal']}, gather launches "
+            f"{row['labels']['gather_launches']} / "
+            f"{row['signal']['gather_launches']}")
+    if bad:
+        raise SystemExit(f"phase 13 failed: new ops on the card differ from "
+                         f"the CPU or launch other counts: {bad}")
+    return result
+
+
+def write_new_ops_config(name, cache=False, trace_dir=None):
+    """Phase 4's vit_tiny FixMatch recipe (flash attention, device
+    augmentation, bf16, 2 epochs of 4 steps) with the new ops' chains,
+    streaming or with ``device_cache``, tracing CACHE_TRACE_STEPS steps
+    into ``trace_dir``."""
+    _, config = write_train_config("vit_tiny", "fixmatch")
+    ds = config["dataset"]
+    ds["augmentations"] = ds["augmentations"][:1] + NEW_WEAK
+    ra = ds["strong_augmentations"][0]["RandAugment"]
+    ds["strong_augmentations"] = [{"RandAugment": dict(
+        ra, ops=NEW_STRONG_OPS)}]
+    ds["device_cache"] = cache
+    config["exp_name"] = name
+    if trace_dir:
+        config["profile"] = {"trace_dir": trace_dir,
+                             "start_step": CACHE_TRACE_START,
+                             "num_steps": CACHE_TRACE_STEPS}
+    path = os.path.join(WORK, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def new_ops_launches():
+    """The launches of the new ops' train_main: 24 / 12 flash and
+    NEW_GATHERS gathers a step, 12 flash forwards an eval batch."""
+    steps = TRAIN_EPOCHS * (TRAIN_LABELED // BATCH)
+    evals = (TRAIN_EPOCHS * math.ceil(TRAIN_VALID / BATCH)
+             + math.ceil(TRAIN_TEST / BATCH))
+    per_step = launches_per_step("vit_tiny", "fixmatch")
+    return {"flash_attention_fwd": steps * per_step["flash_attention_fwd"]
+            + DEPTH * evals,
+            "flash_attention_bwd": steps * per_step["flash_attention_bwd"],
+            "gather1d": steps * NEW_GATHERS}
+
+
+def h2d_copies(trace_path):
+    """The bytes of each host-to-device copy in a Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return [int(e.get("args", {}).get("bytes", 0)) for e in events
+            if "memcpy" in str(e.get("cat", "")).lower()
+            and "HtoD" in e.get("name", "")]
+
+
+def cache_run(torch, name, cache):
+    """``train_main`` of the new ops' recipe: its launches, each step's
+    loss and batch keys, the final model, the cache's bytes, the traced
+    steps' host-to-device copies, and the median wall ms between the
+    second epoch's step starts."""
+    from semi_seg_ecg_tpu_torch.algorithms import common
+    from semi_seg_ecg_tpu_torch.cli import train_main
+
+    trace_dir = os.path.join(WORK, f"{name}_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    path = write_new_ops_config(name, cache, trace_dir)
+    calls, trainers = [], []
+    real = common.Trainer.train_step
+
+    def recorded(self, batch):
+        t0 = time.perf_counter()
+        metrics = real(self, batch)
+        calls.append((t0, metrics["loss"].item(), sorted(batch)))
+        trainers[:] = [self]
+        return metrics
+
+    common.Trainer.train_step = recorded
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        test_metrics = train_main(["-f", path])
+    finally:
+        common.Trainer.train_step = real
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    trainer = trainers[0]
+    copies = [c for f in sorted(os.listdir(trace_dir))
+              for c in h2d_copies(os.path.join(trace_dir, f))]
+    starts = [c[0] for c in calls[TRAIN_LABELED // BATCH:]]
+    with open(os.path.join(WORK, "exps", name, "log.txt")) as f:
+        epochs = [json.loads(line) for line in f]
+    return {"launches": launches, "seconds": seconds,
+            "losses": [c[1] for c in calls], "keys": calls[0][2],
+            "test_metrics": test_metrics, "log": epochs,
+            "state": {k: v.detach().cpu().numpy() for k, v in
+                      trainer.model.state_dict().items()},
+            "bytes_uploaded": (trainer.cache.bytes_uploaded
+                               if trainer.cache is not None else 0),
+            "index_batch_bytes": 4 * BATCH,
+            "h2d_copies": len(copies),
+            "h2d_bytes_per_step": sum(copies) / CACHE_TRACE_STEPS,
+            "h2d_max_copy": max(copies, default=0),
+            "step_ms": float(np.median(np.diff(starts)) * 1e3)}
+
+
+def cache_main(out_path):
+    """(b, c) in a process of its own (``chip_smoke.py --cache OUT``, with
+    CUBLAS_WORKSPACE_CONFIG set) under deterministic algorithms: the new
+    ops' recipe streaming, then with the device cache; the comparison to
+    ``OUT``."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    os.makedirs(WORK, exist_ok=True)
+    with cudnn_deterministic(torch):
+        runs = {"stream": cache_run(torch, "new_ops_stream", False),
+                "cache": cache_run(torch, "new_ops_cache", True)}
+    diff, where = payload_diff(runs["cache"].pop("state"),
+                               runs["stream"].pop("state"))
+    result = {**runs, "state_max_diff": diff, "state_where": where,
+              "losses_equal": runs["cache"]["losses"]
+              == runs["stream"]["losses"]}
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def check_cache(torch):
+    """(b, c) :func:`cache_main` in a process of its own, killed past
+    CACHE_TIMEOUT: both runs launch the predicted kernels (the streaming
+    run is (b)), and the cached one equals the streaming one bit for bit,
+    steps on index batches and copies no more than one index batch to the
+    card at a time."""
+    out = os.path.join(WORK, "cache.json")
+    try:
+        done = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--cache", out],
+            cwd=REPO, env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+            timeout=CACHE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"phase 13 failed: the stream and cache runs took "
+                         f"more than {CACHE_TIMEOUT} s")
+    if done.returncode != 0:
+        raise SystemExit(f"phase 13 failed: the stream and cache runs "
+                         f"exited {done.returncode}")
+    with open(out) as f:
+        result = json.load(f)
+    want = new_ops_launches()
+    stream, cached = result["stream"], result["cache"]
+    for label, run in (("stream", stream), ("cache", cached)):
+        log(f"  ({'b' if label == 'stream' else 'c'}) train_main, new ops, "
+            f"{label}: {run['seconds']:.2f} s, launches {run['launches']} "
+            f"(expected {want}: {NEW_GATHERS} gathers a step); batch keys "
+            f"{run['keys']}; uploaded {run['bytes_uploaded']} B; traced "
+            f"host-to-device {run['h2d_bytes_per_step']:.0f} B a step in "
+            f"{run['h2d_copies']} copies, the largest {run['h2d_max_copy']} "
+            f"B; {run['step_ms']:.2f} ms a step (epoch 2, median); losses "
+            f"{[round(v, 5) for v in run['losses']]}")
+    log(f"  (c) cache = stream: losses equal {result['losses_equal']}, "
+        f"final model within {result['state_max_diff']} "
+        f"({result['state_where']})")
+    finite = all(math.isfinite(v) for run in (stream, cached)
+                 for v in run["losses"])
+    if not (stream["launches"] == want and cached["launches"] == want
+            and finite and result["losses_equal"]
+            and result["state_max_diff"] == 0.0
+            and cached["keys"] == ["idx", "idx_u"]
+            and stream["h2d_max_copy"] >= 4 * BATCH * SIGNAL_LENGTH
+            and cached["h2d_max_copy"] <= cached["index_batch_bytes"]):
+        raise SystemExit("phase 13 failed: the new ops' recipe or the "
+                         "device cache")
+    return result
+
+
+def z1_config(algorithm, backend, on):
+    """The vit_tiny step of ZeRO-1's comparison: FixMatch as phase 10
+    steps it (fp32, SGD with momentum), CPS as its recipe (AdamW) at fp32
+    without dropout; ``parallel.shard_optimizer`` ``on``."""
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    if algorithm == "fixmatch":
+        cfg = dp_step_config("vit_tiny", backend)
+    else:
+        _, config = write_train_config("vit_tiny", algorithm)
+        cfg = normalize_config(copy.deepcopy(config))
+        cfg["precision"] = "fp32"
+        cfg["decode_head"]["FCNHead"]["dropout_ratio"] = 0.0
+        cfg["train"]["warmup_epochs"] = 0
+        cfg["ddp"] = {"dist_backend": backend}
+    cfg["parallel"] = dict(cfg.get("parallel") or {}, shard_optimizer=on)
+    return cfg
+
+
+def z1_steps(torch, config, algorithm, batches, checkpoint):
+    """A rank's steps of ``algorithm`` (the seed-0 model, and peer) on its
+    DP_ROWS rows of each batch: the metrics (the ranks' mean), launches,
+    final networks, the bytes of this rank's optimizer state, its peak
+    memory; the gathered state written to ``checkpoint`` by rank 0."""
+    from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        Trainer,
+        full_fp32,
+        init_model,
+    )
+    from semi_seg_ecg_tpu_torch.parallel.dist import all_reduce_mean, get_rank
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    rows = slice(get_rank() * DP_ROWS, (get_rank() + 1) * DP_ROWS)
+    device = torch.device("cuda", torch.cuda.current_device())
+    # the backward's atomics (index_select's gradient) would make two runs
+    # of one step differ in the last bits
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, launches = [], []
+    with full_fp32():
+        trainer = Trainer(copy.deepcopy(config),
+                          get_algorithm(algorithm).SPEC, device, 4,
+                          model=init_model(config, device))
+        for batch in batches:
+            on_card = {k: torch.from_numpy(v[rows]).to(device)
+                       for k, v in batch.items()}
+            torch.cuda.synchronize()
+            reset_counts()
+            step = trainer.train_step(on_card)
+            launches.append(read_counts())
+            metrics.append({k: all_reduce_mean(v).item()
+                            for k, v in step.items()})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    opts = {role: opt for role, opt in (("model", trainer.optimizer),
+                                        ("peer", trainer.peer_optimizer))
+            if opt is not None}
+    opt_bytes = {role: sum(v.numel() * v.element_size()
+                           for entry in opt.optimizer.state.values()
+                           for v in entry.values() if torch.is_tensor(v))
+                 for role, opt in opts.items()}
+    states = {role: opt.state_dict() for role, opt in opts.items()}
+    if get_rank() == 0:
+        ckpt.save_checkpoint(checkpoint, 0, trainer.model, states["model"],
+                             config=config, step=trainer.step,
+                             peer_model=trainer.peer,
+                             peer_optimizer=states.get("peer"))
+    nets = {role: {k: v.detach().cpu().numpy()
+                   for k, v in module.state_dict().items()}
+            for role, module in (("model", trainer.model),
+                                 ("peer", trainer.peer)) if module is not None}
+    return {"metrics": metrics, "launches": launches, "nets": nets,
+            "opt_bytes": opt_bytes, "peak_mib": peak,
+            "sharded": trainer.optimizer.sharded}
+
+
+def z1_resume(torch, config, algorithm, path, batch):
+    """One process, unsharded, resumed from ``path``: one step on both
+    shards' rows of ``batch``; its loss, launches and model."""
+    from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
+    from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, full_fp32
+
+    cfg = copy.deepcopy(config)
+    cfg["parallel"]["shard_optimizer"] = False
+    cfg["resume"] = path
+    device = torch.device("cuda")
+    with full_fp32():
+        trainer = Trainer(cfg, get_algorithm(algorithm).SPEC, device, 4)
+        torch.cuda.synchronize()
+        reset_counts()
+        metrics = trainer.train_step({k: torch.from_numpy(v).to(device)
+                                      for k, v in batch.items()})
+        launches = read_counts()
+    return {"loss": metrics["loss"].item(), "launches": launches,
+            "step": trainer.step,
+            "model": {k: v.detach().cpu().numpy()
+                      for k, v in trainer.model.state_dict().items()}}
+
+
+def check_zero1(torch):
+    """(d) ZeRO-1 against the replicated optimizer on DP_WORLD ranks, 3
+    steps of each of Z1_ALGORITHMS, then each run's checkpoint resumed in
+    one unsharded process for a fourth step."""
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    backend, layout = dp_layout(torch)
+    batches = dp_global_batches(50)
+    resume_batch = dp_global_batches(51)[0]
+    configs, tasks = {}, []
+    for algorithm in Z1_ALGORITHMS:
+        for on in (True, False):
+            configs[algorithm, on] = z1_config(algorithm, backend, on)
+            tasks.append(("z1_steps", {
+                "config": configs[algorithm, on], "algorithm": algorithm,
+                "batches": batches,
+                "checkpoint": os.path.join(WORK, f"z1_{algorithm}_{on}.ckpt")}))
+    by_task, _ = dp_run_ranks(tasks, backend, phase=13,
+                              env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    runs = {key: ranks for key, ranks in zip(configs, by_task)}
+    result, bad = {"backend": backend, "layout": layout}, []
+    for algorithm in Z1_ALGORITHMS:
+        on, off = runs[algorithm, True], runs[algorithm, False]
+        per_step = launches_per_step("vit_tiny", algorithm)
+        loss_rel = max(abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-12)
+                       for a, b in zip(on[0]["metrics"], off[0]["metrics"]))
+        nets = {role: payload_diff(on[0]["nets"][role], want)
+                for role, want in off[0]["nets"].items()}
+        ranks_equal = all(payload_diff(on[1]["nets"][role], want)[0] == 0.0
+                          for role, want in on[0]["nets"].items())
+        files = [ckpt.load_checkpoint(os.path.join(
+            WORK, f"z1_{algorithm}_{flag}.ckpt")) for flag in (True, False)]
+        opt_diff = {key: payload_diff(files[0][key], files[1][key])
+                    for key in ("optimizer", "peer_optimizer")
+                    if key in files[1]}
+        ratios = {role: [r["opt_bytes"][role] / off[0]["opt_bytes"][role]
+                         for r in on] for role in off[0]["opt_bytes"]}
+        resumed = [z1_resume(torch, configs[algorithm, flag], algorithm,
+                             os.path.join(WORK, f"z1_{algorithm}_{flag}.ckpt"),
+                             resume_batch) for flag in (True, False)]
+        resume_loss_rel = abs(resumed[0]["loss"] - resumed[1]["loss"]) / max(
+            abs(resumed[1]["loss"]), 1e-12)
+        resume_diff = payload_diff(resumed[0]["model"], resumed[1]["model"])
+        launches_ok = all(l == per_step for r in on + off
+                          for l in r["launches"]) and all(
+            r["launches"] == per_step for r in resumed)
+        row = {"loss_rel": loss_rel, "nets_max_diff": nets,
+               "ranks_equal": ranks_equal, "optimizer_max_diff": opt_diff,
+               "opt_bytes": {"zero1": [r["opt_bytes"] for r in on],
+                             "replicated": off[0]["opt_bytes"]},
+               "opt_bytes_ratio": ratios,
+               "peak_mib": {"zero1": [r["peak_mib"] for r in on],
+                            "replicated": [r["peak_mib"] for r in off]},
+               "sharded": [r["sharded"] for r in on + off],
+               "launches_per_rank_step": on[0]["launches"][0],
+               "resume": {"loss_rel": resume_loss_rel,
+                          "model_max_diff": resume_diff,
+                          "launches": resumed[0]["launches"],
+                          "step": resumed[0]["step"]},
+               "metrics": [on[0]["metrics"], off[0]["metrics"]]}
+        result[algorithm] = row
+        log(f"  (d) {algorithm}, {layout}: ZeRO-1 against replicated, "
+            f"{DP_STEPS} fp32 steps: losses within {loss_rel:.3g} relative, "
+            f"networks within {nets}, ranks equal {ranks_equal}; gathered "
+            f"optimizer state within {opt_diff}; a rank's optimizer bytes "
+            f"{row['opt_bytes']['zero1']} against "
+            f"{row['opt_bytes']['replicated']} (ratio {ratios}); peak MiB "
+            f"a rank {row['peak_mib']}; launches a rank step "
+            f"{on[0]['launches'][0]}; resumed unsharded: step "
+            f"{resumed[0]['step']} -> loss within {resume_loss_rel:.3g}, "
+            f"model within {resume_diff} of the replicated run's resume")
+        if not (loss_rel <= Z1_LOSS_RTOL and ranks_equal and launches_ok
+                and all(d <= Z1_PARAM_ATOL for d, _ in nets.values())
+                and all(d <= Z1_PARAM_ATOL for d, _ in opt_diff.values())
+                and all(r <= Z1_BYTES_RATIO for rs in ratios.values()
+                        for r in rs)
+                and row["sharded"] == [True] * DP_WORLD + [False] * DP_WORLD
+                and resume_loss_rel <= Z1_LOSS_RTOL
+                and resume_diff[0] <= Z1_PARAM_ATOL
+                and resumed[0]["step"] == DP_STEPS + 1):
+            bad.append(algorithm)
+    if bad:
+        raise SystemExit(f"phase 13 failed: ZeRO-1 differs from the "
+                         f"replicated optimizer: {bad}")
+    return result
+
+
+def phase_zero_cache(torch):
+    """Phase 13: the remaining device-augment ops on the card, the new
+    ops' recipe through train_main streaming and with the device cache,
+    and ZeRO-1 against the replicated optimizer."""
+    t_phase = time.perf_counter()
+    log("phase 13: the new device-augment ops, the device cache, ZeRO-1")
+    result = {"ops": check_new_ops(torch), "cache": check_cache(torch),
+              "zero1": check_zero1(torch)}
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13 in {result['seconds']:.1f} s")
+    return result
+
+
+# ---------------------------------------------------------------------------
 # Report
 # ---------------------------------------------------------------------------
 
@@ -4152,6 +4640,7 @@ def main():
     parallel = phase_parallel(torch)
     remat = phase_remat(torch)
     accum = phase_accum(torch)
+    zero_cache = phase_zero_cache(torch)
     # each path's launches, counted from 0 just before it and read after
     by_path = {
         "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
@@ -4184,7 +4673,19 @@ def main():
         "accum_vit_tiny_fixmatch": accum["straight"]["launches"],
         "accum_vit_tiny_fixmatch_resumed": accum["resume"]["launches"],
         "accum_dp_vit_tiny_per_rank_micro_step": accum["ranks"][
-            "launches_per_rank_step"]}
+            "launches_per_rank_step"],
+        # phase 13: the new ops' recipe streaming (its own process) and
+        # with the device cache, a rank's ZeRO-1 step, the unsharded
+        # step resumed from a ZeRO-1 checkpoint
+        "new_ops_vit_tiny_fixmatch": zero_cache["cache"]["stream"][
+            "launches"],
+        "new_ops_vit_tiny_fixmatch_cached": zero_cache["cache"]["cache"][
+            "launches"],
+        **{f"zero1_vit_tiny_{algorithm}_per_rank_step": zero_cache["zero1"][
+            algorithm]["launches_per_rank_step"]
+           for algorithm in Z1_ALGORITHMS},
+        **{f"zero1_vit_tiny_{algorithm}_resumed_step": zero_cache["zero1"][
+            algorithm]["resume"]["launches"] for algorithm in Z1_ALGORITHMS}}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -4197,6 +4698,7 @@ def main():
                    "reco_stpp": reco_stpp, "longrec": longrec,
                    "deploy": deploy, "parallel": parallel,
                    "remat": remat, "accum": accum,
+                   "zero_cache": zero_cache,
                    "seconds": time.time() - t_start}, f,
                   indent=1)
     log(f"done in {time.time() - t_start:.1f} s")
@@ -4215,4 +4717,6 @@ if __name__ == "__main__":
         sys.exit(remat_main(*sys.argv[2:]))
     if sys.argv[1:2] == ["--accum"]:
         sys.exit(accum_resume_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--cache"]:
+        sys.exit(cache_main(*sys.argv[2:]))
     sys.exit(main())

@@ -76,9 +76,15 @@ products each, 3xTF32 with fp32 accumulation, to fp32 accuracy, which
 fp32 parameters and optimizer and no loss scaling, as the JAX package
 computes in bf16 with fp32 parameters. ``train.fused_state`` and
 ``train.scan_steps`` are accepted and do nothing (XLA dispatch devices).
-``device_cache``, ``parallel.model_parallel`` and ``seq_parallel`` above 1,
-``parallel.shard_optimizer`` (ZeRO-1) across ranks and
-``checkpoint_backend: orbax`` are not ported yet and raise.
+``dataset.device_cache`` puts the train split on the device once and
+ships row indices per step (``data/device_cache.py``; the rows are gathered
+before the augmentation stage), when the device-augment plan runs every
+train augmentation on the device; otherwise the run logs why and streams,
+as the JAX package does. ``parallel.shard_optimizer`` over more than one
+rank is ZeRO-1: each rank keeps the optimizer state of its own share of
+the parameters (``utils/optimizer.TrainOptimizer``), with the numbers of
+the replicated run. ``parallel.model_parallel`` and ``seq_parallel`` above
+1 and ``checkpoint_backend: orbax`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -262,22 +268,13 @@ def init_train_model(config: Dict[str, Any], device: torch.device,
     return model.to(device)
 
 
-def _refuse_unported(config: Dict[str, Any], world_size: int) -> None:
+def _refuse_unported(config: Dict[str, Any]) -> None:
     parallel = config.get("parallel") or {}
     for axis in ("model_parallel", "seq_parallel"):
         if (parallel.get(axis) or 1) > 1:
             raise NotImplementedError(
                 f"parallel.{axis} > 1 is not yet ported to the torch "
                 "package")
-    if parallel.get("shard_optimizer") and world_size > 1:
-        # the JAX package shards the optimizer only over more than one
-        # data-parallel replica
-        raise NotImplementedError(
-            "parallel.shard_optimizer (ZeRO-1) is not yet ported to the "
-            "torch package")
-    if config["dataset"].get("device_cache", False):
-        raise NotImplementedError(
-            "dataset.device_cache is not yet ported to the torch package")
     if config.get("checkpoint_backend", "pickle") not in ("pickle", None):
         raise NotImplementedError(
             f"checkpoint_backend: {config['checkpoint_backend']!r} is not "
@@ -344,11 +341,15 @@ def build_train_loaders(config: Dict[str, Any], spec: AlgorithmSpec,
 
 def combined_batches(loaders, spec: AlgorithmSpec) -> Iterator[Dict]:
     """Merged step dicts: labeled ``ecg``/``target`` and the unlabeled
-    weak/strong views (``ecg_u_w``/``ecg_u_s``)."""
+    weak/strong views (``ecg_u_w``/``ecg_u_s``); under ``device_cache``
+    the row indices ``idx``/``idx_u``."""
     if not spec.uses_unlabeled:
         yield from loaders["labeled"]
         return
     for labeled, unlabeled in zip(loaders["labeled"], loaders["unlabeled"]):
+        if "idx" in labeled:  # device_cache: index-only batches
+            yield {"idx": labeled["idx"], "idx_u": unlabeled["idx_u"]}
+            continue
         batch = {"ecg": labeled["ecg"], "target": labeled["target"],
                  "ecg_u_w": unlabeled["ecg"]}
         if "ecg_aug" in unlabeled:
@@ -508,12 +509,17 @@ class Trainer:
                                                   updates_per_epoch)
             self.peer_gen = torch.Generator(device=device)
             use_generator(self.peer, self.peer_gen)
+        if self.optimizer.sharded:
+            log(f"shard_optimizer: optimizer state sharded over "
+                f"{pdist.get_world_size()} ranks, each updating its own "
+                "parameters and broadcasting them")
         self.dropout_gen = torch.Generator(device=device)
         use_generator(self.model, self.dropout_gen)
         self.loss_gen = torch.Generator(device=device)
         self.inner_step = spec.make_train_step(self)
         self.augment = None
         self.augment_gen = None
+        self.cache = None
         if config["dataset"].get("device_augment", False):
             from ..ops.preprocess import plan_device_augment
 
@@ -531,9 +537,31 @@ class Trainer:
             if module is not None:
                 pdist.broadcast_module_(module)
 
+    def use_device_cache(self, spec: AlgorithmSpec,
+                         loaders: Dict[str, Any]) -> None:
+        """``dataset.device_cache``: upload the train split to the device
+        and put index loaders in ``loaders`` in place of the labeled and
+        unlabeled stream loaders (closed), when the plan runs every train
+        augmentation on the device; else say why and stream."""
+        from ..data.device_cache import DeviceCache, plan_allows_device_cache
+
+        reason = plan_allows_device_cache(self.config, spec)
+        if reason is not None:
+            log(f"device_cache disabled: {reason}", force=True)
+            return
+        self.cache = DeviceCache.build(loaders, self.device)
+        for name, loader in self.cache.index_loaders.items():
+            loaders[name].close()
+            loaders[name] = loader
+        log(f"device_cache: {self.cache.bytes_uploaded / 1e6:.1f} MB raw "
+            f"prefix resident on {self.device}; steps ship indices only")
+
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        """One step on a device batch; advances the step counter."""
+        """One step on a device batch (an index batch under the device
+        cache); advances the step counter."""
+        if self.cache is not None:
+            batch = self.cache.materialize(batch)
         self.dropout_gen.manual_seed(step_seed(self.seed, self.step))
         if self.teacher_gen is not None:
             self.teacher_gen.manual_seed(step_seed(self.seed, self.step,
@@ -565,7 +593,7 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
     ``checkpoint-{e}.ckpt``) and ``state_hook`` (called with the built
     Trainer). Rank 0 writes the files; every rank returns after them."""
     pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
-    _refuse_unported(config, pdist.get_world_size())
+    _refuse_unported(config)
     device = resolve_device(config)
     main = pdist.is_main_process()
     log(f"job dir: {os.getcwd()}")
@@ -602,6 +630,8 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
     try:
         with full_fp32(), torch.autograd.set_detect_anomaly(nan_checks):
             trainer = Trainer(config, spec, device, updates)
+            if config["dataset"].get("device_cache", False):
+                trainer.use_device_cache(spec, loaders)
             if state_hook is not None:
                 state_hook(trainer)
             if trainer.resume_best:
@@ -654,15 +684,20 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
                             out_dir, f"best-{metric_name}.ckpt"))
                     log(f"Best {metric_name}: "
                         f"{best_metrics[metric_name]:.3f}")
+                # a ZeRO-1 optimizer gathers its state on every rank
+                opt_states = [None if opt is None else opt.state_dict()
+                              for opt in (trainer.optimizer,
+                                          trainer.peer_optimizer)
+                              ] if save_paths else None
                 if save_paths and main:
                     ckpt.save_checkpoint(
                         save_paths, epoch, trainer.model,
-                        trainer.optimizer, config=config,
+                        opt_states[0], config=config,
                         metrics={"loss": curr_loss, **metrics},
                         best={"loss": best_loss, **best_metrics},
                         step=trainer.step, ema_model=trainer.teacher,
                         peer_model=trainer.peer,
-                        peer_optimizer=trainer.peer_optimizer)
+                        peer_optimizer=opt_states[1])
                 if save_paths:
                     trainer.last_checkpoint = save_paths[-1]
 

@@ -6,7 +6,9 @@ The decode-head logits are resized back to the input length with it. Both
 ``(i + 0.5) * in/out - 0.5`` clamped at the edges, ``True`` takes
 ``i * (in-1)/(out-1)``. As in the JAX package, the coordinates are computed
 in float64 on the host and each output sample is two weighted taps,
-``x[lo]*w_lo + x[hi]*w_hi``, so the two packages round alike.
+``x[lo]*w_lo + x[hi]*w_hi``, so the two packages round alike. The taps
+go to each device once and are kept there, so an eager forward copies
+nothing from the host.
 """
 
 from __future__ import annotations
@@ -35,6 +37,17 @@ def _interp_coords(in_len: int, out_len: int, align_corners: bool):
     return lo, hi, w_lo, w_hi
 
 
+@functools.lru_cache(maxsize=64)
+def _device_coords(in_len: int, out_len: int, align_corners: bool,
+                   device: torch.device):
+    """:func:`_interp_coords` as tensors on ``device``, uploaded once;
+    normal tensors even when a serving call under inference mode asks
+    first, so that a training forward may save them for its backward."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device) for a in
+                     _interp_coords(in_len, out_len, align_corners))
+
+
 def linear_interpolate(x: torch.Tensor, size: int,
                        align_corners: bool = False,
                        time_axis: int = -1) -> torch.Tensor:
@@ -44,8 +57,14 @@ def linear_interpolate(x: torch.Tensor, size: int,
     in_len = x.shape[time_axis]
     if in_len == size:
         return x
-    lo, hi, w_lo, w_hi = (torch.from_numpy(a).to(x.device) for a in
-                          _interp_coords(in_len, size, align_corners))
+    if torch.compiler.is_compiling():
+        # a trace (torch.export) holds its own constants; what it makes
+        # are not tensors an eager call may keep
+        lo, hi, w_lo, w_hi = (torch.from_numpy(a).to(x.device) for a in
+                              _interp_coords(in_len, size, align_corners))
+    else:
+        lo, hi, w_lo, w_hi = _device_coords(in_len, size, align_corners,
+                                            x.device)
     moved = x.movedim(time_axis, -1)
     out = (moved.index_select(-1, lo) * w_lo.to(x.dtype)
            + moved.index_select(-1, hi) * w_hi.to(x.dtype))

@@ -20,14 +20,34 @@ its leading axis; under a process group it is drawn for the global batch
 and sliced to the rank's rows (``parallel.dist.global_rows``), so a
 rank's draws are those of its rows in one process holding every rank's.
 
-Ported ops: ``random_resize_crop`` (the time-axis gathers go through the
-gather kernel, ``ops/gather1d.py``), ``amplitude_scaling``,
-``adaptive_powerline_noise``, the partial sine/square/white noises,
-``standardize`` and ``RandAugment`` over those: every op of the shipped
-FixMatch and base chains. The JAX package's other device ops (flips, drop,
-cutout, shift, baseline shift, whole-window noises, RandomApply) raise
-"not yet ported": answering ``None`` would send the branch to the host,
-where the JAX package runs it on the device. Host-only ops (filters,
+Every device op of the JAX package is ported:
+
+=====================  =======================================================
+op                     on the device
+=====================  =======================================================
+random_resize_crop     per-sample coordinate grid, linear interpolation; the
+                       signal and the labels in one gather launch
+xflip / yflip          time-reverse (labels too) / negate
+amplitude_scaling      ``x * (1 + sigma * N(0, 1))``
+drop (RandomMask)      rank of per-point uniforms (a stable argsort of a
+                       stable argsort) below a per-sample count
+cutout                 span mask zeroes the signal; labels there become 0
+shift (RandomShift)    slope-1 gather ``out[j] = x[j -/+ s]``, zero-padded:
+                       one pair launch with labels, one lerp without
+random_baseline_shift  per-lead median x random span x signed scale
+adaptive_powerline     50 or 60 Hz at half the 5-95 percentile range
+*_noise                whole-window sine / square / white noise
+partial_*_noise        the noise placed in a random span, the wave restarted
+                       at its start (a slope-1 gather over a doubled wave)
+standardize            per-sample z-norm over (lead, time), zero-guarded
+RandomApply            per-sample gate; the inner op runs on the whole batch
+RandAugment            per-sample Gumbel top-k N-of-K, per-op prob gate,
+                       magnitude ``level`` applied like ``set_level``
+=====================  =======================================================
+
+The gathers go through the gather kernel (``ops/gather1d.py``), and a
+gated op (RandomApply, a RandAugment member) launches every step whether
+or not a sample takes it, as in the JAX package. Host-only ops (filters,
 crops, resampling, ``to_tensor``, per-lead standardize) answer ``None``
 here as there, and :func:`plan_device_augment` keeps their chains on the
 host.
@@ -46,14 +66,6 @@ from .gather1d import monotonic_gather, monotonic_gather_pair
 from .select import exact_quantiles
 
 MAX_LEVEL = 10  # RandAugment magnitude scale (transforms.py set_level)
-
-# the JAX package's device ops that this package does not port yet
-NOT_YET_PORTED = (
-    "xflip", "XFlip", "yflip", "YFlip", "drop", "RandomMask", "cutout",
-    "Cutout", "shift", "RandomShift", "random_baseline_shift",
-    "RandomBaselineShift", "sine_noise", "SineNoise", "square_noise",
-    "SquareNoise", "white_noise", "WhiteNoise", "RandomApply")
-
 
 def _rand(gen: torch.Generator, shape) -> torch.Tensor:
     return global_rows(lambda s: torch.rand(s, generator=gen,
@@ -226,15 +238,15 @@ def _wave(name: str, t: int, amplitude: float, freq: float,
     return (amplitude * w)[None, None, :]
 
 
-def _make_partial_noise_op(kind: str, kwargs: Dict[str, Any],
-                           level: Optional[int]) -> DeviceOp:
+def _make_noise_op(kind: str, partial: bool, kwargs: Dict[str, Any],
+                   level: Optional[int]) -> DeviceOp:
     amplitude, freq = _noise_level(kwargs, level)
     ratio = kwargs.get("ratio", 0.5)
     if level is not None:
         ratio = level / MAX_LEVEL * 0.5  # _RandomPartialNoise.set_level
 
     def sample(gen, shape):
-        draws = sample_span(gen, shape[0])
+        draws = sample_span(gen, shape[0]) if partial else {}
         draws["normal"] = _randn(gen, shape) if kind == "white" else None
         return draws
 
@@ -244,6 +256,8 @@ def _make_partial_noise_op(kind: str, kwargs: Dict[str, Any],
             n = amplitude * draws["normal"].to(x.device)
         else:
             n = _wave(kind, t, amplitude, freq, x.device).expand(b, c, t)
+        if not partial:
+            return x + n
         mask, start, _ = _uniform_span(draws, t, ratio, x.device)
         if kind != "white":
             # the reference writes noise[:, :count] into the span, so the
@@ -258,16 +272,65 @@ def _make_partial_noise_op(kind: str, kwargs: Dict[str, Any],
     return _signal_only(sample, noise)
 
 
+def _shift_apply(draws, x, y, ratio: float):
+    """``out[j] = in[j − s]`` for a signed per-sample shift ``s``, zero
+    where ``j − s`` leaves the window: one slope-1 gather launch of the
+    signal, or of the signal and the labels together."""
+    b, c, t = x.shape
+    amount = (draws["u_amount"].to(x.device) * ratio * t).to(torch.int32)
+    right = draws["u_right"].to(x.device) < 0.5
+    signed = torch.where(right, amount, -amount)[:, None]
+    j = torch.arange(t, device=x.device, dtype=torch.int32)[None, :]
+    src = j - signed
+    valid = (src >= 0) & (src < t)
+    src = torch.clamp(src, 0, t - 1)
+    pos = src.float().contiguous()
+    if y is None:
+        xg = monotonic_gather(x.contiguous(), pos, max_slope=1.0)
+    else:
+        xg, yg = monotonic_gather_pair(x.contiguous(), pos, y.contiguous(),
+                                       src.contiguous())
+        y = torch.where(valid, yg, 0)
+    return torch.where(valid[:, None, :], xg, 0.0), y
+
+
+def _drop_apply(draws, x, ratio: float):
+    """Zero ``count`` points per sample, a choice without replacement: the
+    points whose rank among the sample's uniforms is below ``count`` (a
+    stable sort, as ``jnp.argsort``, so ties rank alike)."""
+    t = x.shape[-1]
+    max_count = max(int(t * ratio), 1)
+    count = (draws["u_count"].to(x.device) * max_count).to(torch.int32)
+    u = draws["u"].to(x.device)
+    order = torch.argsort(u, dim=1, stable=True)
+    rank = torch.argsort(order, dim=1, stable=True)
+    return x * (rank >= count[:, None])[:, None, :]
+
+
+def _cutout_apply(draws, x, y, ratio: float):
+    mask, _, _ = _uniform_span(draws, x.shape[-1], ratio, x.device)
+    x = x * (1.0 - mask[:, None, :])
+    if y is not None:
+        y = torch.where(mask.bool(), 0, y)  # cut labels become background
+    return x, y
+
+
+def _baseline_apply(draws, x, ratio: float, scale: float):
+    """The per-lead median, times a signed uniform amount, added over a
+    random span."""
+    background, = exact_quantiles(x, (50.0,))
+    mask, _, _ = _uniform_span(draws, x.shape[-1], ratio, x.device)
+    sign = 1.0 - 2.0 * (draws["u_sign"].to(x.device) < 0.5).float()
+    amt = draws["u_amount"].to(x.device) * scale * sign
+    return x + background * amt[:, None, None] * mask[:, None, :]
+
+
 def _make_device_op(name: str, kwargs: Dict[str, Any],
                     level: Optional[int] = None) -> Optional[DeviceOp]:
     """Device equivalent of one transform config entry; ``None`` for an op
     that only exists on the host. ``level`` is the RandAugment magnitude,
     which overrides the statistical knobs as ``Transform.set_level`` does."""
     kwargs = dict(kwargs or {})
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"device augmentation op {name!r} is not yet ported to the "
-            "torch package")
 
     if name in ("amplitude_scaling", "AmplitudeScaling"):
         sigma = kwargs.get("sigma", 0.5)
@@ -293,14 +356,72 @@ def _make_device_op(name: str, kwargs: Dict[str, Any],
         return _signal_only(
             lambda gen, shape: {"u": _rand(gen, (shape[0], 1, 1))}, powerline)
 
-    partial_noise = {"partial_sine_noise": "sine",
-                     "RandomPartialSineNoise": "sine",
-                     "partial_square_noise": "square",
-                     "RandomPartialSquareNoise": "square",
-                     "partial_white_noise": "white",
-                     "RandomPartialWhiteNoise": "white"}
-    if name in partial_noise:
-        return _make_partial_noise_op(partial_noise[name], kwargs, level)
+    if name in ("xflip", "XFlip"):
+        def xflip(draws, x, y):
+            return (torch.flip(x, dims=(-1,)),
+                    None if y is None else torch.flip(y, dims=(-1,)))
+
+        return DeviceOp(sample=lambda gen, shape: None, apply=xflip,
+                        label_changeable=True)
+
+    if name in ("yflip", "YFlip"):
+        return _signal_only(lambda gen, shape: None, lambda draws, x: -x)
+
+    if name in ("drop", "RandomMask"):
+        ratio = kwargs.get("mask_ratio", 0.3)
+        return _signal_only(
+            lambda gen, shape: {"u_count": _rand(gen, (shape[0],)),
+                                "u": _rand(gen, (shape[0], shape[-1]))},
+            lambda draws, x, ratio=ratio: _drop_apply(draws, x, ratio))
+
+    if name in ("cutout", "Cutout"):
+        ratio = kwargs.get("mask_ratio", 0.3)
+        return DeviceOp(
+            sample=lambda gen, shape: sample_span(gen, shape[0]),
+            apply=lambda draws, x, y, ratio=ratio: _cutout_apply(
+                draws, x, y, ratio),
+            label_changeable=True)
+
+    if name in ("shift", "RandomShift"):
+        ratio = kwargs.get("mask_ratio", 0.3)
+        # jax.random.bernoulli(k, 0.5, (b,)) is uniform(k, (b,)) < 0.5
+        return DeviceOp(
+            sample=lambda gen, shape: {"u_amount": _rand(gen, (shape[0],)),
+                                       "u_right": _rand(gen, (shape[0],))},
+            apply=lambda draws, x, y, ratio=ratio: _shift_apply(
+                draws, x, y, ratio),
+            label_changeable=True)
+
+    if name in ("random_baseline_shift", "RandomBaselineShift"):
+        ratio = kwargs.get("ratio", 0.5)
+        scale = kwargs.get("scale", 3.0)
+        if level is not None:
+            ratio = level / MAX_LEVEL * 0.5
+            scale = level / MAX_LEVEL * 3.0
+
+        def sample(gen, shape):
+            draws = sample_span(gen, shape[0])
+            draws["u_sign"] = _rand(gen, (shape[0],))
+            draws["u_amount"] = _rand(gen, (shape[0],))
+            return draws
+
+        return _signal_only(
+            sample, lambda draws, x, ratio=ratio, scale=scale:
+            _baseline_apply(draws, x, ratio, scale))
+
+    noise_kinds = {"sine_noise": ("sine", False), "SineNoise": ("sine", False),
+                   "square_noise": ("square", False),
+                   "SquareNoise": ("square", False),
+                   "white_noise": ("white", False),
+                   "WhiteNoise": ("white", False),
+                   "partial_sine_noise": ("sine", True),
+                   "RandomPartialSineNoise": ("sine", True),
+                   "partial_square_noise": ("square", True),
+                   "RandomPartialSquareNoise": ("square", True),
+                   "partial_white_noise": ("white", True),
+                   "RandomPartialWhiteNoise": ("white", True)}
+    if name in noise_kinds:
+        return _make_noise_op(*noise_kinds[name], kwargs, level)
 
     if name in ("standardize", "Standardize"):
         axis = kwargs.get("axis", (-1, -2))
@@ -321,6 +442,29 @@ def _make_device_op(name: str, kwargs: Dict[str, Any],
             sample=lambda gen, shape: sample_resize_crop(
                 gen, shape[0], scale_min, scale_max),
             apply=rrc, label_changeable=True)
+
+    if name == "RandomApply":
+        inner_entry = kwargs.get("transform")
+        prob = kwargs.get("prob", 0.5)
+        if inner_entry is None:
+            return None
+        inner = _make_device_op(*_entry_name_kwargs(inner_entry), level)
+        if inner is None:
+            return None
+
+        def rapply(draws, x, y, inner=inner, prob=prob):
+            gate = draws["u_gate"].to(x.device) < prob
+            xi, yi = inner.apply(draws["op"], x, y)
+            x = torch.where(gate[:, None, None], xi, x)
+            if y is not None and yi is not None:
+                y = torch.where(gate[:, None], yi, y)
+            return x, y
+
+        return DeviceOp(
+            sample=lambda gen, shape, inner=inner: {
+                "u_gate": _rand(gen, (shape[0],)),
+                "op": inner.sample(gen, shape)},
+            apply=rapply, label_changeable=inner.label_changeable)
 
     if name == "RandAugment":
         ops_cfg = kwargs.get("ops")

@@ -24,6 +24,10 @@ no ``ReduceOp.AVG`` and no ``reduce_scatter``):
   returns this rank's slice;
 - :func:`all_gather_rows`: the sharded evaluators' row exchange;
 - :func:`broadcast_module_`: rank 0's parameters and buffers to every rank;
+- :func:`broadcast_from_owners_`: each tensor from the rank that owns it
+  (ZeRO-1's parameters after the update); :func:`all_gather_object`:
+  every rank's picklable object (ZeRO-1's optimizer state for a
+  checkpoint);
 - :func:`global_rows`: a per-row random draw made for the global batch
   and sliced to this rank's rows, so that rank ``r`` of ``N`` with ``b``
   rows draws rows ``[r·b, (r+1)·b)`` of what one process with all ``N·b``
@@ -261,6 +265,45 @@ def broadcast_module_(module: torch.nn.Module) -> None:
     for t in module.state_dict().values():
         _check(t)
         dist.broadcast(t, src=0)
+
+
+@torch.no_grad()
+def broadcast_from_owners_(tensors: Sequence[torch.Tensor],
+                           owners: Sequence[int]) -> None:
+    """Each of ``tensors`` (the same list on every rank) from the rank that
+    ``owners`` names into every other rank's, in place: one broadcast per
+    owning rank and dtype, of the owner's tensors flattened into one
+    buffer. ZeRO-1's parameter exchange after each rank's update."""
+    if get_world_size() == 1:
+        return
+    rank = get_rank()
+    for src in range(get_world_size()):
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for t, owner in zip(tensors, owners):
+            if owner == src:
+                by_dtype.setdefault(t.dtype, []).append(t)
+        for group in by_dtype.values():
+            if rank == src:
+                flat = torch.cat([t.reshape(-1) for t in group])
+            else:
+                flat = torch.empty(sum(t.numel() for t in group),
+                                   dtype=group[0].dtype,
+                                   device=group[0].device)
+            _check(flat)
+            dist.broadcast(flat, src=src)
+            if rank != src:
+                pieces = flat.split([t.numel() for t in group])
+                torch._foreach_copy_(group, [p.view_as(t) for p, t
+                                             in zip(pieces, group)])
+
+
+def all_gather_object(obj: Any) -> List[Any]:
+    """Every rank's picklable ``obj``, in rank order (one rank: ``[obj]``)."""
+    if get_world_size() == 1:
+        return [obj]
+    out: List[Any] = [None] * get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def all_gather_rows(rows: np.ndarray, arrays: Sequence[np.ndarray]):

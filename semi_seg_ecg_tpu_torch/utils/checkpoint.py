@@ -93,22 +93,29 @@ def _to_numpy(obj):
     return obj
 
 
+def _state(optimizer) -> Dict[str, Any]:
+    return optimizer if isinstance(optimizer, dict) else \
+        optimizer.state_dict()
+
+
 def save_checkpoint(path: Union[str, Sequence[str]], epoch: int,
                     model: torch.nn.Module,
-                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    optimizer=None,
                     config: Optional[Dict[str, Any]] = None,
                     metrics: Optional[Dict[str, Any]] = None,
                     best: Optional[Dict[str, Any]] = None,
                     step: Optional[int] = None,
                     ema_model: Optional[torch.nn.Module] = None,
                     peer_model: Optional[torch.nn.Module] = None,
-                    peer_optimizer: Optional[torch.optim.Optimizer] = None
+                    peer_optimizer=None
                     ) -> None:
     """Write one training checkpoint, a pickle with NumPy leaves, to each
     of ``path`` (one payload, fetched from the device once), atomically
     (temporary file, then rename). The Mean Teacher's teacher goes under
     ``model_ema``, the CPS peer and its optimizer under ``model_peer`` and
-    ``peer_optimizer``, each model a flat state_dict. The write is
+    ``peer_optimizer``, each model a flat state_dict. An optimizer is given
+    as itself or as its ``state_dict()`` (a ZeRO-1 optimizer's is a
+    collective that every rank takes before rank 0 writes). The write is
     synchronous: ``async_checkpoint`` (the JAX package's background writer)
     changes when the file appears, not what it holds, so the port accepts
     it and writes here."""
@@ -120,13 +127,13 @@ def save_checkpoint(path: Union[str, Sequence[str]], epoch: int,
         "config": config,
     }
     if optimizer is not None:
-        payload["optimizer"] = _to_numpy(optimizer.state_dict())
+        payload["optimizer"] = _to_numpy(_state(optimizer))
     if ema_model is not None:
         payload["model_ema"] = _to_numpy(ema_model.state_dict())
     if peer_model is not None:
         payload["model_peer"] = _to_numpy(peer_model.state_dict())
     if peer_optimizer is not None:
-        payload["peer_optimizer"] = _to_numpy(peer_optimizer.state_dict())
+        payload["peer_optimizer"] = _to_numpy(_state(peer_optimizer))
     if metrics is not None:
         payload["metrics"] = {k: float(v) for k, v in metrics.items()}
     if best is not None:

@@ -22,7 +22,9 @@ with P the model's parameter leaves in the params tree's flatten order
 update ``count``, and the open window its summed gradients
 (``acc_grads x mini_step``). Each leaf is matched to a parameter by the
 spec walker (``utils/weights.py``) and laid out as torch lays it; a
-frozen parameter (in no param group) keeps nothing. A list of any other
+frozen parameter (in no param group) keeps nothing, and under ZeRO-1 a
+rank keeps the parameters it owns (``TrainOptimizer.holds``). A list of
+any other
 length or shape raises: the optimizer never restarts silently.
 """
 
@@ -113,6 +115,8 @@ def load_optax_leaves(optimizer: TrainOptimizer, leaves: Sequence[Any],
     for name, p in zip(optimizer.names, optimizer.params):
         if name not in index:
             raise KeyError(f"the checkpoint holds no parameter {name}")
+        if not optimizer.holds(p):
+            continue  # ZeRO-1: another rank keeps this parameter's state
         if "mu" in layout:
             opt.state[p] = {
                 "step": torch.tensor(float(count), dtype=torch.float32),

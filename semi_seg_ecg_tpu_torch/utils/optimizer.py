@@ -42,6 +42,22 @@ at an epoch's end), so a checkpoint, written by rank 0, holds the global
 batch's partial sum, which every rank of a resumed run continues from.
 The window's mean is linear in the gradients, so the update is the same.
 
+ZeRO-1 (``parallel.shard_optimizer: true`` over more than one rank; the
+JAX package shards the optax state of ``opt_state`` and ``peer_opt_state``
+over its data axis): each rank owns a balanced set of whole trainable
+parameters (:func:`balanced_owners`; frozen parameters are in no group and
+owned by none) and its torch optimizer holds only those, in their groups,
+so it keeps their moments (or momentum) alone. :meth:`TrainOptimizer.step`
+all-reduces and clips every gradient as before, steps the parameters the
+rank owns, and broadcasts each parameter from its owner
+(``parallel.dist.broadcast_from_owners_``): the same elementwise update of
+the same averaged, clipped gradients, so the replicated run's numbers.
+:meth:`TrainOptimizer.state_dict` is then a collective that returns the
+whole state in the unsharded layout on every rank (a checkpoint equals an
+unsharded run's, and the JAX package reads it), and
+:meth:`TrainOptimizer.load_state_dict` keeps the rank's share of a whole
+state. One rank has nothing to shard and runs unsharded.
+
 Freezing (``mode: freeze_backbone``, ``frozen_stages >= 0``): the frozen
 set is the JAX package's ``frozen_param_mask``
 (:func:`frozen_parameter_names`).
@@ -53,11 +69,12 @@ AdamW would still decay the parameter.)
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Sequence, Set
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
 
+from ..parallel import dist as pdist
 from ..parallel.dist import all_reduce_grads_
 from . import lr_sched
 from .lr_decay import param_lr_scales_and_wd
@@ -99,31 +116,65 @@ def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float) -> None:
     torch._foreach_mul_(grads, scale)
 
 
+def balanced_owners(sizes: Sequence[int], world: int) -> List[int]:
+    """The owning rank of each of ``len(sizes)`` whole parameters of
+    ``sizes`` elements: the largest first, each to the rank that owns the
+    fewest elements so far (ties to the lower rank, then the earlier
+    parameter), the same on every rank."""
+    load = [0] * world
+    owners = [0] * len(sizes)
+    for i in sorted(range(len(sizes)), key=lambda i: (-sizes[i], i)):
+        rank = min(range(world), key=lambda r: (load[r], r))
+        owners[i] = rank
+        load[rank] += sizes[i]
+    return owners
+
+
 class TrainOptimizer:
     """A ``torch.optim`` optimizer driven by the schedule: :meth:`step`
     sets the lr of update ``count``, averages the gradients over the
     process group's ranks, clips, steps and counts, once every ``accum``
     micro-steps (``micro_step`` of them taken in the open window).
-    ``names`` are the parameters' names, in the groups' order; a
-    checkpoint keys an open window's gradients by them."""
+    ``params`` are the trainable parameters in the groups' order, ``names``
+    their names; a checkpoint keys an open window's gradients by them.
+    With ``owners`` (ZeRO-1: each parameter's owning rank), ``optimizer``
+    holds this rank's parameters only, in groups of ``group_sizes`` of
+    ``params``."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
-                 schedule: Callable[[int], float], max_norm=None,
-                 accum: int = 1, names: Sequence[str] = ()):
+                 schedule: Callable[[int], float],
+                 params: Sequence[torch.Tensor], names: Sequence[str],
+                 max_norm=None, accum: int = 1,
+                 owners: Optional[Sequence[int]] = None,
+                 group_sizes: Sequence[int] = ()):
         self.optimizer = optimizer
         self.schedule = schedule
         self.max_norm = max_norm
         self.accum = accum
         self.count = 0
         self.micro_step = 0
-        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.params = list(params)
         self.names = list(names)
+        self.owners = None if owners is None else list(owners)
+        self.group_sizes = list(group_sizes)
+        self._held = {id(p) for g in optimizer.param_groups
+                      for p in g["params"]}
+        self._index = {id(p): i for i, p in enumerate(self.params)}
+
+    @property
+    def sharded(self) -> bool:
+        return self.owners is not None
+
+    def holds(self, p: torch.Tensor) -> bool:
+        """Whether this rank's optimizer keeps the state of ``p``."""
+        return id(p) in self._held
 
     def zero_grad(self) -> None:
         """Clear the gradients at the start of a window (every call when
-        ``accum`` is 1)."""
+        ``accum`` is 1), of every trainable parameter, held or not."""
         if self.micro_step == 0:
-            self.optimizer.zero_grad(set_to_none=True)
+            for p in self.params:
+                p.grad = None
 
     def step(self) -> bool:
         """End a micro-step; on a window's last, apply the update to the
@@ -144,6 +195,9 @@ class TrainOptimizer:
         if self.max_norm is not None:
             clip_by_global_norm_(self.params, self.max_norm)
         self.optimizer.step()
+        if self.sharded:
+            # each rank updated its own parameters: every rank takes them
+            pdist.broadcast_from_owners_(self.params, self.owners)
         self.count += 1
         return True
 
@@ -154,12 +208,58 @@ class TrainOptimizer:
         if self.micro_step:
             all_reduce_grads_(self.params)
 
+    def _torch_state_dict(self) -> Dict[str, Any]:
+        """The torch optimizer's state_dict; under ZeRO-1 gathered from
+        every rank into the unsharded layout (a collective)."""
+        local = self.optimizer.state_dict()
+        if not self.sharded:
+            return local
+        held = [self._index[id(p)] for g in self.optimizer.param_groups
+                for p in g["params"]]
+        mine = {held[i]: {k: v.detach().cpu() if torch.is_tensor(v) else v
+                          for k, v in entry.items()}
+                for i, entry in local["state"].items()}
+        state: Dict[int, Any] = {}
+        for part in pdist.all_gather_object(mine):
+            state.update(part)
+        groups, at = [], 0
+        for group, size in zip(local["param_groups"], self.group_sizes):
+            groups.append(dict(group, params=list(range(at, at + size))))
+            at += size
+        return {"state": {i: state[i] for i in sorted(state)},
+                "param_groups": groups}
+
+    def _load_torch_state_dict(self, state: Dict[str, Any]) -> None:
+        """The torch optimizer's state from an unsharded state_dict; under
+        ZeRO-1 this rank's share of it."""
+        if not self.sharded:
+            self.optimizer.load_state_dict(state)
+            return
+        sizes = [len(g["params"]) for g in state["param_groups"]]
+        if sizes != self.group_sizes:
+            raise ValueError(f"the optimizer state has groups of {sizes} "
+                             f"parameters, this optimizer {self.group_sizes}")
+        local_state, groups, at = {}, [], 0
+        for group, mine in zip(state["param_groups"],
+                               self.optimizer.param_groups):
+            ids = []
+            for p in mine["params"]:
+                entry = state["state"].get(self._index[id(p)])
+                if entry is not None:
+                    local_state[at] = entry
+                ids.append(at)
+                at += 1
+            groups.append(dict(group, params=ids))
+        self.optimizer.load_state_dict({"state": local_state,
+                                        "param_groups": groups})
+
     def state_dict(self) -> Dict[str, Any]:
-        """The torch optimizer's state_dict, with the update ``count``, the
-        open window's ``micro_step`` and, when one is open, its summed
-        gradients by parameter name (``acc_grads``; under a process group
-        as :meth:`average_window_` left them)."""
-        state = dict(self.optimizer.state_dict(), count=self.count,
+        """The torch optimizer's state_dict (under ZeRO-1 the whole state,
+        gathered: a collective, so every rank calls it), with the update
+        ``count``, the open window's ``micro_step`` and, when one is open,
+        its summed gradients by parameter name (``acc_grads``; under a
+        process group as :meth:`average_window_` left them)."""
+        state = dict(self._torch_state_dict(), count=self.count,
                      micro_step=self.micro_step)
         if self.micro_step:
             state["acc_grads"] = {n: p.grad for n, p in
@@ -168,12 +268,13 @@ class TrainOptimizer:
         return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Restore :meth:`state_dict`'s output (tensors or NumPy arrays)."""
+        """Restore :meth:`state_dict`'s output (tensors or NumPy arrays),
+        written sharded or not."""
         state = dict(state)
         self.count = int(state.pop("count"))
         self.micro_step = int(state.pop("micro_step", 0))
         self.set_window(self.micro_step, state.pop("acc_grads", {}))
-        self.optimizer.load_state_dict(_as_tensors(state))
+        self._load_torch_state_dict(_as_tensors(state))
 
     def set_window(self, micro_step: int,
                    grads: Dict[str, Any]) -> None:
@@ -284,16 +385,30 @@ def build_optimizer(config: Dict[str, Any], model: torch.nn.Module,
     groups = param_groups(config, model)
     schedule = make_lr_schedule(train_cfg, updates_per_epoch)
     lr0 = schedule(0)
+    params = [p for g in groups for p in g["params"]]
+    owners = None
+    world = pdist.get_world_size()
+    if (config.get("parallel") or {}).get("shard_optimizer") and world > 1:
+        # ZeRO-1: this rank's optimizer over the parameters it owns
+        owners = balanced_owners([p.numel() for p in params], world)
+        mine = {id(p) for p, r in zip(params, owners)
+                if r == pdist.get_rank()}
+        local = [dict(g, params=[p for p in g["params"] if id(p) in mine])
+                 for g in groups]
+    else:
+        local = groups
     if opt_name == "sgd":
-        opt = torch.optim.SGD(groups, lr=lr0,
+        opt = torch.optim.SGD(local, lr=lr0,
                               momentum=kwargs.get("momentum", 0))
     elif opt_name == "adamw":
         b1, b2 = tuple(kwargs.get("betas", (0.9, 0.999)))
-        opt = torch.optim.AdamW(groups, lr=lr0, betas=(b1, b2),
+        opt = torch.optim.AdamW(local, lr=lr0, betas=(b1, b2),
                                 eps=kwargs.get("eps", 1e-8))
     else:
         raise ValueError(f"Unknown optimizer: {opt_name}")
     name_of = {id(p): n for n, p in model.named_parameters()}
-    names = [name_of[id(p)] for g in groups for p in g["params"]]
-    return TrainOptimizer(opt, schedule, train_cfg.get("max_norm", None),
-                          accum_iter(config), names)
+    return TrainOptimizer(opt, schedule, params,
+                          [name_of[id(p)] for p in params],
+                          train_cfg.get("max_norm", None), accum_iter(config),
+                          owners=owners,
+                          group_sizes=[len(g["params"]) for g in groups])

@@ -415,6 +415,52 @@ def test_fixmatch_augmentation_on_the_card_matches_the_cpu(cuda):
                                    rtol=0, msg=k)
 
 
+# (entry, level, gather launches of one call with labels): each device op
+# ported after the shipped chains', with and without a RandAugment level
+NEW_OP_CASES = [
+    ("xflip", None, 0), ("YFlip", 10, 0),
+    ({"drop": {"mask_ratio": 0.3}}, None, 0),
+    ({"cutout": {"mask_ratio": 0.5}}, 10, 0),
+    ({"shift": {"mask_ratio": 0.5}}, None, 1),
+    ({"RandomBaselineShift": {"ratio": 0.4, "scale": 2.0}}, None, 0),
+    ("RandomBaselineShift", 7, 0),
+    ({"sine_noise": {"amplitude": 0.5, "freq": 0.2}}, None, 0),
+    ("SquareNoise", 4, 0), ("white_noise", None, 0), ("WhiteNoise", 10, 0),
+    ({"RandomApply": {"transform": "RandomShift", "prob": 0.5}}, None, 1),
+    ({"RandomApply": {"transform": "Cutout", "prob": 0.7}}, 10, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,level,gathers", NEW_OP_CASES,
+                         ids=[f"{i}" for i in range(len(NEW_OP_CASES))])
+def test_new_augment_ops_on_the_card_match_the_cpu(cuda, entry, level,
+                                                   gathers):
+    """Each newly ported device op under one set of draws from a CPU
+    generator, on the card and on the CPU, with labels and without: labels
+    exactly, signals within 1e-5 absolute and relative; shift launches the
+    gather once either way (a pair with labels), the others never."""
+    from semi_seg_ecg_tpu_torch.ops import preprocess as pre
+
+    op = pre._make_device_op(*pre._entry_name_kwargs(entry), level)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(16, 1, 2500, generator=gen)
+    y = torch.randint(0, 4, (16, 2500), generator=gen)
+    draws = op.sample(gen, tuple(x.shape))
+    for labels in (y, None):
+        before = gather1d.LAUNCHES
+        cx, cy = op.apply(draws, x.cuda(), None if labels is None
+                          else labels.cuda())
+        torch.cuda.synchronize()
+        assert gather1d.LAUNCHES == before + gathers
+        px, py = op.apply(draws, x, labels)
+        torch.testing.assert_close(cx.cpu(), px, atol=1e-5, rtol=1e-5)
+        if labels is None:
+            assert cy is None and py is None
+        else:
+            assert torch.equal(cy.cpu(), py)
+
+
 @pytest.mark.cuda
 def test_resnet18_forward_on_the_card_matches_the_cpu(cuda):
     """Full-width ResNet18 + FCNHead (the shipped recipe's model), seed-0

@@ -59,8 +59,33 @@ def jax_op_draws(name, kwargs, key, shape, level=None):
         return {"u_count": jax.random.uniform(k_count, (b,)),
                 "u_start": jax.random.uniform(k_start, (b,)),
                 "normal": jax.random.normal(k1, shape) if white else None}
-    if name in ("standardize", "Standardize"):
+    if name in ("standardize", "Standardize", "xflip", "XFlip", "yflip",
+                "YFlip", "sine_noise", "SineNoise", "square_noise",
+                "SquareNoise"):
         return None
+    if name in ("white_noise", "WhiteNoise"):
+        k1, _ = jax.random.split(key)
+        return {"normal": jax.random.normal(k1, shape)}
+    if name in ("drop", "RandomMask"):
+        k1, k2 = jax.random.split(key)
+        return {"u_count": jax.random.uniform(k1, (b,)),
+                "u": jax.random.uniform(k2, (b, shape[-1]))}
+    if name in ("cutout", "Cutout"):
+        return span_draws(key, b)
+    if name in ("shift", "RandomShift"):
+        # bernoulli(k, 0.5, (b,)) is uniform(k, (b,)) < 0.5
+        k1, k2 = jax.random.split(key)
+        return {"u_amount": jax.random.uniform(k1, (b,)),
+                "u_right": jax.random.uniform(k2, (b,))}
+    if name in ("random_baseline_shift", "RandomBaselineShift"):
+        k1, k2, k3 = jax.random.split(key, 3)
+        return {**span_draws(k1, b), "u_sign": jax.random.uniform(k2, (b,)),
+                "u_amount": jax.random.uniform(k3, (b,))}
+    if name == "RandomApply":
+        k_gate, k_op = jax.random.split(key)
+        return {"u_gate": jax.random.uniform(k_gate, (b,)),
+                "op": jax_op_draws(*pre._entry_name_kwargs(
+                    kwargs["transform"]), k_op, shape, level)}
     if name in ("random_resize_crop", "RandomResizeCrop"):
         k_ratio, k_start = jax.random.split(key)
         return {"ratio": jax.random.uniform(
@@ -77,6 +102,13 @@ def jax_op_draws(name, kwargs, key, shape, level=None):
                                      level=kwargs.get("level", 10))
                         for e, k in zip(ops, op_keys)]}
     raise AssertionError(f"no draws written for {name}")
+
+
+def span_draws(key, b):
+    """``_uniform_span``'s two uniforms."""
+    k_count, k_start = jax.random.split(key)
+    return {"u_count": jax.random.uniform(k_count, (b,)),
+            "u_start": jax.random.uniform(k_start, (b,))}
 
 
 def jax_chain_draws(entries, key, shape):
@@ -124,11 +156,11 @@ SHIPPED_OPS = [
 ]
 
 
-@pytest.mark.parametrize("name,kwargs,level", SHIPPED_OPS,
-                         ids=[f"{n}-{lv}" for n, _, lv in SHIPPED_OPS])
-def test_op_matches_jax_under_injected_draws(name, kwargs, level):
-    x, y = signal(0)
-    key = jax.random.key(11)
+def assert_op_matches_jax(name, kwargs, level=None, seed=0, key=11):
+    """The port's ``apply`` under the JAX op's draws equals the JAX op:
+    signals within 1e-5, labels exactly, ``label_changeable`` equal."""
+    x, y = signal(seed)
+    key = jax.random.key(key)
     jop = jax_pre._make_device_op(name, kwargs, level)
     op = pre._make_device_op(name, kwargs, level)
     assert op.label_changeable == jop.label_changeable
@@ -138,6 +170,90 @@ def test_op_matches_jax_under_injected_draws(name, kwargs, level):
     assert tx.shape == x.shape and tx.dtype == torch.float32
     assert_signal_close(tx, jx)
     np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    assert ty.dtype == torch.int64
+    return tx, ty
+
+
+@pytest.mark.parametrize("name,kwargs,level", SHIPPED_OPS,
+                         ids=[f"{n}-{lv}" for n, _, lv in SHIPPED_OPS])
+def test_op_matches_jax_under_injected_draws(name, kwargs, level):
+    assert_op_matches_jax(name, kwargs, level)
+
+
+# the device ops ported after the shipped chains', each with and without a
+# RandAugment level where the JAX op has a level override
+NEW_OPS = [
+    ("yflip", {}, None),
+    ("YFlip", {}, 10),
+    ("drop", {"mask_ratio": 0.3}, None),
+    ("RandomMask", {"mask_ratio": 0.6}, 10),
+    ("XFlip", {}, 10),
+    ("Cutout", {"mask_ratio": 0.5}, 10),
+    ("RandomShift", {"mask_ratio": 0.5}, 10),
+    ("random_baseline_shift", {"ratio": 0.4, "scale": 2.0}, None),
+    ("RandomBaselineShift", {}, 7),
+    ("sine_noise", {"amplitude": 0.5, "freq": 0.2}, None),
+    ("SineNoise", {}, 10),
+    ("square_noise", {"amplitude": 2.0, "freq": 0.3}, None),
+    ("SquareNoise", {}, 4),
+    ("white_noise", {"amplitude": 0.5}, None),
+    ("WhiteNoise", {}, 10),
+    ("RandomApply", {"transform": {"shift": {"mask_ratio": 0.4}},
+                     "prob": 0.5}, None),
+    ("RandomApply", {"transform": "RandomBaselineShift", "prob": 0.7}, 10),
+]
+
+
+@pytest.mark.parametrize("name,kwargs,level", NEW_OPS,
+                         ids=[f"{n}-{lv}" for n, _, lv in NEW_OPS])
+def test_new_op_matches_jax(name, kwargs, level):
+    tx, _ = assert_op_matches_jax(name, kwargs, level)
+    x, _ = signal(0)
+    # every op changes the signal, and a gate leaves some samples as they
+    # were and changes others
+    changed = (tx.numpy() != x).any(axis=(1, 2))
+    assert changed.any()
+    if name == "RandomApply":
+        assert not changed.all()
+
+
+def test_drop_ranks_ties_alike():
+    """Tied uniforms rank in index order on both sides (a stable sort), so
+    the same points are dropped."""
+    x, _ = signal(8)
+    key = jax.random.key(2)
+    draws = jax_op_draws("drop", {"mask_ratio": 0.5}, key, x.shape)
+    u = np.round(np.asarray(draws["u"]) * 8) / 8   # many ties
+    b = x.shape[0]
+    draws = {"u_count": draws["u_count"], "u": jnp.asarray(u)}
+    # the JAX op's own arithmetic on the tied uniforms
+    max_count = int(T * 0.5)
+    count = (np.asarray(draws["u_count"]) * max_count).astype(np.int32)
+    rank = np.asarray(jnp.argsort(jnp.argsort(draws["u"], axis=1), axis=1))
+    want = x * (rank >= count[:, None])[:, None, :]
+    got = pre._make_device_op("drop", {"mask_ratio": 0.5}).apply(
+        to_torch(draws), torch.from_numpy(x), None)[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() == 0).sum(axis=(1, 2)).tolist() == count.tolist()
+    assert b == B
+
+
+def test_shift_gathers_once_per_call(monkeypatch):
+    """Shift takes the signal and the labels in one pair call (one kernel
+    launch on the card), the signal alone in one ``monotonic_gather``."""
+    calls = []
+    for name in ("monotonic_gather", "monotonic_gather_pair"):
+        real = getattr(pre, name)
+        monkeypatch.setattr(pre, name, lambda *a, _f=real, _n=name, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    x, y = signal(9)
+    op = pre._make_device_op("shift", {"mask_ratio": 0.5})
+    draws = op.sample(torch.Generator().manual_seed(0), x.shape)
+    tx, ty = op.apply(draws, torch.from_numpy(x), torch.from_numpy(y).long())
+    assert calls == ["monotonic_gather_pair"]
+    tx_alone, none = op.apply(draws, torch.from_numpy(x), None)
+    assert calls == ["monotonic_gather_pair", "monotonic_gather"]
+    assert none is None and torch.equal(tx_alone, tx)
 
 
 @pytest.mark.parametrize("name,kwargs", [
@@ -306,13 +422,64 @@ def test_standardize_is_population_std():
     {"RandomApply": {"transform": "yflip"}}, {"sine_noise": {}},
     {"RandAugment": {"ops": ["AmplitudeScaling", "YFlip"]}}])
 def test_unported_ops_raise(entry):
+    """The six ops the port once refused as not yet ported: each now
+    matches the JAX op under its draws, and a weak chain of it runs on the
+    device in both packages' plans."""
     name, kwargs = pre._entry_name_kwargs(entry)
-    assert jax_pre._make_device_op(name, kwargs) is not None
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pre._make_device_op(name, kwargs)
+    assert_op_matches_jax(name, kwargs)
     ds = dict(fixmatch_dataset_cfg(), augmentations=[entry])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pre.plan_device_augment(ds)
+    ours, theirs = pre.plan_device_augment(ds), jax_pre.plan_device_augment(ds)
+    assert ours.summary == theirs.summary == "weak=device, strong=device"
+    assert ours.labeled_overrides == theirs.labeled_overrides
+
+
+NEW_OP_CHAINS = {
+    "augmentations": [
+        {"random_resize_crop": {"target_length": T}},
+        {"RandomApply": {"transform": {"RandomShift": {"mask_ratio": 0.3}},
+                         "prob": 0.5}},
+        "xflip", {"cutout": {"mask_ratio": 0.2}}],
+    "strong_augmentations": [{"RandAugment": {
+        "ops": [{"AmplitudeScaling": {"sigma": 0.5}}, "RandomShift",
+                "Cutout", "YFlip", "RandomMask", "RandomBaselineShift",
+                "SineNoise", "SquareNoise", "WhiteNoise",
+                {"RandomPartialSineNoise": {"ratio": 0.5}},
+                {"RandomApply": {"transform": "XFlip"}}],
+        "level": 6, "num_layers": 4, "prob": 0.7}}],
+}
+
+
+def test_new_op_chains_match_jax():
+    """A FixMatch dataset config whose chains use the newly ported ops:
+    both packages plan it alike (summary, overrides), and the whole
+    augmentation, under the JAX draws of its six key streams, matches."""
+    ds = dict(fixmatch_dataset_cfg(), **NEW_OP_CHAINS)
+    ours, theirs = pre.plan_device_augment(ds), jax_pre.plan_device_augment(ds)
+    assert ours.summary == theirs.summary == "weak=device, strong=device"
+    assert ours.labeled_overrides == theirs.labeled_overrides
+    assert ours.unlabeled_overrides == theirs.unlabeled_overrides
+    x, y = signal(10)
+    u, _ = signal(11)
+    key = jax.random.key(17)
+    want = theirs.augment(key, {"ecg": jnp.asarray(x), "target": jnp.asarray(y),
+                                "ecg_u_w": jnp.asarray(u)})
+    k_lab, k_unlab, k_strong, k_fl, k_fu, k_fs = jax.random.split(key, 6)
+    final = [e for e in ds["transforms"] if "to_tensor" not in e]
+    weak, strong = ds["augmentations"], ds["strong_augmentations"]
+    draws = to_torch({
+        "lab": jax_chain_draws(weak, k_lab, x.shape),
+        "fl": jax_chain_draws(final, k_fl, x.shape),
+        "unlab": jax_chain_draws(weak, k_unlab, x.shape),
+        "fu": jax_chain_draws(final, k_fu, x.shape),
+        "strong": jax_chain_draws(strong, k_strong, x.shape),
+        "fs": jax_chain_draws(final, k_fs, x.shape)})
+    got = ours.apply(draws, {"ecg": torch.from_numpy(x),
+                             "target": torch.from_numpy(y).long(),
+                             "ecg_u_w": torch.from_numpy(u)})
+    np.testing.assert_array_equal(got["target"].numpy(),
+                                  np.asarray(want["target"]))
+    for k in ("ecg", "ecg_u_w", "ecg_u_s"):
+        assert_signal_close(got[k], want[k])
 
 
 def test_host_only_ops_stay_on_the_host():

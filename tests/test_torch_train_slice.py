@@ -402,23 +402,22 @@ def test_unported_algorithms_and_options_raise():
                      model.backbone.layer4[1].bn2.running_var.clone()))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
-    # what data-parallel training still refuses: ZeRO-1 across ranks, the
-    # model and sequence axes, the device cache (the long-record mesh=
-    # refusals: tests/test_torch_longrec.py)
+    # what data-parallel training still refuses: the model and sequence
+    # axes (the long-record mesh= refusals: tests/test_torch_longrec.py)
     from semi_seg_ecg_tpu_torch.algorithms.common import _refuse_unported
 
     cfg = lockstep_config("xla", "base")
-    refused = [({"parallel": {"shard_optimizer": True}}, 2),
-               ({"parallel": {"model_parallel": 2}}, 1),
-               ({"parallel": {"seq_parallel": 2}}, 1),
-               ({"dataset": {"device_cache": True}}, 2)]
-    for override, world in refused:
+    refused = [{"parallel": {"model_parallel": 2}},
+               {"parallel": {"seq_parallel": 2}}]
+    for override in refused:
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            _refuse_unported({**cfg, **override}, world)
-    # one replica has no optimizer state to shard, as in the JAX package;
-    # the reference's ddp section trains
+            _refuse_unported({**cfg, **override})
+    # ZeRO-1 (tests/test_torch_zero1.py) and the device cache
+    # (tests/test_torch_device_cache.py) train; the reference's ddp
+    # section trains
     _refuse_unported({**cfg, "parallel": {"shard_optimizer": True},
-                      "ddp": {"world_size": 2, "distributed": True}}, 1)
+                      "dataset": {**cfg["dataset"], "device_cache": True},
+                      "ddp": {"world_size": 2, "distributed": True}})
 
 
 def tiny_recipe(root, family, algorithm, exp_name, data_seed=3):

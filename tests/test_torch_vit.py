@@ -145,6 +145,36 @@ def test_linear_interpolate_matches_jax(align_corners, in_len, out_len):
     np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=1e-6)
 
 
+def test_interpolate_taps_stay_on_the_device():
+    """The taps are made once per (lengths, device): a serving call under
+    inference mode first, then a training forward that saves them for its
+    backward, then an exported program, which holds its own copies, and
+    eager calls after it, which still get the kept ones."""
+    from semi_seg_ecg_tpu_torch.ops import interpolate
+
+    size = 911  # lengths no other test asks for
+    x = torch.randn(2, 3, 17)
+    with torch.inference_mode():
+        served = linear_interpolate(x, size)
+    before = interpolate._device_coords.cache_info()
+    xg = x.clone().requires_grad_()
+    trained = linear_interpolate(xg, size)
+    trained.sum().backward()
+    assert torch.equal(trained.detach(), served)
+    assert xg.grad is not None
+    after = interpolate._device_coords.cache_info()
+    assert after.hits == before.hits + 1 and after.misses == before.misses
+
+    class Resize(torch.nn.Module):
+        def forward(self, t):
+            return linear_interpolate(t, size)
+
+    program = torch.export.export(Resize(), (x,)).module()
+    assert torch.equal(program(x), served)
+    assert torch.equal(linear_interpolate(x, size), served)
+    assert interpolate._device_coords.cache_info().misses == after.misses
+
+
 def test_unported_parts_raise():
     from semi_seg_ecg_tpu_torch.models.quant_layers import int8_modules
 

@@ -104,11 +104,27 @@ def launch_counts():
     return fa.LAUNCHES, fa.BWD_LAUNCHES, gather1d.LAUNCHES
 
 
-def task_steps(runs, device="cpu"):
+def optimizer_report(opt):
+    """A ``TrainOptimizer``'s whole state (``state_dict``, a collective
+    under ZeRO-1), the names of the parameters this rank keeps state for,
+    and the bytes of that state; the whole state again after loading it
+    back into the optimizer, as a resume does."""
+    state = opt.state_dict()
+    held = [n for n, p in zip(opt.names, opt.params) if opt.holds(p)]
+    nbytes = sum(v.numel() * v.element_size()
+                 for entry in opt.optimizer.state.values()
+                 for v in entry.values() if torch.is_tensor(v))
+    opt.load_state_dict(state)
+    return {"state": state, "held": held, "bytes": nbytes,
+            "reloaded": opt.state_dict()}
+
+
+def task_steps(runs, device="cpu", optimizer_state=False):
     """For each run, ``Trainer.train_step`` on this rank's rows of each
     global batch: per-step metrics (the mean over the ranks, as the
     training loop drains them) and kernel launches (flash forward,
-    backward, gather), and every network's final state."""
+    backward, gather), and every network's final state; with
+    ``optimizer_state`` each optimizer's :func:`optimizer_report`."""
     from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
     from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, full_fp32
     from semi_seg_ecg_tpu_torch.models import build_model_from_config
@@ -145,8 +161,14 @@ def task_steps(runs, device="cpu"):
         states = {role: module.state_dict() for role, module in
                   (("model", trainer.model), ("ema", trainer.teacher),
                    ("peer", trainer.peer)) if module is not None}
-        out.append({"metrics": metrics, "launches": launches,
-                    "states": states})
+        result = {"metrics": metrics, "launches": launches,
+                  "states": states}
+        if optimizer_state:
+            result["optimizers"] = {
+                role: optimizer_report(opt) for role, opt in
+                (("model", trainer.optimizer),
+                 ("peer", trainer.peer_optimizer)) if opt is not None}
+        out.append(result)
     return out
 
 
