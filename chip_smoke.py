@@ -150,7 +150,33 @@ non-zero exit when it fails:
    optimizer too): networks, losses and the gathered optimizer state,
    each rank's optimizer bytes (at most 0.6 of the replicated) and peak
    memory, and each run's checkpoint resumed in one unsharded process for
-   a fourth step, the ZeRO-1 one against the replicated one.
+   a fourth step, the ZeRO-1 one against the replicated one;
+14. tensor parallelism (``parallel.model_parallel``) and ``mesh=`` long
+   records, on phase 10's rank layout (NCCL where the cards cover the
+   ranks, else gloo with CUDA tensors on one card): (a) three fp32
+   FixMatch steps of the full-width ViT (flash, device augmentation, SGD
+   with momentum, 16 + 16 windows) at ``(data 1, model 3)`` (one head a
+   rank) and ``(2, 2)`` (attention whole, MLP sliced) against one process
+   on the global batch within phase 10's bounds, the ranks' gathered
+   states equal, 24 / 12 / 3 launches a rank a step, rank 0's gathered
+   checkpoint in one process's layout key for key; (b) ``train_main`` of
+   the bf16 recipe at ``(1, 3)``, 2 epochs of 4 steps on phase 4's split
+   (228 / 96 / 24 launches a rank), its checkpoint served on the ranks
+   and in one process within 1e-4; (c) each rank's parameter and
+   optimizer bytes and peak memory against one process, and its bf16
+   step's ms, device events and all-reduce time (host ranges of the
+   step's own trace); (d) phase 8's 1 h record through
+   ``long_record_inference(mesh=)`` and 8 two-minute streams through
+   ``StreamingSegmenter(mesh=)`` on the ``(2, 2)`` ranks (2 data ranks of
+   2 model ranks, the serving model's MLP sliced), each against one
+   process within 1e-5 (12 flash forwards a batch, half the batches a
+   data rank). The log's last phase-14 line splits its seconds.
+
+``python3 chip_smoke.py --tp-drift OUT`` is a diagnostic outside the run:
+phase 14's fp32 steps with the optimizer's sync of the replicated
+gradients from model rank 0 on or off, under PyTorch's default or
+deterministic algorithms (``TP_DRIFT_RUNS``), reporting which replicated
+parameters the model ranks hold apart.
 
 The line before the last prints the card's name and power limit as
 nvidia-smi gives them; the line before that, a JSON object with one entry
@@ -215,6 +241,11 @@ FP32_ROW = {"flash_attention_fwd": "slice_fp32",
 # them over
 STRIDED = [("train_bf16_strided", (32, 3, 101, 64), "bfloat16"),
            ("train_fp32_strided", (32, 3, 101, 64), "float32")]
+# a rank's heads at model_parallel 3 (phase 14): H/tp = 1
+TP_ROWS = [("tp_rank_fp32", (16, 1, 101, 64), "float32"),
+           ("tp_rank_bf16", (16, 1, 101, 64), "bfloat16"),
+           ("tp_rank_train_bf16_strided", (32, 1, 101, 64), "bfloat16"),
+           ("tp_rank_train_fp32_strided", (32, 1, 101, 64), "float32")]
 # (label, (B, H, N, D), dtype): the serving shape of vit_tiny at batch 16
 # first, in both precisions the entry runs; the training student pass
 # (labeled + strong, 32 windows; fp32 under precision: fp32); then a long
@@ -232,6 +263,9 @@ FLASH_SHAPES = [
     ("one_head_fp32", (1, 1, 101, 64), "float32"),
     ("one_head_bf16", (1, 1, 101, 64), "bfloat16"),
     *STRIDED,
+    # phase 14: one of 3 model ranks' heads, the eval batch and the
+    # training student pass as the ViT hands it over
+    *TP_ROWS,
     # phase 8: a batch of 64 long-record windows, in both precisions the
     # entry runs, and one step of 8 live streams
     ("longrec_fp32", (64, 3, 101, 64), "float32"),
@@ -253,6 +287,7 @@ BWD_SHAPES = [
     # 2 + 2 CTAs with the training shape's work per CTA (see one_head_fp32)
     ("one_head_bf16", (1, 1, 101, 64), "bfloat16"),
     *STRIDED,
+    *TP_ROWS,
 ]
 # (label, kind, (B, C, T_in), J, slope): the training step's three calls
 # (resize-crop of the signal and its labels in one launch, the signal alone
@@ -847,10 +882,11 @@ def check_probs(name, probs, n=NUM_TEST):
 
 def trace_device(torch, fn, steps, region=None):
     """Device time of ``steps`` calls of ``fn`` from a torch.profiler
-    trace: busy ms per call and per kernel, device events per call and,
-    with a ``region`` (see :func:`region_device_us`), the region's device
-    ms per call (else None). Empty when the trace holds no device
-    events."""
+    trace: busy ms per call and per kernel, device events per call, with a
+    ``region`` (see :func:`region_device_us`) the region's device ms per
+    call (else None), and the host ms per call inside the process group's
+    all-reduces (its ``gloo:all_reduce`` / ``nccl:all_reduce`` ranges).
+    Empty when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -864,7 +900,11 @@ def trace_device(torch, fn, steps, region=None):
     region_ms = (region_device_us(prof.events(), *region) / 1e3 / steps
                  if region else None)
     per_kernel, count, kinds = {}, 0, {"copy": 0, "elementwise": 0}
+    allreduce_us = 0.0
     for event in prof.events():
+        if event.device_type == DeviceType.CPU and \
+                event.name.endswith(":all_reduce"):
+            allreduce_us += event.cpu_time_total
         # user annotations (the optimizer's step range) span kernels that
         # the trace also lists, so they are not device work of their own
         if event.device_type == DeviceType.CUDA and not getattr(
@@ -877,7 +917,7 @@ def trace_device(torch, fn, steps, region=None):
                 kinds[kind] += 1
     return (traced_ms, {k: v / steps for k, v in per_kernel.items()},
             count / steps, {k: v / steps for k, v in kinds.items()},
-            region_ms)
+            region_ms, allreduce_us / 1e3 / steps)
 
 
 def region_device_us(events, range_name, sequence_nrs):
@@ -981,8 +1021,8 @@ def profile_model(torch, config, model_path, amp, steps=20):
         forward()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    traced_ms, per_kernel, events, kinds, _ = trace_device(torch, forward,
-                                                            steps)
+    traced_ms, per_kernel, events, kinds, _, _ = trace_device(
+        torch, forward, steps)
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
@@ -1556,8 +1596,8 @@ def profile_train_step(torch, config, precision, phase=4,
         peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
         per_step = {k: v / steps for k, v in read_counts().items()}
         with region() if region else contextlib.nullcontext() as traced:
-            traced_ms, per_kernel, events, kinds, region_ms = trace_device(
-                torch, step, steps, traced)
+            (traced_ms, per_kernel, events, kinds, region_ms,
+             allreduce_host_ms) = trace_device(torch, step, steps, traced)
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     out = {
@@ -1579,6 +1619,8 @@ def profile_train_step(torch, config, precision, phase=4,
         # under a process group: the collectives' kernels (phase 10)
         "collectives_ms_per_step": kernel_ms(per_kernel, "nccl"),
         "allreduce_ms_per_step": kernel_ms(per_kernel, "AllReduce"),
+        # the same all-reduces' host time (gloo's run on the host)
+        "allreduce_host_ms_per_step": allreduce_host_ms,
         "region_ms_per_step": region_ms if per_kernel else None,
         "top_kernels_ms_per_step": [(k[:80], v) for k, v in top],
     }
@@ -1861,7 +1903,7 @@ def check_reco_loss(torch, config):
     with full_fp32():
         # few calls: their host enqueue stays inside device_ms's sleep
         ms = device_ms(torch, loss_and_backward, 5)
-        traced_ms, per_kernel, events, _, _ = trace_device(
+        traced_ms, per_kernel, events, _, _, _ = trace_device(
             torch, loss_and_backward, 10)
     busy_ms = sum(per_kernel.values()) if per_kernel else None
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -2201,7 +2243,7 @@ def profile_longrec(torch, config_path, model_path, record, reps=3):
     filter_ms = float(np.mean(filter_s)) * 1e3
     after_ms = float(np.mean(rest_s)) * 1e3
     wall_ms = filter_ms + after_ms
-    _, per_kernel, events, kinds, _ = trace_device(
+    _, per_kernel, events, kinds, _, _ = trace_device(
         torch, lambda: rest(ecg), reps)
     busy_ms = sum(per_kernel.values())
     batches = math.ceil(plan_windows(record.shape[-1], SIGNAL_LENGTH,
@@ -2481,8 +2523,8 @@ def profile_serving(torch, fn, n, steps=10):
         fn(x)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    _, per_kernel, events, kinds, _ = trace_device(torch, lambda: fn(x),
-                                                    steps)
+    _, per_kernel, events, kinds, _, _ = trace_device(
+        torch, lambda: fn(x), steps)
     busy_ms = sum(per_kernel.values())
     top = max(per_kernel.items(), key=lambda kv: kv[1]) if per_kernel \
         else (None, None)
@@ -2827,21 +2869,37 @@ def dp_global_batches(seed):
 
 def dp_steps(torch, config, batches, rows=None):
     """DP_STEPS FixMatch steps of the seed-0 model on ``rows`` of each
-    global batch (default: this rank's DP_ROWS): the metrics of each step
-    (their mean over the ranks under a process group), the launches of
-    each step and the final state."""
+    global batch (default: this rank's data rank's share under the
+    config's mesh): the metrics of each step (their mean over the data
+    ranks under a process group), the launches of each step, the final
+    state (gathered over the model axis), the checkpoint's layout (keys and
+    shapes of the model and the optimizer state, as
+    ``Trainer.checkpoint_state`` gathers them for rank 0 to write) and the
+    rank's parameter and optimizer bytes and peak memory."""
     from semi_seg_ecg_tpu_torch.algorithms import fixmatch
     from semi_seg_ecg_tpu_torch.algorithms.common import (
         Trainer,
         full_fp32,
         init_model,
     )
-    from semi_seg_ecg_tpu_torch.parallel.dist import all_reduce_mean, get_rank
+    from semi_seg_ecg_tpu_torch.parallel import mesh as pmesh
+    from semi_seg_ecg_tpu_torch.parallel.dist import (
+        all_reduce_mean,
+        data_rank,
+        data_size,
+    )
+    from semi_seg_ecg_tpu_torch.parallel.sharding_rules import (
+        full_state_dict,
+    )
 
     if rows is None:
-        rows = slice(get_rank() * DP_ROWS, (get_rank() + 1) * DP_ROWS)
+        pmesh.make_mesh(config)
+        per = batches[0]["ecg"].shape[0] // data_size()
+        rows = slice(data_rank() * per, (data_rank() + 1) * per)
     device = torch.device("cuda", torch.cuda.current_device())
     metrics, launches = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with full_fp32():
         trainer = Trainer(copy.deepcopy(config), fixmatch.SPEC, device, 4,
                           model=init_model(config, device))
@@ -2854,9 +2912,26 @@ def dp_steps(torch, config, batches, rows=None):
             launches.append(read_counts())
             metrics.append({k: all_reduce_mean(v).item()
                             for k, v in step.items()})
+    torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     state = {k: v.detach().cpu().numpy()
-             for k, v in trainer.model.state_dict().items()}
-    return {"metrics": metrics, "launches": launches, "state": state}
+             for k, v in full_state_dict(trainer.model).items()}
+    saved = trainer.checkpoint_state()
+    layout = {"model": {k: list(v.shape) for k, v in saved["model"].items()},
+              "optimizer": {int(i): {k: list(np.shape(v)) for k, v in
+                                     entry.items()}
+                            for i, entry in saved["optimizer"][
+                                "state"].items()}}
+    opt_state = trainer.optimizer.optimizer.state.values()
+    memory = {"param_bytes": sum(p.numel() * p.element_size()
+                                 for p in trainer.model.parameters()),
+              "optimizer_bytes": sum(v.numel() * v.element_size()
+                                     for entry in opt_state
+                                     for v in entry.values()
+                                     if torch.is_tensor(v)),
+              "peak_memory_mb": peak_mb}
+    return {"metrics": metrics, "launches": launches, "state": state,
+            "checkpoint_layout": layout, "memory": memory}
 
 
 def dp_entry_config(algorithm, backend):
@@ -3072,9 +3147,14 @@ def dp_accum_steps(torch, config, batches):
     return result
 
 
-RANK_TASKS = {"steps": dp_steps, "train": dp_train, "rank": dp_rank,
+RANK_TASKS = {"tp_drift": lambda torch, **kw: tp_drift(torch, **kw),
+              "steps": dp_steps, "train": dp_train, "rank": dp_rank,
               "profile": dp_profile, "accum_steps": dp_accum_steps,
-              "z1_steps": lambda torch, **kw: z1_steps(torch, **kw)}
+              "z1_steps": lambda torch, **kw: z1_steps(torch, **kw),
+              "tp_profile": lambda torch, **kw: profile_train_step(
+                  torch, precision="bf16", phase=14, **kw),
+              "tp_infer": lambda torch, **kw: tp_infer(torch, **kw),
+              "tp_longrec": lambda torch, **kw: tp_longrec(torch, **kw)}
 
 
 def rank_main(job, out_dir):
@@ -3093,18 +3173,23 @@ def rank_main(job, out_dir):
     with open(job, "rb") as f:
         spec = pickle.load(f)
     pdist.init_distributed_mode({"dist_backend": spec["backend"]}, "cuda")
-    results = [RANK_TASKS[name](torch, **kwargs)
-               for name, kwargs in spec["tasks"]]
+    results = []
+    for name, kwargs in spec["tasks"]:
+        t0 = time.perf_counter()
+        results.append(RANK_TASKS[name](torch, **kwargs))
+        print(f"[rank task] {name} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
     pdist.destroy_process_group()
     return 0
 
 
-def dp_run_ranks(tasks, backend, phase=10, env=None):
-    """Phase 10's ranks on ``tasks`` (``env`` added to their environment),
-    each task's results by rank; fails ``phase`` if a rank fails or the
-    group outlives DP_TIMEOUT (then every process of it is killed)."""
+def dp_run_ranks(tasks, backend, phase=10, env=None, world=DP_WORLD):
+    """Phase 10's ranks (``world`` of them) on ``tasks`` (``env`` added to
+    their environment), each task's results by rank; fails ``phase`` if a
+    rank fails or the group outlives DP_TIMEOUT (then every process of it
+    is killed)."""
     work = os.path.join(WORK, "dp")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -3117,14 +3202,14 @@ def dp_run_ranks(tasks, backend, phase=10, env=None):
     args = [os.path.abspath(__file__), "--rank", job, work]
     if backend == "nccl":
         commands = [([sys.executable, "-m", "torch.distributed.run",
-                      f"--nproc_per_node={DP_WORLD}",
+                      f"--nproc_per_node={world}",
                       "--master_addr=127.0.0.1", f"--master_port={port}",
                       *args], {})]
     else:
         commands = [([sys.executable, *args],
-                     {"RANK": str(r), "WORLD_SIZE": str(DP_WORLD),
+                     {"RANK": str(r), "WORLD_SIZE": str(world),
                       "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
-                      "MASTER_PORT": str(port)}) for r in range(DP_WORLD)]
+                      "MASTER_PORT": str(port)}) for r in range(world)]
     procs = []
     with open(os.path.join(work, "launcher.log"), "w") as out:
         for cmd, rank_env in commands:
@@ -3144,7 +3229,7 @@ def dp_run_ranks(tasks, backend, phase=10, env=None):
                 os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
     logs = {}
-    for name in ["launcher"] + [f"rank{r}" for r in range(DP_WORLD)]:
+    for name in ["launcher"] + [f"rank{r}" for r in range(world)]:
         path = os.path.join(work, f"{name}.log")
         logs[name] = open(path).read() if os.path.exists(path) else ""
     codes = [p.returncode for p in procs]
@@ -3154,16 +3239,17 @@ def dp_run_ranks(tasks, backend, phase=10, env=None):
         raise SystemExit(f"phase {phase} failed: the ranks exited {codes} "
                          f"(timeout {DP_TIMEOUT} s)")
     results = []
-    for r in range(DP_WORLD):
+    for r in range(world):
         with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
             results.append(pickle.load(f))
     return [list(by_task) for by_task in zip(*results)], logs
 
 
-def dp_check_steps(family, ranks, single, steps=DP_STEPS, phase=10):
+def dp_check_steps(family, ranks, single, steps=DP_STEPS, phase=10,
+                   layout=None):
     """The ranks' ``steps`` steps against one process holding both shards:
     losses, confident pixels, launches per step, the state; the ranks'
-    states equal."""
+    states equal. ``layout`` names the ranks' layout in the log."""
     want_launches = launches_per_step(family, "fixmatch")
     for r, got in enumerate(ranks):
         if got["launches"] != [want_launches] * steps:
@@ -3171,10 +3257,11 @@ def dp_check_steps(family, ranks, single, steps=DP_STEPS, phase=10):
                              f"launched {got['launches']}, expected "
                              f"{want_launches} a step")
     first = ranks[0]
-    for k, v in first["state"].items():
-        if not np.array_equal(v, ranks[1]["state"][k]):
-            raise SystemExit(f"phase {phase} failed: {family}: the ranks' "
-                             f"{k} differ")
+    for other in ranks[1:]:
+        for k, v in first["state"].items():
+            if not np.array_equal(v, other["state"][k]):
+                raise SystemExit(f"phase {phase} failed: {family}: the "
+                                 f"ranks' {k} differ")
     loss_rel, pixels = 0.0, []
     n = DP_WORLD * DP_ROWS * SIGNAL_LENGTH
     for a, b in zip(first["metrics"], single["metrics"]):
@@ -3191,16 +3278,17 @@ def dp_check_steps(family, ranks, single, steps=DP_STEPS, phase=10):
                         - DP_RTOL * np.abs(want)).max())
         if excess > worst or worst_key is None:
             worst, worst_key = excess, k
-    log(f"  {family} FixMatch, {steps} fp32 SGD steps, {DP_WORLD} ranks "
-        f"x {DP_ROWS} rows against one process with num_shards="
-        f"{DP_WORLD}: losses within {loss_rel:.3g} relative; parameters "
+    layout = layout or f"{DP_WORLD} ranks x {DP_ROWS} rows"
+    log(f"  {family} FixMatch, {steps} fp32 SGD steps, {layout} against "
+        f"one process holding the global batch: losses within "
+        f"{loss_rel:.3g} relative; parameters "
         f"and BN statistics: max(|diff| - {DP_RTOL} |one process|) = "
         f"{worst:.3g} ({worst_key}); confident pixels {pixels}; launches "
         f"per rank per step {want_launches}")
     if not (loss_rel <= DP_LOSS_RTOL and worst <= DP_ATOL
             and all(abs(a - b) <= DP_PIXELS for a, b in pixels)):
-        raise SystemExit(f"phase {phase} failed: {family}: {DP_WORLD} ranks "
-                         "disagree with one process")
+        raise SystemExit(f"phase {phase} failed: {family}: {layout} "
+                         "disagrees with one process")
     return {"loss_rel": loss_rel, "state_excess": worst,
             "state_worst": worst_key, "confident_pixels": pixels,
             # measured: rank 0's first step (every step of every rank
@@ -4585,6 +4673,474 @@ def phase_zero_cache(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: tensor parallelism and mesh-sharded long records
+# ---------------------------------------------------------------------------
+
+# the (data, model) layouts of the step comparison: 3 model ranks hold one
+# head each; at model 2 the 3 heads do not divide, so attention stays whole
+# and the MLP is sliced
+TP_LAYOUTS = ((1, 3), (2, 2))
+# the recipe run: train_main at (1, 3), 2 epochs of 4 steps, bf16
+TP_RECIPE_LAYOUT = (1, 3)
+# the long records: on the ranks of the (2, 2) layout, 2 data ranks of 2
+# model ranks each (the serving model's MLP sliced); the streams: STREAMS
+# of TP_STREAM_S s
+TP_LONGREC_LAYOUT, TP_STREAM_S = (2, 2), 120
+# the bf16 step's timed and traced steps a rank: NCCL, and gloo (its
+# all-reduces of CUDA tensors go through the host, and the ranks share
+# one card, so its times are the layout's, not the program's)
+TP_PROFILE_STEPS = {"nccl": 10, "gloo": 3}
+
+
+def tp_layout(torch, world):
+    """``(backend, description)`` for ``world`` ranks: NCCL where the
+    cards cover them (one card a rank), else gloo with CUDA tensors on one
+    card."""
+    if torch.cuda.device_count() >= world:
+        return "nccl", f"{world} ranks on cuda:0-{world - 1}, NCCL"
+    return "gloo", (f"{world} ranks on cuda:0 (one card), gloo with CUDA "
+                    "tensors")
+
+
+def tp_step_config(layout, backend, family="vit_tiny"):
+    """Phase 10's step configuration on the ``(data, model)`` layout."""
+    cfg = dp_step_config(family, backend)
+    cfg["parallel"] = dict(cfg.get("parallel") or {},
+                           model_parallel=layout[1])
+    return cfg
+
+
+def tp_recipe_config(backend):
+    """Phase 4's FixMatch recipe (bf16, flash, device augmentation, phase
+    4's split, 2 epochs of 4 steps) at TP_RECIPE_LAYOUT."""
+    _, config = write_train_config("vit_tiny", "fixmatch")
+    config["exp_name"] = "tp_vit_tiny_fixmatch"
+    config["ddp"] = {"dist_backend": backend}
+    config["parallel"] = dict(config.get("parallel") or {},
+                              model_parallel=TP_RECIPE_LAYOUT[1])
+    path = os.path.join(WORK, "tp_vit_tiny_fixmatch.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path, config
+
+
+def tp_recipe_launches():
+    """A rank's launches in the recipe run: its steps (every rank takes
+    every row at data 1), an eval batch of the validation split per epoch
+    and the test pass."""
+    steps = TRAIN_EPOCHS * TRAIN_LABELED // BATCH
+    want = {k: steps * v for k, v in
+            launches_per_step("vit_tiny", "fixmatch").items()}
+    want["flash_attention_fwd"] += DEPTH * (
+        TRAIN_EPOCHS * math.ceil(TRAIN_VALID / BATCH)
+        + math.ceil(TRAIN_TEST / BATCH))
+    return want
+
+
+def tp_infer(torch, config_path, model_path, name):
+    """``inference_main`` of ``model_path`` at fp32 under the config's
+    mesh: the outputs and this rank's launches."""
+    from semi_seg_ecg_tpu_torch.cli import inference_main
+
+    torch.cuda.synchronize()
+    reset_counts()
+    probs = inference_main(["-f", config_path, "--model_path", model_path,
+                            "--exp_name", name])
+    torch.cuda.synchronize()
+    return {"probs": probs, "launches": read_counts()}
+
+
+def tp_longrec(torch, config_path, model_path, record_path, streams_path):
+    """On the data ranks of TP_LONGREC_LAYOUT: the 1 h record through
+    ``long_record_inference(mesh=)`` (probabilities, labels, launches, wall
+    seconds) and the streams through ``StreamingSegmenter(mesh=)`` pushed a
+    second at a time (probabilities, launches)."""
+    from semi_seg_ecg_tpu_torch.parallel.dist import barrier
+    from semi_seg_ecg_tpu_torch.parallel.mesh import make_mesh
+    from semi_seg_ecg_tpu_torch.serving import (
+        StreamingSegmenter,
+        long_record_inference,
+    )
+
+    mesh = make_mesh({"parallel": {"model_parallel": TP_LONGREC_LAYOUT[1]}})
+    infer, config = serving_fn(config_path, model_path)
+    record, streams = np.load(record_path), np.load(streams_path)
+    long_record_inference(config, record[:, :SHORT_S * FS], infer=infer,
+                          mesh=mesh)   # warm
+    barrier()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = long_record_inference(config, record, infer=infer, mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    result = {"probs": out["probs"], "labels": out["labels"],
+              "launches": read_counts(), "seconds": seconds}
+    seg = StreamingSegmenter(infer, window=SIGNAL_LENGTH, hop=LONGREC_HOP,
+                             num_streams=streams.shape[0], mesh=mesh)
+    reset_counts()
+    pushed = [seg.push(streams[:, :, off:off + STREAM_CHUNK])
+              for off in range(0, streams.shape[-1], STREAM_CHUNK)]
+    pushed.append(seg.flush())
+    result["stream_launches"] = read_counts()
+    result["streams"] = np.concatenate([p[0] for p in pushed], axis=2)
+    return result
+
+
+def tp_check_layout(ranks, single, name):
+    """Rank 0's gathered checkpoint layout against one process's, key for
+    key (the model's keys and shapes, the optimizer's entries)."""
+    got = ranks[0]["checkpoint_layout"]
+    want = single["checkpoint_layout"]
+    if got != want:
+        diff = sorted(k for k in set(got["model"]) | set(want["model"])
+                      if got["model"].get(k) != want["model"].get(k))
+        raise SystemExit(f"phase 14 failed: {name}'s gathered checkpoint "
+                         f"differs from one process's layout: {diff[:5]}")
+
+
+def tp_memory(ranks, single, layout):
+    """Each rank's parameter and optimizer bytes and peak memory against
+    one process's."""
+    base = single["memory"]
+    rows = [{**r["memory"],
+             "param_share": r["memory"]["param_bytes"] / base["param_bytes"],
+             "optimizer_share": r["memory"]["optimizer_bytes"]
+             / base["optimizer_bytes"],
+             "peak_share": r["memory"]["peak_memory_mb"]
+             / base["peak_memory_mb"]} for r in ranks]
+    for r, row in enumerate(rows):
+        log(f"    {layout} rank {r}: parameters {row['param_bytes']} B "
+            f"({row['param_share']:.4f} of one process's "
+            f"{base['param_bytes']}), optimizer {row['optimizer_bytes']} B "
+            f"({row['optimizer_share']:.4f}), peak "
+            f"{row['peak_memory_mb']:.1f} MiB ({row['peak_share']:.4f} of "
+            f"{base['peak_memory_mb']:.1f})")
+    return rows
+
+
+def tp_check_longrec(torch, ranks, config_path, model_path, record,
+                     streams):
+    """(d): each rank's 1 h record and streams against one process: the
+    record within STREAM_ATOL with DEPTH flash forwards per batch of
+    LONGREC_BATCH and half the batches a rank; each stream against itself
+    alone."""
+    from semi_seg_ecg_tpu_torch.ops.stitch import plan_windows
+    from semi_seg_ecg_tpu_torch.serving import (
+        StreamingSegmenter,
+        long_record_inference,
+    )
+
+    infer, config = serving_fn(config_path, model_path)
+    long_record_inference(config, record[:, :SHORT_S * FS], infer=infer)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    want = long_record_inference(config, record, infer=infer)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_launches = read_counts()
+    total = record.shape[-1]
+    data, model = TP_LONGREC_LAYOUT
+    n_win, n_pad, _, _ = plan_windows(total, SIGNAL_LENGTH, LONGREC_HOP,
+                                      LONGREC_BATCH * data)
+    w_per = n_pad // data
+    errs, offs = [], []
+    for r, got in enumerate(ranks):
+        # rank r is data rank r // model
+        mine = max(0, min(w_per, n_win - r // model * w_per))
+        expect = {"flash_attention_fwd": DEPTH * math.ceil(
+            mine / LONGREC_BATCH), "flash_attention_bwd": 0, "gather1d": 0}
+        if got["launches"] != expect:
+            raise SystemExit(f"phase 14 failed: long record rank {r} "
+                             f"launched {got['launches']}, expected "
+                             f"{expect} ({mine} windows)")
+        errs.append(float(np.abs(got["probs"] - want["probs"]).max()))
+        offs.append(labels_off(got["labels"], want["labels"],
+                               want["probs"], STREAM_ATOL))
+    alone, stream_errs = [], []
+    for s in range(streams.shape[0]):
+        seg = StreamingSegmenter(infer, window=SIGNAL_LENGTH,
+                                 hop=LONGREC_HOP)
+        pushed = [seg.push(streams[s, :, off:off + STREAM_CHUNK])
+                  for off in range(0, streams.shape[-1], STREAM_CHUNK)]
+        pushed.append(seg.flush())
+        alone.append(np.concatenate([p[0] for p in pushed], axis=1))
+    for got in ranks:
+        stream_errs.append(max(float(np.abs(got["streams"][s] - a).max())
+                               for s, a in enumerate(alone)))
+    steps = plan_windows(streams.shape[-1], SIGNAL_LENGTH, LONGREC_HOP,
+                         1)[0]
+    want_stream = {"flash_attention_fwd": DEPTH * steps,
+                   "flash_attention_bwd": 0, "gather1d": 0}
+    bad_streams = [r for r, got in enumerate(ranks)
+                   if got["stream_launches"] != want_stream]
+    result = {"windows": n_win, "windows_per_rank": w_per,
+              "launches_one_process": one_launches,
+              "launches_by_rank": [g["launches"] for g in ranks],
+              "max_abs_err_by_rank": errs, "labels_off_by_rank": offs,
+              "one_process_s": one_s,
+              "ranks_s": [g["seconds"] for g in ranks],
+              "streams": streams.shape[0],
+              "stream_samples": streams.shape[-1],
+              "stream_launches_per_rank": ranks[0]["stream_launches"],
+              "stream_max_abs_err_by_rank": stream_errs}
+    log(f"  (d) 1 h record ({n_win} windows) on {data} data ranks of "
+        f"{model} model ranks: launches {result['launches_by_rank']} against one "
+        f"process's {one_launches}; max |diff| {errs}, labels off {offs}; "
+        f"{streams.shape[0]} streams of {TP_STREAM_S} s: each rank "
+        f"{ranks[0]['stream_launches']['flash_attention_fwd']} flash "
+        f"forwards, max |diff| against each stream alone {stream_errs}")
+    if max(errs) > STREAM_ATOL or any(offs) or max(stream_errs) > \
+            STREAM_ATOL or bad_streams:
+        raise SystemExit(f"phase 14 failed: mesh-sharded long records "
+                         f"disagree with one process ({errs}, {offs}, "
+                         f"{stream_errs}, stream launches of ranks "
+                         f"{bad_streams})")
+    return result
+
+
+def phase_tensor_parallel(torch):
+    """Phase 14: ``parallel.model_parallel`` through the port's own path
+    (head-parallel flash attention on each rank's heads, the sliced MLP,
+    the gathered checkpoint) and ``mesh=`` long records."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi().replace("\n", "; ")
+    log(f"phase 14: {torch.cuda.device_count()} card(s), {smi}")
+    batches = dp_global_batches(41)
+    layouts = {layout: tp_layout(torch, layout[0] * layout[1])
+               for layout in TP_LAYOUTS}
+    # one process, on the card, before the ranks start: the steps on the
+    # global batch, the recipe's bf16 step
+    single = dp_steps(torch, tp_step_config((1, 1), "gloo"), batches,
+                      slice(None))
+    one_profile = profile_train_step(torch, dp_profile_config(), "bf16",
+                                     phase=14, steps=TP_PROFILE_STEPS["nccl"])
+    # (d)'s inputs: seed-0 weights, the 1 h record, the streams
+    slice_path, slice_cfg = write_slice_config()
+    model_path = os.path.join(WORK, "tp_vit_tiny_seed0.pth")
+    write_random_weights(slice_cfg, model_path)
+    record_path, record = save_record("tp_hour", HOUR_S, 14)
+    infer_cfg = serving_fn(slice_path, model_path)[1]
+    streams = np.stack([filtered(infer_cfg, holter_record(
+        TP_STREAM_S, 40 + s)) for s in range(STREAMS)])
+    streams_path = os.path.join(WORK, "longrec", "tp_streams.npy")
+    np.save(streams_path, streams)
+    # where the phase's seconds go: the parent's parts, each rank group's
+    # tasks (rank 0's)
+    spans = {"one_process": time.perf_counter() - t_phase}
+    result = {"layouts": {}, "nvidia_smi": smi, "spans": spans}
+    recipe_path = None
+    for layout, (backend, description) in layouts.items():
+        world = layout[0] * layout[1]
+        config = tp_step_config(layout, backend)
+        tasks = [("steps", {"config": config, "batches": batches}),
+                 ("tp_profile", {"config": dict(
+                     dp_profile_config(), parallel={
+                         "model_parallel": layout[1]},
+                     ddp={"dist_backend": backend}),
+                     "steps": TP_PROFILE_STEPS[backend]})]
+        if layout == TP_RECIPE_LAYOUT:
+            recipe_path, _ = tp_recipe_config(backend)
+            best = os.path.join(WORK, "exps", "tp_vit_tiny_fixmatch",
+                                "best-MeanIoU.ckpt")
+            tasks += [("train", {"config_path": recipe_path}),
+                      ("tp_infer", {"config_path": recipe_path,
+                                    "model_path": best,
+                                    "name": "tp_vit_tiny_fixmatch_served"})]
+        if layout == TP_LONGREC_LAYOUT:
+            tasks.append(("tp_longrec", {
+                "config_path": slice_path, "model_path": model_path,
+                "record_path": record_path, "streams_path": streams_path}))
+        t0 = time.perf_counter()
+        by_task, logs = dp_run_ranks(tasks, backend, phase=14, world=world)
+        name = f"(data {layout[0]}, model {layout[1]})"
+        key = f"{layout[0]}x{layout[1]}"
+        spans[key] = time.perf_counter() - t0
+        spans[f"{key}_tasks"] = rank_task_seconds(logs)
+        log(f"  {name}: {description}, ranks {spans[key]:.1f} s (rank 0's "
+            f"tasks {spans[f'{key}_tasks']})")
+        t0 = time.perf_counter()
+        entry = {"backend": backend, "layout": description,
+                 "steps": dp_check_steps("vit_tiny", by_task[0], single,
+                                         phase=14, layout=name)}
+        tp_check_layout(by_task[0], single, name)
+        entry["memory"] = tp_memory(by_task[0], single, name)
+        entry["profile"] = by_task[1]
+        for r, p in enumerate(by_task[1]):
+            log(f"    {name} rank {r}: bf16 step {p['wall_ms_per_step']:.3f} "
+                f"ms wall, busy {p['device_busy_ms_per_step']} ms, "
+                f"{p['device_events_per_step']:.0f} device events, "
+                f"all-reduce {p['allreduce_host_ms_per_step']:.3f} ms on "
+                f"the host ({p['allreduce_ms_per_step']} ms of "
+                f"NCCL kernels); one process "
+                f"{one_profile['wall_ms_per_step']:.3f} ms, "
+                f"{one_profile['device_events_per_step']:.0f} events")
+        if layout == TP_RECIPE_LAYOUT:
+            entry["recipe"] = tp_check_recipe(torch, recipe_path, best,
+                                              by_task[2], by_task[3])
+        if layout == TP_LONGREC_LAYOUT:
+            # (d) long records on the layout's two data ranks
+            result["longrec"] = tp_check_longrec(
+                torch, by_task[-1], slice_path, model_path, record, streams)
+            result["longrec"]["layout"] = description
+            if backend == "nccl":
+                log(f"  1 h record wall time: {world} ranks "
+                    f"{result['longrec']['ranks_s']} s against one process "
+                    f"{result['longrec']['one_process_s']:.3f} s")
+        result["layouts"][key] = entry
+        spans[f"{key}_checks"] = time.perf_counter() - t0
+    result["one_process_profile"] = one_profile
+    result["one_process_memory"] = single["memory"]
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 14 in {result['seconds']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in spans.items()
+                    if not isinstance(v, dict)))
+    return result
+
+
+# ``chip_smoke.py --tp-drift``: the step comparison's runs with the
+# optimizer's sync of the replicated gradients from model rank 0 off or on:
+# (family, layout, deterministic algorithms, sync)
+TP_DRIFT_RUNS = (("vit_tiny", (1, 3), False, False),
+                 ("vit_tiny", (1, 3), True, False),
+                 ("resnet18", (1, 2), False, False),
+                 ("resnet18", (1, 2), False, True))
+
+
+def tp_drift(torch, config, batches, deterministic, sync):
+    """:func:`dp_steps` on the config's mesh under PyTorch's default or
+    deterministic algorithms, with the optimizer's sync of the replicated
+    gradients (its ``broadcast_from_owners_`` over the model group; ZeRO-1
+    is off) on or off: the gathered state and the names of the kernels the
+    steps launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from semi_seg_ecg_tpu_torch.parallel import dist as pdist
+
+    torch.use_deterministic_algorithms(deterministic)
+    real = pdist.broadcast_from_owners_
+    if not sync:
+        pdist.broadcast_from_owners_ = lambda *args, **kwargs: None
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = dp_steps(torch, config, batches)
+    finally:
+        pdist.broadcast_from_owners_ = real
+    return {"state": out["state"], "kernels": sorted(
+        {e.name for e in prof.events() if e.device_type == DeviceType.CUDA})}
+
+
+def tp_drift_main(out_path):
+    """Whether the model ranks' copies of the replicated parameters drift
+    apart in phase 14's 3 fp32 steps, for each of TP_DRIFT_RUNS: the
+    tensors of the gathered state that differ across the ranks and the
+    largest difference, and the kernels launched only under the default
+    algorithms; the report to ``out_path`` and one JSON line."""
+    import torch
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    phase_build()
+    batches = dp_global_batches(41)
+    report, kernels = [], {}
+    for family, layout, deterministic, sync in TP_DRIFT_RUNS:
+        backend, description = tp_layout(torch, layout[0] * layout[1])
+        env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"} if deterministic \
+            else None
+        by_task, _ = dp_run_ranks(
+            [("tp_drift", {"config": tp_step_config(layout, backend, family),
+                           "batches": batches,
+                           "deterministic": deterministic, "sync": sync})],
+            backend, phase="tp-drift", env=env, world=layout[0] * layout[1])
+        ranks = by_task[0]
+        first = ranks[0]["state"]
+        apart = {k: max(float(np.abs(r["state"][k].astype(np.float64)
+                                     - v).max()) for r in ranks[1:])
+                 for k, v in first.items()
+                 if any(not np.array_equal(r["state"][k], v)
+                        for r in ranks[1:])}
+        kernels[(family, deterministic)] = set(ranks[0]["kernels"])
+        row = {"family": family, "layout": list(layout),
+               "deterministic": deterministic, "sync": sync,
+               "ranks": description, "tensors": len(first),
+               "tensors_apart": len(apart),
+               "max_abs_diff": max(apart.values(), default=0.0),
+               "apart": sorted(apart, key=lambda k: -apart[k])[:8]}
+        report.append(row)
+        log(f"tp-drift {row}")
+    only_default = sorted(kernels[("vit_tiny", False)]
+                          - kernels[("vit_tiny", True)])
+    result = {"nvidia_smi": nvidia_smi(), "runs": report,
+              "vit_kernels_only_default": only_default}
+    log(f"tp-drift: kernels of the ViT run only under the default "
+        f"algorithms: {[k[:100] for k in only_default]}")
+    with open(out_path, "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    return 0
+
+
+def rank_task_seconds(logs):
+    """Rank 0's seconds in each task of a rank group (its log's ``[rank
+    task]`` lines)."""
+    return {name: float(sec) for name, sec in re.findall(
+        r"\[rank task\] (\S+) in ([0-9.]+) s", logs["rank0"])}
+
+
+def tp_check_recipe(torch, config_path, best, trained, served):
+    """(b): each rank's launches in the recipe run, finite losses, moved
+    parameters, and the checkpoint served tensor-parallel on the ranks and
+    in one process alike (within phase 3's 1e-4)."""
+    want = tp_recipe_launches()
+    for r, got in enumerate(trained):
+        if got["launches"] != want:
+            raise SystemExit(f"phase 14 failed: recipe rank {r} launched "
+                             f"{got['launches']}, expected {want}")
+    out_dir = os.path.join(WORK, "exps", "tp_vit_tiny_fixmatch")
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        epochs = [json.loads(line) for line in f]
+    if len(epochs) != TRAIN_EPOCHS or not all(
+            math.isfinite(v) for e in epochs for k, v in e.items()
+            if "loss" in k):
+        raise SystemExit(f"phase 14 failed: recipe log.txt {epochs}")
+    from semi_seg_ecg_tpu_torch.algorithms.common import init_model
+    from semi_seg_ecg_tpu_torch.config import load_config, normalize_config
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    config = normalize_config(load_config(config_path))
+    start = init_model(dict(config, parallel={"model_parallel": 1}),
+                       torch.device("cpu")).state_dict()
+    trained_state = ckpt.load_checkpoint(best)["model"]
+    moved = sum(not np.array_equal(trained_state[k], v.numpy())
+                for k, v in start.items() if v.is_floating_point())
+    if moved == 0 or set(trained_state) != set(start):
+        raise SystemExit(f"phase 14 failed: the recipe's checkpoint moved "
+                         f"{moved} tensors, keys {len(trained_state)}")
+    probs, launches, _ = serve(config_path, best,
+                               "tp_vit_tiny_fixmatch_one_process",
+                               parallel={"model_parallel": 1})
+    check_probs("tp recipe served", probs, TRAIN_TEST)
+    want_served = {"flash_attention_fwd": DEPTH * math.ceil(
+        TRAIN_TEST / BATCH), "flash_attention_bwd": 0, "gather1d": 0}
+    diffs = [float(np.abs(s["probs"] - probs).max()) for s in served]
+    log(f"  (b) train_main at {TP_RECIPE_LAYOUT}, {TRAIN_EPOCHS} epochs "
+        f"bf16: launches per rank {trained[0]['launches']}; log.txt "
+        f"{[round(e['train_loss'], 4) for e in epochs]}; {moved} tensors "
+        f"moved; served tensor-parallel (launches {served[0]['launches']}) "
+        f"and in one process ({launches}): max |diff| {diffs}")
+    if launches != want_served or any(s["launches"] != want_served
+                                      for s in served) or max(diffs) > 1e-4:
+        raise SystemExit(f"phase 14 failed: serving the recipe's checkpoint "
+                         f"({launches}, {diffs})")
+    return {"launches_per_rank": trained[0]["launches"], "log": epochs,
+            "moved": moved,
+            "served_max_abs_diff": diffs,
+            "seconds": [t["seconds"] for t in trained]}
+
+
+# ---------------------------------------------------------------------------
 # Report
 # ---------------------------------------------------------------------------
 
@@ -4641,6 +5197,7 @@ def main():
     remat = phase_remat(torch)
     accum = phase_accum(torch)
     zero_cache = phase_zero_cache(torch)
+    tensor_parallel = phase_tensor_parallel(torch)
     # each path's launches, counted from 0 just before it and read after
     by_path = {
         "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
@@ -4685,7 +5242,18 @@ def main():
             algorithm]["launches_per_rank_step"]
            for algorithm in Z1_ALGORITHMS},
         **{f"zero1_vit_tiny_{algorithm}_resumed_step": zero_cache["zero1"][
-            algorithm]["resume"]["launches"] for algorithm in Z1_ALGORITHMS}}
+            algorithm]["resume"]["launches"] for algorithm in Z1_ALGORITHMS},
+        # phase 14: a rank's step at each (data, model) layout, a rank's
+        # recipe run at (1, 3), each data rank's 1 h record and streams
+        **{f"tp_{name}_fixmatch_per_rank_step": r["steps"][
+            "launches_per_rank_step"]
+           for name, r in tensor_parallel["layouts"].items()},
+        "tp_1x3_vit_tiny_fixmatch_per_rank": tensor_parallel["layouts"][
+            "1x3"]["recipe"]["launches_per_rank"],
+        **{f"tp_longrec_hour_rank{r}": counts for r, counts in enumerate(
+            tensor_parallel["longrec"]["launches_by_rank"])},
+        "tp_longrec_streams_per_rank": tensor_parallel["longrec"][
+            "stream_launches_per_rank"]}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -4699,6 +5267,7 @@ def main():
                    "deploy": deploy, "parallel": parallel,
                    "remat": remat, "accum": accum,
                    "zero_cache": zero_cache,
+                   "tensor_parallel": tensor_parallel,
                    "seconds": time.time() - t_start}, f,
                   indent=1)
     log(f"done in {time.time() - t_start:.1f} s")
@@ -4719,4 +5288,6 @@ if __name__ == "__main__":
         sys.exit(accum_resume_main(*sys.argv[2:]))
     if sys.argv[1:2] == ["--cache"]:
         sys.exit(cache_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-drift"]:
+        sys.exit(tp_drift_main(*sys.argv[2:]))
     sys.exit(main())

@@ -83,8 +83,23 @@ train augmentation on the device; otherwise the run logs why and streams,
 as the JAX package does. ``parallel.shard_optimizer`` over more than one
 rank is ZeRO-1: each rank keeps the optimizer state of its own share of
 the parameters (``utils/optimizer.TrainOptimizer``), with the numbers of
-the replicated run. ``parallel.model_parallel`` and ``seq_parallel`` above
-1 and ``checkpoint_backend: orbax`` are not ported yet and raise.
+the replicated run.
+
+``parallel.model_parallel`` m > 1 lays the ranks out as a ``(data,
+model)`` mesh (``parallel/mesh.py``: rank ``r`` is data rank ``r // m``,
+model rank ``r % m``). The model ranks of one data rank load the same
+rows and draw the same masks; the trainer builds every network whole,
+takes rank 0's weights over the whole group, then slices each one over
+the model axis (``parallel/sharding_rules.shard_module_``: the ViT's
+attention heads and MLP columns, Megatron's layout; a ResNet, which no
+rule matches, runs replicated with the JAX package's warning). Gradients,
+BatchNorm statistics, ReCo's gathered rows and the evaluators' rows go
+over the data group. Checkpoints hold the unsliced layout, gathered over
+the model group on every rank before rank 0 writes; the test and
+inference entries, the per-epoch evaluation and ST++'s ranking run the
+model sliced the same way. ``seq_parallel`` above 1, ``quantize: int8``
+with ``model_parallel`` above 1 and ``checkpoint_backend: orbax`` are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -118,6 +133,7 @@ from ..ops.metrics import (
 )
 from ..parallel import dist as pdist
 from ..parallel import mesh as pmesh
+from ..parallel.sharding_rules import full_state_dict, shard_module_
 from ..utils import checkpoint as ckpt
 from ..utils.logging import JsonlLogger, MetricLogger, TensorBoardWriter, log
 from ..utils.optimizer import (
@@ -202,7 +218,7 @@ def forward_parts(model: torch.nn.Module, parts, **kwargs):
     process group are those one process holding every rank's rows of each
     part makes (``parallel.dist.concatenated_rows``), which needs parts of
     equal rows."""
-    if pdist.get_world_size() > 1 and len({p.shape[0] for p in parts}) > 1:
+    if pdist.data_size() > 1 and len({p.shape[0] for p in parts}) > 1:
         raise ValueError("a concatenated batch under a process group needs "
                          "parts of equal rows, not "
                          f"{[p.shape[0] for p in parts]}")
@@ -270,11 +286,16 @@ def init_train_model(config: Dict[str, Any], device: torch.device,
 
 def _refuse_unported(config: Dict[str, Any]) -> None:
     parallel = config.get("parallel") or {}
-    for axis in ("model_parallel", "seq_parallel"):
-        if (parallel.get(axis) or 1) > 1:
-            raise NotImplementedError(
-                f"parallel.{axis} > 1 is not yet ported to the torch "
-                "package")
+    if (parallel.get("seq_parallel") or 1) > 1:
+        raise NotImplementedError(
+            "parallel.seq_parallel > 1 is not yet ported to the torch "
+            "package")
+    if (parallel.get("model_parallel") or 1) > 1 and \
+            config.get("quantize") == "int8":
+        raise NotImplementedError(
+            "quantize: int8 with parallel.model_parallel > 1 is not yet "
+            "ported to the torch package (the dynamic activation absmax "
+            "would need a reduce over the model group)")
     if config.get("checkpoint_backend", "pickle") not in ("pickle", None):
         raise NotImplementedError(
             f"checkpoint_backend: {config['checkpoint_backend']!r} is not "
@@ -488,6 +509,7 @@ class Trainer:
         self.config = config
         self.device = device
         self.seed = config["seed"]
+        self.mesh = pmesh.make_mesh(config)
         self.model = model if model is not None else init_train_model(
             config, device, self.seed)
         self.optimizer = build_optimizer(config, self.model,
@@ -511,7 +533,7 @@ class Trainer:
             use_generator(self.peer, self.peer_gen)
         if self.optimizer.sharded:
             log(f"shard_optimizer: optimizer state sharded over "
-                f"{pdist.get_world_size()} ranks, each updating its own "
+                f"{pdist.data_size()} ranks, each updating its own "
                 "parameters and broadcasting them")
         self.dropout_gen = torch.Generator(device=device)
         use_generator(self.model, self.dropout_gen)
@@ -536,6 +558,32 @@ class Trainer:
         for module in (self.model, self.teacher, self.peer):
             if module is not None:
                 pdist.broadcast_module_(module)
+        if self.mesh.model > 1:
+            # then each network (and its optimizer's state) is sliced to
+            # this model rank's share
+            for module, opt in ((self.model, self.optimizer),
+                                (self.teacher, None),
+                                (self.peer, self.peer_optimizer)):
+                if module is not None:
+                    plan = shard_module_(module, self.mesh)
+                    if opt is not None:
+                        opt.shard_(plan, self.mesh)
+            log(f"model_parallel: {self.mesh.model} model ranks x "
+                f"{self.mesh.data} data ranks; "
+                f"{len(self.model.model_plan)} parameters sliced")
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """Every network's state dict and each optimizer's state in the
+        unsliced, unsharded layout: a collective (the model group's
+        slices, ZeRO-1's shares), so every rank calls it."""
+        nets = {"model": self.model, "ema_model": self.teacher,
+                "peer_model": self.peer}
+        out = {k: None if m is None else full_state_dict(m)
+               for k, m in nets.items()}
+        for key, opt in (("optimizer", self.optimizer),
+                         ("peer_optimizer", self.peer_optimizer)):
+            out[key] = None if opt is None else opt.state_dict()
+        return out
 
     def use_device_cache(self, spec: AlgorithmSpec,
                          loaders: Dict[str, Any]) -> None:
@@ -594,6 +642,7 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
     Trainer). Rank 0 writes the files; every rank returns after them."""
     pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
     _refuse_unported(config)
+    pmesh.make_mesh(config)
     device = resolve_device(config)
     main = pdist.is_main_process()
     log(f"job dir: {os.getcwd()}")
@@ -684,20 +733,15 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
                             out_dir, f"best-{metric_name}.ckpt"))
                     log(f"Best {metric_name}: "
                         f"{best_metrics[metric_name]:.3f}")
-                # a ZeRO-1 optimizer gathers its state on every rank
-                opt_states = [None if opt is None else opt.state_dict()
-                              for opt in (trainer.optimizer,
-                                          trainer.peer_optimizer)
-                              ] if save_paths else None
+                # the model axis's slices and ZeRO-1's shares are gathered
+                # on every rank
+                states = trainer.checkpoint_state() if save_paths else None
                 if save_paths and main:
                     ckpt.save_checkpoint(
-                        save_paths, epoch, trainer.model,
-                        opt_states[0], config=config,
+                        save_paths, epoch, config=config,
                         metrics={"loss": curr_loss, **metrics},
                         best={"loss": best_loss, **best_metrics},
-                        step=trainer.step, ema_model=trainer.teacher,
-                        peer_model=trainer.peer,
-                        peer_optimizer=opt_states[1])
+                        step=trainer.step, **states)
                 if save_paths:
                     trainer.last_checkpoint = save_paths[-1]
 
@@ -796,6 +840,16 @@ def _train_one_epoch(trainer: Trainer, loaders, spec: AlgorithmSpec,
 # ---------------------------------------------------------------------------
 
 
+def shard_for_mesh(model: torch.nn.Module) -> torch.nn.Module:
+    """``model`` sliced over the current mesh's model axis
+    (``parallel/sharding_rules.shard_module_``) when it has one, else as it
+    is; returns it."""
+    mesh = pdist.current_mesh()
+    if mesh is not None and mesh.model > 1:
+        shard_module_(model, mesh)
+    return model
+
+
 def load_eval_weights(model: torch.nn.Module, checkpoint_path: str) -> None:
     """Restore a checkpoint's ``model`` (a JAX or port ``.ckpt`` or a torch
     ``.pth``) into an eval build, strictly; auxiliary-head weights of a
@@ -812,7 +866,8 @@ def load_eval_model(config: Dict[str, Any],
     """Build the eval-mode serving model (``quantize: int8`` honoured) and
     restore the requested checkpoint (``test.model_path``, else
     ``best-{target_metric}.ckpt`` in the experiment directory) with
-    :func:`load_eval_weights`."""
+    :func:`load_eval_weights`; sliced over the model axis of the current
+    mesh (:func:`shard_for_mesh`)."""
     model = build_model_from_config(config, serving=True)
     if test_cfg(config).get("model_path", None):
         checkpoint_path = config["test"]["model_path"]
@@ -824,7 +879,7 @@ def load_eval_model(config: Dict[str, Any],
         raise FileNotFoundError(f"Checkpoint not found: {checkpoint_path}")
     load_eval_weights(model, checkpoint_path)
     log(f"Loaded checkpoint {checkpoint_path}")
-    return model.to(device).eval()
+    return shard_for_mesh(model.to(device).eval())
 
 
 def eval_loader(config: Dict[str, Any], dataset, mode: str = "test"):
@@ -850,6 +905,8 @@ def run_test(config: Dict[str, Any]) -> Dict[str, float]:
     evaluates its shards). The forward runs in the config's precision, as
     the JAX package's test pass does."""
     pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
+    _refuse_unported(config)
+    pmesh.make_mesh(config)
     device = resolve_device(config)
     out_dir = experiment_dir(config) if pdist.is_main_process() else None
     if out_dir:
@@ -889,6 +946,8 @@ def run_inference(config: Dict[str, Any]) -> np.ndarray:
     from ..serving import make_serving_fn
 
     pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
+    _refuse_unported(config)
+    pmesh.make_mesh(config)
     infer, _ = make_serving_fn(config)
     out_dir = experiment_dir(config) if pdist.is_main_process() else None
     if out_dir:

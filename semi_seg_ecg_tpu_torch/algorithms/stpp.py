@@ -41,6 +41,7 @@ from ..models import build_model_from_config
 from ..ops.losses import cross_entropy
 from ..ops.metrics import per_sample_miou, segmentation_stats
 from ..parallel.dist import all_gather_rows
+from ..parallel.sharding_rules import load_full_state_dict
 from ..utils import checkpoint as ckpt
 from ..utils.logging import log
 from .base import SPEC as BASE_SPEC, aux_loss_weights
@@ -54,6 +55,7 @@ from .common import (
     prefetched,
     run_test,
     run_training,
+    shard_for_mesh,
 )
 
 
@@ -108,7 +110,7 @@ def prepare_semisup(config: Dict[str, Any]) -> List[int]:
     for e in snapshot_epoch_list(config["train"]["epochs"]):
         model = build_model_from_config(config)
         load_eval_weights(model, os.path.join(stage1, f"checkpoint-{e}.ckpt"))
-        models.append(model.to(device))
+        models.append(shard_for_mesh(model.to(device)))
     try:
         with full_fp32():
             reliable, unreliable, _ = select_reliable(
@@ -171,7 +173,7 @@ def _load_stage_teacher(stage_id: int):
         payload = ckpt.load_checkpoint(path)
         log(f"Load teacher model from {path}")
         teacher = trainer.teacher
-        teacher.load_state_dict(ckpt.model_state_dict(
+        load_full_state_dict(teacher, ckpt.model_state_dict(
             payload["model"], teacher.state_dict().keys()))
 
     return hook

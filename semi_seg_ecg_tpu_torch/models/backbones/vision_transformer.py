@@ -20,6 +20,19 @@ Module names follow the reference's torch keys (``to_patch_embedding.{1,2,3}``,
 with ``load_state_dict``. LayerNorm eps is 1e-6, flax's default, which the
 JAX package uses everywhere.
 
+Tensor parallelism (``parallel.model_parallel > 1``): once
+``parallel/sharding_rules.shard_module_`` has sliced a block's parameters,
+its :class:`Attention` and :class:`FeedForward` run Megatron's layout over
+the mesh's model group: column-parallel in (``copy_to_model``, then the
+local ``to_qkv`` or ``net.0``), row-parallel out (the local ``to_out.0`` or
+``net.3`` without its bias, ``reduce_from_model``, then the bias). The
+attention runs this rank's ``heads / tp`` heads, the flash path on
+``(B, H/tp, N, D)`` through the same kernels, the counterpart of the JAX
+package's ``sharded_flash_attention``. The dropouts over sliced dimensions
+(attention's over the heads, the MLP's after the GELU over the hidden
+width) draw whole and keep this rank's block (``parallel.dist.global_rows``
+with ``split``), so the masks are one process's.
+
 Precision: parameters stay fp32; under ``torch.autocast`` the linears run in
 the autocast dtype, and attention's matmuls follow it when ``fp16_enabled``
 (else fp32). The softmax is always fp32. ``quantize='int8'`` (serving)
@@ -34,9 +47,11 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ...ops.attention import dense_attention
 from ...ops.flash_attention import flash_attention
+from ...parallel.dist import copy_to_model, reduce_from_model
 from ..dropout import DropPath, Dropout
 from ..quant_layers import linear
 from ..remat import remat_call
@@ -60,8 +75,18 @@ class PreNorm(nn.Module):
         return self.fn(self.norm(x))
 
 
+def row_parallel(layer: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel linear: this rank's partial product, summed over the
+    model ``group``, then the (replicated) bias once."""
+    y = reduce_from_model(F.linear(x, layer.weight), group)
+    if layer.bias is not None:
+        y = y + layer.bias.to(y.dtype)
+    return y
+
+
 class FeedForward(nn.Module):
-    """Linear → GELU (exact) → dropout → Linear → dropout."""
+    """Linear → GELU (exact) → dropout → Linear → dropout; tensor-parallel
+    over a model group after :meth:`use_model_mesh`."""
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
                  quantize: Optional[str] = None):
@@ -69,9 +94,20 @@ class FeedForward(nn.Module):
         self.net = nn.Sequential(
             linear(quantize, dim, hidden_dim), nn.GELU(), Dropout(dropout),
             linear(quantize, hidden_dim, dim), Dropout(dropout))
+        self.model_group = None
+
+    def use_model_mesh(self, mesh) -> None:
+        """Run with ``net.0``'s rows and ``net.3``'s columns sliced to this
+        model rank's block of the hidden width."""
+        self.model_group = mesh.model_group
+        self.net[2].split = (-1, mesh.model, mesh.model_rank)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net(x)
+        if self.model_group is None:
+            return self.net(x)
+        h = self.net[0](copy_to_model(x, self.model_group))
+        h = self.net[2](self.net[1](h))
+        return self.net[4](row_parallel(self.net[3], h, self.model_group))
 
 
 class Attention(nn.Module):
@@ -105,6 +141,15 @@ class Attention(nn.Module):
                                             output_dim),
                                      Dropout(dropout))
                        if project_out else None)
+        self.local_heads = heads
+        self.model_group = None
+
+    def use_model_mesh(self, mesh) -> None:
+        """Run this model rank's ``heads / tp`` heads: ``to_qkv`` holds
+        their rows of each third and ``to_out.0`` their columns."""
+        self.local_heads = self.heads // mesh.model
+        self.model_group = mesh.model_group
+        self.attn_drop.split = (1, mesh.model, mesh.model_rank)
 
     def _use_flash(self, n: int, on_cuda: bool) -> bool:
         """The JAX package's rules with the device test on CUDA.
@@ -125,8 +170,11 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
+        heads, group = self.local_heads, self.model_group
+        if group is not None:
+            x = copy_to_model(x, group)
         q, k, v = self.to_qkv(x).chunk(3, dim=-1)
-        q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+        q, k, v = (t.reshape(b, n, heads, self.dim_head).transpose(1, 2)
                    for t in (q, k, v))
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
@@ -149,7 +197,9 @@ class Attention(nn.Module):
         else:
             out = dense_attention(q, k, v, scale, mm_dtype=mm_dtype,
                                   attn_transform=self.attn_drop)
-        out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
+        out = out.transpose(1, 2).reshape(b, n, heads * self.dim_head)
+        if group is not None:
+            return self.to_out[1](row_parallel(self.to_out[0], out, group))
         if self.to_out is not None:
             out = self.to_out(out)
         return out

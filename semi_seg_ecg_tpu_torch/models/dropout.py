@@ -9,7 +9,9 @@ the global RNG is used. Both modules are the identity in eval mode.
 
 Under a process group a mask is drawn for the global batch and sliced to
 the rank's rows (``parallel.dist.global_rows``), as the JAX package's
-masks under a data mesh are drawn for the global array.
+masks under a data mesh are drawn for the global array; under the model
+axis a mask over a sliced dimension is drawn whole and sliced to the
+rank's block.
 
 Under activation checkpointing (``models/remat.py``) a block's forward
 runs again in the backward. ``torch.utils.checkpoint`` restores only the
@@ -28,24 +30,30 @@ from ..parallel.dist import global_rows
 
 
 def _keep_mask(x: torch.Tensor, shape, keep: float,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator],
+               split=None) -> torch.Tensor:
     return global_rows(lambda s: torch.rand(s, generator=generator,
-                                            device=x.device), shape) < keep
+                                            device=x.device), shape,
+                       split) < keep
 
 
 class Dropout(nn.Module):
-    """Element-wise dropout, flax's ``where(mask, x / keep, 0)``."""
+    """Element-wise dropout, flax's ``where(mask, x / keep, 0)``. With
+    ``split = (dim, parts, index)`` the input is block ``index`` of
+    ``parts`` along ``dim`` (a model rank's heads or hidden columns), and
+    the mask is that block of the whole draw."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.split = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate <= 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        mask = _keep_mask(x, x.shape, keep, self.generator)
+        mask = _keep_mask(x, x.shape, keep, self.generator, self.split)
         return torch.where(mask, x / keep, 0.0)
 
 

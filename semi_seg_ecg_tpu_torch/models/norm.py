@@ -10,8 +10,9 @@ updates ``mean``/``var`` (its flax momentum 0.9 is torch's 0.1).
 :func:`batch_statistics_only` runs a train-mode forward without that
 update (the Mean Teacher's train-mode teacher).
 
-Under a process group of more than one rank, train mode takes the
-statistics of the global batch, as the JAX module does under a data mesh
+Under a process group of more than one data rank, train mode takes the
+statistics of the global batch (over the data group: the model ranks of a
+data rank hold the same rows), as the JAX module does under a data mesh
 (GSPMD reduces its means over every shard): each rank's count, mean and
 sum of squared deviations are gathered (``parallel.dist.all_gather``,
 differentiable, so the gradient flows through the statistics to every
@@ -35,7 +36,7 @@ import contextlib
 import torch
 import torch.nn as nn
 
-from ..parallel.dist import all_gather, get_world_size
+from ..parallel.dist import all_gather, data_size
 
 
 def _global_statistics(x: torch.Tensor):
@@ -67,7 +68,7 @@ class TorchBatchNorm(nn.BatchNorm1d):
         super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or get_world_size() == 1:
+        if not self.training or data_size() == 1:
             return super().forward(x)
         mean, var, count = _global_statistics(x)
         if self.track_running_stats:

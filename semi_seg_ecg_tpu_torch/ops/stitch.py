@@ -24,6 +24,14 @@ nothing, so there is no such cache here. Nor are the windows padded up to
 a batch multiple: the last batch is short, so there are no zero-weight
 padding windows and no zero tail pad behind them. The flash forwards of a
 ViT are therefore 12 x ceil(n_win / batch).
+
+With ``mesh=`` (``parallel/mesh.make_mesh``) the windows are planned over
+``batch × data`` as in the JAX package: data rank ``r`` runs its ``w_per``
+contiguous windows from ``r·w_per`` (the valid ones: a rank that sees only
+padding runs nothing and adds weight 0) into a slab of ``w_per - 1 + k``
+blocks; the slabs are all-gathered over the data group and summed where
+neighbours meet (the ``k - 1`` seam blocks), so no window is computed
+twice and every rank returns the same stitched record.
 """
 
 from __future__ import annotations
@@ -79,6 +87,22 @@ def standardize_windows(win: torch.Tensor) -> torch.Tensor:
                        0.0)
 
 
+def _sum_slabs(slab: torch.Tensor, mesh, w_per: int,
+               n_blocks: int) -> torch.Tensor:
+    """Every data rank's slab (``(w_per - 1 + k, C, hop)``, rank ``r``'s
+    from block ``r·w_per``) gathered over the data group and summed into
+    the record's ``(n_blocks, C, hop)`` accumulator."""
+    from ..parallel.dist import gather_batch
+
+    slabs = gather_batch(slab[None], mesh.data_group)
+    size = slab.shape[0]
+    acc = slab.new_zeros((max(n_blocks, (mesh.data - 1) * w_per + size),)
+                         + tuple(slab.shape[1:]))
+    for r in range(mesh.data):
+        acc[r * w_per:r * w_per + size] += slabs[r]
+    return acc[:n_blocks]
+
+
 @torch.inference_mode()
 def overlap_add_infer(infer: Callable, ecg, *, window: int,
                       hop: int | None = None, batch: int = 64,
@@ -99,12 +123,10 @@ def overlap_add_infer(infer: Callable, ecg, *, window: int,
     ``window``; ``standardize`` applies the per-window z-normalization.
     ``batch`` windows go through ``infer`` at a time (the last batch may
     be shorter); the result does not depend on it beyond the summation
-    order of three or more overlapping windows.
+    order of three or more overlapping windows. ``mesh`` splits the
+    windows over its data ranks (module docstring); every rank calls
+    with the same record.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "overlap_add_infer(mesh=...) is not yet ported to the torch "
-            "package (multi-GPU, ROADMAP queue 1 item 10)")
     ecg = torch.as_tensor(ecg, dtype=torch.float32).to(infer.device)
     if ecg.ndim == 1:
         ecg = ecg[None, :]
@@ -113,9 +135,15 @@ def overlap_add_infer(infer: Callable, ecg, *, window: int,
                          f"{tuple(ecg.shape)}")
     hop = window // 2 if hop is None else hop
     total = ecg.shape[1]
-    n_win, _, _, _ = plan_windows(total, window, hop, batch)
+    shards = 1 if mesh is None else mesh.data
+    n_win, n_win_pad, _, _ = plan_windows(total, window, hop, batch * shards)
     k = window // hop
     n_blocks = n_win - 1 + k
+    # this rank's windows [lo, hi) and the blocks of its slab
+    w_per = n_win_pad // shards
+    lo = 0 if mesh is None else mesh.data_rank * w_per
+    hi = min(lo + w_per, n_win)
+    slab_blocks = (n_blocks if mesh is None else w_per - 1 + k)
     # the valid windows' reach, n_blocks * hop samples, gets signal-shaped
     # content (reflection keeps the last window's standardization honest;
     # records shorter than the pad repeat their edge value); its extent
@@ -126,18 +154,23 @@ def overlap_add_infer(infer: Callable, ecg, *, window: int,
     wvec = torch.from_numpy(_taper(window, taper)).to(ecg.device)
 
     acc = None
-    for first in range(0, n_win, batch):
-        nb = min(batch, n_win - first)
+    for first in range(lo, hi, batch):
+        nb = min(batch, hi - first)
         span = record[:, first * hop:(first + nb - 1) * hop + window]
         win = span.unfold(-1, window, hop).transpose(0, 1).contiguous()
         if standardize:
             win = standardize_windows(win)
         probs = infer(win).float()  # (nb, C, window)
         if acc is None:
-            acc = probs.new_zeros((n_blocks, probs.shape[1], hop))
+            acc = probs.new_zeros((slab_blocks, probs.shape[1], hop))
         contrib = (probs * wvec).unflatten(-1, (k, hop))
+        at = first - lo
         for j in range(k):  # k is small: dense slice adds, no scatter
-            acc[first + j:first + j + nb] += contrib[:, :, j]
+            acc[at + j:at + j + nb] += contrib[:, :, j]
+    if acc is None:  # a data rank that sees only padding
+        acc = ecg.new_zeros((slab_blocks, int(infer.num_classes), hop))
+    if mesh is not None:
+        acc = _sum_slabs(acc, mesh, w_per, n_blocks)
     wacc = wvec.new_zeros((n_blocks, hop))
     for j, w in enumerate(wvec.view(k, hop)):
         wacc[j:j + n_win] += w

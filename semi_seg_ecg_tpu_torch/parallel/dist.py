@@ -13,7 +13,10 @@ CPU run; NCCL takes CUDA tensors only, gloo either.
 
 The JAX package gets its collectives from GSPMD; here they are explicit,
 and the group's all-reduce is the only reduction used for data (gloo has
-no ``ReduceOp.AVG`` and no ``reduce_scatter``):
+no ``ReduceOp.AVG`` and no ``reduce_scatter``). The ranks form the
+``(data, model)`` mesh of ``parallel/mesh.py`` (:func:`set_mesh`); every
+collective below takes a ``group=`` and, left unset, runs over this
+rank's data group, which is the whole group when ``model_parallel`` is 1:
 
 - :func:`all_reduce_grads_`: the gradient mean over the ranks, one flat
   buffer per dtype, summed and divided by a tensor (CUDA turns a division
@@ -23,7 +26,8 @@ no ``ReduceOp.AVG`` and no ``reduce_scatter``):
   differentiable: its backward sums the full gradient over the ranks and
   returns this rank's slice;
 - :func:`all_gather_rows`: the sharded evaluators' row exchange;
-- :func:`broadcast_module_`: rank 0's parameters and buffers to every rank;
+- :func:`broadcast_module_`: rank 0's parameters and buffers to every rank
+  of the world (before the model axis slices them);
 - :func:`broadcast_from_owners_`: each tensor from the rank that owns it
   (ZeRO-1's parameters after the update); :func:`all_gather_object`:
   every rank's picklable object (ZeRO-1's optimizer state for a
@@ -34,7 +38,17 @@ no ``ReduceOp.AVG`` and no ``reduce_scatter``):
   rows draws. A batch that concatenates ``k`` parts (the semi-supervised
   student's labeled and unlabeled rows) says so with
   :func:`concatenated_rows`: one process holds each part's ``N·b/k`` rows
-  one after the other, so rank ``r`` takes its block of each part.
+  one after the other, so rank ``r`` takes its block of each part. A
+  draw over a dimension the model axis splits (the MLP's hidden columns,
+  the attention heads) is made whole and sliced to this model rank's
+  block (``split``).
+
+The model axis's two operators (Megatron's ``f`` and ``g``) are autograd
+functions over the model group: :func:`copy_to_model`
+(identity forward, all-reduce backward) in front of a column-parallel
+layer, :func:`reduce_from_model` (all-reduce forward, identity backward)
+behind a row-parallel one. The reduce sums in fp32 whatever the
+activation's dtype, and rounds once to it.
 """
 
 from __future__ import annotations
@@ -42,7 +56,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +69,9 @@ BACKENDS = ("nccl", "gloo")
 # the parts the batch of the forward in progress concatenates
 _ROW_PARTS: contextvars.ContextVar = contextvars.ContextVar("row_parts",
                                                            default=1)
+# the (data, model) layout of the ranks (parallel/mesh.py); None: every
+# rank is a data rank
+_MESH = None
 
 
 def _env_ranks() -> Optional[tuple]:
@@ -117,6 +134,7 @@ def init_distributed_mode(ddp_cfg: Optional[Dict[str, Any]] = None,
             torch.cuda.set_device(cuda_device())
         dist.init_process_group(backend, init_method="env://", rank=rank,
                                 world_size=world)
+        set_mesh(None)
         log(f"| distributed init (rank {rank}/{world}, {backend})",
             force=True)
     if ddp_cfg is not None:
@@ -131,6 +149,7 @@ def destroy_process_group() -> None:
     again."""
     if dist.is_initialized():
         dist.destroy_process_group()
+    set_mesh(None)
     set_logging_enabled(True)
 
 
@@ -144,6 +163,55 @@ def get_world_size() -> int:
 
 def is_main_process() -> bool:
     return get_rank() == 0
+
+
+def set_mesh(mesh) -> None:
+    """Register the ranks' ``(data, model)`` layout (``parallel/mesh.py``),
+    or forget it (None)."""
+    global _MESH
+    _MESH = mesh
+
+
+def current_mesh():
+    """The registered mesh, while the process group it was made on lives;
+    else None."""
+    if _MESH is None:
+        return None
+    world = dist.group.WORLD if dist.is_initialized() else None
+    return _MESH if _MESH.world_group is world else None
+
+
+def data_group():
+    """This rank's data group (None: the whole group)."""
+    mesh = current_mesh()
+    return None if mesh is None else mesh.data_group
+
+
+def data_size() -> int:
+    mesh = current_mesh()
+    return get_world_size() if mesh is None else mesh.data
+
+
+def data_rank() -> int:
+    mesh = current_mesh()
+    return get_rank() if mesh is None else mesh.data_rank
+
+
+def _group(group):
+    """``group``, or this rank's data group when it is None."""
+    return data_group() if group is None else group
+
+
+def _size(group) -> int:
+    if not dist.is_initialized():
+        return 1
+    return dist.get_world_size(group)
+
+
+def _rank(group) -> int:
+    if not dist.is_initialized():
+        return 0
+    return dist.get_rank(group)
 
 
 def barrier() -> None:
@@ -168,21 +236,23 @@ def _check(t: torch.Tensor) -> None:
                            f"one on {t.device}")
 
 
-def _gather_tensor(t: torch.Tensor) -> torch.Tensor:
-    """``(world, *t.shape)``: every rank's ``t``. Under gloo through an
-    all-reduce of this rank's slot in a zero buffer, which is exact (each
-    element is one rank's value plus zeros) and which gloo runs on CUDA
-    tensors too, as its all-gather does not."""
+def _gather_tensor(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``(n, *t.shape)``: the ``t`` of each of the ``n`` ranks of ``group``
+    (None: the data group). Under gloo through an all-reduce of this rank's
+    slot in a zero buffer, which is exact (each element is one rank's value
+    plus zeros) and which gloo runs on CUDA tensors too, as its all-gather
+    does not."""
     _check(t)
-    world = get_world_size()
+    group = _group(group)
+    n = _size(group)
     t = t.contiguous()
     if _is_nccl():
-        out = t.new_empty((world,) + tuple(t.shape))
-        dist.all_gather_into_tensor(out, t)
+        out = t.new_empty((n,) + tuple(t.shape))
+        dist.all_gather_into_tensor(out, t, group=group)
         return out
-    out = t.new_zeros((world,) + tuple(t.shape))
-    out[get_rank()] = t
-    dist.all_reduce(out)
+    out = t.new_zeros((n,) + tuple(t.shape))
+    out[_rank(group)] = t
+    dist.all_reduce(out, group=group)
     return out
 
 
@@ -193,54 +263,71 @@ class _AllGather(torch.autograd.Function):
     the ranks' losses with respect to this rank's input."""
 
     @staticmethod
-    def forward(ctx, t):
-        return _gather_tensor(t)
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _gather_tensor(t, group)
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
-        return grad[get_rank()]
+        dist.all_reduce(grad, group=ctx.group)
+        return grad[_rank(ctx.group)], None
 
 
-def all_gather(t: torch.Tensor) -> torch.Tensor:
-    """``(world, *t.shape)``, differentiable (:class:`_AllGather`); one
-    rank: ``t[None]``."""
-    if get_world_size() == 1:
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``(n, *t.shape)`` over the ``n`` ranks of ``group`` (None: the data
+    group), differentiable (:class:`_AllGather`); one rank: ``t[None]``."""
+    group = _group(group)
+    if _size(group) == 1:
         return t.unsqueeze(0)
-    return _AllGather.apply(t)
+    return _AllGather.apply(t, group)
 
 
-def gather_batch(t: torch.Tensor) -> torch.Tensor:
-    """The global batch of a per-rank batch ``t``: the ranks' rows
-    concatenated in rank order, differentiable (:func:`all_gather`)."""
-    if get_world_size() == 1:
+def gather_batch(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The global batch of a per-rank batch ``t``: the rows of the ranks of
+    ``group`` (None: the data group) concatenated in rank order,
+    differentiable (:func:`all_gather`)."""
+    if _size(_group(group)) == 1:
         return t
-    return all_gather(t).flatten(0, 1)
+    return all_gather(t, group).flatten(0, 1)
 
 
-def _divide_by_world(t: torch.Tensor) -> torch.Tensor:
-    return t.div_(torch.full((), get_world_size(), dtype=t.dtype,
-                             device=t.device))
+def _divide_by(t: torch.Tensor, n: int) -> torch.Tensor:
+    return t.div_(torch.full((), n, dtype=t.dtype, device=t.device))
 
 
-def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
-    """The mean of ``t`` over the ranks (a new tensor; ``t`` itself with
-    one rank)."""
-    if get_world_size() == 1:
+def all_reduce_mean(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``t`` over the ranks of ``group`` (None: the data group;
+    a new tensor, ``t`` itself with one rank)."""
+    group = _group(group)
+    n = _size(group)
+    if n == 1:
         return t
     _check(t)
     out = t.detach().clone()
-    dist.all_reduce(out)
-    return _divide_by_world(out)
+    dist.all_reduce(out, group=group)
+    return _divide_by(out, n)
+
+
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (None: the data group), in
+    place; returns ``t``."""
+    group = _group(group)
+    if _size(group) > 1:
+        _check(t)
+        dist.all_reduce(t, group=group)
+    return t
 
 
 @torch.no_grad()
-def all_reduce_grads_(params: Sequence[torch.Tensor]) -> None:
-    """Replace each ``.grad`` of ``params`` by its mean over the ranks, one
-    all-reduce per dtype. Parameters without a gradient are skipped: every
-    rank runs the same graph, so they are the same on every rank."""
-    if get_world_size() == 1:
+def all_reduce_grads_(params: Sequence[torch.Tensor], group=None) -> None:
+    """Replace each ``.grad`` of ``params`` by its mean over the ranks of
+    ``group`` (None: the data group), one all-reduce per dtype. Parameters
+    without a gradient are skipped: every rank runs the same graph, so they
+    are the same on every rank."""
+    group = _group(group)
+    n = _size(group)
+    if n == 1:
         return
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for p in params:
@@ -249,8 +336,8 @@ def all_reduce_grads_(params: Sequence[torch.Tensor]) -> None:
     for grads in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
         _check(flat)
-        dist.all_reduce(flat)
-        _divide_by_world(flat)
+        dist.all_reduce(flat, group=group)
+        _divide_by(flat, n)
         # one multi-tensor copy back, not a launch per gradient
         pieces = flat.split([g.numel() for g in grads])
         torch._foreach_copy_(grads, [p.view_as(g)
@@ -259,7 +346,9 @@ def all_reduce_grads_(params: Sequence[torch.Tensor]) -> None:
 
 @torch.no_grad()
 def broadcast_module_(module: torch.nn.Module) -> None:
-    """Rank 0's parameters and buffers into every rank's ``module``."""
+    """Rank 0's parameters and buffers into every rank's ``module``, over
+    the whole group (model ranks included: the model axis slices the
+    parameters afterwards)."""
     if get_world_size() == 1:
         return
     for t in module.state_dict().values():
@@ -269,58 +358,69 @@ def broadcast_module_(module: torch.nn.Module) -> None:
 
 @torch.no_grad()
 def broadcast_from_owners_(tensors: Sequence[torch.Tensor],
-                           owners: Sequence[int]) -> None:
-    """Each of ``tensors`` (the same list on every rank) from the rank that
-    ``owners`` names into every other rank's, in place: one broadcast per
-    owning rank and dtype, of the owner's tensors flattened into one
-    buffer. ZeRO-1's parameter exchange after each rank's update."""
-    if get_world_size() == 1:
+                           owners: Sequence[int], group=None) -> None:
+    """Each of ``tensors`` (the same list on every rank) from the rank of
+    ``group`` (None: the data group) that ``owners`` names into every other
+    rank's, in place: one broadcast per owning rank and dtype, of the
+    owner's tensors flattened into one buffer. ZeRO-1's parameter exchange
+    after each rank's update."""
+    group = _group(group)
+    n = _size(group)
+    if n == 1:
         return
-    rank = get_rank()
-    for src in range(get_world_size()):
+    rank = _rank(group)
+    for src in range(n):
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for t, owner in zip(tensors, owners):
             if owner == src:
                 by_dtype.setdefault(t.dtype, []).append(t)
-        for group in by_dtype.values():
+        for owned in by_dtype.values():
             if rank == src:
-                flat = torch.cat([t.reshape(-1) for t in group])
+                flat = torch.cat([t.reshape(-1) for t in owned])
             else:
-                flat = torch.empty(sum(t.numel() for t in group),
-                                   dtype=group[0].dtype,
-                                   device=group[0].device)
+                flat = torch.empty(sum(t.numel() for t in owned),
+                                   dtype=owned[0].dtype,
+                                   device=owned[0].device)
             _check(flat)
-            dist.broadcast(flat, src=src)
+            dist.broadcast(flat, src=src if group is None else
+                           dist.get_global_rank(group, src), group=group)
             if rank != src:
-                pieces = flat.split([t.numel() for t in group])
-                torch._foreach_copy_(group, [p.view_as(t) for p, t
-                                             in zip(pieces, group)])
+                pieces = flat.split([t.numel() for t in owned])
+                torch._foreach_copy_(owned, [p.view_as(t) for p, t
+                                             in zip(pieces, owned)])
 
 
-def all_gather_object(obj: Any) -> List[Any]:
-    """Every rank's picklable ``obj``, in rank order (one rank: ``[obj]``)."""
-    if get_world_size() == 1:
+def all_gather_object(obj: Any, group=None) -> List[Any]:
+    """The picklable ``obj`` of every rank of ``group`` (None: the data
+    group), in rank order (one rank: ``[obj]``)."""
+    group = _group(group)
+    n = _size(group)
+    if n == 1:
         return [obj]
-    out: List[Any] = [None] * get_world_size()
-    dist.all_gather_object(out, obj)
+    out: List[Any] = [None] * n
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
-def all_gather_rows(rows: np.ndarray, arrays: Sequence[np.ndarray]):
+def all_gather_rows(rows: np.ndarray, arrays: Sequence[np.ndarray],
+                    group=None):
     """Cross-rank reassembly of per-sample arrays (the JAX package's
     ``_allgather_rows``). ``rows`` are the dataset indices this rank
     computed; each of ``arrays`` is a full-size ``(N, ...)`` buffer with
     those rows filled. The ranks exchange their rows (equal counts, the
     loader pads its shards) and every rank writes all of them in rank
-    order, so every rank ends with the same arrays. Returns ``arrays``."""
-    if get_world_size() == 1:
+    order, so every rank ends with the same arrays. The ranks are those of
+    ``group`` (None: the data group; the model ranks of a data rank hold the
+    same rows). Returns ``arrays``."""
+    group = _group(group)
+    if _size(group) == 1:
         return arrays
     device = _group_device()
     rows = np.asarray(rows, np.int64)
-    all_rows = _gather_tensor(torch.from_numpy(rows).to(device)).cpu()
+    all_rows = _gather_tensor(torch.from_numpy(rows).to(device), group).cpu()
     for a in arrays:
         vals = _gather_tensor(torch.from_numpy(
-            np.ascontiguousarray(a[rows])).to(device)).cpu().numpy()
+            np.ascontiguousarray(a[rows])).to(device), group).cpu().numpy()
         for r in range(vals.shape[0]):
             a[all_rows[r].numpy()] = vals[r]
     return arrays
@@ -343,17 +443,80 @@ def row_parts() -> int:
 
 
 def global_rows(draw: Callable[[tuple], torch.Tensor],
-                shape: Sequence[int]) -> torch.Tensor:
+                shape: Sequence[int],
+                split: Optional[Tuple[int, int, int]] = None
+                ) -> torch.Tensor:
     """``draw(shape)`` for this rank's rows of the global batch: the draw
-    of ``(world·b, *shape[1:])`` sliced to rows ``[rank·b, (rank+1)·b)``,
-    ``b = shape[0]``; under :func:`concatenated_rows`, this rank's block
-    of each part."""
+    of ``(n·b, *shape[1:])`` over the ``n`` data ranks, sliced to rows
+    ``[r·b, (r+1)·b)`` of data rank ``r``, ``b = shape[0]``; under
+    :func:`concatenated_rows`, this rank's block of each part. With
+    ``split = (dim, parts, index)``, ``shape[dim]`` is block ``index`` of
+    ``parts`` equal blocks of the draw's ``dim``: the draw is made whole
+    there and sliced to the block (a model rank's columns or heads)."""
     shape = tuple(shape)
-    world = get_world_size()
-    if world == 1:
-        return draw(shape)
-    parts, rank = row_parts(), get_rank()
-    b = shape[0] // parts
-    full = draw((shape[0] * world,) + shape[1:])
-    return full.reshape((parts, world, b) + shape[1:])[:, rank].reshape(
-        shape)
+    whole = list(shape)
+    if split is not None:
+        dim, parts_m, index = split
+        dim %= len(shape)
+        whole[dim] *= parts_m
+    n = data_size()
+    if n == 1:
+        full = draw(tuple(whole))
+    else:
+        parts, rank = row_parts(), data_rank()
+        b = shape[0] // parts
+        full = draw((whole[0] * n,) + tuple(whole[1:]))
+        full = full.reshape((parts, n, b) + tuple(whole[1:]))[:, rank]
+        full = full.reshape(whole)
+    if split is not None:
+        full = full.narrow(dim, index * shape[dim], shape[dim])
+    return full
+
+
+def _sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: ``t`` summed over ``group``, in fp32, in ``t``'s
+    dtype."""
+    out = t.float().contiguous()
+    if out is t:
+        out = out.clone()
+    _check(out)
+    dist.all_reduce(out, group=group)
+    return out.to(t.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the model ranks' gradients
+    (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the model ranks forward; identity backward (Megatron's
+    ``g``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` into a column-parallel layer on the model ``group``."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The partial sums of a row-parallel layer on the model ``group``,
+    summed."""
+    return _ReduceFromModel.apply(x, group)

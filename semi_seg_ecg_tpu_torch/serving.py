@@ -152,15 +152,14 @@ def long_record_inference(
     ``dataset.transforms`` (applied iff a ``standardize`` entry is present,
     as in every shipped recipe; axes other than the full ``[-1, -2]``
     window are not representable per window and are rejected).
+    ``mesh`` (``parallel/mesh.make_mesh``) splits the windows over its
+    data ranks (:func:`ops.stitch.overlap_add_infer`); every rank returns
+    the whole record's result.
     Returns ``{"probs": (C, T) float32, "labels": (T,) int32}`` numpy.
     """
     from .data.transforms import get_transforms_from_config
     from .ops.stitch import overlap_add_infer
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "long_record_inference(mesh=...) is not yet ported to the torch "
-            "package (multi-GPU, ROADMAP queue 1 item 10)")
     ecg = np.asarray(ecg, np.float32)
     if ecg.ndim == 1:
         ecg = ecg[None, :]
@@ -186,7 +185,7 @@ def long_record_inference(
     window = int(config["dataset"].get("signal_length", 2500))
     probs, labels = overlap_add_infer(
         infer, ecg, window=window, hop=hop, batch=batch, taper=taper,
-        standardize=standardize)
+        standardize=standardize, mesh=mesh)
     return {"probs": probs.cpu().numpy(), "labels": labels.cpu().numpy()}
 
 
@@ -217,20 +216,32 @@ class StreamingSegmenter:
     lockstep (``push`` takes ``(S, leads, n)``); per-stream standardization
     and overlap carries are independent, so each stream's output is the
     same as running it alone.
+
+    ``mesh`` (``parallel/mesh.make_mesh``) splits the streams over its
+    data ranks, as the JAX package shards the stream axis: every rank
+    pushes the same ``(S, leads, n)`` chunks, steps its own block of
+    ``S / data`` streams and keeps their carries, and each step's result
+    is all-gathered over the data group, so ``push`` returns every
+    stream's, as the JAX object returns the global array.
     """
 
     def __init__(self, infer: Callable, *, window: int,
                  hop: Optional[int] = None, num_leads: int = 1,
                  taper: str = "hann", num_streams: int = 1, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamingSegmenter(mesh=...) is not yet ported to the torch "
-                "package (multi-GPU, ROADMAP queue 1 item 10)")
         hop = window // 2 if hop is None else hop
         if window % hop != 0:
             raise ValueError(f"hop ({hop}) must divide window ({window})")
         if num_streams < 1:
             raise ValueError("num_streams must be >= 1")
+        if mesh is not None and num_streams % mesh.data != 0:
+            raise ValueError(
+                f"num_streams ({num_streams}) must divide by the mesh's "
+                f"data axis ({mesh.data})")
+        self.mesh = mesh
+        # this rank's block of streams
+        per = num_streams if mesh is None else num_streams // mesh.data
+        first = 0 if mesh is None else mesh.data_rank * per
+        self._mine = slice(first, first + per)
         self.infer = infer
         self.window, self.hop, self.leads = window, hop, num_leads
         self.num_streams = num_streams
@@ -240,9 +251,11 @@ class StreamingSegmenter:
 
     @torch.inference_mode()
     def reset(self):
-        S, device = self.num_streams, self.infer.device
-        self._buf = np.zeros((S, self.leads, 0), np.float32)  # unprocessed
-        self._last = np.zeros((S, self.leads, 0), np.float32)  # reflect src
+        device = self.infer.device
+        S = self._mine.stop - self._mine.start
+        n = self.num_streams
+        self._buf = np.zeros((n, self.leads, 0), np.float32)  # unprocessed
+        self._last = np.zeros((n, self.leads, 0), np.float32)  # reflect src
         # contributions of earlier windows to the next window - hop samples
         # and their taper weights (data-independent, shared by the streams)
         self._acc = torch.zeros((S, self.num_classes, self.window - self.hop),
@@ -259,9 +272,12 @@ class StreamingSegmenter:
     @torch.inference_mode()
     def _run_window(self, win: np.ndarray):
         """One step: ``(S, leads, window)`` raw samples in, the ``hop``
-        samples it finalizes out (``(S, C, hop)``, ``(S, hop)`` numpy)."""
+        samples it finalizes out (``(S, C, hop)``, ``(S, hop)`` numpy);
+        under a mesh this rank steps its block of the streams and gathers
+        the others'."""
         hop, carry = self.hop, self.window - self.hop
-        win = torch.from_numpy(np.ascontiguousarray(win)).to(self.infer.device)
+        win = torch.from_numpy(np.ascontiguousarray(
+            win[self._mine])).to(self.infer.device)
         # (S, C, window)
         acc = self.infer(standardize_windows(win)).float() * self._wvec
         acc[:, :, :carry] += self._acc
@@ -269,8 +285,17 @@ class StreamingSegmenter:
         wacc[:carry] += self._wacc
         out = acc[:, :, :hop] / wacc[:hop].clamp_min(1e-8)
         self._acc, self._wacc = acc[:, :, hop:], wacc[hop:]
-        probs = out.cpu().numpy()
+        probs = self._gathered(out).cpu().numpy()
         return probs, probs.argmax(axis=1).astype(np.int32)
+
+    def _gathered(self, out: torch.Tensor) -> torch.Tensor:
+        """Every stream's rows of ``out`` (this rank's block), gathered
+        over the mesh's data group."""
+        if self.mesh is None:
+            return out
+        from .parallel.dist import gather_batch
+
+        return gather_batch(out, self.mesh.data_group)
 
     def _empty(self):
         S = self.num_streams
@@ -338,7 +363,8 @@ class StreamingSegmenter:
         # the final window's trailing overlap is covered by no later
         # window: normalize the carry directly
         with torch.inference_mode():
-            tail = (self._acc / self._wacc.clamp_min(1e-8)).cpu().numpy()
+            tail = self._gathered(
+                self._acc / self._wacc.clamp_min(1e-8)).cpu().numpy()
         probs_out.append(tail)
         labels_out.append(tail.argmax(axis=1).astype(np.int32))
         probs = np.concatenate(probs_out, axis=2)

@@ -98,24 +98,29 @@ def _state(optimizer) -> Dict[str, Any]:
         optimizer.state_dict()
 
 
+def _model_state(model) -> Dict[str, Any]:
+    return model if isinstance(model, dict) else model.state_dict()
+
+
 def save_checkpoint(path: Union[str, Sequence[str]], epoch: int,
-                    model: torch.nn.Module,
+                    model: Union[torch.nn.Module, Dict[str, Any]],
                     optimizer=None,
                     config: Optional[Dict[str, Any]] = None,
                     metrics: Optional[Dict[str, Any]] = None,
                     best: Optional[Dict[str, Any]] = None,
                     step: Optional[int] = None,
-                    ema_model: Optional[torch.nn.Module] = None,
-                    peer_model: Optional[torch.nn.Module] = None,
+                    ema_model=None, peer_model=None,
                     peer_optimizer=None
                     ) -> None:
     """Write one training checkpoint, a pickle with NumPy leaves, to each
     of ``path`` (one payload, fetched from the device once), atomically
     (temporary file, then rename). The Mean Teacher's teacher goes under
     ``model_ema``, the CPS peer and its optimizer under ``model_peer`` and
-    ``peer_optimizer``, each model a flat state_dict. An optimizer is given
-    as itself or as its ``state_dict()`` (a ZeRO-1 optimizer's is a
-    collective that every rank takes before rank 0 writes). The write is
+    ``peer_optimizer``, each model a flat state_dict. A model is given as
+    itself or as its state_dict, an optimizer as itself or as its
+    ``state_dict()`` (a model sliced over the model axis and a ZeRO-1
+    optimizer give theirs through collectives, which every rank takes
+    before rank 0 writes: ``algorithms/common.Trainer.checkpoint_state``). The write is
     synchronous: ``async_checkpoint`` (the JAX package's background writer)
     changes when the file appears, not what it holds, so the port accepts
     it and writes here."""
@@ -123,15 +128,15 @@ def save_checkpoint(path: Union[str, Sequence[str]], epoch: int,
     payload: Dict[str, Any] = {
         "epoch": epoch,
         "step": step,
-        "model": _to_numpy(model.state_dict()),
+        "model": _to_numpy(_model_state(model)),
         "config": config,
     }
     if optimizer is not None:
         payload["optimizer"] = _to_numpy(_state(optimizer))
     if ema_model is not None:
-        payload["model_ema"] = _to_numpy(ema_model.state_dict())
+        payload["model_ema"] = _to_numpy(_model_state(ema_model))
     if peer_model is not None:
-        payload["model_peer"] = _to_numpy(peer_model.state_dict())
+        payload["model_peer"] = _to_numpy(_model_state(peer_model))
     if peer_optimizer is not None:
         payload["peer_optimizer"] = _to_numpy(_state(peer_optimizer))
     if metrics is not None:

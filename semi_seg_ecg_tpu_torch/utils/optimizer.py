@@ -58,6 +58,22 @@ unsharded run's, and the JAX package reads it), and
 :meth:`TrainOptimizer.load_state_dict` keeps the rank's share of a whole
 state. One rank has nothing to shard and runs unsharded.
 
+Tensor parallelism (``parallel.model_parallel > 1``): the trainer slices
+the model over the model axis after building its optimizer
+(:meth:`TrainOptimizer.shard_`, which slices any state a resume loaded),
+so the optimizer steps this rank's slices. Gradients are averaged over the
+data group only (the model ranks of a data rank hold the same rows), and
+the replicated parameters' (every parameter of a model no rule slices,
+as ResNet18's) are then taken from model rank 0, so that the model ranks'
+copies stay equal bit for bit;
+``max_norm`` clips by the global norm, the squares of the sliced
+parameters summed over the model group and the replicated ones counted
+once (optax's norm over the global arrays); ZeRO-1 balances the rank's
+slices over its data group (the JAX package's data axis on top of the
+model axis). :meth:`TrainOptimizer.state_dict` gathers the slices over the
+model group, so a checkpoint holds the unsliced layout, and
+:meth:`TrainOptimizer.load_state_dict` takes the rank's slices of it.
+
 Freezing (``mode: freeze_backbone``, ``frozen_stages >= 0``): the frozen
 set is the JAX package's ``frozen_param_mask``
 (:func:`frozen_parameter_names`).
@@ -104,14 +120,28 @@ def resolve_lr(config: Dict[str, Any], mesh_data_size: int = 1) -> None:
     config["train"]["eff_batch_size"] = eff
 
 
-def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(params: List[torch.Tensor], max_norm: float,
+                         sliced: Optional[Sequence[bool]] = None,
+                         model_group=None) -> None:
     """optax ``clip_by_global_norm`` on the ``.grad`` of ``params``, in
-    place, without a host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    place, without a host sync. ``sliced`` flags the parameters a model
+    axis slices (``model_group``): their squares are summed over it, the
+    replicated parameters' counted once."""
+    flags = sliced or [False] * len(params)
+    grads, total = [], None
+    for flag in (True, False):
+        part = [p.grad for p, s in zip(params, flags)
+                if bool(s) == flag and p.grad is not None]
+        if not part:
+            continue
+        sq = torch.stack(torch._foreach_norm(part)).float().square().sum()
+        if flag:
+            pdist.all_reduce_sum_(sq, model_group)
+        grads += part
+        total = sq if total is None else total + sq
+    if total is None:
         return
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(grads)))
+    norm = total.sqrt()
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(grads, scale)
 
@@ -160,6 +190,27 @@ class TrainOptimizer:
         self._held = {id(p) for g in optimizer.param_groups
                       for p in g["params"]}
         self._index = {id(p): i for i, p in enumerate(self.params)}
+        self.slices: List = [None] * len(self.params)
+        self.mesh = None
+
+    def shard_(self, plan: Dict[str, Any], mesh) -> None:
+        """The model's parameters are now this model rank's slices
+        (``parallel/sharding_rules.shard_module_`` with ``plan``): step
+        them, and slice the optimizer state already held (a resume's)."""
+        self.slices = [plan.get(n) for n in self.names]
+        self.mesh = mesh
+        by_id = {id(p): spec for p, spec in zip(self.params, self.slices)}
+        for p, entry in self.optimizer.state.items():
+            spec = by_id.get(id(p))
+            if spec is None:
+                continue
+            for k, v in entry.items():
+                if torch.is_tensor(v) and v.dim() > spec.dim:
+                    entry[k] = spec.take(v, mesh.model, mesh.model_rank)
+
+    @property
+    def _sliced(self) -> bool:
+        return any(s is not None for s in self.slices)
 
     @property
     def sharded(self) -> bool:
@@ -192,8 +243,20 @@ class TrainOptimizer:
         # the mean over the ranks first, so every rank clips and applies
         # the global batch's gradient (one rank: nothing to do)
         all_reduce_grads_(self.params)
+        if self.mesh is not None and self.mesh.model > 1:
+            # the replicated parameters take model rank 0's gradient: every
+            # model rank computed it from the same numbers, but on a card
+            # the atomic adds of index_select's backward and of cuDNN's
+            # convolution backward round apart, and the copies would drift
+            held = [p.grad for p, spec in zip(self.params, self.slices)
+                    if spec is None and p.grad is not None]
+            pdist.broadcast_from_owners_(held, [0] * len(held),
+                                         self.mesh.model_group)
         if self.max_norm is not None:
-            clip_by_global_norm_(self.params, self.max_norm)
+            clip_by_global_norm_(
+                self.params, self.max_norm,
+                [s is not None for s in self.slices],
+                self.mesh.model_group if self.mesh is not None else None)
         self.optimizer.step()
         if self.sharded:
             # each rank updated its own parameters: every rank takes them
@@ -208,11 +271,30 @@ class TrainOptimizer:
         if self.micro_step:
             all_reduce_grads_(self.params)
 
+    def _unslice(self, state: Dict[int, Dict[str, Any]]) -> None:
+        """Gather the sliced parameters' state tensors of ``state`` (by
+        parameter index, every one of them present) over the model group,
+        in place."""
+        from ..parallel.sharding_rules import unshard
+
+        for i, spec in enumerate(self.slices):
+            if spec is None or i not in state:
+                continue
+            state[i] = {k: unshard(v.to(self.params[i].device), spec,
+                                   self.mesh)
+                        if torch.is_tensor(v) and v.dim() > spec.dim else v
+                        for k, v in state[i].items()}
+
     def _torch_state_dict(self) -> Dict[str, Any]:
         """The torch optimizer's state_dict; under ZeRO-1 gathered from
-        every rank into the unsharded layout (a collective)."""
+        every rank of the data group, and under the model axis from every
+        rank of the model group, into the unsharded layout (a
+        collective)."""
         local = self.optimizer.state_dict()
         if not self.sharded:
+            if self._sliced:
+                local = dict(local, state=dict(local["state"]))
+                self._unslice(local["state"])
             return local
         held = [self._index[id(p)] for g in self.optimizer.param_groups
                 for p in g["params"]]
@@ -226,12 +308,22 @@ class TrainOptimizer:
         for group, size in zip(local["param_groups"], self.group_sizes):
             groups.append(dict(group, params=list(range(at, at + size))))
             at += size
+        if self._sliced:
+            self._unslice(state)
         return {"state": {i: state[i] for i in sorted(state)},
                 "param_groups": groups}
 
     def _load_torch_state_dict(self, state: Dict[str, Any]) -> None:
         """The torch optimizer's state from an unsharded state_dict; under
-        ZeRO-1 this rank's share of it."""
+        ZeRO-1 this rank's share of it, under the model axis its slices."""
+        if self._sliced:
+            mesh = self.mesh
+            state = dict(state, state={
+                i: {k: spec.take(v, mesh.model, mesh.model_rank)
+                    if spec is not None and torch.is_tensor(v)
+                    and v.dim() > spec.dim else v for k, v in entry.items()}
+                for i, entry in state["state"].items()
+                for spec in [self.slices[int(i)]]})
         if not self.sharded:
             self.optimizer.load_state_dict(state)
             return
@@ -259,12 +351,16 @@ class TrainOptimizer:
         ``count``, the open window's ``micro_step`` and, when one is open,
         its summed gradients by parameter name (``acc_grads``; under a
         process group as :meth:`average_window_` left them)."""
+        from ..parallel.sharding_rules import unshard
+
         state = dict(self._torch_state_dict(), count=self.count,
                      micro_step=self.micro_step)
         if self.micro_step:
-            state["acc_grads"] = {n: p.grad for n, p in
-                                  zip(self.names, self.params)
-                                  if p.grad is not None}
+            state["acc_grads"] = {
+                n: p.grad if spec is None else unshard(p.grad, spec,
+                                                       self.mesh)
+                for n, p, spec in zip(self.names, self.params, self.slices)
+                if p.grad is not None}
         return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -289,8 +385,13 @@ class TrainOptimizer:
         if unknown:
             raise KeyError(f"gradients of unknown parameters: "
                            f"{sorted(unknown)[:5]}")
+        slices = dict(zip(self.names, self.slices))
         for name, p in by_name.items():
             g = grads.get(name)
+            spec = slices[name]
+            if g is not None and spec is not None:
+                g = spec.take(torch.as_tensor(g), self.mesh.model,
+                              self.mesh.model_rank)
             if g is not None and tuple(g.shape) != tuple(p.shape):
                 raise ValueError(f"the gradient of {name} has shape "
                                  f"{tuple(g.shape)}, not {tuple(p.shape)}")
@@ -387,12 +488,13 @@ def build_optimizer(config: Dict[str, Any], model: torch.nn.Module,
     lr0 = schedule(0)
     params = [p for g in groups for p in g["params"]]
     owners = None
-    world = pdist.get_world_size()
+    world = pdist.data_size()
     if (config.get("parallel") or {}).get("shard_optimizer") and world > 1:
-        # ZeRO-1: this rank's optimizer over the parameters it owns
+        # ZeRO-1: this rank's optimizer over the parameters it owns among
+        # those of its data group
         owners = balanced_owners([p.numel() for p in params], world)
         mine = {id(p) for p, r in zip(params, owners)
-                if r == pdist.get_rank()}
+                if r == pdist.data_rank()}
         local = [dict(g, params=[p for p in g["params"] if id(p) in mine])
                  for g in groups]
     else:

@@ -109,6 +109,9 @@ def check_backward(q, k, v, dout, scale):
     # attention_impl: auto takes from N = 512)
     ((2, 3, 2048, 64), torch.float32),
     ((1, 3, 4096, 64), torch.float32),
+    # one of 3 model ranks' heads (parallel.model_parallel: 3)
+    ((16, 1, 101, 64), torch.float32),
+    ((16, 1, 101, 64), torch.bfloat16),
 ])
 def test_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = qkv(shape, dtype)
@@ -148,6 +151,21 @@ def test_strided_calls_equal_the_contiguous_ones(cuda, dtype):
                                           scale)
     for name, a, c in zip("qkv", grads, c_grads):
         assert torch.equal(a, c), f"d{name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_head_a_rank_as_the_vit_hands_it_over(cuda, dtype):
+    """A model rank's single head at model_parallel 3: q, k, v the
+    transposed chunks of its (B, N, 3·D) projection slice, the forward and
+    backward kernels against their plain versions."""
+    shape = (32, 1, 101, 64)
+    q, k, v = chunked_qkv(shape, dtype)
+    dout = qkv(shape, dtype, seed=1)[0]
+    before = fa.LAUNCHES, fa.BWD_LAUNCHES
+    check_forward(q, k, v, shape[-1] ** -0.5)
+    check_backward(q, k, v, dout, shape[-1] ** -0.5)
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -221,6 +239,9 @@ def test_vit_flash_matches_dense_on_the_card(cuda):
     ((1, 2, 1, 8), torch.float32),
     ((3, 1, 130, 128), torch.float32),
     ((2, 4, 257, 100), torch.float32),
+    # one of 3 model ranks' heads (parallel.model_parallel: 3)
+    ((16, 1, 101, 64), torch.float32),
+    ((16, 1, 101, 64), torch.bfloat16),
 ])
 def test_backward_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = qkv(shape, dtype)

@@ -20,7 +20,13 @@ same inputs, made from a seed with numpy:
   offline stitcher (atol 2e-6) and against the JAX segmenter;
 - ``infer-longrec`` on ``.npy`` and WFDB records and a directory, with
   ``--intervals``, ``--eval-labels`` and ``--model-fs``: ``probs.npy``
-  within 1e-5, ``intervals.csv`` and the delineation table equal.
+  within 1e-5, ``intervals.csv`` and the delineation table equal;
+- ``mesh=`` on two gloo ranks of ``tests/torch_dist_worker.py``: the
+  stitcher, ``long_record_inference`` and the streaming segmenter on
+  every rank against one process and against the JAX package's ``mesh=``
+  on a 2-device CPU mesh within 1e-5, each window run once, a rank that
+  sees only padding running none, and the stream count the data axis does
+  not divide refused in the JAX package's words.
 """
 
 import contextlib
@@ -47,6 +53,7 @@ from semi_seg_ecg_tpu_torch.cli import infer_longrec_main
 from semi_seg_ecg_tpu_torch.config import normalize_config
 from semi_seg_ecg_tpu_torch.data.synthetic import make_synthetic_wfdb
 from semi_seg_ecg_tpu_torch.ops import stitch
+from semi_seg_ecg_tpu_torch.parallel import mesh as pmesh
 
 C, LEADS, WINDOW = 3, 2, 32
 SIG = 250  # the small models' window: 1 s at 250 Hz
@@ -308,16 +315,14 @@ def test_serve_batched_is_the_jax_one(n):
 
 
 def test_unported_options_raise(models):
+    """``mesh=`` is ported (:func:`test_mesh_stitch_on_two_ranks`); what
+    still raises is a stream count the mesh's data axis does not divide,
+    in the JAX package's words."""
     infer = ConvInfer()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        stitch.overlap_add_infer(infer, record(0, 64), window=WINDOW,
-                                 mesh=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serving.StreamingSegmenter(infer, window=WINDOW, mesh=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serving.long_record_inference(
-            {"dataset": {"signal_length": WINDOW}}, record(0, 64),
-            infer=infer, mesh=object())
+    mesh = pmesh.Mesh(data=2, seq=1, model=1, data_rank=0, model_rank=0)
+    with pytest.raises(ValueError, match="must divide by the mesh's data"):
+        serving.StreamingSegmenter(infer, window=WINDOW, num_streams=3,
+                                   mesh=mesh)
     # int8 serving is ported (tests/test_torch_quant.py holds it against
     # the JAX package): the serving function runs the int8 model
     from semi_seg_ecg_tpu_torch.models.quant_layers import int8_modules
@@ -584,3 +589,110 @@ def test_cli_self_score_and_lead_mismatch(models, cli_records, tmp_path):
                               "--lead", "1", "--out-dir",
                               str(tmp_path / "e")])
     assert out["probs"].shape == (4, 3 * SIG)
+
+
+# ---------------------------------------------------------------------------
+# mesh=: the windows and the streams over two data ranks
+# ---------------------------------------------------------------------------
+
+MESH_CASES = [  # (seed, total, hop, batch)
+    (60, 9 * WINDOW + 11, 16, 2),
+    # 2 windows over 2 ranks x 2: rank 1 sees only padding
+    (61, WINDOW + 7, WINDOW // 2, 2),
+    (62, 5 * WINDOW, WINDOW // 4, 3),
+]
+MESH_STREAMS, MESH_STREAM_TOTAL = 4, WINDOW + 40
+LONG_CONFIG = {"dataset": {"signal_length": WINDOW,
+                           "transforms": ["standardize"]}}
+
+
+def jax_data_mesh(n=2):
+    from jax.sharding import Mesh
+
+    return Mesh(np.asarray(jax.devices()[:n]).reshape(n, 1, 1),
+                ("data", "seq", "model"))
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    """Two gloo ranks of ``tests/torch_dist_worker.py`` running
+    ``task_longrec`` on the cases, the long record and the streams."""
+    from tests.torch_dist_worker import run_ranks
+
+    cases = [(record(seed, total), WINDOW, hop, batch)
+             for seed, total, hop, batch in MESH_CASES]
+    ecgs = record(63, MESH_STREAMS * MESH_STREAM_TOTAL).reshape(
+        LEADS, MESH_STREAMS, MESH_STREAM_TOTAL).transpose(1, 0, 2).copy()
+    half = MESH_STREAM_TOTAL // 2
+    chunks = [ecgs[:, :, :half], ecgs[:, :, half:]]
+    results = run_ranks(
+        [("longrec", {"kernel": KERNEL, "cases": cases,
+                      "streams": (chunks, WINDOW, WINDOW // 2),
+                      "config": LONG_CONFIG})],
+        str(tmp_path_factory.mktemp("longrec_mesh")), timeout=120)
+    return cases, chunks, [r[0] for r in results]
+
+
+def test_mesh_stitch_on_two_ranks(mesh_ranks):
+    """``overlap_add_infer(mesh=)`` on two data ranks: every rank returns
+    the one-process record and the JAX package's ``mesh=`` record on a
+    2-device CPU mesh within 1e-5 (its test's addition-order bound); the
+    ranks' windows are each window once, and a rank that sees only
+    padding runs none."""
+    cases, _, ranks = mesh_ranks
+    for i, (ecg, window, hop, batch) in enumerate(cases):
+        want, want_labels = stitch.overlap_add_infer(
+            ConvInfer(), ecg, window=window, hop=hop, batch=batch)
+        theirs, _ = jax_stitch.overlap_add_infer(
+            jax_conv_infer, ecg, window=window, hop=hop, batch=batch,
+            mesh=jax_data_mesh())
+        for r, got in enumerate(ranks):
+            probs, labels = got["stitched"][i]
+            np.testing.assert_allclose(probs, want.numpy(), atol=1e-5,
+                                       err_msg=f"case {i} rank {r}")
+            np.testing.assert_allclose(probs, np.asarray(theirs), atol=1e-5,
+                                       err_msg=f"case {i} rank {r} JAX")
+            assert_labels_match(labels, want_labels.numpy(), want.numpy())
+        n_win = stitch.plan_windows(ecg.shape[1], window, hop, 1)[0]
+        calls = [got["calls"][i] for got in ranks]
+        assert sum(map(sum, calls)) == n_win, (i, calls)
+        assert all(b <= batch for c in calls for b in c)
+        if i == 1:
+            assert calls[1] == [], calls
+
+
+def test_mesh_long_record_inference(mesh_ranks):
+    cases, _, ranks = mesh_ranks
+    want = serving.long_record_inference(LONG_CONFIG, cases[0][0],
+                                         infer=ConvInfer())
+    for got in ranks:
+        np.testing.assert_allclose(got["long_record"]["probs"],
+                                   want["probs"], atol=1e-5)
+        assert_labels_match(got["long_record"]["labels"], want["labels"],
+                            want["probs"])
+
+
+def test_mesh_streams_on_two_ranks(mesh_ranks):
+    """``StreamingSegmenter(mesh=)``: each rank steps two of the four
+    streams, and every rank returns all four as one process and the JAX
+    package's ``mesh=`` segmenter do; three streams over two ranks raise
+    the JAX package's error."""
+    from semi_seg_ecg_tpu.serving import StreamingSegmenter as JaxSegmenter
+
+    _, chunks, ranks = mesh_ranks
+
+    def run(seg):
+        pushed = [seg.push(c) for c in chunks] + [seg.flush()]
+        return np.concatenate([np.asarray(p[0]) for p in pushed], axis=-1)
+
+    kwargs = dict(window=WINDOW, hop=WINDOW // 2, num_leads=LEADS,
+                  num_streams=MESH_STREAMS)
+    want = run(serving.StreamingSegmenter(ConvInfer(), **kwargs))
+    theirs = run(JaxSegmenter(jax_conv_infer, mesh=jax_data_mesh(),
+                              **kwargs))
+    assert want.shape == (MESH_STREAMS, C, MESH_STREAM_TOTAL)
+    for got in ranks:
+        np.testing.assert_allclose(got["streams"][0], want, atol=1e-5)
+        np.testing.assert_allclose(got["streams"][0], theirs, atol=1e-5)
+        assert got["uneven"] == ("num_streams (3) must divide by the mesh's "
+                                 "data axis (2)")

@@ -359,15 +359,15 @@ def test_nan_on_one_rank_stops_both(tmp_path):
 def test_host_shard_args_matches_jax(monkeypatch, num_shards, procs, index):
     monkeypatch.setattr(jax, "process_count", lambda: procs)
     monkeypatch.setattr(jax, "process_index", lambda: index)
-    monkeypatch.setattr(pmesh, "get_world_size", lambda: procs)
-    monkeypatch.setattr(pmesh, "get_rank", lambda: index)
+    monkeypatch.setattr(pdist, "get_world_size", lambda: procs)
+    monkeypatch.setattr(pdist, "get_rank", lambda: index)
     assert pmesh.host_shard_args(num_shards) == \
         jax_common._host_shard_args(num_shards)
 
 
 def test_host_shard_args_refuses_uneven_shards(monkeypatch):
     monkeypatch.setattr(jax, "process_count", lambda: 2)
-    monkeypatch.setattr(pmesh, "get_world_size", lambda: 2)
+    monkeypatch.setattr(pdist, "get_world_size", lambda: 2)
     for fn in (pmesh.host_shard_args, jax_common._host_shard_args):
         with pytest.raises(AssertionError, match="divide evenly"):
             fn(3)

@@ -402,20 +402,22 @@ def test_unported_algorithms_and_options_raise():
                      model.backbone.layer4[1].bn2.running_var.clone()))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
-    # what data-parallel training still refuses: the model and sequence
-    # axes (the long-record mesh= refusals: tests/test_torch_longrec.py)
+    # what multi-GPU training still refuses: the sequence axis, and int8
+    # serving under the model axis
     from semi_seg_ecg_tpu_torch.algorithms.common import _refuse_unported
 
     cfg = lockstep_config("xla", "base")
-    refused = [{"parallel": {"model_parallel": 2}},
-               {"parallel": {"seq_parallel": 2}}]
+    refused = [{"parallel": {"seq_parallel": 2}},
+               {"parallel": {"model_parallel": 2}, "quantize": "int8"}]
     for override in refused:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             _refuse_unported({**cfg, **override})
-    # ZeRO-1 (tests/test_torch_zero1.py) and the device cache
+    # the model axis (tests/test_torch_tensor_parallel.py), ZeRO-1
+    # (tests/test_torch_zero1.py) and the device cache
     # (tests/test_torch_device_cache.py) train; the reference's ddp
     # section trains
-    _refuse_unported({**cfg, "parallel": {"shard_optimizer": True},
+    _refuse_unported({**cfg, "parallel": {"shard_optimizer": True,
+                                          "model_parallel": 2},
                       "dataset": {**cfg["dataset"], "device_cache": True},
                       "ddp": {"world_size": 2, "distributed": True}})
 

@@ -29,6 +29,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -47,9 +48,10 @@ def to_numpy(obj):
 
 
 def rank_rows(a):
-    """This rank's rows of a global batch array."""
-    b = a.shape[0] // pdist.get_world_size()
-    r = pdist.get_rank()
+    """This rank's rows of a global batch array: its data rank's (the
+    model ranks of a data rank hold the same rows)."""
+    b = a.shape[0] // pdist.data_size()
+    r = pdist.data_rank()
     return a[r * b:(r + 1) * b]
 
 
@@ -121,10 +123,19 @@ def optimizer_report(opt):
 
 def task_steps(runs, device="cpu", optimizer_state=False):
     """For each run, ``Trainer.train_step`` on this rank's rows of each
-    global batch: per-step metrics (the mean over the ranks, as the
+    global batch: per-step metrics (the mean over the data ranks, as the
     training loop drains them) and kernel launches (flash forward,
-    backward, gather), and every network's final state; with
-    ``optimizer_state`` each optimizer's :func:`optimizer_report`."""
+    backward, gather), and every network's final state (gathered over the
+    model axis into the unsliced layout), with the names the model axis
+    slices and their local shapes (``sliced``); with ``optimizer_state``
+    each optimizer's :func:`optimizer_report`. A run with ``checkpoint``
+    has rank 0 write the trainer's checkpoint there (every rank gathers
+    it), as the training loop writes one."""
+    from semi_seg_ecg_tpu_torch.parallel.sharding_rules import (
+        full_state_dict,
+    )
+    from semi_seg_ecg_tpu_torch.utils.checkpoint import save_checkpoint
+
     from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
     from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, full_fp32
     from semi_seg_ecg_tpu_torch.models import build_model_from_config
@@ -158,11 +169,20 @@ def task_steps(runs, device="cpu", optimizer_state=False):
                                                        before)])
                 metrics.append({k: float(pdist.all_reduce_mean(v))
                                 for k, v in step.items()})
-        states = {role: module.state_dict() for role, module in
+        states = {role: full_state_dict(module) for role, module in
                   (("model", trainer.model), ("ema", trainer.teacher),
                    ("peer", trainer.peer)) if module is not None}
+        plan = getattr(trainer.model, "model_plan", {})
+        local = dict(trainer.model.named_parameters())
         result = {"metrics": metrics, "launches": launches,
-                  "states": states}
+                  "states": states,
+                  "sliced": {n: tuple(local[n].shape) for n in plan}}
+        if run.get("checkpoint"):
+            saved = trainer.checkpoint_state()
+            if pdist.is_main_process():
+                save_checkpoint(run["checkpoint"], 0, config=cfg,
+                                step=trainer.step, **saved)
+            pdist.barrier()
         if optimizer_state:
             result["optimizers"] = {
                 role: optimizer_report(opt) for role, opt in
@@ -292,12 +312,72 @@ def task_nan_abort(argv, rank):
     return train_main(argv)
 
 
+class KernelInfer:
+    """A fixed 1-D convolution's softmax, ``(B, leads, T) -> (B, C, T)``,
+    with the attributes the stitcher and the streaming segmenter read;
+    ``calls`` counts the windows each call takes."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, kernel):
+        self.kernel = torch.from_numpy(kernel)
+        self.num_classes = kernel.shape[0]
+        self.calls = []
+
+    def __call__(self, x):
+        import torch.nn.functional as F
+
+        self.calls.append(x.shape[0])
+        w = self.kernel[:, :x.shape[1]]
+        return torch.softmax(F.conv1d(x, w, padding=w.shape[-1] // 2), dim=1)
+
+
+def task_longrec(kernel, cases, streams, config):
+    """Long records on the data ranks of ``make_mesh()``: for each case
+    ``(record, window, hop, batch)``, ``overlap_add_infer(mesh=)``'s
+    probabilities and labels and the window counts of this rank's calls;
+    ``long_record_inference(mesh=)`` of the first record under
+    ``config``; the streaming segmenter on ``streams = (chunks, window,
+    hop)`` (each chunk ``(S, leads, n)``) with ``mesh=``, its pushes and
+    flush concatenated; the error of one stream too many for the mesh."""
+    from semi_seg_ecg_tpu_torch import serving
+    from semi_seg_ecg_tpu_torch.ops.stitch import overlap_add_infer
+    from semi_seg_ecg_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    out = {"stitched": [], "calls": []}
+    for ecg, window, hop, batch in cases:
+        infer = KernelInfer(kernel)
+        out["stitched"].append(overlap_add_infer(
+            infer, ecg, window=window, hop=hop, batch=batch, mesh=mesh))
+        out["calls"].append(infer.calls)
+    out["long_record"] = serving.long_record_inference(
+        config, cases[0][0], infer=KernelInfer(kernel), mesh=mesh)
+    chunks, window, hop = streams
+    seg = serving.StreamingSegmenter(
+        KernelInfer(kernel), window=window, hop=hop,
+        num_leads=chunks[0].shape[1], num_streams=chunks[0].shape[0],
+        mesh=mesh)
+    pushed = [seg.push(c) for c in chunks] + [seg.flush()]
+    out["streams"] = [np.concatenate([p[i] for p in pushed], axis=-1)
+                      for i in range(2)]
+    try:
+        serving.StreamingSegmenter(KernelInfer(kernel), window=window,
+                                   hop=hop, num_streams=mesh.data + 1,
+                                   mesh=mesh)
+        out["uneven"] = None
+    except ValueError as e:
+        out["uneven"] = str(e)
+    return out
+
+
 TASKS = {"batchnorm": task_batchnorm, "draws": task_draws,
          "steps": task_steps, "select_reliable": task_select_reliable,
          "evaluate": task_evaluate, "train_main": task_train_main,
          "run_training": task_run_training,
          "test_main": task_test_main,
-         "inference_main": task_inference_main, "nan_abort": task_nan_abort}
+         "inference_main": task_inference_main, "nan_abort": task_nan_abort,
+         "longrec": task_longrec}
 
 
 def _free_port():
