@@ -66,7 +66,7 @@ non-zero exit when it fails:
    when ``--eval-labels`` scores it against its own labels; 2 minutes on
    the card against the CPU; the single-cover identity (hop = window, flat
    taper); 8 live streams of 10 minutes through ``StreamingSegmenter``
-   against the offline stitcher; a 24-hour record per model with its
+   against the offline stitcher; a 6-hour record per model with its
    throughput, the filter chain's host time and peak device memory; a
    profile of one hour;
 9. the serving deployment: ``export_serving`` (``torch.export``, the flash
@@ -170,7 +170,26 @@ non-zero exit when it fails:
    ``StreamingSegmenter(mesh=)`` on the ``(2, 2)`` ranks (2 data ranks of
    2 model ranks, the serving model's MLP sliced), each against one
    process within 1e-5 (12 flash forwards a batch, half the batches a
-   data rank). The log's last phase-14 line splits its seconds.
+   data rank). The log's last phase-14 line splits its seconds;
+15. sequence parallelism (``parallel.seq_parallel``): (a) ring attention
+   through the flash kernels (``ops/ring_attention.py``, the seq ranks as
+   threads of this process) against the plain ring, forward and
+   gradients, at (16, 3, 101, 64) over 2 ranks and (2, 3, 2049, 64) over
+   2 and 4, in fp32 (``FWD_TOL_FP32``, ``BWD_TOL_FP32``) and bf16
+   (``ring_forward_error_bound``, ``ring_backward_error_bound``), and one
+   hop of each timed (kernel, plain, SDPA at the same query and key
+   counts, bound); then two rank groups at once on phase 10's layout
+   (gloo on one card, NCCL where the cards cover the ranks): (b) three
+   fp32 FixMatch steps of the full-width ViT (the ring) and ResNet18
+   with the head's dropout on, at ``(data 1, seq 2)`` and ``(2, 2)``,
+   against one process on the global batch within phase 10's bounds, the
+   ranks' states equal, 48 / 24 / 0 launches a ViT rank a step; (c)
+   ``train_main`` of the bf16 ViT recipe at ``(1, 2)`` (device
+   augmentation switched off as the JAX package does) with its exact
+   launches, its checkpoint served at fp32 on the ranks against one
+   process within 1e-4; (d) one fp32 base step of ResNet18 at 2^17
+   samples and of a vit_tiny of 2,049 tokens on a rank against one
+   process: activation memory, ms.
 
 ``python3 chip_smoke.py --tp-drift OUT`` is a diagnostic outside the run:
 phase 14's fp32 steps with the optimizer's sync of the replicated
@@ -359,10 +378,10 @@ POOL_SHAPE = (BATCH, 64, SIGNAL_LENGTH // 2)
 # phase 8: records at 250 Hz (the shipped recipes' rate) through the
 # long-record entry, windows of SIGNAL_LENGTH at 50% overlap, 64 a batch;
 # one hour, two minutes, eight live streams of ten minutes fed a second at
-# a time, and a 24-hour Holter record
+# a time, and a 6-hour Holter record
 FS = 250
 LONGREC_BATCH, LONGREC_HOP = 64, SIGNAL_LENGTH // 2
-HOUR_S, SHORT_S, STREAM_S, HOLTER_S = 3600, 120, 600, 24 * 3600
+HOUR_S, SHORT_S, STREAM_S, HOLTER_S = 3600, 120, 600, 6 * 3600
 STREAMS, STREAM_CHUNK = 8, FS
 # card against the CPU (the serving phases' bound); a stream against the
 # offline stitcher on the card (the same arithmetic at batch 8 and 64)
@@ -380,6 +399,9 @@ LONGREC_CPU_ATOL, STREAM_ATOL = 1e-4, 1e-5
 # 0.995 where the fp32 margin is above its median, relative norm below 0.1
 INT8_LAYER_RTOL = 1e-6
 INT8_AGREE, INT8_AGREE_CONFIDENT, INT8_REL_NORM = 0.9, 0.995, 0.1
+# the timed and traced calls of each of phase 9's 16 serving profiles (2
+# models x 4 forms x 2 batches), cut from 10 to keep the script's time
+SERVE_PROFILE_STEPS = 5
 
 
 def log(*args):
@@ -2268,7 +2290,7 @@ def phase_longrec(torch):
     phase-4 ViT FixMatch checkpoint with flash attention (fp32 and bf16
     autocast) and phase 5's ResNet18 (fp32) on a 1-hour record; card
     against CPU on 2 minutes; the single-cover identity; eight live
-    streams; a 24-hour Holter record per model, and a profile of 1 hour."""
+    streams; a 6-hour Holter record per model, and a profile of 1 hour."""
     from semi_seg_ecg_tpu_torch.config import load_config
 
     vit = (os.path.join(WORK, "vit_tiny_fixmatch.yaml"),
@@ -2319,11 +2341,12 @@ def phase_longrec(torch):
     single = check_single_cover(torch, *vit, short_path)
     streaming = check_streaming(torch, *vit)
 
-    holter_path, holter = save_record("holter_24h", HOLTER_S, 2)
+    holter_path, holter = save_record("holter", HOLTER_S, 2)
     t0 = time.perf_counter()
     filtered(load_config(resnet[0]), holter)
     filter_s = time.perf_counter() - t0
-    log(f"  24 h record: {holter.shape[-1]} samples; the filter chain "
+    log(f"  {HOLTER_S // 3600} h record: {holter.shape[-1]} samples; the "
+        f"filter chain "
         f"alone {filter_s:.3f} s on the host")
     for name, family, paths in (("vit_holter_fp32", "vit_tiny", vit),
                                 ("resnet_holter_fp32", "resnet18", resnet)):
@@ -2777,7 +2800,7 @@ def phase_deploy(torch, vit_model, resnet_model):
     for family, fns in serve_fns.items():
         for form, fn in fns.items():
             for n in (BATCH, 64):
-                m = profile_serving(torch, fn, n)
+                m = profile_serving(torch, fn, n, steps=SERVE_PROFILE_STEPS)
                 timings[f"{family}/{form}/{n}"] = m
                 log(f"  {family} {form} batch {n}: {m['wall_ms']:.3f} ms "
                     f"wall ({m['windows_per_s']:.1f} windows/s), busy "
@@ -3154,7 +3177,8 @@ RANK_TASKS = {"tp_drift": lambda torch, **kw: tp_drift(torch, **kw),
               "tp_profile": lambda torch, **kw: profile_train_step(
                   torch, precision="bf16", phase=14, **kw),
               "tp_infer": lambda torch, **kw: tp_infer(torch, **kw),
-              "tp_longrec": lambda torch, **kw: tp_longrec(torch, **kw)}
+              "tp_longrec": lambda torch, **kw: tp_longrec(torch, **kw),
+              "seq_long": lambda torch, **kw: seq_long(torch, **kw)}
 
 
 def rank_main(job, out_dir):
@@ -3190,7 +3214,13 @@ def dp_run_ranks(tasks, backend, phase=10, env=None, world=DP_WORLD):
     their environment), each task's results by rank; fails ``phase`` if a
     rank fails or the group outlives DP_TIMEOUT (then every process of it
     is killed)."""
-    work = os.path.join(WORK, "dp")
+    return finish_ranks(start_ranks(tasks, backend, env, world), phase)
+
+
+def start_ranks(tasks, backend, env=None, world=DP_WORLD, name="dp"):
+    """Start a rank group of ``world`` processes on ``tasks`` in
+    ``WORK/name`` (its own rendezvous port); :func:`finish_ranks` waits."""
+    work = os.path.join(WORK, name)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     job = os.path.join(work, "job.pkl")
@@ -3217,10 +3247,18 @@ def dp_run_ranks(tasks, backend, phase=10, env=None, world=DP_WORLD):
                 cmd, cwd=REPO, env={**os.environ, **(env or {}), **rank_env},
                 stdout=out,
                 stderr=subprocess.STDOUT, start_new_session=True))
-    deadline = time.monotonic() + DP_TIMEOUT
+    return {"work": work, "procs": procs, "world": world,
+            "deadline": time.monotonic() + DP_TIMEOUT}
+
+
+def finish_ranks(group, phase):
+    """Wait for a group of :func:`start_ranks` (every process is killed past
+    its DP_TIMEOUT); fails ``phase`` if a rank failed. Returns each task's
+    results by rank and the logs."""
+    work, procs, world = group["work"], group["procs"], group["world"]
     try:
         for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 0.01))
+            p.wait(timeout=max(group["deadline"] - time.monotonic(), 0.01))
     except subprocess.TimeoutExpired:
         pass
     finally:
@@ -3246,11 +3284,12 @@ def dp_run_ranks(tasks, backend, phase=10, env=None, world=DP_WORLD):
 
 
 def dp_check_steps(family, ranks, single, steps=DP_STEPS, phase=10,
-                   layout=None):
+                   layout=None, want_launches=None):
     """The ranks' ``steps`` steps against one process holding both shards:
-    losses, confident pixels, launches per step, the state; the ranks'
-    states equal. ``layout`` names the ranks' layout in the log."""
-    want_launches = launches_per_step(family, "fixmatch")
+    losses, confident pixels, launches per step (``want_launches``, else
+    one process's), the state; the ranks' states equal. ``layout`` names
+    the ranks' layout in the log."""
+    want_launches = want_launches or launches_per_step(family, "fixmatch")
     for r, got in enumerate(ranks):
         if got["launches"] != [want_launches] * steps:
             raise SystemExit(f"phase {phase} failed: {family} rank {r} "
@@ -5145,6 +5184,408 @@ def tp_check_recipe(torch, config_path, best, trained, served):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: sequence parallelism
+# ---------------------------------------------------------------------------
+
+# (b): the step comparison's (data, seq) layouts
+SEQ_LAYOUTS = ((1, 2), (2, 2))
+# (c): the recipe run and its serving
+SEQ_RECIPE_LAYOUT = (1, 2)
+# (a): (label, (B, H, N, D), seq ranks); each in fp32 and bf16
+SEQ_RING_CASES = [("ring_n101_s2", (16, 3, 101, 64), 2),
+                  ("ring_n2049_s2", (2, 3, 2049, 64), 2),
+                  ("ring_n2049_s4", (2, 3, 2049, 64), 4)]
+# (d): one fp32 base step on a long window, (batch, samples, patch):
+# ResNet18 at 2^17 samples, and vit_tiny at 51,200 (2,049 tokens)
+SEQ_LONG = {"resnet18": (4, 2 ** 17, None), "vit_tiny": (4, 51200, 25)}
+# (c): fp32 serving on the ranks against one process
+SEQ_SERVE_ATOL = 1e-4
+
+
+def hop_bound(b, h, nq, nkv, d, dtype, backward=False):
+    """One hop: q (and out, lse; dO and dq in the backward) of nq rows, k
+    and v (dk, dv) of nkv moved once, against 4 (10) · B·H·nq·nkv·D
+    flops."""
+    elem = 4 if dtype == "float32" else 2
+    rows = (4 * nq + 4 * nkv) if backward else (2 * nq + 2 * nkv)
+    return bound(rows * b * h * d * elem + b * h * nq * 4,
+                 (10 if backward else 4) * b * h * nq * nkv * d,
+                 FLASH_PEAK[dtype])
+
+
+def seq_ring_case(torch, gen, label, shape, size, dtype_name):
+    """(a): the kernel ring against the plain ring on one input (the seq
+    ranks as threads), forward and gradients; then one hop of rank 0 over
+    rank 1's padded chunk timed (kernel, plain, SDPA at the same nq and
+    n_kv, bound), forward and backward."""
+    import torch.nn.functional as F
+
+    from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
+    from semi_seg_ecg_tpu_torch.ops import ring_attention as ra
+    from semi_seg_ecg_tpu_torch.parallel.seq_shard import block, run_threads
+
+    dtype = getattr(torch, dtype_name)
+    b, h, n, d = shape
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda",
+                              dtype=dtype) for _ in range(4))
+    scale = d ** -0.5
+    blocks = [block(n, size, j) for j in range(size)]
+    counts = [hi - lo for lo, hi in blocks]
+
+    def ring(kernel):
+        def rank(comm):
+            lo, hi = blocks[comm.rank]
+            qi, ki, vi, gi = (t[:, :, lo:hi].contiguous()
+                              for t in (q, k, v, g))
+            out, lse = ra.ring_forward(qi, ki, vi, comm, scale, counts,
+                                       kernel)
+            return out, ra.ring_backward(qi, ki, vi, out, lse, gi, comm,
+                                         scale, counts, kernel)
+        res = run_threads(size, rank)
+        torch.cuda.synchronize()
+        return (torch.cat([r[0] for r in res], 2),
+                [torch.cat([r[1][i] for r in res], 2) for i in range(3)])
+
+    fwd0, bwd0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+    out, grads = ring(True)
+    launches = (fa.LAUNCHES - fwd0, fa.BWD_LAUNCHES - bwd0)
+    out_p, grads_p = ring(False)
+    if dtype_name == "float32":
+        tol_out = fa.forward_tolerance(q, k, v, scale, out_p)
+        tols = fa.backward_tolerance(q, k, v, out_p, None, g, scale, grads_p)
+    else:
+        ref_out, ref_lse = fa.flash_attention_plain(q, k, v, scale)
+        tol_out = ra.ring_forward_error_bound(q, k, v, scale)
+        tols = ra.ring_backward_error_bound(q, k, v, ref_out, ref_lse, g,
+                                            scale)
+    err_out, ratio_out = excess_over(out, out_p, tol_out)
+    errs, ratio_bwd = [], 0.0
+    for got, want, tol in zip(grads, grads_p, tols):
+        e, r = excess_over(got, want, tol)
+        errs.append(e)
+        ratio_bwd = max(ratio_bwd, r)
+    del tol_out, tols
+    ok = (math.isfinite(err_out) and ratio_out <= 1
+          and all(math.isfinite(e) for e in errs) and ratio_bwd <= 1)
+    # one hop: rank 0's queries over rank 1's chunk, padded to the longest
+    width = max(counts)
+    q0 = q[:, :, :counts[0]].contiguous()
+    kc, vc = (torch.nn.functional.pad(t[:, :, blocks[1][0]:blocks[1][1]],
+                                      (0, 0, 0, width - counts[1]))
+              for t in (k, v))
+    nkv = counts[1]
+    ks, vs = kc[:, :, :nkv], vc[:, :, :nkv]
+    long = n >= 1000
+    reps = 20 if long else 200
+    hop_out, hop_lse = fa.flash_attention_hop_forward(q0, kc, vc, scale, nkv)
+    dout = g[:, :, :counts[0]].contiguous()
+    fwd_ms = device_ms(torch, lambda: fa.flash_attention_hop_forward(
+        q0, kc, vc, scale, nkv), reps)
+    fwd_plain = device_ms(torch, lambda: fa.flash_attention_plain(
+        q0, ks, vs, scale), reps // 4)
+    fwd_sdpa = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q0, ks, vs, scale=scale), reps)
+    bwd_ms = device_ms(torch, lambda: fa.flash_attention_hop_backward(
+        q0, kc, vc, hop_out, hop_lse, dout, scale, nkv), reps)
+    bwd_plain = device_ms(torch, lambda: fa.flash_attention_backward_plain(
+        q0, ks, vs, hop_out, hop_lse, dout, scale), reps // 4)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q0, ks, vs))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    bwd_sdpa = device_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), dout, retain_graph=True), reps)
+    fwd_bound = hop_bound(b, h, counts[0], nkv, d, dtype_name)
+    bwd_bound = hop_bound(b, h, counts[0], nkv, d, dtype_name, True)
+    name = f"{label}_{'fp32' if dtype_name == 'float32' else 'bf16'}"
+    log(f"  (a) {name} {shape} over {size} ranks: kernel ring vs plain "
+        f"ring: out {err_out:.3g} ({ratio_out:.3g} of the tolerance), "
+        f"dq/dk/dv {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} "
+        f"({ratio_bwd:.3g}); launches {launches} (fwd, bwd) | hop "
+        f"(nq {counts[0]}, n_kv {nkv} of {width}): fwd kernel "
+        f"{fwd_ms:.4f} ms, plain {fwd_plain:.4f}, sdpa {fwd_sdpa:.4f}, "
+        f"bound {fwd_bound[0]:.5f} ({fwd_bound[1]}); bwd kernel "
+        f"{bwd_ms:.4f} ms, plain {bwd_plain:.4f}, sdpa {bwd_sdpa:.4f}, "
+        f"bound {bwd_bound[0]:.5f} ({bwd_bound[1]})")
+    if not ok:
+        raise SystemExit(f"phase 15 failed: {name}: the kernel ring "
+                         f"disagrees with the plain ring (out {ratio_out}, "
+                         f"gradients {ratio_bwd} of the tolerance)")
+    common = {"shape": f"hop_{name}", "bhnd": list(shape), "seq": size,
+              "nq": counts[0], "n_kv": nkv, "chunk": width,
+              "dtype": dtype_name, "tolerance": TOL_NAMES[dtype_name],
+              "bound_peak": FLASH_PEAK[dtype_name],
+              "ring_launches": launches}
+    return (dict(common, max_abs_err=err_out, max_tolerance_ratio=ratio_out,
+                 ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_sdpa,
+                 bound_ms=fwd_bound[0], bound_by=fwd_bound[1]),
+            dict(common, max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
+                 max_tolerance_ratio=ratio_bwd, ms=bwd_ms,
+                 plain_ms=bwd_plain, library_ms=bwd_sdpa,
+                 bound_ms=bwd_bound[0], bound_by=bwd_bound[1]))
+
+
+def seq_step_config(family, layout, backend, head_dropout=0.1):
+    """Phase 10's step configuration with the head's dropout on, host
+    batches (no device augmentation) and the ``(data, seq)`` layout; the
+    ViT's attention ``auto`` (the ring) under seq, flash in one process."""
+    cfg = dp_step_config(family, backend)
+    cfg["dataset"]["device_augment"] = False
+    cfg["decode_head"]["FCNHead"]["dropout_ratio"] = head_dropout
+    if family == "vit_tiny":
+        cfg["backbone"]["vit_tiny"]["attention_impl"] = (
+            "auto" if layout[1] > 1 else "flash")
+    cfg["parallel"] = dict(cfg.get("parallel") or {},
+                           seq_parallel=layout[1])
+    return cfg
+
+
+def seq_batches(seed):
+    """DP_STEPS global batches of DP_WORLD x DP_ROWS rows with the strong
+    view made on the host."""
+    rng = np.random.default_rng(seed)
+    n = DP_WORLD * DP_ROWS
+    x = lambda: rng.standard_normal((n, 1, SIGNAL_LENGTH)).astype(np.float32)
+    return [{"ecg": x(), "target": rng.integers(0, 4, (n, SIGNAL_LENGTH)),
+             "ecg_u_w": x(), "ecg_u_s": x()} for _ in range(DP_STEPS)]
+
+
+def seq_launches(family, size, steps=1):
+    """A seq rank's launches in ``steps`` FixMatch steps: each attention
+    of the eval and the student forward a hop per seq rank, each backward
+    too; no gather (the augmentation runs on the host under seq)."""
+    depth = DEPTH if family == "vit_tiny" else 0
+    fwd, bwd = RECIPE_PASSES["fixmatch"]
+    return {"flash_attention_fwd": steps * fwd * depth * size,
+            "flash_attention_bwd": steps * bwd * depth * size,
+            "gather1d": 0}
+
+
+def seq_recipe_config(backend):
+    """Phase 4's FixMatch recipe (bf16, device augmentation asked for, 2
+    epochs of 4 steps) at SEQ_RECIPE_LAYOUT with ``auto`` attention."""
+    _, config = write_train_config("vit_tiny", "fixmatch")
+    config["backbone"]["vit_tiny"]["attention_impl"] = "auto"
+    config["exp_name"] = "seq_vit_tiny_fixmatch"
+    config["ddp"] = {"dist_backend": backend}
+    config["parallel"] = {"seq_parallel": SEQ_RECIPE_LAYOUT[1]}
+    path = os.path.join(WORK, "seq_vit_tiny_fixmatch.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path, config
+
+
+def seq_recipe_launches():
+    """A seq rank's launches in the recipe's ``train_main``: its steps, an
+    eval batch per epoch and the test pass, each attention a hop per
+    rank."""
+    size = SEQ_RECIPE_LAYOUT[1]
+    steps = TRAIN_EPOCHS * TRAIN_LABELED // BATCH
+    want = seq_launches("vit_tiny", size, steps)
+    want["flash_attention_fwd"] += DEPTH * size * (
+        TRAIN_EPOCHS * math.ceil(TRAIN_VALID / BATCH)
+        + math.ceil(TRAIN_TEST / BATCH))
+    return want
+
+
+def seq_long_config(family, seq):
+    """(d): the family's scratch recipe at SEQ_LONG's length, fp32, dropout
+    off, ``auto`` attention (the ring under seq, flash in one process)."""
+    from semi_seg_ecg_tpu_torch.config import load_config, normalize_config
+
+    batch, length, patch = SEQ_LONG[family]
+    cfg = normalize_config(load_config(os.path.join(
+        REPO, "configs", "base", family, "scratch.yaml")))
+    cfg["precision"] = "fp32"
+    cfg["dataset"]["signal_length"] = length
+    cfg["decode_head"]["FCNHead"]["dropout_ratio"] = 0.0
+    if family == "vit_tiny":
+        cfg["backbone"]["vit_tiny"].update(seq_len=length, patch_size=patch,
+                                           attention_impl="auto")
+    cfg["parallel"] = {"seq_parallel": seq}
+    return cfg
+
+
+def seq_long(torch, families=tuple(SEQ_LONG)):
+    """(d): one fp32 base step a family on a long window (after a warm
+    step): peak memory above what the step starts with, and its ms."""
+    from semi_seg_ecg_tpu_torch.algorithms import base
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        Trainer,
+        full_fp32,
+        init_model,
+    )
+    from semi_seg_ecg_tpu_torch.parallel.dist import barrier, get_world_size
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for family in families:
+        cfg = seq_long_config(family, get_world_size())
+        batch, length, _ = SEQ_LONG[family]
+        rng = np.random.default_rng(15)
+        host = {"ecg": rng.standard_normal((batch, 1, length)).astype(
+                    np.float32),
+                "target": rng.integers(0, 4, (batch, length))}
+        with full_fp32():
+            trainer = Trainer(cfg, base.SPEC, device, 4,
+                              model=init_model(cfg, device))
+            on_card = {k: torch.from_numpy(v).to(device)
+                       for k, v in host.items()}
+            trainer.train_step(on_card)
+            barrier()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(on_card)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        out[family] = {"activation_mb": (torch.cuda.max_memory_allocated()
+                                         - before) / 2 ** 20,
+                       "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+                       "ms": ms, "loss": loss, "launches": read_counts()}
+        del trainer, on_card
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def seq_check_recipe(torch, config_path, best, trained, served):
+    """(c): the recipe's launches a rank, its checkpoint served on the
+    ranks (fp32) against one process within SEQ_SERVE_ATOL."""
+    want = seq_recipe_launches()
+    for r, got in enumerate(trained):
+        if got["launches"] != want:
+            raise SystemExit(f"phase 15 failed: the recipe's rank {r} "
+                             f"launched {got['launches']}, expected {want}")
+    # one process: the same config without the seq axis
+    with open(config_path) as f:
+        config = yaml.safe_load(f)
+    config["parallel"] = {}
+    one_path = os.path.join(WORK, "seq_vit_tiny_fixmatch_one.yaml")
+    with open(one_path, "w") as f:
+        yaml.safe_dump(config, f)
+    one = tp_infer(torch, one_path, best, "seq_one_process")
+    err = max(float(np.abs(s["probs"] - one["probs"]).max())
+              for s in served)
+    log(f"  (c) train_main at (data 1, seq {SEQ_RECIPE_LAYOUT[1]}), bf16: "
+        f"{want} launches a rank, test {trained[0]['test_metrics']}; served "
+        f"at fp32 on the ranks ({served[0]['launches']} a rank) against one "
+        f"process ({one['launches']}): max |diff| {err:.3g}")
+    if not err <= SEQ_SERVE_ATOL:
+        raise SystemExit(f"phase 15 failed: the ranks' serving is {err} "
+                         "off one process's")
+    return {"launches_per_rank": want, "served_max_abs_diff": err,
+            "serve_launches_per_rank": served[0]["launches"],
+            "one_process_launches": one["launches"],
+            "test_metrics": trained[0]["test_metrics"]}
+
+
+def phase_seq_parallel(torch):
+    """Phase 15: ``parallel.seq_parallel`` through the port's own path (the
+    time-split ResNet18, ViT and FCN head, ring attention on the flash
+    kernels)."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi().replace("\n", "; ")
+    log(f"phase 15: {torch.cuda.device_count()} card(s), {smi}")
+    spans = {}
+    # (a) on an idle card, before the ranks start
+    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    hops = {"flash_attention_fwd": [], "flash_attention_bwd": []}
+    with full_fp32():
+        for label, shape, size in SEQ_RING_CASES:
+            for dtype_name in ("float32", "bfloat16"):
+                f, b = seq_ring_case(torch, gen, label, shape, size,
+                                     dtype_name)
+                hops["flash_attention_fwd"].append(f)
+                hops["flash_attention_bwd"].append(b)
+    spans["ring"] = time.perf_counter() - t_phase
+    # the rank groups, both at once (the card is shared from here on)
+    batches = seq_batches(51)
+    recipe_path = best = None
+    groups = {}
+    for layout in SEQ_LAYOUTS:
+        world = layout[0] * layout[1]
+        backend, description = tp_layout(torch, world)
+        tasks = [("steps", {"config": seq_step_config(family, layout,
+                                                      backend),
+                            "batches": batches})
+                 for family in ("vit_tiny", "resnet18")]
+        if layout == SEQ_RECIPE_LAYOUT:
+            recipe_path, _ = seq_recipe_config(backend)
+            best = os.path.join(WORK, "exps", "seq_vit_tiny_fixmatch",
+                                "best-MeanIoU.ckpt")
+            tasks += [("train", {"config_path": recipe_path}),
+                      ("tp_infer", {"config_path": recipe_path,
+                                    "model_path": best,
+                                    "name": "seq_vit_tiny_fixmatch_served"}),
+                      ("seq_long", {})]
+        groups[layout] = (backend, description, start_ranks(
+            tasks, backend, world=world,
+            name=f"seq{layout[0]}x{layout[1]}"))
+    # one process on the global batch, while the ranks run
+    t0 = time.perf_counter()
+    single = {family: dp_steps(torch, seq_step_config(family, (1, 1),
+                                                      "gloo"),
+                               batches, slice(None))
+              for family in ("vit_tiny", "resnet18")}
+    one_long = seq_long(torch)
+    spans["one_process"] = time.perf_counter() - t0
+    result = {"nvidia_smi": smi, "spans": spans, "layouts": {},
+              "hops": hops}
+    for layout, (backend, description, group) in groups.items():
+        name = f"(data {layout[0]}, seq {layout[1]})"
+        key = f"{layout[0]}x{layout[1]}"
+        by_task, logs = finish_ranks(group, 15)
+        spans[key] = time.perf_counter() - t_phase
+        spans[f"{key}_tasks"] = rank_task_seconds(logs)
+        log(f"  {name}: {description}, done {spans[key]:.1f} s into the "
+            f"phase (rank 0's tasks {spans[f'{key}_tasks']})")
+        entry = {"backend": backend, "layout": description, "steps": {}}
+        for i, family in enumerate(("vit_tiny", "resnet18")):
+            entry["steps"][family] = dp_check_steps(
+                family, by_task[i], single[family], phase=15, layout=name,
+                want_launches=seq_launches(family, layout[1]))
+        if layout == SEQ_RECIPE_LAYOUT:
+            entry["recipe"] = seq_check_recipe(torch, recipe_path, best,
+                                               by_task[2], by_task[3])
+            # (d) a rank's long-window step against one process's
+            entry["long"] = {}
+            for family, one in one_long.items():
+                ranks = [r[family] for r in by_task[4]]
+                share = max(r["activation_mb"] for r in ranks) / one[
+                    "activation_mb"]
+                entry["long"][family] = {"ranks": ranks, "one_process": one,
+                                         "activation_share": share}
+                log(f"  (d) {family} {SEQ_LONG[family][:2]} fp32 base "
+                    f"step: a rank's activation peak "
+                    f"{[round(r['activation_mb'], 1) for r in ranks]} MiB "
+                    f"against one process's {one['activation_mb']:.1f} "
+                    f"({share:.3f}); peaks "
+                    f"{[round(r['peak_mb'], 1) for r in ranks]} / "
+                    f"{one['peak_mb']:.1f} MiB; step "
+                    f"{[round(r['ms'], 1) for r in ranks]} ms a rank "
+                    f"against {one['ms']:.1f} ms (the card shared with the "
+                    f"other rank group); launches {ranks[0]['launches']} / "
+                    f"{one['launches']}; loss {ranks[0]['loss']:.6f} / "
+                    f"{one['loss']:.6f}")
+                if not math.isfinite(ranks[0]["loss"]) or abs(
+                        ranks[0]["loss"] - one["loss"]) > 1e-4 * abs(
+                            one["loss"]):
+                    raise SystemExit(f"phase 15 failed: (d) {family}'s "
+                                     "loss under seq differs from one "
+                                     "process's")
+        result["layouts"][key] = entry
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 15 in {result['seconds']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in spans.items()
+                    if not isinstance(v, dict)))
+    return result
+
+
 def kernel_entry(name, rows, by_path):
     """A kernel's entry of the kernels line: ``launches`` on the main path
     (phase 4's vit_tiny FixMatch ``train_main``), ``launches_by_path`` on
@@ -5181,23 +5622,38 @@ def main():
     t_start = time.time()
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    build_s, hmma = phase_build()
-    rows, floor_ms = phase_kernels(torch)
-    slice_result = phase_slice(torch)
-    train_result = phase_train(torch)
-    resnet_result = phase_resnet(torch)
-    algorithm_results = phase_algorithms(torch)
-    reco_stpp = phase_reco_stpp(torch)
-    longrec = phase_longrec(torch)
-    deploy = phase_deploy(
+    phase_seconds = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        phase_seconds[phase] = time.time() - t0
+        log(f"phase {phase} took {phase_seconds[phase]:.1f} s "
+            f"({time.time() - t_start:.1f} s in all)")
+        return out
+
+    build_s, hmma = timed(1, phase_build)
+    rows, floor_ms = timed(2, phase_kernels, torch)
+    slice_result = timed(3, phase_slice, torch)
+    train_result = timed(4, phase_train, torch)
+    resnet_result = timed(5, phase_resnet, torch)
+    algorithm_results = timed(6, phase_algorithms, torch)
+    reco_stpp = timed(7, phase_reco_stpp, torch)
+    longrec = timed(8, phase_longrec, torch)
+    deploy = timed(
+        9, phase_deploy,
         torch, os.path.join(WORK, "exps", "vit_tiny_fixmatch",
                             "best-MeanIoU.ckpt"),
         os.path.join(WORK, "resnet18_seed0.pth"))
-    parallel = phase_parallel(torch)
-    remat = phase_remat(torch)
-    accum = phase_accum(torch)
-    zero_cache = phase_zero_cache(torch)
-    tensor_parallel = phase_tensor_parallel(torch)
+    parallel = timed(10, phase_parallel, torch)
+    remat = timed(11, phase_remat, torch)
+    accum = timed(12, phase_accum, torch)
+    zero_cache = timed(13, phase_zero_cache, torch)
+    tensor_parallel = timed(14, phase_tensor_parallel, torch)
+    seq_parallel = timed(15, phase_seq_parallel, torch)
+    # the ring's hops beside phase 2's rows
+    for name, hop_rows in seq_parallel["hops"].items():
+        rows[name] = rows[name] + hop_rows
     # each path's launches, counted from 0 just before it and read after
     by_path = {
         "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
@@ -5253,7 +5709,15 @@ def main():
         **{f"tp_longrec_hour_rank{r}": counts for r, counts in enumerate(
             tensor_parallel["longrec"]["launches_by_rank"])},
         "tp_longrec_streams_per_rank": tensor_parallel["longrec"][
-            "stream_launches_per_rank"]}
+            "stream_launches_per_rank"],
+        # phase 15: a seq rank's step at each (data, seq) layout, a rank's
+        # recipe run (the ring: a launch a hop)
+        **{f"seq_{family}_fixmatch_per_rank_step_{key}": entry["steps"][
+            family]["launches_per_rank_step"]
+           for key, entry in seq_parallel["layouts"].items()
+           for family in ("vit_tiny", "resnet18")},
+        "seq_vit_tiny_fixmatch_recipe_per_rank": seq_parallel["layouts"][
+            "1x2"]["recipe"]["launches_per_rank"]}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -5268,6 +5732,8 @@ def main():
                    "remat": remat, "accum": accum,
                    "zero_cache": zero_cache,
                    "tensor_parallel": tensor_parallel,
+                   "seq_parallel": seq_parallel,
+                   "phase_seconds": phase_seconds,
                    "seconds": time.time() - t_start}, f,
                   indent=1)
     log(f"done in {time.time() - t_start:.1f} s")

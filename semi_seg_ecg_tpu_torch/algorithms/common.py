@@ -97,8 +97,24 @@ BatchNorm statistics, ReCo's gathered rows and the evaluators' rows go
 over the data group. Checkpoints hold the unsliced layout, gathered over
 the model group on every rank before rank 0 writes; the test and
 inference entries, the per-epoch evaluation and ST++'s ranking run the
-model sliced the same way. ``seq_parallel`` above 1, ``quantize: int8``
-with ``model_parallel`` above 1 and ``checkpoint_backend: orbax`` are not
+model sliced the same way.
+
+``parallel.seq_parallel`` s > 1 adds the seq axis (``parallel/mesh.py``:
+rank ``r`` is data rank ``r // (s·m)``, seq rank ``(r // m) % s``). The seq
+ranks of one data rank load the same rows with the same draws; each step
+and each evaluation or serving batch then takes the rank's block of the
+time axis (``parallel/seq_shard.split_batch``, the JAX package's split
+rule) and runs inside ``seq_shard.time_sharded``: the model's time-axis
+ops exchange halos with the other seq ranks, the ViT's attention runs the
+ring, the losses and the evaluators' counts are global, the gradients are
+summed over seq and averaged over data, and ``run_test`` and
+``run_inference`` gather the time blocks of the probabilities whole. As
+in the JAX package, ``device_augment`` and ``device_cache`` are switched
+off under seq (on a copy of the config, with its log line). The
+checkpoint is unchanged: the parameters are replicated over seq and rank
+0 writes. ``seq_parallel`` with ``model_parallel`` above 1, with ReCo or
+ST++ or with ``quantize: int8``, ``quantize: int8`` with
+``model_parallel`` above 1 and ``checkpoint_backend: orbax`` are not
 ported yet and raise.
 """
 
@@ -133,6 +149,7 @@ from ..ops.metrics import (
 )
 from ..parallel import dist as pdist
 from ..parallel import mesh as pmesh
+from ..parallel import seq_shard
 from ..parallel.sharding_rules import full_state_dict, shard_module_
 from ..utils import checkpoint as ckpt
 from ..utils.logging import JsonlLogger, MetricLogger, TensorBoardWriter, log
@@ -287,9 +304,20 @@ def init_train_model(config: Dict[str, Any], device: torch.device,
 def _refuse_unported(config: Dict[str, Any]) -> None:
     parallel = config.get("parallel") or {}
     if (parallel.get("seq_parallel") or 1) > 1:
-        raise NotImplementedError(
-            "parallel.seq_parallel > 1 is not yet ported to the torch "
-            "package")
+        if (parallel.get("model_parallel") or 1) > 1:
+            raise NotImplementedError(
+                "parallel.seq_parallel > 1 with parallel.model_parallel > 1 "
+                "is not yet ported to the torch package (the JAX ring "
+                "shards its heads over the model axis)")
+        if config.get("algorithm") in ("reco", "stpp"):
+            raise NotImplementedError(
+                f"algorithm {config['algorithm']!r} under "
+                "parallel.seq_parallel > 1 is not yet ported to the torch "
+                "package")
+        if config.get("quantize") == "int8":
+            raise NotImplementedError(
+                "quantize: int8 with parallel.seq_parallel > 1 is not yet "
+                "ported to the torch package")
     if (parallel.get("model_parallel") or 1) > 1 and \
             config.get("quantize") == "int8":
         raise NotImplementedError(
@@ -302,6 +330,24 @@ def _refuse_unported(config: Dict[str, Any]) -> None:
             "yet ported to the torch package, which writes pickle .ckpt "
             "files (the JAX package reads them); an orbax checkpoint "
             "converts with `python tools/convert_checkpoint.py to-torch`")
+
+
+def seq_parallel_config(config: Dict[str, Any]) -> Dict[str, Any]:
+    """``config``, or under ``seq_parallel > 1`` a copy with
+    ``device_augment`` and ``device_cache`` off (the JAX package's
+    switch-off, with its log line; the caller's config is not changed)."""
+    if ((config.get("parallel") or {}).get("seq_parallel") or 1) <= 1 or \
+            not any(config["dataset"].get(k, False)
+                    for k in ("device_augment", "device_cache")):
+        return config
+    config = {**config, "dataset": dict(config["dataset"])}
+    for knob in ("device_augment", "device_cache"):
+        if config["dataset"].get(knob, False):
+            log(f"{knob} disabled: seq_parallel shards the time axis and "
+                "the fused augment path assumes data-only sharding — using "
+                "the host augmentation path", force=True)
+            config["dataset"][knob] = False
+    return config
 
 
 # ---------------------------------------------------------------------------
@@ -409,16 +455,26 @@ def prefetched(batches, device: torch.device) -> Iterator[Dict]:
 
 
 def eval_step(model: torch.nn.Module, x: torch.Tensor, labels: torch.Tensor,
-              num_classes: int) -> Dict[str, torch.Tensor]:
-    """Softmax probabilities, per-sample CE and per-class counts of one
-    batch, from an eval-mode forward (the caller sets mode and autocast)."""
-    logits = model(x)["seg_logits"].float()
-    probs = torch.softmax(logits, dim=1)
-    preds = torch.argmax(probs, dim=1)
-    inter, psum, tsum = segmentation_stats(preds, labels, num_classes)
-    loss = per_sample_cross_entropy(logits, labels)
-    return {"probs": probs, "loss": loss, "inter": inter, "psum": psum,
-            "tsum": tsum}
+              num_classes: int,
+              collect_outputs: bool = True) -> Dict[str, torch.Tensor]:
+    """Softmax probabilities (with ``collect_outputs``), per-sample CE and
+    per-class counts of one batch, from an eval-mode forward (the caller
+    sets mode and autocast). Under the seq axis each seq rank runs its
+    block of the time axis, the counts and CE are summed over the seq
+    ranks, and the probabilities gathered whole."""
+    batch, length = seq_shard.split_batch({"x": x, "labels": labels})
+    with seq_shard.time_sharded(length) as shard:
+        logits = model(batch["x"])["seg_logits"].float()
+        probs = torch.softmax(logits, dim=1)
+        preds = torch.argmax(probs, dim=1)
+        stats = segmentation_stats(preds, batch["labels"], num_classes)
+        inter, psum, tsum = (seq_shard.sum_counts(t) for t in stats)
+        loss = per_sample_cross_entropy(logits, batch["labels"])
+        out = {"loss": loss, "inter": inter, "psum": psum, "tsum": tsum}
+        if collect_outputs:
+            out["probs"] = probs if shard is None else seq_shard.gather_time(
+                probs, [b - a for a, b in shard.blocks(length)])
+    return out
 
 
 def evaluate(model: torch.nn.Module, loader, metric_fn, num_classes: int,
@@ -446,7 +502,7 @@ def evaluate(model: torch.nn.Module, loader, metric_fn, num_classes: int,
         with torch.no_grad(), amp():
             for step, batch in enumerate(prefetched(loader, device)):
                 out = eval_step(model, batch["ecg"], batch["target"],
-                                num_classes)
+                                num_classes, collect_outputs)
                 out = {k: v.cpu().numpy() for k, v in out.items()}
                 flat = mat[step].reshape(-1)
                 loss_ps[flat] = out["loss"]
@@ -550,6 +606,10 @@ class Trainer:
             if plan.augment is not None:
                 self.augment = plan.augment
                 self.augment_gen = torch.Generator(device=device)
+        if self.mesh.seq > 1:
+            log(f"seq_parallel: {self.mesh.seq} seq ranks x "
+                f"{self.mesh.data} data ranks; time axes split where they "
+                "divide")
         self.step = 0
         self.last_checkpoint = None  # the last checkpoint file written
         self.resume_best = ckpt.maybe_resume(config, self)
@@ -623,7 +683,10 @@ class Trainer:
             self.augment_gen.manual_seed(step_seed(
                 self.seed + AUGMENT_SEED_OFFSET, self.step))
             batch = self.augment(self.augment_gen, batch)
-        metrics = self.inner_step(batch)
+        # under the seq axis, this seq rank's block of the time axis
+        batch, length = seq_shard.split_batch(batch)
+        with seq_shard.time_sharded(length):
+            metrics = self.inner_step(batch)
         self.step += 1
         return metrics
 
@@ -643,6 +706,7 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
     pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
     _refuse_unported(config)
     pmesh.make_mesh(config)
+    config = seq_parallel_config(config)
     device = resolve_device(config)
     main = pdist.is_main_process()
     log(f"job dir: {os.getcwd()}")
@@ -959,7 +1023,8 @@ def run_inference(config: Dict[str, Any]) -> np.ndarray:
     try:
         for step, batch in enumerate(loader):
             x = torch.from_numpy(batch["ecg"]).to(infer.device)
-            probs = infer(x).cpu().numpy()
+            # under the seq axis: this rank's block, gathered whole
+            probs = seq_shard.sharded_call(infer, x).cpu().numpy()
             if outputs is None:
                 outputs = np.zeros((len(ds_test),) + probs.shape[1:],
                                    np.float32)

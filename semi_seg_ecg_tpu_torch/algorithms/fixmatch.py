@@ -3,7 +3,8 @@
 confidence from an eval-mode, gradient-free forward on the weak view; the
 student trains on ``cat(labeled, strong)`` in one forward; the
 unsupervised CE is masked by ``confidence >= conf_thresh``; the loss is
-``(loss_x + loss_u_s) / 2`` and ``mask_ratio`` is logged.
+``(loss_x + loss_u_s) / 2`` and ``mask_ratio`` is logged (over the
+global time axis when it is split: ``parallel/seq_shard.py``).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.losses import cross_entropy
+from ..parallel import seq_shard
 from .base import aux_loss_weights
 from .common import AlgorithmSpec, forward_parts, run_test, run_training
 
@@ -53,7 +55,7 @@ def make_train_step(trainer):
         loss = loss.detach()
         return {"loss_total": loss, "loss_x": loss_x.detach(),
                 "loss_u_s": loss_u_s.detach(),
-                "mask_ratio": conf_mask.mean(),
+                "mask_ratio": seq_shard.global_mean(conf_mask),
                 # the NaN abort keys on 'loss'
                 "loss": loss}
 

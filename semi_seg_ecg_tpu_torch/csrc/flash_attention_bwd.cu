@@ -10,8 +10,10 @@
 //   dV = Pᵀ dO,  dP = dO Vᵀ,  dS = P ⊙ (dP − Δ)
 //   dQ = dS K · scale,  dK = dSᵀ Q · scale
 //
-// without the (N, N) matrices in device memory. Rows and keys >= N are
-// masked (P = 0 there, as `_bwd_kernel` masks with `row_valid` and
+// without the (N, N) matrices in device memory. Queries and keys have
+// their own counts, nq and nkv (a ring attention's hop: this rank's queries
+// against a visiting chunk of keys, with the merged out and lse of the whole
+// ring). Rows >= nq and keys >= nkv are masked (P = 0 there, as `_bwd_kernel` masks with `row_valid` and
 // `col < n_valid`). Operands are (B, H, N, D) in any layout with unit stride
 // along D (the strides of B, H, N are arguments; the wrapper allocates dq,
 // dk, dv as (B, N, H, D) memory, the layout the ViT's qkv projection takes
@@ -170,7 +172,7 @@ template <int DMAX>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dq_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
                  const float* __restrict__ lse, float* __restrict__ delta,
-                 Tensor4 dq, int heads, int n, int d, float scale,
+                 Tensor4 dq, int heads, int nq, int nkv, int d, float scale,
                  bool vec16) {
   constexpr int LD = DMAX + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -194,25 +196,25 @@ flash_bwd_dq_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
   const bf16* oh = static_cast<const bf16*>(o.ptr) + head_offset(o, bh, heads);
   const bf16* doh =
       static_cast<const bf16*>(dout.ptr) + head_offset(dout, bh, heads);
-  const int num_kb = (n + BLOCK - 1) / BLOCK;
+  const int num_kb = (nkv + BLOCK - 1) / BLOCK;
 
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(qs, qh, q.sn, q0, n, d, vec16);
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(dos, doh, dout.sn, q0, n, d,
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(qs, qh, q.sn, q0, nq, d, vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(dos, doh, dout.sn, q0, nq, d,
                                                  vec16);
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(os, oh, o.sn, q0, n, d,
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(os, oh, o.sn, q0, nq, d,
                                                  vec16);
   for (int kb = 0; kb < 2; ++kb) {
     if (kb < num_kb) {
       flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
-          ks + kb * BLOCK * LD, kh, k.sn, kb * BLOCK, n, d, vec16);
+          ks + kb * BLOCK * LD, kh, k.sn, kb * BLOCK, nkv, d, vec16);
       flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
-          vs + kb * BLOCK * LD, vh, v.sn, kb * BLOCK, n, d, vec16);
+          vs + kb * BLOCK * LD, vh, v.sn, kb * BLOCK, nkv, d, vec16);
     }
     flash::cp_async_commit();
   }
 
   if (tid < BLOCK)
-    lse_s[tid] = q0 + tid < n ? lse[(size_t)bh * n + q0 + tid] * LOG2E : 0.f;
+    lse_s[tid] = q0 + tid < nq ? lse[(size_t)bh * nq + q0 + tid] * LOG2E : 0.f;
   flash::cp_async_wait<1>();
   __syncthreads();
 
@@ -234,18 +236,18 @@ flash_bwd_dq_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     if ((tid & 1) == 0) {
       delta_s[r] = sum;
-      if (q0 + r < n) delta[(size_t)bh * n + q0 + r] = sum;
+      if (q0 + r < nq) delta[(size_t)bh * nq + q0 + r] = sum;
     }
     __syncwarp();
   }
 
-  const bool live = q0 + wrow < n;
+  const bool live = q0 + wrow < nq;
   float lse2[2], dlt[2];
   bool row_ok[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = wrow + g + 8 * i;
-    row_ok[i] = q0 + r < n;
+    row_ok[i] = q0 + r < nq;
     lse2[i] = lse_s[r];
     dlt[i] = delta_s[r];
   }
@@ -272,7 +274,7 @@ flash_bwd_dq_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1;
-          const bool ok = row_ok[i] && k0 + 8 * j + 2 * t + (e & 1) < n;
+          const bool ok = row_ok[i] && k0 + 8 * j + 2 * t + (e & 1) < nkv;
           const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[i]) : 0.f;
           dp[j][e] = p * (dp[j][e] - dlt[i]);
         }
@@ -282,10 +284,10 @@ flash_bwd_dq_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
     __syncthreads();  // every warp is done with this stage
     if (kb + 2 < num_kb) {
       flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
-          ks + (kb & 1) * BLOCK * LD, kh, k.sn, (kb + 2) * BLOCK, n, d,
+          ks + (kb & 1) * BLOCK * LD, kh, k.sn, (kb + 2) * BLOCK, nkv, d,
           vec16);
       flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
-          vs + (kb & 1) * BLOCK * LD, vh, v.sn, (kb + 2) * BLOCK, n, d,
+          vs + (kb & 1) * BLOCK * LD, vh, v.sn, (kb + 2) * BLOCK, nkv, d,
           vec16);
     }
     flash::cp_async_commit();
@@ -293,7 +295,7 @@ flash_bwd_dq_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
 
   if (!live) return;
   bf16* dqh = static_cast<bf16*>(dq.ptr) + head_offset(dq, bh, heads);
-  flash::store_rows<DMAX>(dqh, dq.sn, acc, q0 + wrow, n, d, scale, scale);
+  flash::store_rows<DMAX>(dqh, dq.sn, acc, q0 + wrow, nq, d, scale, scale);
 }
 
 // dK and dV for one 64-key tile of one (batch, head); reads the Δ that the
@@ -303,7 +305,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dkdv_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, Tensor4 dk, Tensor4 dv,
-                   int heads, int n, int d, float scale, bool vec16) {
+                   int heads, int nq, int nkv, int d, float scale,
+                   bool vec16) {
   constexpr int LD = DMAX + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BLOCK][LD]
@@ -324,19 +327,19 @@ flash_bwd_dkdv_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
   const bf16* vh = static_cast<const bf16*>(v.ptr) + head_offset(v, bh, heads);
   const bf16* doh =
       static_cast<const bf16*>(dout.ptr) + head_offset(dout, bh, heads);
-  const float* lh = lse + (size_t)bh * n;
-  const float* dh = delta + (size_t)bh * n;
-  const int num_qb = (n + BLOCK - 1) / BLOCK;
+  const float* lh = lse + (size_t)bh * nq;
+  const float* dh = delta + (size_t)bh * nq;
+  const int num_qb = (nq + BLOCK - 1) / BLOCK;
 
   auto load_q_tile = [&](int qb) {
     const int stage = qb & 1;
     flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
-        qs + stage * BLOCK * LD, qh, q.sn, qb * BLOCK, n, d, vec16);
+        qs + stage * BLOCK * LD, qh, q.sn, qb * BLOCK, nq, d, vec16);
     flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
-        dos + stage * BLOCK * LD, doh, dout.sn, qb * BLOCK, n, d, vec16);
+        dos + stage * BLOCK * LD, doh, dout.sn, qb * BLOCK, nq, d, vec16);
     if (tid < BLOCK) {
       const int row = qb * BLOCK + tid;
-      const bool ok = row < n;
+      const bool ok = row < nq;
       flash::cp_async4(lse_s + stage * BLOCK + tid, ok ? lh + row : lh,
                        ok ? 4 : 0);
       flash::cp_async4(delta_s + stage * BLOCK + tid, ok ? dh + row : dh,
@@ -344,17 +347,17 @@ flash_bwd_dkdv_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
     }
   };
 
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(ks, kh, k.sn, k0, n, d, vec16);
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(vs, vh, v.sn, k0, n, d, vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(ks, kh, k.sn, k0, nkv, d, vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(vs, vh, v.sn, k0, nkv, d, vec16);
   load_q_tile(0);
   flash::cp_async_commit();
   if (num_qb > 1) load_q_tile(1);
   flash::cp_async_commit();
 
-  const bool live = k0 + wrow < n;
+  const bool live = k0 + wrow < nkv;
   bool key_ok[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) key_ok[i] = k0 + wrow + g + 8 * i < n;
+  for (int i = 0; i < 2; ++i) key_ok[i] = k0 + wrow + g + 8 * i < nkv;
   const float scale_log2 = scale * LOG2E;
   float acc_dk[DMAX / 8][4], acc_dv[DMAX / 8][4];
 #pragma unroll
@@ -383,7 +386,7 @@ flash_bwd_dkdv_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = 8 * j + 2 * t + (e & 1);
-          const bool ok = key_ok[e >> 1] && q0 + c < n;
+          const bool ok = key_ok[e >> 1] && q0 + c < nq;
           const float p =
               ok ? exp2f(s[j][e] * scale_log2 - lse_t[c] * LOG2E) : 0.f;
           s[j][e] = p;
@@ -401,8 +404,8 @@ flash_bwd_dkdv_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
   if (!live) return;
   bf16* dkh = static_cast<bf16*>(dk.ptr) + head_offset(dk, bh, heads);
   bf16* dvh = static_cast<bf16*>(dv.ptr) + head_offset(dv, bh, heads);
-  flash::store_rows<DMAX>(dkh, dk.sn, acc_dk, k0 + wrow, n, d, scale, scale);
-  flash::store_rows<DMAX>(dvh, dv.sn, acc_dv, k0 + wrow, n, d, 1.f, 1.f);
+  flash::store_rows<DMAX>(dkh, dk.sn, acc_dk, k0 + wrow, nkv, d, scale, scale);
+  flash::store_rows<DMAX>(dvh, dv.sn, acc_dv, k0 + wrow, nkv, d, 1.f, 1.f);
 }
 
 template <int DMAX>
@@ -410,7 +413,7 @@ cudaError_t launch_mma(const Tensor4& q, const Tensor4& k, const Tensor4& v,
                        const Tensor4& o, const Tensor4& dout,
                        const float* lse, float* delta, const Tensor4& dq,
                        const Tensor4& dk, const Tensor4& dv, int bh,
-                       int heads, int n, int d, float scale,
+                       int heads, int nq, int nkv, int d, float scale,
                        cudaStream_t stream) {
   // the attributes belong to the current device, so they are set on every
   // launch rather than cached once per process
@@ -429,13 +432,16 @@ cudaError_t launch_mma(const Tensor4& q, const Tensor4& k, const Tensor4& v,
   bool vec16 = true;
   for (const Tensor4* t : {&q, &k, &v, &o, &dout})
     vec16 = vec16 && flash::aligned_to(*t, 2, 16);
-  const dim3 grid((n + BLOCK - 1) / BLOCK, bh);
-  flash_bwd_dq_mma<DMAX><<<grid, MMA_THREADS, smem_dq, stream>>>(
-      q, k, v, o, dout, lse, delta, dq, heads, n, d, scale, vec16);
+  // dQ: one CTA per 64-query tile; dK/dV: one per 64-key tile
+  const dim3 grid_q((nq + BLOCK - 1) / BLOCK, bh);
+  const dim3 grid_k((nkv + BLOCK - 1) / BLOCK, bh);
+  flash_bwd_dq_mma<DMAX><<<grid_q, MMA_THREADS, smem_dq, stream>>>(
+      q, k, v, o, dout, lse, delta, dq, heads, nq, nkv, d, scale, vec16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_mma<DMAX><<<grid, MMA_THREADS, smem_dkdv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, heads, n, d, scale, vec16);
+  flash_bwd_dkdv_mma<DMAX><<<grid_k, MMA_THREADS, smem_dkdv,
+                                          stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, heads, nq, nkv, d, scale, vec16);
   return cudaGetLastError();
 }
 
@@ -455,7 +461,7 @@ template <int DMAX>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dq_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
-                  Tensor4 dq, int heads, int n, int d, float scale,
+                  Tensor4 dq, int heads, int nq, int nkv, int d, float scale,
                   bool vec16) {
   constexpr int LD = DMAX + 4;  // padded row, in floats (4 modulo 32)
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -481,19 +487,19 @@ flash_bwd_dq_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
   const float* oh = static_cast<const float*>(o.ptr) + head_offset(o, bh, heads);
   const float* doh =
       static_cast<const float*>(dout.ptr) + head_offset(dout, bh, heads);
-  const int num_kb = (n + BLOCK - 1) / BLOCK;
+  const int num_kb = (nkv + BLOCK - 1) / BLOCK;
 
   // group 0: q, dO, O and K/V tile 0
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(qs, qh, q.sn, q0, n, d, vec16);
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(dos, doh, dout.sn, q0, n, d,
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(qs, qh, q.sn, q0, nq, d, vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(dos, doh, dout.sn, q0, nq, d,
                                                  vec16);
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(os, oh, o.sn, q0, n, d,
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(os, oh, o.sn, q0, nq, d,
                                                  vec16);
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(ks, kh, k.sn, 0, n, d, vec16);
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(vs, vh, v.sn, 0, n, d, vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(ks, kh, k.sn, 0, nkv, d, vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(vs, vh, v.sn, 0, nkv, d, vec16);
   flash::cp_async_commit();
   if (tid < BLOCK)
-    lse_s[tid] = q0 + tid < n ? lse[(size_t)bh * n + q0 + tid] * LOG2E : 0.f;
+    lse_s[tid] = q0 + tid < nq ? lse[(size_t)bh * nq + q0 + tid] * LOG2E : 0.f;
   flash::cp_async_wait<0>();
   __syncthreads();
 
@@ -508,26 +514,26 @@ flash_bwd_dq_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     if ((tid & 1) == 0) {
       delta_s[r] = sum;
-      if (q0 + r < n) delta[(size_t)bh * n + q0 + r] = sum;
+      if (q0 + r < nq) delta[(size_t)bh * nq + q0 + r] = sum;
     }
   }
   __syncthreads();  // O is read and Δ is in shared memory
   // group 1: K/V tile 1 (maybe empty), over O
   if (num_kb > 1) {
     flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(ks + BLOCK * LD, kh, k.sn,
-                                                   BLOCK, n, d, vec16);
+                                                   BLOCK, nkv, d, vec16);
     flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(vs + BLOCK * LD, vh, v.sn,
-                                                   BLOCK, n, d, vec16);
+                                                   BLOCK, nkv, d, vec16);
   }
   flash::cp_async_commit();
 
-  const bool live = q0 + wrow < n;
+  const bool live = q0 + wrow < nq;
   float lse2[2], dlt[2];
   bool row_ok[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = wrow + g + 8 * i;
-    row_ok[i] = q0 + r < n;
+    row_ok[i] = q0 + r < nq;
     lse2[i] = lse_s[r];
     dlt[i] = delta_s[r];
   }
@@ -555,7 +561,7 @@ flash_bwd_dq_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1;
-          const bool ok = row_ok[i] && k0 + 8 * j + 2 * t + (e & 1) < n;
+          const bool ok = row_ok[i] && k0 + 8 * j + 2 * t + (e & 1) < nkv;
           const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[i]) : 0.f;
           dp[j][e] = p * (dp[j][e] - dlt[i]);
         }
@@ -565,10 +571,10 @@ flash_bwd_dq_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
     __syncthreads();  // every warp is done with this stage
     if (kb + 2 < num_kb) {
       flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
-          ks + (kb & 1) * BLOCK * LD, kh, k.sn, (kb + 2) * BLOCK, n, d,
+          ks + (kb & 1) * BLOCK * LD, kh, k.sn, (kb + 2) * BLOCK, nkv, d,
           vec16);
       flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
-          vs + (kb & 1) * BLOCK * LD, vh, v.sn, (kb + 2) * BLOCK, n, d,
+          vs + (kb & 1) * BLOCK * LD, vh, v.sn, (kb + 2) * BLOCK, nkv, d,
           vec16);
     }
     flash::cp_async_commit();
@@ -576,7 +582,7 @@ flash_bwd_dq_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o, Tensor4 dout,
 
   if (!live) return;
   float* dqh = static_cast<float*>(dq.ptr) + head_offset(dq, bh, heads);
-  flash::store_rows<DMAX>(dqh, dq.sn, acc, q0 + wrow, n, d, scale, scale);
+  flash::store_rows<DMAX>(dqh, dq.sn, acc, q0 + wrow, nq, d, scale, scale);
 }
 
 // dK and dV for one 64-key tile of one (batch, head); reads the Δ that the
@@ -586,7 +592,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dkdv_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, Tensor4 dk, Tensor4 dv,
-                    int heads, int n, int d, float scale, bool vec16) {
+                    int heads, int nq, int nkv, int d, float scale,
+                   bool vec16) {
   constexpr int LD = DMAX + 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);  // [BLOCK][LD]
@@ -607,19 +614,19 @@ flash_bwd_dkdv_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
   const float* vh = static_cast<const float*>(v.ptr) + head_offset(v, bh, heads);
   const float* doh =
       static_cast<const float*>(dout.ptr) + head_offset(dout, bh, heads);
-  const float* lh = lse + (size_t)bh * n;
-  const float* dh = delta + (size_t)bh * n;
-  const int num_qb = (n + BLOCK - 1) / BLOCK;
+  const float* lh = lse + (size_t)bh * nq;
+  const float* dh = delta + (size_t)bh * nq;
+  const int num_qb = (nq + BLOCK - 1) / BLOCK;
 
   auto load_q_tile = [&](int qb) {
     const int stage = qb & 1;
     flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
-        qs + stage * BLOCK * LD, qh, q.sn, qb * BLOCK, n, d, vec16);
+        qs + stage * BLOCK * LD, qh, q.sn, qb * BLOCK, nq, d, vec16);
     flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(
-        dos + stage * BLOCK * LD, doh, dout.sn, qb * BLOCK, n, d, vec16);
+        dos + stage * BLOCK * LD, doh, dout.sn, qb * BLOCK, nq, d, vec16);
     if (tid < BLOCK) {
       const int row = qb * BLOCK + tid;
-      const bool ok = row < n;
+      const bool ok = row < nq;
       flash::cp_async4(lse_s + stage * BLOCK + tid, ok ? lh + row : lh,
                        ok ? 4 : 0);
       flash::cp_async4(delta_s + stage * BLOCK + tid, ok ? dh + row : dh,
@@ -627,17 +634,17 @@ flash_bwd_dkdv_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
     }
   };
 
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(ks, kh, k.sn, k0, n, d, vec16);
-  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(vs, vh, v.sn, k0, n, d, vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(ks, kh, k.sn, k0, nkv, d, vec16);
+  flash::load_tile<BLOCK, DMAX, LD, MMA_THREADS>(vs, vh, v.sn, k0, nkv, d, vec16);
   load_q_tile(0);
   flash::cp_async_commit();
   if (num_qb > 1) load_q_tile(1);
   flash::cp_async_commit();
 
-  const bool live = k0 + wrow < n;
+  const bool live = k0 + wrow < nkv;
   bool key_ok[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) key_ok[i] = k0 + wrow + g + 8 * i < n;
+  for (int i = 0; i < 2; ++i) key_ok[i] = k0 + wrow + g + 8 * i < nkv;
   const float scale_log2 = scale * LOG2E;
   float acc_dk[DMAX / 8][4], acc_dv[DMAX / 8][4];
 #pragma unroll
@@ -667,7 +674,7 @@ flash_bwd_dkdv_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = 8 * j + 2 * t + (e & 1);
-          const bool ok = key_ok[e >> 1] && q0 + c < n;
+          const bool ok = key_ok[e >> 1] && q0 + c < nq;
           const float p =
               ok ? exp2f(s[j][e] * scale_log2 - lse_t[c] * LOG2E) : 0.f;
           s[j][e] = p;
@@ -685,8 +692,8 @@ flash_bwd_dkdv_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 dout,
   if (!live) return;
   float* dkh = static_cast<float*>(dk.ptr) + head_offset(dk, bh, heads);
   float* dvh = static_cast<float*>(dv.ptr) + head_offset(dv, bh, heads);
-  flash::store_rows<DMAX>(dkh, dk.sn, acc_dk, k0 + wrow, n, d, scale, scale);
-  flash::store_rows<DMAX>(dvh, dv.sn, acc_dv, k0 + wrow, n, d, 1.f, 1.f);
+  flash::store_rows<DMAX>(dkh, dk.sn, acc_dk, k0 + wrow, nkv, d, scale, scale);
+  flash::store_rows<DMAX>(dvh, dv.sn, acc_dv, k0 + wrow, nkv, d, 1.f, 1.f);
 }
 
 template <int DMAX>
@@ -694,7 +701,7 @@ cudaError_t launch_fp32(const Tensor4& q, const Tensor4& k, const Tensor4& v,
                         const Tensor4& o, const Tensor4& dout,
                         const float* lse, float* delta, const Tensor4& dq,
                         const Tensor4& dk, const Tensor4& dv, int bh,
-                        int heads, int n, int d, float scale,
+                        int heads, int nq, int nkv, int d, float scale,
                         cudaStream_t stream) {
   // dQ: q, dO and two stages of K and V (O lands in K's second stage);
   // lse and Δ. dK/dV: K, V and two stages of q and dO; two stages of lse
@@ -712,13 +719,16 @@ cudaError_t launch_fp32(const Tensor4& q, const Tensor4& k, const Tensor4& v,
   bool vec16 = true;
   for (const Tensor4* t : {&q, &k, &v, &o, &dout})
     vec16 = vec16 && flash::aligned_to(*t, 4, 16);
-  const dim3 grid((n + BLOCK - 1) / BLOCK, bh);
-  flash_bwd_dq_fp32<DMAX><<<grid, MMA_THREADS, smem_dq, stream>>>(
-      q, k, v, o, dout, lse, delta, dq, heads, n, d, scale, vec16);
+  // dQ: one CTA per 64-query tile; dK/dV: one per 64-key tile
+  const dim3 grid_q((nq + BLOCK - 1) / BLOCK, bh);
+  const dim3 grid_k((nkv + BLOCK - 1) / BLOCK, bh);
+  flash_bwd_dq_fp32<DMAX><<<grid_q, MMA_THREADS, smem_dq, stream>>>(
+      q, k, v, o, dout, lse, delta, dq, heads, nq, nkv, d, scale, vec16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_fp32<DMAX><<<grid, MMA_THREADS, smem_dkdv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, heads, n, d, scale, vec16);
+  flash_bwd_dkdv_fp32<DMAX><<<grid_k, MMA_THREADS, smem_dkdv,
+                                          stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, heads, nq, nkv, d, scale, vec16);
   return cudaGetLastError();
 }
 
@@ -726,20 +736,25 @@ cudaError_t launch_fp32(const Tensor4& q, const Tensor4& k, const Tensor4& v,
 
 // C interface for ctypes. Returns a cudaError_t (0 on success). q, k, v,
 // out, dout, dq, dk, dv are (batch, heads, n, d) descriptors with unit
-// stride along d; lse and delta are (batch·heads, n) fp32. dtype: 0 is fp32,
-// 1 is bf16 (a bf16 operand needs a 4-byte aligned base and even strides).
-// delta is scratch that the dQ kernel fills from out and dout, and the
-// dK/dV kernel reads. The caller allocates dq, dk, dv and delta.
+// stride along d: q, out, dout and dq hold nq rows, k, v, dk and dv nkv rows
+// (keys >= nkv are masked, and their dk, dv rows are not written); lse and
+// delta are (batch·heads, nq) fp32. out and lse may be those of a longer
+// softmax than this call's keys (a ring's merged output: Δ and P then come
+// from it, and dq, dk, dv are this hop's part). dtype: 0 is fp32, 1 is bf16
+// (a bf16 operand needs a 4-byte aligned base and even strides). delta is
+// scratch that the dQ kernel fills from out and dout, and the dK/dV kernel
+// reads. The caller allocates dq, dk, dv and delta.
 extern "C" int flash_attention_bwd(const Tensor4* q, const Tensor4* k,
                                    const Tensor4* v, const Tensor4* out,
                                    const Tensor4* dout, const void* lse,
                                    void* delta, const Tensor4* dq,
                                    const Tensor4* dk, const Tensor4* dv,
-                                   int batch, int heads, int n, int d,
-                                   float scale, int dtype, void* stream) {
+                                   int batch, int heads, int nq, int nkv,
+                                   int d, float scale, int dtype,
+                                   void* stream) {
   const long long bh = (long long)batch * heads;
-  if (batch <= 0 || heads <= 0 || bh > 65535 || n <= 0 || d <= 0 ||
-      d > 128 || (dtype != 0 && dtype != 1))
+  if (batch <= 0 || heads <= 0 || bh > 65535 || nq <= 0 || nkv <= 0 ||
+      d <= 0 || d > 128 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -747,16 +762,16 @@ extern "C" int flash_attention_bwd(const Tensor4* q, const Tensor4* k,
   if (dtype == 0) {
     return (int)(d <= 64
         ? launch_fp32<64>(*q, *k, *v, *out, *dout, l, dl, *dq, *dk, *dv,
-                          (int)bh, heads, n, d, scale, s)
+                          (int)bh, heads, nq, nkv, d, scale, s)
         : launch_fp32<128>(*q, *k, *v, *out, *dout, l, dl, *dq, *dk, *dv,
-                           (int)bh, heads, n, d, scale, s));
+                           (int)bh, heads, nq, nkv, d, scale, s));
   }
   for (const Tensor4* t : {q, k, v, out, dout, dq, dk, dv}) {
     if (!flash::aligned_to(*t, 2, 4)) return (int)cudaErrorMisalignedAddress;
   }
   return (int)(d <= 64
       ? launch_mma<64>(*q, *k, *v, *out, *dout, l, dl, *dq, *dk, *dv,
-                       (int)bh, heads, n, d, scale, s)
+                       (int)bh, heads, nq, nkv, d, scale, s)
       : launch_mma<128>(*q, *k, *v, *out, *dout, l, dl, *dq, *dk, *dv,
-                        (int)bh, heads, n, d, scale, s));
+                        (int)bh, heads, nq, nkv, d, scale, s));
 }

@@ -111,7 +111,7 @@ constexpr size_t mma_smem_bytes() {
 template <int DMAX>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
-              float* __restrict__ lse, int heads, int n, int d,
+              float* __restrict__ lse, int heads, int nq, int nkv, int d,
               float scale_log2, bool vec16) {
   constexpr int LD = DMAX + 8;    // padded row, in elements
   constexpr int KS = DMAX / 16;   // k-steps over the head dim
@@ -128,16 +128,16 @@ flash_fwd_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
   const bf16* qh = static_cast<const bf16*>(q.ptr) + head_offset(q, bh, heads);
   const bf16* kh = static_cast<const bf16*>(k.ptr) + head_offset(k, bh, heads);
   const bf16* vh = static_cast<const bf16*>(v.ptr) + head_offset(v, bh, heads);
-  const int num_kb = (n + BLOCK_N - 1) / BLOCK_N;
+  const int num_kb = (nkv + BLOCK_N - 1) / BLOCK_N;
 
   // group 0: the q tile and K/V tile 0; group 1: K/V tile 1 (maybe empty)
-  flash::load_tile<BM, DMAX, LD, MMA_THREADS>(qs, qh, q.sn, q0, n, d, vec16);
+  flash::load_tile<BM, DMAX, LD, MMA_THREADS>(qs, qh, q.sn, q0, nq, d, vec16);
   for (int kb = 0; kb < 2; ++kb) {
     if (kb < num_kb) {
       flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
-          ks + kb * BLOCK_N * LD, kh, k.sn, kb * BLOCK_N, n, d, vec16);
+          ks + kb * BLOCK_N * LD, kh, k.sn, kb * BLOCK_N, nkv, d, vec16);
       flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
-          vs + kb * BLOCK_N * LD, vh, v.sn, kb * BLOCK_N, n, d, vec16);
+          vs + kb * BLOCK_N * LD, vh, v.sn, kb * BLOCK_N, nkv, d, vec16);
     }
     flash::cp_async_commit();
   }
@@ -145,7 +145,7 @@ flash_fwd_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
   __syncthreads();
 
   // a warp whose 16 rows all lie past N only helps with the loads
-  const bool live = q0 + wrow < n;
+  const bool live = q0 + wrow < nq;
   uint32_t qf[KS][4];
   if (live) {
 #pragma unroll
@@ -192,12 +192,12 @@ flash_fwd_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
       }
-      if (k0 + BLOCK_N > n) {
+      if (k0 + BLOCK_N > nkv) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            if (k0 + 8 * j + 2 * t + e >= n) s[j][e] = s[j][2 + e] = -INFINITY;
+            if (k0 + 8 * j + 2 * t + e >= nkv) s[j][e] = s[j][2 + e] = -INFINITY;
           }
         }
       }
@@ -254,10 +254,10 @@ flash_fwd_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
     __syncthreads();  // every warp is done with this stage
     if (kb + 2 < num_kb) {
       flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
-          ks + (kb & 1) * BLOCK_N * LD, kh, k.sn, (kb + 2) * BLOCK_N, n, d,
+          ks + (kb & 1) * BLOCK_N * LD, kh, k.sn, (kb + 2) * BLOCK_N, nkv, d,
           vec16);
       flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
-          vs + (kb & 1) * BLOCK_N * LD, vh, v.sn, (kb + 2) * BLOCK_N, n, d,
+          vs + (kb & 1) * BLOCK_N * LD, vh, v.sn, (kb + 2) * BLOCK_N, nkv, d,
           vec16);
     }
     flash::cp_async_commit();
@@ -273,21 +273,21 @@ flash_fwd_mma(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
     inv[i] = 1.f / l[i];
   }
   bf16* oh = static_cast<bf16*>(o.ptr) + head_offset(o, bh, heads);
-  flash::store_rows<DMAX>(oh, o.sn, acc, q0 + wrow, n, d, inv[0], inv[1]);
+  flash::store_rows<DMAX>(oh, o.sn, acc, q0 + wrow, nq, d, inv[0], inv[1]);
   if (t == 0) {
     const int g = lane >> 2;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = q0 + wrow + g + 8 * i;
-      if (r < n) lse[(size_t)bh * n + r] = m[i] * LN2 + logf(l[i]);
+      if (r < nq) lse[(size_t)bh * nq + r] = m[i] * LN2 + logf(l[i]);
     }
   }
 }
 
 template <int DMAX>
 cudaError_t launch_mma(const Tensor4& q, const Tensor4& k, const Tensor4& v,
-                       const Tensor4& o, float* lse, int bh, int heads, int n,
-                       int d, float scale, cudaStream_t stream) {
+                       const Tensor4& o, float* lse, int bh, int heads, int nq,
+                       int nkv, int d, float scale, cudaStream_t stream) {
   // the attribute belongs to the current device, so it is set on every
   // launch rather than cached once per process
   constexpr size_t smem = mma_smem_bytes<DMAX>();
@@ -298,9 +298,9 @@ cudaError_t launch_mma(const Tensor4& q, const Tensor4& k, const Tensor4& v,
   const bool vec16 = flash::aligned_to(q, 2, 16) &&
                      flash::aligned_to(k, 2, 16) &&
                      flash::aligned_to(v, 2, 16);
-  const dim3 grid((n + BM - 1) / BM, bh);
+  const dim3 grid((nq + BM - 1) / BM, bh);
   flash_fwd_mma<DMAX><<<grid, MMA_THREADS, smem, stream>>>(
-      q, k, v, o, lse, heads, n, d, scale * LOG2E, vec16);
+      q, k, v, o, lse, heads, nq, nkv, d, scale * LOG2E, vec16);
   return cudaGetLastError();
 }
 
@@ -317,7 +317,7 @@ constexpr size_t fp32_smem_bytes() {
 template <int DMAX>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
-               float* __restrict__ lse, int heads, int n, int d,
+               float* __restrict__ lse, int heads, int nq, int nkv, int d,
                float scale_log2, bool vec16) {
   constexpr int LD = DMAX + 4;   // padded row, in floats (4 modulo 32)
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -333,16 +333,16 @@ flash_fwd_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
   const float* qh = static_cast<const float*>(q.ptr) + head_offset(q, bh, heads);
   const float* kh = static_cast<const float*>(k.ptr) + head_offset(k, bh, heads);
   const float* vh = static_cast<const float*>(v.ptr) + head_offset(v, bh, heads);
-  const int num_kb = (n + BLOCK_N - 1) / BLOCK_N;
+  const int num_kb = (nkv + BLOCK_N - 1) / BLOCK_N;
 
   // group 0: the q tile and K/V tile 0; group 1: K/V tile 1 (maybe empty)
-  flash::load_tile<BM, DMAX, LD, MMA_THREADS>(qs, qh, q.sn, q0, n, d, vec16);
+  flash::load_tile<BM, DMAX, LD, MMA_THREADS>(qs, qh, q.sn, q0, nq, d, vec16);
   for (int kb = 0; kb < 2; ++kb) {
     if (kb < num_kb) {
       flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
-          ks + kb * BLOCK_N * LD, kh, k.sn, kb * BLOCK_N, n, d, vec16);
+          ks + kb * BLOCK_N * LD, kh, k.sn, kb * BLOCK_N, nkv, d, vec16);
       flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
-          vs + kb * BLOCK_N * LD, vh, v.sn, kb * BLOCK_N, n, d, vec16);
+          vs + kb * BLOCK_N * LD, vh, v.sn, kb * BLOCK_N, nkv, d, vec16);
     }
     flash::cp_async_commit();
   }
@@ -350,7 +350,7 @@ flash_fwd_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
   __syncthreads();
 
   // a warp whose 16 rows all lie past N only helps with the loads
-  const bool live = q0 + wrow < n;
+  const bool live = q0 + wrow < nq;
 
   float m[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
   float l[2] = {0.f, 0.f};              // this lane's part of the row sum
@@ -377,12 +377,12 @@ flash_fwd_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
       }
-      if (k0 + BLOCK_N > n) {
+      if (k0 + BLOCK_N > nkv) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            if (k0 + 8 * j + 2 * t + e >= n) s[j][e] = s[j][2 + e] = -INFINITY;
+            if (k0 + 8 * j + 2 * t + e >= nkv) s[j][e] = s[j][2 + e] = -INFINITY;
           }
         }
       }
@@ -425,10 +425,10 @@ flash_fwd_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
     __syncthreads();  // every warp is done with this stage
     if (kb + 2 < num_kb) {
       flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
-          ks + (kb & 1) * BLOCK_N * LD, kh, k.sn, (kb + 2) * BLOCK_N, n, d,
+          ks + (kb & 1) * BLOCK_N * LD, kh, k.sn, (kb + 2) * BLOCK_N, nkv, d,
           vec16);
       flash::load_tile<BLOCK_N, DMAX, LD, MMA_THREADS>(
-          vs + (kb & 1) * BLOCK_N * LD, vh, v.sn, (kb + 2) * BLOCK_N, n, d,
+          vs + (kb & 1) * BLOCK_N * LD, vh, v.sn, (kb + 2) * BLOCK_N, nkv, d,
           vec16);
     }
     flash::cp_async_commit();
@@ -444,13 +444,13 @@ flash_fwd_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
     inv[i] = 1.f / l[i];
   }
   float* oh = static_cast<float*>(o.ptr) + head_offset(o, bh, heads);
-  flash::store_rows<DMAX>(oh, o.sn, acc, q0 + wrow, n, d, inv[0], inv[1]);
+  flash::store_rows<DMAX>(oh, o.sn, acc, q0 + wrow, nq, d, inv[0], inv[1]);
   if (t == 0) {
     const int g = lane >> 2;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = q0 + wrow + g + 8 * i;
-      if (r < n) lse[(size_t)bh * n + r] = m[i] * LN2 + logf(l[i]);
+      if (r < nq) lse[(size_t)bh * nq + r] = m[i] * LN2 + logf(l[i]);
     }
   }
 }
@@ -458,7 +458,8 @@ flash_fwd_fp32(Tensor4 q, Tensor4 k, Tensor4 v, Tensor4 o,
 template <int DMAX>
 cudaError_t launch_fp32(const Tensor4& q, const Tensor4& k, const Tensor4& v,
                         const Tensor4& o, float* lse, int bh, int heads,
-                        int n, int d, float scale, cudaStream_t stream) {
+                        int nq, int nkv, int d, float scale,
+                        cudaStream_t stream) {
   constexpr size_t smem = fp32_smem_bytes<DMAX>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_fp32<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -467,38 +468,45 @@ cudaError_t launch_fp32(const Tensor4& q, const Tensor4& k, const Tensor4& v,
   const bool vec16 = flash::aligned_to(q, 4, 16) &&
                      flash::aligned_to(k, 4, 16) &&
                      flash::aligned_to(v, 4, 16);
-  const dim3 grid((n + BM - 1) / BM, bh);
+  const dim3 grid((nq + BM - 1) / BM, bh);
   flash_fwd_fp32<DMAX><<<grid, MMA_THREADS, smem, stream>>>(
-      q, k, v, o, lse, heads, n, d, scale * LOG2E, vec16);
+      q, k, v, o, lse, heads, nq, nkv, d, scale * LOG2E, vec16);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface for ctypes. Returns a cudaError_t (0 on success). q, k, v and
-// out are (batch, heads, n, d) descriptors with unit stride along d; lse is
-// (batch·heads, n) fp32. dtype: 0 is fp32, 1 is bf16; a bf16 operand needs
-// a 4-byte aligned base and even strides. The caller allocates out and lse.
+// out are (batch, heads, n, d) descriptors with unit stride along d: q and
+// out hold nq rows, k and v nkv rows (keys >= nkv are masked, so the tensors
+// may hold more: a ring hop's padded chunk); lse is (batch·heads, nq) fp32.
+// dtype: 0 is fp32, 1 is bf16; a bf16 operand needs a 4-byte aligned base
+// and even strides. The caller allocates out and lse.
 extern "C" int flash_attention_fwd(const Tensor4* q, const Tensor4* k,
                                    const Tensor4* v, const Tensor4* out,
-                                   void* lse, int batch, int heads, int n,
-                                   int d, float scale, int dtype, void* stream) {
+                                   void* lse, int batch, int heads, int nq,
+                                   int nkv, int d, float scale, int dtype,
+                                   void* stream) {
   const long long bh = (long long)batch * heads;
-  if (batch <= 0 || heads <= 0 || bh > 65535 || n <= 0 || d <= 0 ||
-      d > 128 || (dtype != 0 && dtype != 1))
+  if (batch <= 0 || heads <= 0 || bh > 65535 || nq <= 0 || nkv <= 0 ||
+      d <= 0 || d > 128 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const Tensor4 &qq = *q, &kk = *k, &vv = *v, &oo = *out;
   if (dtype == 0) {
     return (int)(d <= 64
-        ? launch_fp32<64>(*q, *k, *v, *out, l, (int)bh, heads, n, d, scale, s)
-        : launch_fp32<128>(*q, *k, *v, *out, l, (int)bh, heads, n, d, scale,
-                           s));
+        ? launch_fp32<64>(qq, kk, vv, oo, l, (int)bh, heads, nq, nkv, d,
+                          scale, s)
+        : launch_fp32<128>(qq, kk, vv, oo, l, (int)bh, heads, nq, nkv, d,
+                           scale, s));
   }
   for (const Tensor4* t : {q, k, v, out}) {
     if (!flash::aligned_to(*t, 2, 4)) return (int)cudaErrorMisalignedAddress;
   }
   return (int)(d <= 64
-      ? launch_mma<64>(*q, *k, *v, *out, l, (int)bh, heads, n, d, scale, s)
-      : launch_mma<128>(*q, *k, *v, *out, l, (int)bh, heads, n, d, scale, s));
+      ? launch_mma<64>(qq, kk, vv, oo, l, (int)bh, heads, nq, nkv, d, scale,
+                       s)
+      : launch_mma<128>(qq, kk, vv, oo, l, (int)bh, heads, nq, nkv, d, scale,
+                        s));
 }

@@ -25,6 +25,13 @@ With ``remat`` each residual block is checkpointed (``models/remat.py``),
 as the JAX package wraps each in ``nn.remat``. ``quantize='int8'``
 (serving) runs every convolution in int8 (``models/quant_layers.py``), as
 the JAX package quantizes every ``ConvBN``.
+
+Under a split time axis (``parallel.seq_parallel``,
+``parallel/seq_shard.py``) the stem, the max pool, every block's
+convolutions and the downsample path run on the rank's block of each
+layer's global length and fetch the halos they reach (the JAX package's
+GSPMD partition of the same convolutions); :meth:`ResNet1D.feature_lengths`
+gives the stage outputs' global lengths.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel import seq_shard
 from ..norm import TorchBatchNorm
 from ..quant_layers import conv1d
 from ..remat import remat_call
@@ -79,6 +87,20 @@ def _downsample(in_channels: int, features: int, stride: int,
     return nn.Sequential(*layers)
 
 
+def _sharded_path(layers: nn.Sequential, x: torch.Tensor, length: int):
+    """A Conv/BN/pool path (the stem's conv, the downsample) on this seq
+    rank's block of a global ``length``: ``(y, out_length)``."""
+    for layer in layers:
+        if isinstance(layer, nn.Conv1d):
+            x, length = seq_shard.conv_module(layer, x, length)
+        elif isinstance(layer, nn.AvgPool1d):
+            x, length = seq_shard.avg_pool1d(x, length, layer.kernel_size[0],
+                                             layer.stride[0])
+        else:
+            x = layer(x)
+    return x, length
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
@@ -98,10 +120,23 @@ class BasicBlock(nn.Module):
     def last_bn(self) -> nn.BatchNorm1d:
         return self.bn2
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        identity = x if self.downsample is None else self.downsample(x)
+    def out_length(self, length: int) -> int:
+        return _out_length(self.conv1, length)
+
+    def forward(self, x: torch.Tensor,
+                length: Optional[int] = None) -> torch.Tensor:
+        """``length``: the global length of ``x``'s split time axis (None:
+        ``x`` is whole)."""
+        if length is None:
+            out = F.relu(self.bn1(self.conv1(x)))
+            out = self.bn2(self.conv2(out))
+            identity = x if self.downsample is None else self.downsample(x)
+            return F.relu(out + identity)
+        out, mid = seq_shard.conv_module(self.conv1, x, length)
+        out = F.relu(self.bn1(out))
+        out = self.bn2(seq_shard.conv_module(self.conv2, out, mid)[0])
+        identity = x if self.downsample is None else _sharded_path(
+            self.downsample, x, length)[0]
         return F.relu(out + identity)
 
 
@@ -127,12 +162,30 @@ class Bottleneck(nn.Module):
     def last_bn(self) -> nn.BatchNorm1d:
         return self.bn3
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        identity = x if self.downsample is None else self.downsample(x)
+    def out_length(self, length: int) -> int:
+        return _out_length(self.conv2, length)
+
+    def forward(self, x: torch.Tensor,
+                length: Optional[int] = None) -> torch.Tensor:
+        """``length``: as :meth:`BasicBlock.forward`'s."""
+        if length is None:
+            out = F.relu(self.bn1(self.conv1(x)))
+            out = F.relu(self.bn2(self.conv2(out)))
+            out = self.bn3(self.conv3(out))
+            identity = x if self.downsample is None else self.downsample(x)
+            return F.relu(out + identity)
+        out = F.relu(self.bn1(self.conv1(x)))    # 1x1: no halo
+        out, mid = seq_shard.conv_module(self.conv2, out, length)
+        out = self.bn3(self.conv3(F.relu(self.bn2(out))))
+        identity = x if self.downsample is None else _sharded_path(
+            self.downsample, x, length)[0]
         return F.relu(out + identity)
+
+
+def _out_length(conv: nn.Conv1d, length: int) -> int:
+    return seq_shard.conv_out_length(length, conv.kernel_size[0],
+                                     conv.stride[0], conv.padding[0],
+                                     conv.dilation[0])
 
 
 class ResNet1D(nn.Module):
@@ -226,13 +279,37 @@ class ResNet1D(nn.Module):
     def no_weight_decay(self) -> set:
         return set()
 
+    def feature_lengths(self, length: int) -> Tuple[int, ...]:
+        """The global time lengths of :meth:`forward`'s features for an
+        input of ``length`` samples."""
+        for layer in self.stem:
+            if isinstance(layer, nn.Conv1d):
+                length = _out_length(layer, length)
+        length = (length + 2 - 3) // 2 + 1   # the k3/s2/p1 max pool
+        out = []
+        for i in range(self.num_layers):
+            for block in getattr(self, f"layer{i + 1}"):
+                length = block.out_length(length)
+            if i in self.out_indices:
+                out.append(length)
+        return tuple(out)
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        x = self.maxpool(self.stem(x))
+        shard = seq_shard.active()
+        if shard is None:
+            x = self.maxpool(self.stem(x))
+            length = None
+        else:
+            x, length = _sharded_path(self.stem, x, shard.length)
+            x, length = seq_shard.max_pool1d(x, length, 3, 2, 1)
         outs = []
         for i in range(self.num_layers):
             for block in getattr(self, f"layer{i + 1}"):
-                x = (remat_call(block, x) if self.remat and self.training
-                     else block(x))
+                args = () if length is None else (length,)
+                x = (remat_call(block, x, *args)
+                     if self.remat and self.training else block(x, *args))
+                if length is not None:
+                    length = block.out_length(length)
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)

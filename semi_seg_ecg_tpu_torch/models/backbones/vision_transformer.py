@@ -33,6 +33,19 @@ package's ``sharded_flash_attention``. The dropouts over sliced dimensions
 width) draw whole and keep this rank's block (``parallel.dist.global_rows``
 with ``split``), so the masks are one process's.
 
+Sequence parallelism (``parallel.seq_parallel > 1``, a split time axis;
+``parallel/seq_shard.py``): seq rank 0 holds the cls token and the first
+block of patches, each other rank its block of the global patches (the
+split rule of ``seq_shard.block`` over the patch count); a patch that a
+block boundary of the samples cuts is fetched whole. The position
+embedding's rows and the cls token are taken at the rank's global token
+offsets, the dropouts over tokens draw over all of them and keep the
+rank's, and the features leave time-split. Attention follows the JAX
+package's ``_use_ring``: ``auto`` and ``ring`` run the ring
+(``ops/ring_attention.py``: the flash kernels once per hop on CUDA);
+attention dropout in training, ``flash`` (with a warning) and ``xla``
+gather the tokens, attend whole and keep the rank's rows.
+
 Precision: parameters stay fp32; under ``torch.autocast`` the linears run in
 the autocast dtype, and attention's matmuls follow it when ``fp16_enabled``
 (else fp32). The softmax is always fp32. ``quantize='int8'`` (serving)
@@ -51,12 +64,25 @@ import torch.nn.functional as F
 
 from ...ops.attention import dense_attention
 from ...ops.flash_attention import flash_attention
+from ...ops.ring_attention import ring_attention
+from ...parallel import seq_shard
 from ...parallel.dist import copy_to_model, reduce_from_model
+from ...utils.logging import log
 from ..dropout import DropPath, Dropout
 from ..quant_layers import linear
 from ..remat import remat_call
 
 LN_EPS = 1e-6
+
+# warnings already given, once per process (the JAX package gives them once
+# per trace)
+_WARNED: set = set()
+
+
+def _warn_once(msg: str) -> None:
+    if msg not in _WARNED:
+        _WARNED.add(msg)
+        log(msg, force=True)
 
 
 def _layer_norm(dim: int) -> nn.LayerNorm:
@@ -143,6 +169,9 @@ class Attention(nn.Module):
                        if project_out else None)
         self.local_heads = heads
         self.model_group = None
+        # under a split token axis, every seq rank's token count (the ViT
+        # sets it before each forward); None: the tokens are whole
+        self.tokens = None
 
     def use_model_mesh(self, mesh) -> None:
         """Run this model rank's ``heads / tp`` heads: ``to_qkv`` holds
@@ -151,12 +180,29 @@ class Attention(nn.Module):
         self.model_group = mesh.model_group
         self.attn_drop.split = (1, mesh.model, mesh.model_rank)
 
+    def _use_ring(self) -> bool:
+        """The JAX package's rules: 'auto' and 'ring' take the ring when the
+        token axis is split, except under attention dropout in training
+        (the ring never forms the (N, N) matrix the mask needs), which
+        warns and attends whole on the gathered tokens."""
+        if self.tokens is None or self.attention_impl not in ("auto",
+                                                              "ring"):
+            return False
+        if self.attn_dropout > 0 and self.training:
+            _warn_once(
+                "ring attention skipped: attn_dropout > 0 needs the full "
+                "(N, N) attention matrix — falling back to dense attention, "
+                "which all-gathers the seq-sharded token axis (set "
+                "attn_drop_out_rate: 0 to keep tokens sharded)")
+            return False
+        return True
+
     def _use_flash(self, n: int, on_cuda: bool) -> bool:
         """The JAX package's rules with the device test on CUDA.
 
-        'xla' and 'ring' take the dense path ('ring' without a sequence
-        mesh falls back to dense in the JAX package too, and the port has
-        no mesh); attention dropout in training needs the (N, N) matrix.
+        'xla' and 'ring' take the dense path ('ring' without a split token
+        axis falls back to dense in the JAX package too); attention dropout
+        in training needs the (N, N) matrix.
         'flash' then always takes the kernel path, which raises on a head
         dim it does not take; 'auto' takes it on CUDA from N >= 512, the
         crossover swept on a TPU (not yet measured on the H100)."""
@@ -165,8 +211,42 @@ class Attention(nn.Module):
         if self.attn_dropout > 0 and self.training:
             return False
         if self.attention_impl == "flash":
+            if self.tokens is not None:
+                _warn_once(
+                    "attention_impl='flash' under a seq>1 mesh all-gathers "
+                    "the seq-sharded token axis and computes the kernel "
+                    "redundantly on every seq rank — use attention_impl: "
+                    "auto (or ring) to keep tokens sharded")
             return True
         return on_cuda and n >= 512
+
+    def _attend(self, q, k, v, scale, mm_dtype):
+        """Attention over this rank's ``(B, H, N, D)`` q, k, v: the ring
+        under a split token axis, else the flash kernels or the dense path
+        on the (gathered) tokens."""
+        counts = self.tokens
+        if self._use_ring():
+            shard = seq_shard.active()
+            return ring_attention(q.to(mm_dtype), k.to(mm_dtype),
+                                  v.to(mm_dtype), scale, counts, shard.comm)
+        if counts is not None:
+            q, k, v = (seq_shard.gather_time(t, counts, 2) for t in (q, k, v))
+        if self._use_flash(q.shape[2], q.is_cuda):
+            # the kernels take the transposed chunks of the qkv projection
+            # (and the q/k norms' outputs) as they lie and write out as
+            # (B, N, H, D) memory, so no copy is made on either side. A
+            # .contiguous() would not help where the wrapper refuses a
+            # layout: that is an odd bf16 dim_head, whose rows are
+            # misaligned for the kernel's 4-byte copies in any layout
+            out = flash_attention(q.to(mm_dtype), k.to(mm_dtype),
+                                  v.to(mm_dtype), scale)
+        else:
+            out = dense_attention(q, k, v, scale, mm_dtype=mm_dtype,
+                                  attn_transform=self.attn_drop)
+        if counts is not None:
+            rank = seq_shard.active().rank
+            out = out.narrow(2, sum(counts[:rank]), counts[rank])
+        return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
@@ -185,18 +265,7 @@ class Attention(nn.Module):
         else:
             mm_dtype = torch.float32
         scale = self.dim_head ** -0.5
-        if self._use_flash(n, x.is_cuda):
-            # the kernels take the transposed chunks of the qkv projection
-            # (and the q/k norms' outputs) as they lie and write out as
-            # (B, N, H, D) memory, so no copy is made on either side. A
-            # .contiguous() would not help where the wrapper refuses a
-            # layout: that is an odd bf16 dim_head, whose rows are
-            # misaligned for the kernel's 4-byte copies in any layout
-            out = flash_attention(q.to(mm_dtype), k.to(mm_dtype),
-                                  v.to(mm_dtype), scale)
-        else:
-            out = dense_attention(q, k, v, scale, mm_dtype=mm_dtype,
-                                  attn_transform=self.attn_drop)
+        out = self._attend(q, k, v, scale, mm_dtype)
         out = out.transpose(1, 2).reshape(b, n, heads * self.dim_head)
         if group is not None:
             return self.to_out[1](row_parallel(self.to_out[0], out, group))
@@ -275,6 +344,7 @@ class VisionTransformer1D(nn.Module):
         self.remat = remat
         self.out_indices = tuple(out_indices)
         self.output_cls_token = output_cls_token
+        self.patch_size = patch_size
         num_patches = seq_len // patch_size
         patch_dim = patch_size * num_leads
         self.to_patch_embedding = nn.Sequential(
@@ -295,6 +365,42 @@ class VisionTransformer1D(nn.Module):
                 attention_impl=attention_impl, drop_path=dpr[i],
                 layer_scale=layer_scale, quantize=quantize))
         self.norm = _layer_norm(width) if final_norm else None
+        blocks = [getattr(self, f"block{i}") for i in range(depth)]
+        self._attentions = [blk.attn.fn for blk in blocks]
+        # the dropouts over the token axis (not attention's over (N, N))
+        self._token_dropouts = [self.dropout] + [
+            m for blk in blocks for name, m in blk.named_modules()
+            if isinstance(m, Dropout) and not name.endswith("attn_drop")]
+
+    def feature_lengths(self, length: int) -> Tuple[int, ...]:
+        """The global token lengths of :meth:`forward`'s features (the
+        patches) for an input of ``length`` samples."""
+        return (length // self.patch_size,) * len(self.out_indices)
+
+    def _split_tokens(self, shard):
+        """Set every attention's token counts and every token dropout's
+        block for this forward (None: whole tokens); return the split's
+        ``(n patches, patch block, start)`` or None."""
+        split = None
+        counts = time = None
+        if shard is not None:
+            if self.output_cls_token:
+                raise NotImplementedError(
+                    "output_cls_token under parallel.seq_parallel is not "
+                    "yet ported to the torch package")
+            n = shard.length // self.patch_size
+            blocks = shard.blocks(n)
+            counts = tuple(b - a + (j == 0) for j, (a, b) in
+                           enumerate(blocks))
+            a, b = blocks[shard.rank]
+            start = 0 if shard.rank == 0 else 1 + a
+            time = (1, n + 1, start)
+            split = (n, blocks, start)
+        for attn in self._attentions:
+            attn.tokens = counts
+        for drop in self._token_dropouts:
+            drop.time = time
+        return split
 
     def train(self, mode: bool = True):
         """Frozen blocks (index < ``frozen_stages``) stay in eval mode, so
@@ -311,11 +417,26 @@ class VisionTransformer1D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple:
         b = x.shape[0]
-        x = self.to_patch_embedding(x)
-        n = x.shape[1]
-        cls = self.cls_embedding.to(x.dtype).expand(b, 1, self.width)
-        x = torch.cat([cls, x], dim=1) + self.pos_embedding[:, :n + 1].to(
-            x.dtype)
+        shard = seq_shard.active()
+        split = self._split_tokens(shard)
+        if split is None:
+            x = self.to_patch_embedding(x)
+            n = x.shape[1]
+            cls = self.cls_embedding.to(x.dtype).expand(b, 1, self.width)
+            x = torch.cat([cls, x], dim=1) + self.pos_embedding[
+                :, :n + 1].to(x.dtype)
+            first = True
+        else:
+            n, blocks, start = split
+            p = self.patch_size
+            x = self.to_patch_embedding(seq_shard.fetch_time_range(
+                x, shard.length, [(a * p, c * p) for a, c in blocks]))
+            first = shard.rank == 0
+            if first:
+                cls = self.cls_embedding.to(x.dtype).expand(b, 1, self.width)
+                x = torch.cat([cls, x], dim=1)
+            x = x + self.pos_embedding[:, start:start + x.shape[1]].to(
+                x.dtype)
         x = self.dropout(x)
         features = []
         for i in range(self.depth):
@@ -325,7 +446,8 @@ class VisionTransformer1D(nn.Module):
             if i == self.depth - 1 and self.norm is not None:
                 x = self.norm(x)
             if i in self.out_indices:
-                patches = x[:, 1:, :].transpose(1, 2)  # NCW, cls dropped
+                # NCW, cls dropped
+                patches = (x[:, 1:, :] if first else x).transpose(1, 2)
                 features.append((patches, x[:, 0]) if self.output_cls_token
                                 else patches)
         return tuple(features)

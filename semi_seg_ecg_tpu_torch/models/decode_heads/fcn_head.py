@@ -9,7 +9,10 @@ reference's keys (``convs.{i}.0``/``.1``, ``conv_cat.0``/``.1``,
 ``cls_seg``). ``quantize='int8'`` (serving) runs the Conv-BN convolutions in
 int8; the classifier stays float. In training the BatchNorms use batch statistics and fold
 them into the running ones (``models/norm.py``), and the dropout draws from
-the trainer's generator (``models/dropout.py``).
+the trainer's generator (``models/dropout.py``). Under a split time axis
+(``length`` given; ``parallel/seq_shard.py``) the convolutions run on the
+rank's block of the features' global length with their halos fetched, and
+the dropout's mask is the block of one drawn over the whole length.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel import seq_shard
 from ..backbones.resnet import ConvBN
 from ..dropout import Dropout
 
@@ -52,11 +56,22 @@ class FCNHead(nn.Module):
         # the argmax, where quantization error would show
         self.cls_seg = nn.Conv1d(channels, num_classes, 1)
 
-    def forward(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, inputs: Sequence[torch.Tensor],
+                length: Optional[int] = None) -> torch.Tensor:
+        """``length``: the global length of the features' split time axis
+        (None: the features are whole)."""
         x = inputs[self.in_index]
+        if length is None:
+            def conv_bn(block, t):
+                return block(t)
+            time = None
+        else:
+            def conv_bn(block, t):
+                return block[1](seq_shard.conv_module(block[0], t, length)[0])
+            time = (2, length, seq_shard.active().block(length)[0])
         out = x
         for conv in self.convs:
-            out = F.relu(conv(out))
+            out = F.relu(conv_bn(conv, out))
         if self.conv_cat is not None:
-            out = F.relu(self.conv_cat(torch.cat([x, out], dim=1)))
-        return self.cls_seg(self.dropout(out))
+            out = F.relu(conv_bn(self.conv_cat, torch.cat([x, out], dim=1)))
+        return self.cls_seg(self.dropout(out, time))

@@ -11,7 +11,9 @@ Under a process group a mask is drawn for the global batch and sliced to
 the rank's rows (``parallel.dist.global_rows``), as the JAX package's
 masks under a data mesh are drawn for the global array; under the model
 axis a mask over a sliced dimension is drawn whole and sliced to the
-rank's block.
+rank's block, and under the seq axis a mask over the split time (or token)
+axis is drawn over its global length and sliced to the rank's block
+(:class:`Dropout`'s ``time``).
 
 Under activation checkpointing (``models/remat.py``) a block's forward
 runs again in the backward. ``torch.utils.checkpoint`` restores only the
@@ -31,29 +33,35 @@ from ..parallel.dist import global_rows
 
 def _keep_mask(x: torch.Tensor, shape, keep: float,
                generator: Optional[torch.Generator],
-               split=None) -> torch.Tensor:
+               split=None, time=None) -> torch.Tensor:
     return global_rows(lambda s: torch.rand(s, generator=generator,
                                             device=x.device), shape,
-                       split) < keep
+                       split, time) < keep
 
 
 class Dropout(nn.Module):
     """Element-wise dropout, flax's ``where(mask, x / keep, 0)``. With
     ``split = (dim, parts, index)`` the input is block ``index`` of
     ``parts`` along ``dim`` (a model rank's heads or hidden columns), and
-    the mask is that block of the whole draw."""
+    the mask is that block of the whole draw. With ``time = (dim, length,
+    start)`` (the ``time`` argument, else the attribute its owner sets
+    before each forward) the input holds entries ``[start, ...)`` of a
+    global axis of ``length``, and the mask is that block of the draw over
+    the whole axis."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
         self.split = None
+        self.time = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time=None) -> torch.Tensor:
         if self.rate <= 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        mask = _keep_mask(x, x.shape, keep, self.generator, self.split)
+        mask = _keep_mask(x, x.shape, keep, self.generator, self.split,
+                          time if time is not None else self.time)
         return torch.where(mask, x / keep, 0.0)
 
 

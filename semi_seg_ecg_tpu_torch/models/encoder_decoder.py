@@ -21,6 +21,7 @@ import torch.nn as nn
 
 from ..ops.interpolate import linear_interpolate
 from ..ops.losses import cross_entropy
+from ..parallel import seq_shard
 from .norm import TorchBatchNorm
 
 
@@ -80,25 +81,44 @@ class EncoderDecoder(nn.Module):
                                     return_latent)
             finally:
                 self.train(was)
-        seq_len = inputs.shape[2]
+        shard = seq_shard.active()
+        seq_len = inputs.shape[2] if shard is None else shard.length
         feats = self.backbone(inputs)
+        if shard is None:
+            lengths = [None] * len(feats)
+
+            def resize(x, length, align_corners):
+                return linear_interpolate(x, seq_len,
+                                          align_corners=align_corners)
+        else:
+            if return_latent:
+                raise NotImplementedError(
+                    "return_latent (ReCo) under parallel.seq_parallel is "
+                    "not yet ported to the torch package")
+            lengths = list(self.backbone.feature_lengths(seq_len))
+
+            def resize(x, length, align_corners):
+                return seq_shard.linear_interpolate(x, length, seq_len,
+                                                    align_corners)
         outputs = {}
         if return_latent:
             latent = feats[-1]
             if self.latent_projection is not None:
                 latent = self.latent_projection(latent)
-            outputs["latent"] = linear_interpolate(
-                latent, seq_len, align_corners=self.decode_head.align_corners)
-        seg = self.decode_head(feats)  # (B, classes, t)
-        seg = linear_interpolate(seg, seq_len,
-                                 align_corners=self.decode_head.align_corners)
+            outputs["latent"] = resize(latent, lengths[-1],
+                                       self.decode_head.align_corners)
+
+        def head_logits(head):
+            length = lengths[head.in_index]
+            seg = head(feats) if length is None else head(feats, length)
+            return resize(seg, length, head.align_corners)
+
+        seg = head_logits(self.decode_head)  # (B, classes, T)
         outputs["seg_logits"] = seg
         if return_loss:
             outputs["loss"] = cross_entropy(seg, labels)
         if self.training and self.with_auxiliary_heads:
-            aux_logits = [linear_interpolate(head(feats), seq_len,
-                                             align_corners=head.align_corners)
-                          for head in self.auxiliary_heads]
+            aux_logits = [head_logits(head) for head in self.auxiliary_heads]
             outputs["aux_seg_logits"] = aux_logits
             if return_loss and labels is not None:
                 outputs["loss_aux"] = [cross_entropy(a, labels)

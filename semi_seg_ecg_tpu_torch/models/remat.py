@@ -30,16 +30,19 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import seq_shard
 from ..parallel.dist import concatenated_rows, row_parts
 from .dropout import generators_of
 from .norm import running_stats_kept
 
 
-def remat_call(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``block(x)`` with its activations recomputed in the backward (a
-    plain call where no graph is recorded)."""
+def remat_call(block: nn.Module, x: torch.Tensor, *args) -> torch.Tensor:
+    """``block(x, *args)`` with its activations recomputed in the backward
+    (a plain call where no graph is recorded); the recompute runs under the
+    forward's split of the time axis (``parallel/seq_shard.py``)."""
     if not torch.is_grad_enabled():
-        return block(x)
+        return block(x, *args)
+    shard = seq_shard.active()
     gens = generators_of(block)
     states = [g.get_state() for g in gens]
     modes = [(m, m.training) for m in block.modules()]
@@ -50,7 +53,7 @@ def remat_call(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
         nonlocal forward_done
         if not forward_done:
             forward_done = True
-            return block(inp)
+            return block(inp, *args)
         now = [g.get_state() for g in gens]
         now_modes = [(m, m.training) for m, _ in modes]
         for g, s in zip(gens, states):
@@ -58,8 +61,9 @@ def remat_call(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
         for m, training in modes:
             m.training = training
         try:
-            with running_stats_kept(block), concatenated_rows(parts):
-                return block(inp)
+            with running_stats_kept(block), concatenated_rows(parts), \
+                    seq_shard.using(shard):
+                return block(inp, *args)
         finally:
             for g, s in zip(gens, now):
                 g.set_state(s)

@@ -187,7 +187,7 @@ def load_kernel():
         from .cuda_build import load_library
 
         fn = load_library("flash_attention_fwd").flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
@@ -201,7 +201,7 @@ def load_backward_kernel():
         from .cuda_build import load_library
 
         fn = load_library("flash_attention_bwd").flash_attention_bwd
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _BWD_FN = fn
@@ -231,7 +231,9 @@ def check_layout(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: {name} {fault}")
 
 
-def _check(q, k, v):
+def _check(q, k, v, same_n: bool = True):
+    """Raise unless the kernels take q, k, v; ``same_n=False`` (a ring hop)
+    lets k and v hold another number of tokens than q."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_forward: q, k, v must all be CUDA "
                          "tensors or all CPU tensors")
@@ -242,12 +244,15 @@ def _check(q, k, v):
         raise TypeError("flash_attention_forward: q, k, v must share one "
                         "dtype, float32 or bfloat16; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or not (q.shape == k.shape == v.shape):
+    kv_shape = k.shape if same_n else q.shape[:2] + k.shape[2:3] + q.shape[3:]
+    if q.dim() != 4 or not (q.shape == k.shape == v.shape if same_n else
+                            k.shape == v.shape == kv_shape):
         raise ValueError("flash_attention_forward: q, k, v must be (B, H, "
                          f"N, D) of one shape; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, h, n, d = q.shape
-    if not 0 < d <= MAX_HEAD_DIM or n < 1 or not 0 < b * h <= 65535:
+    if not 0 < d <= MAX_HEAD_DIM or min(n, k.shape[2]) < 1 or \
+            not 0 < b * h <= 65535:
         raise ValueError(f"flash_attention_forward: shape {tuple(q.shape)} "
                          f"outside the kernel's range (1 <= D <= "
                          f"{MAX_HEAD_DIM}, N >= 1, 1 <= B*H <= 65535)")
@@ -298,8 +303,8 @@ def _forward_cuda(q, k, v, scale):
     out = _empty_bnhd(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     _launch(fn, "flash_attention_fwd", q.device, _desc(q), _desc(k),
-            _desc(v), _desc(out), lse.data_ptr(), b, h, n, d, float(scale),
-            _DTYPE_CODES[q.dtype])
+            _desc(v), _desc(out), lse.data_ptr(), b, h, n, n, d,
+            float(scale), _DTYPE_CODES[q.dtype])
     LAUNCHES += 1
     return out, lse
 
@@ -359,7 +364,6 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     the dQ kernel's work in both dtypes (summed in fp32 from the O and dO
     tiles it streams, and kept in ``delta`` for the dK/dV kernel), so no
     PyTorch arithmetic runs here."""
-    global BWD_LAUNCHES
     if not (q.is_cuda or k.is_cuda or v.is_cuda):
         return flash_attention_backward_plain(q, k, v, out, lse, dout, scale)
     _check(q, k, v)
@@ -378,14 +382,23 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash_attention_backward: lse must be contiguous")
     check_layout("out", out)
     check_layout("dout", dout)
+    return _backward_launch(q, k, v, out, lse, dout, scale, q.shape[2],
+                            (_empty_bnhd(t) for t in (k, v)))
+
+
+def _backward_launch(q, k, v, out, lse, dout, scale, n_kv, dkdv):
+    """Launch the backward kernels for ``q``'s rows against the first
+    ``n_kv`` keys of k, v, into ``dkdv``'s two buffers; counts one launch."""
+    global BWD_LAUNCHES
     fn = load_backward_kernel()
     b, h, n, d = q.shape
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    dq, dk, dv = (_empty_bnhd(t) for t in (q, k, v))
+    dq = _empty_bnhd(q)
+    dk, dv = dkdv
     _launch(fn, "flash_attention_bwd", q.device, _desc(q), _desc(k),
             _desc(v), _desc(out), _desc(dout), lse.data_ptr(),
-            delta.data_ptr(), _desc(dq), _desc(dk), _desc(dv), b, h, n, d,
-            float(scale), _DTYPE_CODES[q.dtype])
+            delta.data_ptr(), _desc(dq), _desc(dk), _desc(dv), b, h, n,
+            int(n_kv), d, float(scale), _DTYPE_CODES[q.dtype])
     BWD_LAUNCHES += 1
     return dq, dk, dv
 
@@ -397,3 +410,78 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype. Under ``torch.no_grad()`` nothing is saved. The caller picks the
     layouts of q, k and v, and the kernels refuse one they do not take."""
     return flash_attention_forward(q, k, v, scale)[0]
+
+
+# ---------------------------------------------------------------------------
+# A ring attention's hop (ops/ring_attention.py): this rank's queries against
+# a visiting chunk of keys, padded to the ring's longest, of which the first
+# ``n_kv`` are tokens. The same kernels, with their query and key counts
+# apart; the backward takes the merged ``out`` and ``lse`` of the whole ring
+# and returns this hop's part of dq and of the chunk's dk, dv.
+# ---------------------------------------------------------------------------
+
+
+def _check_n_kv(k, n_kv):
+    if not 1 <= n_kv <= k.shape[2]:
+        raise ValueError(f"flash attention hop: n_kv {n_kv} outside "
+                         f"[1, {k.shape[2]}]")
+
+
+def flash_attention_hop_forward(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, scale: float, n_kv: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of ``q`` (B, H, nq, D) against the first ``n_kv``
+    keys of ``k``, ``v`` (B, H, nk, D): ``out`` in q's dtype, ``lse`` fp32
+    (B, H, nq). CPU tensors take the plain version on the keys' slice; CUDA
+    tensors launch the forward kernel with ``nq`` and ``n_kv`` (one
+    launch, counted in ``LAUNCHES``). Not differentiable: the ring's own
+    backward calls :func:`flash_attention_hop_backward`."""
+    global LAUNCHES
+    _check_n_kv(k, n_kv)
+    if not (q.is_cuda or k.is_cuda or v.is_cuda):
+        return flash_attention_plain(q, k[:, :, :n_kv], v[:, :, :n_kv],
+                                     scale)
+    _check(q, k, v, same_n=False)
+    fn = load_kernel()
+    b, h, n, d = q.shape
+    out = _empty_bnhd(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    _launch(fn, "flash_attention_fwd", q.device, _desc(q), _desc(k),
+            _desc(v), _desc(out), lse.data_ptr(), b, h, n, int(n_kv), d,
+            float(scale), _DTYPE_CODES[q.dtype])
+    LAUNCHES += 1
+    return out, lse
+
+
+def flash_attention_hop_backward(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, out: torch.Tensor,
+                                 lse: torch.Tensor, dout: torch.Tensor,
+                                 scale: float, n_kv: int
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """``(dq, dk, dv)`` of one hop: P recomputed from the ring's merged
+    ``lse``, Δ from its merged ``out`` and ``dout`` (all (B, H, nq, ·)),
+    against the first ``n_kv`` keys of ``k``, ``v``; dk, dv have k's rows,
+    zero from ``n_kv`` on. CPU tensors take the plain version; CUDA tensors
+    launch the backward kernels (one launch, counted in
+    ``BWD_LAUNCHES``)."""
+    _check_n_kv(k, n_kv)
+    if not (q.is_cuda or k.is_cuda or v.is_cuda):
+        dq, dk, dv = flash_attention_backward_plain(
+            q, k[:, :, :n_kv], v[:, :, :n_kv], out, lse, dout, scale)
+        pad = k.shape[2] - n_kv
+        return (dq, torch.nn.functional.pad(dk, (0, 0, 0, pad)),
+                torch.nn.functional.pad(dv, (0, 0, 0, pad)))
+    _check(q, k, v, same_n=False)
+    if dout.shape != q.shape or out.shape != q.shape or \
+            lse.shape != q.shape[:3] or lse.dtype != torch.float32 or \
+            out.dtype != q.dtype or dout.dtype != q.dtype or \
+            not lse.is_contiguous():
+        raise ValueError("flash_attention_hop_backward: out and dout must be "
+                         "(B, H, nq, D) in q's dtype, lse (B, H, nq) "
+                         "contiguous float32")
+    check_layout("out", out)
+    check_layout("dout", dout)
+    b, h, nk, d = k.shape
+    dkdv = [torch.zeros((b, nk, h, d), dtype=k.dtype,
+                        device=k.device).transpose(1, 2) for _ in range(2)]
+    return _backward_launch(q, k, v, out, lse, dout, scale, n_kv, dkdv)

@@ -6,6 +6,9 @@ log-softmax over the class axis 1: hard labels (optionally masked, with
 per-sample mean. The label pick is the JAX package's one-hot contraction,
 not ``F.cross_entropy``: a label outside ``[0, C)`` contributes 0 where
 torch would raise or clamp, and the mean still divides by every element.
+Under a split time axis (``parallel/seq_shard.py``) the means and sums
+run over the global array: each rank's sum, summed over the seq ranks,
+over the global count, so every seq rank holds the loss of one process.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ..parallel import seq_shard
 
 
 def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
@@ -22,9 +27,9 @@ def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
 
 def _reduce(loss: torch.Tensor, reduction: str) -> torch.Tensor:
     if reduction == "mean":
-        return loss.mean()
+        return seq_shard.global_mean(loss)
     if reduction == "sum":
-        return loss.sum()
+        return seq_shard.global_sum(loss)
     return loss
 
 
@@ -58,6 +63,9 @@ def soft_cross_entropy(logits: torch.Tensor, target_probs: torch.Tensor,
 
 def per_sample_cross_entropy(logits: torch.Tensor,
                              labels: torch.Tensor) -> torch.Tensor:
-    """Mean-over-time CE per sample, ``(B,)``: what the evaluator gathers."""
+    """Mean-over-time CE per sample, ``(B,)``: what the evaluator gathers
+    (over the global time axis of ``(B, T)`` labels when it is split)."""
     loss = cross_entropy(logits, labels, reduction="none")
+    if seq_shard.active() is not None:
+        return seq_shard.time_mean(loss)
     return loss.mean(dim=tuple(range(1, loss.dim())))

@@ -43,6 +43,12 @@ rank's data group, which is the whole group when ``model_parallel`` is 1:
   the attention heads) is made whole and sliced to this model rank's
   block (``split``).
 
+Point to point (:func:`exchange`): the seq axis's halos and its ring
+(``parallel/seq_shard.py``, ``ops/ring_attention.py``) send each peer one
+tensor and receive one from each peer, all posted at once
+(``batch_isend_irecv``): on CUDA tensors under NCCL, and through the host
+under gloo, whose ``send`` and ``recv`` take CPU tensors.
+
 The model axis's two operators (Megatron's ``f`` and ``g``) are autograd
 functions over the model group: :func:`copy_to_model`
 (identity forward, all-reduce backward) in front of a column-parallel
@@ -320,15 +326,29 @@ def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 @torch.no_grad()
-def all_reduce_grads_(params: Sequence[torch.Tensor], group=None) -> None:
-    """Replace each ``.grad`` of ``params`` by its mean over the ranks of
-    ``group`` (None: the data group), one all-reduce per dtype. Parameters
-    without a gradient are skipped: every rank runs the same graph, so they
-    are the same on every rank."""
+def all_reduce_grads_(params: Sequence[torch.Tensor], group=None,
+                      divisor: Optional[int] = None) -> None:
+    """Replace each ``.grad`` of ``params`` by its sum over the ranks of
+    ``group`` (None: the data group) divided by ``divisor`` (None: their
+    number, the mean), one all-reduce per dtype. Parameters without a
+    gradient are skipped: every rank runs the same graph, so they are the
+    same on every rank; with a ``divisor`` (the seq axis) a gradient that
+    another rank has is taken as zero here."""
     group = _group(group)
     n = _size(group)
     if n == 1:
         return
+    if divisor is not None:
+        # the seq ranks run different parts of one graph (only seq rank 0
+        # holds the cls token): a gradient that some rank lacks is zero there
+        params = [p for p in params if p.requires_grad]
+        have = torch.tensor([float(p.grad is not None) for p in params],
+                            device=params[0].device)
+        dist.all_reduce(have, group=group)
+        for p, h in zip(params, have.tolist()):
+            if h and p.grad is None:
+                p.grad = torch.zeros_like(p)
+        n = divisor
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for p in params:
         if p.grad is not None:
@@ -390,6 +410,32 @@ def broadcast_from_owners_(tensors: Sequence[torch.Tensor],
                                              in zip(pieces, owned)])
 
 
+def exchange(sends: Dict[int, torch.Tensor],
+             recvs: Dict[int, Tuple[Tuple[int, ...], torch.dtype]],
+             ranks: Sequence[int], group, device: torch.device
+             ) -> Dict[int, torch.Tensor]:
+    """Point to point among the ranks of ``group``: ``sends[j]`` goes to
+    global rank ``ranks[j]``, and from ``ranks[j]`` comes a tensor of
+    ``recvs[j] = (shape, dtype)``, returned on ``device`` under ``j``. Every
+    send and receive is posted at once (``batch_isend_irecv``), so no order
+    of the peers deadlocks; at most one tensor each way per peer. Under
+    gloo the tensors go through the host."""
+    nccl = _is_nccl()
+    wire = device if nccl else torch.device("cpu")
+    ops, out = [], {}
+    for j, t in sends.items():
+        t = t.contiguous() if nccl else t.detach().to(wire).contiguous()
+        _check(t)
+        ops.append(dist.P2POp(dist.isend, t, ranks[j], group))
+    for j, (shape, dtype) in recvs.items():
+        out[j] = torch.empty(shape, dtype=dtype, device=wire)
+        ops.append(dist.P2POp(dist.irecv, out[j], ranks[j], group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return {j: t.to(device, non_blocking=False) for j, t in out.items()}
+
+
 def all_gather_object(obj: Any, group=None) -> List[Any]:
     """The picklable ``obj`` of every rank of ``group`` (None: the data
     group), in rank order (one rank: ``[obj]``)."""
@@ -444,7 +490,8 @@ def row_parts() -> int:
 
 def global_rows(draw: Callable[[tuple], torch.Tensor],
                 shape: Sequence[int],
-                split: Optional[Tuple[int, int, int]] = None
+                split: Optional[Tuple[int, int, int]] = None,
+                time: Optional[Tuple[int, int, int]] = None
                 ) -> torch.Tensor:
     """``draw(shape)`` for this rank's rows of the global batch: the draw
     of ``(n·b, *shape[1:])`` over the ``n`` data ranks, sliced to rows
@@ -452,13 +499,20 @@ def global_rows(draw: Callable[[tuple], torch.Tensor],
     :func:`concatenated_rows`, this rank's block of each part. With
     ``split = (dim, parts, index)``, ``shape[dim]`` is block ``index`` of
     ``parts`` equal blocks of the draw's ``dim``: the draw is made whole
-    there and sliced to the block (a model rank's columns or heads)."""
+    there and sliced to the block (a model rank's columns or heads). With
+    ``time = (dim, length, start)``, ``shape[dim]`` is the entries
+    ``[start, start + shape[dim])`` of a global axis of ``length`` (a seq
+    rank's block of the time or token axis): drawn whole, then sliced."""
     shape = tuple(shape)
     whole = list(shape)
     if split is not None:
         dim, parts_m, index = split
         dim %= len(shape)
         whole[dim] *= parts_m
+    if time is not None:
+        tdim, length, start = time
+        tdim %= len(shape)
+        whole[tdim] = length
     n = data_size()
     if n == 1:
         full = draw(tuple(whole))
@@ -470,7 +524,14 @@ def global_rows(draw: Callable[[tuple], torch.Tensor],
         full = full.reshape(whole)
     if split is not None:
         full = full.narrow(dim, index * shape[dim], shape[dim])
+    if time is not None:
+        full = full.narrow(tdim, start, shape[tdim])
     return full
+
+
+def group_size(group=None) -> int:
+    """The ranks of ``group`` (None: the data group)."""
+    return _size(_group(group))
 
 
 def _sum_over(t: torch.Tensor, group) -> torch.Tensor:

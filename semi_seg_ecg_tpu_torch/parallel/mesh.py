@@ -5,24 +5,33 @@ The JAX package builds a device mesh and makes the data axis of every
 device the other two do not take. Here a rank is a device: :func:`make_mesh`
 lays the process group out as ``data × seq × model`` with the model axis
 innermost, as the JAX package reshapes its device list, so rank ``r`` is
-data rank ``r // model`` and model rank ``r % model`` (``seq`` is 1: the
-trainer refuses ``seq_parallel > 1``). It makes the ``torch.distributed``
-subgroups once (``data_group``, the ranks of one model index, and
-``model_group``, the ranks of one data index) and registers the mesh with
-``parallel/dist.py``, whose collectives then run over the data group
-unless told otherwise. With ``model_parallel: 1`` (every shipped recipe)
+data rank ``r // (seq·model)``, seq rank ``(r // model) % seq`` and model
+rank ``r % model``. It makes the ``torch.distributed`` subgroups once and
+registers the mesh with ``parallel/dist.py``, whose collectives then run
+over the data group unless told otherwise:
+
+- ``data_group``: the ranks of one (seq, model) index;
+- ``model_group``: the ranks of one (data, seq) index;
+- ``seq_group``: the ranks of one (data, model) index, the ring of
+  ``parallel/seq_shard.py`` (their global ranks in ``seq_ranks``);
+- ``data_seq_group``: the ranks of one model index, over which the
+  replicated parameters' gradients and the BatchNorm statistics reduce
+  when the time axis is sharded.
+
+With ``model_parallel`` and ``seq_parallel`` 1 (every shipped recipe)
 there are no subgroups: the data group is the whole group.
 
 Each data rank loads its own shards of every global batch
-(:func:`host_shard_args`); the model ranks of one data rank load the same
-rows, and their draws are the same.
+(:func:`host_shard_args`); the seq and model ranks of one data rank load
+the same rows, and their draws are the same. The seq ranks then take their
+block of the time axis (``parallel/seq_shard.py``).
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch.distributed as dist
 
@@ -32,9 +41,10 @@ from .dist import get_rank, get_world_size
 
 @dataclass(frozen=True)
 class Mesh:
-    """The ranks' layout: axis sizes, this rank's coordinates and its two
-    subgroups (None: the whole group). ``world_group`` is the process
-    group the mesh was made on (None: one process)."""
+    """The ranks' layout: axis sizes, this rank's coordinates and its
+    subgroups (None: the whole group, or none at all for the seq ones).
+    ``world_group`` is the process group the mesh was made on (None: one
+    process)."""
 
     data: int
     seq: int
@@ -44,6 +54,10 @@ class Mesh:
     data_group: Any = None
     model_group: Any = None
     world_group: Any = None
+    seq_rank: int = 0
+    seq_group: Any = None
+    seq_ranks: Tuple[int, ...] = (0,)
+    data_seq_group: Any = None
 
 
 def _axes(config: Optional[Dict[str, Any]]):
@@ -75,20 +89,40 @@ def make_mesh(config: Optional[Dict[str, Any]] = None) -> Mesh:
                              mesh.seq) == (n, model, seq):
         return mesh
     rank, tile = get_rank(), model * seq
-    data_group = model_group = None
+    data_group = model_group = seq_group = data_seq_group = None
+    d_me, s_me, m_me = rank // tile, (rank // model) % seq, rank % model
+    seq_ranks = tuple(d_me * tile + i * model + m_me for i in range(seq))
     if tile > 1:
         # every rank makes every group, in the same order
-        for m in range(tile):
-            g = dist.new_group(list(range(m, n, tile)))
-            if rank % tile == m:
+        for j in range(tile):
+            g = dist.new_group(list(range(j, n, tile)))
+            if rank % tile == j:
                 data_group = g
         for d in range(n // tile):
-            g = dist.new_group(list(range(d * tile, (d + 1) * tile)))
-            if rank // tile == d:
-                model_group = g
-    mesh = Mesh(data=n // tile, seq=seq, model=model, data_rank=rank // tile,
-                model_rank=rank % model, data_group=data_group,
-                model_group=model_group, world_group=world)
+            for i in range(seq):
+                g = dist.new_group([d * tile + i * model + m
+                                    for m in range(model)])
+                if (d, i) == (d_me, s_me):
+                    model_group = g
+    if seq > 1:
+        for d in range(n // tile):
+            for m in range(model):
+                g = dist.new_group([d * tile + i * model + m
+                                    for i in range(seq)])
+                if (d, m) == (d_me, m_me):
+                    seq_group = g
+        if model > 1:
+            for m in range(model):
+                g = dist.new_group(list(range(m, n, model)))
+                if m == m_me:
+                    data_seq_group = g
+        else:
+            data_seq_group = world
+    mesh = Mesh(data=n // tile, seq=seq, model=model, data_rank=d_me,
+                model_rank=m_me, data_group=data_group,
+                model_group=model_group, world_group=world, seq_rank=s_me,
+                seq_group=seq_group, seq_ranks=seq_ranks,
+                data_seq_group=data_seq_group)
     if world is not None:
         pdist.set_mesh(mesh)
     return mesh
@@ -96,8 +130,14 @@ def make_mesh(config: Optional[Dict[str, Any]] = None) -> Mesh:
 
 def data_parallel_size() -> int:
     """The number of data-parallel replicas: the ranks of the group over the
-    model axis."""
+    model and seq axes."""
     return pdist.data_size()
+
+
+def seq_parallel_size() -> int:
+    """The size of the current mesh's seq axis (1 without a mesh)."""
+    mesh = pdist.current_mesh()
+    return 1 if mesh is None else mesh.seq
 
 
 def host_shard_args(num_shards: int) -> Dict[str, int]:

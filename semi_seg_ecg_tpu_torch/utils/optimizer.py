@@ -74,6 +74,14 @@ model axis). :meth:`TrainOptimizer.state_dict` gathers the slices over the
 model group, so a checkpoint holds the unsliced layout, and
 :meth:`TrainOptimizer.load_state_dict` takes the rank's slices of it.
 
+Sequence parallelism (a step on a split time axis,
+``parallel/seq_shard.py``): each seq rank's gradient is its block's part of
+the global loss's, so the all-reduce runs over the data×seq group and
+divides by the data ranks alone (summed over seq, averaged over data); a
+step whose batch stayed whole averages over the data group as before.
+Every rank ends with the same sum, so the seq ranks' parameters stay
+equal bit for bit.
+
 Freezing (``mode: freeze_backbone``, ``frozen_stages >= 0``): the frozen
 set is the JAX package's ``frozen_param_mask``
 (:func:`frozen_parameter_names`).
@@ -91,6 +99,7 @@ import numpy as np
 import torch
 
 from ..parallel import dist as pdist
+from ..parallel import seq_shard
 from ..parallel.dist import all_reduce_grads_
 from . import lr_sched
 from .lr_decay import param_lr_scales_and_wd
@@ -192,6 +201,7 @@ class TrainOptimizer:
         self._index = {id(p): i for i, p in enumerate(self.params)}
         self.slices: List = [None] * len(self.params)
         self.mesh = None
+        self._time_split = False
 
     def shard_(self, plan: Dict[str, Any], mesh) -> None:
         """The model's parameters are now this model rank's slices
@@ -230,6 +240,7 @@ class TrainOptimizer:
     def step(self) -> bool:
         """End a micro-step; on a window's last, apply the update to the
         window's mean gradient. Returns whether it applied one."""
+        self._time_split = seq_shard.active() is not None
         self.micro_step += 1
         if self.micro_step < self.accum:
             return False
@@ -242,7 +253,7 @@ class TrainOptimizer:
             group["lr"] = lr * group["lr_scale"]
         # the mean over the ranks first, so every rank clips and applies
         # the global batch's gradient (one rank: nothing to do)
-        all_reduce_grads_(self.params)
+        self._reduce_grads()
         if self.mesh is not None and self.mesh.model > 1:
             # the replicated parameters take model rank 0's gradient: every
             # model rank computed it from the same numbers, but on a card
@@ -269,6 +280,16 @@ class TrainOptimizer:
         process group's ranks, in place; every rank calls it (one rank:
         nothing to do)."""
         if self.micro_step:
+            self._reduce_grads()
+
+    def _reduce_grads(self) -> None:
+        """The ranks' gradients summed and averaged over the data ranks:
+        over the data×seq group when the last step split the time axis
+        (the seq ranks' parts of one gradient), else over the data group."""
+        mesh = pdist.current_mesh()
+        if self._time_split and mesh is not None:
+            all_reduce_grads_(self.params, mesh.data_seq_group, mesh.data)
+        else:
             all_reduce_grads_(self.params)
 
     def _unslice(self, state: Dict[int, Dict[str, Any]]) -> None:

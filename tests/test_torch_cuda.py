@@ -993,3 +993,99 @@ def test_two_ranks_step_as_one_process_holding_both_shards(cuda, tmp_path):
         if v.is_floating_point():
             np.testing.assert_allclose(got, v.cpu().numpy(), rtol=5e-4,
                                        atol=1e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# Ring attention's hops: the kernels with their query and key counts apart
+# ---------------------------------------------------------------------------
+
+HOP_CASES = [(51, 51, 50), (50, 51, 51), (1025, 1025, 1024), (513, 513, 512),
+             (64, 128, 100), (7, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nk,n_kv", HOP_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hop_kernels_match_plain(cuda, nq, nk, n_kv, dtype):
+    """q of nq rows against the first n_kv of nk keys (the rest of a
+    padded chunk masked), forward and backward, the backward on the out
+    and lse of a longer softmax (a ring's merged ones, here over the chunk
+    and another of nq keys)."""
+    b, h, d = 2, 3, 64
+    scale = d ** -0.5
+    (q,) = qkv((b, h, nq, d), dtype, seed=1)[:1]
+    k, v, dout = qkv((b, h, nk, d), dtype, seed=2)[:2] + [
+        qkv((b, h, nq, d), dtype, seed=3)[0]]
+    before = fa.LAUNCHES
+    out, lse = fa.flash_attention_hop_forward(q, k, v, scale, n_kv)
+    assert fa.LAUNCHES == before + 1
+    ks, vs = k[:, :, :n_kv], v[:, :, :n_kv]
+    ref_out, ref_lse = fa.flash_attention_plain(q, ks, vs, scale)
+    assert_within(out, ref_out, fa.forward_tolerance(q, ks, vs, scale,
+                                                     ref_out), "out")
+    torch.testing.assert_close(lse, ref_lse, atol=fa.LSE_ATOL, rtol=0)
+    # the merged softmax over this chunk and another
+    k2, v2 = qkv((b, h, nq, d), dtype, seed=4)[:2]
+    g_out, g_lse = fa.flash_attention_plain(
+        q, torch.cat([ks, k2], 2), torch.cat([vs, v2], 2), scale)
+    before = fa.BWD_LAUNCHES
+    grads = fa.flash_attention_hop_backward(q, k, v, g_out, g_lse, dout,
+                                            scale, n_kv)
+    assert fa.BWD_LAUNCHES == before + 1
+    ref = fa.flash_attention_backward_plain(q, ks, vs, g_out, g_lse, dout,
+                                            scale)
+    tols = fa.backward_tolerance(q, ks, vs, g_out, g_lse, dout, scale, ref)
+    for name, got, want, tol in zip("qkv", grads, ref, tols):
+        assert got.dtype == dtype, name
+        got = got if name == "q" else got[:, :, :n_kv]
+        assert_within(got, want, tol, f"d{name}")
+    for got in grads[1:]:
+        assert not got[:, :, n_kv:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,n", [(2, 101), (3, 64), (4, 257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_ring_matches_plain_ring(cuda, size, n, dtype):
+    """The ring through the kernels against the plain ring, forward and
+    gradients (the seq ranks as threads, ``seq_shard.run_threads``), the
+    ranks' chunks uneven and padded, within the single kernel's
+    tolerances (fp32) or the ring's bf16 error bounds."""
+    from semi_seg_ecg_tpu_torch.ops import ring_attention as ra
+    from semi_seg_ecg_tpu_torch.parallel.seq_shard import block, run_threads
+
+    b, h, d = 2, 3, 64
+    scale = d ** -0.5
+    q, k, v = qkv((b, h, n, d), dtype, seed=5)
+    g = qkv((b, h, n, d), dtype, seed=6)[0]
+    blocks = [block(n, size, j) for j in range(size)]
+    counts = [hi - lo for lo, hi in blocks]
+
+    def ring(kernel):
+        def rank(comm):
+            lo, hi = blocks[comm.rank]
+            qi, ki, vi, gi = (t[:, :, lo:hi].contiguous()
+                              for t in (q, k, v, g))
+            out, lse = ra.ring_forward(qi, ki, vi, comm, scale, counts,
+                                       kernel)
+            return out, ra.ring_backward(qi, ki, vi, out, lse, gi, comm,
+                                         scale, counts, kernel)
+
+        res = run_threads(size, rank)
+        torch.cuda.synchronize()
+        return (torch.cat([r[0] for r in res], 2),
+                [torch.cat([r[1][i] for r in res], 2) for i in range(3)])
+
+    out, grads = ring(True)
+    out_p, grads_p = ring(False)
+    if dtype == torch.float32:
+        tol = fa.forward_tolerance(q, k, v, scale, out_p)
+        tols = fa.backward_tolerance(q, k, v, out_p, None, g, scale, grads_p)
+    else:
+        ref_out, ref_lse = fa.flash_attention_plain(q, k, v, scale)
+        tol = ra.ring_forward_error_bound(q, k, v, scale)
+        tols = ra.ring_backward_error_bound(q, k, v, ref_out, ref_lse, g,
+                                            scale)
+    assert_within(out, out_p, tol, "out")
+    for name, got, want, t in zip("qkv", grads, grads_p, tols):
+        assert_within(got, want, t, f"d{name}")

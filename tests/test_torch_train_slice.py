@@ -402,13 +402,13 @@ def test_unported_algorithms_and_options_raise():
                      model.backbone.layer4[1].bn2.running_var.clone()))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
-    # what multi-GPU training still refuses: the sequence axis, and int8
-    # serving under the model axis
+    # what multi-GPU training still refuses: int8 serving under the model
+    # axis (the sequence axis trains: tests/test_torch_seq_parallel.py
+    # holds it against the JAX package, and its refusals)
     from semi_seg_ecg_tpu_torch.algorithms.common import _refuse_unported
 
     cfg = lockstep_config("xla", "base")
-    refused = [{"parallel": {"seq_parallel": 2}},
-               {"parallel": {"model_parallel": 2}, "quantize": "int8"}]
+    refused = [{"parallel": {"model_parallel": 2}, "quantize": "int8"}]
     for override in refused:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             _refuse_unported({**cfg, **override})

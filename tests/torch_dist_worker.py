@@ -130,7 +130,8 @@ def task_steps(runs, device="cpu", optimizer_state=False):
     slices and their local shapes (``sliced``); with ``optimizer_state``
     each optimizer's :func:`optimizer_report`. A run with ``checkpoint``
     has rank 0 write the trainer's checkpoint there (every rank gathers
-    it), as the training loop writes one."""
+    it), as the training loop writes one; ``updates`` (default: the
+    number of batches) is the schedule's updates an epoch."""
     from semi_seg_ecg_tpu_torch.parallel.sharding_rules import (
         full_state_dict,
     )
@@ -157,7 +158,8 @@ def task_steps(runs, device="cpu", optimizer_state=False):
                 modules[role].to(device)
         with full_fp32():
             trainer = Trainer(copy.deepcopy(cfg), spec, device,
-                              len(run["batches"]), model=modules["model"],
+                              run.get("updates", len(run["batches"])),
+                              model=modules["model"],
                               peer=modules.get("peer"))
             metrics, launches = [], []
             for batch in run["batches"]:
