@@ -75,8 +75,8 @@ non-zero exit when it fails:
    at batches 1, 16, 37 and 64 with ``DEPTH`` flash forwards a ViT call,
    within 1e-5 of ``ServingFn``; a pinned batch that refuses another; a
    bf16 autocast artifact that says so and agrees with fp32 on >= 90% of
-   the argmaxes; int8 with dynamic and calibrated scales on both backbones
-   (card against the CPU, int8 against fp32 by the JAX package's rule, no
+   the argmaxes; int8, the ViT with dynamic and ResNet18 with calibrated
+   scales (card against the CPU, int8 against fp32 by the JAX package's rule, no
    activation reduction in a calibrated call, one per int8 layer in a
    dynamic one); ``make_http_server`` (metadata, a POST of 37 rows within
    1e-6 of the artifact, 400 on a wrong shape, round trips); the 1 h record
@@ -165,12 +165,13 @@ non-zero exit when it fails:
    and in one process within 1e-4; (c) each rank's parameter and
    optimizer bytes and peak memory against one process, and its bf16
    step's ms, device events and all-reduce time (host ranges of the
-   step's own trace); (d) phase 8's 1 h record through
+   step's own trace; on one card at ``(2, 2)`` only); (d) phase 8's 1 h record through
    ``long_record_inference(mesh=)`` and 8 two-minute streams through
    ``StreamingSegmenter(mesh=)`` on the ``(2, 2)`` ranks (2 data ranks of
    2 model ranks, the serving model's MLP sliced), each against one
    process within 1e-5 (12 flash forwards a batch, half the batches a
-   data rank). The log's last phase-14 line splits its seconds;
+   data rank); on one card both rank groups run at once. The log's last
+   phase-14 line splits its seconds;
 15. sequence parallelism (``parallel.seq_parallel``): (a) ring attention
    through the flash kernels (``ops/ring_attention.py``, the seq ranks as
    threads of this process) against the plain ring, forward and
@@ -189,7 +190,35 @@ non-zero exit when it fails:
    launches, its checkpoint served at fp32 on the ranks against one
    process within 1e-4; (d) one fp32 base step of ResNet18 at 2^17
    samples and of a vit_tiny of 2,049 tokens on a rank against one
-   process: activation memory, ms.
+   process: activation memory, ms;
+16. every algorithm and option on every ``(data, seq, model)`` mesh: (a)
+   the kernel ring on one head a model rank, (16, 1, 101, 64) and
+   (2, 1, 2049, 64) over 2 seq ranks in fp32 and bf16, against the plain
+   ring, a hop of each timed as in phase 15; then three rank groups at
+   once (gloo on one card, NCCL where the cards cover the ranks): (b) at
+   ``(data 1, seq 2)`` three fp32 ReCo steps of each backbone (its loss's
+   inputs gathered over the seq ranks, its contrastive term live) against
+   one process within phase 10's bounds (the absolute part at least 10x
+   one process's own run-to-run excess), ST++'s ranking of phase 4's
+   unlabeled split by three ViT snapshots against one process's, and an
+   int8 serving batch of each backbone, dynamic and calibrated; (c) at
+   ``(1, 2, 3)`` three fp32 FixMatch steps of the ViT (the ring on a model
+   rank's one head) and an int8 ViT batch with its heads over the model
+   axis (``(data 2, model 3)``, each data rank serving the whole batch),
+   dynamic and calibrated; (d) at ``(1, 2, 2)`` three fp32 FixMatch steps
+   of ResNet18. Every rank's launches a step or a batch are held to the
+   code's count; every int8 layer's codes, joined over the ranks, to one
+   process's, and the probabilities within 1e-5 (the ViT under seq: the
+   codes up to the first attention output, whose ring rounds apart from
+   the flash kernel, and then phase 9's int8 rule).
+
+In the whole run phases 14-16 share rank groups, since a group's start
+costs tens of seconds: phase 16's (a) runs on an idle
+card before phase 14; phase 15's ``(2, 2)`` tasks and phase 16's (d) run
+on phase 14's ``(2, 2)`` group, phase 16's (b) on phase 15's ``(1, 2)``
+group, and phase 16's ``(1, 2, 3)`` group starts after phase 15's (a).
+Run alone, each phase starts its own groups. The log's last line before
+the results lists each phase's seconds.
 
 ``python3 chip_smoke.py --tp-drift OUT`` is a diagnostic outside the run:
 phase 14's fp32 steps with the optimizer's sync of the replicated
@@ -399,8 +428,8 @@ LONGREC_CPU_ATOL, STREAM_ATOL = 1e-4, 1e-5
 # 0.995 where the fp32 margin is above its median, relative norm below 0.1
 INT8_LAYER_RTOL = 1e-6
 INT8_AGREE, INT8_AGREE_CONFIDENT, INT8_REL_NORM = 0.9, 0.995, 0.1
-# the timed and traced calls of each of phase 9's 16 serving profiles (2
-# models x 4 forms x 2 batches), cut from 10 to keep the script's time
+# the timed and traced calls of each of phase 9's 12 serving profiles (2
+# models x 3 forms x 2 batches), cut from 10 to keep the script's time
 SERVE_PROFILE_STEPS = 5
 
 
@@ -835,15 +864,16 @@ def write_slice_config(family="vit_tiny"):
     return path, config
 
 
-def write_random_weights(config, path):
-    """The config's model at full width, weights from seed 0, as a .pth."""
+def write_random_weights(config, path, seed=0):
+    """The config's model at full width, weights from ``seed``, as a
+    .pth."""
     import torch
 
     from semi_seg_ecg_tpu_torch.config import normalize_config
     from semi_seg_ecg_tpu_torch.models import build_model_from_config
     from semi_seg_ecg_tpu_torch.utils.checkpoint import save_torch_checkpoint
 
-    torch.manual_seed(0)
+    torch.manual_seed(seed)
     model = build_model_from_config(normalize_config(config))
     save_torch_checkpoint(path, model, epoch=0)
     return sum(p.numel() for p in model.parameters())
@@ -2637,6 +2667,12 @@ def check_http(torch, path, header):
             "alive_after_shutdown": thread.is_alive()}
 
 
+# phase 9's int8 artifacts: (family, flash, kind of scale, calibration
+# batches)
+INT8_FORMS = (("vit_tiny", True, "dynamic", 0),
+              ("resnet18", False, "static", 2))
+
+
 def phase_deploy(torch, vit_model, resnet_model):
     """The serving deployment at full width: ``export_serving`` of the ViT
     (``vit_model``, flash attention) and of ResNet18 (``resnet_model``),
@@ -2720,67 +2756,68 @@ def phase_deploy(torch, vit_model, resnet_model):
     result["amp"] = {"precision": header["precision"],
                      "argmax_agreement": amp_agree}
 
-    # int8, both backbones, dynamic and calibrated: card against the CPU,
-    # int8 against fp32, the calibrated graph without activation reductions
+    # int8, each backbone once and each kind of scale once (the ViT's
+    # dynamic, ResNet18's calibrated; phase 16 serves the other two forms
+    # under its meshes): card against the CPU, int8 against fp32, the
+    # calibrated graph without activation reductions
     int8 = {}
-    for family, flash in (("vit_tiny", True), ("resnet18", False)):
-        for kind, n_cal in (("dynamic", 0), ("static", 2)):
-            override = {"quantize": "int8", "quantize_calibration": n_cal}
-            config = deploy_config(family, models[family], **override)
-            path = os.path.join(art, f"{family}_int8_{kind}.pt2")
-            header, seconds = timed_export(torch, config, path, flash)
-            serve, _ = load_serving(path)
-            infer, model = make_serving_fn(config)
-            cpu, _ = make_serving_fn({**config, "device": "cpu"})
-            x = torch.from_numpy(_test_batches(config)[0]).cuda()
-            got = served(torch, serve, x, flash)
-            with torch.inference_mode():
-                eager = infer(x)
-            vs_eager = (got - eager).abs().max().item()
-            vs_cpu = int8_card_vs_cpu(torch, infer, cpu, x)
-            n_layers = len(int8_modules(model))
-            reductions = activation_reductions(torch, serve, x)
-            entry = {"export_s": seconds, "act_scales": header["act_scales"],
-                     "card_vs_cpu": vs_cpu,
-                     "artifact_vs_serving_fn": vs_eager,
-                     "int8_layers": n_layers,
-                     "activation_reductions_per_call": reductions}
-            if family == "vit_tiny":
-                fp32 = serve_fns[family]["artifact_fp32"](test_x)
-                q = served(torch, serve, test_x, flash)
-                entry["vs_fp32_agreement"], entry["vs_fp32_confident"] = \
-                    int8_agreement(fp32.cpu().numpy(), q.cpu().numpy())
-            log(f"  {family} int8 {kind}: exported in {seconds:.2f} s, "
-                f"header act_scales {header['act_scales']}; card vs CPU: "
-                f"each layer on the card's input within "
-                f"{vs_cpu['layer_max_rel_err']:.3g} relative, code flips "
-                f"from the first at layer {vs_cpu['first_layer_with_flips']}"
-                f" ({sum(vs_cpu['code_flips_by_layer'])} in all), whole "
-                f"model rel norm {vs_cpu['rel_norm']:.3g}, argmax agreement "
-                f"{vs_cpu['argmax_agreement']:.5f}, "
-                f"{vs_cpu['argmax_agreement_confident']:.5f} where "
-                f"confident; artifact vs ServingFn {vs_eager:.3g}; "
-                f"{reductions} activation reductions a call "
-                f"({n_layers} int8 layers)"
-                + (f"; vs fp32 agreement {entry['vs_fp32_agreement']:.5f}, "
-                   f"{entry['vs_fp32_confident']:.5f} where confident"
-                   if family == "vit_tiny" else ""))
-            if header["act_scales"] != kind or vs_eager > 1e-5 or \
-                    vs_cpu["layer_max_rel_err"] > INT8_LAYER_RTOL or \
-                    vs_cpu["argmax_agreement"] <= INT8_AGREE or \
-                    vs_cpu["argmax_agreement_confident"] \
-                    <= INT8_AGREE_CONFIDENT or \
-                    vs_cpu["rel_norm"] >= INT8_REL_NORM or \
-                    reductions != (0 if n_cal else n_layers):
-                raise SystemExit(f"phase 9 failed: {family} int8 {kind}: "
-                                 f"{entry}")
-            if family == "vit_tiny" and (
-                    entry["vs_fp32_agreement"] <= INT8_AGREE
-                    or entry["vs_fp32_confident"] <= INT8_AGREE_CONFIDENT):
-                raise SystemExit(f"phase 9 failed: int8 ViT vs fp32 "
-                                 f"{entry}")
-            int8[f"{family}_{kind}"] = entry
-            serve_fns[family][f"artifact_int8_{kind}"] = serve
+    for family, flash, kind, n_cal in INT8_FORMS:
+        override = {"quantize": "int8", "quantize_calibration": n_cal}
+        config = deploy_config(family, models[family], **override)
+        path = os.path.join(art, f"{family}_int8_{kind}.pt2")
+        header, seconds = timed_export(torch, config, path, flash)
+        serve, _ = load_serving(path)
+        infer, model = make_serving_fn(config)
+        cpu, _ = make_serving_fn({**config, "device": "cpu"})
+        x = torch.from_numpy(_test_batches(config)[0]).cuda()
+        got = served(torch, serve, x, flash)
+        with torch.inference_mode():
+            eager = infer(x)
+        vs_eager = (got - eager).abs().max().item()
+        vs_cpu = int8_card_vs_cpu(torch, infer, cpu, x)
+        n_layers = len(int8_modules(model))
+        reductions = activation_reductions(torch, serve, x)
+        entry = {"export_s": seconds, "act_scales": header["act_scales"],
+                 "card_vs_cpu": vs_cpu,
+                 "artifact_vs_serving_fn": vs_eager,
+                 "int8_layers": n_layers,
+                 "activation_reductions_per_call": reductions}
+        if family == "vit_tiny":
+            fp32 = serve_fns[family]["artifact_fp32"](test_x)
+            q = served(torch, serve, test_x, flash)
+            entry["vs_fp32_agreement"], entry["vs_fp32_confident"] = \
+                int8_agreement(fp32.cpu().numpy(), q.cpu().numpy())
+        log(f"  {family} int8 {kind}: exported in {seconds:.2f} s, "
+            f"header act_scales {header['act_scales']}; card vs CPU: "
+            f"each layer on the card's input within "
+            f"{vs_cpu['layer_max_rel_err']:.3g} relative, code flips "
+            f"from the first at layer {vs_cpu['first_layer_with_flips']}"
+            f" ({sum(vs_cpu['code_flips_by_layer'])} in all), whole "
+            f"model rel norm {vs_cpu['rel_norm']:.3g}, argmax agreement "
+            f"{vs_cpu['argmax_agreement']:.5f}, "
+            f"{vs_cpu['argmax_agreement_confident']:.5f} where "
+            f"confident; artifact vs ServingFn {vs_eager:.3g}; "
+            f"{reductions} activation reductions a call "
+            f"({n_layers} int8 layers)"
+            + (f"; vs fp32 agreement {entry['vs_fp32_agreement']:.5f}, "
+               f"{entry['vs_fp32_confident']:.5f} where confident"
+               if family == "vit_tiny" else ""))
+        if header["act_scales"] != kind or vs_eager > 1e-5 or \
+                vs_cpu["layer_max_rel_err"] > INT8_LAYER_RTOL or \
+                vs_cpu["argmax_agreement"] <= INT8_AGREE or \
+                vs_cpu["argmax_agreement_confident"] \
+                <= INT8_AGREE_CONFIDENT or \
+                vs_cpu["rel_norm"] >= INT8_REL_NORM or \
+                reductions != (0 if n_cal else n_layers):
+            raise SystemExit(f"phase 9 failed: {family} int8 {kind}: "
+                             f"{entry}")
+        if family == "vit_tiny" and (
+                entry["vs_fp32_agreement"] <= INT8_AGREE
+                or entry["vs_fp32_confident"] <= INT8_AGREE_CONFIDENT):
+            raise SystemExit(f"phase 9 failed: int8 ViT vs fp32 "
+                             f"{entry}")
+        int8[f"{family}_{kind}"] = entry
+        serve_fns[family][f"artifact_int8_{kind}"] = serve
     result["int8"] = int8
 
     result["http"] = check_http(
@@ -2861,13 +2898,13 @@ def dp_layout(torch):
                     "LOCAL_RANK=0, started by chip_smoke.py")
 
 
-def dp_step_config(family, backend):
-    """The family's FixMatch recipe for the step comparison: fp32, no
-    dropout, no warmup, SGD with momentum, device augmentation (and flash
-    attention for the ViT)."""
+def dp_step_config(family, backend, algorithm="fixmatch"):
+    """The family's FixMatch recipe (or ``algorithm``'s) for the step
+    comparison: fp32, no dropout, no warmup, SGD with momentum, device
+    augmentation (and flash attention for the ViT)."""
     from semi_seg_ecg_tpu_torch.config import normalize_config
 
-    _, config = write_train_config(family, "fixmatch")
+    _, config = write_train_config(family, algorithm)
     cfg = normalize_config(copy.deepcopy(config))
     cfg["precision"] = "fp32"
     cfg["decode_head"]["FCNHead"]["dropout_ratio"] = 0.0
@@ -2891,15 +2928,16 @@ def dp_global_batches(seed):
 
 
 def dp_steps(torch, config, batches, rows=None):
-    """DP_STEPS FixMatch steps of the seed-0 model on ``rows`` of each
-    global batch (default: this rank's data rank's share under the
-    config's mesh): the metrics of each step (their mean over the data
+    """DP_STEPS steps of the config's algorithm (FixMatch in every recipe
+    of ``dp_step_config`` but phase 16's ReCo) of the seed-0 model on
+    ``rows`` of each global batch (default: this rank's data rank's share
+    under the config's mesh): the metrics of each step (their mean over the data
     ranks under a process group), the launches of each step, the final
     state (gathered over the model axis), the checkpoint's layout (keys and
     shapes of the model and the optimizer state, as
     ``Trainer.checkpoint_state`` gathers them for rank 0 to write) and the
     rank's parameter and optimizer bytes and peak memory."""
-    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
     from semi_seg_ecg_tpu_torch.algorithms.common import (
         Trainer,
         full_fp32,
@@ -2924,7 +2962,8 @@ def dp_steps(torch, config, batches, rows=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with full_fp32():
-        trainer = Trainer(copy.deepcopy(config), fixmatch.SPEC, device, 4,
+        trainer = Trainer(copy.deepcopy(config),
+                          get_algorithm(config["algorithm"]).SPEC, device, 4,
                           model=init_model(config, device))
         for batch in batches:
             on_card = {k: torch.from_numpy(v[rows]).to(device)
@@ -3178,7 +3217,11 @@ RANK_TASKS = {"tp_drift": lambda torch, **kw: tp_drift(torch, **kw),
                   torch, precision="bf16", phase=14, **kw),
               "tp_infer": lambda torch, **kw: tp_infer(torch, **kw),
               "tp_longrec": lambda torch, **kw: tp_longrec(torch, **kw),
-              "seq_long": lambda torch, **kw: seq_long(torch, **kw)}
+              "seq_long": lambda torch, **kw: seq_long(torch, **kw),
+              "so_steps": dp_steps,
+              "so_stpp_rank": lambda torch, **kw: so_stpp_rank(torch, **kw),
+              "so_int8_serve": lambda torch, **kw: so_int8_serve(torch,
+                                                                 **kw)}
 
 
 def rank_main(job, out_dir):
@@ -3284,11 +3327,12 @@ def finish_ranks(group, phase):
 
 
 def dp_check_steps(family, ranks, single, steps=DP_STEPS, phase=10,
-                   layout=None, want_launches=None):
+                   layout=None, want_launches=None, algorithm="FixMatch",
+                   atol=DP_ATOL):
     """The ranks' ``steps`` steps against one process holding both shards:
-    losses, confident pixels, launches per step (``want_launches``, else
-    one process's), the state; the ranks' states equal. ``layout`` names
-    the ranks' layout in the log."""
+    losses (ReCo's contrastive one too), confident pixels, launches per
+    step (``want_launches``, else one process's), the state; the ranks'
+    states equal. ``layout`` names the ranks' layout in the log."""
     want_launches = want_launches or launches_per_step(family, "fixmatch")
     for r, got in enumerate(ranks):
         if got["launches"] != [want_launches] * steps:
@@ -3304,9 +3348,11 @@ def dp_check_steps(family, ranks, single, steps=DP_STEPS, phase=10,
     loss_rel, pixels = 0.0, []
     n = DP_WORLD * DP_ROWS * SIGNAL_LENGTH
     for a, b in zip(first["metrics"], single["metrics"]):
-        for k in ("loss", "loss_x", "loss_u_s", "loss_total"):
-            loss_rel = max(loss_rel, abs(a[k] - b[k]) / max(abs(b[k]),
-                                                             1e-12))
+        for k in ("loss", "loss_x", "loss_u_s", "loss_total",
+                  "contr_loss"):
+            if k in b:
+                loss_rel = max(loss_rel, abs(a[k] - b[k])
+                               / max(abs(b[k]), 1e-12))
         pixels.append((round(a["mask_ratio"] * n),
                        round(b["mask_ratio"] * n)))
     worst, worst_key = 0.0, None
@@ -3318,13 +3364,13 @@ def dp_check_steps(family, ranks, single, steps=DP_STEPS, phase=10,
         if excess > worst or worst_key is None:
             worst, worst_key = excess, k
     layout = layout or f"{DP_WORLD} ranks x {DP_ROWS} rows"
-    log(f"  {family} FixMatch, {steps} fp32 SGD steps, {layout} against "
+    log(f"  {family} {algorithm}, {steps} fp32 SGD steps, {layout} against "
         f"one process holding the global batch: losses within "
         f"{loss_rel:.3g} relative; parameters "
         f"and BN statistics: max(|diff| - {DP_RTOL} |one process|) = "
         f"{worst:.3g} ({worst_key}); confident pixels {pixels}; launches "
         f"per rank per step {want_launches}")
-    if not (loss_rel <= DP_LOSS_RTOL and worst <= DP_ATOL
+    if not (loss_rel <= DP_LOSS_RTOL and worst <= atol
             and all(abs(a - b) <= DP_PIXELS for a, b in pixels)):
         raise SystemExit(f"phase {phase} failed: {family}: {layout} "
                          "disagrees with one process")
@@ -4939,10 +4985,12 @@ def tp_check_longrec(torch, ranks, config_path, model_path, record,
     return result
 
 
-def phase_tensor_parallel(torch):
+def phase_tensor_parallel(torch, extra=None):
     """Phase 14: ``parallel.model_parallel`` through the port's own path
     (head-parallel flash attention on each rank's heads, the sliced MLP,
-    the gathered checkpoint) and ``mesh=`` long records."""
+    the gathered checkpoint) and ``mesh=`` long records. ``extra``
+    (layout: tasks) appends other phases' tasks to a rank group; their
+    results and the group's logs are ``result["extra"][layout]``."""
     t_phase = time.perf_counter()
     smi = nvidia_smi().replace("\n", "; ")
     log(f"phase 14: {torch.cuda.device_count()} card(s), {smi}")
@@ -4969,20 +5017,25 @@ def phase_tensor_parallel(torch):
     # tasks (rank 0's)
     spans = {"one_process": time.perf_counter() - t_phase}
     result = {"layouts": {}, "nvidia_smi": smi, "spans": spans}
-    recipe_path = None
-    for layout, (backend, description) in layouts.items():
+    recipe_path, _ = tp_recipe_config(layouts[TP_RECIPE_LAYOUT][0])
+    best = os.path.join(WORK, "exps", "tp_vit_tiny_fixmatch",
+                        "best-MeanIoU.ckpt")
+
+    def launch(layout):
+        backend = layouts[layout][0]
         world = layout[0] * layout[1]
         config = tp_step_config(layout, backend)
-        tasks = [("steps", {"config": config, "batches": batches}),
-                 ("tp_profile", {"config": dict(
-                     dp_profile_config(), parallel={
-                         "model_parallel": layout[1]},
-                     ddp={"dist_backend": backend}),
-                     "steps": TP_PROFILE_STEPS[backend]})]
+        tasks = [("steps", {"config": config, "batches": batches})]
+        if backend == "nccl" or layout != TP_RECIPE_LAYOUT:
+            # on one card the (1, 3) group's recipe run is the phase's
+            # longest: its bf16 step's profile (gloo through the host, the
+            # layout's time, not the program's) is taken at (2, 2) only
+            tasks.append(("tp_profile", {"config": dict(
+                dp_profile_config(), parallel={
+                    "model_parallel": layout[1]},
+                ddp={"dist_backend": backend}),
+                "steps": TP_PROFILE_STEPS[backend]}))
         if layout == TP_RECIPE_LAYOUT:
-            recipe_path, _ = tp_recipe_config(backend)
-            best = os.path.join(WORK, "exps", "tp_vit_tiny_fixmatch",
-                                "best-MeanIoU.ckpt")
             tasks += [("train", {"config_path": recipe_path}),
                       ("tp_infer", {"config_path": recipe_path,
                                     "model_path": best,
@@ -4991,22 +5044,44 @@ def phase_tensor_parallel(torch):
             tasks.append(("tp_longrec", {
                 "config_path": slice_path, "model_path": model_path,
                 "record_path": record_path, "streams_path": streams_path}))
-        t0 = time.perf_counter()
-        by_task, logs = dp_run_ranks(tasks, backend, phase=14, world=world)
+        index[layout] = {name: i for i, (name, _) in enumerate(tasks)}
+        tasks += (extra or {}).get(layout, [])
+        return start_ranks(tasks, backend, world=world,
+                           name=f"tp{layout[0]}x{layout[1]}")
+
+    index = {}
+    result["extra"] = {}
+
+    # on one card (gloo) both rank groups at once, since a group's start
+    # costs about 12 s; over NCCL one after the other, each timed alone
+    together = all(b == "gloo" for b, _ in layouts.values())
+    groups = {layout: launch(layout) for layout in layouts} if together \
+        else {}
+    t_ranks = time.perf_counter()
+    for layout, (backend, description) in layouts.items():
+        world = layout[0] * layout[1]
+        if not together:
+            t_ranks = time.perf_counter()
+        by_task, logs = finish_ranks(groups.get(layout) or launch(layout),
+                                     14)
         name = f"(data {layout[0]}, model {layout[1]})"
         key = f"{layout[0]}x{layout[1]}"
-        spans[key] = time.perf_counter() - t0
+        spans[key] = time.perf_counter() - t_ranks
         spans[f"{key}_tasks"] = rank_task_seconds(logs)
-        log(f"  {name}: {description}, ranks {spans[key]:.1f} s (rank 0's "
-            f"tasks {spans[f'{key}_tasks']})")
+        log(f"  {name}: {description}, ranks done {spans[key]:.1f} s after "
+            f"the groups started (rank 0's tasks {spans[f'{key}_tasks']})")
         t0 = time.perf_counter()
+        own = index[layout]
+        result["extra"][layout] = (by_task[len(own):], logs)
         entry = {"backend": backend, "layout": description,
                  "steps": dp_check_steps("vit_tiny", by_task[0], single,
                                          phase=14, layout=name)}
         tp_check_layout(by_task[0], single, name)
         entry["memory"] = tp_memory(by_task[0], single, name)
-        entry["profile"] = by_task[1]
-        for r, p in enumerate(by_task[1]):
+        profiles = by_task[own["tp_profile"]] if "tp_profile" in own else []
+        if profiles:
+            entry["profile"] = profiles
+        for r, p in enumerate(profiles):
             log(f"    {name} rank {r}: bf16 step {p['wall_ms_per_step']:.3f} "
                 f"ms wall, busy {p['device_busy_ms_per_step']} ms, "
                 f"{p['device_events_per_step']:.0f} device events, "
@@ -5016,12 +5091,14 @@ def phase_tensor_parallel(torch):
                 f"{one_profile['wall_ms_per_step']:.3f} ms, "
                 f"{one_profile['device_events_per_step']:.0f} events")
         if layout == TP_RECIPE_LAYOUT:
-            entry["recipe"] = tp_check_recipe(torch, recipe_path, best,
-                                              by_task[2], by_task[3])
+            entry["recipe"] = tp_check_recipe(
+                torch, recipe_path, best, by_task[own["train"]],
+                by_task[own["tp_infer"]])
         if layout == TP_LONGREC_LAYOUT:
             # (d) long records on the layout's two data ranks
             result["longrec"] = tp_check_longrec(
-                torch, by_task[-1], slice_path, model_path, record, streams)
+                torch, by_task[own["tp_longrec"]], slice_path, model_path,
+                record, streams)
             result["longrec"]["layout"] = description
             if backend == "nccl":
                 log(f"  1 h record wall time: {world} ranks "
@@ -5192,6 +5269,8 @@ def tp_check_recipe(torch, config_path, best, trained, served):
 SEQ_LAYOUTS = ((1, 2), (2, 2))
 # (c): the recipe run and its serving
 SEQ_RECIPE_LAYOUT = (1, 2)
+SEQ_RECIPE_BEST = os.path.join(WORK, "exps", "seq_vit_tiny_fixmatch",
+                               "best-MeanIoU.ckpt")
 # (a): (label, (B, H, N, D), seq ranks); each in fp32 and bf16
 SEQ_RING_CASES = [("ring_n101_s2", (16, 3, 101, 64), 2),
                   ("ring_n2049_s2", (2, 3, 2049, 64), 2),
@@ -5214,7 +5293,7 @@ def hop_bound(b, h, nq, nkv, d, dtype, backward=False):
                  FLASH_PEAK[dtype])
 
 
-def seq_ring_case(torch, gen, label, shape, size, dtype_name):
+def seq_ring_case(torch, gen, label, shape, size, dtype_name, phase=15):
     """(a): the kernel ring against the plain ring on one input (the seq
     ranks as threads), forward and gradients; then one hop of rank 0 over
     rank 1's padded chunk timed (kernel, plain, SDPA at the same nq and
@@ -5307,7 +5386,7 @@ def seq_ring_case(torch, gen, label, shape, size, dtype_name):
         f"{bwd_ms:.4f} ms, plain {bwd_plain:.4f}, sdpa {bwd_sdpa:.4f}, "
         f"bound {bwd_bound[0]:.5f} ({bwd_bound[1]})")
     if not ok:
-        raise SystemExit(f"phase 15 failed: {name}: the kernel ring "
+        raise SystemExit(f"phase {phase} failed: {name}: the kernel ring "
                          f"disagrees with the plain ring (out {ratio_out}, "
                          f"gradients {ratio_bwd} of the tolerance)")
     common = {"shape": f"hop_{name}", "bhnd": list(shape), "seq": size,
@@ -5324,11 +5403,13 @@ def seq_ring_case(torch, gen, label, shape, size, dtype_name):
                  bound_ms=bwd_bound[0], bound_by=bwd_bound[1]))
 
 
-def seq_step_config(family, layout, backend, head_dropout=0.1):
+def seq_step_config(family, layout, backend, head_dropout=0.1,
+                    algorithm="fixmatch"):
     """Phase 10's step configuration with the head's dropout on, host
-    batches (no device augmentation) and the ``(data, seq)`` layout; the
-    ViT's attention ``auto`` (the ring) under seq, flash in one process."""
-    cfg = dp_step_config(family, backend)
+    batches (no device augmentation) and the ``(data, seq)`` layout (a
+    third entry: the model axis); the ViT's attention ``auto`` (the ring)
+    under seq, flash in one process."""
+    cfg = dp_step_config(family, backend, algorithm)
     cfg["dataset"]["device_augment"] = False
     cfg["decode_head"]["FCNHead"]["dropout_ratio"] = head_dropout
     if family == "vit_tiny":
@@ -5336,6 +5417,8 @@ def seq_step_config(family, layout, backend, head_dropout=0.1):
             "auto" if layout[1] > 1 else "flash")
     cfg["parallel"] = dict(cfg.get("parallel") or {},
                            seq_parallel=layout[1])
+    if len(layout) > 2:
+        cfg["parallel"]["model_parallel"] = layout[2]
     return cfg
 
 
@@ -5482,10 +5565,34 @@ def seq_check_recipe(torch, config_path, best, trained, served):
             "test_metrics": trained[0]["test_metrics"]}
 
 
-def phase_seq_parallel(torch):
+def seq_parallel_tasks(torch, layout):
+    """Phase 15's rank tasks at ``layout``: (b)'s steps of both backbones,
+    and at SEQ_RECIPE_LAYOUT (c) and (d)."""
+    backend = tp_layout(torch, layout[0] * layout[1])[0]
+    batches = seq_batches(51)
+    tasks = [("steps", {"config": seq_step_config(family, layout, backend),
+                        "batches": batches})
+             for family in ("vit_tiny", "resnet18")]
+    if layout == SEQ_RECIPE_LAYOUT:
+        recipe_path, _ = seq_recipe_config(backend)
+        tasks += [("train", {"config_path": recipe_path}),
+                  ("tp_infer", {"config_path": recipe_path,
+                                "model_path": SEQ_RECIPE_BEST,
+                                "name": "seq_vit_tiny_fixmatch_served"}),
+                  ("seq_long", {})]
+    return tasks
+
+
+def phase_seq_parallel(torch, extra=None, after_ring=None, shared=None):
     """Phase 15: ``parallel.seq_parallel`` through the port's own path (the
     time-split ResNet18, ViT and FCN head, ring attention on the flash
-    kernels)."""
+    kernels). ``extra`` (layout: tasks) appends another phase's tasks to a
+    rank group (a group's start costs tens of seconds); their results are
+    ``result["extra"][layout]``. ``shared`` (layout: results and logs)
+    holds the results of a layout's tasks (:func:`seq_parallel_tasks`, then
+    its extra ones) run on another phase's rank group, whose group then
+    does not start here. ``after_ring`` is called once (a) has left the
+    card idle (another phase starts its groups beside these)."""
     t_phase = time.perf_counter()
     smi = nvidia_smi().replace("\n", "; ")
     log(f"phase 15: {torch.cuda.device_count()} card(s), {smi}")
@@ -5503,29 +5610,22 @@ def phase_seq_parallel(torch):
                 hops["flash_attention_fwd"].append(f)
                 hops["flash_attention_bwd"].append(b)
     spans["ring"] = time.perf_counter() - t_phase
+    if after_ring is not None:
+        after_ring()
     # the rank groups, both at once (the card is shared from here on)
     batches = seq_batches(51)
-    recipe_path = best = None
+    shared = shared or {}
     groups = {}
     for layout in SEQ_LAYOUTS:
         world = layout[0] * layout[1]
         backend, description = tp_layout(torch, world)
-        tasks = [("steps", {"config": seq_step_config(family, layout,
-                                                      backend),
-                            "batches": batches})
-                 for family in ("vit_tiny", "resnet18")]
-        if layout == SEQ_RECIPE_LAYOUT:
-            recipe_path, _ = seq_recipe_config(backend)
-            best = os.path.join(WORK, "exps", "seq_vit_tiny_fixmatch",
-                                "best-MeanIoU.ckpt")
-            tasks += [("train", {"config_path": recipe_path}),
-                      ("tp_infer", {"config_path": recipe_path,
-                                    "model_path": best,
-                                    "name": "seq_vit_tiny_fixmatch_served"}),
-                      ("seq_long", {})]
-        groups[layout] = (backend, description, start_ranks(
-            tasks, backend, world=world,
-            name=f"seq{layout[0]}x{layout[1]}"))
+        tasks = seq_parallel_tasks(torch, layout)
+        own = len(tasks)
+        tasks += (extra or {}).get(layout, [])
+        groups[layout] = (backend, description, own, None if layout in shared
+                          else start_ranks(
+                              tasks, backend, world=world,
+                              name=f"seq{layout[0]}x{layout[1]}"))
     # one process on the global batch, while the ranks run
     t0 = time.perf_counter()
     single = {family: dp_steps(torch, seq_step_config(family, (1, 1),
@@ -5535,23 +5635,30 @@ def phase_seq_parallel(torch):
     one_long = seq_long(torch)
     spans["one_process"] = time.perf_counter() - t0
     result = {"nvidia_smi": smi, "spans": spans, "layouts": {},
-              "hops": hops}
-    for layout, (backend, description, group) in groups.items():
+              "hops": hops, "extra": {}}
+    for layout, (backend, description, own, group) in groups.items():
         name = f"(data {layout[0]}, seq {layout[1]})"
         key = f"{layout[0]}x{layout[1]}"
-        by_task, logs = finish_ranks(group, 15)
-        spans[key] = time.perf_counter() - t_phase
+        if group is None:
+            by_task, logs = shared[layout]
+            where = "on phase 14's rank group"
+        else:
+            by_task, logs = finish_ranks(group, 15)
+            spans[key] = time.perf_counter() - t_phase
+            where = f"done {spans[key]:.1f} s into the phase"
+        result["extra"][layout] = (by_task[own:], logs)
         spans[f"{key}_tasks"] = rank_task_seconds(logs)
-        log(f"  {name}: {description}, done {spans[key]:.1f} s into the "
-            f"phase (rank 0's tasks {spans[f'{key}_tasks']})")
+        log(f"  {name}: {description}, {where} (rank 0's tasks "
+            f"{spans[f'{key}_tasks']})")
         entry = {"backend": backend, "layout": description, "steps": {}}
         for i, family in enumerate(("vit_tiny", "resnet18")):
             entry["steps"][family] = dp_check_steps(
                 family, by_task[i], single[family], phase=15, layout=name,
                 want_launches=seq_launches(family, layout[1]))
         if layout == SEQ_RECIPE_LAYOUT:
-            entry["recipe"] = seq_check_recipe(torch, recipe_path, best,
-                                               by_task[2], by_task[3])
+            entry["recipe"] = seq_check_recipe(
+                torch, seq_recipe_config(backend)[0], SEQ_RECIPE_BEST,
+                by_task[2], by_task[3])
             # (d) a rank's long-window step against one process's
             entry["long"] = {}
             for family, one in one_long.items():
@@ -5584,6 +5691,512 @@ def phase_seq_parallel(torch):
         + ", ".join(f"{k} {v:.1f} s" for k, v in spans.items()
                     if not isinstance(v, dict)))
     return result
+
+
+# Phase 16: every algorithm and option on every mesh. (a) the kernel ring
+# on a model rank's one head, (label, (B, H, N, D), seq ranks), each in
+# fp32 and bf16
+SO_RING_CASES = [("ring_h1_n101_s2", (16, 1, 101, 64), 2),
+                 ("ring_h1_n2049_s2", (2, 1, 2049, 64), 2)]
+# the rank groups: (data, seq) for ReCo, ST++'s ranking and int8 at seq 2;
+# (data, seq, model) for the ViT (one head a model rank) and ResNet18
+SO_SEQ_LAYOUT = (1, 2)
+SO_VIT_LAYOUT = (1, 2, 3)
+SO_RESNET_LAYOUT = (1, 2, 2)
+# int8 serving through the model group: the ViT's three heads over
+# SO_INT8_MODEL ranks, each data rank of the 6-rank group serving the
+# whole batch
+SO_INT8_MODEL = 3
+# ReCo's thresholds on random weights: every pixel easy (no softmax of 4
+# classes peaks below 0.25) and hard, so its contrastive term is live
+SO_RECO_TRAIN = {"easy_conf_thresh": 0.25, "eash_conf_thresh": 0.25,
+                 "hard_conf_thresh": 0.99}
+# ReCo's state is held by phase 10's bounds with the absolute part at
+# least this many times one process's own run-to-run excess over the
+# relative part, measured in the same call: on the card one process's
+# ResNet18 ReCo steps are not repeatable (``--reco-noise``: 3.09e-6 beyond
+# 5e-4 relative at the stem), while its FixMatch steps' seq ranks sit
+# about 8.5x one process's noise from it
+SO_RECO_NOISE = 10
+# ST++'s ranking: seeds of the three snapshots
+SO_SNAPSHOT_SEEDS = (61, 62, 63)
+# int8 ViT under seq: the ring's attention output rounds apart from one
+# process's flash kernel, so a code of the layer after it (the first
+# block's to_out.0, the third int8 call) may cross a .5 boundary, and a
+# moved code moves the layers after it by a quantization step: through 12
+# blocks the two int8 models part as the card's and the CPU's do (phase
+# 9). So the calls before it (the patch embedding, the first qkv) must
+# give one process's codes, every one, and the probabilities meet phase
+# 9's int8 rule (the JAX package's: INT8_AGREE, INT8_AGREE_CONFIDENT,
+# INT8_REL_NORM). Where no rounding differs (ResNet18 under seq, the
+# ViT's heads over the model axis, whose int32 partial sums add exactly)
+# every code is one process's and the probabilities are within 1e-5
+SO_INT8_EXACT_CALLS = 2
+
+
+def so_reco_config(family, layout, backend):
+    """Phase 15's step configuration of the family's ReCo recipe with
+    SO_RECO_TRAIN."""
+    cfg = seq_step_config(family, layout, backend, algorithm="reco")
+    cfg["train"].update(SO_RECO_TRAIN)
+    return cfg
+
+
+def so_stpp_config(seq):
+    """The ViT ST++ recipe at fp32 on phase 4's split (its unlabeled half
+    ranked), ``auto`` attention (the ring) under seq, flash in one
+    process."""
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    _, config = write_train_config("vit_tiny", "stpp")
+    cfg = normalize_config(copy.deepcopy(config))
+    cfg["precision"] = "fp32"
+    cfg["backbone"]["vit_tiny"]["attention_impl"] = (
+        "auto" if seq > 1 else "flash")
+    cfg["parallel"] = {"seq_parallel": seq}
+    return cfg
+
+
+@contextlib.contextmanager
+def recording_codes():
+    """Inside, every int8 layer's input codes are recorded in call order
+    (``ops/quant.quantize_input`` and its import in
+    ``models/quant_layers.py``); yields the list."""
+    from semi_seg_ecg_tpu_torch.models import quant_layers
+    from semi_seg_ecg_tpu_torch.ops import quant
+
+    codes, inner = [], quant.quantize_input
+
+    def recorded(x, act_scale):
+        q, scale = inner(x, act_scale)
+        codes.append(q.cpu().numpy())
+        return q, scale
+
+    quant.quantize_input = quant_layers.quantize_input = recorded
+    try:
+        yield codes
+    finally:
+        quant.quantize_input = quant_layers.quantize_input = inner
+
+
+def so_stpp_rank(torch, config, snapshots):
+    """ST++'s ranking (``stpp.select_reliable``) of the unlabeled split by
+    the ``snapshots`` (.pth paths) under the config's mesh, each rank on
+    its data rank's shards and its seq rank's time block: the
+    reliabilities, the reliable ids and the launches."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        amp_context,
+        eval_loader,
+        full_fp32,
+        load_eval_weights,
+        shard_for_mesh,
+    )
+    from semi_seg_ecg_tpu_torch.algorithms.stpp import select_reliable
+    from semi_seg_ecg_tpu_torch.data.dataset import build_seg_dataset
+    from semi_seg_ecg_tpu_torch.models import build_model_from_config
+    from semi_seg_ecg_tpu_torch.parallel.mesh import make_mesh
+
+    make_mesh(config)
+    device = torch.device("cuda", torch.cuda.current_device())
+    models = []
+    for path in snapshots:
+        model = build_model_from_config(config)
+        load_eval_weights(model, path)
+        models.append(shard_for_mesh(model.to(device)))
+    loader = eval_loader(config, build_seg_dataset(
+        config["dataset"], split="train_unlabeled", mode="eval"),
+        mode="eval")
+    try:
+        with full_fp32():
+            torch.cuda.synchronize()
+            reset_counts()
+            reliable, _, reliability = select_reliable(
+                models, loader, config["metric"]["num_classes"], device,
+                amp_context(config, device))
+            torch.cuda.synchronize()
+            launches = read_counts()
+    finally:
+        loader.close()
+    return {"reliable": reliable, "reliability": reliability,
+            "launches": launches}
+
+
+def so_int8_serve(torch, config, x):
+    """``make_serving_fn`` of an int8 config under its mesh (calibrating
+    on the ranks where it says so) and one batch ``x`` through it, split
+    over the seq axis (``seq_shard.sharded_call``, as ``run_inference``
+    serves): the probabilities, every int8 layer's input codes (this
+    rank's pieces) and the batch's launches."""
+    from semi_seg_ecg_tpu_torch.parallel import seq_shard
+    from semi_seg_ecg_tpu_torch.parallel.mesh import make_mesh
+    from semi_seg_ecg_tpu_torch.serving import make_serving_fn
+
+    make_mesh(config)
+    infer, _ = make_serving_fn(config)
+    batch = torch.from_numpy(x).to(infer.device)
+    torch.cuda.synchronize()
+    reset_counts()
+    with recording_codes() as codes:
+        probs = seq_shard.sharded_call(infer, batch)
+    torch.cuda.synchronize()
+    return {"probs": probs.cpu().numpy(), "codes": codes,
+            "launches": read_counts()}
+
+
+def so_join_codes(pieces, whole):
+    """The ranks' pieces of one layer's codes joined along the axis they
+    split (the first whose length differs from the whole's); where none
+    does, every rank holds the whole, which must agree (else None)."""
+    dims = [d for d in range(whole.ndim)
+            if pieces[0].shape[d] != whole.shape[d]]
+    if not dims:
+        if any(not np.array_equal(p, pieces[0]) for p in pieces[1:]):
+            return None
+        return pieces[0]
+    return np.concatenate(pieces, axis=dims[0])
+
+
+def so_check_int8(name, ranks, one, flips_allowed):
+    """Each int8 layer's codes of ``ranks`` (the ranks of one data rank)
+    joined against one process's, and every rank's probabilities: every
+    code equal and the probabilities within 1e-5, or with
+    ``flips_allowed`` (SO_INT8_EXACT_CALLS) the first calls' codes equal
+    and phase 9's int8 rule. Returns the codes that differ, the first call
+    where one does, the probabilities' largest difference and the rule's
+    numbers."""
+    differ = total = worst_move = 0
+    first = None
+    for i, whole in enumerate(one["codes"]):
+        joined = so_join_codes([r["codes"][i] for r in ranks], whole)
+        if joined is None or joined.shape != whole.shape:
+            raise SystemExit(f"phase 16 failed: int8 {name}: layer call "
+                             f"{i}'s codes do not join into one process's")
+        moved = joined.astype(np.int32) - whole.astype(np.int32)
+        if first is None and (moved != 0).any():
+            first = i
+        differ += int((moved != 0).sum())
+        total += whole.size
+        worst_move = max(worst_move, int(np.abs(moved).max()))
+    probs_err = max(float(np.abs(r["probs"] - one["probs"]).max())
+                    for r in ranks)
+    agree, confident = (min(v) for v in zip(*(
+        int8_agreement(one["probs"], r["probs"]) for r in ranks)))
+    rel_norm = max(float(np.linalg.norm(r["probs"] - one["probs"])
+                         / np.linalg.norm(one["probs"])) for r in ranks)
+    log(f"  (e) int8 {name}: {len(one['codes'])} int8 layer calls, "
+        f"{differ} of {total} codes differ from one process's (the first "
+        f"in call {first}, largest move {worst_move}), probabilities within "
+        f"{probs_err:.3g} (relative norm {rel_norm:.3g}), argmax agreement "
+        f"{agree:.6f}, {confident:.6f} where confident; a rank's launches "
+        f"{ranks[0]['launches']}, one process's {one['launches']}")
+    if flips_allowed:
+        ok = ((first is None or first >= SO_INT8_EXACT_CALLS)
+              and agree > INT8_AGREE and confident > INT8_AGREE_CONFIDENT
+              and rel_norm < INT8_REL_NORM)
+    else:
+        ok = differ == 0 and probs_err <= 1e-5
+    if not ok:
+        raise SystemExit(f"phase 16 failed: int8 {name} differs from one "
+                         f"process's: {differ} codes from call {first}, "
+                         f"probabilities {probs_err}")
+    return {"codes": total, "codes_differ": differ, "first_call": first,
+            "largest_move": worst_move, "probs_max_abs_diff": probs_err,
+            "argmax_agreement": agree, "argmax_agreement_confident":
+            confident, "rel_norm": rel_norm,
+            "launches_per_rank": ranks[0]["launches"],
+            "one_process_launches": one["launches"]}
+
+
+def so_check_ranking(ranks, one, want_launches):
+    """ST++'s ranking on the seq ranks against one process's: the
+    reliabilities within 1e-3 (a few pixels of 2,500 whose argmax the
+    ring's rounding moves), and the reliable half, where a window whose
+    reliability lies within twice the largest difference of the cut may
+    cross it."""
+    err = max(float(np.abs(r["reliability"] - one["reliability"]).max())
+              for r in ranks)
+    want = one["reliability"]
+    cut = np.sort(want)[::-1][len(want) // 2 - 1]
+    for r, got in enumerate(ranks):
+        if got["launches"] != want_launches:
+            raise SystemExit(f"phase 16 failed: ST++'s ranking on rank {r} "
+                             f"launched {got['launches']}, expected "
+                             f"{want_launches}")
+        moved = set(got["reliable"]) ^ set(one["reliable"])
+        if any(abs(want[i] - cut) > 2 * err for i in moved):
+            raise SystemExit(f"phase 16 failed: ST++'s reliable half on "
+                             f"rank {r} differs from one process's: "
+                             f"{sorted(moved)}")
+    same = set(ranks[0]["reliable"]) == set(one["reliable"])
+    log(f"  (b) ST++'s ranking of {len(want)} unlabeled windows by "
+        f"{STPP_SNAPSHOTS} ViT snapshots at (data {SO_SEQ_LAYOUT[0]}, seq "
+        f"{SO_SEQ_LAYOUT[1]}): reliabilities within {err:.3g} of one "
+        f"process's, the reliable half "
+        f"{'the same' if same else 'the same but for swaps at the cut'}; "
+        f"a rank's launches {ranks[0]['launches']}")
+    if not err <= 1e-3:
+        raise SystemExit(f"phase 16 failed: ST++'s reliabilities {err} "
+                         "off one process's")
+    return {"max_abs_diff": err, "reliable_same": same,
+            "launches_per_rank": ranks[0]["launches"]}
+
+
+def state_noise(a, b):
+    """max(|a - b| - DP_RTOL |b|) over the float tensors of two runs'
+    states, at least 0."""
+    return max([0.0] + [float((np.abs(a[k] - v) - DP_RTOL * np.abs(v)).max())
+                        for k, v in b.items() if v.dtype.kind == "f"])
+
+
+def so_layout_name(layout):
+    return ("(data {}, seq {})" if len(layout) == 2 else
+            "(data {}, seq {}, model {})").format(*layout)
+
+
+def seq_options_plan(torch):
+    """Phase 16's part (a) on an idle card (the kernel ring on one head a
+    model rank, each case's hop timed), its inputs (seed-0 serving weights,
+    ST++'s three snapshots, an int8 batch, phase 15's step batches) and its
+    rank tasks by layout: ``{"hops": ..., "tasks": {layout: [(task,
+    kwargs)]}, "names": {layout: [(kind, what)]}, ...}``. In the whole run
+    the ``(1, 2)`` and ``(1, 2, 2)`` tasks ride on phase 15's ``(1, 2)``
+    and ``(2, 2)`` rank groups (world 2 and 4), and the ``(1, 2, 3)`` group
+    starts beside them (:func:`so_start`): a group's start costs tens of
+    seconds."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    hops = {"flash_attention_fwd": [], "flash_attention_bwd": []}
+    with full_fp32():
+        for label, shape, size in SO_RING_CASES:
+            for dtype_name in ("float32", "bfloat16"):
+                f, b = seq_ring_case(torch, gen, label, shape, size,
+                                     dtype_name, phase=16)
+                hops["flash_attention_fwd"].append(f)
+                hops["flash_attention_bwd"].append(b)
+    weights = {}
+    for family in ("vit_tiny", "resnet18"):
+        weights[family] = os.path.join(WORK, f"so_{family}_seed0.pth")
+        write_random_weights(write_slice_config(family)[1], weights[family])
+    stpp_cfg = so_stpp_config(SO_SEQ_LAYOUT[1])
+    snapshots = []
+    for seed in SO_SNAPSHOT_SEEDS:
+        snapshots.append(os.path.join(WORK, f"so_snapshot{seed}.pth"))
+        write_random_weights(stpp_cfg, snapshots[-1], seed)
+    int8_x = np.random.default_rng(16).standard_normal(
+        (BATCH, 1, SIGNAL_LENGTH)).astype(np.float32)
+
+    def int8_config(family, calibrate, **parallel):
+        cfg = deploy_config(family, weights[family], quantize="int8",
+                            quantize_calibration=2 if calibrate else 0)
+        if family == "vit_tiny":
+            cfg["backbone"]["vit_tiny"]["attention_impl"] = (
+                "auto" if parallel.get("seq_parallel", 1) > 1 else "flash")
+        cfg["parallel"] = parallel
+        return cfg
+
+    # (e): (its group's layout, family, calibrated, its own mesh)
+    int8_cases = {
+        **{f"{family}_{kind}_seq2": (SO_SEQ_LAYOUT, family, kind == "cal",
+                                     {"seq_parallel": 2})
+           for family in ("vit_tiny", "resnet18")
+           for kind in ("dyn", "cal")},
+        **{f"vit_tiny_{kind}_model3": (SO_VIT_LAYOUT, "vit_tiny",
+                                       kind == "cal",
+                                       {"model_parallel": SO_INT8_MODEL})
+           for kind in ("dyn", "cal")}}
+    batches = seq_batches(16)
+    tasks, names = {}, {}
+    for layout in (SO_SEQ_LAYOUT, SO_VIT_LAYOUT, SO_RESNET_LAYOUT):
+        backend = tp_layout(torch, int(np.prod(layout)))[0]
+        tasks[layout], names[layout] = [], []
+        if layout == SO_SEQ_LAYOUT:
+            for family in ("vit_tiny", "resnet18"):
+                tasks[layout].append(("so_steps", {"config": so_reco_config(
+                    family, layout, backend), "batches": batches}))
+                names[layout].append(("reco", family))
+            tasks[layout].append(("so_stpp_rank", {"config": dict(
+                stpp_cfg, ddp={"dist_backend": backend}),
+                "snapshots": snapshots}))
+            names[layout].append(("stpp", None))
+        else:
+            family = "vit_tiny" if layout == SO_VIT_LAYOUT else "resnet18"
+            tasks[layout].append(("so_steps", {"config": seq_step_config(
+                family, layout, backend), "batches": batches}))
+            names[layout].append(("steps", family))
+        for case, (case_layout, family, cal, parallel) in int8_cases.items():
+            if case_layout == layout:
+                tasks[layout].append(("so_int8_serve", {"config": dict(
+                    int8_config(family, cal, **parallel),
+                    ddp={"dist_backend": backend}), "x": int8_x}))
+                names[layout].append(("int8", case))
+    return {"hops": hops, "tasks": tasks, "names": names,
+            "int8_cases": int8_cases, "int8_config": int8_config,
+            "int8_x": int8_x, "snapshots": snapshots, "batches": batches}
+
+
+def so_start(torch, plan, layouts):
+    """Start the rank groups of ``layouts`` on the plan's tasks (gloo on one
+    card, NCCL where the cards cover the ranks), into ``plan["groups"]``."""
+    plan.setdefault("groups", {})
+    for layout in layouts:
+        world = int(np.prod(layout))
+        plan["groups"][layout] = start_ranks(
+            plan["tasks"][layout], tp_layout(torch, world)[0], world=world,
+            name="so" + "x".join(str(a) for a in layout))
+
+
+def phase_seq_options(torch, plan=None, shared=None):
+    """Phase 16: every algorithm and option on every ``(data, seq, model)``
+    mesh: ReCo and ST++'s ranking under seq, the ring on a model rank's
+    heads under ``seq × model``, ResNet18 under ``seq × model``, int8
+    serving under seq and under the model axis. ``plan`` is
+    :func:`seq_options_plan`'s (part (a) and the inputs; made here when
+    None); ``shared`` maps a layout to the results and logs of its tasks
+    run on another phase's rank group (phase 15's); the groups of the
+    other layouts are the plan's, or start here, at once."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi().replace("\n", "; ")
+    log(f"phase 16: {torch.cuda.device_count()} card(s), {smi}")
+    spans = {}
+    plan = plan or seq_options_plan(torch)
+    shared = shared or {}
+    if "groups" not in plan:
+        so_start(torch, plan, [layout for layout in plan["tasks"]
+                               if layout not in shared])
+    groups, hops = plan["groups"], plan["hops"]
+    # one process, while the ranks run
+    t0 = time.perf_counter()
+    batches, snapshots = plan["batches"], plan["snapshots"]
+    single = {}
+    noise = {}
+    for family in ("vit_tiny", "resnet18"):
+        single[("reco", family)], again = (dp_steps(
+            torch, so_reco_config(family, (1, 1), "gloo"), batches,
+            slice(None)) for _ in range(2))
+        noise[family] = state_noise(again["state"],
+                                    single[("reco", family)]["state"])
+        single[("steps", family)] = dp_steps(
+            torch, seq_step_config(family, (1, 1), "gloo"), batches,
+            slice(None))
+    single[("stpp", None)] = so_stpp_rank(torch, so_stpp_config(1),
+                                          snapshots)
+    for case, (_, family, cal, _) in plan["int8_cases"].items():
+        single[("int8", case)] = so_int8_serve(
+            torch, plan["int8_config"](family, cal), plan["int8_x"])
+    spans["one_process"] = time.perf_counter() - t0
+    result = {"nvidia_smi": smi, "spans": spans, "hops": hops,
+              "reco": {}, "steps": {}, "int8": {}, "groups": {}}
+    for layout, names in plan["names"].items():
+        key = "x".join(str(a) for a in layout)
+        name = so_layout_name(layout)
+        world = int(np.prod(layout))
+        backend, description = tp_layout(torch, world)
+        if layout in shared:
+            by_task, logs = shared[layout]
+            where = "on another phase's rank group"
+        else:
+            by_task, logs = finish_ranks(groups[layout], 16)
+            spans[key] = time.perf_counter() - t_phase
+            where = f"done {spans[key]:.1f} s into the phase"
+        result["groups"][key] = where
+        log(f"  {name}: {description}, {where} (rank 0's tasks "
+            f"{rank_task_seconds(logs)})")
+        for (kind, what), ranks in zip(names, by_task):
+            ranks = ranks[:world]
+            one = single[(kind, what)]
+            if kind == "reco":
+                for r, got in enumerate(ranks):
+                    if not all(m["contr_loss"] > 0 for m in got["metrics"]):
+                        raise SystemExit(f"phase 16 failed: {what} ReCo on "
+                                         f"rank {r}: no contrastive term")
+                atol = max(DP_ATOL, SO_RECO_NOISE * noise[what])
+                log(f"  {what} ReCo: one process against itself "
+                    f"{noise[what]:.3g} beyond {DP_RTOL} relative; the "
+                    f"ranks' bound {DP_RTOL} relative + {atol:.3g}")
+                result["reco"][what] = dict(dp_check_steps(
+                    what, ranks, one, phase=16, layout=name,
+                    want_launches=seq_launches(what, layout[1]),
+                    algorithm="ReCo", atol=atol),
+                    one_process_noise=noise[what], atol=atol)
+            elif kind == "steps":
+                result["steps"][what] = dict(dp_check_steps(
+                    what, ranks, one, phase=16, layout=name,
+                    want_launches=seq_launches(what, layout[1])),
+                    layout=list(layout))
+            elif kind == "stpp":
+                result["stpp"] = so_check_ranking(ranks, one, {
+                    "flash_attention_fwd": STPP_SNAPSHOTS * DEPTH
+                    * layout[1] * math.ceil(TRAIN_UNLABELED / BATCH),
+                    "flash_attention_bwd": 0, "gather1d": 0})
+            else:
+                # every data rank of the case's own mesh served the whole
+                # batch: the ranks of data rank 0 (its seq × model ranks)
+                # make one process's codes, the others repeat theirs
+                per = int(np.prod(list(plan["int8_cases"][what][3]
+                                       .values())))
+                for r in range(per, len(ranks)):
+                    if any(not np.array_equal(a, b) for a, b in zip(
+                            ranks[r % per]["codes"], ranks[r]["codes"])):
+                        raise SystemExit(f"phase 16 failed: int8 {what}: "
+                                         f"rank {r}'s codes differ from "
+                                         f"rank {r % per}'s")
+                result["int8"][what] = so_check_int8(
+                    what, ranks[:per], one,
+                    flips_allowed=what.startswith("vit_tiny")
+                    and what.endswith("seq2"))
+    # ReCo's gathered inputs on a rank at (data 1, seq 2): the latent
+    # (B, D, T) and the two probability maps (B, C, T), fp32
+    latent_dim = so_reco_config("vit_tiny", (1, 1), "gloo")[
+        "projection_out_dim"]
+    rows = DP_WORLD * DP_ROWS
+    result["reco_gather_bytes_per_rank"] = {
+        "latent_whole": rows * latent_dim * SIGNAL_LENGTH * 4,
+        "latent_block": rows * latent_dim * SIGNAL_LENGTH * 4
+        // SO_SEQ_LAYOUT[1],
+        "probabilities_whole": 2 * rows * 4 * SIGNAL_LENGTH * 4}
+    log(f"  ReCo's gathered inputs on a rank at (data 1, seq 2), (B, D, T) "
+        f"= ({rows}, {latent_dim}, {SIGNAL_LENGTH}): "
+        f"{result['reco_gather_bytes_per_rank']} bytes")
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16 in {result['seconds']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in spans.items()
+                    if not isinstance(v, dict)))
+    return result
+
+
+def so_noise_main(out_path):
+    """``chip_smoke.py --reco-noise OUT``, a diagnostic outside the run: one
+    process's three fp32 ReCo (and FixMatch) steps of each backbone taken
+    twice on the card, under PyTorch's default and under deterministic
+    algorithms, and the two runs' worst state excess over phase 10's
+    relative bound (``dp_check_steps``'s measure): the run-to-run noise
+    that phase 16's comparison of the seq ranks with one process sits
+    on."""
+    import torch
+
+    os.makedirs(WORK, exist_ok=True)
+    phase_build()
+    batches = seq_batches(16)
+    out = {"nvidia_smi": nvidia_smi()}
+    for algorithm in ("reco", "fixmatch"):
+        for family in ("resnet18", "vit_tiny"):
+            cfg = (so_reco_config(family, (1, 1), "gloo")
+                   if algorithm == "reco"
+                   else seq_step_config(family, (1, 1), "gloo"))
+            for label, ctx in (("default", contextlib.nullcontext),
+                               ("deterministic",
+                                lambda: cudnn_deterministic(torch))):
+                with ctx():
+                    a, b = (dp_steps(torch, cfg, batches, slice(None))
+                            for _ in range(2))
+                name = f"{family}_{algorithm}_{label}"
+                out[name] = state_noise(a["state"], b["state"])
+                log(f"  {name}: two one-process runs, max(|diff| - "
+                    f"{DP_RTOL} |b|, 0) = {out[name]:.3g}")
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
 
 
 def kernel_entry(name, rows, by_path):
@@ -5649,11 +6262,30 @@ def main():
     remat = timed(11, phase_remat, torch)
     accum = timed(12, phase_accum, torch)
     zero_cache = timed(13, phase_zero_cache, torch)
-    tensor_parallel = timed(14, phase_tensor_parallel, torch)
-    seq_parallel = timed(15, phase_seq_parallel, torch)
-    # the ring's hops beside phase 2's rows
-    for name, hop_rows in seq_parallel["hops"].items():
-        rows[name] = rows[name] + hop_rows
+    # phase 16's (a) on an idle card and its inputs, then the rank groups
+    # of phases 14-16 shared: a group's start costs tens of seconds. Phase
+    # 15's (2, 2) tasks and phase 16's (1, 2, 2) one ride on phase 14's
+    # (2, 2) group, phase 16's (1, 2) tasks on phase 15's (1, 2) group, and
+    # phase 16's (1, 2, 3) group starts after phase 15's (a)
+    so_plan = timed("16 (a) and inputs", seq_options_plan, torch)
+    seq_22 = seq_parallel_tasks(torch, SEQ_LAYOUTS[1])
+    tensor_parallel = timed(14, phase_tensor_parallel, torch, {
+        TP_LONGREC_LAYOUT: seq_22 + so_plan["tasks"][SO_RESNET_LAYOUT]})
+    tp_extra = tensor_parallel.pop("extra")[TP_LONGREC_LAYOUT]
+    seq_parallel = timed(
+        15, phase_seq_parallel, torch,
+        {SEQ_LAYOUTS[0]: so_plan["tasks"][SO_SEQ_LAYOUT],
+         SEQ_LAYOUTS[1]: so_plan["tasks"][SO_RESNET_LAYOUT]},
+        lambda: so_start(torch, so_plan, [SO_VIT_LAYOUT]),
+        {SEQ_LAYOUTS[1]: tp_extra})
+    extra = seq_parallel.pop("extra")
+    seq_options = timed(16, phase_seq_options, torch, so_plan, {
+        SO_SEQ_LAYOUT: extra[SEQ_LAYOUTS[0]],
+        SO_RESNET_LAYOUT: extra[SEQ_LAYOUTS[1]]})
+    # the ring's hops beside phase 2's rows (phase 16's on one head a rank)
+    for phase in (seq_parallel, seq_options):
+        for name, hop_rows in phase["hops"].items():
+            rows[name] = rows[name] + hop_rows
     # each path's launches, counted from 0 just before it and read after
     by_path = {
         "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
@@ -5717,7 +6349,20 @@ def main():
            for key, entry in seq_parallel["layouts"].items()
            for family in ("vit_tiny", "resnet18")},
         "seq_vit_tiny_fixmatch_recipe_per_rank": seq_parallel["layouts"][
-            "1x2"]["recipe"]["launches_per_rank"]}
+            "1x2"]["recipe"]["launches_per_rank"],
+        # phase 16: a seq rank's ReCo step at (1, 2), the FixMatch step at
+        # (1, 2, 3) (the ViT, one head a model rank) and (1, 2, 2)
+        # (ResNet18), a rank's ST++ ranking pass, a rank's int8 batch
+        **{f"seq_{family}_reco_per_rank_step_1x2": r["launches_per_rank_step"]
+           for family, r in seq_options["reco"].items()},
+        **{f"seq_model_{family}_fixmatch_per_rank_step_"
+           + "x".join(str(a) for a in r["layout"]): r[
+               "launches_per_rank_step"]
+           for family, r in seq_options["steps"].items()},
+        "seq_vit_tiny_stpp_ranking_per_rank_1x2": seq_options["stpp"][
+            "launches_per_rank"],
+        **{f"int8_{case}_per_rank_batch": r["launches_per_rank"]
+           for case, r in seq_options["int8"].items()}}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -5733,10 +6378,12 @@ def main():
                    "zero_cache": zero_cache,
                    "tensor_parallel": tensor_parallel,
                    "seq_parallel": seq_parallel,
+                   "seq_options": seq_options,
                    "phase_seconds": phase_seconds,
                    "seconds": time.time() - t_start}, f,
                   indent=1)
-    log(f"done in {time.time() - t_start:.1f} s")
+    log(f"done in {time.time() - t_start:.1f} s; per phase: "
+        + ", ".join(f"{k}: {v:.1f}" for k, v in phase_seconds.items()))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -5756,4 +6403,6 @@ if __name__ == "__main__":
         sys.exit(cache_main(*sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-drift"]:
         sys.exit(tp_drift_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--reco-noise"]:
+        sys.exit(so_noise_main(*sys.argv[2:]))
     sys.exit(main())

@@ -112,10 +112,13 @@ summed over seq and averaged over data, and ``run_test`` and
 in the JAX package, ``device_augment`` and ``device_cache`` are switched
 off under seq (on a copy of the config, with its log line). The
 checkpoint is unchanged: the parameters are replicated over seq and rank
-0 writes. ``seq_parallel`` with ``model_parallel`` above 1, with ReCo or
-ST++ or with ``quantize: int8``, ``quantize: int8`` with
-``model_parallel`` above 1 and ``checkpoint_backend: orbax`` are not
-ported yet and raise.
+0 writes. Every algorithm runs on every ``(data, seq, model)`` mesh:
+ReCo gathers its loss's inputs over data and seq (``algorithms/reco.py``),
+ST++ ranks on the seq ranks' time blocks (``algorithms/stpp.py``), under
+``seq × model`` the ring runs on a model rank's heads over its own seq
+group, and int8 serving takes each split input's absmax over the group
+that splits it (``models/quant_layers.py``). Only
+``checkpoint_backend: orbax`` is refused (:func:`_refuse_unported`).
 """
 
 from __future__ import annotations
@@ -302,28 +305,6 @@ def init_train_model(config: Dict[str, Any], device: torch.device,
 
 
 def _refuse_unported(config: Dict[str, Any]) -> None:
-    parallel = config.get("parallel") or {}
-    if (parallel.get("seq_parallel") or 1) > 1:
-        if (parallel.get("model_parallel") or 1) > 1:
-            raise NotImplementedError(
-                "parallel.seq_parallel > 1 with parallel.model_parallel > 1 "
-                "is not yet ported to the torch package (the JAX ring "
-                "shards its heads over the model axis)")
-        if config.get("algorithm") in ("reco", "stpp"):
-            raise NotImplementedError(
-                f"algorithm {config['algorithm']!r} under "
-                "parallel.seq_parallel > 1 is not yet ported to the torch "
-                "package")
-        if config.get("quantize") == "int8":
-            raise NotImplementedError(
-                "quantize: int8 with parallel.seq_parallel > 1 is not yet "
-                "ported to the torch package")
-    if (parallel.get("model_parallel") or 1) > 1 and \
-            config.get("quantize") == "int8":
-        raise NotImplementedError(
-            "quantize: int8 with parallel.model_parallel > 1 is not yet "
-            "ported to the torch package (the dynamic activation absmax "
-            "would need a reduce over the model group)")
     if config.get("checkpoint_backend", "pickle") not in ("pickle", None):
         raise NotImplementedError(
             f"checkpoint_backend: {config['checkpoint_backend']!r} is not "
@@ -463,7 +444,7 @@ def eval_step(model: torch.nn.Module, x: torch.Tensor, labels: torch.Tensor,
     block of the time axis, the counts and CE are summed over the seq
     ranks, and the probabilities gathered whole."""
     batch, length = seq_shard.split_batch({"x": x, "labels": labels})
-    with seq_shard.time_sharded(length) as shard:
+    with seq_shard.time_sharded(length):
         logits = model(batch["x"])["seg_logits"].float()
         probs = torch.softmax(logits, dim=1)
         preds = torch.argmax(probs, dim=1)
@@ -472,8 +453,7 @@ def eval_step(model: torch.nn.Module, x: torch.Tensor, labels: torch.Tensor,
         loss = per_sample_cross_entropy(logits, batch["labels"])
         out = {"loss": loss, "inter": inter, "psum": psum, "tsum": tsum}
         if collect_outputs:
-            out["probs"] = probs if shard is None else seq_shard.gather_time(
-                probs, [b - a for a, b in shard.blocks(length)])
+            out["probs"] = seq_shard.gather_whole_time(probs)
     return out
 
 

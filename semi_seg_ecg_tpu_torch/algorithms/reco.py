@@ -20,7 +20,15 @@ process group the loss's inputs are gathered from every rank
 (``parallel.dist.gather_batch``, differentiable) and every rank computes
 the same global loss. The gather's backward sums the ranks' gradients of
 it, and the optimizer's mean over the ranks then leaves the gradient of
-the loss once.
+the loss once. Under a split time axis (``parallel.seq_parallel``) the
+rows gathered over data are then gathered over the seq ranks' time blocks
+(``seq_shard.gather_whole_time``), so every rank of the data×seq group
+draws one process's pixels from the same ``(B·T)`` arrays. That gather is
+``replicated``: every seq rank computes the same loss, so its backward
+keeps the rank's block of the gradient without summing the ranks' (a
+plain time gather would count the term's gradient s times, since the
+optimizer sums the seq ranks' gradients). The confidence ratio and the
+other two losses are global means over the time axis, as in FixMatch.
 
 Config keys and defaults as the JAX package reads them (reference
 reco.py:253-262): ``conf_thresh``, ``easy_conf_thresh`` or the reference's
@@ -35,10 +43,18 @@ import torch
 
 from ..ops import reco_loss
 from ..ops.losses import cross_entropy, soft_cross_entropy
+from ..parallel import seq_shard
 from ..parallel.dist import gather_batch
 from ..utils.train_state import ema_update
 from .base import aux_loss_weights
 from .common import AlgorithmSpec, forward_parts, run_test, run_training
+
+
+def gather_for_loss(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s rows of every data rank, and under a split time axis every
+    seq rank's time block: the global batch, for a loss that every rank of
+    the data×seq group computes alike (differentiable)."""
+    return seq_shard.gather_whole_time(gather_batch(t), replicated=True)
 
 
 def make_train_step(trainer):
@@ -83,10 +99,10 @@ def make_train_step(trainer):
             draws = reco_loss.reco_draws(gen, prob_u_w.shape[1], num_queries,
                                          num_negatives, prob_u_w.device)
             contr = reco_loss.compute_reco_loss(
-                draws, gather_batch(latent_u_s),
-                gather_batch(prob_u_w),
-                gather_batch(torch.softmax(pred_u_s.detach().float(),
-                                           dim=1)),
+                draws, gather_for_loss(latent_u_s),
+                gather_for_loss(prob_u_w),
+                gather_for_loss(torch.softmax(pred_u_s.detach().float(),
+                                              dim=1)),
                 easy_threshold=easy_thresh, hard_threshold=hard_thresh,
                 temp=temp)
             loss = (loss_x + loss_u_s + contr) / 3.0
@@ -99,7 +115,7 @@ def make_train_step(trainer):
         loss = loss.detach()
         return {"loss_total": loss, "loss_x": loss_x.detach(),
                 "loss_u_s": loss_u_s.detach(), "contr_loss": contr.detach(),
-                "mask_ratio": conf_mask.mean(), "loss": loss}
+                "mask_ratio": seq_shard.global_mean(conf_mask), "loss": loss}
 
     return train_step
 

@@ -23,8 +23,12 @@ spec keeps the teacher (``uses_ema``), so the checkpoints of stages 2 and 3
 hold it as ``model_ema``, as the JAX package's do. Under a process group
 each rank ranks its shards of the unlabeled split and the ranks exchange
 their rows (``parallel.dist.all_gather_rows``, the JAX package's
-multi-host exchange), so every rank sorts the same reliabilities and keeps
-the same reliable ids. ``resume`` is refused (:func:`train` says why).
+multi-host exchange, over the data group: the seq and model ranks of a
+data rank hold the same rows), so every rank sorts the same reliabilities
+and keeps the same reliable ids. Under ``parallel.seq_parallel`` each seq
+rank runs the snapshots on its time block, as the JAX package shards the
+ranking's batches over seq, and the per-sample counts are summed over the
+seq ranks before the mIoU. ``resume`` is refused (:func:`train` says why).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ..data.dataset import build_seg_dataset
 from ..models import build_model_from_config
 from ..ops.losses import cross_entropy
 from ..ops.metrics import per_sample_miou, segmentation_stats
+from ..parallel import seq_shard
 from ..parallel.dist import all_gather_rows
 from ..parallel.sharding_rules import load_full_state_dict
 from ..utils import checkpoint as ckpt
@@ -74,14 +79,17 @@ def select_reliable(models: List[torch.nn.Module], loader, num_classes: int,
         model.eval()
     with torch.no_grad(), amp():
         for step, batch in enumerate(prefetched(loader, device)):
-            preds = [torch.argmax(m(batch["ecg"])["seg_logits"], dim=1)
-                     for m in models]
-            mious = []
-            for pred in preds[:-1]:
-                inter, psum, tsum = (s.cpu().numpy() for s in
-                                     segmentation_stats(pred, preds[-1],
-                                                        num_classes))
-                mious.append(per_sample_miou(inter, psum, tsum))
+            # under the seq axis each seq rank compares its time block, and
+            # the counts are summed over the seq ranks before the mIoU (a
+            # mean of the blocks' mIoUs would be another number)
+            local, length = seq_shard.split_batch({"x": batch["ecg"]})
+            with seq_shard.time_sharded(length):
+                preds = [torch.argmax(m(local["x"])["seg_logits"], dim=1)
+                         for m in models]
+                counts = [[seq_shard.sum_counts(s).cpu().numpy() for s in
+                           segmentation_stats(pred, preds[-1], num_classes)]
+                          for pred in preds[:-1]]
+            mious = [per_sample_miou(*c) for c in counts]
             reliability[mat[step].reshape(-1)] = np.mean(mious, axis=0)
     all_gather_rows(mat.reshape(-1), [reliability])
     order = np.argsort(-reliability, kind="stable")

@@ -40,7 +40,10 @@ split rule of ``seq_shard.block`` over the patch count); a patch that a
 block boundary of the samples cuts is fetched whole. The position
 embedding's rows and the cls token are taken at the rank's global token
 offsets, the dropouts over tokens draw over all of them and keep the
-rank's, and the features leave time-split. Attention follows the JAX
+rank's, and the features leave time-split; with ``output_cls_token``
+every seq rank returns its patch block and the whole cls row, broadcast
+from seq rank 0 (``seq_shard.broadcast_first``: the backward sums onto
+rank 0). Attention follows the JAX
 package's ``_use_ring``: ``auto`` and ``ring`` run the ring
 (``ops/ring_attention.py``: the flash kernels once per hop on CUDA);
 attention dropout in training, ``flash`` (with a warning) and ``xla``
@@ -50,7 +53,14 @@ Precision: parameters stay fp32; under ``torch.autocast`` the linears run in
 the autocast dtype, and attention's matmuls follow it when ``fp16_enabled``
 (else fp32). The softmax is always fp32. ``quantize='int8'`` (serving)
 runs the patch embedding, qkv, output projection and both MLP layers in
-int8 (``models/quant_layers.py``), the layers the JAX package quantizes.
+int8 (``models/quant_layers.py``), the layers the JAX package quantizes;
+under the seq or model axis each takes the absmax of its global input.
+
+Both axes (``seq_parallel`` and ``model_parallel`` > 1): a model rank's
+attention runs the ring on its ``heads / tp`` heads over its own seq group
+(one ring per (data, model) index), the JAX package's head-sharded ring;
+where ``tp`` does not divide the heads the attention stays whole and
+replicated and the MLP is still sliced (``sharding_rules.model_plan``).
 """
 
 from __future__ import annotations
@@ -103,7 +113,10 @@ class PreNorm(nn.Module):
 
 def row_parallel(layer: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
     """A row-parallel linear: this rank's partial product, summed over the
-    model ``group``, then the (replicated) bias once."""
+    model ``group``, then the (replicated) bias once; an int8 layer's own
+    (``Int8Linear.row_parallel``: exact int32 partial sums)."""
+    if hasattr(layer, "row_parallel"):
+        return layer.row_parallel(x, group)
     y = reduce_from_model(F.linear(x, layer.weight), group)
     if layer.bias is not None:
         y = y + layer.bias.to(y.dtype)
@@ -384,10 +397,6 @@ class VisionTransformer1D(nn.Module):
         split = None
         counts = time = None
         if shard is not None:
-            if self.output_cls_token:
-                raise NotImplementedError(
-                    "output_cls_token under parallel.seq_parallel is not "
-                    "yet ported to the torch package")
             n = shard.length // self.patch_size
             blocks = shard.blocks(n)
             counts = tuple(b - a + (j == 0) for j, (a, b) in
@@ -448,8 +457,21 @@ class VisionTransformer1D(nn.Module):
             if i in self.out_indices:
                 # NCW, cls dropped
                 patches = (x[:, 1:, :] if first else x).transpose(1, 2)
-                features.append((patches, x[:, 0]) if self.output_cls_token
-                                else patches)
+                if not self.output_cls_token:
+                    features.append(patches)
+                    continue
+                if split is None:
+                    cls = x[:, 0]
+                else:
+                    # seq rank 0 holds the cls token: every rank gets its
+                    # row, and its gradient goes back to rank 0. The other
+                    # ranks' placeholder takes part in the backward as rank
+                    # 0's row does, so every rank runs the collective
+                    cls = seq_shard.broadcast_first(
+                        x[:, 0] if first else x.new_zeros(
+                            b, self.width).requires_grad_(x.requires_grad),
+                        shard)
+                features.append((patches, cls))
         return tuple(features)
 
 

@@ -9,7 +9,10 @@ heads (attached by ``build_model_from_config`` for training builds only)
 run in train mode and add ``aux_seg_logits``, one entry per head, and with
 labels ``loss_aux``, one loss per head: the JAX package's correction of the
 reference's auxiliary-head block. With ``return_latent`` it holds the ReCo
-projection's ``latent`` too.
+projection's ``latent`` too. Under a split time axis
+(``parallel/seq_shard.py``) every output is this seq rank's block of the
+input's time axis: the heads and the projection run on the features'
+blocks, and each resize is the split one (``seq_shard.linear_interpolate``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,16 @@ class LatentProjection(nn.Sequential):
             # flax's momentum 0.9 is torch's 0.1
             TorchBatchNorm(out_dim, eps=1e-5, momentum=0.1),
             nn.Conv1d(out_dim, out_dim, 1, bias=False))
+
+    def forward(self, x: torch.Tensor,
+                length: Optional[int] = None) -> torch.Tensor:
+        """``length``: the global length of a split time axis
+        (``parallel/seq_shard.py``; the k3 convolution fetches its halos),
+        None: ``x`` whole."""
+        if length is None:
+            return super().forward(x)
+        x = seq_shard.conv_module(self[0], x, length)[0]
+        return self[3](self[2](self[1](x)))
 
 
 class EncoderDecoder(nn.Module):
@@ -91,10 +104,6 @@ class EncoderDecoder(nn.Module):
                 return linear_interpolate(x, seq_len,
                                           align_corners=align_corners)
         else:
-            if return_latent:
-                raise NotImplementedError(
-                    "return_latent (ReCo) under parallel.seq_parallel is "
-                    "not yet ported to the torch package")
             lengths = list(self.backbone.feature_lengths(seq_len))
 
             def resize(x, length, align_corners):
@@ -104,7 +113,7 @@ class EncoderDecoder(nn.Module):
         if return_latent:
             latent = feats[-1]
             if self.latent_projection is not None:
-                latent = self.latent_projection(latent)
+                latent = self.latent_projection(latent, lengths[-1])
             outputs["latent"] = resize(latent, lengths[-1],
                                        self.decode_head.align_corners)
 

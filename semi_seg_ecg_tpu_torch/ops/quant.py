@@ -49,6 +49,16 @@ def _quantize(t: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(t / scale), -QMAX, QMAX).to(torch.int8)
 
 
+def quantize_absmax(t: torch.Tensor, absmax: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(q, scale)`` with ``scale = max(absmax / 127, _EPS)`` (``absmax``
+    broadcasting against ``t``) and ``q = clip(round(t / scale), ±127)``
+    int8: the quantization of a tensor whose absmax was reduced elsewhere
+    (over the ranks that split it)."""
+    scale = torch.clamp_min(_div(absmax.float(), QMAX), _EPS)
+    return _quantize(t.float(), scale), scale
+
+
 def quantize_symmetric(t: torch.Tensor, dim: Optional[Tuple[int, ...]] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(q, scale)`` with ``q = clip(round(t / scale), ±127)`` int8 and
@@ -57,9 +67,7 @@ def quantize_symmetric(t: torch.Tensor, dim: Optional[Tuple[int, ...]] = None
     t = t.float()
     if dim is None:
         dim = tuple(range(t.dim()))
-    scale = torch.clamp_min(_div(t.abs().amax(dim=dim, keepdim=True), QMAX),
-                            _EPS)
-    return _quantize(t, scale), scale
+    return quantize_absmax(t, t.abs().amax(dim=dim, keepdim=True))
 
 
 def quantize_static(t: torch.Tensor, scale: torch.Tensor
@@ -97,7 +105,7 @@ def int_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, w.t())[:m, :n]
 
 
-def _dequantize(acc: torch.Tensor, sx: torch.Tensor, sk: torch.Tensor,
+def dequantize(acc: torch.Tensor, sx: torch.Tensor, sk: torch.Tensor,
                 bias: Optional[torch.Tensor], out_dtype: torch.dtype
                 ) -> torch.Tensor:
     """``acc · (sx · sk) (+ bias)`` in fp32, then ``out_dtype``; ``sk``
@@ -108,7 +116,9 @@ def _dequantize(acc: torch.Tensor, sx: torch.Tensor, sk: torch.Tensor,
     return out.to(out_dtype)
 
 
-def _quantize_input(x: torch.Tensor, act_scale: Optional[torch.Tensor]):
+def quantize_input(x: torch.Tensor, act_scale: Optional[torch.Tensor]):
+    """``(q, scale)`` of an int8 layer's input: per tensor, the dynamic
+    scale of ``x`` itself where ``act_scale`` is None, else that scale."""
     if act_scale is None:
         return quantize_symmetric(x)  # per tensor
     return quantize_static(x, act_scale)
@@ -125,10 +135,10 @@ def int8_conv1d(x: torch.Tensor, weight: torch.Tensor,
     dynamic unless ``act_scale`` (a calibrated ``absmax / 127``);
     per-output-channel weight scale. Symmetric zero ``padding`` (a
     quantized zero is 0, so the signal is padded after quantizing)."""
-    xq, sx = _quantize_input(x, act_scale)
+    xq, sx = quantize_input(x, act_scale)
     kq, sk = quantize_symmetric(weight, dim=(1, 2))   # per out-channel
     acc = int_conv1d(xq, kq, stride, padding, dilation)
-    out = _dequantize(acc.transpose(1, 2), sx, sk, bias, out_dtype)
+    out = dequantize(acc.transpose(1, 2), sx, sk, bias, out_dtype)
     return out.transpose(1, 2)
 
 
@@ -157,9 +167,9 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor,
     """``F.linear`` over ``x`` (..., C_in) with the fp32 ``weight``
     (C_out, C_in), its matmul on int8 operands into int32: the JAX
     package's ``int8_dense``."""
-    xq, sx = _quantize_input(x, act_scale)
+    xq, sx = quantize_input(x, act_scale)
     kq, sk = quantize_symmetric(weight, dim=(1,))      # per out-channel
     lead = x.shape[:-1]
     acc = int_matmul(xq.reshape(-1, x.shape[-1]), kq)
-    out = _dequantize(acc, sx, sk, bias, out_dtype)
+    out = dequantize(acc, sx, sk, bias, out_dtype)
     return out.reshape(*lead, weight.shape[0])

@@ -22,6 +22,9 @@ rank's data group, which is the whole group when ``model_parallel`` is 1:
   buffer per dtype, summed and divided by a tensor (CUDA turns a division
   by a Python number into a reciprocal multiply);
 - :func:`all_reduce_mean`: the mean of a tensor over the ranks;
+- :func:`all_reduce_max_`: the elementwise maximum over a group (int8
+  serving's activation absmax, where the seq or model axis splits a
+  layer's input);
 - :func:`all_gather`: the ranks' tensors stacked on a new leading axis,
   differentiable: its backward sums the full gradient over the ranks and
   returns this rank's slice;
@@ -322,6 +325,18 @@ def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
     if _size(group) > 1:
         _check(t)
         dist.all_reduce(t, group=group)
+    return t
+
+
+def all_reduce_max_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` replaced by its elementwise maximum over the ranks of
+    ``group`` (None: the data group), in place; returns ``t``. Exact in any
+    dtype (int8 serving's activation absmax over the ranks that split a
+    tensor)."""
+    group = _group(group)
+    if _size(group) > 1:
+        _check(t)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
 
 

@@ -36,8 +36,15 @@ summed over seq and averaged over data (``utils/optimizer.TrainOptimizer``).
 
 The ops talk to the other seq ranks through a :class:`SeqComm` (the mesh's
 seq group, point to point), or a :class:`ThreadComm` that runs s ranks as
-threads of one process (:func:`run_threads`: the tests, and the kernel ring
-held against the plain one on the card).
+threads of one process (:func:`run_threads` with :func:`seq_group`: the
+tests, and the kernel ring held against the plain one on the card).
+
+Three pieces serve what each rank computes alike: a ``replicated`` time
+gather (:func:`gather_whole_time`) for a loss every rank computes from the
+whole axis (ReCo's), whose backward keeps the rank's block of its own
+gradient; :func:`broadcast_first` for the ViT's cls row, which seq rank 0
+holds; and :func:`absmax`, an int8 input's absmax over the ranks that
+split it.
 """
 
 from __future__ import annotations
@@ -86,6 +93,9 @@ class SeqComm:
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         return pdist.all_reduce_sum_(t, self.group)
 
+    def all_reduce_max_(self, t: torch.Tensor) -> torch.Tensor:
+        return pdist.all_reduce_max_(t, self.group)
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """``(size, *t.shape)``: every seq rank's ``t``."""
         return pdist._gather_tensor(t, self.group)
@@ -128,11 +138,15 @@ class ThreadComm:
     def all_reduce_(self, t):
         return t.copy_(self.all_gather(t).sum(0))
 
+    def all_reduce_max_(self, t):
+        return t.copy_(self.all_gather(t).amax(0))
+
 
 def run_threads(size: int, fn: Callable[[ThreadComm], Any]) -> List[Any]:
     """``[fn(ThreadComm(rank)) for rank in range(size)]``, the ranks run as
     concurrent threads; an exception in one breaks the others' barriers
-    and is raised."""
+    and is raised. Inside ``fn``, :func:`seq_group` makes the thread's comm
+    the seq group of the entries (``split_batch``, ``time_sharded``)."""
     shared = {"size": size, "box": {}, "barrier": threading.Barrier(size)}
     results, errors = [None] * size, []
 
@@ -198,6 +212,23 @@ def using(shard: Optional[TimeShard]):
 
 _COMMS: Dict[int, SeqComm] = {}
 
+# the seq group that split_batch and time_sharded take in place of the
+# mesh's (seq_group: the ranks of run_threads)
+_GROUP: contextvars.ContextVar = contextvars.ContextVar("seq_group",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def seq_group(comm):
+    """Inside, :func:`split_batch` and :func:`time_sharded` split over
+    ``comm`` (a :class:`ThreadComm`: the seq ranks as threads of one
+    process) instead of the current mesh's seq group."""
+    token = _GROUP.set(comm)
+    try:
+        yield comm
+    finally:
+        _GROUP.reset(token)
+
 
 def _mesh_comm(mesh) -> SeqComm:
     comm = _COMMS.get(id(mesh))
@@ -213,7 +244,7 @@ def time_sharded(length: Optional[int], comm=None):
     if length is None:
         return using(None)
     if comm is None:
-        comm = _mesh_comm(pdist.current_mesh())
+        comm = _GROUP.get() or _mesh_comm(pdist.current_mesh())
     return using(TimeShard(int(length), comm))
 
 
@@ -247,8 +278,9 @@ def split_batch(batch: Dict[str, Any], size: Optional[int] = None,
     length; None and the batch as it is when no array is split (or when
     they would be split at two lengths: a step has one time axis)."""
     if size is None:
-        mesh = pdist.current_mesh()
-        size, rank = (1, 0) if mesh is None else (mesh.seq, mesh.seq_rank)
+        mesh, comm = pdist.current_mesh(), _GROUP.get()
+        size, rank = ((comm.size, comm.rank) if comm is not None else
+                      (1, 0) if mesh is None else (mesh.seq, mesh.seq_rank))
     if size <= 1:
         return batch, None
     split = {k: v for k, v in batch.items()
@@ -501,6 +533,17 @@ def conv_out_length(length: int, kernel: int, stride: int = 1,
     return (length + 2 * padding - dilation * (kernel - 1) - 1) // stride + 1
 
 
+def conv_ranges(shard: TimeShard, length: int, kernel: int, stride: int = 1,
+                padding: int = 0, dilation: int = 1):
+    """``(out_length, ranges)`` of a convolution over a split time axis of
+    ``length`` samples: every seq rank's global input range for its block
+    of the output (reaching past ``[0, length)`` where the padding is)."""
+    out_len = conv_out_length(length, kernel, stride, padding, dilation)
+    span = dilation * (kernel - 1) + 1
+    return out_len, [(a * stride - padding, (b - 1) * stride - padding + span)
+                     for a, b in _out_blocks(shard, out_len, "conv1d")]
+
+
 def conv1d(x: torch.Tensor, length: int, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            padding: int = 0, dilation: int = 1,
@@ -509,11 +552,8 @@ def conv1d(x: torch.Tensor, length: int, weight: torch.Tensor,
     global time axis of ``x`` (``length`` samples), zero padding at the
     global edges only."""
     shard = shard or active()
-    k = weight.shape[-1]
-    out_len = conv_out_length(length, k, stride, padding, dilation)
-    span = dilation * (k - 1) + 1
-    ranges = [(a * stride - padding, (b - 1) * stride - padding + span)
-              for a, b in _out_blocks(shard, out_len, "conv1d")]
+    out_len, ranges = conv_ranges(shard, length, weight.shape[-1], stride,
+                                  padding, dilation)
     parts = halo_parts(x, length, ranges, 0.0, shard)
     return _HaloConv.apply(*parts, weight, bias, stride, dilation), out_len
 
@@ -521,7 +561,12 @@ def conv1d(x: torch.Tensor, length: int, weight: torch.Tensor,
 def conv_module(conv: torch.nn.Conv1d, x: torch.Tensor, length: int,
                 shard: Optional[TimeShard] = None
                 ) -> Tuple[torch.Tensor, int]:
-    """:func:`conv1d` with an ``nn.Conv1d``'s parameters."""
+    """:func:`conv1d` with an ``nn.Conv1d``'s parameters; an int8
+    convolution (``models/quant_layers.Int8Conv1d``) runs its own
+    ``split_forward`` (quantized before its halos are fetched)."""
+    shard = shard or active()
+    if hasattr(conv, "split_forward"):
+        return conv.split_forward(x, length, shard)
     (stride,), (dilation,) = conv.stride, conv.dilation
     (padding,) = conv.padding
     return conv1d(x, length, conv.weight, conv.bias, stride, padding,
@@ -669,14 +714,86 @@ class _GatherTime(torch.autograd.Function):
                 None, None, None)
 
 
+class _GatherReplicated(_GatherTime):
+    """:class:`_GatherTime` for a loss that every seq rank computes alike
+    from the gathered whole: the backward keeps this rank's block of the
+    (same) gradient without summing it over the ranks, so the gradient
+    all-reduce's sum over seq counts the loss once, not s times."""
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = sum(ctx.counts[:ctx.comm.rank])
+        return (grad.narrow(ctx.dim, start, ctx.counts[ctx.comm.rank]),
+                None, None, None)
+
+
 def gather_time(x: torch.Tensor, counts: Sequence[int], dim: int = -1,
-                shard: Optional[TimeShard] = None) -> torch.Tensor:
+                shard: Optional[TimeShard] = None,
+                replicated: bool = False) -> torch.Tensor:
     """The whole axis ``dim`` of a split ``x`` whose seq rank j holds
-    ``counts[j]`` entries of it, differentiable."""
+    ``counts[j]`` entries of it, differentiable. By default each rank's
+    loss of the result is its own part of the global loss, and the
+    backward sums the ranks' gradients; ``replicated``: every rank computes
+    the same loss from the whole (ReCo's contrastive term), and the
+    backward keeps the rank's block of its own gradient."""
     shard = shard or active()
     dim %= x.dim()
-    return _GatherTime.apply(x, shard.comm, dim, tuple(int(c)
-                                                        for c in counts))
+    fn = _GatherReplicated if replicated else _GatherTime
+    return fn.apply(x, shard.comm, dim, tuple(int(c) for c in counts))
+
+
+def gather_whole_time(x: torch.Tensor,
+                      shard: Optional[TimeShard] = None,
+                      replicated: bool = False) -> torch.Tensor:
+    """:func:`gather_time` of the last dim of ``x``, split in the blocks of
+    the step's input time axis (the resized logits, probabilities and
+    latents); ``x`` as it is without a shard."""
+    shard = shard or active()
+    if shard is None:
+        return x
+    counts = [b - a for a, b in shard.blocks(shard.length)]
+    return gather_time(x, counts, -1, shard, replicated)
+
+
+class _BroadcastFirst(torch.autograd.Function):
+    """Seq rank 0's tensor on every seq rank; the backward sums the ranks'
+    gradients onto rank 0 (the others' input is a placeholder)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        out = (x.detach().clone() if comm.rank == 0
+               else torch.zeros_like(x)).contiguous()
+        return comm.all_reduce_(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = ctx.comm.all_reduce_(grad.contiguous().clone())
+        return (grad if ctx.comm.rank == 0 else None), None
+
+
+def broadcast_first(x: torch.Tensor,
+                    shard: Optional[TimeShard] = None) -> torch.Tensor:
+    """Seq rank 0's ``x`` on every seq rank, differentiable (the ViT's cls
+    token, which rank 0 holds; every other rank passes a tensor of its
+    shape)."""
+    shard = shard or active()
+    return _BroadcastFirst.apply(x, shard.comm)
+
+
+def absmax(t: torch.Tensor, model_group=None,
+           shard: Optional[TimeShard] = None) -> torch.Tensor:
+    """``t.abs().amax()`` of the global tensor whose pieces the seq ranks
+    (under a split time axis) and the ranks of ``model_group`` (a sliced
+    feature axis) hold: the local absmax, its maximum over those groups
+    (exact). int8 serving's per-tensor activation scale."""
+    m = t.detach().abs().amax().float()
+    shard = shard or active()
+    if shard is not None:
+        shard.comm.all_reduce_max_(m)
+    if model_group is not None:
+        pdist.all_reduce_max_(m, model_group)
+    return m
 
 
 def sharded_call(fn: Callable[[torch.Tensor], torch.Tensor],
@@ -688,7 +805,5 @@ def sharded_call(fn: Callable[[torch.Tensor], torch.Tensor],
     local, length = split_batch({"x": x})
     if length is None:
         return fn(x)
-    with time_sharded(length) as shard:
-        y = fn(local["x"])
-        counts = [b - a for a, b in shard.blocks(length)]
-        return gather_time(y, counts, -1, shard)
+    with time_sharded(length):
+        return gather_whole_time(fn(local["x"]))

@@ -8,6 +8,12 @@ batches with every :class:`~semi_seg_ecg_tpu_torch.models.quant_layers.Int8Conv1
 / ``Int8Linear`` recording its running activation absmax, then serve with
 the recorded values, which switches every layer to static scales.
 
+Under a mesh with a seq axis each batch runs split over the seq ranks, as
+serving runs it (``seq_shard.sharded_call``), and every layer's recorded
+absmax is the maximum over the ranks that split its input (the seq group,
+and the model group for a row-parallel layer): the calibrated scales are
+one process's.
+
 Static scales are an approximation (an activation beyond the calibrated
 absmax clips at ±127 instead of rescaling), standard for post-training
 quantization; calibrate on data distributed like the serving traffic.
@@ -20,6 +26,7 @@ from typing import Dict, Iterable
 import torch
 
 from ..models.quant_layers import int8_modules
+from ..parallel import seq_shard
 
 
 def calibrate_quant(model: torch.nn.Module,
@@ -44,7 +51,7 @@ def calibrate_quant(model: torch.nn.Module,
     try:
         with torch.no_grad():
             for x in batches:
-                model(x)
+                seq_shard.sharded_call(lambda t: model(t)["seg_logits"], x)
                 n += 1
     finally:
         for _, m in layers:

@@ -28,6 +28,11 @@ dropout 0) through the JAX package's ``make_train_step`` and the port's
 from ``fold_in(key(seed + 7), step)``; thresholds low enough that the
 contrastive term is non-zero on every step. Losses within rtol 1e-5;
 student, teacher EMA and BN statistics as in ``test_torch_mt_cps.py``.
+
+Under the seq axis (threads): the loss of two ranks' time halves gathered
+by ``reco.gather_for_loss`` equals one process's, and so do the ranks'
+latent gradients joined; a plain time gather would double them (the
+gradient all-reduce sums the seq ranks' gradients).
 """
 
 import copy
@@ -401,3 +406,53 @@ def test_reco_lockstep_matches_jax(monkeypatch):
     for role in ("model", "ema"):
         assert_states_agree(jax_sds[role], port_sds[role])
     assert "latent_projection.2.running_var" in jax_sds["ema"]
+
+
+# ---------------------------------------------------------------------------
+# Under the seq axis: the loss's inputs gathered, its gradient counted once
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("gather", ["for_loss", "plain_time"])
+def test_reco_gradient_counted_once_under_seq(gather):
+    """Two seq ranks (threads) each hold a half of the time axis of the
+    loss's inputs, gather them whole and compute the same loss from the
+    JAX package's draws: the value is one process's (and the JAX
+    package's within 1e-5). Through ``reco.gather_for_loss`` (the step's
+    gather) the ranks' latent gradients, joined as the optimizer's sum over
+    seq joins them, are one process's; a plain time gather, whose backward
+    sums the ranks' (equal) gradients, would count the term's gradient
+    twice, s times over s ranks."""
+    from semi_seg_ecg_tpu_torch.parallel import seq_shard
+
+    latent, prob_t, prob_s, easy, hard = loss_inputs("ordinary")
+    key = jax.random.key(5)
+    draws = jax_draws(key)
+    want_jax, _ = jax_loss_and_grad(key, latent, prob_t, prob_s, easy, hard)
+    lat = torch.from_numpy(latent).requires_grad_()
+    want = reco_loss.compute_reco_loss(
+        draws, lat, torch.from_numpy(prob_t), torch.from_numpy(prob_s), easy,
+        hard, TEMP)
+    want.backward()
+    assert float(want) == pytest.approx(float(want_jax), rel=1e-5)
+
+    def rank(comm):
+        a, b = seq_shard.block(T, 2, comm.rank)
+        block = lambda x: torch.from_numpy(x[..., a:b].copy())  # noqa: E731
+        lb = block(latent).requires_grad_()
+        with seq_shard.using(seq_shard.TimeShard(T, comm)):
+            whole = [reco.gather_for_loss(t) if gather == "for_loss"
+                     else seq_shard.gather_whole_time(t)
+                     for t in (lb, block(prob_t), block(prob_s))]
+            loss = reco_loss.compute_reco_loss(draws, *whole, easy, hard,
+                                               TEMP)
+            loss.backward()
+        return loss.detach(), lb.grad
+
+    res = seq_shard.run_threads(2, rank)
+    for loss, _ in res:
+        assert torch.equal(loss, want.detach())
+    grad = torch.cat([g for _, g in res], -1)
+    factor = 1 if gather == "for_loss" else 2
+    assert lat.grad.abs().max() > 0
+    torch.testing.assert_close(grad, factor * lat.grad, rtol=1e-6, atol=1e-7)

@@ -27,9 +27,10 @@ Against the whole-tensor ops: each time-split op of ``parallel/seq_shard.py``
 pool with its ties, ``avg_down``'s pool, the resize) at s ∈ {2, 3, 4} over
 ResNet18's odd lengths, values and gradients within 1e-6.
 
-Refusals: the device augmentation and cache switch off with the JAX
-package's line and leave the caller's config as it was; ReCo, ST++, the
-seq axis with the model axis and int8 serving under it raise.
+The device augmentation and cache switch off with the JAX package's line
+and leave the caller's config as it was; ReCo, ST++, the seq axis with
+the model axis and int8 serving under it run (only a checkpoint backend
+but pickle is refused).
 
 ``slow``: the FixMatch, Mean Teacher and CPS steps of both backbones with
 dropout on, two gloo ranks against one process, and ``train_main``,
@@ -320,10 +321,16 @@ def test_device_augment_and_cache_switch_off_on_a_copy(capsys):
     {"parallel": {"seq_parallel": 2, "model_parallel": 2}},
     {"quantize": "int8"}])
 def test_seq_parallel_refusals(override):
+    """The former refusals under the seq axis (ReCo, ST++, the model axis
+    beside it, int8 serving) run: their parity cases are in
+    ``tests/test_torch_seq_algorithms.py``, ``test_torch_reco.py``,
+    ``test_torch_stpp.py`` and below. What the seq axis still refuses is
+    what every layout refuses: a checkpoint backend but pickle."""
     cfg = {"algorithm": "fixmatch", "parallel": {"seq_parallel": 2}}
     cfg.update(override)
+    common._refuse_unported(cfg)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        common._refuse_unported(cfg)
+        common._refuse_unported(dict(cfg, checkpoint_backend="orbax"))
 
 
 def test_seq_parallel_is_ported():

@@ -6,7 +6,8 @@
 - ``select_reliable``: three ResNet18 snapshots of width 8 (the JAX
   package's perturbed init trees from three seeds, carried into the port)
   rank the same 12 unlabeled windows: the same order, reliabilities within
-  1e-6, each written at its true dataset row;
+  1e-6, each written at its true dataset row; and so do two seq ranks
+  (threads) that rank on their halves of the time axis;
 - the stage-2/3 step: three fp32 steps (SGD with momentum, dropout 0)
   through the JAX package's ``make_train_step`` and the port's
   ``Trainer.train_step``, losses within rtol 1e-5, the student as in
@@ -37,6 +38,7 @@ from semi_seg_ecg_tpu_torch.data.dataset import build_seg_dataset
 from semi_seg_ecg_tpu_torch.data.loader import get_dataloader
 from semi_seg_ecg_tpu_torch.data.synthetic import make_synthetic_dataset
 from semi_seg_ecg_tpu_torch.ops.metrics import per_sample_miou
+from semi_seg_ecg_tpu_torch.parallel import seq_shard
 from semi_seg_ecg_tpu_torch.utils.weights import jax_trees_to_state_dict
 from tests.test_torch_train_slice import (
     REPO,
@@ -81,9 +83,13 @@ def unlabeled_dataset_config(tmp_path):
     return cfg
 
 
-def test_select_reliable_matches_jax(tmp_path):
+@pytest.fixture(scope="module")
+def jax_ranking(tmp_path_factory):
+    """The JAX package's ranking of the unlabeled split by three perturbed
+    snapshots, and the snapshots as port models: ``(dataset config, port
+    models, reliable ids, reliability)``."""
     cfg = resnet_lockstep_config("base")
-    ds_cfg = unlabeled_dataset_config(tmp_path)
+    ds_cfg = unlabeled_dataset_config(tmp_path_factory.mktemp("stpp"))
     jmodel = jax_build(cfg)
     states = [ModelState(*perturbed_state(jmodel, seed, jit=True))
               for seed in (40, 41, 42)]
@@ -93,9 +99,13 @@ def test_select_reliable_matches_jax(tmp_path):
                         mode="eval", batch_size=5, num_workers=0)
     want_ids, _, want = jax_stpp.select_reliable(jmodel, states, loader,
                                                  mesh, 4, return_values=True)
-
     models = [port_model(cfg, s.params, s.batch_stats).eval()
               for s in states]
+    return ds_cfg, models, want_ids, want
+
+
+def test_select_reliable_matches_jax(jax_ranking):
+    ds_cfg, models, want_ids, want = jax_ranking
     # another batch size: the rows, not the batches, carry the values
     loader = get_dataloader(build_seg_dataset(ds_cfg, split="train_unlabeled",
                                               mode="eval"),
@@ -109,6 +119,40 @@ def test_select_reliable_matches_jax(tmp_path):
     assert got_ids == want_ids
     order = np.argsort(-got, kind="stable")
     assert got_ids == order[:NUM_UNLABELED // 2].tolist()
+
+
+def test_select_reliable_under_seq_matches_jax(jax_ranking, monkeypatch):
+    """Two seq ranks as threads (``seq_shard.run_threads``) rank on their
+    time blocks, the counts summed over them before the mIoU: each rank's
+    reliabilities within 1e-6 of the JAX package's one-device ranking (which
+    its own tests hold equal to its seq-sharded one), the order the
+    same."""
+    ds_cfg, models, want_ids, want = jax_ranking
+    split = []
+    inner = seq_shard.split_batch
+
+    def recorded(batch, *args):
+        out = inner(batch, *args)
+        split.append(out[1])
+        return out
+
+    monkeypatch.setattr(seq_shard, "split_batch", recorded)
+
+    def rank(comm):
+        loader = get_dataloader(build_seg_dataset(
+            ds_cfg, split="train_unlabeled", mode="eval"), mode="eval",
+            batch_size=4, num_workers=0)
+        with seq_shard.seq_group(comm):
+            return stpp.select_reliable(
+                [copy.deepcopy(m) for m in models], loader, 4,
+                torch.device("cpu"), contextlib.nullcontext)
+
+    for got_ids, rest, got in seq_shard.run_threads(2, rank):
+        np.testing.assert_allclose(got, want, atol=1e-6)
+        assert got_ids == want_ids
+        assert sorted(got_ids + rest) == list(range(NUM_UNLABELED))
+    # every batch of both ranks was split at the signal's length
+    assert split == [SEQ] * (2 * -(-NUM_UNLABELED // 4))
 
 
 def test_stage_step_lockstep_matches_jax():

@@ -402,16 +402,16 @@ def test_unported_algorithms_and_options_raise():
                      model.backbone.layer4[1].bn2.running_var.clone()))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
-    # what multi-GPU training still refuses: int8 serving under the model
-    # axis (the sequence axis trains: tests/test_torch_seq_parallel.py
-    # holds it against the JAX package, and its refusals)
+    # what multi-GPU runs still refuse: a checkpoint backend but pickle.
+    # int8 serving under the model axis runs (tests/test_torch_seq_algorithms.py
+    # holds it against one process's int8, codes and logits)
     from semi_seg_ecg_tpu_torch.algorithms.common import _refuse_unported
 
     cfg = lockstep_config("xla", "base")
-    refused = [{"parallel": {"model_parallel": 2}, "quantize": "int8"}]
-    for override in refused:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            _refuse_unported({**cfg, **override})
+    int8_tp = {**cfg, "parallel": {"model_parallel": 2}, "quantize": "int8"}
+    _refuse_unported(int8_tp)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        _refuse_unported({**int8_tp, "checkpoint_backend": "orbax"})
     # the model axis (tests/test_torch_tensor_parallel.py), ZeRO-1
     # (tests/test_torch_zero1.py) and the device cache
     # (tests/test_torch_device_cache.py) train; the reference's ddp

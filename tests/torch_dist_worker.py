@@ -131,7 +131,9 @@ def task_steps(runs, device="cpu", optimizer_state=False):
     each optimizer's :func:`optimizer_report`. A run with ``checkpoint``
     has rank 0 write the trainer's checkpoint there (every rank gathers
     it), as the training loop writes one; ``updates`` (default: the
-    number of batches) is the schedule's updates an epoch."""
+    number of batches) is the schedule's updates an epoch; ``reco_draws``
+    (a ``(pool_u, anchor_u, gumbel)`` triple of arrays a step) replaces
+    ReCo's draws, as a test feeds the JAX package's."""
     from semi_seg_ecg_tpu_torch.parallel.sharding_rules import (
         full_state_dict,
     )
@@ -141,12 +143,20 @@ def task_steps(runs, device="cpu", optimizer_state=False):
     from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, full_fp32
     from semi_seg_ecg_tpu_torch.models import build_model_from_config
 
+    from semi_seg_ecg_tpu_torch.ops import reco_loss
+
     device = torch.device(device)
     if device.type == "cuda":
         device = pdist.cuda_device()
-    out = []
+    out, own_draws = [], reco_loss.reco_draws
     for run in runs:
         cfg = run["config"]
+        reco_loss.reco_draws = own_draws
+        if run.get("reco_draws"):
+            given = iter(run["reco_draws"])
+            reco_loss.reco_draws = lambda *args, **kwargs: \
+                reco_loss.RecoDraws(*(torch.from_numpy(a).to(device)
+                                      for a in next(given)))
         spec = get_algorithm(cfg["algorithm"]).SPEC
         modules = {}
         for role in ("model", "peer"):
@@ -373,13 +383,64 @@ def task_longrec(kernel, cases, streams, config):
     return out
 
 
+@contextlib.contextmanager
+def recorded_codes():
+    """Inside, ``quantize_input`` (``ops/quant.py`` and its import in
+    ``models/quant_layers.py``) records every int8 layer's input codes in
+    call order into the list it yields."""
+    from semi_seg_ecg_tpu_torch.models import quant_layers
+    from semi_seg_ecg_tpu_torch.ops import quant
+
+    codes, inner = [], quant.quantize_input
+
+    def recorded(x, act_scale):
+        q, scale = inner(x, act_scale)
+        codes.append(q)
+        return q, scale
+
+    quant.quantize_input = quant_layers.quantize_input = recorded
+    try:
+        yield codes
+    finally:
+        quant.quantize_input = quant_layers.quantize_input = inner
+
+
+def task_serve(config, state, batches, calibrate=()):
+    """A serving build of ``config`` (``quantize: int8`` honoured) with
+    ``state``, sliced over the model axis of ``make_mesh(config)``, on each
+    of ``batches`` split over its seq axis (``seq_shard.sharded_call``),
+    after calibrating on ``calibrate`` when given: the gathered softmax
+    logits, the int8 layers' input codes in call order (this rank's
+    pieces) and the calibrated absmax."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import shard_for_mesh
+    from semi_seg_ecg_tpu_torch.models import build_model_from_config
+    from semi_seg_ecg_tpu_torch.parallel import seq_shard
+    from semi_seg_ecg_tpu_torch.parallel.mesh import make_mesh
+    from semi_seg_ecg_tpu_torch.utils.calibrate import calibrate_quant
+
+    make_mesh(config)
+    model = build_model_from_config(config, serving=True)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    model = shard_for_mesh(model.eval())
+    absmax = {}
+    with torch.no_grad():
+        if calibrate:
+            absmax = calibrate_quant(model, [torch.from_numpy(c)
+                                             for c in calibrate])
+        with recorded_codes() as codes:
+            logits = [seq_shard.sharded_call(
+                lambda t: model(t)["seg_logits"], torch.from_numpy(x))
+                for x in batches]
+    return {"logits": logits, "codes": codes, "absmax": absmax}
+
+
 TASKS = {"batchnorm": task_batchnorm, "draws": task_draws,
          "steps": task_steps, "select_reliable": task_select_reliable,
          "evaluate": task_evaluate, "train_main": task_train_main,
          "run_training": task_run_training,
          "test_main": task_test_main,
          "inference_main": task_inference_main, "nan_abort": task_nan_abort,
-         "longrec": task_longrec}
+         "longrec": task_longrec, "serve": task_serve}
 
 
 def _free_port():
