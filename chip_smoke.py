@@ -198,8 +198,9 @@ non-zero exit when it fails:
    once (gloo on one card, NCCL where the cards cover the ranks): (b) at
    ``(data 1, seq 2)`` three fp32 ReCo steps of each backbone (its loss's
    inputs gathered over the seq ranks, its contrastive term live) against
-   one process within phase 10's bounds (the absolute part at least 10x
-   one process's own run-to-run excess), ST++'s ranking of phase 4's
+   one process within phase 10's bounds, both sides under PyTorch's
+   deterministic algorithms (one process's two runs equal bit for bit),
+   ST++'s ranking of phase 4's
    unlabeled split by three ViT snapshots against one process's, and an
    int8 serving batch of each backbone, dynamic and calibrated; (c) at
    ``(1, 2, 3)`` three fp32 FixMatch steps of the ViT (the ring on a model
@@ -211,6 +212,26 @@ non-zero exit when it fails:
    process's, and the probabilities within 1e-5 (the ViT under seq: the
    codes up to the first attention output, whose ring rounds apart from
    the flash kernel, and then phase 9's int8 rule).
+
+17. the checkpoint writer, the directory backend, the rest of serving: (a)
+   phase 4's ViT FixMatch recipe through ``train_main`` with
+   ``async_checkpoint`` on (the default) and off, each with the epoch
+   loop's wall time, its launches (phase 4's) and rank 0's blocked ms per
+   save, and a third run whose every save also writes the same call
+   synchronously beside it: each file equal to its synchronous twin byte
+   for byte; (b) ``checkpoint_backend: orbax``: after one fp32 step, every
+   rank writes the directory (``torch.distributed.checkpoint``) and rank 0
+   the pickle file, at data 2 with ZeRO-1 (a task on phase 13's ZeRO-1
+   group) and at ``(1, 3)`` (a task on phase 14's ``(1, 3)`` group): no
+   ``all_gather_object`` on the directory's path, each rank's bytes
+   against the pickle file's, the directory loaded in one process equal
+   to the pickle file's payload, and a one-process resume from each equal
+   bit for bit; (c) a ``("cuda", "cpu")`` artifact of phase 4's ViT: its
+   CUDA program (the process's platform) 12 flash launches a call and
+   equal to phase 9's one-platform artifact, its CPU program within 1e-5
+   of ``ServingFn`` on the CPU with no launch; (d) ``torch.library.opcheck``'s
+   default checks of the flash forward and backward operators on CUDA
+   tensors, fp32 and bf16.
 
 In the whole run phases 14-16 share rank groups, since a group's start
 costs tens of seconds: phase 16's (a) runs on an idle
@@ -3219,8 +3240,12 @@ RANK_TASKS = {"tp_drift": lambda torch, **kw: tp_drift(torch, **kw),
               "tp_longrec": lambda torch, **kw: tp_longrec(torch, **kw),
               "seq_long": lambda torch, **kw: seq_long(torch, **kw),
               "so_steps": dp_steps,
+              "so_steps_strict": lambda torch, **kw: strict_steps(torch,
+                                                                  **kw),
               "so_stpp_rank": lambda torch, **kw: so_stpp_rank(torch, **kw),
               "so_int8_serve": lambda torch, **kw: so_int8_serve(torch,
+                                                                 **kw),
+              "ckpt_backends": lambda torch, **kw: ckpt_backends(torch,
                                                                  **kw)}
 
 
@@ -4657,10 +4682,12 @@ def z1_resume(torch, config, algorithm, path, batch):
                       for k, v in trainer.model.state_dict().items()}}
 
 
-def check_zero1(torch):
+def check_zero1(torch, extra=()):
     """(d) ZeRO-1 against the replicated optimizer on DP_WORLD ranks, 3
     steps of each of Z1_ALGORITHMS, then each run's checkpoint resumed in
-    one unsharded process for a fourth step."""
+    one unsharded process for a fourth step. ``extra`` tasks (another
+    phase's) run on the same group after; their results are
+    ``result["extra"]``."""
     from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
 
     backend, layout = dp_layout(torch)
@@ -4674,10 +4701,12 @@ def check_zero1(torch):
                 "config": configs[algorithm, on], "algorithm": algorithm,
                 "batches": batches,
                 "checkpoint": os.path.join(WORK, f"z1_{algorithm}_{on}.ckpt")}))
-    by_task, _ = dp_run_ranks(tasks, backend, phase=13,
-                              env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    by_task, logs = dp_run_ranks(tasks + list(extra), backend, phase=13,
+                                 env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
     runs = {key: ranks for key, ranks in zip(configs, by_task)}
     result, bad = {"backend": backend, "layout": layout}, []
+    if extra:
+        result["extra"] = (by_task[len(tasks):], logs)
     for algorithm in Z1_ALGORITHMS:
         on, off = runs[algorithm, True], runs[algorithm, False]
         per_step = launches_per_step("vit_tiny", algorithm)
@@ -4744,14 +4773,15 @@ def check_zero1(torch):
     return result
 
 
-def phase_zero_cache(torch):
+def phase_zero_cache(torch, extra=()):
     """Phase 13: the remaining device-augment ops on the card, the new
     ops' recipe through train_main streaming and with the device cache,
-    and ZeRO-1 against the replicated optimizer."""
+    and ZeRO-1 against the replicated optimizer (``extra``: other phases'
+    tasks on its group)."""
     t_phase = time.perf_counter()
     log("phase 13: the new device-augment ops, the device cache, ZeRO-1")
     result = {"ops": check_new_ops(torch), "cache": check_cache(torch),
-              "zero1": check_zero1(torch)}
+              "zero1": check_zero1(torch, extra)}
     result["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 13 in {result['seconds']:.1f} s")
     return result
@@ -5711,13 +5741,15 @@ SO_INT8_MODEL = 3
 # classes peaks below 0.25) and hard, so its contrastive term is live
 SO_RECO_TRAIN = {"easy_conf_thresh": 0.25, "eash_conf_thresh": 0.25,
                  "hard_conf_thresh": 0.99}
-# ReCo's state is held by phase 10's bounds with the absolute part at
-# least this many times one process's own run-to-run excess over the
-# relative part, measured in the same call: on the card one process's
-# ResNet18 ReCo steps are not repeatable (``--reco-noise``: 3.09e-6 beyond
-# 5e-4 relative at the stem), while its FixMatch steps' seq ranks sit
-# about 8.5x one process's noise from it
-SO_RECO_NOISE = 10
+# ReCo's steps, on the seq ranks and in one process, run under PyTorch's
+# deterministic algorithms (:func:`strict_determinism`) and are held by
+# phase 10's bounds: under PyTorch's default one process's ResNet18 ReCo
+# steps are not repeatable on the card (``--reco-noise``: 2e-7 to 5.5e-6
+# beyond 5e-4 relative at the stem, so the ranks' excess over one process
+# wandered from 5.7e-6 to 1.2e-5), under the deterministic algorithms they
+# repeat bit for bit and the ranks' excess is one number
+# ``--reco-noise``: repeats of each of its rank runs and ulp moves
+SO_NOISE_REPEATS = 3
 # ST++'s ranking: seeds of the three snapshots
 SO_SNAPSHOT_SEEDS = (61, 62, 63)
 # int8 ViT under seq: the ring's attention output rounds apart from one
@@ -6012,8 +6044,9 @@ def seq_options_plan(torch):
         tasks[layout], names[layout] = [], []
         if layout == SO_SEQ_LAYOUT:
             for family in ("vit_tiny", "resnet18"):
-                tasks[layout].append(("so_steps", {"config": so_reco_config(
-                    family, layout, backend), "batches": batches}))
+                tasks[layout].append(("so_steps_strict", {
+                    "config": so_reco_config(family, layout, backend),
+                    "batches": batches}))
                 names[layout].append(("reco", family))
             tasks[layout].append(("so_stpp_rank", {"config": dict(
                 stpp_cfg, ddp={"dist_backend": backend}),
@@ -6069,13 +6102,15 @@ def phase_seq_options(torch, plan=None, shared=None):
     t0 = time.perf_counter()
     batches, snapshots = plan["batches"], plan["snapshots"]
     single = {}
-    noise = {}
+    repeats = {}
     for family in ("vit_tiny", "resnet18"):
-        single[("reco", family)], again = (dp_steps(
-            torch, so_reco_config(family, (1, 1), "gloo"), batches,
-            slice(None)) for _ in range(2))
-        noise[family] = state_noise(again["state"],
-                                    single[("reco", family)]["state"])
+        with strict_determinism(torch):
+            single[("reco", family)], again = (dp_steps(
+                torch, so_reco_config(family, (1, 1), "gloo"), batches,
+                slice(None)) for _ in range(2))
+        repeats[family] = all(
+            np.array_equal(v, again["state"][k])
+            for k, v in single[("reco", family)]["state"].items())
         single[("steps", family)] = dp_steps(
             torch, seq_step_config(family, (1, 1), "gloo"), batches,
             slice(None))
@@ -6110,15 +6145,16 @@ def phase_seq_options(torch, plan=None, shared=None):
                     if not all(m["contr_loss"] > 0 for m in got["metrics"]):
                         raise SystemExit(f"phase 16 failed: {what} ReCo on "
                                          f"rank {r}: no contrastive term")
-                atol = max(DP_ATOL, SO_RECO_NOISE * noise[what])
-                log(f"  {what} ReCo: one process against itself "
-                    f"{noise[what]:.3g} beyond {DP_RTOL} relative; the "
-                    f"ranks' bound {DP_RTOL} relative + {atol:.3g}")
+                log(f"  {what} ReCo under deterministic algorithms: one "
+                    f"process repeats bit for bit: {repeats[what]}")
+                if not repeats[what]:
+                    raise SystemExit(f"phase 16 failed: {what} ReCo: one "
+                                     "process's steps under deterministic "
+                                     "algorithms do not repeat")
                 result["reco"][what] = dict(dp_check_steps(
                     what, ranks, one, phase=16, layout=name,
                     want_launches=seq_launches(what, layout[1]),
-                    algorithm="ReCo", atol=atol),
-                    one_process_noise=noise[what], atol=atol)
+                    algorithm="ReCo"), one_process_repeats=True)
             elif kind == "steps":
                 result["steps"][what] = dict(dp_check_steps(
                     what, ranks, one, phase=16, layout=name,
@@ -6165,38 +6201,476 @@ def phase_seq_options(torch, plan=None, shared=None):
     return result
 
 
+@contextlib.contextmanager
+def strict_determinism(torch):
+    """PyTorch's deterministic algorithms (cuDNN's too) inside, warning
+    where an op has none; yields the list of the warnings' first lines."""
+    import warnings
+
+    saved = torch.are_deterministic_algorithms_enabled()
+    saved_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    with cudnn_deterministic(torch), warnings.catch_warnings(
+            record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        seen = []
+        try:
+            yield seen
+        finally:
+            torch.use_deterministic_algorithms(saved, warn_only=saved_warn)
+            seen.extend(sorted({str(w.message).splitlines()[0][:160]
+                                for w in caught}))
+
+
+def strict_steps(torch, **kwargs):
+    """:func:`dp_steps` under :func:`strict_determinism`, the warnings'
+    first lines under ``"nondeterministic"``."""
+    with strict_determinism(torch) as seen:
+        result = dp_steps(torch, **kwargs)
+    result["nondeterministic"] = seen
+    return result
+
+
 def so_noise_main(out_path):
     """``chip_smoke.py --reco-noise OUT``, a diagnostic outside the run: one
     process's three fp32 ReCo (and FixMatch) steps of each backbone taken
-    twice on the card, under PyTorch's default and under deterministic
-    algorithms, and the two runs' worst state excess over phase 10's
-    relative bound (``dp_check_steps``'s measure): the run-to-run noise
-    that phase 16's comparison of the seq ranks with one process sits
-    on."""
+    twice on the card, under PyTorch's default, under cuDNN's deterministic
+    algorithms and under all of PyTorch's (``strict``), and the two runs'
+    worst state excess over phase 10's relative bound (``dp_check_steps``'s
+    measure): the run-to-run noise that phase 16's comparison of the seq
+    ranks with one process sits on. Then ResNet18 ReCo at phase 16's
+    ``(data 1, seq 2)`` on gloo ranks, SO_NOISE_REPEATS times in each mode,
+    each against one process of its mode; and one strict process fed the
+    batches with each sample moved by an ulp, against the unmoved run."""
     import torch
 
     os.makedirs(WORK, exist_ok=True)
     phase_build()
     batches = seq_batches(16)
     out = {"nvidia_smi": nvidia_smi()}
+    modes = {"default": contextlib.nullcontext,
+             "deterministic": lambda: cudnn_deterministic(torch),
+             "strict": lambda: strict_determinism(torch)}
+    single = {}
     for algorithm in ("reco", "fixmatch"):
         for family in ("resnet18", "vit_tiny"):
             cfg = (so_reco_config(family, (1, 1), "gloo")
                    if algorithm == "reco"
                    else seq_step_config(family, (1, 1), "gloo"))
-            for label, ctx in (("default", contextlib.nullcontext),
-                               ("deterministic",
-                                lambda: cudnn_deterministic(torch))):
-                with ctx():
+            for label, ctx in modes.items():
+                with ctx() as seen:
                     a, b = (dp_steps(torch, cfg, batches, slice(None))
                             for _ in range(2))
                 name = f"{family}_{algorithm}_{label}"
+                single[name] = a
                 out[name] = state_noise(a["state"], b["state"])
+                out[name + "_bitwise"] = all(
+                    np.array_equal(v, b["state"][k])
+                    for k, v in a["state"].items())
+                if seen:
+                    out[name + "_nondeterministic"] = seen
                 log(f"  {name}: two one-process runs, max(|diff| - "
-                    f"{DP_RTOL} |b|, 0) = {out[name]:.3g}")
+                    f"{DP_RTOL} |b|, 0) = {out[name]:.3g}, bit for bit "
+                    f"{out[name + '_bitwise']}"
+                    + (f"; ops without a deterministic version: {seen}"
+                       if seen else ""))
+    cfg = so_reco_config("resnet18", (1, 1), "gloo")
+    rng = np.random.default_rng(17)
+    for seed in range(SO_NOISE_REPEATS):
+        moved = [{k: (v * (1 + np.float32(2 ** -23) * rng.choice(
+            [-1, 1], v.shape)).astype(np.float32) if v.dtype == np.float32
+            else v) for k, v in batch.items()} for batch in batches]
+        with strict_determinism(torch):
+            got = dp_steps(torch, cfg, moved, slice(None))
+        name = f"resnet18_reco_strict_ulp{seed}"
+        out[name] = state_noise(got["state"],
+                                single["resnet18_reco_strict"]["state"])
+        log(f"  {name}: inputs an ulp apart, max(|diff| - {DP_RTOL} |b|, "
+            f"0) = {out[name]:.3g}")
+    tasks = []
+    for mode in ("so_steps", "so_steps_strict"):
+        tasks += [(mode, {"config": so_reco_config(
+            "resnet18", SO_SEQ_LAYOUT, "gloo"), "batches": batches})] * (
+            SO_NOISE_REPEATS)
+    by_task, _ = finish_ranks(start_ranks(
+        tasks, "gloo", world=int(np.prod(SO_SEQ_LAYOUT)), name="noise"), 16)
+    for i, ((mode, _), ranks) in enumerate(zip(tasks, by_task)):
+        label = "strict" if mode.endswith("strict") else "default"
+        one = single[f"resnet18_reco_{label}"]
+        name = f"resnet18_reco_{label}_seq2_{i % SO_NOISE_REPEATS}"
+        out[name] = state_noise(ranks[0]["state"], one["state"])
+        out[name + "_nondeterministic"] = ranks[0].get("nondeterministic")
+        log(f"  {name}: (data 1, seq 2) against one process, max(|diff| - "
+            f"{DP_RTOL} |b|, 0) = {out[name]:.3g}")
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the checkpoint writer, the directory backend, the cross-platform
+# artifact, the flash operators under opcheck
+# ---------------------------------------------------------------------------
+
+CKPT_BACKENDS = ("pickle", "orbax")
+# (b)'s layouts: phase 13's ZeRO-1 group and phase 14's (1, 3) group
+CKPT_TP_LAYOUT = (1, 3)
+# (d): opcheck's cases, (dtype, the ViT's strided layout)
+CKPT_OPCHECK = (("float32", False), ("bfloat16", True))
+
+
+def ckpt_backends(torch, config, batch, out_dir):
+    """A rank's part of (b): one step of ``config`` (seed-0 weights) on its
+    data rank's rows of ``batch``, then the checkpoint written with each
+    backend as the training loop writes it (``algorithms/common._save``,
+    the writer thread): rank 0 the pickle file, every rank its part of the
+    directory. Returns each write's blocked ms and ``all_gather_object``
+    calls, and the bytes of this rank's optimizer state."""
+    from semi_seg_ecg_tpu_torch.algorithms import common, get_algorithm
+    from semi_seg_ecg_tpu_torch.parallel import dist as pdist
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    n = batch["ecg"].shape[0] // pdist.data_size()
+    rows = slice(pdist.data_rank() * n, (pdist.data_rank() + 1) * n)
+    with common.full_fp32():
+        trainer = common.Trainer(
+            copy.deepcopy(config), get_algorithm(config["algorithm"]).SPEC,
+            device, 4, model=common.init_model(config, device))
+        trainer.train_step({k: torch.from_numpy(v[rows]).to(device)
+                            for k, v in batch.items()})
+    torch.cuda.synchronize()
+    gather, calls, blocked = pdist.all_gather_object, {}, {}
+    try:
+        for backend in CKPT_BACKENDS:
+            calls[backend] = 0
+
+            def counted(*args, backend=backend, **kwargs):
+                calls[backend] += 1
+                return gather(*args, **kwargs)
+
+            pdist.all_gather_object = counted
+            t0 = time.perf_counter()
+            common._save(trainer, [os.path.join(out_dir, f"{backend}.ckpt")],
+                         0, config, backend, True, pdist.is_main_process(),
+                         metrics={"loss": 1.0}, best={"loss": 1.0})
+            blocked[backend] = (time.perf_counter() - t0) * 1e3
+    finally:
+        pdist.all_gather_object = gather
+    t0 = time.perf_counter()
+    ckpt.wait_for_pending()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    pdist.barrier()
+    opt_bytes = sum(v.numel() * v.element_size()
+                    for entry in trainer.optimizer.optimizer.state.values()
+                    for v in entry.values() if torch.is_tensor(v))
+    return {"blocked_ms": blocked, "flush_ms": flush_ms,
+            "all_gather_object": calls, "opt_bytes": opt_bytes}
+
+
+def ckpt_layout_configs(torch):
+    """(b)'s configs: phase 13's ZeRO-1 FixMatch step at data 2, phase 14's
+    step at (1, 3); and each group's out directory."""
+    backend_z1, _ = dp_layout(torch)
+    backend_tp, _ = tp_layout(torch, CKPT_TP_LAYOUT[0] * CKPT_TP_LAYOUT[1])
+    return {"zero1": (z1_config("fixmatch", backend_z1, True),
+                      os.path.join(WORK, "ckpt_zero1")),
+            "1x3": (tp_step_config(CKPT_TP_LAYOUT, backend_tp),
+                    os.path.join(WORK, "ckpt_1x3"))}
+
+
+def ckpt_rank_tasks(torch):
+    """(b)'s rank task for each layout, on ``dp_global_batches(70)[0]``."""
+    batch = dp_global_batches(70)[0]
+    tasks = {}
+    for key, (config, out_dir) in ckpt_layout_configs(torch).items():
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        tasks[key] = [("ckpt_backends", {"config": config, "batch": batch,
+                                         "out_dir": out_dir})]
+    return tasks
+
+
+def ckpt_writer_run(torch, mode):
+    """(a): ``train_main`` of phase 4's recipe, with ``async_checkpoint``
+    on (``async``), off (``sync``), or on with every save also written
+    synchronously to ``path + ".sync"`` first (``twin``): its launches,
+    seconds, the epoch loop's wall time and rank 0's blocked ms per save."""
+    from semi_seg_ecg_tpu_torch.cli import train_main
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    _, config = write_train_config("vit_tiny", "fixmatch")
+    config = dict(config, exp_name=f"ckpt_{mode}", test=False)
+    if mode == "sync":
+        config["async_checkpoint"] = False
+    path = os.path.join(WORK, f"ckpt_{mode}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    save, blocked = ckpt.save_checkpoint, []
+
+    def timed_save(paths, epoch, *args, **kwargs):
+        if mode == "twin":
+            save([p + ".sync" for p in paths], epoch, *args,
+                 **dict(kwargs, async_write=False))
+        t0 = time.perf_counter()
+        save(paths, epoch, *args, **kwargs)
+        blocked.append((time.perf_counter() - t0) * 1e3)
+
+    ckpt.save_checkpoint = timed_save
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        train_main(["-f", path])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        ckpt.save_checkpoint = save
+    out_dir = os.path.join(WORK, "exps", f"ckpt_{mode}")
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        epochs = [json.loads(line) for line in f]
+    return {"seconds": seconds, "launches": launches,
+            "epoch_loop_s": epochs[-1]["wall_s"], "blocked_ms": blocked,
+            "out_dir": out_dir}
+
+
+def ckpt_writer(torch):
+    """(a) the writer, on and off, and the files against their twins."""
+    training = recipe_launches("vit_tiny", "fixmatch")["train"]
+    # the twins first: the first run pays the process's first pinned
+    # allocations and file writes
+    runs = {mode: ckpt_writer_run(torch, mode)
+            for mode in ("twin", "async", "sync")}
+    twins = {}
+    out_dir = runs["twin"]["out_dir"]
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".ckpt"):
+            with open(os.path.join(out_dir, name), "rb") as a, \
+                    open(os.path.join(out_dir, name + ".sync"), "rb") as b:
+                twins[name] = a.read() == b.read()
+    bad = [mode for mode, r in runs.items() if r["launches"] != training]
+    for mode, r in runs.items():
+        log(f"  (a) async_checkpoint {mode}: train_main {r['seconds']:.2f} s,"
+            f" epoch loop {r['epoch_loop_s']:.3f} s, rank 0 blocked "
+            f"{[round(ms, 2) for ms in r['blocked_ms']]} ms per save, "
+            f"launches {r['launches']} (phase 4's {training})")
+    log(f"  (a) each async file against the same call written "
+        f"synchronously, byte for byte: {twins}")
+    if bad or not twins or not all(twins.values()):
+        raise SystemExit(f"phase 17 failed: the writer's runs {bad} launched "
+                         f"other than {training}, or files differ from "
+                         f"their synchronous twins {twins}")
+    return {"runs": {m: {k: v for k, v in r.items() if k != "out_dir"}
+                     for m, r in runs.items()},
+            "twins_equal": twins}
+
+
+def ckpt_resumed(torch, config, path):
+    """A one-process Trainer on the card resumed from ``path``: its state
+    (model, optimizer, step) at resume, as NumPy, and after one step on
+    ``dp_global_batches(71)[0]`` the model's."""
+    from semi_seg_ecg_tpu_torch.algorithms import common, get_algorithm
+    from semi_seg_ecg_tpu_torch.utils.checkpoint import _to_numpy
+
+    cfg = copy.deepcopy(config)
+    cfg.update(resume=path, parallel={})
+    device = torch.device("cuda")
+    with common.full_fp32():
+        trainer = common.Trainer(cfg, get_algorithm(cfg["algorithm"]).SPEC,
+                                 device, 4)
+        state = _to_numpy({"model": trainer.model.state_dict(),
+                           "optimizer": trainer.optimizer.state_dict(),
+                           "step": trainer.step})
+        trainer.train_step({k: torch.from_numpy(v).to(device) for k, v in
+                            dp_global_batches(71)[0].items()})
+    return state, _to_numpy(trainer.model.state_dict())
+
+
+def ckpt_check_layout(torch, key, config, out_dir, ranks):
+    """(b) for one layout, from its ranks' results: the directory's path
+    gathered nothing, each rank's bytes against the pickle file's, the
+    payloads equal, the resumes equal."""
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    files = {b: os.path.join(out_dir, f"{b}.ckpt") for b in CKPT_BACKENDS}
+    written = ckpt.directory_bytes(files["orbax"])
+    pickle_bytes = os.path.getsize(files["pickle"])
+    payload = payload_diff(ckpt.load_checkpoint(files["orbax"]),
+                           ckpt.load_checkpoint(files["pickle"]))
+    resumed = {b: ckpt_resumed(torch, config, files[b])
+               for b in CKPT_BACKENDS}
+    resume = payload_diff(resumed["orbax"][0], resumed["pickle"][0])
+    stepped = payload_diff(resumed["orbax"][1], resumed["pickle"][1])
+    row = {"ranks": len(ranks), "written_bytes": written,
+           "pickle_bytes": pickle_bytes,
+           "rank_bytes_over_pickle": [written.get(f"rank{r}", 0)
+                                      / pickle_bytes
+                                      for r in range(len(ranks))],
+           "opt_bytes_per_rank": [r["opt_bytes"] for r in ranks],
+           "blocked_ms": [{k: round(v, 3) for k, v in r["blocked_ms"].items()}
+                          for r in ranks],
+           "flush_ms": [round(r["flush_ms"], 3) for r in ranks],
+           "all_gather_object": [r["all_gather_object"] for r in ranks],
+           "payload_max_diff": payload, "resume_max_diff": resume,
+           "resumed_step_max_diff": stepped}
+    log(f"  (b) {key}: {len(ranks)} ranks wrote {written} (pickle file "
+        f"{pickle_bytes} bytes: each rank "
+        f"{[round(x, 3) for x in row['rank_bytes_over_pickle']]} of it); "
+        f"blocked ms by rank {row['blocked_ms']}; all_gather_object calls "
+        f"{row['all_gather_object']}; directory against pickle payload "
+        f"{payload}, one-process resume {resume}, after a step {stepped}")
+    if payload[0] != 0.0 or resume[0] != 0.0 or any(
+            r["all_gather_object"]["orbax"] for r in ranks) or any(
+            written.get(f"rank{r}", 0) <= 0 for r in range(len(ranks))):
+        raise SystemExit(f"phase 17 failed: the {key} directory: payload "
+                         f"{payload}, resume {resume}, gathers "
+                         f"{row['all_gather_object']}, bytes {written}")
+    return row
+
+
+def ckpt_artifact(torch, vit_model):
+    """(c) the ``("cuda", "cpu")`` artifact of the ViT ``vit_model``,
+    exported through the ``export`` entry (``--platforms cuda cpu``)."""
+    import io
+
+    from semi_seg_ecg_tpu_torch.cli import export_main
+    from semi_seg_ecg_tpu_torch.serving import (
+        export_serving,
+        load_serving,
+        make_serving_fn,
+    )
+
+    art = os.path.join(WORK, "artifacts")
+    os.makedirs(art, exist_ok=True)
+    config = deploy_config("vit_tiny", vit_model)
+    single_path = os.path.join(art, "vit_tiny_fp32.pt2")
+    if not os.path.exists(single_path):  # phase 17 alone
+        export_serving(config, single_path)
+    path = os.path.join(art, "vit_tiny_cuda_cpu.pt2")
+    slice_path, _ = write_slice_config("vit_tiny")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    line = io.StringIO()  # the entry's JSON line goes to the log
+    with contextlib.redirect_stdout(line):
+        header = export_main(["-f", slice_path, "--model_path", vit_model,
+                              "--out", path, "--platforms", "cuda", "cpu"])
+    seconds = time.perf_counter() - t0
+    log(f"  (c) ecg-torch-export printed {line.getvalue().strip()[:300]}")
+    traced = read_counts()
+    serve, _ = load_serving(path)
+    single, _ = load_serving(single_path)
+    cpu_serve, _ = load_serving(path, "cpu")
+    infer_cpu, _ = make_serving_fn({**config, "device": "cpu"})
+    equal, per_call = {}, None
+    for n in (1, 16, 37):
+        x = card_batch(torch, n, 170 + n)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = serve(x)
+        torch.cuda.synchronize()
+        per_call = read_counts()
+        if per_call != {"flash_attention_fwd": DEPTH,
+                        "flash_attention_bwd": 0, "gather1d": 0}:
+            raise SystemExit(f"phase 17 failed: the cross-platform "
+                             f"artifact's CUDA program launched {per_call}")
+        equal[n] = bool(torch.equal(got, single(x)))
+    x = card_batch(torch, 2, 172).cpu()
+    reset_counts()
+    on_cpu = cpu_serve(x)
+    cpu_launches = read_counts()
+    with torch.inference_mode():
+        cpu_err = (on_cpu - infer_cpu(x)).abs().max().item()
+    result = {"platforms": header["platforms"],
+              "programs": header["programs"], "bytes": os.path.getsize(path),
+              "export_s": seconds, "launches_while_tracing": traced,
+              "launches_per_call": per_call,
+              "equal_to_one_platform": equal, "cpu_max_abs_err": cpu_err,
+              "cpu_launches": cpu_launches}
+    log(f"  (c) ('cuda', 'cpu') artifact: {result['bytes']} bytes, exported "
+        f"in {seconds:.2f} s ({traced} while tracing), programs "
+        f"{header['programs']}; the CUDA program {per_call} a call, equal to "
+        f"phase 9's one-platform artifact {equal}; the CPU program within "
+        f"{cpu_err:.3g} of ServingFn on the CPU, launches {cpu_launches}")
+    if not all(equal.values()) or cpu_err > 1e-5 or any(
+            cpu_launches.values()) or any(traced.values()) or \
+            header["platforms"] != ["cuda", "cpu"]:
+        raise SystemExit(f"phase 17 failed: the cross-platform artifact: "
+                         f"{result}")
+    return result
+
+
+def ckpt_opcheck(torch):
+    """(d) opcheck's default checks of both flash operators on CUDA tensors
+    at the training path's per-block shape."""
+    from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    b, h, n, d = (16, 3, 101, 64)
+    out = {}
+    for dtype_name, strided in CKPT_OPCHECK:
+        dtype = getattr(torch, dtype_name)
+        if strided:
+            x = torch.randn(b, n, 3 * h * d, generator=gen, device="cuda")
+            q, k, v = (t.reshape(b, n, h, d).transpose(1, 2).to(dtype)
+                       for t in x.chunk(3, dim=-1))
+        else:
+            q, k, v = (torch.randn(b, h, n, d, generator=gen, device="cuda",
+                                   dtype=dtype).requires_grad_()
+                       for _ in range(3))
+        t0 = time.perf_counter()
+        torch.library.opcheck(fa._forward_op, (q, k, v, 0.125))
+        o, lse = fa._forward_op(q, k, v, 0.125)
+        dout = torch.randn(b, h, n, d, generator=gen, device="cuda",
+                           dtype=dtype)
+        torch.library.opcheck(fa._backward_op, (
+            q.detach(), k.detach(), v.detach(), o.detach(), lse, dout,
+            0.125))
+        label = f"{dtype_name}_{'strided' if strided else 'contiguous'}"
+        out[label] = time.perf_counter() - t0
+    log(f"  (d) opcheck's default checks pass for the forward and backward "
+        f"operators on the card: {out} s")
+    return out
+
+
+def phase_checkpoint(torch, shared=None, vit_model=None):
+    """Phase 17: the checkpoint writer, the directory backend, the
+    cross-platform artifact, opcheck on the card. ``shared`` holds (b)'s
+    rank results from phases 13 and 14 (``{"zero1": ..., "1x3": ...}``);
+    alone, the phase starts its own groups. ``vit_model``: phase 4's
+    checkpoint, or seed-0 weights when that is missing."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi().replace("\n", "; ")
+    log(f"phase 17: the checkpoint writer, the directory backend, the "
+        f"cross-platform artifact, opcheck; {smi}")
+    configs = ckpt_layout_configs(torch)
+    if shared is None:
+        tasks = ckpt_rank_tasks(torch)
+        groups = {"zero1": start_ranks(tasks["zero1"], dp_layout(torch)[0],
+                                       name="ckpt_zero1_ranks"),
+                  "1x3": start_ranks(tasks["1x3"], configs["1x3"][0][
+                      "ddp"]["dist_backend"], world=3,
+                      name="ckpt_1x3_ranks")}
+    result = {"nvidia_smi": smi, "writer": ckpt_writer(torch)}
+    if shared is None:
+        shared = {k: finish_ranks(g, 17) for k, g in groups.items()}
+    result["directory"] = {
+        key: ckpt_check_layout(torch, key, configs[key][0], configs[key][1],
+                               shared[key][0][0])
+        for key in ("zero1", "1x3")}
+    if vit_model is None:
+        vit_model = os.path.join(WORK, "exps", "vit_tiny_fixmatch",
+                                 "best-MeanIoU.ckpt")
+    if not os.path.exists(vit_model):
+        _, cfg = write_slice_config("vit_tiny")
+        vit_model = os.path.join(WORK, "vit_tiny_seed0.pth")
+        write_random_weights(cfg, vit_model)
+    result["artifact"] = ckpt_artifact(torch, vit_model)
+    result["opcheck_s"] = ckpt_opcheck(torch)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 17 in {result['seconds']:.1f} s")
+    return result
 
 
 def kernel_entry(name, rows, by_path):
@@ -6261,7 +6735,11 @@ def main():
     parallel = timed(10, phase_parallel, torch)
     remat = timed(11, phase_remat, torch)
     accum = timed(12, phase_accum, torch)
-    zero_cache = timed(13, phase_zero_cache, torch)
+    # phase 17 (b)'s rank tasks ride on phase 13's ZeRO-1 group and on
+    # phase 14's (1, 3) group
+    ckpt_tasks = ckpt_rank_tasks(torch)
+    zero_cache = timed(13, phase_zero_cache, torch, ckpt_tasks["zero1"])
+    ckpt_shared = {"zero1": zero_cache["zero1"].pop("extra")}
     # phase 16's (a) on an idle card and its inputs, then the rank groups
     # of phases 14-16 shared: a group's start costs tens of seconds. Phase
     # 15's (2, 2) tasks and phase 16's (1, 2, 2) one ride on phase 14's
@@ -6270,8 +6748,11 @@ def main():
     so_plan = timed("16 (a) and inputs", seq_options_plan, torch)
     seq_22 = seq_parallel_tasks(torch, SEQ_LAYOUTS[1])
     tensor_parallel = timed(14, phase_tensor_parallel, torch, {
-        TP_LONGREC_LAYOUT: seq_22 + so_plan["tasks"][SO_RESNET_LAYOUT]})
-    tp_extra = tensor_parallel.pop("extra")[TP_LONGREC_LAYOUT]
+        TP_LONGREC_LAYOUT: seq_22 + so_plan["tasks"][SO_RESNET_LAYOUT],
+        CKPT_TP_LAYOUT: ckpt_tasks["1x3"]})
+    tp_extras = tensor_parallel.pop("extra")
+    tp_extra = tp_extras[TP_LONGREC_LAYOUT]
+    ckpt_shared["1x3"] = tp_extras[CKPT_TP_LAYOUT]
     seq_parallel = timed(
         15, phase_seq_parallel, torch,
         {SEQ_LAYOUTS[0]: so_plan["tasks"][SO_SEQ_LAYOUT],
@@ -6282,6 +6763,7 @@ def main():
     seq_options = timed(16, phase_seq_options, torch, so_plan, {
         SO_SEQ_LAYOUT: extra[SEQ_LAYOUTS[0]],
         SO_RESNET_LAYOUT: extra[SEQ_LAYOUTS[1]]})
+    checkpoint = timed(17, phase_checkpoint, torch, ckpt_shared)
     # the ring's hops beside phase 2's rows (phase 16's on one head a rank)
     for phase in (seq_parallel, seq_options):
         for name, hop_rows in phase["hops"].items():
@@ -6362,7 +6844,13 @@ def main():
         "seq_vit_tiny_stpp_ranking_per_rank_1x2": seq_options["stpp"][
             "launches_per_rank"],
         **{f"int8_{case}_per_rank_batch": r["launches_per_rank"]
-           for case, r in seq_options["int8"].items()}}
+           for case, r in seq_options["int8"].items()},
+        # phase 17: the recipe under each writer, the cross-platform
+        # artifact's CUDA program a call
+        **{f"ckpt_{mode}_vit_tiny_fixmatch": r["launches"]
+           for mode, r in checkpoint["writer"]["runs"].items()},
+        "artifact_xplat_vit_tiny_cuda_per_call": checkpoint["artifact"][
+            "launches_per_call"]}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -6379,6 +6867,7 @@ def main():
                    "tensor_parallel": tensor_parallel,
                    "seq_parallel": seq_parallel,
                    "seq_options": seq_options,
+                   "checkpoint": checkpoint,
                    "phase_seconds": phase_seconds,
                    "seconds": time.time() - t_start}, f,
                   indent=1)

@@ -29,8 +29,9 @@ loop:
   ``max(steps_per_epoch // k, 1)`` updates an epoch, and the EMA teacher
   follows updates only;
 - drains the step metrics every ``PRINT_FREQ`` steps, their mean over the
-  ranks, aborting on a non-finite loss (every rank at once, naming the
-  last checkpoint written), and prints the progress line (the logged lr
+  ranks, aborting on a non-finite loss (every rank at once, after
+  flushing the pending checkpoint writes and naming the last one that
+  landed), and prints the progress line (the logged lr
   is that of update ``global_step // k``; TensorBoard's scalars are
   written on a window's last micro-step);
 - traces the steps ``profile:`` names (``utils/profiling.py``);
@@ -38,7 +39,13 @@ loop:
   rank on its shards of the split, the rows exchanged
   (``parallel.dist.all_gather_rows``), and writes ``best-loss.ckpt`` /
   ``best-{metric}.ckpt`` (teacher or peer included) and a ``log.txt``
-  line, on rank 0 only.
+  line, on rank 0 only; under ``checkpoint_backend: orbax`` every rank
+  writes its part of the checkpoint directory. With ``async_checkpoint``
+  (on unless the config says ``false``, as in the JAX package) the
+  writer thread of ``utils/checkpoint.py`` writes the files while the
+  next epoch runs; the run flushes it before it returns, and every rank
+  then waits at a barrier, so a rank that reads a file rank 0 wrote (a
+  resume, ``run_test`` after training) finds it.
 
 Data parallelism as the JAX package's data mesh computes it: rank 0's
 weights are broadcast at the start, each step's gradients averaged over
@@ -51,8 +58,9 @@ N ranks with ``batch_size`` b take the steps of one process holding N
 shards of b rows (the loader's ``num_shards=N, local_shards=N``).
 
 ``resume:`` (``--resume``) restarts a run from a checkpoint
-(``utils/checkpoint.maybe_resume``: the port's own ``.ckpt``, a JAX
-``.ckpt`` or a ``.pth``) before every rank takes rank 0's weights; the
+(``utils/checkpoint.maybe_resume``: the port's own ``.ckpt`` or
+directory, a JAX ``.ckpt`` or a ``.pth``) before every rank takes rank
+0's weights; the
 epoch after the file's is the first to run, and its best-so-far
 thresholds carry over, so the first resumed epoch does not overwrite the
 real ``best-*.ckpt``.
@@ -65,8 +73,7 @@ a subset of the unlabeled rows, the epochs after which it writes
 ``mode`` other than ``scratch`` warm-starts the backbone of the model (and
 of the peer) from ``pretrained_backbone`` (:func:`load_pretrained_backbone`);
 ``debug.nan_checks`` runs training under autograd's anomaly detection, the
-counterpart of ``jax_debug_nans`` (slow, for debugging); ``async_checkpoint``
-writes synchronously (``utils/checkpoint.save_checkpoint``).
+counterpart of ``jax_debug_nans`` (slow, for debugging).
 
 Precision: the whole run is full fp32 (no TF32 in cuBLAS and cuDNN,
 ``full_fp32``; the flash kernels form fp32 products from three TF32
@@ -75,7 +82,9 @@ products each, 3xTF32 with fp32 accumulation, to fp32 accuracy, which
 ``precision: bf16`` the forwards and losses run under bf16 autocast, with
 fp32 parameters and optimizer and no loss scaling, as the JAX package
 computes in bf16 with fp32 parameters. ``train.fused_state`` and
-``train.scan_steps`` are accepted and do nothing (XLA dispatch devices).
+``train.scan_steps`` are accepted and do nothing: torch updates the
+parameters in place, which is what the JAX package's fused state buys, and
+capturing K steps as one device program is not ported.
 ``dataset.device_cache`` puts the train split on the device once and
 ships row indices per step (``data/device_cache.py``; the rows are gathered
 before the augmentation stage), when the device-augment plan runs every
@@ -94,8 +103,9 @@ the model axis (``parallel/sharding_rules.shard_module_``: the ViT's
 attention heads and MLP columns, Megatron's layout; a ResNet, which no
 rule matches, runs replicated with the JAX package's warning). Gradients,
 BatchNorm statistics, ReCo's gathered rows and the evaluators' rows go
-over the data group. Checkpoints hold the unsliced layout, gathered over
-the model group on every rank before rank 0 writes; the test and
+over the data group. A pickle checkpoint holds the unsliced layout,
+gathered over the model group on every rank before rank 0 writes (a
+directory checkpoint takes each rank's slices as they are); the test and
 inference entries, the per-epoch evaluation and ST++'s ranking run the
 model sliced the same way.
 
@@ -111,14 +121,13 @@ summed over seq and averaged over data, and ``run_test`` and
 ``run_inference`` gather the time blocks of the probabilities whole. As
 in the JAX package, ``device_augment`` and ``device_cache`` are switched
 off under seq (on a copy of the config, with its log line). The
-checkpoint is unchanged: the parameters are replicated over seq and rank
-0 writes. Every algorithm runs on every ``(data, seq, model)`` mesh:
+checkpoint is unchanged: the parameters are replicated over seq. Every
+algorithm and checkpoint backend runs on every ``(data, seq, model)`` mesh:
 ReCo gathers its loss's inputs over data and seq (``algorithms/reco.py``),
 ST++ ranks on the seq ranks' time blocks (``algorithms/stpp.py``), under
 ``seq × model`` the ring runs on a model rank's heads over its own seq
 group, and int8 serving takes each split input's absmax over the group
-that splits it (``models/quant_layers.py``). Only
-``checkpoint_backend: orbax`` is refused (:func:`_refuse_unported`).
+that splits it (``models/quant_layers.py``).
 """
 
 from __future__ import annotations
@@ -304,13 +313,18 @@ def init_train_model(config: Dict[str, Any], device: torch.device,
     return model.to(device)
 
 
-def _refuse_unported(config: Dict[str, Any]) -> None:
-    if config.get("checkpoint_backend", "pickle") not in ("pickle", None):
-        raise NotImplementedError(
-            f"checkpoint_backend: {config['checkpoint_backend']!r} is not "
-            "yet ported to the torch package, which writes pickle .ckpt "
-            "files (the JAX package reads them); an orbax checkpoint "
-            "converts with `python tools/convert_checkpoint.py to-torch`")
+CHECKPOINT_BACKENDS = ("pickle", "orbax")
+
+
+def checkpoint_backend(config: Dict[str, Any]) -> str:
+    """The config's ``checkpoint_backend``: ``pickle`` (the default, one
+    file from rank 0) or ``orbax`` (a directory every rank writes through
+    ``torch.distributed.checkpoint``); another name raises."""
+    backend = config.get("checkpoint_backend") or "pickle"
+    if backend not in CHECKPOINT_BACKENDS:
+        raise ValueError(f"checkpoint_backend: {backend!r} is none of "
+                         f"{CHECKPOINT_BACKENDS}")
+    return backend
 
 
 def seq_parallel_config(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -591,7 +605,6 @@ class Trainer:
                 f"{self.mesh.data} data ranks; time axes split where they "
                 "divide")
         self.step = 0
-        self.last_checkpoint = None  # the last checkpoint file written
         self.resume_best = ckpt.maybe_resume(config, self)
         # every rank starts from rank 0's weights (warm starts and resumes
         # included)
@@ -623,6 +636,27 @@ class Trainer:
         for key, opt in (("optimizer", self.optimizer),
                          ("peer_optimizer", self.peer_optimizer)):
             out[key] = None if opt is None else opt.state_dict()
+        return out
+
+    def local_checkpoint_state(self) -> Dict[str, Any]:
+        """What this rank holds, for the directory checkpoint, with no
+        collective: every network's state dict (its model-axis slices
+        where sliced), each optimizer's ``local_state_dict()`` (its ZeRO-1
+        share), the slices by payload key and the model group."""
+        nets = {"model": self.model, "ema_model": self.teacher,
+                "peer_model": self.peer}
+        out: Dict[str, Any] = {k: None if m is None else m.state_dict()
+                               for k, m in nets.items()}
+        for key, opt in (("optimizer", self.optimizer),
+                         ("peer_optimizer", self.peer_optimizer)):
+            out[key] = None if opt is None else opt.local_state_dict()
+        plans = {"model": self.model, "model_ema": self.teacher,
+                 "model_peer": self.peer, "optimizer": self.model,
+                 "peer_optimizer": self.peer}
+        out["slices"] = {k: getattr(m, "model_plan", None) or {}
+                         for k, m in plans.items() if m is not None}
+        out["model_group"] = self.mesh.model_group \
+            if self.mesh.model > 1 else None
         return out
 
     def use_device_cache(self, spec: AlgorithmSpec,
@@ -684,7 +718,8 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
     ``checkpoint-{e}.ckpt``) and ``state_hook`` (called with the built
     Trainer). Rank 0 writes the files; every rank returns after them."""
     pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
-    _refuse_unported(config)
+    backend = checkpoint_backend(config)
+    async_write = bool(config.get("async_checkpoint", True))
     pmesh.make_mesh(config)
     config = seq_parallel_config(config)
     device = resolve_device(config)
@@ -777,17 +812,11 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
                             out_dir, f"best-{metric_name}.ckpt"))
                     log(f"Best {metric_name}: "
                         f"{best_metrics[metric_name]:.3f}")
-                # the model axis's slices and ZeRO-1's shares are gathered
-                # on every rank
-                states = trainer.checkpoint_state() if save_paths else None
-                if save_paths and main:
-                    ckpt.save_checkpoint(
-                        save_paths, epoch, config=config,
-                        metrics={"loss": curr_loss, **metrics},
-                        best={"loss": best_loss, **best_metrics},
-                        step=trainer.step, **states)
                 if save_paths:
-                    trainer.last_checkpoint = save_paths[-1]
+                    _save(trainer, save_paths, epoch, config, backend,
+                          async_write, main,
+                          metrics={"loss": curr_loss, **metrics},
+                          best={"loss": best_loss, **best_metrics})
 
                 if log_writer is not None:
                     log_writer.add_scalar("perf/valid_loss", curr_loss,
@@ -802,6 +831,7 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
                     "epoch": epoch,
                     "wall_s": round(time.time() - start_time, 3),
                 })
+            ckpt.wait_for_pending()
             total = str(datetime.timedelta(
                 seconds=int(time.time() - start_time)))
             log(f"Training time {total}")
@@ -812,6 +842,22 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
             loader.close()
         if log_writer is not None:
             log_writer.close()
+
+
+def _save(trainer: Trainer, paths, epoch: int, config: Dict[str, Any],
+          backend: str, async_write: bool, main: bool, **extra) -> None:
+    """Write one checkpoint to ``paths``: a pickle of the gathered state
+    from rank 0 (the model axis's slices and ZeRO-1's shares gathered on
+    every rank first), or the directory, every rank writing its part."""
+    kwargs = dict(config=config, step=trainer.step, async_write=async_write,
+                  backend=backend, **extra)
+    if backend == "orbax":
+        ckpt.save_checkpoint(paths, epoch, **kwargs,
+                             **trainer.local_checkpoint_state())
+        return
+    states = trainer.checkpoint_state()
+    if main:
+        ckpt.save_checkpoint(paths, epoch, **kwargs, **states)
 
 
 def _train_one_epoch(trainer: Trainer, loaders, spec: AlgorithmSpec,
@@ -841,8 +887,12 @@ def _train_one_epoch(trainer: Trainer, loaders, spec: AlgorithmSpec,
             if not math.isfinite(scalars.get("loss",
                                              scalars.get("loss_total", 0.0))):
                 log(f"Loss is {scalars}, stopping training")
-                if trainer.last_checkpoint:
-                    log(f"Last good checkpoint: {trainer.last_checkpoint}")
+                # the pending writes all predate this epoch's checkpoint
+                # decisions: flush them and name the last that landed
+                ckpt.wait_for_pending()
+                last_good = ckpt.last_written_checkpoint()
+                if last_good:
+                    log(f"Last good checkpoint: {last_good}")
                 sys.exit(1)
             global_step = epoch * steps_per_epoch + i
             scalars["lr"] = float(lr_fn(global_step // accum))
@@ -949,7 +999,6 @@ def run_test(config: Dict[str, Any]) -> Dict[str, float]:
     evaluates its shards). The forward runs in the config's precision, as
     the JAX package's test pass does."""
     pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
-    _refuse_unported(config)
     pmesh.make_mesh(config)
     device = resolve_device(config)
     out_dir = experiment_dir(config) if pdist.is_main_process() else None
@@ -990,7 +1039,6 @@ def run_inference(config: Dict[str, Any]) -> np.ndarray:
     from ..serving import make_serving_fn
 
     pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
-    _refuse_unported(config)
     pmesh.make_mesh(config)
     infer, _ = make_serving_fn(config)
     out_dir = experiment_dir(config) if pdist.is_main_process() else None

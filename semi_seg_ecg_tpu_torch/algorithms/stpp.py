@@ -117,6 +117,7 @@ def prepare_semisup(config: Dict[str, Any]) -> List[int]:
     models = []
     for e in snapshot_epoch_list(config["train"]["epochs"]):
         model = build_model_from_config(config)
+        # load_checkpoint flushes the writer before it reads
         load_eval_weights(model, os.path.join(stage1, f"checkpoint-{e}.ckpt"))
         models.append(shard_for_mesh(model.to(device)))
     try:
@@ -178,7 +179,7 @@ def _load_stage_teacher(stage_id: int):
         target_metric = test_cfg(config).get("target_metric", "MeanIoU")
         path = os.path.join(experiment_dir(config), f"stage{stage_id - 1}",
                             f"best-{target_metric}.ckpt")
-        payload = ckpt.load_checkpoint(path)
+        payload = ckpt.load_checkpoint(path)  # flushes the writer first
         log(f"Load teacher model from {path}")
         teacher = trainer.teacher
         load_full_state_dict(teacher, ckpt.model_state_dict(

@@ -356,8 +356,9 @@ def export_main(argv=None):
                     help="pin the batch dimension (default: symbolic, one "
                          "artifact serves any batch size)")
     ap.add_argument("--platforms", nargs="+", default=None,
-                    help="the artifact's platform (default: the config's "
-                         "device; one platform only)")
+                    help="the artifact's platforms, one program each "
+                         "(default: the config's device), e.g. "
+                         "--platforms cuda cpu")
     args = ap.parse_args(argv if argv is not None else sys.argv[1:])
 
     from .config import (

@@ -13,8 +13,11 @@ Counterpart of ``semi_seg_ecg_tpu/ops/pallas/flash_attention.py``:
 - the custom VJP ``flash_attention``: the forward is the PyTorch operator
   ``semi_seg_ecg_tpu_torch::flash_attention_forward`` (``torch.library``,
   with a fake that gives ``torch.export`` its output's shapes and strides),
-  whose autograd formula saves ``(q, k, v, out, lse)`` and launches the
-  backward kernels.
+  whose autograd formula saves ``(q, k, v, out, lse)`` and calls the
+  backward operator ``semi_seg_ecg_tpu_torch::flash_attention_backward``,
+  which launches the backward kernels. Both operators pass
+  ``torch.library.opcheck``'s checks, so ``torch.export``, AOTAutograd and
+  ``torch.compile`` trace a training step through them.
 
 Each kernel file's header gives its design and what bounds it on the card.
 The TPU's block picking (``pick_blocks``, ``fits_vmem``, the VMEM budget and
@@ -208,6 +211,14 @@ def load_backward_kernel():
     return _BWD_FN
 
 
+def _stride_fault(t: torch.Tensor) -> bool:
+    """Whether ``t``'s strides alone rule the kernels out (see
+    :func:`layout_fault`); reads no data pointer, so a traced backward can
+    ask it of a fake tensor."""
+    size = t.element_size()
+    return t.stride(3) != 1 or any(s * size % 4 for s in t.stride()[:3])
+
+
 def layout_fault(t: torch.Tensor):
     """Why the kernels cannot read or write ``t`` where it lies, or None.
     They need unit stride along D, and a base and B, H, N strides that are
@@ -279,7 +290,7 @@ def _launch(fn, name, device, *args):
 # the forward as a PyTorch operator, so that ``torch.export`` traces it
 # (a ctypes call is opaque to the tracer): the fake gives the output's
 # strides, the CPU implementation is the plain version, the CUDA one
-# launches the kernel, and the autograd formula calls the backward kernels
+# launches the kernel, and the autograd formula calls the backward operator
 OP_NAME = "semi_seg_ecg_tpu_torch::flash_attention_forward"
 
 
@@ -326,14 +337,47 @@ def _setup_context(ctx, inputs, output):
 
 
 def _backward(ctx, dout, _dlse):
-    """Autograd picks ``dout``'s layout (a sum's backward hands over an
-    expand of stride 0), so a ``dout`` the kernels do not take is copied
-    here."""
+    """The gradients through the operator ``BWD_OP_NAME``, so that a traced
+    or compiled step (AOTAutograd) holds the backward as one opaque node.
+    Autograd picks ``dout``'s layout (a sum's backward hands over an expand
+    of stride 0), so a ``dout`` whose strides the kernels do not take is
+    copied here."""
     q, k, v, out, lse = ctx.saved_tensors
+    if _stride_fault(dout):
+        dout = dout.clone(memory_format=torch.contiguous_format)
+    dq, dk, dv = _backward_op(q, k, v, out, lse, dout, ctx.scale)
+    return dq, dk, dv, None
+
+
+# the backward as a PyTorch operator too: the CPU implementation is the
+# plain version, the CUDA one launches the backward kernels, and the fake
+# gives dq, dk, dv the kernels' (B, N, H, D) memory
+BWD_OP_NAME = "semi_seg_ecg_tpu_torch::flash_attention_backward"
+
+
+@torch.library.custom_op(BWD_OP_NAME, mutates_args=(), device_types="cpu",
+                         schema="(Tensor q, Tensor k, Tensor v, Tensor out, "
+                                "Tensor lse, Tensor dout, float scale) -> "
+                                "(Tensor, Tensor, Tensor)")
+def _backward_op(q, k, v, out, lse, dout, scale):
+    """CPU tensors: :func:`flash_attention_backward` (the plain version),
+    each gradient in the kernels' (B, N, H, D) memory."""
+    grads = flash_attention_backward(q, k, v, out, lse, dout, scale)
+    return tuple(_empty_bnhd(t).copy_(g) for t, g in zip((q, k, v), grads))
+
+
+@_backward_op.register_kernel("cuda")
+def _backward_cuda(q, k, v, out, lse, dout, scale):
+    """The kernels; a ``dout`` they cannot read where it lies (a base off
+    4 bytes) is copied first."""
     if layout_fault(dout):
         dout = dout.clone(memory_format=torch.contiguous_format)
-    dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout, ctx.scale)
-    return dq, dk, dv, None
+    return flash_attention_backward(q, k, v, out, lse, dout, scale)
+
+
+@_backward_op.register_fake
+def _backward_fake(q, k, v, out, lse, dout, scale):
+    return _empty_bnhd(q), _empty_bnhd(k), _empty_bnhd(v)
 
 
 _forward_op.register_autograd(_backward, setup_context=_setup_context)
@@ -347,8 +391,9 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     tensors take the plain version; CUDA tensors launch the kernel on the
     current stream, which reads q, k, v in their own layouts (see
     :func:`check_layout`); ``out`` is a (B, H, N, D) view of (B, N, H, D)
-    memory on both devices. Differentiable: the backward launches the
-    backward kernels (:func:`flash_attention_backward`)."""
+    memory on both devices. Differentiable: the backward is the operator
+    ``BWD_OP_NAME``, which launches the backward kernels on CUDA tensors
+    (:func:`flash_attention_backward`)."""
     return _forward_op(q, k, v, float(scale))
 
 

@@ -24,14 +24,20 @@ the float softmax, as :class:`ServingFn` computes it; its batch is
 symbolic unless pinned. The ViT's flash attention is the PyTorch operator
 ``semi_seg_ecg_tpu_torch::flash_attention_forward`` in the program, so the
 loaded artifact launches the CUDA kernel as the eager model does (12 times
-a batch for vit_tiny). The JAX package's cross-platform export (one
-artifact for several backends) has no counterpart: ``platforms`` names
-the config's device only.
+a batch for vit_tiny). A cross-platform artifact (``platforms=("cuda",
+"cpu")``, the JAX package's multi-platform export) holds one program per
+platform, because an exported program's constants live on one device: the
+header's ``platforms`` lists them in order and ``programs`` gives each
+one's ``offset`` and ``length`` in the bytes after the header. Each
+program holds the same weights (and calibrated scales), moved to its
+device; the CPU program's flash operator takes the plain version. A
+one-platform artifact keeps the layout above, with no ``programs``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -446,19 +452,54 @@ class _ServingProgram(torch.nn.Module):
         return torch.softmax(logits.float(), dim=1)
 
 
+# the platforms the port lowers a serving program for
+PLATFORMS = ("cuda", "cpu")
+
+
 def _export_platforms(platforms: Optional[Sequence[str]],
-                      device: torch.device):
-    """The artifact's one platform, the config's device type; anything else
-    raises (the JAX package's multi-platform export is not ported)."""
-    own = [device.type]
+                      device: torch.device) -> list:
+    """The artifact's platforms, in order (default: the config's device
+    type). A name the port cannot lower (``tpu`` among them) or a repeat
+    raises ``ValueError``; ``cuda`` where torch sees no card raises
+    ``RuntimeError``."""
     if platforms is None:
-        return own
-    if list(platforms) != own:
-        raise NotImplementedError(
-            f"export_serving(platforms={list(platforms)}) is not yet ported "
-            f"to the torch package: an artifact runs on the config's device "
-            f"only ({own[0]})")
-    return own
+        return [device.type]
+    platforms = list(platforms)
+    unknown = [p for p in platforms if p not in PLATFORMS]
+    if unknown or not platforms or len(set(platforms)) != len(platforms):
+        raise ValueError(
+            f"export_serving(platforms={platforms}): the port lowers a "
+            f"serving program for each of {list(PLATFORMS)}, each once")
+    if "cuda" in platforms and not torch.cuda.is_available():
+        raise RuntimeError("export_serving: platform 'cuda' asked for, and "
+                           "torch sees no CUDA device")
+    return platforms
+
+
+def _export_program(infer: "ServingFn", platform: str,
+                    batch_size: Optional[int], length: int) -> bytes:
+    """``torch.export.save`` bytes of ``infer``'s serving program traced on
+    ``platform`` (the model copied there if it lies elsewhere)."""
+    device = torch.device(platform)
+    if device.type != infer.device.type:
+        model = copy.deepcopy(infer.model).to(device)
+        infer = ServingFn(model, device, infer.use_amp, infer.amp_dtype)
+    program = _ServingProgram(infer)
+    for p in program.parameters():
+        p.requires_grad_(False)
+    example = torch.zeros((batch_size or 2, 1, length), dtype=torch.float32,
+                          device=device)
+    dynamic = None
+    if batch_size is None:
+        # the CUDA convolutions' trace bounds the batch at 65535
+        dynamic = {"ecg": {0: torch.export.Dim("batch", min=1,
+                                               max=MAX_BATCH)}}
+    with common.full_fp32():
+        exported = torch.export.export(program, (example,),
+                                       dynamic_shapes=dynamic)
+    buf = io.BytesIO()
+    torch.export.save(exported, buf)
+    return buf.getvalue()
 
 
 def export_serving(config: Dict[str, Any], out_path: str,
@@ -471,30 +512,16 @@ def export_serving(config: Dict[str, Any], out_path: str,
     by ``torch.export`` on the config's device with the weights and
     calibrated scales as the program's state; tracing launches no kernel.
     The batch is symbolic (1 to ``MAX_BATCH``) unless ``batch_size`` pins
-    it. ``platforms``
-    defaults to the config's device; another raises "not yet ported"."""
+    it. ``platforms`` defaults to the config's device; ``("cuda", "cpu")``
+    writes one file with a program for each (:func:`_export_platforms`
+    says what raises)."""
     device = resolve_device(config)
     platforms = _export_platforms(platforms, device)
     infer, _ = make_serving_fn(config)
-    program = _ServingProgram(infer)
-    for p in program.parameters():
-        p.requires_grad_(False)
-
     num_leads = 1
     length = int(config["dataset"].get("signal_length", 2500))
-    example = torch.zeros((batch_size or 2, num_leads, length),
-                          dtype=torch.float32, device=device)
-    dynamic = None
-    if batch_size is None:
-        # the CUDA convolutions' trace bounds the batch at 65535
-        dynamic = {"ecg": {0: torch.export.Dim("batch", min=1,
-                                               max=MAX_BATCH)}}
-    with common.full_fp32():
-        exported = torch.export.export(program, (example,),
-                                       dynamic_shapes=dynamic)
-    buf = io.BytesIO()
-    torch.export.save(exported, buf)
-    blob = buf.getvalue()
+    blobs = [_export_program(infer, p, batch_size, length)
+             for p in platforms]
 
     quantize = config.get("quantize", None)
     static = (quantize == "int8"
@@ -513,13 +540,19 @@ def export_serving(config: Dict[str, Any], out_path: str,
         "platforms": platforms,
         "torch_version": torch.__version__,
     }
+    if len(blobs) > 1:
+        offsets = np.cumsum([0] + [len(b) for b in blobs]).tolist()
+        header["programs"] = [
+            {"platform": p, "offset": o, "length": len(b)}
+            for p, o, b in zip(platforms, offsets, blobs)]
     payload = json.dumps(header).encode("utf-8")
     tmp = out_path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(_MAGIC)
         f.write(struct.pack("<I", len(payload)))
         f.write(payload)
-        f.write(blob)
+        for blob in blobs:
+            f.write(blob)
     os.replace(tmp, out_path)  # atomic, as checkpoints are written
     return header
 
@@ -552,10 +585,16 @@ class ArtifactFn:
             return self.program(ecg)
 
 
-def load_serving(path: str) -> Tuple[ArtifactFn, Dict[str, Any]]:
+def load_serving(path: str, platform: Optional[str] = None
+                 ) -> Tuple[ArtifactFn, Dict[str, Any]]:
     """Load an exported artifact: ``(serve, header)`` with ``serve`` an
-    :class:`ArtifactFn` on the artifact's device (``platforms``: the
-    current CUDA device, or the CPU). Needs the flash-attention operator
+    :class:`ArtifactFn` running one of its programs on that program's
+    device. A one-platform artifact runs its platform's (the current CUDA
+    device, or the CPU); a cross-platform one the program of the process's
+    platform, the JAX package's current-backend rule: ``cuda`` where torch
+    sees a card, else ``cpu``. ``platform`` picks one instead. An artifact
+    without the platform raises ``ValueError``, a CUDA program where torch
+    sees no card ``RuntimeError``. Needs the flash-attention operator
     registered (``ops/flash_attention.py``), none of the model code.
     Refuses a file that is not an artifact of this package (a JAX
     ``ECGSHLO1`` artifact included), a truncated one, and a corrupt
@@ -579,12 +618,23 @@ def load_serving(path: str) -> Tuple[ArtifactFn, Dict[str, Any]]:
             header = json.loads(raw_header.decode("utf-8"))
         except (UnicodeDecodeError, json.JSONDecodeError) as e:
             raise ValueError(f"{path}: corrupt artifact header: {e}") from e
-    device = torch.device("cuda" if "cuda" in header["platforms"] else "cpu")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{path}: a CUDA artifact, and torch sees no CUDA "
+    programs = header.get("programs")
+    if platform is None:
+        platform = header["platforms"][0] if programs is None else (
+            "cuda" if torch.cuda.is_available() else "cpu")
+    if platform not in header["platforms"]:
+        raise ValueError(f"{path}: the artifact holds programs for "
+                         f"{header['platforms']}, none for {platform!r}")
+    if platform == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{path}: a CUDA program, and torch sees no CUDA "
                            "device")
+    if programs is not None:
+        entry = next(e for e in programs if e["platform"] == platform)
+        blob = blob[entry["offset"]:entry["offset"] + entry["length"]]
+        if len(blob) != entry["length"]:
+            raise ValueError(f"{path}: truncated serving artifact")
     program = torch.export.load(io.BytesIO(blob)).module()
-    return ArtifactFn(program, header, device), header
+    return ArtifactFn(program, header, torch.device(platform)), header
 
 
 def make_http_server(artifact_path: str, host: str = "127.0.0.1",

@@ -22,6 +22,8 @@ from __future__ import annotations
 import datetime
 import json
 import os
+import sys
+import types
 from collections import defaultdict, deque
 from typing import Dict, Optional
 
@@ -119,11 +121,19 @@ def log(*args, force: bool = False) -> None:
 
 
 class TensorBoardWriter:
-    """Thin optional wrapper: a no-op where tensorboard is not installed."""
+    """Thin optional wrapper: a no-op where tensorboard is not installed.
+    Where TensorFlow is installed but not imported, tensorboard is told to
+    write with its own file I/O (``tensorboard.compat.notf``) rather than
+    import TensorFlow for it, which the port never uses and which takes
+    seconds to import."""
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
         self._writer = None
+        if "tensorflow" not in sys.modules:
+            sys.modules.setdefault(
+                "tensorboard.compat.notf",
+                types.ModuleType("tensorboard.compat.notf"))
         try:
             from torch.utils.tensorboard import SummaryWriter  # type: ignore
 

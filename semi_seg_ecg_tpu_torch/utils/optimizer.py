@@ -317,22 +317,56 @@ class TrainOptimizer:
                 local = dict(local, state=dict(local["state"]))
                 self._unslice(local["state"])
             return local
-        held = [self._index[id(p)] for g in self.optimizer.param_groups
-                for p in g["params"]]
+        held = self._held_indices()
         mine = {held[i]: {k: v.detach().cpu() if torch.is_tensor(v) else v
                           for k, v in entry.items()}
                 for i, entry in local["state"].items()}
         state: Dict[int, Any] = {}
         for part in pdist.all_gather_object(mine):
             state.update(part)
-        groups, at = [], 0
-        for group, size in zip(local["param_groups"], self.group_sizes):
-            groups.append(dict(group, params=list(range(at, at + size))))
-            at += size
         if self._sliced:
             self._unslice(state)
         return {"state": {i: state[i] for i in sorted(state)},
-                "param_groups": groups}
+                "param_groups": self._global_groups(local["param_groups"])}
+
+    def _held_indices(self) -> List[int]:
+        """The index in :attr:`params` of each parameter this rank's torch
+        optimizer holds, in its order."""
+        return [self._index[id(p)] for g in self.optimizer.param_groups
+                for p in g["params"]]
+
+    def _global_groups(self, local_groups) -> List[Dict[str, Any]]:
+        """The param groups of the unsharded layout: ``local_groups``'
+        settings over consecutive indices of :attr:`params`."""
+        if not self.sharded:
+            return local_groups
+        groups, at = [], 0
+        for group, size in zip(local_groups, self.group_sizes):
+            groups.append(dict(group, params=list(range(at, at + size))))
+            at += size
+        return groups
+
+    def local_state_dict(self) -> Dict[str, Any]:
+        """What this rank holds, with no collective (the directory
+        checkpoint's part of it): the state of the parameters its torch
+        optimizer holds (under ZeRO-1 its share), keyed by parameter name
+        and sliced as the parameters are under the model axis; the
+        unsharded layout's param groups; ``count``, ``micro_step``, the
+        open window's gradients by name (this rank's slices) and the
+        parameters' ``names`` in index order."""
+        local = self.optimizer.state_dict()
+        held = self._held_indices()
+        state = {self.names[held[i]]: dict(entry)
+                 for i, entry in local["state"].items()}
+        out = {"state": state,
+               "param_groups": self._global_groups(local["param_groups"]),
+               "count": self.count, "micro_step": self.micro_step,
+               "names": list(self.names)}
+        if self.micro_step:
+            out["acc_grads"] = {n: p.grad for n, p in zip(self.names,
+                                                          self.params)
+                                if p.grad is not None}
+        return out
 
     def _load_torch_state_dict(self, state: Dict[str, Any]) -> None:
         """The torch optimizer's state from an unsharded state_dict; under

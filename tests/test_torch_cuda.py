@@ -23,7 +23,11 @@ places). int8 serving (``ops/quant.py``): the card's codes and int32
 accumulators equal the CPU's (true divisions, ``torch._int_mm`` exact on
 both), the dequantized outputs within 1e-6 relative. A serving artifact
 exported and loaded on the card: within 1e-5 of ``ServingFn`` (the same
-kernels, traced). Remat: a step with it equals one without bit for bit,
+kernels, traced); a ``("cuda", "cpu")`` artifact's CUDA program equal to
+the one-platform artifact's, its CPU program within 1e-5 of the CPU's
+``ServingFn``. Both flash operators pass opcheck's default checks, and a
+flash block compiled with ``aot_eager`` equals eager. An async checkpoint
+of card tensors holds them as they were when it was queued. Remat: a step with it equals one without bit for bit,
 with one more flash forward per block. Gradient accumulation: a window of
 two micro-steps through the kernels against the dense path, as phase 4 of
 chip_smoke.py holds three steps.
@@ -893,22 +897,8 @@ def test_serving_artifact_on_the_card(cuda, tmp_path):
     and its output is ``ServingFn``'s within 1e-5 at batches 1, 3 and 17;
     an int8 artifact within 1e-5 of the int8 ``ServingFn``."""
     from semi_seg_ecg_tpu_torch import serving
-    from semi_seg_ecg_tpu_torch.utils.checkpoint import save_torch_checkpoint
 
-    config = {
-        "device": "cuda", "precision": "fp32", "seed": 0,
-        "dataset": {"signal_length": 500},
-        "test": {"model_path": str(tmp_path / "vit.pth")},
-        "backbone": {"vit_tiny": {
-            "num_leads": 1, "seq_len": 500, "patch_size": 25, "width": 64,
-            "depth": 2, "heads": 2, "dim_head": 32, "mlp_dim": 128,
-            "out_indices": [1], "attention_impl": "flash"}},
-        "decode_head": {"FCNHead": {
-            "in_channels": 64, "in_index": 0, "channels": 16,
-            "num_convs": 1, "concat_input": False, "num_classes": 4}}}
-    torch.manual_seed(0)
-    save_torch_checkpoint(config["test"]["model_path"],
-                          build_model_from_config(config), epoch=0)
+    config = vit_serving_config(tmp_path)
     for quantize in (None, "int8"):
         cfg = dict(config, quantize=quantize)
         path = str(tmp_path / f"{quantize}.pt2")
@@ -926,6 +916,137 @@ def test_serving_artifact_on_the_card(cuda, tmp_path):
             assert fa.LAUNCHES == before + 2
             assert got.is_cuda and got.shape == (n, 4, 500)
             torch.testing.assert_close(got, infer(x), atol=1e-5, rtol=0)
+
+
+def vit_serving_config(tmp_path):
+    """A depth-2 flash ViT serving config on the card, its seed-0 weights
+    written as a ``.pth``."""
+    from semi_seg_ecg_tpu_torch.utils.checkpoint import save_torch_checkpoint
+
+    config = {
+        "device": "cuda", "precision": "fp32", "seed": 0,
+        "dataset": {"signal_length": 500},
+        "test": {"model_path": str(tmp_path / "vit.pth")},
+        "backbone": {"vit_tiny": {
+            "num_leads": 1, "seq_len": 500, "patch_size": 25, "width": 64,
+            "depth": 2, "heads": 2, "dim_head": 32, "mlp_dim": 128,
+            "out_indices": [1], "attention_impl": "flash"}},
+        "decode_head": {"FCNHead": {
+            "in_channels": 64, "in_index": 0, "channels": 16,
+            "num_convs": 1, "concat_input": False, "num_classes": 4}}}
+    torch.manual_seed(0)
+    save_torch_checkpoint(config["test"]["model_path"],
+                          build_model_from_config(config), epoch=0)
+    return config
+
+
+@pytest.mark.cuda
+def test_cross_platform_artifact_on_the_card(cuda, tmp_path):
+    """``platforms=("cuda", "cpu")``: one file, its CUDA program (the
+    process's platform here) launching the flash forward once per block
+    and equal to the ``("cuda",)`` artifact's, its CPU program (asked for
+    by name) launching nothing and within 1e-5 of ``ServingFn`` on the
+    CPU."""
+    from semi_seg_ecg_tpu_torch import serving
+
+    config = vit_serving_config(tmp_path)
+    both, single = str(tmp_path / "both.pt2"), str(tmp_path / "cuda.pt2")
+    header = serving.export_serving(config, both, platforms=("cuda", "cpu"))
+    assert header["platforms"] == ["cuda", "cpu"]
+    assert [p["platform"] for p in header["programs"]] == ["cuda", "cpu"]
+    serving.export_serving(config, single)
+    serve, _ = serving.load_serving(both)
+    alone, _ = serving.load_serving(single)
+    cpu_serve, _ = serving.load_serving(both, "cpu")
+    assert serve.device.type == "cuda" and cpu_serve.device.type == "cpu"
+    infer_cpu, _ = serving.make_serving_fn(dict(config, device="cpu"))
+    for n in (1, 3):
+        x = torch.randn(n, 1, 500, device=cuda)
+        before = fa.LAUNCHES
+        got = serve(x)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES == before + 2
+        assert torch.equal(got, alone(x))
+        before = fa.LAUNCHES
+        on_cpu = cpu_serve(x.cpu())
+        assert fa.LAUNCHES == before and on_cpu.device.type == "cpu"
+        torch.testing.assert_close(on_cpu, infer_cpu(x.cpu()), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+def test_flash_operators_pass_full_opcheck_on_the_card(cuda, strided):
+    """Both operators, CUDA tensors: opcheck's default checks, AOTAutograd's
+    static and dynamic dispatch among them."""
+    shape = (4, 3, 101, 64)
+    q, k, v = (chunked_qkv if strided else qkv)(shape, torch.float32)
+    if not strided:
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+    torch.library.opcheck(fa._forward_op, (q, k, v, 0.125))
+    out, lse = fa._forward_op(q, k, v, 0.125)
+    dout = torch.randn(shape, device=cuda)
+    torch.library.opcheck(fa._backward_op, (
+        q.detach(), k.detach(), v.detach(), out.detach(), lse, dout, 0.125))
+
+
+@pytest.mark.cuda
+def test_flash_block_compiles_on_the_card(cuda):
+    """``torch.compile(fullgraph=True, backend="aot_eager")`` of a flash
+    ViT block on the card: one forward and one backward launch a call, as
+    eager, and the same values and gradients."""
+    from semi_seg_ecg_tpu_torch.models.backbones.vision_transformer import (
+        TransformerBlock,
+    )
+
+    torch.manual_seed(0)
+    block = TransformerBlock(192, 768, heads=3, dim_head=64,
+                             attention_impl="flash").to(cuda).eval()
+    x = torch.randn(8, 101, 192, device=cuda)
+
+    def run(fn):
+        xx = x.clone().requires_grad_()
+        before = fa.LAUNCHES, fa.BWD_LAUNCHES
+        out = fn(xx)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+        grads = [p.grad for p in block.parameters()] + [xx.grad]
+        block.zero_grad(set_to_none=True)
+        return [out.detach()] + grads
+
+    eager = run(block)
+    compiled = torch.compile(block, fullgraph=True, backend="aot_eager")
+    run(compiled)  # the capture
+    for a, b in zip(run(compiled), eager):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_async_checkpoint_snapshots_card_tensors(cuda, tmp_path):
+    """A write queued behind a held writer thread: the card's parameters
+    changed in place after ``save_checkpoint`` returns do not reach the
+    file, which equals the synchronous file byte for byte."""
+    import threading
+
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    torch.manual_seed(0)
+    model = torch.nn.Linear(256, 256).to(cuda)
+    sync, late = str(tmp_path / "sync.ckpt"), str(tmp_path / "async.ckpt")
+    ckpt.save_checkpoint(sync, 0, model, step=1)
+    gate = threading.Event()
+    ckpt._ensure_worker().put(gate.wait)
+    ckpt.save_checkpoint(late, 0, model, step=1, async_write=True)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(2)
+    gate.set()
+    ckpt.wait_for_pending()
+    with open(sync, "rb") as a, open(late, "rb") as b:
+        assert a.read() == b.read()
+    assert ckpt.last_written_checkpoint() == late
 
 
 @pytest.mark.cuda

@@ -12,7 +12,9 @@ kernel in interpret mode on the JAX package's) restored from one JAX
   the JAX package's ``make_serving_fn`` (fp32 softmax of logits that agree
   to rounding); rows sum to 1 within 1e-5;
 - the ViT's program holds one flash operator per block, and tracing it
-  launches no kernel;
+  launches no kernel; the forward and backward operators pass opcheck's
+  default checks, and a flash block compiled by ``torch.compile``
+  (``aot_eager``, one graph) equals eager;
 - a pinned batch, the int8 artifacts (dynamic and calibrated), the header's
   precision of the traced graph (fp32 without ``test.use_amp``, the
   autocast dtype with it, the graph then holding the autocast region);
@@ -21,9 +23,18 @@ kernel in interpret mode on the JAX package's) restored from one JAX
 - the HTTP server: metadata, predict within 1e-6 of the artifact, 400 on a
   bad body or shape, 404 on an unknown path;
 - the loader refuses a non-artifact, a truncated file, a corrupt header and
-  the JAX package's ``ECGSHLO1`` artifact; ``platforms`` other than the
-  config's device raise "not yet ported";
+  the JAX package's ``ECGSHLO1`` artifact;
+- the cross-platform artifact on the CPU: the ``("cpu",)`` program against
+  the CPU lowering of the JAX package's ``export_serving(platforms=("cpu",
+  "tpu"))`` within 1e-4, a two-program file (a ``("cuda", "cpu")``
+  export's layout) serving its CPU program on a host without a card, and
+  the platform names that raise; ``tests/test_torch_cuda.py`` exports and
+  serves ``("cuda", "cpu")`` on the card;
 - the ``export`` and ``serve`` entries of ``cli.py``.
+
+Each artifact is loaded once (:func:`loaded`) and its op list read from the
+loaded program (:func:`program_ops`); the JAX package's artifact is
+exported once (``jax_artifact``).
 """
 
 import contextlib
@@ -118,6 +129,28 @@ def ecg(seed, n):
         (n, 1, SIG)).astype(np.float32)
 
 
+_LOADED = {}
+
+
+def loaded(path):
+    """``serving.load_serving(path)``, once per path."""
+    if path not in _LOADED:
+        _LOADED[path] = serving.load_serving(path)
+    return _LOADED[path]
+
+
+@pytest.fixture(scope="module")
+def jax_artifact(exported):
+    """The JAX package's cross-platform artifact of the ResNet (batch 2,
+    ``platforms=("cpu", "tpu")``) and its CPU serving function."""
+    config, _, _ = exported[0]["resnet"]
+    path = str(exported[1] / "model-xplat.shlo")
+    header = jax_serving.export_serving(config, path, batch_size=2,
+                                        platforms=("cpu", "tpu"))
+    assert header["platforms"] == ["cpu", "tpu"]
+    return path, jax_serving.load_serving(path)[0]
+
+
 @pytest.mark.parametrize("name", ["resnet", "vit"])
 def test_artifact_matches_serving_fn_and_jax(exported, name):
     config, path, header = exported[0][name]
@@ -126,7 +159,7 @@ def test_artifact_matches_serving_fn_and_jax(exported, name):
         "num_classes": 4, "output": "softmax_probs (B, C, T) float32",
         "precision": "fp32", "quantize": None, "act_scales": None,
         "platforms": ["cpu"], "torch_version": torch.__version__}
-    serve, loaded_header = serving.load_serving(path)
+    serve, loaded_header = loaded(path)
     assert loaded_header == header
     assert serve.device == torch.device("cpu") and serve.num_classes == 4
     infer, _ = serving.make_serving_fn(normalize_config(config))
@@ -144,22 +177,19 @@ def test_artifact_matches_serving_fn_and_jax(exported, name):
                 got, np.asarray(jinfer(jnp.asarray(x))), atol=1e-4, rtol=0)
 
 
-def program_ops(path):
-    with open(path, "rb") as f:
-        f.seek(8)
-        (hlen,) = struct.unpack("<I", f.read(4))
-        f.seek(12 + hlen)
-        program = torch.export.load(io.BytesIO(f.read()))
-    return [str(n.target) for n in program.graph.nodes
+def program_ops(serve):
+    """The operators a loaded artifact's program calls, in order (the
+    graph ``torch.export.load`` gives, unflattened)."""
+    return [str(n.target) for n in serve.program.graph.nodes
             if n.op == "call_function"]
 
 
 def test_vit_program_holds_the_flash_operator(exported):
     """One flash operator per ViT block (the CUDA kernel on the card, 12
     launches a batch for vit_tiny), none in the ResNet's."""
-    assert program_ops(exported[0]["vit"][1]).count(OP) == 2
-    assert program_ops(exported[0]["resnet"][1]).count(OP) == 0
-    serve, _ = serving.load_serving(exported[0]["vit"][1])
+    assert program_ops(loaded(exported[0]["vit"][1])[0]).count(OP) == 2
+    assert program_ops(loaded(exported[0]["resnet"][1])[0]).count(OP) == 0
+    serve, _ = loaded(exported[0]["vit"][1])
     before = fa.LAUNCHES
     serve(ecg(0, 2))
     assert fa.LAUNCHES == before  # CPU tensors: the plain version
@@ -167,10 +197,11 @@ def test_vit_program_holds_the_flash_operator(exported):
 
 @pytest.mark.parametrize("strided", [False, True])
 def test_flash_operator_passes_opcheck(strided):
-    """The forward operator's schema, fake (the output's (B, N, H, D)
-    memory) and autograd registration, checked by ``torch.library.opcheck``
-    on CPU tensors, contiguous and as the ViT hands them over; its output
-    strides equal the fake's."""
+    """The forward and backward operators pass ``torch.library.opcheck``'s
+    default checks (schema, autograd registration, fake tensors, and
+    AOTAutograd's static and dynamic dispatch) on CPU tensors, contiguous
+    and as the ViT hands them over; the outputs' strides equal the fakes'
+    (B, N, H, D) memory."""
     b, h, n, d = 2, 3, 11, 8
     rng = np.random.default_rng(1)
     if strided:
@@ -181,10 +212,43 @@ def test_flash_operator_passes_opcheck(strided):
     else:
         q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(
             np.float32)).requires_grad_() for _ in range(3))
-    torch.library.opcheck(fa._forward_op, (q, k, v, 0.3), test_utils=(
-        "test_schema", "test_autograd_registration", "test_faketensor"))
+    torch.library.opcheck(fa._forward_op, (q, k, v, 0.3))
     out, lse = fa.flash_attention_forward(q, k, v, 0.3)
     assert out.stride() == (n * h * d, d, h * d, 1) and lse.shape == (b, h, n)
+    dout = torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(
+        np.float32))
+    args = (q.detach(), k.detach(), v.detach(), out.detach(), lse, dout, 0.3)
+    torch.library.opcheck(fa._backward_op, args)
+    for g in fa._backward_op(*args):
+        assert g.stride() == (n * h * d, d, h * d, 1)
+
+
+def test_flash_block_compiles_as_eager():
+    """``torch.compile(fullgraph=True, backend="aot_eager")`` of a flash
+    ViT block, forward and backward, captures both operators in one graph
+    each way and equals eager bit for bit."""
+    from semi_seg_ecg_tpu_torch.models.backbones.vision_transformer import (
+        TransformerBlock,
+    )
+
+    torch.manual_seed(0)
+    block = TransformerBlock(64, 128, heads=2, dim_head=32, qk_norm=True,
+                             attention_impl="flash").eval()
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 20, 64)).astype(np.float32))
+
+    def run(fn):
+        xx = x.clone().requires_grad_()
+        out = fn(xx)
+        out.square().sum().backward()
+        grads = [p.grad for p in block.parameters()] + [xx.grad]
+        block.zero_grad(set_to_none=True)
+        return [out.detach()] + grads
+
+    eager = run(block)
+    compiled = run(torch.compile(block, fullgraph=True, backend="aot_eager"))
+    for a, b in zip(compiled, eager):
+        assert torch.equal(a, b)
 
 
 def test_pinned_batch(exported):
@@ -216,7 +280,7 @@ def test_int8_artifacts(exported, name, calibration):
     np.testing.assert_allclose(got, infer(torch.from_numpy(x)).numpy(),
                                atol=1e-5, rtol=0)
     np.testing.assert_allclose(got.sum(axis=1), 1.0, atol=1e-5)
-    assert program_ops(path).count("aten._int_mm.default") > 0
+    assert program_ops(serve).count("aten._int_mm.default") > 0
     # the calibrated program carries its scales: no activation reductions
     n_layers = len(int8_modules(infer.model))
     assert activation_reductions(serve, torch.from_numpy(x)) == (
@@ -236,9 +300,9 @@ def test_header_precision_reflects_traced_graph(exported):
     amp = {**cfg, "test": {**cfg["test"], "use_amp": True}}
     header = serving.export_serving(amp, str(root / "amp.pt2"))
     assert header["precision"] == "bf16"
-    assert "wrap_with_autocast" in program_ops(str(root / "amp.pt2"))
     serve, _ = serving.load_serving(str(root / "amp.pt2"))
-    fp32, _ = serving.load_serving(fp32_path)
+    assert "wrap_with_autocast" in program_ops(serve)
+    fp32, _ = loaded(fp32_path)
     infer, _ = serving.make_serving_fn(amp)
     x = ecg(5, 3)
     got = serve(x)
@@ -251,7 +315,7 @@ def test_serve_batched_over_the_artifact(exported):
     """Ragged batches route through fixed buckets; outputs match the
     direct call row for row and padding rows never leak; the empty batch
     gives zero rows of the program's row shape."""
-    serve, _ = serving.load_serving(exported[0]["resnet"][1])
+    serve, _ = loaded(exported[0]["resnet"][1])
     calls = []
 
     def counting_serve(x):
@@ -272,7 +336,7 @@ def test_artifact_serves_long_records(exported):
     """The loaded artifact carries ``device`` and ``num_classes``, so the
     stitcher and the streaming segmenter take it as the eager model."""
     config, path, _ = exported[0]["vit"]
-    serve, _ = serving.load_serving(path)
+    serve, _ = loaded(path)
     infer, _ = serving.make_serving_fn(normalize_config(config))
     record = np.random.default_rng(8).standard_normal((1, 1777)).astype(
         np.float32)
@@ -306,7 +370,7 @@ def test_http_server_predict_and_metadata(exported):
                                      data=buf.getvalue(), method="POST")
         probs = np.load(io.BytesIO(
             urllib.request.urlopen(req, timeout=120).read()))
-        serve, _ = serving.load_serving(path)
+        serve, _ = loaded(path)
         want = serving.serve_batched(serve, x, bucket_sizes=(4,))
         np.testing.assert_allclose(probs, want, atol=1e-6, rtol=0)
 
@@ -328,7 +392,7 @@ def test_http_server_predict_and_metadata(exported):
     assert not t.is_alive()
 
 
-def test_loader_rejects_non_artifacts(exported, tmp_path):
+def test_loader_rejects_non_artifacts(exported, jax_artifact, tmp_path):
     bad = tmp_path / "not_an_artifact.pt2"
     bad.write_bytes(b"definitely not an exported program")
     with pytest.raises(ValueError, match="bad magic"):
@@ -346,22 +410,61 @@ def test_loader_rejects_non_artifacts(exported, tmp_path):
     with pytest.raises(ValueError, match="corrupt artifact header"):
         serving.load_serving(str(corrupt))
     # the JAX package's own StableHLO artifact
-    config, _, _ = exported[0]["resnet"]
-    shlo = str(tmp_path / "model.shlo")
-    jax_serving.export_serving(config, shlo, batch_size=2)
     with pytest.raises(ValueError, match="bad magic b'ECGSHLO1'"):
-        serving.load_serving(shlo)
+        serving.load_serving(jax_artifact[0])
 
 
-def test_export_refuses_other_platforms(exported, tmp_path):
+def test_export_refuses_other_platforms(exported, jax_artifact, tmp_path):
+    """The former refusal, now the cross-platform artifact on the CPU (no
+    card here): the ``("cpu",)`` program against the CPU lowering of the
+    JAX package's ``("cpu", "tpu")`` artifact within
+    ``test_artifact_matches_serving_fn_and_jax``'s 1e-4; a file in the
+    two-program layout of a ``("cuda", "cpu")`` export serves its CPU
+    program by the current-platform rule (and by name), and refuses a
+    platform it lacks or a card torch does not see; ``tpu``, unknown
+    names and repeats raise ``ValueError`` naming what the port lowers,
+    ``cuda`` without a card ``RuntimeError``."""
     config = normalize_config(exported[0]["resnet"][0])
-    for platforms in (("cpu", "tpu"), ("cuda",), ("tpu",)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            serving.export_serving(config, str(tmp_path / "x.pt2"),
-                                   platforms=platforms)
-    header = serving.export_serving(config, str(tmp_path / "x.pt2"),
-                                    batch_size=1, platforms=("cpu",))
-    assert header["platforms"] == ["cpu"]
+    path = str(tmp_path / "x.pt2")
+    for platforms in (("cpu", "tpu"), ("tpu",), ("gpu",), ("cpu", "cpu")):
+        with pytest.raises(ValueError, match=r"\['cuda', 'cpu'\]"):
+            serving.export_serving(config, path, platforms=platforms)
+    for platforms in (("cuda",), ("cuda", "cpu")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serving.export_serving(config, path, platforms=platforms)
+    header = serving.export_serving(config, path, batch_size=1,
+                                    platforms=("cpu",))
+    assert header["platforms"] == ["cpu"] and "programs" not in header
+    serve, _ = serving.load_serving(path)
+    x = ecg(7, 2)
+    want = np.asarray(jax_artifact[1](jnp.asarray(x)))
+    for row in range(2):  # the port's program pins batch 1, the JAX one 2
+        np.testing.assert_allclose(serve(x[row:row + 1]).numpy()[0],
+                                   want[row], atol=1e-4, rtol=0)
+    # the layout a ("cuda", "cpu") export writes; the CUDA bytes are never
+    # read on this host
+    with open(path, "rb") as f:
+        f.seek(8)
+        (hlen,) = struct.unpack("<I", f.read(4))
+        f.seek(12 + hlen)
+        blob = f.read()
+    cuda_blob = b"\0" * 64
+    two = dict(header, platforms=["cuda", "cpu"], programs=[
+        {"platform": "cuda", "offset": 0, "length": len(cuda_blob)},
+        {"platform": "cpu", "offset": len(cuda_blob), "length": len(blob)}])
+    raw = json.dumps(two).encode()
+    both = tmp_path / "both.pt2"
+    both.write_bytes(b"ECGTEXP1" + struct.pack("<I", len(raw)) + raw
+                     + cuda_blob + blob)
+    for platform in (None, "cpu"):
+        serve2, got_header = serving.load_serving(str(both), platform)
+        assert got_header == two and serve2.device == torch.device("cpu")
+        torch.testing.assert_close(serve2(x[:1]), serve(x[:1]), rtol=0,
+                                   atol=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.load_serving(str(both), "cuda")
+    with pytest.raises(ValueError, match="none for 'cuda'"):
+        serving.load_serving(path, "cuda")
 
 
 def test_cli_export_and_serve(exported, tmp_path):

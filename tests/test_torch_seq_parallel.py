@@ -29,8 +29,9 @@ ResNet18's odd lengths, values and gradients within 1e-6.
 
 The device augmentation and cache switch off with the JAX package's line
 and leave the caller's config as it was; ReCo, ST++, the seq axis with
-the model axis and int8 serving under it run (only a checkpoint backend
-but pickle is refused).
+the model axis and int8 serving under it run, and the two seq ranks'
+step written as a checkpoint directory by both ranks loads to the pickle
+file's payload.
 
 ``slow``: the FixMatch, Mean Teacher and CPS steps of both backbones with
 dropout on, two gloo ranks against one process, and ``train_main``,
@@ -53,14 +54,16 @@ from semi_seg_ecg_tpu.models import build_model_from_config as jax_build
 from semi_seg_ecg_tpu.ops.ring_attention import ring_attention as jax_ring
 from semi_seg_ecg_tpu.parallel import mesh as jax_mesh
 from semi_seg_ecg_tpu.utils.optimizer import build_optimizer as jax_optimizer
-from semi_seg_ecg_tpu_torch.algorithms import common
+from semi_seg_ecg_tpu_torch.algorithms import common, get_algorithm
 from semi_seg_ecg_tpu_torch.ops.interpolate import linear_interpolate
 from semi_seg_ecg_tpu_torch.ops.ring_attention import ring_attention
 from semi_seg_ecg_tpu_torch.parallel import seq_shard
 from semi_seg_ecg_tpu_torch.parallel.seq_shard import run_threads
+from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
 from tests.test_parallel import _tiny_config
 from tests.test_ring_attention import _vit_sp_config
 from tests.test_torch_parallel_train import port_state
+from tests.test_torch_resume import assert_payloads_equal
 from tests.test_torch_train_slice import (
     KEY_BIAS,
     PARAM_ATOL_LR,
@@ -320,27 +323,34 @@ def test_device_augment_and_cache_switch_off_on_a_copy(capsys):
     {"algorithm": "reco"}, {"algorithm": "stpp"},
     {"parallel": {"seq_parallel": 2, "model_parallel": 2}},
     {"quantize": "int8"}])
-def test_seq_parallel_refusals(override):
+def test_seq_parallel_refusals(override, seq_steps):
     """The former refusals under the seq axis (ReCo, ST++, the model axis
     beside it, int8 serving) run: their parity cases are in
     ``tests/test_torch_seq_algorithms.py``, ``test_torch_reco.py``,
-    ``test_torch_stpp.py`` and below. What the seq axis still refuses is
-    what every layout refuses: a checkpoint backend but pickle."""
+    ``test_torch_stpp.py`` and below. The last one every layout had,
+    ``checkpoint_backend: orbax``, is the directory backend: each takes it,
+    and the two seq ranks' ResNet18 step, written both ways by every rank,
+    loads to the pickle file's payload."""
     cfg = {"algorithm": "fixmatch", "parallel": {"seq_parallel": 2}}
     cfg.update(override)
-    common._refuse_unported(cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        common._refuse_unported(dict(cfg, checkpoint_backend="orbax"))
+    assert common.checkpoint_backend(cfg) == "pickle"
+    assert common.checkpoint_backend(
+        dict(cfg, checkpoint_backend="orbax")) == "orbax"
+    saved = seq_steps["saved"]
+    assert os.path.isdir(saved["orbax"])
+    assert_payloads_equal(ckpt.load_checkpoint(saved["orbax"]),
+                          ckpt.load_checkpoint(saved["pickle"]))
 
 
 def test_seq_parallel_is_ported():
     """The former refusal case of
     ``test_torch_train_slice.py::test_unported_algorithms_and_options_raise``:
     the single-stage algorithms train under the seq axis (the steps below
-    hold them against the JAX package)."""
+    hold them against the JAX package), with either checkpoint backend."""
     for algorithm in ("base", "fixmatch", "mean_teacher", "cps"):
-        common._refuse_unported({"algorithm": algorithm,
-                                 "parallel": {"seq_parallel": 2}})
+        cfg = {"algorithm": algorithm, "parallel": {"seq_parallel": 2}}
+        assert common.checkpoint_backend(cfg) == "pickle"
+        assert get_algorithm(algorithm).SPEC.name == algorithm
 
 
 # ---------------------------------------------------------------------------
@@ -409,16 +419,22 @@ def seq_steps(tmp_path_factory):
         port_cfg = dict(copy.deepcopy(cfg), algorithm="base", device="cpu")
         runs.append({"config": port_cfg, "states": {"model": init},
                      "batches": [batch], "updates": 10})
-    handle = start_ranks([("steps", {"runs": runs})],
-                         str(tmp_path_factory.mktemp("seq")), world=2)
+    work = str(tmp_path_factory.mktemp("seq"))
+    # then the ResNet18 step's checkpoint, written with each backend
+    save = {"config": runs[0]["config"], "out_dir": work, "batch": batch}
+    handle = start_ranks([("steps", {"runs": runs}),
+                          ("save_backends", save)], work, world=2)
     jax_side = {name: jax_seq_step(dict(run["config"]), jax_states[name],
                                    batch)
                 for name, run in zip(STEP_RUNS, runs)}
     codes, logs, out = wait_ranks(handle, TIMEOUT)
     for r, code in enumerate(codes):
         assert code == 0, f"rank {r}:\n{logs[r][-4000:]}"
-    return {name: ([out[r][0][i] for r in range(2)], jax_side[name])
-            for i, name in enumerate(STEP_RUNS)}
+    steps = {name: ([out[r][0][i] for r in range(2)], jax_side[name])
+             for i, name in enumerate(STEP_RUNS)}
+    steps["saved"] = {b: os.path.join(work, f"{b}.ckpt")
+                      for b in ("pickle", "orbax")}
+    return steps
 
 
 @pytest.mark.parametrize("name", list(STEP_RUNS))

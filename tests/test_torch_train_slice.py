@@ -29,9 +29,10 @@ End to end. ``train_main`` with ``device: cpu`` trains on a tiny synthetic
 split with ``device_augment: true`` and flash attention, writes its files,
 serves its checkpoint through the port's ``inference_main``, and the JAX
 package's ``load_eval_model`` reads the same ``.ckpt`` to logits within
-atol 2e-4 of the port's. The config keys the port once dropped (orbax
-checkpoints, ``profile``, ``debug.nan_checks``, ``async_checkpoint``)
-either work or raise; ``profile``'s trace holds the steps of its window
+atol 2e-4 of the port's. The config keys the port once dropped or
+refused work: ``checkpoint_backend: orbax`` writes directories holding
+the pickle file's payload, ``async_checkpoint`` files equal to the
+synchronous ones, ``debug.nan_checks`` trains under anomaly detection; ``profile``'s trace holds the steps of its window
 that the epoch reaches (``utils/profiling.ProfileSchedule``).
 """
 
@@ -381,7 +382,7 @@ def test_train_flag_sets_the_mode_for_one_call():
     assert not model.training and not torch.equal(evaluated, trained)
 
 
-def test_unported_algorithms_and_options_raise():
+def test_unported_algorithms_and_options_raise(tmp_path):
     with pytest.raises(ValueError, match="Invalid algorithm"):
         get_algorithm("nope")
     # remat (activation checkpointing, ported): an eval forward is the same
@@ -402,24 +403,46 @@ def test_unported_algorithms_and_options_raise():
                      model.backbone.layer4[1].bn2.running_var.clone()))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
-    # what multi-GPU runs still refuse: a checkpoint backend but pickle.
-    # int8 serving under the model axis runs (tests/test_torch_seq_algorithms.py
-    # holds it against one process's int8, codes and logits)
-    from semi_seg_ecg_tpu_torch.algorithms.common import _refuse_unported
+    # the last refusal, checkpoint_backend: orbax, is the directory
+    # backend now: a trainer's state written both ways after a step (the
+    # writer thread, as the loop writes) loads to one payload. Across ranks
+    # and layouts: tests/test_torch_checkpoint_writer.py
+    from semi_seg_ecg_tpu_torch.algorithms import common
+    from semi_seg_ecg_tpu_torch.utils.checkpoint import wait_for_pending
+    from tests.test_torch_resume import assert_payloads_equal
 
-    cfg = lockstep_config("xla", "base")
-    int8_tp = {**cfg, "parallel": {"model_parallel": 2}, "quantize": "int8"}
-    _refuse_unported(int8_tp)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _refuse_unported({**int8_tp, "checkpoint_backend": "orbax"})
-    # the model axis (tests/test_torch_tensor_parallel.py), ZeRO-1
+    cfg = resnet_lockstep_config("base")
+    trainer = Trainer(copy.deepcopy(cfg), base.SPEC, torch.device("cpu"), K)
+    trainer.train_step({"ecg": x, "target": torch.zeros((BATCH, SEQ),
+                                                        dtype=torch.long)})
+    paths = {b: str(tmp_path / f"{b}.ckpt") for b in ("pickle", "orbax")}
+    for backend, path in paths.items():
+        common._save(trainer, [path], 0, cfg, backend, True, True,
+                     best={"loss": 1.0})
+    wait_for_pending()
+    payloads = [torch_ckpt.load_checkpoint(p) for p in paths.values()]
+    assert os.path.isdir(paths["orbax"])
+    assert_payloads_equal(payloads[1], payloads[0])
+    # every layout and option takes either backend; another name raises.
+    # int8 serving under the model axis runs
+    # (tests/test_torch_seq_algorithms.py holds it against one process's
+    # int8, codes and logits); the model axis
+    # (tests/test_torch_tensor_parallel.py), ZeRO-1
     # (tests/test_torch_zero1.py) and the device cache
     # (tests/test_torch_device_cache.py) train; the reference's ddp
     # section trains
-    _refuse_unported({**cfg, "parallel": {"shard_optimizer": True,
-                                          "model_parallel": 2},
-                      "dataset": {**cfg["dataset"], "device_cache": True},
-                      "ddp": {"world_size": 2, "distributed": True}})
+    cfg = lockstep_config("xla", "base")
+    for layout in ({**cfg, "parallel": {"model_parallel": 2},
+                    "quantize": "int8"},
+                   {**cfg, "parallel": {"shard_optimizer": True,
+                                        "model_parallel": 2},
+                    "dataset": {**cfg["dataset"], "device_cache": True},
+                    "ddp": {"world_size": 2, "distributed": True}}):
+        assert common.checkpoint_backend(layout) == "pickle"
+        assert common.checkpoint_backend(
+            dict(layout, checkpoint_backend="orbax")) == "orbax"
+    with pytest.raises(ValueError, match="checkpoint_backend: 'zarr'"):
+        common.checkpoint_backend(dict(cfg, checkpoint_backend="zarr"))
 
 
 def tiny_recipe(root, family, algorithm, exp_name, data_seed=3):
@@ -532,12 +555,18 @@ def test_trained_ckpt_is_served_by_both_packages(trained, tmp_path):
 @pytest.mark.parametrize("key", ["checkpoint_backend", "profile",
                                  "nan_checks", "async_checkpoint"])
 def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
-    """Keys the JAX package reads and the port used to drop: orbax
-    checkpoints raise "not yet ported"; the trace schedule traces the
-    steps of its window up to the epoch's end (here step 1 of steps 0-1);
-    ``debug.nan_checks`` trains under autograd's anomaly detection;
-    ``async_checkpoint`` writes the same checkpoint synchronously."""
+    """Keys the JAX package reads and the port used to drop or refuse:
+    ``checkpoint_backend: orbax`` writes each checkpoint as a directory
+    (``torch.distributed.checkpoint``) whose payload is the pickle file's
+    of the same call (each save is also written as a pickle file beside
+    it), and a JAX orbax directory is refused with the converter's name;
+    the trace schedule traces the steps of its window up to the epoch's
+    end (here step 1 of steps 0-1); ``debug.nan_checks`` trains under
+    autograd's anomaly detection; ``async_checkpoint`` (on by default)
+    writes files equal byte for byte to the same calls written
+    synchronously beside them."""
     from semi_seg_ecg_tpu_torch.algorithms import common
+    from tests.test_torch_resume import assert_payloads_equal
 
     cfg, path = tiny_recipe(tmp_path, "resnet18", "scratch", key)
     trace_dir = tmp_path / "trace"
@@ -548,13 +577,6 @@ def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
                 "async_checkpoint": {"async_checkpoint": True}}[key]
     with open(path, "w") as f:
         yaml.safe_dump(dict(cfg, **override), f)
-    if key == "checkpoint_backend":
-        with pytest.raises(NotImplementedError, match="to-torch"):
-            train_main(["-f", path])
-        os.makedirs(tmp_path / "orbax.ckpt")
-        with pytest.raises(NotImplementedError, match="to-torch"):
-            torch_ckpt.load_checkpoint(str(tmp_path / "orbax.ckpt"))
-        return
     anomaly = []
     step = common.Trainer.train_step
 
@@ -562,14 +584,36 @@ def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
         anomaly.append(torch.is_anomaly_enabled())
         return step(self, batch)
 
+    save = common._save
+    twin = {"checkpoint_backend": ".pickle", "async_checkpoint": ".sync"}
+
+    def saved_twice(trainer, paths, *args, **kwargs):
+        # the same call written synchronously as a pickle file, then as
+        # the run writes it
+        save(trainer, [p + twin[key] for p in paths], *args[:2], "pickle",
+             False, *args[4:], **kwargs)
+        save(trainer, paths, *args, **kwargs)
+
     monkeypatch.setattr(common.Trainer, "train_step", spy)
+    if key in twin:
+        monkeypatch.setattr(common, "_save", saved_twice)
     train_main(["-f", path])
     assert anomaly == [key == "nan_checks"] * 2
     assert not torch.is_anomaly_enabled()
-    payload = torch_ckpt.load_checkpoint(os.path.join(
-        str(tmp_path / "exps"), key, "best-MeanIoU.ckpt"))
+    best = os.path.join(str(tmp_path / "exps"), key, "best-MeanIoU.ckpt")
+    payload = torch_ckpt.load_checkpoint(best)
     assert payload["step"] == 2 and "backbone.stem.0.weight" in \
         payload["model"]
+    if key == "async_checkpoint":
+        with open(best + twin[key], "rb") as a, open(best, "rb") as b:
+            assert a.read() == b.read()
+    if key == "checkpoint_backend":
+        assert os.path.isdir(best)
+        assert_payloads_equal(payload, torch_ckpt.load_checkpoint(
+            best + twin[key]))
+        os.makedirs(tmp_path / "orbax.ckpt")  # a JAX orbax directory
+        with pytest.raises(NotImplementedError, match="to-torch"):
+            torch_ckpt.load_checkpoint(str(tmp_path / "orbax.ckpt"))
     if key == "profile":
         assert os.listdir(trace_dir) == ["rank0_steps1-1.pt.trace.json"]
         assert traced_steps(trace_dir / "rank0_steps1-1.pt.trace.json") == \

@@ -258,6 +258,45 @@ def task_train_main(argv, num_shards=None):
         return train_main(argv)
 
 
+def task_save_backends(config, out_dir, batch):
+    """A Trainer of ``config`` takes one step on this rank's rows of the
+    global ``batch``; every rank but 0 then moves its BatchNorm running
+    variances (replicated buffers, which ranks on a card round apart), and
+    the checkpoint is written with each backend
+    (``out_dir/{pickle,orbax}.ckpt``) as the training loop does, async.
+    Returns how many times each write called
+    ``parallel.dist.all_gather_object``."""
+    from semi_seg_ecg_tpu_torch.algorithms import common, get_algorithm
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    spec = get_algorithm(config["algorithm"]).SPEC
+    trainer = common.Trainer(config, spec, torch.device("cpu"), 1)
+    trainer.train_step({k: torch.from_numpy(rank_rows(v))
+                        for k, v in batch.items()})
+    if pdist.get_rank():
+        for name, buf in trainer.model.named_buffers():
+            if name.endswith("running_var"):
+                buf.add_(pdist.get_rank())
+    gather, calls = pdist.all_gather_object, {}
+    try:
+        for backend in ("pickle", "orbax"):
+            calls[backend] = 0
+
+            def counted(*args, backend=backend, **kwargs):
+                calls[backend] += 1
+                return gather(*args, **kwargs)
+
+            pdist.all_gather_object = counted
+            common._save(trainer, [os.path.join(out_dir, f"{backend}.ckpt")],
+                         0, config, backend, True, pdist.is_main_process(),
+                         metrics={"loss": 1.0}, best={"loss": 1.0})
+    finally:
+        pdist.all_gather_object = gather
+    ckpt.wait_for_pending()
+    pdist.barrier()
+    return calls
+
+
 def task_run_training(argv, snapshot_epochs=()):
     """``run_training`` of the config ``argv`` names, writing a
     ``checkpoint-{e}.ckpt`` after each epoch ``e - 1`` of
@@ -440,7 +479,8 @@ TASKS = {"batchnorm": task_batchnorm, "draws": task_draws,
          "run_training": task_run_training,
          "test_main": task_test_main,
          "inference_main": task_inference_main, "nan_abort": task_nan_abort,
-         "longrec": task_longrec, "serve": task_serve}
+         "longrec": task_longrec, "serve": task_serve,
+         "save_backends": task_save_backends}
 
 
 def _free_port():
