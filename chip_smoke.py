@@ -231,7 +231,25 @@ non-zero exit when it fails:
    equal to phase 9's one-platform artifact, its CPU program within 1e-5
    of ``ServingFn`` on the CPU with no launch; (d) ``torch.library.opcheck``'s
    default checks of the flash forward and backward operators on CUDA
-   tensors, fp32 and bf16.
+   tensors, fp32 and bf16;
+18. ``train.scan_steps``, the step captured in a CUDA graph and replayed
+   (``utils/captured_step.py``): under PyTorch's deterministic
+   algorithms, so that a step repeats bit for bit, (a) phase 4's
+   ViT FixMatch recipe at full width, 8 bf16 steps at ``scan_steps: 4``
+   and 3 fp32 steps, each eager, eager with the captured path's
+   optimizers, and captured: the launches of one replay read from the
+   graph's kernel nodes (24 / 12 / 3), the host counters counting the
+   warm-up and the capture only, the captured run against the others bit
+   for bit or by difference, and the fp32 run held to phase 4's rule
+   against the eager one; (b) the same for ResNet18's FixMatch (the
+   fp32 run with SGD, as phase 5); (c) two captured steps of Mean Teacher,
+   CPS (48 / 24 / 2 a replay), ReCo and an ST++ stage-2 step; then (d)
+   ``train_main`` of phase 4's recipe at ``scan_steps: 3`` (a unit and a
+   tail an epoch) with the device cache and a trace of the first replays,
+   its log rows against phase 4's eager run, its checkpoint resumed
+   eagerly and served by its test pass; (e) the bf16 ViT and ResNet18 FixMatch
+   steps eager and captured: wall ms, the host's µs and device events per
+   step, device busy and idle share. Each part's seconds are logged.
 
 In the whole run phases 14-16 share rank groups, since a group's start
 costs tens of seconds: phase 16's (a) runs on an idle
@@ -6673,6 +6691,558 @@ def phase_checkpoint(torch, shared=None, vit_model=None):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: train.scan_steps, the captured step
+# ---------------------------------------------------------------------------
+
+# (a, b): bf16 steps at scan_steps SCAN_K (two units), fp32 steps held to
+# phase 4's rule; (c): captured steps of the other algorithms; (e): steps
+# a profile times, in windows of equal length (their spread), and the
+# steps it traces
+SCAN_K = 4
+SCAN_STEPS = 8
+SCAN_ALGO_STEPS = 2
+SCAN_PROFILE_STEPS = {"eager": 20, "captured": 50}
+SCAN_PROFILE_CHUNKS = 5
+SCAN_TRACE_STEPS = 5
+# each ported kernel's name among a graph's kernel nodes (the backward
+# launches a dQ and a dK/dV kernel: its dQ kernel counts the launch)
+SCAN_NEEDLES = {"flash_attention_fwd": "flash_fwd_",
+                "flash_attention_bwd": "flash_bwd_dq",
+                "gather1d": "gather1d_kernel"}
+# (d): train_main of phase 4's recipe at scan_steps 3 (each epoch of 4
+# steps a unit of 3 and a tail of 1), with the device cache and a trace of
+# steps 1-3 (the first three replays)
+SCAN_RECIPE_K = 3
+SCAN_TRACE = (1, 3)
+# the ported kernels' host counters of a run that captures: its warm-up
+# step and the capture's pass of the step's host code
+SCAN_HOST_PASSES = 2
+
+
+def scan_run(torch, cfg, algorithm, mode, steps, seed=40):
+    """``steps`` steps of a Trainer of ``cfg`` (full width) from one init on
+    fixed card batches, ``mode`` ``eager`` (scan_steps 1),
+    ``capturable`` (eager, with the captured path's optimizers: tensor lr,
+    AdamW's step on the card, SGD's fused update) or ``captured``
+    (scan_steps SCAN_K, the graph's nodes kept). Returns the per-step
+    metrics, the states on the host, the host counters and, captured, the
+    graph's kernel launches per replay."""
+    from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        Trainer,
+        full_fp32,
+        init_model,
+    )
+    from semi_seg_ecg_tpu_torch.utils.captured_step import (
+        CapturedStep,
+        count_kernels,
+    )
+
+    device = torch.device("cuda")
+    cfg = copy.deepcopy(cfg)
+    cfg["train"]["scan_steps"] = SCAN_K if mode == "captured" else 1
+    module = get_algorithm(algorithm)
+    spec = module.SEMISUP_SPEC if algorithm == "stpp" else module.SPEC
+    with full_fp32():
+        trainer = Trainer(cfg, spec, device, 4, model=init_model(cfg, device))
+        if mode == "captured":
+            trainer.captured = CapturedStep(trainer, keep_graph=True)
+        elif mode == "capturable":
+            for opt in (trainer.optimizer, trainer.peer_optimizer):
+                if opt is not None:
+                    opt.make_capturable_()
+        batches = []
+        for s in range(steps):
+            batch = device_batch(torch, seed + s)
+            del batch["ecg_u_s"]  # the device augmentation makes it
+            batches.append(batch)
+        reset_counts()
+        metrics = [{k: v.item() for k, v in trainer.train_step(b).items()}
+                   for b in batches]
+        torch.cuda.synchronize()
+    out = {"metrics": metrics, "host_counts": read_counts(),
+           "states": {name: {k: v.detach().cpu().clone() for k, v in
+                             net.state_dict().items()}
+                      for name, net in (("model", trainer.model),
+                                        ("teacher", trainer.teacher),
+                                        ("peer", trainer.peer))
+                      if net is not None}}
+    if mode == "captured":
+        out["replays"] = trainer.captured.replays
+        out["graph_launches"] = count_kernels(
+            trainer.captured.kernel_names, SCAN_NEEDLES)
+        out["graph_kernel_nodes"] = len(trainer.captured.kernel_names)
+    return out
+
+
+def scan_diff(a, b):
+    """Bit equality of two :func:`scan_run` results, and the largest
+    difference of a metric (relative) and of a state tensor."""
+    metric_rel = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
+                     for x, y in zip(a["metrics"], b["metrics"]) for k in y)
+    state_abs = max(((sa[k].float() - v.float()).abs().max().item()
+                     for name, sb in b["states"].items()
+                     for sa in [a["states"][name]] for k, v in sb.items()),
+                    default=0.0)
+    equal = a["metrics"] == b["metrics"] and all(
+        torch_equal(a["states"][name][k], v)
+        for name, sb in b["states"].items() for k, v in sb.items())
+    return {"bit_equal": equal, "metric_rel": metric_rel,
+            "state_abs": state_abs}
+
+
+def scan_rule(cfg, got, want):
+    """Phase 4's rule on two fp32 runs: every parameter within
+    LOCKSTEP_TIGHT_ATOL_LR lr (the key bias within LOCKSTEP_ATOL_LR lr),
+    BN statistics within 1e-4 + 1e-4 relative, the losses within 1e-4
+    relative; returns the worst of each and whether they hold."""
+    lr = cfg["train"]["lr"]
+    worst = {"params_lr": 0.0, "key_bias_lr": 0.0, "running": 0.0}
+    ok = True
+    for name, state in want["states"].items():
+        for k, v in state.items():
+            if not v.is_floating_point():
+                continue
+            err = (got["states"][name][k] - v).abs().max().item()
+            if "running" in k:
+                worst["running"] = max(worst["running"], err)
+                ok &= err <= 1e-4 + 1e-4 * v.abs().max().item()
+            elif k.endswith(KEY_BIAS):
+                worst["key_bias_lr"] = max(worst["key_bias_lr"], err / lr)
+            else:
+                worst["params_lr"] = max(worst["params_lr"], err / lr)
+    worst["loss_rel"] = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                            for a, b in zip(got["metrics"], want["metrics"])
+                            for k in b if k.startswith("loss"))
+    ok &= (worst["params_lr"] <= LOCKSTEP_TIGHT_ATOL_LR
+           and worst["key_bias_lr"] <= LOCKSTEP_ATOL_LR
+           and worst["loss_rel"] <= 1e-4)
+    return dict(worst, holds=bool(ok))
+
+
+def scan_case(torch, label, cfg, algorithm, steps, rule=False):
+    """One case of (a)-(c): the eager, capturable and captured runs; the
+    captured run equal bit for bit to the capturable one (eager steps with
+    the same optimizers); the captured one's launches read from its graph,
+    against one step's; the host counters against the warm-up and the
+    capture; the captured run against the eager one (``rule``: held to
+    :func:`scan_rule`)."""
+    family = "vit_tiny" if "vit_tiny" in cfg["backbone"] else "resnet18"
+    runs = {mode: scan_run(torch, cfg, algorithm, mode, steps)
+            for mode in ("eager", "capturable", "captured")}
+    captured = runs["captured"]
+    per_step = launches_per_step(family, algorithm)
+    host_want = {k: SCAN_HOST_PASSES * v for k, v in per_step.items()}
+    out = {"steps": steps, "replays": captured["replays"],
+           "graph_launches": captured["graph_launches"],
+           "graph_kernel_nodes": captured["graph_kernel_nodes"],
+           "host_counts": captured["host_counts"],
+           "vs_capturable": scan_diff(captured, runs["capturable"]),
+           "vs_eager": scan_diff(captured, runs["eager"]),
+           "capturable_vs_eager": scan_diff(runs["capturable"],
+                                            runs["eager"]),
+           "losses": {mode: [m.get("loss") for m in r["metrics"]]
+                      for mode, r in runs.items()}}
+    if rule:
+        out["rule"] = scan_rule(cfg, captured, runs["eager"])
+    log(f"  ({label}) {algorithm} {cfg['precision']}, {steps} steps: "
+        f"{captured['replays']} replays, launches a replay "
+        f"{captured['graph_launches']} of {captured['graph_kernel_nodes']} "
+        f"kernel nodes (a step {per_step}), host counters "
+        f"{captured['host_counts']}; captured vs capturable "
+        f"{out['vs_capturable']}, vs eager {out['vs_eager']}, capturable "
+        f"vs eager {out['capturable_vs_eager']}"
+        + (f"; phase 4's rule {out['rule']}" if rule else ""))
+    failed = []
+    if not out["vs_capturable"]["bit_equal"]:
+        failed.append(f"captured vs capturable {out['vs_capturable']}")
+    if captured["graph_launches"] != per_step:
+        failed.append(f"graph launches {captured['graph_launches']}")
+    if captured["host_counts"] != host_want:
+        failed.append(f"host counters {captured['host_counts']}")
+    if captured["replays"] != steps - 1:
+        failed.append(f"{captured['replays']} replays")
+    if not all(math.isfinite(v) for m in captured["metrics"]
+               for v in m.values()):
+        failed.append("non-finite metrics")
+    if rule and not out["rule"]["holds"]:
+        failed.append(f"phase 4's rule {out['rule']}")
+    if failed:
+        raise SystemExit(f"phase 18 failed: ({label}) {algorithm} "
+                         f"{cfg['precision']}: {', '.join(failed)}")
+    return out
+
+
+def scan_config(family, algorithm, precision, sgd=False):
+    """Phase 4's recipe of ``family`` / ``algorithm`` at full width
+    (``write_train_config``), normalized, in ``precision``; dropout as
+    shipped, the confidence threshold of phase 4's lockstep; ``sgd``: SGD
+    with momentum, as phase 5's ResNet18 lockstep."""
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    _, config = write_train_config(family, algorithm)
+    cfg = normalize_config(copy.deepcopy(config))
+    cfg["precision"] = precision
+    cfg["train"]["conf_thresh"] = (RESNET_LOCKSTEP_CONF_THRESH
+                                   if family == "resnet18"
+                                   else LOCKSTEP_CONF_THRESH)
+    if sgd:
+        cfg["train"].update(optimizer="sgd",
+                            optimizer_kwargs={"momentum": 0.9})
+    return cfg
+
+
+@contextlib.contextmanager
+def scan_determinism(torch, warn_only=False):
+    """PyTorch's deterministic algorithms (cuDNN's too) inside, with the
+    cuBLAS workspace setting they ask for, so that a step repeats bit for
+    bit on the card; ``warn_only``: an op without one warns
+    (:func:`strict_determinism`) instead of raising. Yields the warnings'
+    first lines; the process's settings come back on exit."""
+    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        if warn_only:
+            with strict_determinism(torch) as seen:
+                yield seen
+        else:
+            saved = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True)
+            try:
+                with cudnn_deterministic(torch):
+                    yield []
+            finally:
+                torch.use_deterministic_algorithms(saved)
+    finally:
+        if saved_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+
+
+def scan_equal(torch):
+    """Phase 18 (a)-(c) under :func:`scan_determinism`: each case of
+    :func:`scan_case`, with each part's seconds."""
+    result = {"a": {}, "b": {}, "c": {}, "seconds": {}}
+    with scan_determinism(torch):
+        for part, family in (("a", "vit_tiny"), ("b", "resnet18")):
+            t = time.time()
+            result[part]["bf16"] = scan_case(
+                torch, part, scan_config(family, "fixmatch", "bf16"),
+                "fixmatch", SCAN_STEPS)
+            result[part]["fp32"] = scan_case(
+                torch, part, scan_config(family, "fixmatch", "fp32",
+                                         sgd=family == "resnet18"),
+                "fixmatch", LOCKSTEP_STEPS, rule=True)
+            result["seconds"][part] = time.time() - t
+        t = time.time()
+        for algorithm in ("mean_teacher", "cps", "reco", "stpp"):
+            result["c"][algorithm] = scan_case(
+                torch, "c", scan_config("vit_tiny", algorithm, "bf16"),
+                algorithm, SCAN_ALGO_STEPS)
+        result["seconds"]["c"] = time.time() - t
+    return result
+
+
+@contextlib.contextmanager
+def built_trainers(capturable=False):
+    """Every ``Trainer`` built inside, in the list yielded; ``capturable``:
+    each with the captured path's optimizers from its start
+    (``make_capturable_``), an eager run that updates as a captured run
+    does."""
+    from semi_seg_ecg_tpu_torch.algorithms import common
+
+    init = common.Trainer.__init__
+    built = []
+
+    def hooked(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        if capturable:
+            for opt in (self.optimizer, self.peer_optimizer):
+                if opt is not None:
+                    opt.make_capturable_()
+        built.append(self)
+
+    common.Trainer.__init__ = hooked
+    try:
+        yield built
+    finally:
+        common.Trainer.__init__ = init
+
+
+def payloads_equal(torch, a, b, keys):
+    """Whether two checkpoint payloads hold the same ``keys``, every tensor
+    and array equal bit for bit and every other value equal."""
+    def same(x, y):
+        if torch.is_tensor(x) or torch.is_tensor(y):
+            return (torch.is_tensor(x) and torch.is_tensor(y)
+                    and x.shape == y.shape and x.dtype == y.dtype
+                    and torch_equal(x, y))
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            return (isinstance(x, np.ndarray) and isinstance(y, np.ndarray)
+                    and x.dtype == y.dtype
+                    and np.array_equal(x, y, equal_nan=x.dtype.kind in "fc"))
+        if isinstance(x, dict) and isinstance(y, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)) and isinstance(y, (list, tuple)):
+            return len(x) == len(y) and all(map(same, x, y))
+        return x == y
+
+    return all(same(a.get(k), b.get(k)) for k in keys)
+
+
+def scan_recipe(torch, eager_log=None):
+    """(d) ``train_main`` of phase 4's recipe at scan_steps SCAN_RECIPE_K
+    with the device cache and a trace of the replays SCAN_TRACE, and the
+    same recipe eager with the captured path's optimizers
+    (:func:`built_trainers`), both under deterministic algorithms: their
+    log rows, test metrics and best checkpoints equal bit for bit. Its
+    launches (host counters: the warm-up and the capture, and the eval and
+    test forwards; the trace: the replays' kernels; the run's own: the
+    warm-up's, the evals' and the replays' at the trace's count a replay,
+    equal to the eager run's).
+    Its checkpoint resumed eagerly for one epoch and served by the test
+    pass (the other way round, an eager optimizer state resumed captured:
+    ``tests/test_torch_cuda.py``). Phase 4's eager log (``eager_log``,
+    default algorithms and optimizers) only reported against."""
+    from semi_seg_ecg_tpu_torch.cli import train_main
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    _, config = write_train_config()
+    trace_dir = os.path.join(WORK, "scan_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+
+    def write(name, **over):
+        cfg = copy.deepcopy(config)
+        cfg["exp_name"] = name
+        cfg["dataset"]["device_cache"] = True
+        for key, value in over.items():
+            if key in ("scan_steps", "epochs"):
+                cfg["train"][key] = value
+            else:
+                cfg[key] = value
+        path = os.path.join(WORK, f"{name}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    runs = {}
+    steps_per_epoch = TRAIN_LABELED // BATCH
+    per_step = launches_per_step("vit_tiny", "fixmatch")
+    eval_batches = (math.ceil(TRAIN_VALID / BATCH),
+                    math.ceil(TRAIN_TEST / BATCH))
+
+    def best(name):
+        return os.path.join(WORK, "exps", name, "best-loss.ckpt")
+
+    profile = {"trace_dir": trace_dir, "start_step": SCAN_TRACE[0],
+               "num_steps": SCAN_TRACE[1]}
+    warned = []
+    for name, k, resume in (("scan_fixmatch", SCAN_RECIPE_K, None),
+                            ("scan_eager_capturable", 1, None),
+                            ("scan_resumed_eagerly", 1,
+                             best("scan_fixmatch"))):
+        over = {"scan_steps": k}
+        determinism = contextlib.nullcontext([])
+        if resume is None:
+            # the test pass serves the run's checkpoint
+            over["epochs"] = TRAIN_EPOCHS
+            if k > 1:
+                over["profile"] = profile
+            start, epochs, test_batches = 0, TRAIN_EPOCHS, eval_batches[1]
+            determinism = scan_determinism(torch, warn_only=True)
+        else:
+            # one epoch past the file's; the resumed run keeps the file's
+            # best thresholds, so it may write no checkpoint of its own
+            start = ckpt.load_checkpoint(resume)["epoch"] + 1
+            epochs, test_batches = start + 1, 0
+            over.update(epochs=epochs, resume=resume, test=False)
+        path = write(name, **over)
+        t = time.time()
+        reset_counts()
+        with determinism as seen, built_trainers(
+                capturable=name == "scan_eager_capturable") as trainers:
+            test_metrics = train_main(["-f", path])
+            torch.cuda.synchronize()
+        warned.extend(w for w in seen if w not in warned)
+        counts = read_counts()
+        replays = sum(t.captured.replays for t in trainers
+                      if t.captured is not None)
+        del trainers
+        ran = epochs - start
+        # the host counts each eager step, or a captured run's first step
+        # and its capture; each epoch's eval batches and the test pass
+        passes = ran * steps_per_epoch if k == 1 else SCAN_HOST_PASSES
+        want = {key: passes * v for key, v in per_step.items()}
+        want["flash_attention_fwd"] += DEPTH * (ran * eval_batches[0]
+                                                + test_batches)
+        with open(os.path.join(WORK, "exps", name, "log.txt")) as f:
+            rows = [json.loads(line) for line in f]
+        runs[name] = {"seconds": time.time() - t, "host_counts": counts,
+                      "host_counts_expected": want, "replays": replays,
+                      "log": rows, "test_metrics": test_metrics,
+                      "epochs": [start, epochs]}
+        log(f"  (d) {name}: {runs[name]['seconds']:.1f} s, epochs "
+            f"{start}-{epochs - 1}, {replays} replays, host counters "
+            f"{counts} (expected {want}), log {rows}, test metrics "
+            f"{test_metrics}")
+        if counts != want or [r["epoch"] for r in rows] != list(
+                range(start, epochs)) or not all(
+                math.isfinite(v) for r in rows for key, v in r.items()
+                if "loss" in key):
+            raise SystemExit(f"phase 18 failed: (d) {name}: host counters "
+                             f"{counts}, expected {want}, or its log rows")
+    captured, eager = runs["scan_fixmatch"], runs["scan_eager_capturable"]
+    payload = ckpt.load_checkpoint(best("scan_fixmatch"))
+    captured["checkpoint_step"] = payload["step"]
+    if not isinstance(captured["test_metrics"], dict):
+        raise SystemExit("phase 18 failed: (d) no test metrics from the "
+                         "captured run's checkpoint")
+
+    def without_wall(rows):
+        return [{k: v for k, v in r.items() if k != "wall_s"} for r in rows]
+
+    equal = {"log": without_wall(captured["log"])
+             == without_wall(eager["log"]),
+             "test_metrics": captured["test_metrics"]
+             == eager["test_metrics"],
+             "checkpoint": payloads_equal(
+                 torch, payload, ckpt.load_checkpoint(best("scan_eager_capturable")),
+                 ("model", "model_ema", "model_peer", "optimizer",
+                  "peer_optimizer", "step", "epoch"))}
+    # against phase 4's eager run (default algorithms, eager optimizers):
+    # reported, not held
+    worst = {"rel": None, "metric": None}
+    if eager_log is not None and len(eager_log) == len(captured["log"]):
+        worst = {"rel": 0.0, "metric": 0.0}
+        for a, b in zip(captured["log"], eager_log):
+            for k, v in b.items():
+                if k in ("epoch", "wall_s") or k not in a:
+                    continue
+                if "loss" in k or k.startswith("train_"):
+                    worst["rel"] = max(worst["rel"],
+                                       abs(a[k] - v) / max(abs(v), 1e-12))
+                else:
+                    worst["metric"] = max(worst["metric"], abs(a[k] - v))
+    # the trace of the first replays: its ranges and the ported kernels'
+    # events, as a replay launches them
+    files = sorted(os.listdir(trace_dir))
+    first, count = SCAN_TRACE
+    want_file = f"rank0_steps{first}-{first + count - 1}.pt.trace.json"
+    with open(os.path.join(trace_dir, want_file)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    traced = {k: sum(needle in name for name in kernels)
+              for k, (needle, _) in TRACE_KERNELS.items()}
+    traced_want = {k: count * per_step[k] * n
+                   for k, (_, n) in TRACE_KERNELS.items()}
+    # the run's launches: the host counters less the capture's pass (it
+    # records, and launches nothing), and each replay's from the trace
+    launches = {k: captured["host_counts"][k] - per_step[k]
+                + captured["replays"] * traced[k] // (count * n)
+                for k, (_, n) in TRACE_KERNELS.items()}
+    # the eager run launches what the captured run does
+    equal["launches"] = launches == eager["host_counts"]
+    log(f"  (d) captured against eager with the captured optimizers, bit "
+        f"for bit: {equal}; warnings {warned}; against phase "
+        f"4's eager log: losses within {worst['rel']} relative, metrics "
+        f"within {worst['metric']}; trace {files}: {len(kernels)} kernel "
+        f"events, of the ported kernels {traced} (expected {traced_want}); "
+        f"the run's launches {launches}")
+    replays_want = TRAIN_EPOCHS * steps_per_epoch - 1
+    if not all(equal.values()) or files != [want_file] or \
+            traced != traced_want or captured["replays"] != replays_want:
+        raise SystemExit(f"phase 18 failed: (d) the captured run against "
+                         f"the eager one {equal}, its trace {traced} or its "
+                         f"{captured['replays']} replays")
+    return {"runs": runs, "equal": equal, "warnings": warned,
+            "vs_phase4_log_rel": worst["rel"],
+            "vs_phase4_log_metric": worst["metric"],
+            "trace_file": want_file, "trace_kernel_events": len(kernels),
+            "trace_ported_kernel_events": traced, "launches": launches}
+
+
+def scan_profile(torch, family):
+    """(e) The bf16 FixMatch step of ``family`` eager and captured: over
+    SCAN_PROFILE_STEPS steps in SCAN_PROFILE_CHUNKS windows, wall ms per
+    step (synchronized at each window's end; each window's too, the
+    spread) and the host's µs per step (each window's issue time before
+    its synchronize); from a trace of SCAN_TRACE_STEPS more, device busy
+    ms, device events per step and the idle share of that traced window's
+    own wall time."""
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        Trainer,
+        full_fp32,
+        init_model,
+    )
+
+    out = {}
+    for mode in ("eager", "captured"):
+        cfg = scan_config(family, "fixmatch", "bf16")
+        cfg["train"]["scan_steps"] = SCAN_K if mode == "captured" else 1
+        batch = device_batch(torch, 30)
+        del batch["ecg_u_s"]
+        steps = SCAN_PROFILE_STEPS[mode]
+        per_window = steps // SCAN_PROFILE_CHUNKS
+        with full_fp32():
+            trainer = Trainer(cfg, fixmatch.SPEC, torch.device("cuda"), 4,
+                              model=init_model(cfg, torch.device("cuda")))
+            step = lambda: trainer.train_step(batch)
+            for _ in range(2):  # the warm-up step and the capture
+                step()
+            torch.cuda.synchronize()
+            windows, issued_s = [], 0.0
+            for _ in range(SCAN_PROFILE_CHUNKS):
+                t0 = time.perf_counter()
+                for _ in range(per_window):
+                    step()
+                issued = time.perf_counter()
+                torch.cuda.synchronize()
+                windows.append((time.perf_counter() - t0) * 1e3
+                               / per_window)
+                issued_s += issued - t0
+            traced_ms, per_kernel, events, _, _, _ = trace_device(
+                torch, step, SCAN_TRACE_STEPS)
+        busy = sum(per_kernel.values()) if per_kernel else None
+        out[mode] = {"steps": per_window * SCAN_PROFILE_CHUNKS,
+                     "wall_ms_per_step": sum(windows) / len(windows),
+                     "wall_ms_per_step_windows": windows,
+                     "host_us_per_step": issued_s * 1e6
+                     / (per_window * SCAN_PROFILE_CHUNKS),
+                     "traced_steps": SCAN_TRACE_STEPS,
+                     "traced_wall_ms_per_step": traced_ms,
+                     "device_busy_ms_per_step": busy,
+                     "device_idle_share": (1 - busy / traced_ms) if busy
+                     else None,
+                     "device_events_per_step": events,
+                     "flash_fwd_ms_per_step": kernel_ms(per_kernel,
+                                                        "flash_fwd_"),
+                     "flash_bwd_ms_per_step": kernel_ms(per_kernel,
+                                                        "flash_bwd_"),
+                     "gather_ms_per_step": kernel_ms(per_kernel,
+                                                     "gather1d_kernel")}
+        log(f"  (e) {family} bf16 step, {mode}: {out[mode]}")
+    return out
+
+
+def phase_scan(torch, eager_log=None):
+    """``train.scan_steps``: (a)-(c) under deterministic algorithms
+    (:func:`scan_equal`), (d) the recipe through ``train_main``, (e) the
+    profiles; each part's seconds."""
+    result = scan_equal(torch)
+    t = time.time()
+    result["d"] = scan_recipe(torch, eager_log)
+    result["seconds"]["d"] = time.time() - t
+    t = time.time()
+    result["e"] = {family: scan_profile(torch, family)
+                   for family in ("vit_tiny", "resnet18")}
+    result["seconds"]["e"] = time.time() - t
+    log(f"  phase 18 seconds by part: {result['seconds']}")
+    return result
+
+
 def kernel_entry(name, rows, by_path):
     """A kernel's entry of the kernels line: ``launches`` on the main path
     (phase 4's vit_tiny FixMatch ``train_main``), ``launches_by_path`` on
@@ -6764,6 +7334,7 @@ def main():
         SO_SEQ_LAYOUT: extra[SEQ_LAYOUTS[0]],
         SO_RESNET_LAYOUT: extra[SEQ_LAYOUTS[1]]})
     checkpoint = timed(17, phase_checkpoint, torch, ckpt_shared)
+    scan = timed(18, phase_scan, torch, train_result["log"])
     # the ring's hops beside phase 2's rows (phase 16's on one head a rank)
     for phase in (seq_parallel, seq_options):
         for name, hop_rows in phase["hops"].items():
@@ -6850,7 +7421,15 @@ def main():
         **{f"ckpt_{mode}_vit_tiny_fixmatch": r["launches"]
            for mode, r in checkpoint["writer"]["runs"].items()},
         "artifact_xplat_vit_tiny_cuda_per_call": checkpoint["artifact"][
-            "launches_per_call"]}
+            "launches_per_call"],
+        # phase 18: one replay of each captured step, read from its graph;
+        # the captured recipe's run (its warm-up, replays and evals)
+        **{f"scan_{family}_fixmatch_per_replay": scan[part]["bf16"][
+            "graph_launches"]
+           for part, family in (("a", "vit_tiny"), ("b", "resnet18"))},
+        **{f"scan_vit_tiny_{algorithm}_per_replay": r["graph_launches"]
+           for algorithm, r in scan["c"].items()},
+        "scan_vit_tiny_fixmatch_recipe": scan["d"]["launches"]}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -6867,7 +7446,7 @@ def main():
                    "tensor_parallel": tensor_parallel,
                    "seq_parallel": seq_parallel,
                    "seq_options": seq_options,
-                   "checkpoint": checkpoint,
+                   "checkpoint": checkpoint, "scan": scan,
                    "phase_seconds": phase_seconds,
                    "seconds": time.time() - t_start}, f,
                   indent=1)

@@ -81,10 +81,16 @@ products each, 3xTF32 with fp32 accumulation, to fp32 accuracy, which
 ``full_fp32`` does not govern); with
 ``precision: bf16`` the forwards and losses run under bf16 autocast, with
 fp32 parameters and optimizer and no loss scaling, as the JAX package
-computes in bf16 with fp32 parameters. ``train.fused_state`` and
-``train.scan_steps`` are accepted and do nothing: torch updates the
-parameters in place, which is what the JAX package's fused state buys, and
-capturing K steps as one device program is not ported.
+computes in bf16 with fp32 parameters. ``train.fused_state`` is accepted
+and does nothing: torch updates the parameters in place, which is what the
+JAX package's fused state buys. ``train.scan_steps`` K > 1 runs K steps a
+dispatch, as the JAX package scans K steps into one device program: the
+loop uploads K stacked batches at once (the epoch's tail one at a time),
+and on a card each step is a replay of one CUDA graph of the step's device
+work (``utils/captured_step.py``), whose first step is the eager warm-up;
+on the CPU a unit's steps run eagerly. Every step's metrics, lr and draws
+are those of K = 1. A process group, ``train.accum_iter`` > 1 and
+``debug.nan_checks`` refuse K > 1 with the reason.
 ``dataset.device_cache`` puts the train split on the device once and
 ships row indices per step (``data/device_cache.py``; the rows are gathered
 before the augmentation stage), when the device-augment plan runs every
@@ -163,6 +169,7 @@ from ..parallel import dist as pdist
 from ..parallel import mesh as pmesh
 from ..parallel import seq_shard
 from ..parallel.sharding_rules import full_state_dict, shard_module_
+from ..utils import captured_step as capture
 from ..utils import checkpoint as ckpt
 from ..utils.logging import JsonlLogger, MetricLogger, TensorBoardWriter, log
 from ..utils.optimizer import (
@@ -233,12 +240,15 @@ def full_fp32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
-def amp_context(config: Dict[str, Any], device: torch.device) -> Callable:
+def amp_context(config: Dict[str, Any], device: torch.device,
+                cache_enabled: Optional[bool] = None) -> Callable:
     """A factory of the config's compute-precision context: bf16 (or fp16)
-    autocast, or nothing at fp32."""
+    autocast, or nothing at fp32; ``cache_enabled=False`` turns autocast's
+    cache of cast weights off (a CUDA graph capture needs it off)."""
     dtype = compute_dtype(config)
     enabled = dtype != torch.float32
-    return lambda: torch.autocast(device.type, dtype=dtype, enabled=enabled)
+    return lambda: torch.autocast(device.type, dtype=dtype, enabled=enabled,
+                                  cache_enabled=cache_enabled)
 
 
 def forward_parts(model: torch.nn.Module, parts, **kwargs):
@@ -550,7 +560,9 @@ class Trainer:
     start); else they are initialised from ``seed`` / ``seed + 10_000``.
     A config with ``resume`` restores them (and the optimizers and the
     step) from the checkpoint it names; ``resume_best`` holds that file's
-    best-so-far thresholds."""
+    best-so-far thresholds. Under ``train.scan_steps`` > 1 on a card
+    each step after the first replays the step captured in :attr:`captured`
+    (``utils/captured_step.CapturedStep``)."""
 
     def __init__(self, config: Dict[str, Any], spec: AlgorithmSpec,
                  device: torch.device, updates_per_epoch: int,
@@ -559,12 +571,16 @@ class Trainer:
         self.config = config
         self.device = device
         self.seed = config["seed"]
+        self.scan_steps = capture.check_scan_steps(config)
+        self.capture = self.scan_steps > 1 and device.type == "cuda"
+        self.captured: Optional[capture.CapturedStep] = None
         self.mesh = pmesh.make_mesh(config)
         self.model = model if model is not None else init_train_model(
             config, device, self.seed)
         self.optimizer = build_optimizer(config, self.model,
                                          updates_per_epoch)
-        self.amp = amp_context(config, device)
+        self.amp = amp_context(config, device,
+                               cache_enabled=False if self.capture else None)
         self.teacher = self.teacher_gen = None
         if spec.uses_ema:
             # the teacher starts as a copy of the student
@@ -681,9 +697,33 @@ class Trainer:
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
         """One step on a device batch (an index batch under the device
-        cache); advances the step counter."""
-        if self.cache is not None:
-            batch = self.cache.materialize(batch)
+        cache); advances the step counter. Under ``train.scan_steps`` > 1
+        on a card, the captured step (its first call the eager warm-up and
+        the capture)."""
+        if self.capture:
+            if self.captured is None:
+                self.captured = capture.CapturedStep(self)
+            return self.captured.step(batch)
+        return self.eager_step(batch)
+
+    def eager_step(self, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """:meth:`reseed`, :meth:`device_step`, count the step."""
+        self.reseed()
+        metrics = self.device_step(batch)
+        self.step += 1
+        return metrics
+
+    def generators(self) -> list:
+        """The step's generators: dropout, the teacher's, the peer's, the
+        loss's, the augmentation's (those the run has)."""
+        return [g for g in (self.dropout_gen, self.teacher_gen,
+                            self.peer_gen, self.loss_gen, self.augment_gen)
+                if g is not None]
+
+    def reseed(self) -> None:
+        """Seed each generator for step :attr:`step`, from ``(seed,
+        step)`` and its stream."""
         self.dropout_gen.manual_seed(step_seed(self.seed, self.step))
         if self.teacher_gen is not None:
             self.teacher_gen.manual_seed(step_seed(self.seed, self.step,
@@ -693,16 +733,23 @@ class Trainer:
                 self.seed + PEER_SEED_OFFSET, self.step))
         self.loss_gen.manual_seed(step_seed(self.seed, self.step,
                                             LOSS_STREAM))
-        if self.augment is not None:
+        if self.augment_gen is not None:
             self.augment_gen.manual_seed(step_seed(
                 self.seed + AUGMENT_SEED_OFFSET, self.step))
+
+    def device_step(self, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """A step's device work on a batch, with the generators seeded: the
+        cache's rows, the augmentation, the algorithm's step (what a
+        captured step holds)."""
+        if self.cache is not None:
+            batch = self.cache.materialize(batch)
+        if self.augment is not None:
             batch = self.augment(self.augment_gen, batch)
         # under the seq axis, this seq rank's block of the time axis
         batch, length = seq_shard.split_batch(batch)
         with seq_shard.time_sharded(length):
-            metrics = self.inner_step(batch)
-        self.step += 1
-        return metrics
+            return self.inner_step(batch)
 
 
 def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
@@ -913,13 +960,21 @@ def _train_one_epoch(trainer: Trainer, loaders, spec: AlgorithmSpec,
             f"eta: {eta}  {logger}  time: {per_it:.4f}  "
             f"data: {data_wait / (it + 1):.4f}{mem_part}")
 
-    it = -1
-    for batch in prefetched(combined_batches(loaders, spec), trainer.device):
+    # units of scan_steps stacked batches, each uploaded at once (the tail
+    # one batch a unit)
+    units = capture.stacked_units(combined_batches(loaders, spec),
+                                  trainer.scan_steps)
+    it = -1  # the last step taken
+    for unit in prefetched(units, trainer.device):
         data_wait += time.time() - t_last
-        it += 1
-        profiler.step(epoch * steps_per_epoch + it)
-        pending.append((it, trainer.train_step(batch)))
-        if (it + 1) % PRINT_FREQ == 0 or it == steps_per_epoch - 1:
+        first = it + 1
+        for j in range(capture.unit_steps(unit)):
+            it += 1
+            profiler.step(epoch * steps_per_epoch + it)
+            pending.append((it, trainer.train_step(
+                capture.unit_slice(unit, j))))
+        if (it + 1) // PRINT_FREQ != first // PRINT_FREQ \
+                or it == steps_per_epoch - 1:
             drain()
             progress(it)
         t_last = time.time()

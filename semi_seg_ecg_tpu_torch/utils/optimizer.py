@@ -82,6 +82,17 @@ step whose batch stayed whole averages over the data group as before.
 Every rank ends with the same sum, so the seq ranks' parameters stay
 equal bit for bit.
 
+A captured step (``train.scan_steps``, ``utils/captured_step.py``):
+:meth:`TrainOptimizer.make_capturable_` turns each group's lr into a
+device tensor, which :meth:`TrainOptimizer.write_lr` fills before every
+replay (a float would be baked into the graph), keeps AdamW's step count
+and bias correction on the device (``capturable=True``) and gives SGD its
+fused update, which reads the lr tensor (the foreach update takes its lr
+as a host scalar). Inside the capture :meth:`TrainOptimizer.step` leaves
+the lr alone. :meth:`TrainOptimizer.state_dict` writes the eager layout
+(a float lr, the step count on the host, the eager flags), so a captured
+run's checkpoint resumes eagerly and the other way round.
+
 Freezing (``mode: freeze_backbone``, ``frozen_stages >= 0``): the frozen
 set is the JAX package's ``frozen_param_mask``
 (:func:`frozen_parameter_names`).
@@ -202,6 +213,10 @@ class TrainOptimizer:
         self.slices: List = [None] * len(self.params)
         self.mesh = None
         self._time_split = False
+        # each group's eager flags, once make_capturable_ changed them, and
+        # the lr last written into each group's tensor, as a float
+        self._eager_flags: Optional[List[Dict[str, Any]]] = None
+        self._host_lrs: List[float] = []
 
     def shard_(self, plan: Dict[str, Any], mesh) -> None:
         """The model's parameters are now this model rank's slices
@@ -248,9 +263,9 @@ class TrainOptimizer:
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.accum > 1 and grads:
             torch._foreach_div_(grads, self.accum)
-        lr = self.schedule(self.count)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr * group["lr_scale"]
+        if not (self.captured and torch.cuda.is_current_stream_capturing()):
+            # a replay's lr is written before it (write_lr)
+            self.write_lr()
         # the mean over the ranks first, so every rank clips and applies
         # the global batch's gradient (one rank: nothing to do)
         self._reduce_grads()
@@ -274,6 +289,65 @@ class TrainOptimizer:
             pdist.broadcast_from_owners_(self.params, self.owners)
         self.count += 1
         return True
+
+    @property
+    def captured(self) -> bool:
+        """Whether :meth:`make_capturable_` ran."""
+        return self._eager_flags is not None
+
+    def write_lr(self) -> None:
+        """Each group's lr for update ``count``: ``lr · lr_scale``, into its
+        device tensor once :meth:`make_capturable_` ran."""
+        lr = self.schedule(self.count)
+        for i, group in enumerate(self.optimizer.param_groups):
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr * group["lr_scale"])
+                self._host_lrs[i] = lr * group["lr_scale"]
+            else:
+                group["lr"] = lr * group["lr_scale"]
+
+    def make_capturable_(self) -> None:
+        """Make :meth:`step` capturable in a CUDA graph: each group's lr a
+        0-d fp32 tensor on the parameters' device, AdamW ``capturable``
+        with its step counts moved there, SGD's fused update (a sliced or
+        sharded optimizer never gets here: a process group refuses
+        ``train.scan_steps``)."""
+        if self.captured:
+            return
+        opt = self.optimizer
+        device = self.params[0].device
+        flags = []
+        self._host_lrs = [float(g["lr"]) for g in opt.param_groups]
+        for group in opt.param_groups:
+            if isinstance(opt, torch.optim.AdamW):
+                flags.append({"capturable": group["capturable"]})
+                group["capturable"] = True
+            elif isinstance(opt, torch.optim.SGD):
+                flags.append({"fused": group["fused"],
+                              "foreach": group["foreach"]})
+                group.update(fused=True, foreach=False)
+            else:
+                raise TypeError(f"{type(opt).__name__} cannot be captured")
+            group["lr"] = torch.tensor(float(group["lr"]),
+                                       dtype=torch.float32, device=device)
+        for p, entry in opt.state.items():
+            if torch.is_tensor(entry.get("step")):
+                entry["step"] = entry["step"].to(p.device, torch.float32)
+        self._eager_flags = flags
+
+    def _eager_layout(self, local: Dict[str, Any]) -> Dict[str, Any]:
+        """A torch state_dict of a captured optimizer in the eager one's
+        layout: the float lr last written and the eager flags in each
+        group, each step count a host tensor."""
+        if not self.captured:
+            return local
+        groups = [dict(g, lr=lr, **flags)
+                  for g, lr, flags in zip(local["param_groups"],
+                                          self._host_lrs, self._eager_flags)]
+        state = {i: {k: v.cpu() if k == "step" else v
+                     for k, v in entry.items()}
+                 for i, entry in local["state"].items()}
+        return dict(local, param_groups=groups, state=state)
 
     def average_window_(self) -> None:
         """Replace an open window's summed gradients by their mean over the
@@ -311,7 +385,7 @@ class TrainOptimizer:
         every rank of the data group, and under the model axis from every
         rank of the model group, into the unsharded layout (a
         collective)."""
-        local = self.optimizer.state_dict()
+        local = self._eager_layout(self.optimizer.state_dict())
         if not self.sharded:
             if self._sliced:
                 local = dict(local, state=dict(local["state"]))
@@ -354,7 +428,7 @@ class TrainOptimizer:
         unsharded layout's param groups; ``count``, ``micro_step``, the
         open window's gradients by name (this rank's slices) and the
         parameters' ``names`` in index order."""
-        local = self.optimizer.state_dict()
+        local = self._eager_layout(self.optimizer.state_dict())
         held = self._held_indices()
         state = {self.names[held[i]]: dict(entry)
                  for i, entry in local["state"].items()}
@@ -421,6 +495,9 @@ class TrainOptimizer:
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Restore :meth:`state_dict`'s output (tensors or NumPy arrays),
         written sharded or not."""
+        if self.captured:
+            raise RuntimeError("a captured optimizer's state cannot be "
+                               "replaced: its graph holds the tensors")
         state = dict(state)
         self.count = int(state.pop("count"))
         self.micro_step = int(state.pop("micro_step", 0))

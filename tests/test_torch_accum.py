@@ -70,6 +70,7 @@ from tests.test_torch_train_slice import (
     lockstep_states,
     resnet_lockstep_config,
 )
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 ACCUM = 2
 # FixMatch's threshold: no confidence of its seed's three micro-steps lies

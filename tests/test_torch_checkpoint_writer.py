@@ -51,6 +51,7 @@ from tests.test_torch_export import model_config
 from tests.test_torch_resume import assert_payloads_equal
 from tests.test_torch_train_slice import SEQ, tiny_recipe
 from tests.torch_dist_worker import run_ranks
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 TIMEOUT = 240
 
@@ -84,7 +85,7 @@ def test_nan_abort_flushes_and_names_a_landed_file(tmp_path, capsys):
     assert not os.path.exists(good)
     trainer = SimpleNamespace(
         optimizer=SimpleNamespace(accum=1), config={},
-        device=torch.device("cpu"), step=0,
+        device=torch.device("cpu"), step=0, scan_steps=1,
         train_step=lambda batch: {"loss": torch.tensor(float("nan"))})
     threading.Timer(0.2, gate.set).start()
     with pytest.raises(SystemExit) as exc:

@@ -30,8 +30,15 @@ flash block compiled with ``aot_eager`` equals eager. An async checkpoint
 of card tensors holds them as they were when it was queued. Remat: a step with it equals one without bit for bit,
 with one more flash forward per block. Gradient accumulation: a window of
 two micro-steps through the kernels against the dense path, as phase 4 of
-chip_smoke.py holds three steps.
+chip_smoke.py holds three steps. ``train.scan_steps``: replays of the
+captured step equal eager steps with the same capturable optimizers bit
+for bit under deterministic algorithms, for every algorithm and option,
+each replay launching the step's kernels (read from the graph's kernel
+nodes); a captured optimizer's state resumes eagerly and the other way
+round.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -1210,3 +1217,208 @@ def test_kernel_ring_matches_plain_ring(cuda, size, n, dtype):
     assert_within(out, out_p, tol, "out")
     for name, got, want, t in zip("qkv", grads, grads_p, tols):
         assert_within(got, want, t, f"d{name}")
+
+
+# train.scan_steps: flash forward and backward passes a ViT step makes, and
+# the augmentation's gather launches, by algorithm (ST++: its stage step)
+SCAN_PASSES = {"base": (1, 1, 1), "fixmatch": (2, 1, 3),
+               "mean_teacher": (2, 1, 3), "cps": (4, 2, 2),
+               "reco": (2, 1, 3), "stpp": (2, 1, 2)}
+SCAN_NEEDLES = {"fwd": "flash_fwd_", "bwd": "flash_bwd_dq",
+                "gather": "gather1d_kernel"}
+
+
+def scan_config(algorithm, family="vit_tiny", precision="fp32", **train):
+    """The shipped recipe of ``algorithm`` at depth 2 (ViT) or width 8
+    (ResNet18), flash attention, device augmentation, dropout as shipped
+    (the ViT's drop-out and drop-path 0.1), batch 8."""
+    import os
+
+    import yaml
+
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+
+    recipe = "scratch" if algorithm == "base" else algorithm
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "base", family,
+        f"{recipe}.yaml")
+    with open(path) as f:
+        cfg = normalize_config(yaml.safe_load(f))
+    cfg["precision"] = precision
+    if family == "vit_tiny":
+        cfg["backbone"]["vit_tiny"].update(
+            depth=2, out_indices=[1], attention_impl="flash",
+            drop_out_rate=0.1, drop_path_rate=0.1)
+        cfg["decode_head"]["FCNHead"]["in_index"] = 0
+    else:
+        cfg["backbone"]["resnet18"].update(stem_channels=8, base_channels=8)
+        cfg["decode_head"]["FCNHead"]["in_channels"] = 64
+        if cfg.get("use_latent_projection"):
+            cfg["projection_in_dim"] = 64
+    cfg["dataset"]["device_augment"] = True
+    cfg["train"].update(conf_thresh=0.5, warmup_epochs=0, **train)
+    return cfg
+
+
+def scan_run(cfg, algorithm, device, steps, captured):
+    """``steps`` steps of a Trainer of ``cfg`` from one init on fixed
+    device batches: eager with capturable optimizers, or (``captured``)
+    at ``scan_steps: 2`` with the graph's nodes kept; returns the per-step
+    metrics, the final states and the trainer."""
+    from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
+    from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, init_model
+    from semi_seg_ecg_tpu_torch.utils.captured_step import CapturedStep
+
+    cfg = copy.deepcopy(cfg)
+    cfg["train"]["scan_steps"] = 2 if captured else 1
+    module = get_algorithm(algorithm)
+    spec = module.SEMISUP_SPEC if algorithm == "stpp" else module.SPEC
+    trainer = Trainer(cfg, spec, device, 4, model=init_model(cfg, device))
+    if captured:
+        trainer.captured = CapturedStep(trainer, keep_graph=True)
+    else:
+        for opt in (trainer.optimizer, trainer.peer_optimizer):
+            if opt is not None:
+                opt.make_capturable_()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    metrics = []
+    for _ in range(steps):
+        batch = {"ecg": torch.randn(8, 1, 2500, generator=gen, device=device),
+                 "target": torch.randint(0, 4, (8, 2500), generator=gen,
+                                         device=device),
+                 "ecg_u_w": torch.randn(8, 1, 2500, generator=gen,
+                                        device=device)}
+        if not spec.uses_unlabeled:
+            del batch["ecg_u_w"]  # as the loop's labeled-only batches
+        metrics.append({k: v.item() for k, v in
+                        trainer.train_step(batch).items()})
+    states = {name: {k: v.detach().clone() for k, v in
+                     module_.state_dict().items()}
+              for name, module_ in (("model", trainer.model),
+                                    ("teacher", trainer.teacher),
+                                    ("peer", trainer.peer))
+              if module_ is not None}
+    return metrics, states, trainer
+
+
+SCAN_CASES = [("vit_tiny", a, "fp32", {}) for a in SCAN_PASSES] + [
+    ("vit_tiny", "fixmatch", "bf16", {"remat": True}),
+    ("vit_tiny", "fixmatch", "fp32", {"layer_decay": 0.75,
+                                      "frozen_stages": 1, "dense": True}),
+    ("resnet18", "fixmatch", "fp32", {"max_norm": 1.0}),
+    ("resnet18", "fixmatch", "fp32", {"optimizer": "sgd",
+                                      "optimizer_kwargs": {"momentum": 0.9}}),
+    ("resnet18", "mean_teacher", "bf16", {"freeze_backbone": True}),
+]
+
+
+@pytest.fixture()
+def deterministic(cuda, monkeypatch):
+    """PyTorch's deterministic algorithms (cuDNN's too), so that a step
+    repeats bit for bit on the card."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield cuda
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,algorithm,precision,options", SCAN_CASES)
+def test_captured_step_replays_the_eager_step(deterministic, family,
+                                              algorithm, precision, options):
+    """``train.scan_steps: 2``: four steps, the first the eager warm-up,
+    the other three replays of the captured step, against four eager steps
+    with the same capturable optimizers (tensor lr, AdamW's step on the
+    card, SGD's fused update) from one init on the same batches, under
+    deterministic algorithms: every step's metrics and every tensor of
+    every network bit for bit. The graph holds the step's kernels (its
+    kernel nodes: the host counters count at the warm-up and at the
+    capture, never at a replay)."""
+    from semi_seg_ecg_tpu_torch.utils import captured_step
+
+    cuda = deterministic
+
+    options = dict(options)
+    cfg = scan_config(algorithm, family, precision)
+    if options.pop("remat", False):
+        cfg["backbone"][family]["remat"] = True
+    if options.pop("dense", False):
+        cfg["backbone"]["vit_tiny"]["attention_impl"] = "xla"
+    if "frozen_stages" in options:
+        cfg["backbone"][family]["frozen_stages"] = options.pop(
+            "frozen_stages")
+    if options.pop("freeze_backbone", False):
+        cfg["mode"] = "freeze_backbone"
+    cfg["train"].update(options)
+    steps = 4
+    want, want_states, _ = scan_run(cfg, algorithm, cuda, steps, False)
+    before = fa.LAUNCHES, fa.BWD_LAUNCHES, gather1d.LAUNCHES
+    got, got_states, trainer = scan_run(cfg, algorithm, cuda, steps, True)
+    torch.cuda.synchronize()
+    counted = tuple(a - b for a, b in zip(
+        (fa.LAUNCHES, fa.BWD_LAUNCHES, gather1d.LAUNCHES), before))
+    assert trainer.captured is not None and trainer.captured.replays == 3
+    fwd, bwd, gathers = SCAN_PASSES[algorithm]
+    depth = 2 if family == "vit_tiny" and cfg["backbone"]["vit_tiny"][
+        "attention_impl"] == "flash" else 0
+    remat = cfg["backbone"][family].get("remat", False)
+    per_step = {"fwd": (fwd + (bwd if remat else 0)) * depth,
+                "bwd": bwd * depth, "gather": gathers}
+    assert captured_step.count_kernels(trainer.captured.kernel_names,
+                                       SCAN_NEEDLES) == per_step
+    # the warm-up step and the capture's one pass of the host code
+    assert counted == tuple(2 * v for v in per_step.values())
+    assert got == want
+    for name, state in want_states.items():
+        for k, v in state.items():
+            assert torch.equal(got_states[name][k], v), (name, k)
+
+
+@pytest.mark.cuda
+def test_captured_run_resumes_eagerly_and_back(cuda, tmp_path):
+    """A captured trainer's optimizer state holds the eager layout (float
+    lr, the step count on the host), loads into an eager trainer, and an
+    eager one's state into a trainer that then captures."""
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = scan_config("fixmatch")
+    _, _, captured = scan_run(cfg, "fixmatch", cuda, 3, True)
+    _, _, eager = scan_run(cfg, "fixmatch", cuda, 3, False)
+    states = []
+    for trainer in (captured, eager):
+        state = ckpt._to_numpy(trainer.optimizer.state_dict())
+        assert all(isinstance(g["lr"], float) and not g["capturable"]
+                   for g in state["param_groups"])
+        states.append(state)
+    assert states[0].keys() == states[1].keys()
+    assert states[0]["count"] == states[1]["count"] == 3
+    for entry in states[0]["state"].values():
+        assert entry["step"].shape == () and entry["step"] == 3
+    cfg2 = copy.deepcopy(cfg)
+    for scan, state in ((1, states[0]), (2, states[1])):
+        cfg2["train"]["scan_steps"] = scan
+        from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+        from semi_seg_ecg_tpu_torch.algorithms.common import (
+            Trainer,
+            init_model,
+        )
+
+        trainer = Trainer(copy.deepcopy(cfg2), fixmatch.SPEC, cuda, 4,
+                          model=init_model(cfg2, cuda))
+        trainer.optimizer.load_state_dict(copy.deepcopy(state))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for _ in range(2):
+            batch = {"ecg": torch.randn(8, 1, 2500, generator=gen,
+                                        device=cuda),
+                     "target": torch.randint(0, 4, (8, 2500), generator=gen,
+                                             device=cuda),
+                     "ecg_u_w": torch.randn(8, 1, 2500, generator=gen,
+                                            device=cuda)}
+            assert torch.isfinite(trainer.train_step(batch)["loss"])
+        assert trainer.optimizer.count == 5

@@ -12,6 +12,7 @@ import os
 import pytest
 
 from semi_seg_ecg_tpu_torch.ops import cuda_build
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture()

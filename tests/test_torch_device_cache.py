@@ -37,6 +37,7 @@ from semi_seg_ecg_tpu_torch.data.synthetic import make_synthetic_dataset
 from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
 from tests.test_torch_preprocess import fixmatch_dataset_cfg
 from tests.test_torch_train_slice import tiny_recipe
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

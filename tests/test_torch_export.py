@@ -66,6 +66,7 @@ from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
 from semi_seg_ecg_tpu_torch.models.quant_layers import int8_modules
 from tests.test_torch_quant import METRIC, activation_reductions, noisy_trees
 from tests.test_torch_train_slice import jit_init_variables
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIG = 500

@@ -29,6 +29,7 @@ from semi_seg_ecg_tpu.ops.pallas.flash_attention import (
 )
 from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
 from semi_seg_ecg_tpu_torch.ops.attention import dense_attention
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 
 def qkv(shape, seed=0):

@@ -17,6 +17,7 @@ import torch
 
 from semi_seg_ecg_tpu.ops.pallas import gather1d as jax_gather
 from semi_seg_ecg_tpu_torch.ops import gather1d
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture

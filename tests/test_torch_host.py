@@ -41,6 +41,7 @@ from semi_seg_ecg_tpu_torch.data.synthetic import (
 )
 from semi_seg_ecg_tpu_torch.ops import delineation
 from semi_seg_ecg_tpu_torch.utils.checkpoint import resolve_checkpoint_url
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.yaml"),

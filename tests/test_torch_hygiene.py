@@ -18,6 +18,7 @@ import yaml
 
 from semi_seg_ecg_tpu_torch.cli import infer_longrec_main, inference_main
 from semi_seg_ecg_tpu_torch.config import normalize_config, resolve_device
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "semi_seg_ecg_tpu",

@@ -33,6 +33,7 @@ from semi_seg_ecg_tpu_torch.algorithms.common import (
 )
 from semi_seg_ecg_tpu_torch.config import normalize_config
 from semi_seg_ecg_tpu_torch.utils import checkpoint as torch_ckpt
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 WIDTH = 64
 

@@ -54,6 +54,7 @@ from semi_seg_ecg_tpu_torch.config import normalize_config
 from semi_seg_ecg_tpu_torch.data.synthetic import make_synthetic_wfdb
 from semi_seg_ecg_tpu_torch.ops import stitch
 from semi_seg_ecg_tpu_torch.parallel import mesh as pmesh
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 C, LEADS, WINDOW = 3, 2, 32
 SIG = 250  # the small models' window: 1 s at 250 Hz

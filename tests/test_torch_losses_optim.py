@@ -27,6 +27,7 @@ from semi_seg_ecg_tpu_torch.utils.optimizer import (
     make_lr_schedule,
     resolve_lr,
 )
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 
 def logits_labels(seed, b=3, c=4, t=50, out_of_range=True):

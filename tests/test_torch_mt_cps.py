@@ -49,6 +49,7 @@ from tests.test_torch_train_slice import (
     resnet_lockstep_config,
     tiny_recipe,
 )
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("algorithm", ["mean_teacher", "cps"])

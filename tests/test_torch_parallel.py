@@ -60,6 +60,7 @@ from semi_seg_ecg_tpu_torch.parallel import mesh as pmesh
 from semi_seg_ecg_tpu_torch.utils import checkpoint as torch_ckpt
 from tests.test_torch_train_slice import SEQ, assert_states_agree, tiny_recipe
 from tests.torch_dist_worker import start_ranks, task_draws, wait_ranks
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 WORLD, B = 2, 2          # ranks, rows a rank
 CHANNELS, T = 6, 40      # the BatchNorm input (2B, CHANNELS, T)

@@ -56,6 +56,7 @@ from tests.test_torch_train_slice import (
     resnet_lockstep_config,
 )
 from tests.torch_dist_worker import run_ranks
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 WORLD, B = 2, 2
 JAX_ALGORITHMS = {"base": jax_base, "fixmatch": jax_fixmatch,

@@ -26,6 +26,7 @@ from semi_seg_ecg_tpu.ops import preprocess as jax_pre
 from semi_seg_ecg_tpu.ops.pallas import gather1d as jax_gather
 from semi_seg_ecg_tpu_torch.ops import gather1d
 from semi_seg_ecg_tpu_torch.ops import preprocess as pre
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T = 4, 300

@@ -63,6 +63,7 @@ from semi_seg_ecg_tpu_torch.utils.weights import (
 from tests.test_models import RESNET_CFG, VIT_CFG
 from tests.test_torch_stpp import unlabeled_dataset_config
 from tests.test_torch_train_slice import jit_init_variables
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 SIG = 500
 # port int8 model against the JAX int8 model (see the module docstring)

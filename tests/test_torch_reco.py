@@ -61,6 +61,7 @@ from tests.test_torch_train_slice import (
     perturbed_state,
     resnet_lockstep_config,
 )
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 B, D, T, C, Q, NN = 2, 16, 256, 4, 16, 32
 TEMP = 0.25

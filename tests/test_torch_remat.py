@@ -38,6 +38,7 @@ from tests.test_torch_train_slice import (
     resnet_lockstep_config,
 )
 from tests.torch_dist_worker import run_ranks
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 STEPS = 2
 

@@ -54,6 +54,7 @@ from semi_seg_ecg_tpu_torch.utils.weights import (
     jax_trees_to_state_dict,
     model_specs,
 )
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 SEQ, WIDTH = 256, 8
 # train mode, fp32: each package's logits lie up to 8e-6 from a float64 run

@@ -73,6 +73,7 @@ from tests.test_torch_train_slice import (
     tiny_recipe,
 )
 from tests.torch_dist_worker import run_ranks
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 ACCUM, STEPS_PER_EPOCH = 2, 3
 CPU = torch.device("cpu")

@@ -91,6 +91,7 @@ from tests.test_torch_train_slice import (
     port_model,
 )
 from tests.torch_dist_worker import run_ranks, start_ranks, wait_ranks
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 
 # ---------------------------------------------------------------------------

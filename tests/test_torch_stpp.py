@@ -49,6 +49,7 @@ from tests.test_torch_train_slice import (
     port_model,
     resnet_lockstep_config,
 )
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 NUM_UNLABELED = 12
 

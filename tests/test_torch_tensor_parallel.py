@@ -80,6 +80,7 @@ from tests.test_torch_train_slice import (
     perturbed_state,
 )
 from tests.torch_dist_worker import start_ranks, wait_ranks
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 TIMEOUT = 240
 LOSS_RTOL, STATE_RTOL, STATE_ATOL = 1e-5, 5e-4, 1e-5

@@ -68,6 +68,7 @@ from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
 from semi_seg_ecg_tpu_torch.ops import gather1d
 from semi_seg_ecg_tpu_torch.utils import checkpoint as torch_ckpt
 from semi_seg_ecg_tpu_torch.utils.weights import jax_trees_to_state_dict
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEQ, WIDTH, BATCH, K, LR = 500, 64, 2, 3, 1e-3
@@ -553,7 +554,8 @@ def test_trained_ckpt_is_served_by_both_packages(trained, tmp_path):
 
 
 @pytest.mark.parametrize("key", ["checkpoint_backend", "profile",
-                                 "nan_checks", "async_checkpoint"])
+                                 "nan_checks", "async_checkpoint",
+                                 "scan_steps"])
 def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
     """Keys the JAX package reads and the port used to drop or refuse:
     ``checkpoint_backend: orbax`` writes each checkpoint as a directory
@@ -564,7 +566,9 @@ def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
     end (here step 1 of steps 0-1); ``debug.nan_checks`` trains under
     autograd's anomaly detection; ``async_checkpoint`` (on by default)
     writes files equal byte for byte to the same calls written
-    synchronously beside them."""
+    synchronously beside them; ``train.scan_steps: 2`` takes the epoch's
+    two steps as one unit of two stacked batches (its steps equal K = 1's
+    bit for bit: ``tests/test_torch_scan_steps.py``)."""
     from semi_seg_ecg_tpu_torch.algorithms import common
     from tests.test_torch_resume import assert_payloads_equal
 
@@ -574,7 +578,9 @@ def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
                 "profile": {"profile": {"trace_dir": str(trace_dir),
                                         "start_step": 1, "num_steps": 2}},
                 "nan_checks": {"debug": {"nan_checks": True}},
-                "async_checkpoint": {"async_checkpoint": True}}[key]
+                "async_checkpoint": {"async_checkpoint": True},
+                "scan_steps": {"train": dict(cfg["train"],
+                                             scan_steps=2)}}[key]
     with open(path, "w") as f:
         yaml.safe_dump(dict(cfg, **override), f)
     anomaly = []
@@ -594,11 +600,21 @@ def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
              False, *args[4:], **kwargs)
         save(trainer, paths, *args, **kwargs)
 
+    units = []
+    stacked = common.capture.stacked_units
+
+    def counted(batches, k):
+        for unit in stacked(batches, k):
+            units.append(len(next(iter(unit.values()))))
+            yield unit
+
     monkeypatch.setattr(common.Trainer, "train_step", spy)
+    monkeypatch.setattr(common.capture, "stacked_units", counted)
     if key in twin:
         monkeypatch.setattr(common, "_save", saved_twice)
     train_main(["-f", path])
     assert anomaly == [key == "nan_checks"] * 2
+    assert units == ([2] if key == "scan_steps" else [1, 1])
     assert not torch.is_anomaly_enabled()
     best = os.path.join(str(tmp_path / "exps"), key, "best-MeanIoU.ckpt")
     payload = torch_ckpt.load_checkpoint(best)

@@ -23,6 +23,7 @@ from semi_seg_ecg_tpu.data.synthetic import make_synthetic_dataset
 from semi_seg_ecg_tpu_torch.tools import validate_ssl
 from tools import gen_configs
 from tools import validate_ssl as jax_validate_ssl
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("algo", validate_ssl.ALGORITHMS)

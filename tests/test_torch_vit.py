@@ -29,6 +29,7 @@ from semi_seg_ecg_tpu_torch.models.backbones.vision_transformer import (
 from semi_seg_ecg_tpu_torch.ops import flash_attention as torch_flash
 from semi_seg_ecg_tpu_torch.ops.interpolate import linear_interpolate
 from semi_seg_ecg_tpu_torch.utils.weights import jax_trees_to_state_dict
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 SEQ, PATCH, WIDTH, HEADS, DIM_HEAD = 500, 25, 64, 2, 32
 

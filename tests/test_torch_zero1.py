@@ -63,6 +63,7 @@ from tests.test_torch_parallel_train import (
 from tests.test_torch_resume import assert_payloads_equal
 from tests.test_torch_train_slice import K, perturbed_state, tiny_recipe
 from tests.torch_dist_worker import run_ranks
+from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 WORLD = 2
 TIMEOUT = 240

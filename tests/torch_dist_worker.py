@@ -30,12 +30,39 @@ import sys
 import time
 
 import numpy as np
+import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from semi_seg_ecg_tpu_torch.parallel import dist as pdist  # noqa: E402
+
+# a test module's torch work on one intra-op thread: the tier-1 run's
+# workers share the cores, and each process's default pool of one thread a
+# core oversubscribes them
+TEST_THREADS = 1
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Autouse in each ``tests/test_torch_*.py`` that imports it: the
+    module's tests run torch on ``TEST_THREADS`` intra-op threads, and the
+    processes they start (``OMP_NUM_THREADS``) too; both are put back
+    after the module."""
+    threads, omp = torch.get_num_threads(), os.environ.get(
+        "OMP_NUM_THREADS")
+    torch.set_num_threads(TEST_THREADS)
+    os.environ["OMP_NUM_THREADS"] = str(TEST_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+        if omp is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = omp
+
 
 def to_numpy(obj):
     if isinstance(obj, torch.Tensor):
