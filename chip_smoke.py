@@ -101,9 +101,9 @@ non-zero exit when it fails:
    steps of the full-width ViT (flash attention, device augmentation,
    dropout and drop-path on) and ResNet18 recipes with ``remat`` off and
    on: launches per step (the recompute adds a flash forward per block:
-   36 / 12 / 3 against 24 / 12 / 3), ms per step and peak memory; in a
-   process of its own under deterministic algorithms (``--remat``) remat
-   on equal to off bit for bit (losses, gradients, parameters, BatchNorm
+   36 / 12 / 3 against 24 / 12 / 3), ms per step and peak memory; under
+   deterministic algorithms (switched on and off in this process, as
+   phase 18 does) remat on equal to off bit for bit (losses, gradients, parameters, BatchNorm
    statistics), a second off run too. Three bf16 steps with
    ``layer_decay: 0.75`` and ``frozen_stages: 2`` (ViT) and with
    ``mode: freeze_backbone`` and ``frozen_stages: 1`` (ResNet18): frozen
@@ -120,8 +120,8 @@ non-zero exit when it fails:
    12 / 3 a micro-step, 12 forwards an eval batch), 3 updates, the open
    window in the first epoch's snapshot, the logged lr of update
    ``global_step // 2``, and a Mean Teacher teacher that moves on the
-   window's last micro-step only; (b) in a process of its own under
-   deterministic algorithms (``--accum``), the same run and a second
+   window's last micro-step only; (b) under deterministic algorithms,
+   the same run and a second
    resumed from its first snapshot through ``--resume``: the resumed
    epoch's ``log.txt`` row and last snapshot (model, optimizer, open
    window, step, best) equal the straight run's bit for bit, with its
@@ -140,8 +140,8 @@ non-zero exit when it fails:
    the others); (b) phase 4's FixMatch recipe with the weak chain
    [resize-crop, RandomApply(RandomShift)] and an 8-op strong RandAugment
    of new ops through ``train_main``, 24 / 12 / 6 launches a step; (c)
-   the same run with ``device_cache: true``, both in a process of their
-   own under deterministic algorithms (``--cache``): losses and the final
+   the same run with ``device_cache: true``, both under deterministic
+   algorithms: losses and the final
    model bit for bit, index batches, the traced steps' host-to-device
    copies (none larger than an index batch), the cache's bytes and the
    step's wall time both ways; (d) ZeRO-1 against the replicated
@@ -249,10 +249,40 @@ non-zero exit when it fails:
    its log rows against phase 4's eager run, its checkpoint resumed
    eagerly and served by its test pass; (e) the bf16 ViT and ResNet18 FixMatch
    steps eager and captured: wall ms, the host's µs and device events per
-   step, device busy and idle share. Each part's seconds are logged.
+   step, device busy and idle share. Each part's seconds are logged;
+19. ``train.scan_steps`` with ``train.accum_iter`` > 1 and under NCCL
+   ranks (a graph for the accumulating micro-step and one for the
+   updating one, captured into one pool after an eager warm-up up to the
+   run's first update): (a) under deterministic algorithms, the ViT
+   FixMatch recipe in bf16 and fp32 at ``accum_iter`` 2 and 3, Mean
+   Teacher and CPS at 2 and ResNet18's FixMatch at 2, each for three
+   windows and a micro-step: the captured micro-steps equal to the same
+   micro-steps taken eagerly with the capturable optimizers bit for bit,
+   each graph's launches read from its nodes (24 / 12 / 3 a ViT FixMatch
+   graph), the replays of each kind, the peak memory of both runs; (b)
+   ``train_main`` of phase 12's recipe at ``scan_steps: 3`` and
+   ``accum_iter: 2`` (windows across units and the epoch's end) against
+   the same run taken eagerly with the capturable optimizers: log rows,
+   test metrics, best checkpoint and launches equal; a captured run of
+   its first epoch, whose checkpoint holds an open window, resumed into a
+   captured run equal to the straight one (log row, networks, optimizer,
+   step); (c) two gloo ranks with CUDA tensors on one card at
+   ``scan_steps`` > 1 (started first, beside (a) and (b)): ``train_main``
+   raises with the reason and launches nothing; (d) with two or more
+   cards, NCCL ranks: data 2 (ViT bf16 and fp32, ResNet18), data 2 with
+   ZeRO-1 and with ``accum_iter: 2``, seq (1, 2) of both backbones and,
+   on three cards or more, model (1, 3): on each rank the captured steps
+   against eager ones with the capturable optimizers, bit for bit where
+   two eager runs already are (else within phase 10's bounds, the
+   repeat's spread beside them), the ranks equal, each graph's launches;
+   each rank's bf16 ViT step eager and captured with the idle share of
+   the untraced wall. On one card (d) logs one line saying why it did
+   not run. Each part's seconds are logged.
 
-In the whole run phases 14-16 share rank groups, since a group's start
-costs tens of seconds: phase 16's (a) runs on an idle
+Phases 12 (e) and 13 (d), and phase 17 (b)'s ZeRO-1 task, run on phase
+10's rank processes. In the whole run phases 14-16 share rank groups,
+since a group's start costs tens of seconds: phase 16's (a) runs on an
+idle
 card before phase 14; phase 15's ``(2, 2)`` tasks and phase 16's (d) run
 on phase 14's ``(2, 2)`` group, phase 16's (b) on phase 15's ``(1, 2)``
 group, and phase 16's ``(1, 2, 3)`` group starts after phase 15's (a).
@@ -3264,7 +3294,12 @@ RANK_TASKS = {"tp_drift": lambda torch, **kw: tp_drift(torch, **kw),
               "so_int8_serve": lambda torch, **kw: so_int8_serve(torch,
                                                                  **kw),
               "ckpt_backends": lambda torch, **kw: ckpt_backends(torch,
-                                                                 **kw)}
+                                                                 **kw),
+              "scan_refusal": lambda torch, **kw: scan_refusal(torch, **kw),
+              "scan_rank_case": lambda torch, **kw: scan_rank_case(torch,
+                                                                   **kw),
+              "scan_rank_profile": lambda torch, **kw: scan_rank_profile(
+                  torch, **kw)}
 
 
 def rank_main(job, out_dir):
@@ -3303,9 +3338,11 @@ def dp_run_ranks(tasks, backend, phase=10, env=None, world=DP_WORLD):
     return finish_ranks(start_ranks(tasks, backend, env, world), phase)
 
 
-def start_ranks(tasks, backend, env=None, world=DP_WORLD, name="dp"):
+def start_ranks(tasks, backend, env=None, world=DP_WORLD, name="dp",
+                timeout=DP_TIMEOUT):
     """Start a rank group of ``world`` processes on ``tasks`` in
-    ``WORK/name`` (its own rendezvous port); :func:`finish_ranks` waits."""
+    ``WORK/name`` (its own rendezvous port); :func:`finish_ranks` waits,
+    at most ``timeout`` seconds from now."""
     work = os.path.join(WORK, name)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -3334,12 +3371,12 @@ def start_ranks(tasks, backend, env=None, world=DP_WORLD, name="dp"):
                 stdout=out,
                 stderr=subprocess.STDOUT, start_new_session=True))
     return {"work": work, "procs": procs, "world": world,
-            "deadline": time.monotonic() + DP_TIMEOUT}
+            "timeout": timeout, "deadline": time.monotonic() + timeout}
 
 
 def finish_ranks(group, phase):
     """Wait for a group of :func:`start_ranks` (every process is killed past
-    its DP_TIMEOUT); fails ``phase`` if a rank failed. Returns each task's
+    its timeout); fails ``phase`` if a rank failed. Returns each task's
     results by rank and the logs."""
     work, procs, world = group["work"], group["procs"], group["world"]
     try:
@@ -3361,7 +3398,7 @@ def finish_ranks(group, phase):
         for name, text in logs.items():
             log(f"  {name}'s output ends:\n{text[-3000:]}")
         raise SystemExit(f"phase {phase} failed: the ranks exited {codes} "
-                         f"(timeout {DP_TIMEOUT} s)")
+                         f"(timeout {group['timeout']} s)")
     results = []
     for r in range(world):
         with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
@@ -3495,9 +3532,14 @@ def dp_check_entry(torch, algorithm, config_path, ranks):
             "validation": single, "test_metrics": ranks[0]["test_metrics"]}
 
 
-def phase_parallel(torch):
+def phase_parallel(torch, extra=()):
     """Phase 10: data-parallel training through the port's own path
-    (``parallel/``, ``train_main`` under a process group), two ranks."""
+    (``parallel/``, ``train_main`` under a process group), two ranks.
+    ``extra`` tasks (later phases') run on the same rank processes after
+    phase 10's, a group's start costing tens of seconds; their results
+    and the logs are ``result["extra"]``. The group runs with the cuBLAS
+    workspace setting deterministic algorithms ask for (phase 13 (d)
+    switches them on in its tasks)."""
     t_phase = time.perf_counter()
     backend, layout = dp_layout(torch)
     smi = nvidia_smi().replace("\n", "; ")
@@ -3523,8 +3565,11 @@ def phase_parallel(torch):
              + [("rank", {"config": rank_config, "paths": snapshots})]
              + ([("profile", {})] if backend == "nccl" else []))
     t0 = time.perf_counter()
-    by_task, logs = dp_run_ranks(tasks, backend)
+    by_task, logs = dp_run_ranks(tasks + list(extra), backend,
+                                 env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
     ranks_s = time.perf_counter() - t0
+    extra_results = by_task[len(tasks):]
+    by_task = by_task[:len(tasks)]
     printed = re.findall(r"^\[\d{4}-\d\d-\d\d [\d:]+\] (.*)$",
                          logs["rank1"], re.MULTILINE)
     if len(printed) != 1 or "distributed init" not in printed[0]:
@@ -3572,8 +3617,11 @@ def phase_parallel(torch):
                     f"on {p['reco_loss_gathered']['rows']} gathered rows: "
                     "no host sync in the call, backward syncs "
                     f"{p['reco_loss_gathered']['backward_syncs']}")
+    if extra:
+        result["extra"] = (extra_results, logs)
     result["seconds"] = time.perf_counter() - t_phase
-    log(f"  phase 10 in {result['seconds']:.1f} s (ranks {ranks_s:.1f} s)")
+    log(f"  phase 10 in {result['seconds']:.1f} s (ranks {ranks_s:.1f} s, "
+        f"{len(extra)} later phases' tasks among them)")
     return result
 
 
@@ -3582,9 +3630,9 @@ def phase_parallel(torch):
 # ---------------------------------------------------------------------------
 
 # remat on against off: REMAT_STEPS fp32 FixMatch steps of each recipe from
-# seed 0 on the same batches, dropout and drop-path on. Equality: in a
-# process of its own under PyTorch's deterministic algorithms (and cuBLAS's
-# fixed workspace, CUBLAS_WORKSPACE_CONFIG), because the card's default
+# seed 0 on the same batches, dropout and drop-path on. Equality: under
+# PyTorch's deterministic algorithms (and cuBLAS's fixed workspace,
+# CUBLAS_WORKSPACE_CONFIG; scan_determinism), because the card's default
 # algorithms need not repeat a run bit for bit (atomics in some backward
 # kernels, which FixMatch's mask amplifies); there the recompute runs the
 # same kernels on the same inputs, so remat on must equal off bit for bit
@@ -3592,7 +3640,6 @@ def phase_parallel(torch):
 # and a second off run equal the first. Launches, step times and peak
 # memory: in this process, on the default algorithms
 REMAT_STEPS = 3
-REMAT_TIMEOUT = 300
 REMAT_FAMILIES = ("vit_tiny", "resnet18")
 VIT_DROPOUT = {"drop_out_rate": 0.1, "drop_path_rate": 0.1}
 # the optimizer options: OPTION_STEPS bf16 steps; the ViT with layer decay
@@ -3732,8 +3779,8 @@ def check_remat(torch, family, base):
 
 
 def remat_equal(torch, family):
-    """Remat off, on and off again under deterministic algorithms (the
-    ``--remat`` process): every loss, the last step's gradients and the
+    """Remat off, on and off again under deterministic algorithms
+    (:func:`scan_determinism`, in this process): every loss, the last step's gradients and the
     whole state of on and of off again equal off's bit for bit."""
     base = remat_base(family)
     batches = remat_batches(torch, 20, REMAT_STEPS)
@@ -3761,38 +3808,6 @@ def remat_equal(torch, family):
             raise SystemExit(f"phase 11 failed: {family} remat {other} "
                              f"differs from remat off ({name}: {worst})")
     return result
-
-
-def remat_main(out_path):
-    """Phase 11's equality runs (``chip_smoke.py --remat OUT``, started
-    with CUBLAS_WORKSPACE_CONFIG set): under deterministic algorithms,
-    :func:`remat_equal` of each family, the results to ``OUT``."""
-    import torch
-
-    torch.use_deterministic_algorithms(True)
-    result = {family: remat_equal(torch, family) for family in REMAT_FAMILIES}
-    with open(out_path, "w") as f:
-        json.dump(result, f)
-    return 0
-
-
-def run_remat_equal():
-    """:func:`remat_main` in a process of its own, killed past
-    REMAT_TIMEOUT; its results."""
-    out = os.path.join(WORK, "remat_equal.json")
-    try:
-        done = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--remat", out],
-            cwd=REPO, env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
-            timeout=REMAT_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        raise SystemExit(f"phase 11 failed: the remat equality runs took "
-                         f"more than {REMAT_TIMEOUT} s")
-    if done.returncode != 0:
-        raise SystemExit(f"phase 11 failed: the remat equality runs exited "
-                         f"{done.returncode}")
-    with open(out) as f:
-        return json.load(f)
 
 
 def check_options(torch, family, base):
@@ -3940,7 +3955,9 @@ def phase_remat(torch):
         base = remat_base(family)
         result["remat"][family] = check_remat(torch, family, base)
         result["options"][family] = check_options(torch, family, base)
-    result["remat_equal"] = run_remat_equal()
+    with scan_determinism(torch):
+        result["remat_equal"] = {family: remat_equal(torch, family)
+                                 for family in REMAT_FAMILIES}
     result["convergence"] = check_convergence(torch)
     result["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 11 in {result['seconds']:.1f} s")
@@ -3957,7 +3974,6 @@ def phase_remat(torch):
 # epoch's end; ACCUM_EPOCHS epochs make 3 updates
 ACCUM_BATCH, ACCUM_ITER, ACCUM_STEPS, ACCUM_EPOCHS = 8, 2, 3, 2
 ACCUM_VALID = ACCUM_TEST = 8
-ACCUM_TIMEOUT = 300
 # the micro-step's wall time at accum_iter 1 and 2, in turns, after
 # ACCUM_WARM_STEPS untimed ones
 ACCUM_TIMED_STEPS, ACCUM_WARM_STEPS = 20, 4
@@ -3972,11 +3988,12 @@ TRACE_KERNELS = {"flash_attention_fwd": ("flash_fwd", 1),
 
 def write_accum_config(name, algorithm="fixmatch",
                        steps_per_epoch=ACCUM_STEPS, epochs=ACCUM_EPOCHS,
-                       **extra):
+                       train=None, **extra):
     """The shipped vit_tiny ``algorithm`` recipe with flash attention and
     device augmentation at micro-batch ACCUM_BATCH and accum_iter
     ACCUM_ITER, on a split of ``steps_per_epoch`` micro-steps an epoch,
-    for ``epochs`` epochs (``extra`` overrides top-level keys)."""
+    for ``epochs`` epochs (``train`` overrides keys of ``train``, ``extra``
+    top-level keys)."""
     from semi_seg_ecg_tpu_torch.config import load_config
 
     rows = steps_per_epoch * ACCUM_BATCH
@@ -3991,7 +4008,7 @@ def write_accum_config(name, algorithm="fixmatch",
     config["output_dir"] = os.path.join(WORK, "exps")
     config["exp_name"] = name
     config["train"].update(epochs=epochs, warmup_epochs=0,
-                           accum_iter=ACCUM_ITER)
+                           accum_iter=ACCUM_ITER, **(train or {}))
     config.update(extra)
     path = os.path.join(WORK, f"{name}.yaml")
     with open(path, "w") as f:
@@ -4141,19 +4158,16 @@ def accum_teacher(torch):
     return {"teacher_moved": moved, "launches_per_step": want}
 
 
-def accum_resume_main(out_path):
-    """(b) in a process of its own (``chip_smoke.py --accum OUT``, with
-    CUBLAS_WORKSPACE_CONFIG set) under deterministic algorithms: the
-    recipe for ACCUM_EPOCHS epochs, then a run resumed from its first
-    snapshot through ``--resume``; the resumed epoch's ``log.txt`` row and
-    the last snapshots against each other, its launches; to ``OUT``."""
-    import torch
-
+def accum_resume_runs(torch):
+    """(b)'s runs under deterministic algorithms (:func:`scan_determinism`,
+    in this process): the recipe for ACCUM_EPOCHS epochs, then a run
+    resumed from its first snapshot through ``--resume``; the resumed
+    epoch's ``log.txt`` row and the last snapshots against each other, its
+    launches."""
     from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
 
-    torch.use_deterministic_algorithms(True)
     path, _ = write_accum_config("accum_det")
-    with cudnn_deterministic(torch):
+    with scan_determinism(torch):
         straight = accum_run(torch, ["-f", path], {1, 2})
         resumed = accum_run(torch, [
             "-f", path, "--exp_name", "accum_resumed", "--resume",
@@ -4166,37 +4180,20 @@ def accum_resume_main(out_path):
         payload.pop("config")
     diff, where = payload_diff(got, want)
     rows = read_log("accum_resumed")
-    result = {"straight_launches": straight["launches"],
-              "launches": resumed["launches"],
-              "start_epoch": resumed["start_epoch"],
-              "seconds": resumed["seconds"],
-              "rows_equal": rows == read_log("accum_det")[1:],
-              "epochs": [r["epoch"] for r in rows],
-              "state_max_diff": diff, "state_where": where}
-    with open(out_path, "w") as f:
-        json.dump(result, f)
-    return 0
+    return {"straight_launches": straight["launches"],
+            "launches": resumed["launches"],
+            "start_epoch": resumed["start_epoch"],
+            "seconds": resumed["seconds"],
+            "rows_equal": rows == read_log("accum_det")[1:],
+            "epochs": [r["epoch"] for r in rows],
+            "state_max_diff": diff, "state_where": where}
 
 
 def accum_resume(torch):
-    """(b) :func:`accum_resume_main` in a process of its own, killed past
-    ACCUM_TIMEOUT: the resumed epoch equals the straight run's second bit
-    for bit and launches the kernels of its 3 micro-steps and its eval
-    batch."""
-    out = os.path.join(WORK, "accum_resume.json")
-    try:
-        done = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--accum", out],
-            cwd=REPO, env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
-            timeout=ACCUM_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        raise SystemExit(f"phase 12 failed: the resume runs took more than "
-                         f"{ACCUM_TIMEOUT} s")
-    if done.returncode != 0:
-        raise SystemExit(f"phase 12 failed: the resume runs exited "
-                         f"{done.returncode}")
-    with open(out) as f:
-        result = json.load(f)
+    """(b) :func:`accum_resume_runs`: the resumed epoch equals the straight
+    run's second bit for bit and launches the kernels of its 3 micro-steps
+    and its eval batch."""
+    result = accum_resume_runs(torch)
     want = accum_launches(ACCUM_STEPS, math.ceil(ACCUM_VALID / ACCUM_BATCH))
     log(f"  (b) --resume of the first snapshot, deterministic algorithms: "
         f"starts at epoch {result['start_epoch']}, {result['seconds']:.2f} "
@@ -4255,19 +4252,28 @@ def accum_trace(torch):
             "ported_kernel_events": got}
 
 
-def accum_ranks(torch):
-    """(e) One window of ACCUM_ITER fp32 FixMatch micro-steps (phase 10's
-    step configuration) on DP_WORLD ranks against one process holding both
-    shards, with one gradient all-reduce a rank in the window."""
-    backend, layout = dp_layout(torch)
+def accum_rank_tasks(torch):
+    """(e)'s rank task: one window of ACCUM_ITER fp32 FixMatch micro-steps
+    (phase 10's step configuration)."""
+    backend, _ = dp_layout(torch)
     cfg = dp_step_config("vit_tiny", backend)
     cfg["train"]["accum_iter"] = ACCUM_ITER
-    batches = dp_global_batches(41)[:ACCUM_ITER]
+    return [("accum_steps", {"config": cfg,
+                             "batches": dp_global_batches(41)[:ACCUM_ITER]})]
+
+
+def accum_ranks(torch, shared=None):
+    """(e) :func:`accum_rank_tasks` on DP_WORLD ranks (``shared``: its
+    results from phase 10's group; alone, a group of its own) against one
+    process holding both shards, with one gradient all-reduce a rank in
+    the window."""
+    backend, layout = dp_layout(torch)
+    tasks = accum_rank_tasks(torch)
+    cfg, batches = tasks[0][1]["config"], tasks[0][1]["batches"]
     single = dp_steps(torch, cfg, batches, slice(None))
-    by_task, _ = dp_run_ranks([("accum_steps", {"config": cfg,
-                                                "batches": batches})],
-                              backend)
-    ranks = by_task[0]
+    if shared is None:
+        shared, _ = dp_run_ranks(tasks, backend)
+    ranks = shared[0]
     checked = dp_check_steps("vit_tiny", ranks, single, steps=ACCUM_ITER,
                              phase=12)
     reduces = [r["all_reduces"] for r in ranks]
@@ -4312,9 +4318,10 @@ def accum_step_times(torch):
     return [{"accum_iter": a, "ms_per_micro_step": ms} for a, ms in times]
 
 
-def phase_accum(torch):
+def phase_accum(torch, shared=None):
     """Phase 12: gradient accumulation, resume and the trace schedule on
-    the full-width vit_tiny FixMatch recipe."""
+    the full-width vit_tiny FixMatch recipe (``shared``: (e)'s rank
+    results from phase 10's group)."""
     from semi_seg_ecg_tpu_torch.config import normalize_config
 
     t_phase = time.perf_counter()
@@ -4326,7 +4333,7 @@ def phase_accum(torch):
     result["lockstep"] = check_lockstep(torch, normalize_config(config),
                                         phase=12, steps=2 * ACCUM_ITER)
     result["trace"] = accum_trace(torch)
-    result["ranks"] = accum_ranks(torch)
+    result["ranks"] = accum_ranks(torch, shared)
     result["step_times"] = accum_step_times(torch)
     result["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 12 in {result['seconds']:.1f} s")
@@ -4368,11 +4375,10 @@ NEW_STRONG_OPS = [{"AmplitudeScaling": {"sigma": 0.5}}, "RandomShift",
                   "SineNoise",
                   {"RandomPartialSineNoise": {"amplitude": 1, "ratio": 0.5}}]
 NEW_GATHERS = 6
-# (c) the recipe streaming and with the device cache, in one process
-# under deterministic algorithms; the trace of the first CACHE_TRACE_STEPS
-# steps holds the host-to-device copies of as many batches (each batch is
-# copied a step ahead of its use)
-CACHE_TIMEOUT = 300
+# (c) the recipe streaming and with the device cache, under deterministic
+# algorithms; the trace of the first CACHE_TRACE_STEPS steps holds the
+# host-to-device copies of as many batches (each batch is copied a step
+# ahead of its use)
 CACHE_TRACE_START, CACHE_TRACE_STEPS = 0, 2
 # (d) ZeRO-1 against the replicated optimizer on DP_WORLD ranks under
 # deterministic algorithms: phase 10's fp32 FixMatch step (SGD with
@@ -4527,48 +4533,26 @@ def cache_run(torch, name, cache):
             "step_ms": float(np.median(np.diff(starts)) * 1e3)}
 
 
-def cache_main(out_path):
-    """(b, c) in a process of its own (``chip_smoke.py --cache OUT``, with
-    CUBLAS_WORKSPACE_CONFIG set) under deterministic algorithms: the new
-    ops' recipe streaming, then with the device cache; the comparison to
-    ``OUT``."""
-    import torch
-
-    torch.use_deterministic_algorithms(True)
-    os.makedirs(WORK, exist_ok=True)
-    with cudnn_deterministic(torch):
+def cache_runs(torch):
+    """(b, c) under deterministic algorithms (:func:`scan_determinism`, in
+    this process): the new ops' recipe streaming, then with the device
+    cache; the comparison."""
+    with scan_determinism(torch):
         runs = {"stream": cache_run(torch, "new_ops_stream", False),
                 "cache": cache_run(torch, "new_ops_cache", True)}
     diff, where = payload_diff(runs["cache"].pop("state"),
                                runs["stream"].pop("state"))
-    result = {**runs, "state_max_diff": diff, "state_where": where,
-              "losses_equal": runs["cache"]["losses"]
-              == runs["stream"]["losses"]}
-    with open(out_path, "w") as f:
-        json.dump(result, f)
-    return 0
+    return {**runs, "state_max_diff": diff, "state_where": where,
+            "losses_equal": runs["cache"]["losses"]
+            == runs["stream"]["losses"]}
 
 
 def check_cache(torch):
-    """(b, c) :func:`cache_main` in a process of its own, killed past
-    CACHE_TIMEOUT: both runs launch the predicted kernels (the streaming
-    run is (b)), and the cached one equals the streaming one bit for bit,
-    steps on index batches and copies no more than one index batch to the
-    card at a time."""
-    out = os.path.join(WORK, "cache.json")
-    try:
-        done = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--cache", out],
-            cwd=REPO, env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
-            timeout=CACHE_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        raise SystemExit(f"phase 13 failed: the stream and cache runs took "
-                         f"more than {CACHE_TIMEOUT} s")
-    if done.returncode != 0:
-        raise SystemExit(f"phase 13 failed: the stream and cache runs "
-                         f"exited {done.returncode}")
-    with open(out) as f:
-        result = json.load(f)
+    """(b, c) :func:`cache_runs`: both runs launch the predicted kernels
+    (the streaming run is (b)), and the cached one equals the streaming
+    one bit for bit, steps on index batches and copies no more than one
+    index batch to the card at a time."""
+    result = cache_runs(torch)
     want = new_ops_launches()
     stream, cached = result["stream"], result["cache"]
     for label, run in (("stream", stream), ("cache", cached)):
@@ -4700,27 +4684,36 @@ def z1_resume(torch, config, algorithm, path, batch):
                       for k, v in trainer.model.state_dict().items()}}
 
 
-def check_zero1(torch, extra=()):
-    """(d) ZeRO-1 against the replicated optimizer on DP_WORLD ranks, 3
-    steps of each of Z1_ALGORITHMS, then each run's checkpoint resumed in
-    one unsharded process for a fourth step. ``extra`` tasks (another
+def z1_rank_tasks(torch):
+    """(d)'s rank tasks: 3 steps of each of Z1_ALGORITHMS with ZeRO-1 on
+    and off, each run's checkpoint written by rank 0."""
+    backend, _ = dp_layout(torch)
+    batches = dp_global_batches(50)
+    return [("z1_steps", {
+        "config": z1_config(algorithm, backend, on), "algorithm": algorithm,
+        "batches": batches,
+        "checkpoint": os.path.join(WORK, f"z1_{algorithm}_{on}.ckpt")})
+        for algorithm in Z1_ALGORITHMS for on in (True, False)]
+
+
+def check_zero1(torch, extra=(), shared=None):
+    """(d) ZeRO-1 against the replicated optimizer on DP_WORLD ranks
+    (:func:`z1_rank_tasks`), then each run's checkpoint resumed in one
+    unsharded process for a fourth step. ``extra`` tasks (another
     phase's) run on the same group after; their results are
-    ``result["extra"]``."""
+    ``result["extra"]``. ``shared``: the results of both and the logs,
+    from phase 10's group; alone, a group of its own."""
     from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
 
     backend, layout = dp_layout(torch)
-    batches = dp_global_batches(50)
     resume_batch = dp_global_batches(51)[0]
-    configs, tasks = {}, []
-    for algorithm in Z1_ALGORITHMS:
-        for on in (True, False):
-            configs[algorithm, on] = z1_config(algorithm, backend, on)
-            tasks.append(("z1_steps", {
-                "config": configs[algorithm, on], "algorithm": algorithm,
-                "batches": batches,
-                "checkpoint": os.path.join(WORK, f"z1_{algorithm}_{on}.ckpt")}))
-    by_task, logs = dp_run_ranks(tasks + list(extra), backend, phase=13,
-                                 env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    tasks = z1_rank_tasks(torch)
+    configs = {(kw["algorithm"], kw["config"]["parallel"]["shard_optimizer"]):
+               kw["config"] for _, kw in tasks}
+    if shared is None:
+        shared = dp_run_ranks(tasks + list(extra), backend, phase=13,
+                              env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    by_task, logs = shared
     runs = {key: ranks for key, ranks in zip(configs, by_task)}
     result, bad = {"backend": backend, "layout": layout}, []
     if extra:
@@ -4791,15 +4784,16 @@ def check_zero1(torch, extra=()):
     return result
 
 
-def phase_zero_cache(torch, extra=()):
+def phase_zero_cache(torch, extra=(), shared=None):
     """Phase 13: the remaining device-augment ops on the card, the new
     ops' recipe through train_main streaming and with the device cache,
     and ZeRO-1 against the replicated optimizer (``extra``: other phases'
-    tasks on its group)."""
+    tasks on its group; ``shared``: (d)'s and their results from phase
+    10's group)."""
     t_phase = time.perf_counter()
     log("phase 13: the new device-augment ops, the device cache, ZeRO-1")
     result = {"ops": check_new_ops(torch), "cache": check_cache(torch),
-              "zero1": check_zero1(torch, extra)}
+              "zero1": check_zero1(torch, extra, shared)}
     result["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 13 in {result['seconds']:.1f} s")
     return result
@@ -6720,14 +6714,15 @@ SCAN_TRACE = (1, 3)
 SCAN_HOST_PASSES = 2
 
 
-def scan_run(torch, cfg, algorithm, mode, steps, seed=40):
+def scan_run(torch, cfg, algorithm, mode, steps, seed=40, accum=1):
     """``steps`` steps of a Trainer of ``cfg`` (full width) from one init on
-    fixed card batches, ``mode`` ``eager`` (scan_steps 1),
-    ``capturable`` (eager, with the captured path's optimizers: tensor lr,
-    AdamW's step on the card, SGD's fused update) or ``captured``
-    (scan_steps SCAN_K, the graph's nodes kept). Returns the per-step
-    metrics, the states on the host, the host counters and, captured, the
-    graph's kernel launches per replay."""
+    fixed card batches at ``train.accum_iter`` ``accum``, ``mode``
+    ``eager`` (scan_steps 1), ``capturable`` (eager, with the captured
+    path's optimizers: tensor lr, AdamW's step on the card, SGD's fused
+    update) or ``captured`` (scan_steps SCAN_K, the graphs' nodes kept).
+    Returns the per-step metrics, the states on the host, the host
+    counters, the peak memory and, captured, each graph's kernel launches
+    a replay, the replays and the warm-up's steps."""
     from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
     from semi_seg_ecg_tpu_torch.algorithms.common import (
         Trainer,
@@ -6742,8 +6737,12 @@ def scan_run(torch, cfg, algorithm, mode, steps, seed=40):
     device = torch.device("cuda")
     cfg = copy.deepcopy(cfg)
     cfg["train"]["scan_steps"] = SCAN_K if mode == "captured" else 1
+    cfg["train"]["accum_iter"] = accum
     module = get_algorithm(algorithm)
     spec = module.SEMISUP_SPEC if algorithm == "stpp" else module.SPEC
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with full_fp32():
         trainer = Trainer(cfg, spec, device, 4, model=init_model(cfg, device))
         if mode == "captured":
@@ -6762,6 +6761,7 @@ def scan_run(torch, cfg, algorithm, mode, steps, seed=40):
                    for b in batches]
         torch.cuda.synchronize()
     out = {"metrics": metrics, "host_counts": read_counts(),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
            "states": {name: {k: v.detach().cpu().clone() for k, v in
                              net.state_dict().items()}
                       for name, net in (("model", trainer.model),
@@ -6769,10 +6769,19 @@ def scan_run(torch, cfg, algorithm, mode, steps, seed=40):
                                         ("peer", trainer.peer))
                       if net is not None}}
     if mode == "captured":
-        out["replays"] = trainer.captured.replays
-        out["graph_launches"] = count_kernels(
-            trainer.captured.kernel_names, SCAN_NEEDLES)
-        out["graph_kernel_nodes"] = len(trainer.captured.kernel_names)
+        captured = trainer.captured
+        out["replays"] = captured.replays
+        out["graph_launches"] = count_kernels(captured.kernel_names,
+                                              SCAN_NEEDLES)
+        out["graph_kernel_nodes"] = len(captured.kernel_names)
+        out["warm_up_steps"] = captured.warm_up_steps
+        out["replays_by_kind"] = dict(captured.replays_by_kind)
+        out["graph_launches_by_kind"] = {
+            kind: count_kernels(captured.kernel_names_of(kind), SCAN_NEEDLES)
+            for kind in captured.graphs}
+        out["graph_kernel_nodes_by_kind"] = {
+            kind: len(captured.kernel_names_of(kind))
+            for kind in captured.graphs}
     return out
 
 
@@ -6946,12 +6955,14 @@ def scan_equal(torch):
 
 
 @contextlib.contextmanager
-def built_trainers(capturable=False):
+def built_trainers(capturable=False, keep_graph=False):
     """Every ``Trainer`` built inside, in the list yielded; ``capturable``:
     each with the captured path's optimizers from its start
     (``make_capturable_``), an eager run that updates as a captured run
-    does."""
+    does; ``keep_graph``: a trainer that captures keeps its graphs' nodes
+    (``CapturedStep.kernel_names_of``)."""
     from semi_seg_ecg_tpu_torch.algorithms import common
+    from semi_seg_ecg_tpu_torch.utils.captured_step import CapturedStep
 
     init = common.Trainer.__init__
     built = []
@@ -6962,6 +6973,8 @@ def built_trainers(capturable=False):
             for opt in (self.optimizer, self.peer_optimizer):
                 if opt is not None:
                     opt.make_capturable_()
+        if keep_graph and self.capture:
+            self.captured = CapturedStep(self, keep_graph=True)
         built.append(self)
 
     common.Trainer.__init__ = hooked
@@ -7163,14 +7176,50 @@ def scan_recipe(torch, eager_log=None):
             "trace_ported_kernel_events": traced, "launches": launches}
 
 
-def scan_profile(torch, family):
-    """(e) The bf16 FixMatch step of ``family`` eager and captured: over
-    SCAN_PROFILE_STEPS steps in SCAN_PROFILE_CHUNKS windows, wall ms per
+def step_profile(torch, step, steps):
+    """``steps`` calls of ``step`` (after two untimed ones: a captured
+    run's warm-up and capture) in SCAN_PROFILE_CHUNKS windows: wall ms a
     step (synchronized at each window's end; each window's too, the
-    spread) and the host's µs per step (each window's issue time before
-    its synchronize); from a trace of SCAN_TRACE_STEPS more, device busy
-    ms, device events per step and the idle share of that traced window's
-    own wall time."""
+    spread) and the host's µs a step (each window's issue time before its
+    synchronize); from a trace of SCAN_TRACE_STEPS more, device busy ms,
+    device events a step and the idle share of the untraced wall."""
+    per_window = steps // SCAN_PROFILE_CHUNKS
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    windows, issued_s = [], 0.0
+    for _ in range(SCAN_PROFILE_CHUNKS):
+        t0 = time.perf_counter()
+        for _ in range(per_window):
+            step()
+        issued = time.perf_counter()
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) * 1e3 / per_window)
+        issued_s += issued - t0
+    traced_ms, per_kernel, events, _, _, _ = trace_device(
+        torch, step, SCAN_TRACE_STEPS)
+    busy = sum(per_kernel.values()) if per_kernel else None
+    wall = sum(windows) / len(windows)
+    return {"steps": per_window * SCAN_PROFILE_CHUNKS,
+            "wall_ms_per_step": wall,
+            "wall_ms_per_step_windows": windows,
+            "host_us_per_step": issued_s * 1e6
+            / (per_window * SCAN_PROFILE_CHUNKS),
+            "traced_steps": SCAN_TRACE_STEPS,
+            "traced_wall_ms_per_step": traced_ms,
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": (1 - busy / wall) if busy else None,
+            "device_idle_share_traced": (1 - busy / traced_ms) if busy
+            else None,
+            "device_events_per_step": events,
+            "flash_fwd_ms_per_step": kernel_ms(per_kernel, "flash_fwd_"),
+            "flash_bwd_ms_per_step": kernel_ms(per_kernel, "flash_bwd_"),
+            "gather_ms_per_step": kernel_ms(per_kernel, "gather1d_kernel")}
+
+
+def scan_profile(torch, family):
+    """(e) The bf16 FixMatch step of ``family`` eager and captured
+    (:func:`step_profile` of SCAN_PROFILE_STEPS steps)."""
     from semi_seg_ecg_tpu_torch.algorithms import fixmatch
     from semi_seg_ecg_tpu_torch.algorithms.common import (
         Trainer,
@@ -7184,45 +7233,11 @@ def scan_profile(torch, family):
         cfg["train"]["scan_steps"] = SCAN_K if mode == "captured" else 1
         batch = device_batch(torch, 30)
         del batch["ecg_u_s"]
-        steps = SCAN_PROFILE_STEPS[mode]
-        per_window = steps // SCAN_PROFILE_CHUNKS
         with full_fp32():
             trainer = Trainer(cfg, fixmatch.SPEC, torch.device("cuda"), 4,
                               model=init_model(cfg, torch.device("cuda")))
-            step = lambda: trainer.train_step(batch)
-            for _ in range(2):  # the warm-up step and the capture
-                step()
-            torch.cuda.synchronize()
-            windows, issued_s = [], 0.0
-            for _ in range(SCAN_PROFILE_CHUNKS):
-                t0 = time.perf_counter()
-                for _ in range(per_window):
-                    step()
-                issued = time.perf_counter()
-                torch.cuda.synchronize()
-                windows.append((time.perf_counter() - t0) * 1e3
-                               / per_window)
-                issued_s += issued - t0
-            traced_ms, per_kernel, events, _, _, _ = trace_device(
-                torch, step, SCAN_TRACE_STEPS)
-        busy = sum(per_kernel.values()) if per_kernel else None
-        out[mode] = {"steps": per_window * SCAN_PROFILE_CHUNKS,
-                     "wall_ms_per_step": sum(windows) / len(windows),
-                     "wall_ms_per_step_windows": windows,
-                     "host_us_per_step": issued_s * 1e6
-                     / (per_window * SCAN_PROFILE_CHUNKS),
-                     "traced_steps": SCAN_TRACE_STEPS,
-                     "traced_wall_ms_per_step": traced_ms,
-                     "device_busy_ms_per_step": busy,
-                     "device_idle_share": (1 - busy / traced_ms) if busy
-                     else None,
-                     "device_events_per_step": events,
-                     "flash_fwd_ms_per_step": kernel_ms(per_kernel,
-                                                        "flash_fwd_"),
-                     "flash_bwd_ms_per_step": kernel_ms(per_kernel,
-                                                        "flash_bwd_"),
-                     "gather_ms_per_step": kernel_ms(per_kernel,
-                                                     "gather1d_kernel")}
+            out[mode] = step_profile(torch, lambda: trainer.train_step(batch),
+                                     SCAN_PROFILE_STEPS[mode])
         log(f"  (e) {family} bf16 step, {mode}: {out[mode]}")
     return out
 
@@ -7240,6 +7255,541 @@ def phase_scan(torch, eager_log=None):
                    for family in ("vit_tiny", "resnet18")}
     result["seconds"]["e"] = time.time() - t
     log(f"  phase 18 seconds by part: {result['seconds']}")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: train.scan_steps across accumulation windows and ranks
+# ---------------------------------------------------------------------------
+
+# (a): (family, algorithm, precision, accum_iter) of each case, each run
+# for three windows and one micro-step more: the warm-up's window, then
+# each graph replayed at least twice
+SCAN_ACCUM_CASES = (("vit_tiny", "fixmatch", "bf16", 2),
+                    ("vit_tiny", "fixmatch", "bf16", 3),
+                    ("vit_tiny", "fixmatch", "fp32", 2),
+                    ("vit_tiny", "fixmatch", "fp32", 3),
+                    ("vit_tiny", "mean_teacher", "bf16", 2),
+                    ("vit_tiny", "cps", "bf16", 2),
+                    ("resnet18", "fixmatch", "bf16", 2))
+# (b): phase 12's recipe (ACCUM_STEPS micro-steps an epoch, accum_iter
+# ACCUM_ITER) at scan_steps SCAN_ACCUM_K, a unit an epoch, so that a window
+# spans units and the first epoch's end
+SCAN_ACCUM_K = 3
+# (d): the steps of each rank case (the warm-up and replays of both kinds
+# at accum_iter 2), and the steps the bf16 ViT profile times
+SCAN_RANK_STEPS = 5
+SCAN_RANK_PROFILE_STEPS = {"eager": 10, "captured": 30}
+SCAN_RANK_TIMEOUT = 300
+
+
+def scan_accum_case(torch, family, algorithm, precision, accum):
+    """(a) One case: the captured micro-steps against the same micro-steps
+    taken eagerly with the capturable optimizers, bit for bit; each
+    graph's launches read from its nodes, against one step's; the host
+    counters (the warm-up's window and the two captures), the replays of
+    each kind, the peak memory of both runs."""
+    label = f"{family}_{algorithm}_{precision}_accum{accum}"
+    cfg = scan_config(family, algorithm, precision)
+    steps = 3 * accum + 1
+    runs = {mode: scan_run(torch, cfg, algorithm, mode, steps, accum=accum)
+            for mode in ("capturable", "captured")}
+    captured = runs["captured"]
+    per_step = launches_per_step(family, algorithm)
+    updates = sum(j % accum == accum - 1 for j in range(accum, steps))
+    replays_want = {"accumulate": steps - accum - updates, "update": updates}
+    out = {"steps": steps, "accum_iter": accum,
+           "warm_up_steps": captured["warm_up_steps"],
+           "replays_by_kind": captured["replays_by_kind"],
+           "graph_launches_by_kind": captured["graph_launches_by_kind"],
+           "graph_kernel_nodes_by_kind":
+               captured["graph_kernel_nodes_by_kind"],
+           "host_counts": captured["host_counts"],
+           "peak_mib": {mode: r["peak_mib"] for mode, r in runs.items()},
+           "vs_capturable": scan_diff(captured, runs["capturable"]),
+           "losses": [m.get("loss") for m in captured["metrics"]]}
+    log(f"  (a) {label}, {steps} micro-steps: warm-up "
+        f"{out['warm_up_steps']} steps, replays {out['replays_by_kind']}, "
+        f"launches a replay {out['graph_launches_by_kind']} of "
+        f"{out['graph_kernel_nodes_by_kind']} kernel nodes (a step "
+        f"{per_step}), host counters {out['host_counts']}; peak MiB "
+        f"{out['peak_mib']}; captured vs capturable {out['vs_capturable']}")
+    failed = []
+    if not out["vs_capturable"]["bit_equal"]:
+        failed.append(f"captured vs capturable {out['vs_capturable']}")
+    if out["graph_launches_by_kind"] != {"accumulate": per_step,
+                                         "update": per_step}:
+        failed.append(f"graph launches {out['graph_launches_by_kind']}")
+    if out["host_counts"] != {k: (accum + 2) * v
+                              for k, v in per_step.items()}:
+        failed.append(f"host counters {out['host_counts']}")
+    if out["warm_up_steps"] != accum or \
+            out["replays_by_kind"] != replays_want:
+        failed.append(f"warm-up {out['warm_up_steps']}, replays "
+                      f"{out['replays_by_kind']}")
+    if not all(math.isfinite(v) for m in captured["metrics"]
+               for v in m.values()):
+        failed.append("non-finite metrics")
+    if failed:
+        raise SystemExit(f"phase 19 failed: (a) {label}: "
+                         f"{', '.join(failed)}")
+    return label, out
+
+
+def scan_run_launches(counts, captured, per_step):
+    """A captured run's launches: its host counters less its captures'
+    passes (they record, and launch nothing), and each replay's read from
+    its graph."""
+    return {k: counts[k] - len(captured.graphs) * per_step[k]
+            + sum(captured.replays_by_kind[kind]
+                  * count_graph(captured, kind)[k]
+                  for kind in captured.graphs) for k in per_step}
+
+
+def count_graph(captured, kind):
+    from semi_seg_ecg_tpu_torch.utils.captured_step import count_kernels
+
+    return count_kernels(captured.kernel_names_of(kind), SCAN_NEEDLES)
+
+
+def scan_accum_recipe(torch):
+    """(b) ``train_main`` of phase 12's recipe at scan_steps SCAN_ACCUM_K
+    and accum_iter ACCUM_ITER, captured and eager with the capturable
+    optimizers (:func:`built_trainers`), both under deterministic
+    algorithms: log rows, test metrics, best checkpoint and launches equal.
+    Then a captured run of the first epoch, whose checkpoint holds an open
+    window, resumed into a captured run of the second: its log row and
+    final trainer (networks, optimizer with its window and count, step)
+    equal the straight captured run's."""
+    from semi_seg_ecg_tpu_torch.cli import train_main
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    per_step = launches_per_step("vit_tiny", "fixmatch")
+    eval_batches = math.ceil(ACCUM_VALID / ACCUM_BATCH)
+    test_batches = math.ceil(ACCUM_TEST / ACCUM_BATCH)
+
+    def best(name):
+        return os.path.join(WORK, "exps", name, "best-loss.ckpt")
+
+    # name, scan_steps, epochs run, resume, the test pass
+    plans = (("scan_accum_open", SCAN_ACCUM_K, 1, None, False),
+             ("scan_accum", SCAN_ACCUM_K, ACCUM_EPOCHS, None, True),
+             ("scan_accum_eager", 1, ACCUM_EPOCHS, None, True),
+             ("scan_accum_resumed", SCAN_ACCUM_K, ACCUM_EPOCHS,
+              best("scan_accum_open"), False))
+    runs, trainers_by_run, warned = {}, {}, []
+    for name, k, epochs, resume, test in plans:
+        extra = {"test": test}
+        if resume is not None:
+            extra["resume"] = resume
+        path, _ = write_accum_config(name, epochs=epochs,
+                                     train={"scan_steps": k}, **extra)
+        t = time.time()
+        reset_counts()
+        with scan_determinism(torch, warn_only=True) as seen, \
+                built_trainers(capturable=k == 1,
+                               keep_graph=True) as trainers:
+            test_metrics = train_main(["-f", path])
+            torch.cuda.synchronize()
+        warned.extend(w for w in seen if w not in warned)
+        counts = read_counts()
+        trainer = trainers[0]
+        start = 0 if resume is None else 1
+        run = {"seconds": time.time() - t, "host_counts": counts,
+               "test_metrics": test_metrics, "log": read_log(name)}
+        # the host counts each eager step, or a captured run's warm-up
+        # steps and its captures; each epoch's eval batches and the test
+        # pass
+        if k == 1:
+            passes = (epochs - start) * ACCUM_STEPS
+        else:
+            captured = trainer.captured
+            run.update(warm_up_steps=captured.warm_up_steps,
+                       replays_by_kind=dict(captured.replays_by_kind),
+                       graph_launches_by_kind={
+                           kind: count_graph(captured, kind)
+                           for kind in captured.graphs},
+                       launches=scan_run_launches(counts, captured,
+                                                  per_step))
+            passes = captured.warm_up_steps + len(captured.graphs)
+        want = {key: passes * v for key, v in per_step.items()}
+        want["flash_attention_fwd"] += DEPTH * (
+            (epochs - start) * eval_batches + (test_batches if test else 0))
+        run["host_counts_expected"] = want
+        runs[name] = run
+        trainers_by_run[name] = trainer
+        log(f"  (b) {name}: {run['seconds']:.1f} s, scan_steps {k}, "
+            f"epochs {start}-{epochs - 1}, host counters {counts} "
+            f"(expected {want}), "
+            + (f"warm-up {run['warm_up_steps']} steps, replays "
+               f"{run['replays_by_kind']}, launches a replay "
+               f"{run['graph_launches_by_kind']}, the run's launches "
+               f"{run['launches']}; " if k > 1 else "")
+            + f"log {run['log']}, test metrics {test_metrics}")
+        if counts != want or [r["epoch"] for r in run["log"]] != list(
+                range(start, epochs)) or not all(
+                math.isfinite(v) for r in run["log"] for key, v in r.items()
+                if "loss" in key):
+            raise SystemExit(f"phase 19 failed: (b) {name}: host counters "
+                             f"{counts}, expected {want}, or its log rows")
+    opened = ckpt.load_checkpoint(best("scan_accum_open"))["optimizer"]
+    captured, eager = runs["scan_accum"], runs["scan_accum_eager"]
+    resumed = runs["scan_accum_resumed"]
+
+    def final(trainer):
+        return {"model": trainer.model.state_dict(),
+                "optimizer": trainer.optimizer.state_dict(),
+                "step": trainer.step}
+
+    equal = {"log": captured["log"] == eager["log"],
+             "test_metrics": captured["test_metrics"]
+             == eager["test_metrics"],
+             "checkpoint": payloads_equal(
+                 torch, ckpt.load_checkpoint(best("scan_accum")),
+                 ckpt.load_checkpoint(best("scan_accum_eager")),
+                 ("model", "model_ema", "model_peer", "optimizer",
+                  "peer_optimizer", "step", "epoch")),
+             "launches": captured["launches"] == eager["host_counts"],
+             "graph_launches": all(
+                 v == per_step for r in (captured, resumed)
+                 for v in r["graph_launches_by_kind"].values()),
+             "open_window": opened["micro_step"] == 1
+             and bool(opened.get("acc_grads")),
+             "resumed_log": resumed["log"] == captured["log"][1:],
+             "resumed_state": payloads_equal(
+                 torch, final(trainers_by_run["scan_accum_resumed"]),
+                 final(trainers_by_run["scan_accum"]),
+                 ("model", "optimizer", "step"))}
+    trainers_by_run.clear()
+    log(f"  (b) captured against eager with the capturable optimizers, "
+        f"and the resumed open window against the straight run, bit for "
+        f"bit: {equal}; determinism warnings {warned}")
+    if not all(equal.values()):
+        raise SystemExit(f"phase 19 failed: (b) {equal}")
+    return {"runs": runs, "equal": equal, "warnings": warned,
+            "launches": captured["launches"]}
+
+
+def scan_refusal_config():
+    """(c)'s config: phase 4's recipe at scan_steps SCAN_K."""
+    _, config = write_train_config()
+    config = copy.deepcopy(config)
+    config["exp_name"] = "scan_refusal"
+    config["train"]["scan_steps"] = SCAN_K
+    path = os.path.join(WORK, "scan_refusal.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def scan_refusal(torch, config_path):
+    """(c) on a rank of a gloo group with CUDA tensors: ``train_main`` of
+    ``config_path`` (scan_steps > 1); the ValueError's message (None when
+    nothing raised) and the launches made."""
+    from semi_seg_ecg_tpu_torch.cli import train_main
+
+    reset_counts()
+    try:
+        train_main(["-f", config_path])
+    except ValueError as e:
+        return {"raised": str(e), "launches": read_counts()}
+    return {"raised": None, "launches": read_counts()}
+
+
+def scan_check_refusal(by_task):
+    """(c): every rank raised with the reason and launched nothing."""
+    ranks = by_task[0]
+    log(f"  (c) two gloo ranks with CUDA tensors on cuda:0 at scan_steps "
+        f"{SCAN_K}: {ranks}")
+    for r, got in enumerate(ranks):
+        if got["raised"] is None or "gloo process group of 2 ranks with " \
+                "CUDA tensors" not in got["raised"] or any(
+                got["launches"].values()):
+            raise SystemExit(f"phase 19 failed: (c) rank {r}: {got}")
+    return ranks
+
+
+def scan_rank_batches(seed, strong=False):
+    """SCAN_RANK_STEPS global batches of DP_WORLD x DP_ROWS rows; with
+    ``strong`` the strong view made on the host (the seq layouts)."""
+    rng = np.random.default_rng(seed)
+    n = DP_WORLD * DP_ROWS
+    x = lambda: rng.standard_normal((n, 1, SIGNAL_LENGTH)).astype(np.float32)
+    out = []
+    for _ in range(SCAN_RANK_STEPS):
+        batch = {"ecg": x(), "target": rng.integers(0, 4, (n, SIGNAL_LENGTH)),
+                 "ecg_u_w": x()}
+        if strong:
+            batch["ecg_u_s"] = x()
+        out.append(batch)
+    return out
+
+
+def scan_rank_trainer(torch, config, mode):
+    """A rank's Trainer of ``config`` (the seed-0 model): ``captured`` at
+    scan_steps SCAN_K with its graphs' nodes kept, else eager, with the
+    capturable optimizers when ``mode`` is ``capturable``."""
+    from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
+    from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, init_model
+    from semi_seg_ecg_tpu_torch.utils.captured_step import CapturedStep
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = copy.deepcopy(config)
+    cfg["train"]["scan_steps"] = SCAN_K if mode == "captured" else 1
+    trainer = Trainer(cfg, get_algorithm(cfg["algorithm"]).SPEC, device, 4,
+                      model=init_model(cfg, device))
+    if mode == "captured":
+        trainer.captured = CapturedStep(trainer, keep_graph=True)
+    elif mode == "capturable":
+        for opt in (trainer.optimizer, trainer.peer_optimizer):
+            if opt is not None:
+                opt.make_capturable_()
+    return trainer
+
+
+def scan_rank_case(torch, config, batches):
+    """(d) on a rank, under deterministic algorithms (an op without one
+    warns): the config's steps on this rank's rows of each batch, eager
+    with the capturable optimizers twice and captured once: per run the
+    metrics (the data ranks' mean) and the final networks (unsliced);
+    captured, each graph's launches and the replays; the warnings."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+    from semi_seg_ecg_tpu_torch.parallel import mesh as pmesh
+    from semi_seg_ecg_tpu_torch.parallel.dist import (
+        all_reduce_mean,
+        data_rank,
+        data_size,
+    )
+    from semi_seg_ecg_tpu_torch.parallel.sharding_rules import (
+        full_state_dict,
+    )
+
+    pmesh.make_mesh(config)
+    per = batches[0]["ecg"].shape[0] // data_size()
+    rows = slice(data_rank() * per, (data_rank() + 1) * per)
+    device = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    with scan_determinism(torch, warn_only=True) as seen, full_fp32():
+        for mode in ("capturable", "capturable_again", "captured"):
+            trainer = scan_rank_trainer(torch, config, mode.split("_")[0])
+            metrics = []
+            for batch in batches:
+                step = trainer.train_step({
+                    k: torch.from_numpy(v[rows]).to(device)
+                    for k, v in batch.items()})
+                metrics.append({k: all_reduce_mean(v).item()
+                                for k, v in step.items()})
+            torch.cuda.synchronize()
+            run = {"metrics": metrics,
+                   "states": {role: {k: v.detach().cpu().numpy() for k, v in
+                                     full_state_dict(module).items()}
+                              for role, module in (("model", trainer.model),
+                                                   ("teacher",
+                                                    trainer.teacher),
+                                                   ("peer", trainer.peer))
+                              if module is not None}}
+            if mode == "captured":
+                captured = trainer.captured
+                run.update(warm_up_steps=captured.warm_up_steps,
+                           replays_by_kind=dict(captured.replays_by_kind),
+                           graph_launches_by_kind={
+                               kind: count_graph(captured, kind)
+                               for kind in captured.graphs})
+            out[mode] = run
+            del trainer
+    # (the graphs' DOT dumps warn too)
+    out["warnings"] = [w for w in seen if "determinis" in w]
+    return out
+
+
+def scan_rank_profile(torch, config, batch):
+    """(d) a rank's bf16 step on its rows of ``batch``, eager (the default
+    optimizers) and captured (:func:`step_profile`)."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+    from semi_seg_ecg_tpu_torch.parallel.dist import data_rank, data_size
+
+    per = batch["ecg"].shape[0] // data_size()
+    rows = slice(data_rank() * per, (data_rank() + 1) * per)
+    device = torch.device("cuda", torch.cuda.current_device())
+    on_card = {k: torch.from_numpy(v[rows]).to(device)
+               for k, v in batch.items()}
+    out = {}
+    with full_fp32():
+        for mode in ("eager", "captured"):
+            trainer = scan_rank_trainer(torch, config, mode)
+            out[mode] = step_profile(torch,
+                                     lambda: trainer.train_step(on_card),
+                                     SCAN_RANK_PROFILE_STEPS[mode])
+            del trainer
+    return out
+
+
+def scan_rank_cases(torch):
+    """(d)'s cases by rank group: ``{world: {name: (config, batches,
+    launches a step)}}``, NCCL; the model layout where the cards cover
+    three ranks."""
+    vit_bf16 = dp_step_config("vit_tiny", "nccl")
+    vit_bf16["precision"] = "bf16"
+    accum = dp_step_config("vit_tiny", "nccl")
+    accum["train"]["accum_iter"] = ACCUM_ITER
+    host = scan_rank_batches(91, strong=True)
+    device = scan_rank_batches(90)
+    vit = launches_per_step("vit_tiny", "fixmatch")
+    cases = {DP_WORLD: {
+        "data2_vit_tiny_bf16": (vit_bf16, device, vit),
+        "data2_vit_tiny_fp32": (dp_step_config("vit_tiny", "nccl"), device,
+                                vit),
+        "data2_resnet18_fp32": (dp_step_config("resnet18", "nccl"), device,
+                                launches_per_step("resnet18", "fixmatch")),
+        "data2_zero1_vit_tiny_fp32": (z1_config("fixmatch", "nccl", True),
+                                      device, vit),
+        "data2_accum2_vit_tiny_fp32": (accum, device, vit),
+        "seq1x2_vit_tiny_fp32": (seq_step_config("vit_tiny", (1, 2),
+                                                 "nccl"), host,
+                                 seq_launches("vit_tiny", 2)),
+        "seq1x2_resnet18_fp32": (seq_step_config("resnet18", (1, 2),
+                                                 "nccl"), host,
+                                 seq_launches("resnet18", 2))}}
+    if torch.cuda.device_count() >= 3:
+        cases[3] = {"model1x3_vit_tiny_fp32": (
+            tp_step_config((1, 3), "nccl"), device, vit)}
+    return cases
+
+
+def scan_check_rank_case(name, ranks, per_step):
+    """(d) one case's ranks: captured against eager with the capturable
+    optimizers, bit for bit where the eager repeat is (else within phase
+    10's bounds, the repeat's own spread beside them); the ranks' captured
+    states equal; each graph's launches a step's."""
+    accum = 2 if "accum2" in name else 1
+    out = {"repeat_equal": [], "captured_vs_capturable": [],
+           "repeat_spread": [], "warnings": [r["warnings"] for r in ranks],
+           "graph_launches_by_kind": [
+               r["captured"]["graph_launches_by_kind"] for r in ranks],
+           "replays_by_kind": [r["captured"]["replays_by_kind"]
+                               for r in ranks]}
+    ok = True
+    for r in ranks:
+        a, b, c = (r[m] for m in ("capturable", "capturable_again",
+                                  "captured"))
+        repeat = a["metrics"] == b["metrics"] and all(
+            payload_diff(b["states"][role], v)[0] == 0.0
+            for role, v in a["states"].items())
+        diff = max(payload_diff(c["states"][role], v)[0]
+                   for role, v in a["states"].items())
+        loss_rel = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
+                       for x, y in zip(c["metrics"], a["metrics"]) for k in y)
+        spread = max(payload_diff(b["states"][role], v)[0]
+                     for role, v in a["states"].items())
+        equal = diff == 0.0 and c["metrics"] == a["metrics"]
+        out["repeat_equal"].append(repeat)
+        out["captured_vs_capturable"].append(
+            {"bit_equal": equal, "state_max_diff": diff,
+             "loss_rel": loss_rel})
+        out["repeat_spread"].append(spread)
+        if repeat:
+            ok &= equal
+        else:
+            ok &= loss_rel <= DP_LOSS_RTOL and all(
+                np.allclose(c["states"][role][k], v, rtol=DP_RTOL,
+                            atol=DP_ATOL)
+                for role, state in a["states"].items()
+                for k, v in state.items() if v.dtype.kind == "f")
+    first = ranks[0]["captured"]["states"]
+    out["ranks_equal"] = all(
+        payload_diff(r["captured"]["states"][role], v)[0] == 0.0
+        for r in ranks[1:] for role, v in first.items())
+    steps = SCAN_RANK_STEPS
+    updates = sum(j % accum == accum - 1 for j in range(accum, steps))
+    kinds = ("accumulate", "update") if accum > 1 else ("update",)
+    ok &= out["ranks_equal"] and all(
+        g == {kind: per_step for kind in kinds}
+        for g in out["graph_launches_by_kind"]) and all(
+        rep == {"accumulate": steps - accum - updates, "update": updates}
+        for rep in out["replays_by_kind"])
+    log(f"  (d) {name}: {out}")
+    out["holds"] = bool(ok)
+    return out
+
+
+def scan_ranks(torch):
+    """(d) On two or more cards: each case of :func:`scan_rank_cases` on
+    NCCL ranks (:func:`scan_check_rank_case`), and each rank's bf16 ViT
+    step at data 2 eager and captured. On one card, says why it did not
+    run."""
+    if torch.cuda.device_count() < DP_WORLD:
+        reason = (f"{torch.cuda.device_count()} card: NCCL takes one card "
+                  "a rank and refuses two ranks on one device, and gloo's "
+                  "collectives, which a graph cannot hold, refuse scan_steps "
+                  "> 1 on a card ((c))")
+        log(f"  (d) did not run: {reason}")
+        return {"ran": False, "reason": reason}
+    result = {"ran": True, "cases": {}, "groups": {}}
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    for world, cases in scan_rank_cases(torch).items():
+        tasks = [("scan_rank_case", {"config": cfg, "batches": batches})
+                 for cfg, batches, _ in cases.values()]
+        if world == DP_WORLD:
+            profile_cfg = cases["data2_vit_tiny_bf16"][0]
+            tasks.append(("scan_rank_profile", {
+                "config": profile_cfg,
+                "batch": cases["data2_vit_tiny_bf16"][1][0]}))
+        t0 = time.perf_counter()
+        by_task, logs = finish_ranks(start_ranks(
+            tasks, "nccl", env, world=world, name=f"scan_ranks{world}",
+            timeout=SCAN_RANK_TIMEOUT), 19)
+        result["groups"][world] = {"seconds": time.perf_counter() - t0,
+                                   "task_seconds": rank_task_seconds(logs)}
+        for (name, (_, _, per_step)), ranks in zip(cases.items(), by_task):
+            result["cases"][name] = scan_check_rank_case(name, ranks,
+                                                         per_step)
+        if world == DP_WORLD:
+            result["profile"] = by_task[len(cases)]
+            for r, prof in enumerate(result["profile"]):
+                for mode, p in prof.items():
+                    log(f"  (d) rank {r} of data 2, bf16 ViT FixMatch step "
+                        f"{mode}: {p['wall_ms_per_step']:.3f} ms wall "
+                        f"(windows {p['wall_ms_per_step_windows']}), host "
+                        f"{p['host_us_per_step']:.0f} us, busy "
+                        f"{p['device_busy_ms_per_step']} ms, idle of the "
+                        f"untraced wall {p['device_idle_share']}, events "
+                        f"{p['device_events_per_step']}")
+    bad = [name for name, c in result["cases"].items() if not c["holds"]]
+    if bad:
+        raise SystemExit(f"phase 19 failed: (d) {bad}")
+    return result
+
+
+def phase_scan_accum(torch):
+    """Phase 19: ``train.scan_steps`` with ``accum_iter`` > 1 and under
+    NCCL: (a) the accumulating and updating graphs against the
+    capturable eager micro-steps, (b) ``train_main`` and the resumed open
+    window, (c) gloo with CUDA tensors refused (its two ranks start first
+    and run beside (a) and (b)), (d) NCCL ranks where the cards allow;
+    each part's seconds."""
+    t_phase = time.perf_counter()
+    log(f"phase 19: scan_steps across accumulation windows and NCCL ranks; "
+        f"{torch.cuda.device_count()} card(s)")
+    refusal = start_ranks([("scan_refusal",
+                            {"config_path": scan_refusal_config()})],
+                          "gloo", name="scan_refusal")
+    result = {"seconds": {}}
+    t = time.perf_counter()
+    with scan_determinism(torch):
+        result["a"] = dict(scan_accum_case(torch, *case)
+                           for case in SCAN_ACCUM_CASES)
+    result["seconds"]["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    result["b"] = scan_accum_recipe(torch)
+    result["seconds"]["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    result["c"] = scan_check_refusal(finish_ranks(refusal, 19)[0])
+    result["seconds"]["c (the wait)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    result["d"] = scan_ranks(torch)
+    result["seconds"]["d"] = time.perf_counter() - t
+    result["seconds"]["all"] = time.perf_counter() - t_phase
+    log(f"  phase 19 seconds by part: {result['seconds']}")
     return result
 
 
@@ -7302,13 +7852,20 @@ def main():
         torch, os.path.join(WORK, "exps", "vit_tiny_fixmatch",
                             "best-MeanIoU.ckpt"),
         os.path.join(WORK, "resnet18_seed0.pth"))
-    parallel = timed(10, phase_parallel, torch)
-    remat = timed(11, phase_remat, torch)
-    accum = timed(12, phase_accum, torch)
-    # phase 17 (b)'s rank tasks ride on phase 13's ZeRO-1 group and on
-    # phase 14's (1, 3) group
+    # phase 12 (e)'s and phase 13 (d)'s rank tasks, and phase 17 (b)'s
+    # ZeRO-1 one after them, ride on phase 10's rank processes (a group's
+    # start costs tens of seconds); phase 17 (b)'s (1, 3) task on phase
+    # 14's (1, 3) group
     ckpt_tasks = ckpt_rank_tasks(torch)
-    zero_cache = timed(13, phase_zero_cache, torch, ckpt_tasks["zero1"])
+    accum_tasks = accum_rank_tasks(torch)
+    z1_tasks = z1_rank_tasks(torch)
+    parallel = timed(10, phase_parallel, torch,
+                     accum_tasks + z1_tasks + ckpt_tasks["zero1"])
+    later, dp_logs = parallel.pop("extra")
+    remat = timed(11, phase_remat, torch)
+    accum = timed(12, phase_accum, torch, later[:len(accum_tasks)])
+    zero_cache = timed(13, phase_zero_cache, torch, ckpt_tasks["zero1"],
+                       (later[len(accum_tasks):], dp_logs))
     ckpt_shared = {"zero1": zero_cache["zero1"].pop("extra")}
     # phase 16's (a) on an idle card and its inputs, then the rank groups
     # of phases 14-16 shared: a group's start costs tens of seconds. Phase
@@ -7335,6 +7892,7 @@ def main():
         SO_RESNET_LAYOUT: extra[SEQ_LAYOUTS[1]]})
     checkpoint = timed(17, phase_checkpoint, torch, ckpt_shared)
     scan = timed(18, phase_scan, torch, train_result["log"])
+    scan_accum = timed(19, phase_scan_accum, torch)
     # the ring's hops beside phase 2's rows (phase 16's on one head a rank)
     for phase in (seq_parallel, seq_options):
         for name, hop_rows in phase["hops"].items():
@@ -7429,7 +7987,17 @@ def main():
            for part, family in (("a", "vit_tiny"), ("b", "resnet18"))},
         **{f"scan_vit_tiny_{algorithm}_per_replay": r["graph_launches"]
            for algorithm, r in scan["c"].items()},
-        "scan_vit_tiny_fixmatch_recipe": scan["d"]["launches"]}
+        "scan_vit_tiny_fixmatch_recipe": scan["d"]["launches"],
+        # phase 19: a replay of each graph of each accumulation case and
+        # of each NCCL rank case (two cards or more), read from the graph;
+        # the captured accumulation recipe's run
+        **{f"scan_{label}_per_{kind}_replay": launches
+           for label, r in scan_accum["a"].items()
+           for kind, launches in r["graph_launches_by_kind"].items()},
+        **{f"scan_rank_{name}_per_{kind}_replay": launches
+           for name, r in scan_accum["d"].get("cases", {}).items()
+           for kind, launches in r["graph_launches_by_kind"][0].items()},
+        "scan_accum_vit_tiny_fixmatch_recipe": scan_accum["b"]["launches"]}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -7447,6 +8015,7 @@ def main():
                    "seq_parallel": seq_parallel,
                    "seq_options": seq_options,
                    "checkpoint": checkpoint, "scan": scan,
+                   "scan_accum": scan_accum,
                    "phase_seconds": phase_seconds,
                    "seconds": time.time() - t_start}, f,
                   indent=1)
@@ -7463,12 +8032,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(*sys.argv[2:]))
-    if sys.argv[1:2] == ["--remat"]:
-        sys.exit(remat_main(*sys.argv[2:]))
-    if sys.argv[1:2] == ["--accum"]:
-        sys.exit(accum_resume_main(*sys.argv[2:]))
-    if sys.argv[1:2] == ["--cache"]:
-        sys.exit(cache_main(*sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-drift"]:
         sys.exit(tp_drift_main(*sys.argv[2:]))
     if sys.argv[1:2] == ["--reco-noise"]:

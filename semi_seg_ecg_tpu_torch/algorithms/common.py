@@ -86,11 +86,14 @@ and does nothing: torch updates the parameters in place, which is what the
 JAX package's fused state buys. ``train.scan_steps`` K > 1 runs K steps a
 dispatch, as the JAX package scans K steps into one device program: the
 loop uploads K stacked batches at once (the epoch's tail one at a time),
-and on a card each step is a replay of one CUDA graph of the step's device
-work (``utils/captured_step.py``), whose first step is the eager warm-up;
-on the CPU a unit's steps run eagerly. Every step's metrics, lr and draws
-are those of K = 1. A process group, ``train.accum_iter`` > 1 and
-``debug.nan_checks`` refuse K > 1 with the reason.
+and on a card each step is a replay of a CUDA graph of the step's device
+work (``utils/captured_step.py``: under ``train.accum_iter`` > 1 one graph
+for the accumulating micro-step and one for the updating one; under NCCL
+with the step's collectives inside), after an eager warm-up up to the
+run's first update; on the CPU a unit's steps run eagerly, under any
+process group. Every step's metrics, lr and draws are those of K = 1. A
+gloo process group with CUDA tensors and ``debug.nan_checks`` refuse
+K > 1 with the reason.
 ``dataset.device_cache`` puts the train split on the device once and
 ships row indices per step (``data/device_cache.py``; the rows are gathered
 before the augmentation stage), when the device-augment plan runs every
@@ -561,8 +564,8 @@ class Trainer:
     A config with ``resume`` restores them (and the optimizers and the
     step) from the checkpoint it names; ``resume_best`` holds that file's
     best-so-far thresholds. Under ``train.scan_steps`` > 1 on a card
-    each step after the first replays the step captured in :attr:`captured`
-    (``utils/captured_step.CapturedStep``)."""
+    each step after the warm-up replays a graph of the step captured in
+    :attr:`captured` (``utils/captured_step.CapturedStep``)."""
 
     def __init__(self, config: Dict[str, Any], spec: AlgorithmSpec,
                  device: torch.device, updates_per_epoch: int,
@@ -571,7 +574,10 @@ class Trainer:
         self.config = config
         self.device = device
         self.seed = config["seed"]
-        self.scan_steps = capture.check_scan_steps(config)
+        # on a card K > 1 captures the step (check_scan_steps refuses a
+        # group whose collectives a graph cannot hold); on the CPU a unit's
+        # steps run eagerly
+        self.scan_steps = capture.check_scan_steps(config, device)
         self.capture = self.scan_steps > 1 and device.type == "cuda"
         self.captured: Optional[capture.CapturedStep] = None
         self.mesh = pmesh.make_mesh(config)
@@ -698,8 +704,8 @@ class Trainer:
                    ) -> Dict[str, torch.Tensor]:
         """One step on a device batch (an index batch under the device
         cache); advances the step counter. Under ``train.scan_steps`` > 1
-        on a card, the captured step (its first call the eager warm-up and
-        the capture)."""
+        on a card, the captured step (eager up to the run's first update,
+        which the capture follows)."""
         if self.capture:
             if self.captured is None:
                 self.captured = capture.CapturedStep(self)
@@ -830,6 +836,8 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
                     log_writer)
                 # a window open at the epoch's end: every rank holds the
                 # ranks' mean partial sum, the one rank 0's checkpoint keeps
+                # (eager, between replays, into a captured run's fixed
+                # gradients)
                 for opt in (trainer.optimizer, trainer.peer_optimizer):
                     if opt is not None:
                         opt.average_window_()

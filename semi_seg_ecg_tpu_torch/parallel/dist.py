@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import gc
 import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -155,8 +156,12 @@ def init_distributed_mode(ddp_cfg: Optional[Dict[str, Any]] = None,
 
 def destroy_process_group() -> None:
     """Tear down the process group, if there is one; every process prints
-    again."""
+    again. Unreachable objects go first: a CUDA graph that captured NCCL
+    calls (``utils/captured_step.py``; a trainer and its captured step
+    form reference cycles) holds its communicator, and NCCL destroys a
+    communicator only once every such graph is gone."""
     if dist.is_initialized():
+        gc.collect()
         dist.destroy_process_group()
     set_mesh(None)
     set_logging_enabled(True)
@@ -221,6 +226,11 @@ def _rank(group) -> int:
     if not dist.is_initialized():
         return 0
     return dist.get_rank(group)
+
+
+def backend() -> Optional[str]:
+    """The process group's backend (``nccl``, ``gloo``), None without one."""
+    return dist.get_backend() if dist.is_initialized() else None
 
 
 def barrier() -> None:
@@ -342,25 +352,33 @@ def all_reduce_max_(t: torch.Tensor, group=None) -> torch.Tensor:
 
 @torch.no_grad()
 def all_reduce_grads_(params: Sequence[torch.Tensor], group=None,
-                      divisor: Optional[int] = None) -> None:
+                      divisor: Optional[int] = None,
+                      have: Optional[List[bool]] = None
+                      ) -> Optional[List[bool]]:
     """Replace each ``.grad`` of ``params`` by its sum over the ranks of
     ``group`` (None: the data group) divided by ``divisor`` (None: their
-    number, the mean), one all-reduce per dtype. Parameters without a
-    gradient are skipped: every rank runs the same graph, so they are the
-    same on every rank; with a ``divisor`` (the seq axis) a gradient that
-    another rank has is taken as zero here."""
+    number, the mean), one all-reduce per dtype, in place. Parameters
+    without a gradient are skipped: every rank runs the same graph, so they
+    are the same on every rank; with a ``divisor`` (the seq axis) a
+    gradient that another rank has is taken as zero here. Which ones some
+    rank has (one flag a trainable parameter) costs an all-reduce and a
+    host sync: ``have`` gives the flags an earlier call returned (a CUDA
+    graph capture can make no host sync). Returns the flags with a
+    ``divisor``, else None."""
     group = _group(group)
     n = _size(group)
     if n == 1:
-        return
+        return None
     if divisor is not None:
         # the seq ranks run different parts of one graph (only seq rank 0
         # holds the cls token): a gradient that some rank lacks is zero there
         params = [p for p in params if p.requires_grad]
-        have = torch.tensor([float(p.grad is not None) for p in params],
-                            device=params[0].device)
-        dist.all_reduce(have, group=group)
-        for p, h in zip(params, have.tolist()):
+        if have is None:
+            flags = torch.tensor([float(p.grad is not None) for p in params],
+                                 device=params[0].device)
+            dist.all_reduce(flags, group=group)
+            have = [bool(h) for h in flags.tolist()]
+        for p, h in zip(params, have):
             if h and p.grad is None:
                 p.grad = torch.zeros_like(p)
         n = divisor
@@ -377,6 +395,7 @@ def all_reduce_grads_(params: Sequence[torch.Tensor], group=None,
         pieces = flat.split([g.numel() for g in grads])
         torch._foreach_copy_(grads, [p.view_as(g)
                                      for p, g in zip(pieces, grads)])
+    return have
 
 
 @torch.no_grad()
@@ -434,7 +453,10 @@ def exchange(sends: Dict[int, torch.Tensor],
     ``recvs[j] = (shape, dtype)``, returned on ``device`` under ``j``. Every
     send and receive is posted at once (``batch_isend_irecv``), so no order
     of the peers deadlocks; at most one tensor each way per peer. Under
-    gloo the tensors go through the host."""
+    gloo the tensors go through the host. Under NCCL the host waits on
+    nothing: the group's stream takes the ops after the current stream's
+    work and each ``wait`` makes the current stream wait for them, so a
+    CUDA graph captures the exchange (``utils/captured_step.py``)."""
     nccl = _is_nccl()
     wire = device if nccl else torch.device("cpu")
     ops, out = [], {}

@@ -51,10 +51,12 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -620,13 +622,38 @@ def linear_interpolate(x: torch.Tensor, length: int, size: int,
     xin = fetch_time_range(x, length, ranges, 0.0, shard)
     a, b = blocks[shard.rank]
     start = ranges[shard.rank][0]
-    dev = x.device
-    lo_t = torch.from_numpy(lo[a:b] - start).to(dev)
-    hi_t = torch.from_numpy(hi[a:b] - start).to(dev)
-    return (xin.index_select(-1, lo_t)
-            * torch.from_numpy(w_lo[a:b]).to(dev).to(x.dtype)
-            + xin.index_select(-1, hi_t)
-            * torch.from_numpy(w_hi[a:b]).to(dev).to(x.dtype))
+    if torch.compiler.is_compiling():
+        # a trace holds its own constants (ops/interpolate.py)
+        lo_t, hi_t, w_lo_t, w_hi_t = (torch.from_numpy(t).to(x.device)
+                                      for t in _block_taps(
+                                          length, size, align_corners, a,
+                                          b, start))
+    else:
+        lo_t, hi_t, w_lo_t, w_hi_t = _device_block_taps(
+            length, size, align_corners, a, b, start, x.device)
+    return (xin.index_select(-1, lo_t) * w_lo_t.to(x.dtype)
+            + xin.index_select(-1, hi_t) * w_hi_t.to(x.dtype))
+
+
+def _block_taps(length: int, size: int, align_corners: bool, a: int, b: int,
+                start: int):
+    """The taps of output samples ``[a, b)`` of a resize from ``length`` to
+    ``size``, their indices relative to ``start``."""
+    from ..ops.interpolate import _interp_coords
+
+    lo, hi, w_lo, w_hi = _interp_coords(length, size, align_corners)
+    return lo[a:b] - start, hi[a:b] - start, w_lo[a:b], w_hi[a:b]
+
+
+@functools.lru_cache(maxsize=64)
+def _device_block_taps(length: int, size: int, align_corners: bool, a: int,
+                       b: int, start: int, device: torch.device):
+    """:func:`_block_taps` on ``device``, uploaded once: a step copies
+    nothing from the host, as a CUDA graph capture needs."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                     for t in _block_taps(length, size, align_corners, a,
+                                          b, start))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""``train.scan_steps``: K train steps a dispatch, as replays of one CUDA
-graph of the step (counterpart of the JAX package's ``jax.lax.scan`` of
+"""``train.scan_steps``: K train steps a dispatch, as replays of CUDA
+graphs of the step (counterpart of the JAX package's ``jax.lax.scan`` of
 its jitted step, ``semi_seg_ecg_tpu/algorithms/common.py``).
 
 With ``train.scan_steps`` K > 1 the training loop groups K host batches
@@ -11,47 +11,77 @@ non-finite loss as with K = 1.
 
 On a card, :class:`CapturedStep` takes ``Trainer.train_step``'s device
 work (the cache's ``materialize``, the augmentation, the algorithm's step:
-forwards, losses, backward, clip, optimizer update, EMA or peer update;
-every kernel of the port inside) into one ``torch.cuda.CUDAGraph`` and
-replays it once a step. The port seeds every step's draws on the host
-(``Trainer.reseed``) and torch refuses ``manual_seed`` while capturing, so
-one step is captured and replayed K times, not K steps captured once:
-before each replay the host copies the step's slice of the unit into the
-graph's static input, reseeds the trainer's generators (registered with
-the graph, so the reseed takes effect in the replay) and writes each
-optimizer group's lr into its device tensor
-(``TrainOptimizer.write_lr``); after it, the step's metrics are copied
-out of the graph's output, which the next replay overwrites. The host
-counters (the trainer's step, each optimizer's update count) advance as
-in an eager step.
+forwards, losses, backward, the gradients' all-reduce over the process
+group, clip, optimizer update, EMA or peer update; every kernel of the
+port inside) into CUDA graphs (``torch.cuda.CUDAGraph``) and replays one
+a step. The
+port seeds every step's draws on the host (``Trainer.reseed``) and torch
+refuses ``manual_seed`` while capturing, so one step is captured and
+replayed K times, not K steps captured once: before each replay the host
+copies the step's slice of the unit into the graphs' static input,
+reseeds the trainer's generators (registered with every graph, so the
+reseed takes effect in the replay) and, before an update, writes each
+optimizer group's lr into its device tensor (``TrainOptimizer.write_lr``);
+after it, the step's metrics are copied out of the graph's output, which
+the next replay overwrites. The host counters (the trainer's step, each
+optimizer's update count and micro-step) advance as in an eager step.
 
-Warm-up is the run's first step, taken eagerly as a real step: it makes
-the optimizers' lazy state (AdamW's moments, SGD's momentum), builds the
+Gradient accumulation (``train.accum_iter`` k > 1, ``optax.MultiSteps``
+in the JAX package): a window's micro-steps are of two kinds, so there
+are two graphs, captured into one memory pool: the accumulating one
+(forward and backward into the window's gradients) and the updating one
+(the same, then divide, all-reduce, clip, update, the EMA teacher's or
+the peer's update, and the gradients zeroed in place for the next
+window). Before each replay the host picks the graph from the
+optimizers' ``micro_step``, so a window may span units, an epoch's tail
+and epochs. The window's gradients are fixed tensors both graphs share:
+the eager warm-up makes them, and a parameter without one keeps none
+(``TrainOptimizer.make_capturable_``). With k = 1 the updating graph is
+the only one, and the capture sets every ``.grad`` to None at its start,
+as each step does, so the backward allocates the gradients from the
+graph's pool and each replay rewrites them in place.
+
+Under a process group (NCCL: data, ZeRO-1, seq and model ranks) the
+step's collectives are captured with it: the gradient all-reduce, the
+BatchNorm statistics' and ReCo's all-gathers, ZeRO-1's and the model
+axis's broadcasts, the model axis's activation all-reduces and the seq
+axis's point-to-point halos and ring hops. Every rank warms up, captures
+and replays in the same order, since each follows the same counters. An
+epoch's end (the open window's mean over the ranks,
+``TrainOptimizer.average_window_``), the evaluation and the checkpoint's
+gathers run eagerly between replays, on the communicators the graphs
+captured (NCCL lets captured and eager calls share one).
+
+The warm-up is eager and real: the run's steps up to and including its
+first update (the first step when k = 1; a resumed run with an open
+window finishes it). It makes the optimizers' lazy state (AdamW's
+moments, SGD's momentum), gives every process group the step uses its
+NCCL communicator (none may be created inside a capture), decides once
+which gradients the seq ranks' all-reduce takes (``parallel.dist.
+all_reduce_grads_``; its host sync cannot be captured), builds the
 kernels (``ops/cuda_build.py``), fills the allocator and records where
-each remat block's forward found its generators (``models/remat.py``),
-so K > 1 makes the updates and draws of K = 1. Before it the optimizers
-become capturable (``TrainOptimizer.make_capturable_``: the lr a device
-tensor, AdamW's step count on the device, SGD's fused update). The
-capture sets every ``.grad`` to None at its start, as each step does
-(``TrainOptimizer.zero_grad``), so the backward allocates the gradients
-from the graph's private pool; they stay there, and each replay rewrites
-them in place. Autocast runs with its cast cache off
-(``Trainer.amp``), as capture needs.
+each remat block's forward found its generators (``models/remat.py``).
+Before it the optimizers become capturable
+(``TrainOptimizer.make_capturable_``: the lr a device tensor, AdamW's
+step count on the device, SGD's fused update). Each capture runs with the
+optimizers' ``micro_step`` set to the position its graph stands for, and
+the host counters restored after it. Autocast runs with its cast cache
+off (``Trainer.amp``), as capture needs.
 
 No fallback: a capture or a replay that fails raises, and on a card K > 1
-never runs a step eagerly but the warm-up. On the CPU nothing is captured:
-a unit runs its K steps eagerly (the plain version the tests hold against
-K = 1). Refused, with the reason (:func:`check_scan_steps`): a process
-group (gloo's collectives are host calls a graph cannot hold; NCCL's
-all-reduce could be captured, but has not run on two cards here),
-``train.accum_iter`` > 1 (a window's micro-steps differ: all but the last
-make no update, which needs a second graph) and ``debug.nan_checks``
-(autograd's anomaly mode checks every backward on the host).
+runs no step eagerly but the warm-up. On the CPU nothing is captured: a
+unit runs its K steps eagerly (the plain version the tests hold against
+K = 1), under any process group and ``accum_iter``. Refused, with the
+reason (:func:`check_scan_steps`): a gloo process group with CUDA tensors
+(its collectives are host calls a graph cannot hold, and running the
+steps eagerly instead would be a hidden fallback) and
+``debug.nan_checks`` (autograd's anomaly mode checks every backward on
+the host).
 
-:attr:`CapturedStep.kernel_names` lists the graph's kernel nodes: the
+:meth:`CapturedStep.kernel_names_of` lists a graph's kernel nodes: the
 ported kernels' host counters (``ops/flash_attention.LAUNCHES``, ...)
-count once at capture and never at a replay, so a run's launches are read
-from the graph itself.
+count at each capture and never at a replay, so a run's launches are read
+from the graphs themselves.
 """
 
 from __future__ import annotations
@@ -72,23 +102,22 @@ def scan_steps(config: Dict[str, Any]) -> int:
     return max(int(config["train"].get("scan_steps", 1) or 1), 1)
 
 
-def check_scan_steps(config: Dict[str, Any]) -> int:
-    """:func:`scan_steps`, or a ``ValueError`` with the reason when the run
-    cannot take K > 1 (the same on either device)."""
+def check_scan_steps(config: Dict[str, Any],
+                     device: Optional[torch.device] = None) -> int:
+    """:func:`scan_steps`, or a ``ValueError`` with the reason when a run on
+    ``device`` (unset: the CPU) cannot take K > 1."""
     k = scan_steps(config)
     if k == 1:
         return k
     reasons = []
-    if pdist.get_world_size() > 1:
+    backend = pdist.backend()
+    if device is not None and device.type == "cuda" and backend not in (
+            None, "nccl"):
         reasons.append(
-            f"under a process group of {pdist.get_world_size()} ranks: a "
-            "gloo collective is a host call a CUDA graph cannot hold, and "
-            "NCCL's captured all-reduce has not run on two cards")
-    accum = int(config["train"].get("accum_iter", 1) or 1)
-    if accum > 1:
-        reasons.append(
-            f"with train.accum_iter {accum}: all but the last micro-step "
-            "of a window make no update, so a window needs a second graph")
+            f"under a {backend} process group of {pdist.get_world_size()} "
+            "ranks with CUDA tensors: its collectives are host calls a "
+            "CUDA graph cannot hold, and taking the steps eagerly instead "
+            "would be a hidden fallback (NCCL's are captured)")
     if (config.get("debug") or {}).get("nan_checks", False):
         reasons.append(
             "with debug.nan_checks: autograd's anomaly mode checks every "
@@ -131,12 +160,18 @@ def unit_slice(unit: Dict[str, torch.Tensor], j: int
     return {key: v[j] for key, v in unit.items()}
 
 
+# the two kinds of micro-step, each a graph: one that accumulates into the
+# window's gradients, one that ends the window with the update
+KINDS = ("accumulate", "update")
+
+
 class CapturedStep:
-    """One trainer's step, warmed up and captured at its first call, then
-    replayed at every call (see the module docstring). ``trainer`` is an
-    ``algorithms.common.Trainer`` on a CUDA device; with ``keep_graph`` the
-    graph keeps its nodes for :attr:`kernel_names` (a caller that counts
-    launches puts one in ``trainer.captured`` before the first step)."""
+    """One trainer's step, warmed up and captured once its first update has
+    been applied, then replayed at every call (see the module docstring).
+    ``trainer`` is an ``algorithms.common.Trainer`` on a CUDA device; with
+    ``keep_graph`` the graphs keep their nodes for :meth:`kernel_names_of` (a
+    caller that counts launches puts one in ``trainer.captured`` before
+    the first step)."""
 
     def __init__(self, trainer, keep_graph: bool = False):
         if trainer.device.type != "cuda":
@@ -147,99 +182,136 @@ class CapturedStep:
         self.optimizers = [o for o in (trainer.optimizer,
                                        trainer.peer_optimizer)
                            if o is not None]
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}  # by KINDS
         self.static_in: Dict[str, torch.Tensor] = {}
-        self.static_out: Optional[torch.Tensor] = None
+        self.static_out: Dict[str, torch.Tensor] = {}
         self.keys: List[str] = []
         self.remat_calls: List = []  # remat.RematCall of the captured step
-        self.replays = 0
-        self._kernel_names: Optional[List[str]] = None
+        self.warm_up_steps = 0
+        self.replays_by_kind = {kind: 0 for kind in KINDS}
+        self._first_counts: Optional[List[int]] = None
+        self._kernel_names: Dict[str, List[str]] = {}
+
+    @property
+    def replays(self) -> int:
+        """The replays so far, of either graph."""
+        return sum(self.replays_by_kind.values())
+
+    @property
+    def kind(self) -> str:
+        """The kind of the next micro-step: ``update`` when it ends the
+        optimizers' window, else ``accumulate``."""
+        kinds = {KINDS[o.micro_step == o.accum - 1] for o in self.optimizers}
+        if len(kinds) != 1:
+            raise RuntimeError("the optimizers' windows are out of step: "
+                               f"{[o.micro_step for o in self.optimizers]}")
+        return kinds.pop()
 
     def step(self, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
-        """The next step on ``batch`` (device tensors): the warm-up step and
-        the capture at the first call, a replay at every later one. Returns
-        the step's metrics, 0-d fp32 tensors that later steps leave as they
-        are."""
-        if self.graph is None:
-            metrics = self._warm_up(batch)
-            self._capture(batch)
-            return metrics
+        """The next step on ``batch`` (device tensors): an eager warm-up
+        step until the run's first update, the capture after it, then a
+        replay of the graph of the micro-step's kind. Returns the step's
+        metrics, 0-d fp32 tensors that later steps leave as they are."""
+        if not self.graphs:
+            return self._warm_up(batch)
         t = self.trainer
+        kind = self.kind
         for key, v in batch.items():
             self.static_in[key].copy_(v)
         t.reseed()
         for call in self.remat_calls:
             call.point_stand_ins()
-        for opt in self.optimizers:
-            opt.write_lr()
-        self.graph.replay()
-        out = self.static_out.clone()
+        if kind == "update":
+            for opt in self.optimizers:
+                opt.write_lr()
+        self.graphs[kind].replay()
+        out = self.static_out[kind].clone()
         t.step += 1
         for opt in self.optimizers:
-            opt.count += 1
-        self.replays += 1
+            opt.replayed()
+        self.replays_by_kind[kind] += 1
         return dict(zip(self.keys, out.unbind(0)))
 
     def _warm_up(self, batch):
-        """The run's first step, eager and real, with capturable optimizers,
-        recording each remat block's generator positions."""
-        for opt in self.optimizers:
-            opt.make_capturable_()
+        """One eager, real step of the warm-up, with capturable optimizers,
+        recording each remat block's generator positions; once it has
+        applied the run's first update, the capture."""
+        if self._first_counts is None:
+            for opt in self.optimizers:
+                opt.make_capturable_()
+            self._first_counts = [o.count for o in self.optimizers]
         t = self.trainer
         with remat.recording() as calls:
             metrics = t.eager_step(batch)
         self.remat_calls = calls
+        self.warm_up_steps += 1
+        if all(o.count > c for o, c in zip(self.optimizers,
+                                           self._first_counts)):
+            self._capture(batch)
         return metrics
 
     def _capture(self, batch):
         t = self.trainer
         self.static_in = {key: torch.empty_like(v) for key, v in
                           batch.items()}
-        graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
-        if self.keep_graph:
-            # the graph's nodes outlive its instantiation, for debug_dump
-            graph.enable_debug_mode()
-        for gen in t.generators() + [s for call in self.remat_calls
-                                     for s in call.stand_ins]:
-            graph.register_generator_state(gen)
+        # both graphs in one pool: they never run at once
+        pool = torch.cuda.graph_pool_handle()
+        kinds = KINDS if self.optimizers[0].accum > 1 else ("update",)
         counters = (t.step, [(o.count, o.micro_step)
                              for o in self.optimizers])
         try:
-            # the loader's and the checkpoint writer's threads may touch
-            # the card while this thread captures
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"), \
-                    remat.capturing(self.remat_calls):
-                out = t.device_step(self.static_in)
-                self.keys = list(out)
-                self.static_out = torch.stack([out[k].float()
-                                               for k in self.keys])
+            for kind in kinds:
+                for opt in self.optimizers:
+                    opt.micro_step = opt.accum - 1 if kind == "update" else 0
+                graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
+                if self.keep_graph:
+                    # the nodes outlive the instantiation, for debug_dump
+                    graph.enable_debug_mode()
+                for gen in t.generators() + [s for call in self.remat_calls
+                                             for s in call.stand_ins]:
+                    graph.register_generator_state(gen)
+                # the loader's and the checkpoint writer's threads may
+                # touch the card, and NCCL's watchdog query its events,
+                # while this thread captures
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode="thread_local"), \
+                        remat.capturing(self.remat_calls):
+                    out = t.device_step(self.static_in)
+                    self.keys = list(out)
+                    self.static_out[kind] = torch.stack(
+                        [out[k].float() for k in self.keys])
+                if self.keep_graph:
+                    graph.instantiate()
+                self.graphs[kind] = graph
         finally:
-            # capturing ran the step's host code once: its counters
+            # each capture ran the step's host code once: its counters
             t.step = counters[0]
             for opt, (count, micro) in zip(self.optimizers, counters[1]):
                 opt.count, opt.micro_step = count, micro
-        if self.keep_graph:
-            graph.instantiate()
-        self.graph = graph
 
     @property
     def kernel_names(self) -> List[str]:
-        """The (mangled) name of every kernel node of the captured graph,
-        one entry a node (``keep_graph``).
+        """:meth:`kernel_names_of` the updating graph, which every captured
+        run has."""
+        return self.kernel_names_of("update")
+
+    def kernel_names_of(self, kind: str) -> List[str]:
+        """The (mangled) name of every kernel node of the graph of ``kind``
+        (:data:`KINDS`), one entry a node (``keep_graph``).
         Read from the graph's DOT description (``cudaGraphDebugDotPrint``
         through ``CUDAGraph.debug_dump``), which holds each kernel node's
         function."""
-        if self._kernel_names is None:
-            if self.graph is None or not self.keep_graph:
-                raise RuntimeError("kernel_names needs a captured step "
-                                   "built with keep_graph")
+        if kind not in self._kernel_names:
+            if kind not in self.graphs or not self.keep_graph:
+                raise RuntimeError(f"kernel_names needs a captured {kind} "
+                                   "graph built with keep_graph")
             with tempfile.TemporaryDirectory() as tmp:
                 path = os.path.join(tmp, "graph.dot")
-                self.graph.debug_dump(path)
+                self.graphs[kind].debug_dump(path)
                 with open(path) as f:
-                    self._kernel_names = dot_kernel_names(f.read())
-        return self._kernel_names
+                    self._kernel_names[kind] = dot_kernel_names(f.read())
+        return self._kernel_names[kind]
 
 
 # a node of a graph's DOT description (``cudaGraphDebugDotPrint``): its

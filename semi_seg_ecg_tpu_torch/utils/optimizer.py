@@ -85,13 +85,25 @@ equal bit for bit.
 A captured step (``train.scan_steps``, ``utils/captured_step.py``):
 :meth:`TrainOptimizer.make_capturable_` turns each group's lr into a
 device tensor, which :meth:`TrainOptimizer.write_lr` fills before every
-replay (a float would be baked into the graph), keeps AdamW's step count
-and bias correction on the device (``capturable=True``) and gives SGD its
-fused update, which reads the lr tensor (the foreach update takes its lr
-as a host scalar). Inside the capture :meth:`TrainOptimizer.step` leaves
-the lr alone. :meth:`TrainOptimizer.state_dict` writes the eager layout
-(a float lr, the step count on the host, the eager flags), so a captured
-run's checkpoint resumes eagerly and the other way round.
+updating replay (a float would be baked into the graph), keeps AdamW's
+step count and bias correction on the device (``capturable=True``) and
+gives SGD its fused update, which reads the lr tensor (the foreach update
+takes its lr as a host scalar); a ZeRO-1 optimizer (its own parameters)
+and a model-sliced one (its slices) become capturable the same way.
+Inside the capture :meth:`TrainOptimizer.step` leaves the lr alone, and
+:meth:`TrainOptimizer.replayed` advances the host counters after a
+replay. Under accumulation the window's gradients are fixed tensors the
+graphs share: :meth:`TrainOptimizer.zero_grad` leaves them, and
+:meth:`TrainOptimizer.step` zeroes them in place after each update (a
+parameter without one keeps none: a zero would make AdamW decay it);
+:meth:`TrainOptimizer.average_window_` writes into them, and a resume's
+:meth:`TrainOptimizer.set_window` runs before the capture, so the tensors
+it makes are the window's. The seq ranks' all-reduce decides once, at
+the first update, which gradients take part (its host sync cannot be
+captured).
+:meth:`TrainOptimizer.state_dict` writes the eager layout (a float lr, the
+step count on the host, the eager flags), so a captured run's checkpoint
+resumes eagerly and the other way round.
 
 Freezing (``mode: freeze_backbone``, ``frozen_stages >= 0``): the frozen
 set is the JAX package's ``frozen_param_mask``
@@ -217,6 +229,9 @@ class TrainOptimizer:
         # the lr last written into each group's tensor, as a float
         self._eager_flags: Optional[List[Dict[str, Any]]] = None
         self._host_lrs: List[float] = []
+        # captured: which parameters' gradients the seq ranks' all-reduce
+        # takes, decided at the first update
+        self._seq_have: Optional[List[bool]] = None
 
     def shard_(self, plan: Dict[str, Any], mesh) -> None:
         """The model's parameters are now this model rank's slices
@@ -245,10 +260,17 @@ class TrainOptimizer:
         """Whether this rank's optimizer keeps the state of ``p``."""
         return id(p) in self._held
 
+    @property
+    def _fixed_grads(self) -> bool:
+        """Whether the window's gradients are fixed tensors (captured, with
+        accumulation), zeroed in place after each update."""
+        return self.captured and self.accum > 1
+
     def zero_grad(self) -> None:
         """Clear the gradients at the start of a window (every call when
-        ``accum`` is 1), of every trainable parameter, held or not."""
-        if self.micro_step == 0:
+        ``accum`` is 1), of every trainable parameter, held or not; with
+        :attr:`_fixed_grads` the last update zeroed them in place."""
+        if self.micro_step == 0 and not self._fixed_grads:
             for p in self.params:
                 p.grad = None
 
@@ -263,7 +285,8 @@ class TrainOptimizer:
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.accum > 1 and grads:
             torch._foreach_div_(grads, self.accum)
-        if not (self.captured and torch.cuda.is_current_stream_capturing()):
+        if not (self.captured and self.params[0].is_cuda
+                and torch.cuda.is_current_stream_capturing()):
             # a replay's lr is written before it (write_lr)
             self.write_lr()
         # the mean over the ranks first, so every rank clips and applies
@@ -287,8 +310,21 @@ class TrainOptimizer:
         if self.sharded:
             # each rank updated its own parameters: every rank takes them
             pdist.broadcast_from_owners_(self.params, self.owners)
+        if self._fixed_grads:
+            # the next window accumulates into the same tensors
+            window = [p.grad for p in self.params if p.grad is not None]
+            if window:
+                torch._foreach_zero_(window)
         self.count += 1
         return True
+
+    def replayed(self) -> None:
+        """The host's part of a :meth:`step` a CUDA graph replayed: the
+        window's micro-step, and the update count at its end."""
+        self.micro_step += 1
+        if self.micro_step == self.accum:
+            self.micro_step = 0
+            self.count += 1
 
     @property
     def captured(self) -> bool:
@@ -309,9 +345,11 @@ class TrainOptimizer:
     def make_capturable_(self) -> None:
         """Make :meth:`step` capturable in a CUDA graph: each group's lr a
         0-d fp32 tensor on the parameters' device, AdamW ``capturable``
-        with its step counts moved there, SGD's fused update (a sliced or
-        sharded optimizer never gets here: a process group refuses
-        ``train.scan_steps``)."""
+        with its step counts moved there, SGD's fused update; the same for
+        a ZeRO-1 optimizer, whose groups hold this rank's parameters (a
+        group may hold none), and a model-sliced one, whose state is
+        already sliced. With accumulation the window's gradients become
+        fixed tensors from here on (:attr:`_fixed_grads`)."""
         if self.captured:
             return
         opt = self.optimizer
@@ -362,7 +400,10 @@ class TrainOptimizer:
         (the seq ranks' parts of one gradient), else over the data group."""
         mesh = pdist.current_mesh()
         if self._time_split and mesh is not None:
-            all_reduce_grads_(self.params, mesh.data_seq_group, mesh.data)
+            have = all_reduce_grads_(self.params, mesh.data_seq_group,
+                                     mesh.data, have=self._seq_have)
+            if self.captured:
+                self._seq_have = have
         else:
             all_reduce_grads_(self.params)
 

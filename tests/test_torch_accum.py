@@ -25,6 +25,16 @@ dense attention, its train-mode teacher) take the same K micro-steps on
 their halves of each global batch as one process holding it: losses
 within rtol 1e-5, the student and teacher within ``assert_states_agree``'s
 bounds, the ranks equal bit for bit.
+
+``train.scan_steps: 2`` under two gloo ranks (the units' steps run
+eagerly on the CPU), with ``accum_iter`` 1 and 2: ``run_training`` of
+``tests/test_torch_scan_steps.py``'s FixMatch run (4 rows a rank, 4 steps)
+and one process holding both shards, each against the JAX package's
+``run_training`` on a 2-device data mesh (its ``jax.lax.scan`` of 2
+steps, of ``optax.MultiSteps`` steps at ``accum_iter: 2``), and the ranks
+against the one process, all from the JAX run's initial trees: the
+epoch's train losses within rtol 1e-5 and the final model by
+``assert_states_agree``; the two ranks' models equal bit for bit.
 """
 
 import copy
@@ -60,7 +70,12 @@ from tests.test_torch_parallel_train import (
     state_dicts,
 )
 from tests.test_torch_reco import jax_draws, reco_model_config
-from tests.torch_dist_worker import run_ranks
+from tests.torch_dist_worker import (
+    data_parallel_size,
+    run_ranks,
+    start_ranks,
+    wait_ranks,
+)
 from tests.test_torch_train_slice import (
     BATCH,
     K,
@@ -226,3 +241,89 @@ def test_two_ranks_accumulate_as_one_process(tmp_path):
     got = ranks[0][0]["states"]
     for role, module in (("model", trainer.model), ("ema", trainer.teacher)):
         assert_states_agree(module.state_dict(), state_dicts(got[role]))
+
+
+SCAN_ACCUMS = (1, 2)
+SCAN_WORLD, SCAN_ROWS = 2, 4  # ranks, rows a rank
+
+
+@pytest.fixture(scope="module")
+def scan_runs(tmp_path_factory):
+    """For each of SCAN_ACCUMS the JAX package's 2-device run, two gloo
+    ranks' run and one process's run holding both shards, each of its
+    ``scan`` experiment directory; the ranks' final states."""
+    import yaml
+
+    from semi_seg_ecg_tpu_torch.algorithms import common, fixmatch
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+    from semi_seg_ecg_tpu_torch.data.synthetic import make_synthetic_dataset
+    from semi_seg_ecg_tpu_torch.utils.weights import jax_trees_to_state_dict
+    from tests.test_torch_scan_steps import jax_run_training, jax_scan_config
+
+    root = tmp_path_factory.mktemp("scan_ranks")
+    data = make_synthetic_dataset(str(root / "data"), num_train_labeled=8,
+                                  num_train_unlabeled=32, num_valid=2,
+                                  num_test=2, length=SEQ, seed=12)
+
+    def config(side, accum, resume=None):
+        cfg = jax_scan_config(root / f"{side}{accum}", data)
+        cfg["dataloader"]["batch_size"] = SCAN_ROWS
+        cfg["train"]["accum_iter"] = accum
+        if resume is not None:
+            cfg["resume"] = resume
+        return cfg
+
+    monkeypatch = pytest.MonkeyPatch()
+    dirs = {accum: {"jax": root / f"jax{accum}" / "scan"}
+            for accum in SCAN_ACCUMS}
+    try:
+        params, stats = jax_run_training(config("jax", SCAN_ACCUMS[0]),
+                                         monkeypatch, devices=SCAN_WORLD)
+        # the JAX run's initial trees, as a torch file each port run
+        # resumes from (the model restored, the optimizer fresh)
+        cfg = normalize_config(config("port", 1))
+        model = common.init_model(cfg, torch.device("cpu"))
+        init = str(root / "init.pth")
+        torch.save({"model": jax_trees_to_state_dict(
+            params, stats, model.state_dict().keys())}, init)
+        paths = []
+        for accum in SCAN_ACCUMS:
+            path = str(root / f"ranks{accum}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(config("ranks", accum, init), f)
+            paths.append(path)
+        handle = start_ranks([("run_training", {"argv": ["-f", path]})
+                              for path in paths], str(root / "ranks"),
+                             world=SCAN_WORLD)
+        for accum in SCAN_ACCUMS[1:]:
+            jax_run_training(config("jax", accum), monkeypatch,
+                             devices=SCAN_WORLD)
+        for accum in SCAN_ACCUMS:
+            with data_parallel_size(SCAN_WORLD):
+                common.run_training(normalize_config(
+                    config("one", accum, init)), fixmatch.SPEC)
+        codes, logs, results = wait_ranks(handle, 240)
+    finally:
+        monkeypatch.undo()
+    for r, (code, log) in enumerate(zip(codes, logs)):
+        assert code == 0, f"rank {r}:\n{log[-4000:]}"
+    for i, accum in enumerate(SCAN_ACCUMS):
+        dirs[accum].update(one=root / f"one{accum}" / "scan",
+                           ranks=root / f"ranks{accum}" / "scan",
+                           states=[results[r][i]["states"]
+                                   for r in range(SCAN_WORLD)])
+    return dirs
+
+
+@pytest.mark.parametrize("accum", SCAN_ACCUMS)
+def test_two_ranks_scan_steps_match_jax_mesh_and_one_process(scan_runs,
+                                                             accum):
+    from tests.test_torch_scan_steps import assert_scan_runs_agree
+
+    run = scan_runs[accum]
+    for want, got in (("jax", "one"), ("jax", "ranks"), ("one", "ranks")):
+        assert_scan_runs_agree(run[want], run[got], 4)
+    first, second = run["states"]
+    assert first.keys() == second.keys() == {"model"}
+    for k, v in first["model"].items():
+        np.testing.assert_array_equal(v, second["model"][k], err_msg=k)

@@ -35,7 +35,12 @@ captured step equal eager steps with the same capturable optimizers bit
 for bit under deterministic algorithms, for every algorithm and option,
 each replay launching the step's kernels (read from the graph's kernel
 nodes); a captured optimizer's state resumes eagerly and the other way
-round.
+round. With ``train.accum_iter`` > 1 the replays of the accumulating and
+the updating graph equal the eager micro-steps with the capturable
+optimizers bit for bit, each graph launching a step's kernels; on two
+cards two NCCL ranks replay their captured steps (the gradient
+all-reduce inside the graph) as the eager ranks step, within the data
+parallel test's bounds, the ranks equal.
 """
 
 import copy
@@ -1422,3 +1427,97 @@ def test_captured_run_resumes_eagerly_and_back(cuda, tmp_path):
                                             device=cuda)}
             assert torch.isfinite(trainer.train_step(batch)["loss"])
         assert trainer.optimizer.count == 5
+
+
+ACCUM_SCAN_CASES = [("vit_tiny", "fixmatch", "fp32", 2),
+                    ("vit_tiny", "fixmatch", "bf16", 3),
+                    ("vit_tiny", "mean_teacher", "fp32", 2),
+                    ("vit_tiny", "cps", "fp32", 2),
+                    ("resnet18", "fixmatch", "fp32", 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,algorithm,precision,accum",
+                         ACCUM_SCAN_CASES)
+def test_captured_accumulation_replays_the_eager_micro_steps(
+        deterministic, family, algorithm, precision, accum):
+    """``train.scan_steps: 2`` with ``accum_iter`` k: three windows and a
+    micro-step, the first window the eager warm-up, then replays of the
+    accumulating and the updating graph, against the same micro-steps
+    taken eagerly with the capturable optimizers, under deterministic
+    algorithms: every micro-step's metrics and every tensor of every
+    network bit for bit. Each graph holds a step's kernels (its kernel
+    nodes); the host counters count the warm-up's k steps and the two
+    captures."""
+    from semi_seg_ecg_tpu_torch.utils import captured_step
+
+    cuda = deterministic
+    cfg = scan_config(algorithm, family, precision, accum_iter=accum)
+    steps = 3 * accum + 1
+    want, want_states, _ = scan_run(cfg, algorithm, cuda, steps, False)
+    before = fa.LAUNCHES, fa.BWD_LAUNCHES, gather1d.LAUNCHES
+    got, got_states, trainer = scan_run(cfg, algorithm, cuda, steps, True)
+    torch.cuda.synchronize()
+    counted = tuple(a - b for a, b in zip(
+        (fa.LAUNCHES, fa.BWD_LAUNCHES, gather1d.LAUNCHES), before))
+    captured = trainer.captured
+    fwd, bwd, gathers = SCAN_PASSES[algorithm]
+    depth = 2 if family == "vit_tiny" else 0
+    per_step = {"fwd": fwd * depth, "bwd": bwd * depth, "gather": gathers}
+    assert captured.warm_up_steps == accum
+    updates = sum(j % accum == accum - 1 for j in range(accum, steps))
+    assert captured.replays_by_kind == {
+        "accumulate": steps - accum - updates, "update": updates}
+    for kind in captured_step.KINDS:
+        assert captured_step.count_kernels(captured.kernel_names_of(kind),
+                                           SCAN_NEEDLES) == per_step, kind
+    assert counted == tuple((accum + 2) * v for v in per_step.values())
+    assert got == want
+    for name, state in want_states.items():
+        for k, v in state.items():
+            assert torch.equal(got_states[name][k], v), (name, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", [1, 2])
+def test_two_nccl_ranks_replay_the_captured_step(cuda, tmp_path, accum):
+    """``train.scan_steps: 2`` under two NCCL ranks (two cards; the
+    gradient all-reduce and the BatchNorm statistics' all-gather inside
+    the graphs): five fp32 steps of the depth-2 ViT FixMatch recipe (SGD
+    with momentum, whose fused update equals the foreach one) on 8 rows a
+    rank, against the same ranks stepping eagerly: losses within 1e-5
+    relative, states within 5e-4 relative + 1e-5, the two ranks equal."""
+    from torch_dist_worker import run_ranks
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes one card a rank")
+    cfg = scan_config("fixmatch", optimizer="sgd",
+                      optimizer_kwargs={"momentum": 0.9}, accum_iter=accum)
+    cfg["backbone"]["vit_tiny"].update(drop_out_rate=0.0,
+                                       drop_path_rate=0.0)
+    rng = np.random.default_rng(2)
+    x = lambda: rng.standard_normal((16, 1, 2500)).astype(np.float32)
+    batches = [{"ecg": x(), "target": rng.integers(0, 4, (16, 2500)),
+                "ecg_u_w": x()} for _ in range(5)]
+    init = build_model_from_config(cfg, train=True)
+    states = {"model": {k: v.numpy() for k, v in init.state_dict().items()}}
+    runs = []
+    for scan in (1, 2):
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg["train"]["scan_steps"] = scan
+        runs.append({"config": run_cfg, "batches": batches,
+                     "states": states})
+    ranks = run_ranks([("steps", {"runs": runs, "device": "cuda"})],
+                      str(tmp_path), timeout=300, device="cuda",
+                      backend="nccl")
+    (eager0, captured0), (eager1, captured1) = (r[0] for r in ranks)
+    for a, b in zip(captured0["metrics"], eager0["metrics"]):
+        for k in ("loss", "loss_x", "loss_u_s"):
+            assert a[k] == pytest.approx(b[k], rel=1e-5), k
+    for k, v in eager0["states"]["model"].items():
+        got = captured0["states"]["model"][k]
+        np.testing.assert_array_equal(got, captured1["states"]["model"][k])
+        np.testing.assert_array_equal(v, eager1["states"]["model"][k])
+        if v.dtype.kind == "f":
+            np.testing.assert_allclose(got, v, rtol=5e-4, atol=1e-5,
+                                       err_msg=k)

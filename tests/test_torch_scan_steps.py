@@ -1,8 +1,9 @@
 """``train.scan_steps`` in the port (``utils/captured_step.py``), on the CPU.
 
-On the CPU a unit of K stacked batches runs its K steps eagerly (on a
-card each is a replay of the captured step: ``tests/test_torch_cuda.py``
-and ``chip_smoke.py`` phase 18 hold those). Here:
+On the CPU a unit of K stacked batches runs its K steps eagerly, under any
+process group and ``train.accum_iter`` (on a card each is a replay of a
+captured step: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phases
+18 and 19 hold those). Here:
 
 - the port's ``scan_steps: 2`` FixMatch run (one epoch of 4 steps, one
   process holding the JAX mesh's 8 shards) against the JAX package's
@@ -12,16 +13,26 @@ and ``chip_smoke.py`` phase 18 hold those). Here:
   by ``tests/test_torch_train_slice.py``'s lockstep rule
   (``assert_states_agree``: BatchNorm statistics within 1e-5, every
   parameter within ``PARAM_ATOL_LR`` lr and all but the key bias within
-  ``TIGHT_ATOL_LR`` lr);
+  ``TIGHT_ATOL_LR`` lr (at ``accum_iter: 2``, the JAX package's scan of
+  ``optax.MultiSteps`` steps, on its 2-device mesh:
+  ``tests/test_torch_accum.py``);
 - each of the six algorithms at K = 2 (two units and a tail of 1) and
   K = 8 (all tail) against K = 1, bit for bit: every step's logged scalars
   with its lr, the ``log.txt`` rows but their wall time, and every
-  checkpoint's networks and optimizers;
-- the units, the refusals, and the host side of a captured step that runs
+  checkpoint's networks and optimizers; FixMatch, Mean Teacher and CPS
+  the same at K = 2 and 4 with ``accum_iter`` 2 and 3 over two epochs, so
+  that windows span units and the epoch's end;
+- the units, the refusals (a gloo group with CUDA tensors, and
+  ``debug.nan_checks``), and the host side of a captured step that runs
   without a card: the optimizer's lr tensors filled per update, its
-  checkpoint in the eager layout, and the graph's kernel names read from
-  its DOT description. (The remat stand-ins need a CUDA generator's
-  offset, which a CPU generator does not keep: the card tests hold them.)
+  checkpoint in the eager layout, its window's gradients kept as fixed
+  tensors and zeroed in place after an update, and the graph's kernel
+  names read from its DOT description. (The remat stand-ins need a CUDA
+  generator's offset, which a CPU generator does not keep: the card tests
+  hold them.)
+
+Two gloo ranks at ``scan_steps: 2`` against the JAX package's 2-device
+mesh and one process holding both shards: ``tests/test_torch_accum.py``.
 """
 
 import copy
@@ -127,6 +138,29 @@ def test_scan_steps_equal_one_step_a_dispatch(algorithm, recipes, tmp_path,
         assert_payloads_equal(got[2], ckpts, f"k{k}")
 
 
+ACCUM_ALGORITHMS = ("fixmatch", "mean_teacher", "cps")
+
+
+@pytest.mark.parametrize("algorithm", ACCUM_ALGORITHMS)
+def test_scan_steps_with_accumulation_equal_one_step_a_dispatch(
+        algorithm, recipes, tmp_path, monkeypatch):
+    """``accum_iter`` 2 and 3 over two epochs of ``STEPS`` steps: K = 2 and
+    4 against K = 1 bit for bit (the windows span units, the epoch's tail
+    and its end; the EMA teacher moves on updates only)."""
+    for accum in (2, 3):
+        cfg = copy.deepcopy(recipes[algorithm])
+        cfg["train"].update(accum_iter=accum, epochs=2)
+        root = tmp_path / f"accum{accum}"
+        rows, logs, ckpts = run_port(cfg, root, algorithm, 1, monkeypatch)
+        assert len(rows) == 2 * STEPS and logs and ckpts
+        for k in (2, 4):
+            got = run_port(cfg, root, algorithm, k, monkeypatch)
+            assert got[0] == rows, (accum, k)
+            assert got[1] == logs, (accum, k)
+            assert got[2].keys() == ckpts.keys(), (accum, k)
+            assert_payloads_equal(got[2], ckpts, f"accum{accum} k{k}")
+
+
 def jax_scan_config(root, data):
     """The lockstep's depth-2 ViT FixMatch (dense attention, dropout 0)
     as a run: batch 8, 4 steps, one epoch, host augmentation,
@@ -156,20 +190,19 @@ def test_port_scan_steps_matches_jax_scan(tmp_path, monkeypatch):
     """FixMatch at ``scan_steps: 2`` through both packages'
     ``run_training``, the JAX package's on one of the conftest's CPU
     devices, the port's from the JAX run's initial trees."""
+    assert_port_scan_matches_jax(tmp_path, monkeypatch)
+
+
+def jax_run_training(cfg, monkeypatch, devices=1):
+    """The JAX package's FixMatch ``run_training`` of ``cfg`` on
+    ``devices`` of the conftest's CPU devices; returns its initial
+    ``(params, batch_stats)`` trees as host arrays."""
     import jax
 
     from semi_seg_ecg_tpu.algorithms import common as jax_common
     from semi_seg_ecg_tpu.algorithms import fixmatch as jax_fixmatch
     from semi_seg_ecg_tpu.config import normalize_config as jax_normalize
-    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
-    from semi_seg_ecg_tpu_torch.config import normalize_config
-    from semi_seg_ecg_tpu_torch.utils.weights import jax_trees_to_state_dict
-    from tests.test_torch_train_slice import assert_states_agree
 
-    data = make_synthetic_dataset(str(tmp_path / "data"),
-                                  num_train_labeled=8,
-                                  num_train_unlabeled=32, num_valid=2,
-                                  num_test=2, length=SEQ, seed=12)
     init = {}
 
     def keep_init(config, model, state):
@@ -178,45 +211,66 @@ def test_port_scan_steps_matches_jax_scan(tmp_path, monkeypatch):
             np.asarray, (state.model.params, state.model.batch_stats))
         return state
 
-    devices = jax.devices
-    monkeypatch.setattr(jax, "devices", lambda *a: devices(*a)[:1])
-    # for speed: the init compiled (its trees are carried across whatever
-    # they are), TensorBoard's writer (it imports TensorFlow) left out
-    init_state = jax_common.init_model_state
-    monkeypatch.setattr(jax_common, "init_model_state",
-                        lambda model, config, seed: jax.jit(
-                            lambda: init_state(model, config, seed))())
-    monkeypatch.setattr(jax_common, "TensorBoardWriter", NoWriter)
-    jax_common.run_training(
-        jax_normalize(jax_scan_config(tmp_path / "jax", data)),
-        jax_fixmatch.SPEC, state_hook=keep_init)
-    monkeypatch.setattr(jax, "devices", devices)
+    all_devices = jax.devices
+    with monkeypatch.context() as m:
+        m.setattr(jax, "devices", lambda *a: all_devices(*a)[:devices])
+        # for speed: the init compiled (its trees are carried across
+        # whatever they are), TensorBoard's writer (it imports TensorFlow)
+        # left out
+        init_state = jax_common.init_model_state
+        m.setattr(jax_common, "init_model_state",
+                  lambda model, config, seed: jax.jit(
+                      lambda: init_state(model, config, seed))())
+        m.setattr(jax_common, "TensorBoardWriter", NoWriter)
+        jax_common.run_training(jax_normalize(cfg), jax_fixmatch.SPEC,
+                                state_hook=keep_init)
+    return init["trees"]
 
-    def transplant(trainer):
-        params, stats = init["trees"]
-        trainer.model.load_state_dict(jax_trees_to_state_dict(
-            params, stats, trainer.model.state_dict().keys()))
 
-    common.run_training(normalize_config(jax_scan_config(tmp_path / "port",
-                                                         data)),
-                        fixmatch.SPEC, state_hook=transplant)
+def assert_scan_runs_agree(theirs_dir, ours_dir, steps):
+    """Two runs' first ``log.txt`` rows (train losses within rtol 1e-5, the
+    mask doing work) and best-loss checkpoints (the lockstep rule)."""
+    from tests.test_torch_train_slice import assert_states_agree
+
     rows = []
-    for side in ("jax", "port"):
-        with open(tmp_path / side / "scan" / "log.txt") as f:
+    for side in (theirs_dir, ours_dir):
+        with open(side / "log.txt") as f:
             rows.append(json.loads(f.readline()))
     theirs, ours = rows
     for key in ("train_loss", "train_loss_x", "train_loss_u_s",
                 "train_mask_ratio"):
         assert ours[key] == pytest.approx(theirs[key], rel=1e-5), key
     assert 0 < ours["train_mask_ratio"] < 1  # the mask does work
-    payloads = [torch_ckpt.load_checkpoint(str(
-        tmp_path / side / "scan" / "best-loss.ckpt")) for side in
-        ("jax", "port")]
+    payloads = [torch_ckpt.load_checkpoint(str(side / "best-loss.ckpt"))
+                for side in (theirs_dir, ours_dir)]
     keys = payloads[1]["model"].keys()
     want = torch_ckpt.model_state_dict(payloads[0]["model"], keys)
     assert_states_agree(want, {k: torch.as_tensor(v) for k, v in
                                payloads[1]["model"].items()})
-    assert payloads[0]["step"] == payloads[1]["step"] == 4
+    assert payloads[0]["step"] == payloads[1]["step"] == steps
+
+
+def assert_port_scan_matches_jax(tmp_path, monkeypatch):
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.config import normalize_config
+    from semi_seg_ecg_tpu_torch.utils.weights import jax_trees_to_state_dict
+
+    data = make_synthetic_dataset(str(tmp_path / "data"),
+                                  num_train_labeled=8,
+                                  num_train_unlabeled=32, num_valid=2,
+                                  num_test=2, length=SEQ, seed=12)
+    configs = {side: jax_scan_config(tmp_path / side, data)
+               for side in ("jax", "port")}
+    params, stats = jax_run_training(configs["jax"], monkeypatch)
+
+    def transplant(trainer):
+        trainer.model.load_state_dict(jax_trees_to_state_dict(
+            params, stats, trainer.model.state_dict().keys()))
+
+    common.run_training(normalize_config(configs["port"]), fixmatch.SPEC,
+                        state_hook=transplant)
+    assert_scan_runs_agree(tmp_path / "jax" / "scan",
+                           tmp_path / "port" / "scan", 4)
 
 
 class NoWriter:
@@ -255,29 +309,42 @@ def test_units_of_one_batch_are_views():
         np.shares_memory(u["x"], b["x"]) for u, b in zip(units, batches))
 
 
-@pytest.mark.parametrize("case", ["process_group", "accum_iter",
-                                  "nan_checks"])
+@pytest.mark.parametrize("case", ["gloo_cuda", "nan_checks"])
 def test_scan_steps_refusals(case, monkeypatch):
-    """K > 1 under a process group, ``accum_iter`` > 1 or
-    ``debug.nan_checks`` raises with the reason, on either device (the
-    check runs in the Trainer, before any step); K = 1 takes them all."""
+    """K > 1 under a gloo group with CUDA tensors (the backend and device
+    given; the check is host logic) or with ``debug.nan_checks`` (on either
+    device: the Trainer checks before any step) raises with the reason;
+    K = 1 takes them all. A gloo group on the CPU and an NCCL group on a
+    card take K > 1."""
     cfg = lockstep_config("xla", "base")
     cfg["train"]["scan_steps"] = 2
-    if case == "process_group":
-        monkeypatch.setattr(captured_step.pdist, "get_world_size",
-                            lambda: 2)
-        match = "process group of 2 ranks: a gloo collective"
-    elif case == "accum_iter":
-        cfg["train"]["accum_iter"] = 2
-        match = "accum_iter 2: all but the last micro-step"
-    else:
-        cfg["debug"] = {"nan_checks": True}
-        match = "nan_checks: autograd's anomaly mode"
-    with pytest.raises(ValueError, match="train.scan_steps: 2 is refused"
-                       ".*" + match):
+    cuda = torch.device("cuda")
+    if case == "gloo_cuda":
+        monkeypatch.setattr(captured_step.pdist, "get_world_size", lambda: 2)
+        for backend, ok in (("gloo", False), ("nccl", True)):
+            monkeypatch.setattr(captured_step.pdist, "backend",
+                                lambda backend=backend: backend)
+            assert captured_step.check_scan_steps(cfg) == 2
+            assert captured_step.check_scan_steps(
+                cfg, torch.device("cpu")) == 2
+            if ok:
+                assert captured_step.check_scan_steps(cfg, cuda) == 2
+                continue
+            with pytest.raises(ValueError, match="train.scan_steps: 2 is "
+                               "refused under a gloo process group of 2 "
+                               "ranks with CUDA tensors: its collectives "
+                               "are host calls"):
+                captured_step.check_scan_steps(cfg, cuda)
+        cfg["train"]["scan_steps"] = 1
+        assert captured_step.check_scan_steps(cfg, cuda) == 1
+        return
+    cfg["debug"] = {"nan_checks": True}
+    with pytest.raises(ValueError, match="train.scan_steps: 2 is refused "
+                       "with debug.nan_checks: autograd's anomaly mode"):
         common.Trainer(copy.deepcopy(cfg), get_algorithm("base").SPEC,
                        torch.device("cpu"), 4)
-    monkeypatch.undo()
+    with pytest.raises(ValueError, match="nan_checks"):
+        captured_step.check_scan_steps(cfg, cuda)
     cfg["train"]["scan_steps"] = 1
     assert captured_step.check_scan_steps(cfg) == 1
     # a CUDA-only piece refuses the CPU
@@ -286,6 +353,55 @@ def test_scan_steps_refusals(case, monkeypatch):
                              torch.device("cpu"), 4)
     with pytest.raises(ValueError, match="needs a CUDA device"):
         captured_step.CapturedStep(trainer)
+
+
+@pytest.mark.parametrize("accum", [2, 3])
+def test_capturable_window_keeps_fixed_gradients(accum):
+    """Under accumulation a capturable optimizer keeps the window's
+    gradients as the same tensors across windows (the graphs hold them):
+    ``zero_grad`` leaves them, the update zeroes them in place after it, a
+    parameter that got no gradient keeps none, and ``replayed`` advances
+    the counters as ``step`` does; the updates equal those of the
+    optimizer that sets ``.grad`` to None at a window's start, bit for
+    bit."""
+    cfg = lockstep_config("xla", "base")
+    # SGD: its fused update (the capturable one) runs on the CPU, AdamW's
+    # capturable update on a card only
+    cfg["train"].update(accum_iter=accum, optimizer="sgd",
+                        optimizer_kwargs={"momentum": 0.9})
+    x = torch.randn(2, 1, SEQ, generator=torch.Generator().manual_seed(0))
+    runs = []
+    for capturable in (False, True):
+        model = common.init_model(cfg, torch.device("cpu"))
+        opt = build_optimizer(cfg, model, 4)
+        if capturable:
+            opt.make_capturable_()
+        unused = model.backbone.pos_embedding
+        held, first = [], None
+        for micro in range(2 * accum + 1):
+            opt.zero_grad()
+            out = model(x * (1 + micro))["seg_logits"]
+            out.square().mean().backward()
+            grads = [p.grad for p in opt.params if p is not unused]
+            if first is None:
+                first = grads
+            held.append(all(a is b for a, b in zip(grads, first)))
+            unused.grad = None  # a parameter the step leaves out
+            applied = opt.step()
+            assert applied == ((micro + 1) % accum == 0)
+            if capturable and applied:
+                assert all(not g.any() for g in grads)
+        assert unused.grad is None
+        runs.append((held, {k: v.clone() for k, v in
+                            model.state_dict().items()}, opt))
+    (eager_held, eager, _), (held, got, opt) = runs
+    assert all(held) and not all(eager_held)
+    for k, v in eager.items():
+        assert torch.equal(got[k], v), k
+    count, micro = opt.count, opt.micro_step
+    for _ in range(accum):
+        opt.replayed()
+    assert (opt.count, opt.micro_step) == (count + 1, micro)
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "sgd"])

@@ -327,15 +327,27 @@ def task_save_backends(config, out_dir, batch):
 def task_run_training(argv, snapshot_epochs=()):
     """``run_training`` of the config ``argv`` names, writing a
     ``checkpoint-{e}.ckpt`` after each epoch ``e - 1`` of
-    ``snapshot_epochs``."""
+    ``snapshot_epochs``; returns the start epoch and this rank's final
+    networks (``states``, unsliced)."""
     from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
     from semi_seg_ecg_tpu_torch.algorithms.common import run_training
     from semi_seg_ecg_tpu_torch.config import parse_train_args
+    from semi_seg_ecg_tpu_torch.parallel.sharding_rules import (
+        full_state_dict,
+    )
 
     config = parse_train_args(argv)
+    trainers = []
     run_training(config, get_algorithm(config["algorithm"]).SPEC,
-                 snapshot_epochs=set(snapshot_epochs))
-    return {"start_epoch": config.get("start_epoch", 0)}
+                 snapshot_epochs=set(snapshot_epochs),
+                 state_hook=trainers.append)
+    trainer = trainers[0]
+    return {"start_epoch": config.get("start_epoch", 0),
+            "states": {role: to_numpy(full_state_dict(module))
+                       for role, module in (("model", trainer.model),
+                                            ("ema", trainer.teacher),
+                                            ("peer", trainer.peer))
+                       if module is not None}}
 
 
 def task_evaluate(config, checkpoint, split):
