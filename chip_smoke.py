@@ -277,10 +277,29 @@ non-zero exit when it fails:
    repeat's spread beside them), the ranks equal, each graph's launches;
    each rank's bf16 ViT step eager and captured with the idle share of
    the untraced wall. On one card (d) logs one line saying why it did
-   not run. Each part's seconds are logged.
+   not run. Each part's seconds are logged;
+20. ``debug.nan_checks`` (``utils/nan_checks.py``, the JAX package's
+   ``jax_debug_nans``), under ``train.scan_steps`` too, where a captured
+   step is two graphs split at its gradients' NaN flags: (a) under
+   deterministic algorithms, the bf16 ViT FixMatch (``accum_iter`` 1 and
+   2), Mean Teacher, CPS and ResNet18 FixMatch captured with the checks
+   equal to the same run without them bit for bit (metrics, networks,
+   optimizers), the kernel nodes of a step's two graphs summing to its
+   launches (24 / 12 / 3; CPS 48 / 24 / 2; ResNet18 0 / 0 / 3), all in
+   the first; ms a step eager under anomaly mode, captured with the checks
+   and without; (b) a NaN in one labeled row of a batch after the warm-up
+   raises ``FloatingPointError`` from the step's eager rerun at a
+   backward op, the parameters and optimizer as before the step (under
+   deterministic algorithms); ``train_main`` at scan_steps 4 with a NaN
+   in a validation record raises at epoch 0's validation with no
+   ``best-*.ckpt``, with one in a test record in the test pass; (c) on
+   phase 10's ranks (NCCL and captured on two cards or more, else gloo
+   with CUDA tensors on one card and eager), a NaN in rank 1's rows: every
+   rank raises at that step, none waits at a collective, no update
+   applied. Each part's seconds are logged.
 
-Phases 12 (e) and 13 (d), and phase 17 (b)'s ZeRO-1 task, run on phase
-10's rank processes. In the whole run phases 14-16 share rank groups,
+Phases 12 (e) and 13 (d), phase 17 (b)'s ZeRO-1 task and phase 20 (c)'s
+task run on phase 10's rank processes. In the whole run phases 14-16 share rank groups,
 since a group's start costs tens of seconds: phase 16's (a) runs on an
 idle
 card before phase 14; phase 15's ``(2, 2)`` tasks and phase 16's (d) run
@@ -3299,7 +3318,8 @@ RANK_TASKS = {"tp_drift": lambda torch, **kw: tp_drift(torch, **kw),
               "scan_rank_case": lambda torch, **kw: scan_rank_case(torch,
                                                                    **kw),
               "scan_rank_profile": lambda torch, **kw: scan_rank_profile(
-                  torch, **kw)}
+                  torch, **kw),
+              "nan_rank": lambda torch, **kw: nan_rank(torch, **kw)}
 
 
 def rank_main(job, out_dir):
@@ -6720,9 +6740,11 @@ def scan_run(torch, cfg, algorithm, mode, steps, seed=40, accum=1):
     ``eager`` (scan_steps 1), ``capturable`` (eager, with the captured
     path's optimizers: tensor lr, AdamW's step on the card, SGD's fused
     update) or ``captured`` (scan_steps SCAN_K, the graphs' nodes kept).
-    Returns the per-step metrics, the states on the host, the host
-    counters, the peak memory and, captured, each graph's kernel launches
-    a replay, the replays and the warm-up's steps."""
+    Returns the per-step metrics, the states and the optimizers' on the
+    host, the host counters, the peak memory and, captured, each graph's
+    kernel launches a replay (summed over a step's graphs, and each graph's
+    apart: ``debug.nan_checks`` splits a step in two), the replays, the
+    eager reruns and the warm-up's steps."""
     from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
     from semi_seg_ecg_tpu_torch.algorithms.common import (
         Trainer,
@@ -6767,10 +6789,17 @@ def scan_run(torch, cfg, algorithm, mode, steps, seed=40, accum=1):
                       for name, net in (("model", trainer.model),
                                         ("teacher", trainer.teacher),
                                         ("peer", trainer.peer))
-                      if net is not None}}
+                      if net is not None},
+           "optimizers": [host_copy(torch, opt.state_dict())
+                          for opt in trainer.optimizers]}
     if mode == "captured":
         captured = trainer.captured
         out["replays"] = captured.replays
+        out["reruns"] = captured.reruns
+        out["graph_launches_by_segment"] = {
+            kind: [count_kernels(names, SCAN_NEEDLES)
+                   for names in captured.segment_kernel_names(kind)]
+            for kind in captured.graphs}
         out["graph_launches"] = count_kernels(captured.kernel_names,
                                               SCAN_NEEDLES)
         out["graph_kernel_nodes"] = len(captured.kernel_names)
@@ -6783,6 +6812,18 @@ def scan_run(torch, cfg, algorithm, mode, steps, seed=40, accum=1):
             kind: len(captured.kernel_names_of(kind))
             for kind in captured.graphs}
     return out
+
+
+def host_copy(torch, obj):
+    """``obj`` with each tensor copied to the host, through dicts and
+    lists."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: host_copy(torch, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(host_copy(torch, v) for v in obj)
+    return obj
 
 
 def scan_diff(a, b):
@@ -7793,6 +7834,369 @@ def phase_scan_accum(torch):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: debug.nan_checks, under train.scan_steps too
+# ---------------------------------------------------------------------------
+
+# (a): (family, algorithm, precision, accum_iter) of each clean case, its
+# captured run with debug.nan_checks against the same run without: at
+# accum_iter 1 the warm-up step and two replays, at 2 three windows and a
+# micro-step
+NAN_CASES = (("vit_tiny", "fixmatch", "bf16", 1),
+             ("vit_tiny", "fixmatch", "bf16", 2),
+             ("vit_tiny", "mean_teacher", "bf16", 1),
+             ("vit_tiny", "cps", "bf16", 1),
+             ("resnet18", "fixmatch", "bf16", 1))
+# (a): each mode's ms a step, over this many steps after two untimed ones
+# (an eager step under anomaly mode takes about 0.7 s)
+NAN_TIMED_STEPS = {"eager_anomaly": 3, "captured_checked": 20,
+                   "captured": 20}
+# (b), (c): the step whose batch holds the NaN (after the warm-up and a
+# replay), and the sample made NaN in one labeled row
+NAN_BAD_STEP, NAN_BAD_SAMPLE = 2, 1000
+# (b): train_main of phase 4's recipe for one epoch of 4 steps at
+# scan_steps SCAN_K (a unit of 4), a validation and a test batch
+NAN_SPLIT = {"num_train_labeled": 4 * BATCH, "num_train_unlabeled": 4 * BATCH,
+             "num_valid": BATCH, "num_test": BATCH}
+# a FloatingPointError at a backward op: anomaly mode's error in one
+# process, the op found after the backward under a process group
+NAN_AT_OP = re.compile(r"debug\.nan_checks: train step (\d+): Function "
+                       r"'\w+Backward\d*' returned nan values")
+
+
+def nan_config(cfg):
+    """``cfg`` (a copy) with ``debug.nan_checks``."""
+    return dict(copy.deepcopy(cfg), debug={"nan_checks": True})
+
+
+def nan_case(torch, family, algorithm, precision, accum):
+    """(a) One clean case under deterministic algorithms: the captured run
+    with ``debug.nan_checks`` against the same run without it, bit for bit
+    (metrics, networks, optimizers); each step two graphs (the split at
+    the gradients' flags) whose kernel nodes sum to a step's launches, all
+    in the first; no eager rerun."""
+    label = f"{family}_{algorithm}_{precision}_accum{accum}"
+    cfg = scan_config(family, algorithm, precision)
+    steps = 3 * accum + 1 if accum > 1 else 3
+    runs = {mode: scan_run(torch, c, algorithm, "captured", steps,
+                           accum=accum)
+            for mode, c in (("checked", nan_config(cfg)),
+                            ("unchecked", cfg))}
+    checked, unchecked = runs["checked"], runs["unchecked"]
+    per_step = launches_per_step(family, algorithm)
+    kinds = ("accumulate", "update") if accum > 1 else ("update",)
+    none = {k: 0 for k in per_step}
+    out = {"steps": steps, "accum_iter": accum,
+           "vs_unchecked": scan_diff(checked, unchecked),
+           "optimizers_equal": payloads_equal(
+               torch, {"o": checked["optimizers"]},
+               {"o": unchecked["optimizers"]}, ("o",)),
+           "graph_launches_by_kind": checked["graph_launches_by_kind"],
+           "graph_launches_by_segment": checked["graph_launches_by_segment"],
+           "unchecked_segments": {k: len(v) for k, v in unchecked[
+               "graph_launches_by_segment"].items()},
+           "replays_by_kind": checked["replays_by_kind"],
+           "reruns": checked["reruns"],
+           "peak_mib": {mode: r["peak_mib"] for mode, r in runs.items()}}
+    log(f"  (a) {label}, {steps} steps: captured with nan_checks vs without "
+        f"{out['vs_unchecked']}, optimizers equal {out['optimizers_equal']}"
+        f"; launches a replay by graph {out['graph_launches_by_segment']} "
+        f"(a step {per_step}; without the checks one graph a kind: "
+        f"{out['unchecked_segments']}), replays {out['replays_by_kind']}, "
+        f"reruns {out['reruns']}, peak MiB {out['peak_mib']}")
+    failed = []
+    if not (out["vs_unchecked"]["bit_equal"] and out["optimizers_equal"]):
+        failed.append(f"with nan_checks vs without {out['vs_unchecked']}, "
+                      f"optimizers equal {out['optimizers_equal']}")
+    if out["graph_launches_by_segment"] != {k: [per_step, none]
+                                            for k in kinds} or \
+            out["unchecked_segments"] != {k: 1 for k in kinds}:
+        failed.append(f"graphs {out['graph_launches_by_segment']}, "
+                      f"{out['unchecked_segments']}")
+    if out["reruns"] != 0 or not all(math.isfinite(v) for m in checked[
+            "metrics"] for v in m.values()):
+        failed.append(f"{out['reruns']} reruns, or non-finite metrics")
+    if failed:
+        raise SystemExit(f"phase 20 failed: (a) {label}: "
+                         f"{', '.join(failed)}")
+    return label, out
+
+
+def nan_times(torch):
+    """(a) ms a step of phase 4's bf16 ViT FixMatch step (NAN_TIMED_STEPS
+    of each mode after two untimed: a captured run's warm-up and capture)
+    eager under
+    anomaly mode (``debug.nan_checks`` at scan_steps 1), captured with
+    the checks and captured without."""
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        Trainer,
+        full_fp32,
+        init_model,
+    )
+
+    device = torch.device("cuda")
+    batch = device_batch(torch, 50)
+    del batch["ecg_u_s"]
+    out = {}
+    for mode, k, checks in (("eager_anomaly", 1, True),
+                            ("captured_checked", SCAN_K, True),
+                            ("captured", SCAN_K, False)):
+        cfg = scan_config("vit_tiny", "fixmatch", "bf16")
+        cfg["train"]["scan_steps"] = k
+        if checks:
+            cfg = nan_config(cfg)
+        with full_fp32():
+            trainer = Trainer(cfg, fixmatch.SPEC, device, 4,
+                              model=init_model(cfg, device))
+            for _ in range(2):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(NAN_TIMED_STEPS[mode]):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+        out[mode] = (time.perf_counter() - t0) * 1e3 / NAN_TIMED_STEPS[mode]
+        del trainer
+    log(f"  (a) bf16 ViT FixMatch ms a step: {out}")
+    return out
+
+
+def nan_step(torch):
+    """(b) A captured bf16 ViT FixMatch run with ``debug.nan_checks`` at
+    scan_steps SCAN_K, a NaN in one labeled row of step NAN_BAD_STEP's
+    batch (after the warm-up and a replay): the step raises
+    ``FloatingPointError`` from its eager rerun, at a backward op (anomaly
+    mode's error the cause), and the parameters, optimizer and counters
+    equal theirs from before it (the BatchNorm statistics move with the
+    step's forward)."""
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import (
+        Trainer,
+        full_fp32,
+        init_model,
+    )
+    from semi_seg_ecg_tpu_torch.utils.captured_step import CapturedStep
+
+    device = torch.device("cuda")
+    cfg = nan_config(scan_config("vit_tiny", "fixmatch", "bf16"))
+    cfg["train"]["scan_steps"] = SCAN_K
+    batches = []
+    for s in range(NAN_BAD_STEP + 1):
+        batch = device_batch(torch, 60 + s)
+        del batch["ecg_u_s"]
+        batches.append(batch)
+    batches[-1]["ecg"][1, 0, NAN_BAD_SAMPLE] = float("nan")
+
+    def state(trainer):
+        # the parameters: the step's forward moves the BatchNorm statistics
+        return host_copy(torch, {"model": dict(
+            trainer.model.named_parameters()),
+            "optimizer": trainer.optimizer.state_dict(),
+            "step": trainer.step, "count": trainer.optimizer.count})
+
+    with full_fp32():
+        trainer = Trainer(cfg, fixmatch.SPEC, device, 4,
+                          model=init_model(cfg, device))
+        trainer.captured = captured = CapturedStep(trainer)
+        for batch in batches[:-1]:
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        before = state(trainer)
+        reset_counts()
+        try:
+            trainer.train_step(batches[-1])
+            raised = None
+        except FloatingPointError as e:
+            raised = e
+        torch.cuda.synchronize()
+        after = state(trainer)
+    out = {"raised": None if raised is None else str(raised),
+           "cause": None if raised is None else repr(raised.__cause__),
+           "warm_up_steps": captured.warm_up_steps,
+           "replays_by_kind": dict(captured.replays_by_kind),
+           "reruns": captured.reruns,
+           "rerun_launches": read_counts(),
+           "unchanged": {k: payloads_equal(torch, after, before, (k,))
+                         for k in before}}
+    log(f"  (b) NaN in a labeled row of step {NAN_BAD_STEP}: {out}")
+    at = NAN_AT_OP.match(out["raised"] or "")
+    if not (at and int(at.group(1)) == NAN_BAD_STEP
+            and isinstance(raised.__cause__, RuntimeError)
+            and all(out["unchanged"].values()) and out["reruns"] == 1
+            and out["warm_up_steps"] == 1
+            and out["replays_by_kind"]["update"] == NAN_BAD_STEP - 1):
+        raise SystemExit(f"phase 20 failed: (b) {out}")
+    return out
+
+
+def nan_entry(torch, split):
+    """(b) ``train_main`` of phase 4's recipe with ``debug.nan_checks`` at
+    scan_steps SCAN_K for one epoch (its graphs' nodes kept), a NaN in the
+    first record of ``split`` (``valid`` or ``test``): it raises at epoch
+    0's validation, before any ``best-*.ckpt``, or in the test pass, after
+    them; the run's launches (the warm-up and the captures on the host
+    counters, each replay read from its graphs, the evaluation's)."""
+    from semi_seg_ecg_tpu_torch.cli import train_main
+
+    data = synthetic_split(f"nan_{split}_data", seed=2, **NAN_SPLIT)
+    record = os.path.join(data["ecg_dir"], f"{split}_0.pkl")
+    with open(record, "rb") as f:
+        x = np.array(pickle.load(f), np.float32)
+    x[..., NAN_BAD_SAMPLE] = np.nan
+    with open(record, "wb") as f:
+        pickle.dump(x, f)
+    _, config = write_train_config()
+    config = nan_config(config)
+    name = f"nan_{split}"
+    config["dataset"].update(data)
+    config["exp_name"] = name
+    config["train"].update(epochs=1, scan_steps=SCAN_K)
+    path = os.path.join(WORK, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    t = time.time()
+    reset_counts()
+    with built_trainers(keep_graph=True) as trainers:
+        try:
+            train_main(["-f", path])
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    captured = trainers[0].captured
+    exp = os.path.join(WORK, "exps", name)
+    out = {"seconds": time.time() - t, "raised": raised,
+           "best": sorted(f for f in os.listdir(exp)
+                          if f.startswith("best-")),
+           "warm_up_steps": captured.warm_up_steps,
+           "replays_by_kind": dict(captured.replays_by_kind),
+           "reruns": captured.reruns,
+           "launches": scan_run_launches(
+               counts, captured, launches_per_step("vit_tiny", "fixmatch"))}
+    trainers.clear()
+    log(f"  (b) train_main, a NaN in a {split} record: {out}")
+    want = ("batch 0 of epoch 0's validation" if split == "valid"
+            else "batch 0 of the test pass")
+    if raised is None or want not in raised or bool(out["best"]) != (
+            split == "test") or out["reruns"] != 0:
+        raise SystemExit(f"phase 20 failed: (b) {split}: {out}")
+    return out
+
+
+def nan_rank(torch, config, batches):
+    """(c) on a rank: ``config``'s steps (``debug.nan_checks``) on this
+    rank's rows of each batch, captured at scan_steps SCAN_K over NCCL
+    (over gloo with CUDA tensors, which refuses K > 1, eager), the batch of
+    step NAN_BAD_STEP holding a NaN in rank 1's rows only, until a step
+    raises: its message and step, the parameters and optimizer against
+    theirs from before it, the eager reruns."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+    from semi_seg_ecg_tpu_torch.parallel import dist as pdist
+
+    per = batches[0]["ecg"].shape[0] // pdist.data_size()
+    rows = slice(pdist.data_rank() * per, (pdist.data_rank() + 1) * per)
+    device = torch.device("cuda", torch.cuda.current_device())
+    mode = "captured" if pdist.backend() == "nccl" else "eager"
+    out = {"mode": mode, "raised": None}
+    with full_fp32():
+        trainer = scan_rank_trainer(torch, config, mode)
+        def state():
+            # the parameters: a step's forward moves the BatchNorm
+            # statistics
+            return host_copy(torch, {
+                "model": dict(trainer.model.named_parameters()),
+                "optimizer": trainer.optimizer.state_dict()})
+
+        for i, batch in enumerate(batches):
+            before = state()
+            try:
+                trainer.train_step({k: torch.from_numpy(v[rows]).to(device)
+                                    for k, v in batch.items()})
+            except FloatingPointError as e:
+                after = state()
+                out.update(raised=str(e), at_step=i,
+                           unchanged={k: payloads_equal(torch, after, before,
+                                                        (k,))
+                                      for k in before})
+                break
+        torch.cuda.synchronize()
+    out["reruns"] = None if trainer.captured is None else \
+        trainer.captured.reruns
+    return out
+
+
+def nan_rank_tasks(torch):
+    """(c)'s task on phase 10's ranks: the bf16 ViT FixMatch step config
+    (its backend), NAN_BAD_STEP + 1 global batches, the last with a NaN in
+    one of rank 1's rows."""
+    backend, _ = dp_layout(torch)
+    cfg = nan_config(dp_step_config("vit_tiny", backend))
+    cfg["precision"] = "bf16"
+    batches = scan_rank_batches(92)[:NAN_BAD_STEP + 1]
+    batches[-1]["ecg"][DP_ROWS + 1, 0, NAN_BAD_SAMPLE] = np.nan
+    return [("nan_rank", {"config": cfg, "batches": batches})]
+
+
+def nan_check_ranks(ranks):
+    """(c): every rank raised at step NAN_BAD_STEP with its update not
+    applied, rank 1 at a backward op; captured (NCCL) through one eager
+    rerun."""
+    log(f"  (c) {len(ranks)} ranks, a NaN in rank 1's rows of step "
+        f"{NAN_BAD_STEP}: {ranks}")
+    for r, got in enumerate(ranks):
+        message = got["raised"] or ""
+        at_op = NAN_AT_OP.match(message) is not None
+        reruns = None if got["mode"] == "eager" else 1
+        if got.get("at_step") != NAN_BAD_STEP or not all(
+                got.get("unchanged", {False: False}).values()) or \
+                got["reruns"] != reruns or not (
+                    at_op or (r != 1 and "another rank's backward"
+                              in message)):
+            raise SystemExit(f"phase 20 failed: (c) rank {r}: {got}")
+    return ranks
+
+
+def phase_nan_checks(torch, shared=None):
+    """Phase 20: ``debug.nan_checks``, under ``train.scan_steps`` too: (a)
+    under deterministic algorithms each clean case with the checks against
+    the same run without them, and the step's ms eager under anomaly mode,
+    captured with the checks and without; (b) a NaN in a train step's
+    batch (under deterministic algorithms), in a validation record and in
+    a test record; (c) two ranks with the NaN on one (``shared``: the
+    task's results from phase 10's ranks; alone, a group of its own);
+    each part's seconds."""
+    t_phase = time.perf_counter()
+    backend, _ = dp_layout(torch)
+    log(f"phase 20: debug.nan_checks; {torch.cuda.device_count()} card(s), "
+        f"ranks over {backend}")
+    own = None
+    if shared is None:
+        own = start_ranks(nan_rank_tasks(torch), backend,
+                          {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+                          name="nan_ranks", timeout=SCAN_RANK_TIMEOUT)
+    result = {"seconds": {}}
+    t = time.perf_counter()
+    with scan_determinism(torch):
+        result["a"] = dict(nan_case(torch, *case) for case in NAN_CASES)
+        result["seconds"]["a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        result["b"] = {"step": nan_step(torch)}
+    result["a_ms_per_step"] = nan_times(torch)
+    result["b"].update({split: nan_entry(torch, split)
+                        for split in ("valid", "test")})
+    result["seconds"]["a (times), b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if shared is None:
+        shared = finish_ranks(own, 20)[0][0]
+    result["c"] = {"backend": backend, "ranks": nan_check_ranks(shared)}
+    result["seconds"]["c"] = time.perf_counter() - t
+    result["seconds"]["all"] = time.perf_counter() - t_phase
+    log(f"  phase 20 seconds by part: {result['seconds']}")
+    return result
+
+
 def kernel_entry(name, rows, by_path):
     """A kernel's entry of the kernels line: ``launches`` on the main path
     (phase 4's vit_tiny FixMatch ``train_main``), ``launches_by_path`` on
@@ -7859,9 +8263,14 @@ def main():
     ckpt_tasks = ckpt_rank_tasks(torch)
     accum_tasks = accum_rank_tasks(torch)
     z1_tasks = z1_rank_tasks(torch)
+    # phase 20 (c)'s task last: its ranks raise, and every rank goes on
+    nan_tasks = nan_rank_tasks(torch)
     parallel = timed(10, phase_parallel, torch,
-                     accum_tasks + z1_tasks + ckpt_tasks["zero1"])
+                     accum_tasks + z1_tasks + ckpt_tasks["zero1"]
+                     + nan_tasks)
     later, dp_logs = parallel.pop("extra")
+    nan_shared = later[-1]
+    later = later[:-len(nan_tasks)]
     remat = timed(11, phase_remat, torch)
     accum = timed(12, phase_accum, torch, later[:len(accum_tasks)])
     zero_cache = timed(13, phase_zero_cache, torch, ckpt_tasks["zero1"],
@@ -7893,6 +8302,7 @@ def main():
     checkpoint = timed(17, phase_checkpoint, torch, ckpt_shared)
     scan = timed(18, phase_scan, torch, train_result["log"])
     scan_accum = timed(19, phase_scan_accum, torch)
+    nan = timed(20, phase_nan_checks, torch, nan_shared)
     # the ring's hops beside phase 2's rows (phase 16's on one head a rank)
     for phase in (seq_parallel, seq_options):
         for name, hop_rows in phase["hops"].items():
@@ -7997,7 +8407,15 @@ def main():
         **{f"scan_rank_{name}_per_{kind}_replay": launches
            for name, r in scan_accum["d"].get("cases", {}).items()
            for kind, launches in r["graph_launches_by_kind"][0].items()},
-        "scan_accum_vit_tiny_fixmatch_recipe": scan_accum["b"]["launches"]}
+        "scan_accum_vit_tiny_fixmatch_recipe": scan_accum["b"]["launches"],
+        # phase 20: a replay of each clean case's graphs with
+        # debug.nan_checks (a step's two graphs summed), read from them;
+        # the recipe runs that raise at the validation and in the test pass
+        **{f"nan_{label}_per_{kind}_replay": launches
+           for label, r in nan["a"].items()
+           for kind, launches in r["graph_launches_by_kind"].items()},
+        **{f"nan_vit_tiny_fixmatch_{split}_nan_recipe": nan["b"][split][
+            "launches"] for split in ("valid", "test")}}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -8015,7 +8433,7 @@ def main():
                    "seq_parallel": seq_parallel,
                    "seq_options": seq_options,
                    "checkpoint": checkpoint, "scan": scan,
-                   "scan_accum": scan_accum,
+                   "scan_accum": scan_accum, "nan_checks": nan,
                    "phase_seconds": phase_seconds,
                    "seconds": time.time() - t_start}, f,
                   indent=1)

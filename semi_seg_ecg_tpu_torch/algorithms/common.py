@@ -72,8 +72,15 @@ a subset of the unlabeled rows, the epochs after which it writes
 
 ``mode`` other than ``scratch`` warm-starts the backbone of the model (and
 of the peer) from ``pretrained_backbone`` (:func:`load_pretrained_backbone`);
-``debug.nan_checks`` runs training under autograd's anomaly detection, the
-counterpart of ``jax_debug_nans`` (slow, for debugging).
+``debug.nan_checks`` is the JAX package's ``jax_debug_nans``
+(``utils/nan_checks.py``; slow, for debugging): from :func:`run_training`'s
+start to the end of ``cli.train_main`` a NaN in a step's gradients or
+metrics, or in an evaluation batch's probabilities or loss (the epoch's
+validation, the ``test: true`` pass) raises ``FloatingPointError`` on every
+rank, before the step's update and before the epoch's checkpoints; an
+eager step names the backward op that returned the NaN (in one process
+autograd's anomaly mode, whose error the ``FloatingPointError`` is raised
+from).
 
 Precision: the whole run is full fp32 (no TF32 in cuBLAS and cuDNN,
 ``full_fp32``; the flash kernels form fp32 products from three TF32
@@ -92,8 +99,9 @@ for the accumulating micro-step and one for the updating one; under NCCL
 with the step's collectives inside), after an eager warm-up up to the
 run's first update; on the CPU a unit's steps run eagerly, under any
 process group. Every step's metrics, lr and draws are those of K = 1. A
-gloo process group with CUDA tensors and ``debug.nan_checks`` refuse
-K > 1 with the reason.
+gloo process group with CUDA tensors refuses K > 1 with the reason. Under
+``debug.nan_checks`` a captured step is two graphs split at the gradients'
+NaN flags, and a set flag reruns the step eagerly.
 ``dataset.device_cache`` puts the train split on the device once and
 ships row indices per step (``data/device_cache.py``; the rows are gathered
 before the augmentation stage), when the device-augment plan runs every
@@ -174,6 +182,7 @@ from ..parallel import seq_shard
 from ..parallel.sharding_rules import full_state_dict, shard_module_
 from ..utils import captured_step as capture
 from ..utils import checkpoint as ckpt
+from ..utils import nan_checks as nans
 from ..utils.logging import JsonlLogger, MetricLogger, TensorBoardWriter, log
 from ..utils.optimizer import (
     accum_iter,
@@ -463,13 +472,15 @@ def prefetched(batches, device: torch.device) -> Iterator[Dict]:
 
 
 def eval_step(model: torch.nn.Module, x: torch.Tensor, labels: torch.Tensor,
-              num_classes: int,
-              collect_outputs: bool = True) -> Dict[str, torch.Tensor]:
+              num_classes: int, collect_outputs: bool = True,
+              nan_flags: bool = False) -> Dict[str, torch.Tensor]:
     """Softmax probabilities (with ``collect_outputs``), per-sample CE and
     per-class counts of one batch, from an eval-mode forward (the caller
-    sets mode and autocast). Under the seq axis each seq rank runs its
-    block of the time axis, the counts and CE are summed over the seq
-    ranks, and the probabilities gathered whole."""
+    sets mode and autocast); with ``nan_flags`` the NaN flags of the
+    probabilities and the CE over every rank (``nan``,
+    ``utils/nan_checks.eval_flags``). Under the seq axis each seq rank
+    runs its block of the time axis, the counts and CE are summed over the
+    seq ranks, and the probabilities gathered whole."""
     batch, length = seq_shard.split_batch({"x": x, "labels": labels})
     with seq_shard.time_sharded(length):
         logits = model(batch["x"])["seg_logits"].float()
@@ -479,6 +490,8 @@ def eval_step(model: torch.nn.Module, x: torch.Tensor, labels: torch.Tensor,
         inter, psum, tsum = (seq_shard.sum_counts(t) for t in stats)
         loss = per_sample_cross_entropy(logits, batch["labels"])
         out = {"loss": loss, "inter": inter, "psum": psum, "tsum": tsum}
+        if nan_flags:
+            out["nan"] = nans.eval_flags(probs, loss)
         if collect_outputs:
             out["probs"] = seq_shard.gather_whole_time(probs)
     return out
@@ -487,9 +500,13 @@ def eval_step(model: torch.nn.Module, x: torch.Tensor, labels: torch.Tensor,
 def evaluate(model: torch.nn.Module, loader, metric_fn, num_classes: int,
              device: torch.device, amp: Callable,
              eval_batch_size: Optional[int] = None,
-             collect_outputs: bool = True):
+             collect_outputs: bool = True,
+             nan_checks: Optional[str] = None):
     """Full-dataset evaluation, each rank on the shards its ``loader``
     holds, the rows then exchanged so that every rank has all of them.
+    With ``nan_checks`` (the pass's name, for the message) a NaN in a
+    batch's probabilities or loss raises ``FloatingPointError`` on every
+    rank (``debug.nan_checks``).
     Returns ``(valid_stats, metric_dict, outputs, labels_onehot)``:
     ``outputs`` are softmax probabilities ``(N, C, T)`` in dataset order
     and ``labels_onehot`` ``(N, C, T)`` int64, the arrays ``run_test``
@@ -509,7 +526,10 @@ def evaluate(model: torch.nn.Module, loader, metric_fn, num_classes: int,
         with torch.no_grad(), amp():
             for step, batch in enumerate(prefetched(loader, device)):
                 out = eval_step(model, batch["ecg"], batch["target"],
-                                num_classes, collect_outputs)
+                                num_classes, collect_outputs,
+                                nan_flags=nan_checks is not None)
+                if nan_checks is not None:
+                    nans.raise_for_eval(out.pop("nan"), nan_checks, step)
                 out = {k: v.cpu().numpy() for k, v in out.items()}
                 flat = mat[step].reshape(-1)
                 loss_ps[flat] = out["loss"]
@@ -565,7 +585,11 @@ class Trainer:
     step) from the checkpoint it names; ``resume_best`` holds that file's
     best-so-far thresholds. Under ``train.scan_steps`` > 1 on a card
     each step after the warm-up replays a graph of the step captured in
-    :attr:`captured` (``utils/captured_step.CapturedStep``)."""
+    :attr:`captured` (``utils/captured_step.CapturedStep``). Under
+    ``debug.nan_checks`` (:attr:`nan_checks`) each optimizer's step starts
+    with the step's gradient check (:meth:`_check_grads`), and an eager
+    step names the backward op that returns a NaN and checks its
+    metrics (:meth:`eager_step`)."""
 
     def __init__(self, config: Dict[str, Any], spec: AlgorithmSpec,
                  device: torch.device, updates_per_epoch: int,
@@ -578,6 +602,12 @@ class Trainer:
         # group whose collectives a graph cannot hold); on the CPU a unit's
         # steps run eagerly
         self.scan_steps = capture.check_scan_steps(config, device)
+        self.nan_checks = nans.enabled(config)
+        # the names of the gradients a captured step's graph flagged, while
+        # its eager rerun runs (utils/captured_step.py)
+        self.nan_rerun = None
+        self._grads_checked = False
+        self._backward_nans = None  # an eager step's, under a group
         self.capture = self.scan_steps > 1 and device.type == "cuda"
         self.captured: Optional[capture.CapturedStep] = None
         self.mesh = pmesh.make_mesh(config)
@@ -627,6 +657,9 @@ class Trainer:
                 f"{self.mesh.data} data ranks; time axes split where they "
                 "divide")
         self.step = 0
+        if self.nan_checks:
+            for opt in self.optimizers:
+                opt.before_update = self._check_grads
         self.resume_best = ckpt.maybe_resume(config, self)
         # every rank starts from rank 0's weights (warm starts and resumes
         # included)
@@ -712,13 +745,63 @@ class Trainer:
             return self.captured.step(batch)
         return self.eager_step(batch)
 
+    @property
+    def optimizers(self) -> list:
+        """The optimizer, and the peer's where the algorithm keeps one."""
+        return [o for o in (self.optimizer, self.peer_optimizer)
+                if o is not None]
+
     def eager_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        """:meth:`reseed`, :meth:`device_step`, count the step."""
+        """:meth:`reseed`, :meth:`device_step`, count the step. Under
+        ``debug.nan_checks`` a NaN a backward op returns raises
+        ``FloatingPointError`` (in one process anomaly mode's error at the
+        op, raised from; under a process group ``nan_checks.BackwardNans``'
+        find, at the gradient check, when every rank's backward has run),
+        and a NaN in the metrics raises after the step."""
         self.reseed()
-        metrics = self.device_step(batch)
+        if not self.nan_checks:
+            metrics = self.device_step(batch)
+            self.step += 1
+            return metrics
+        if pdist.get_world_size() > 1:
+            with nans.BackwardNans() as self._backward_nans:
+                try:
+                    metrics = self.device_step(batch)
+                finally:
+                    self._backward_nans = None
+        else:
+            try:
+                with torch.autograd.set_detect_anomaly(True):
+                    metrics = self.device_step(batch)
+            except RuntimeError as e:
+                if not nans.is_anomaly(e):
+                    raise
+                raise FloatingPointError(
+                    f"debug.nan_checks: train step {self.step}: {e}") from e
         self.step += 1
+        nans.check_metrics(metrics, self.step - 1)
         return metrics
+
+    def _check_grads(self) -> None:
+        """``debug.nan_checks`` at the entry of the step's first optimizer
+        step (every backward of the step done, CPS's two included): the
+        gradients' flags over every rank, with the backward ops' find under
+        a group, which raise here, or under a capture end the step's first
+        graph (``utils/captured_step.CapturedStep.split``)."""
+        if self._grads_checked:
+            return
+        self._grads_checked = True
+        found = self._backward_nans
+        flags = nans.grad_flags(self.optimizers,
+                                None if found is None else found.any())
+        if self.device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            self.captured.split(flags)
+            return
+        nans.raise_for_grads(flags, self.optimizers, self.step,
+                             rerun_of=self.nan_rerun,
+                             at_op=None if found is None else found.first())
 
     def generators(self) -> list:
         """The step's generators: dropout, the teacher's, the peer's, the
@@ -748,6 +831,7 @@ class Trainer:
         """A step's device work on a batch, with the generators seeded: the
         cache's rows, the augmentation, the algorithm's step (what a
         captured step holds)."""
+        self._grads_checked = False
         if self.cache is not None:
             batch = self.cache.materialize(batch)
         if self.augment is not None:
@@ -807,9 +891,9 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
     num_epochs = config["train"]["epochs"]
     best_loss = float("inf")
     lr_fn = make_lr_schedule(config["train"], updates)
-    nan_checks = bool((config.get("debug") or {}).get("nan_checks", False))
+    nan_checks = nans.enabled(config)
     try:
-        with full_fp32(), torch.autograd.set_detect_anomaly(nan_checks):
+        with full_fp32():
             trainer = Trainer(config, spec, device, updates)
             if config["dataset"].get("device_cache", False):
                 trainer.use_device_cache(spec, loaders)
@@ -838,13 +922,14 @@ def run_training(config: Dict[str, Any], spec: AlgorithmSpec,
                 # ranks' mean partial sum, the one rank 0's checkpoint keeps
                 # (eager, between replays, into a captured run's fixed
                 # gradients)
-                for opt in (trainer.optimizer, trainer.peer_optimizer):
-                    if opt is not None:
-                        opt.average_window_()
+                for opt in trainer.optimizers:
+                    opt.average_window_()
                 valid_stats, metrics, _, _ = evaluate(
                     trainer.model, loaders["valid"], metric_fn,
                     num_classes, device, trainer.amp,
-                    collect_outputs=False)
+                    collect_outputs=False,
+                    nan_checks=f"epoch {epoch}'s validation"
+                    if nan_checks else None)
                 curr_loss = valid_stats["loss"]
 
                 save_paths = []
@@ -1055,12 +1140,15 @@ def _test_loader(config: Dict[str, Any]):
     return ds_test, eval_loader(config, ds_test)
 
 
-def run_test(config: Dict[str, Any]) -> Dict[str, float]:
+def run_test(config: Dict[str, Any],
+             nan_checks: bool = False) -> Dict[str, float]:
     """Evaluate the best checkpoint on the test split and write
     ``test_metrics.csv`` (the ``csv`` module, values as ``%.4f``),
     ``test_outputs.npy`` and ``test_labels.npy`` (rank 0; each rank
     evaluates its shards). The forward runs in the config's precision, as
-    the JAX package's test pass does."""
+    the JAX package's test pass does. ``nan_checks``: the ``test: true``
+    pass of a ``debug.nan_checks`` training run (``cli.train_main``),
+    where a NaN output raises ``FloatingPointError``."""
     pdist.init_distributed_mode(config.get("ddp"), config.get("device"))
     pmesh.make_mesh(config)
     device = resolve_device(config)
@@ -1076,7 +1164,8 @@ def run_test(config: Dict[str, Any]) -> Dict[str, float]:
             test_stats, metrics, outputs, labels = evaluate(
                 model, loader, metric_fn, num_classes, device,
                 amp_context(config, device),
-                eval_batch_size=config["dataloader"]["batch_size"])
+                eval_batch_size=config["dataloader"]["batch_size"],
+                nan_checks="the test pass" if nan_checks else None)
     finally:
         loader.close()
     metrics = dict(metrics)

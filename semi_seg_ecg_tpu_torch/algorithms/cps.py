@@ -7,9 +7,12 @@ Two independently initialised networks, ``Trainer.model`` (model 1) and
 view in eval mode, without a graph, before either updates; model 1 then
 learns from model 2's labels and model 2 from model 1's (cps.py:108-112):
 per network, ``loss = (CE(labeled) + CE(weak, other's labels)) / 2`` over
-one forward of ``cat(labeled, weak)``, its own backward and update. The
-peer's dropout comes from ``seed + 1``. The logged losses are the two
-networks' means. Evaluation, checkpoint selection and the test pass use
+one forward of ``cat(labeled, weak)`` and its own backward; then each
+network's update (the JAX package's one step: model 1's update reaches
+nothing of model 2's forward, so updating after both backwards gives the
+same numbers, and ``debug.nan_checks`` checks both gradients before
+either update). The peer's dropout comes from ``seed + 1``. The logged
+losses are the two networks' means. Evaluation, checkpoint selection and the test pass use
 model 1; the peer and its optimizer ride along in the checkpoint.
 """
 
@@ -47,7 +50,6 @@ def make_train_step(trainer):
             loss = (loss_x + loss_u) / 2.0
         optimizer.zero_grad()
         loss.backward()
-        optimizer.step()
         return loss.detach(), loss_x.detach(), loss_u.detach()
 
     def train_step(batch):
@@ -65,6 +67,8 @@ def make_train_step(trainer):
                                       mask_x, ecg_u_w, masks[1])
         l2, lx2, lu2 = one_model_step(models[1], optimizers[1], ecg_x,
                                       mask_x, ecg_u_w, masks[0])
+        for optimizer in optimizers:
+            optimizer.step()
         loss = (l1 + l2) / 2
         return {"loss_total": loss, "loss_x": (lx1 + lx2) / 2,
                 "loss_u_s": (lu1 + lu2) / 2, "loss": loss}
@@ -80,5 +84,5 @@ def train(config):
     run_training(config, SPEC)
 
 
-def test(config):
-    return run_test(config)
+def test(config, nan_checks=False):
+    return run_test(config, nan_checks)

@@ -128,5 +128,5 @@ def train(config):
     run_training(config, SPEC)
 
 
-def test(config):
-    return run_test(config)
+def test(config, nan_checks=False):
+    return run_test(config, nan_checks)

@@ -223,5 +223,5 @@ def train(config):
     train_semisup(config, stage_id=3)
 
 
-def test(config):
-    return run_test(config)
+def test(config, nan_checks=False):
+    return run_test(config, nan_checks)

@@ -55,13 +55,16 @@ def _process_group():
 def train_main(argv=None):
     from .algorithms import get_algorithm
     from .config import parse_train_args
+    from .utils import nan_checks
 
     config = parse_train_args(argv if argv is not None else sys.argv[1:])
     algo = get_algorithm(config.get("algorithm"))
     with _process_group():
         algo.train(config)
         if config.get("test", False):
-            return algo.test(config)
+            # debug.nan_checks holds from training to the end of the test
+            # pass, as the JAX package's jax_debug_nans does
+            return algo.test(config, nan_checks=nan_checks.enabled(config))
     return None
 
 

@@ -232,6 +232,11 @@ class TrainOptimizer:
         # captured: which parameters' gradients the seq ranks' all-reduce
         # takes, decided at the first update
         self._seq_have: Optional[List[bool]] = None
+        # fixed window gradients at every accum (make_capturable_)
+        self._fixed = False
+        # called at the entry of every step (debug.nan_checks: the step's
+        # gradient check, the split point of a captured step)
+        self.before_update: Optional[Callable[[], None]] = None
 
     def shard_(self, plan: Dict[str, Any], mesh) -> None:
         """The model's parameters are now this model rank's slices
@@ -263,8 +268,9 @@ class TrainOptimizer:
     @property
     def _fixed_grads(self) -> bool:
         """Whether the window's gradients are fixed tensors (captured, with
-        accumulation), zeroed in place after each update."""
-        return self.captured and self.accum > 1
+        accumulation or ``fixed_grads``), zeroed in place after each
+        update."""
+        return self.captured and (self.accum > 1 or self._fixed)
 
     def zero_grad(self) -> None:
         """Clear the gradients at the start of a window (every call when
@@ -276,7 +282,10 @@ class TrainOptimizer:
 
     def step(self) -> bool:
         """End a micro-step; on a window's last, apply the update to the
-        window's mean gradient. Returns whether it applied one."""
+        window's mean gradient. Returns whether it applied one. First
+        :attr:`before_update`, where set."""
+        if self.before_update is not None:
+            self.before_update()
         self._time_split = seq_shard.active() is not None
         self.micro_step += 1
         if self.micro_step < self.accum:
@@ -342,16 +351,19 @@ class TrainOptimizer:
             else:
                 group["lr"] = lr * group["lr_scale"]
 
-    def make_capturable_(self) -> None:
+    def make_capturable_(self, fixed_grads: bool = False) -> None:
         """Make :meth:`step` capturable in a CUDA graph: each group's lr a
         0-d fp32 tensor on the parameters' device, AdamW ``capturable``
         with its step counts moved there, SGD's fused update; the same for
         a ZeRO-1 optimizer, whose groups hold this rank's parameters (a
         group may hold none), and a model-sliced one, whose state is
-        already sliced. With accumulation the window's gradients become
-        fixed tensors from here on (:attr:`_fixed_grads`)."""
+        already sliced. With accumulation, or ``fixed_grads`` (a step
+        captured in two graphs, the gradients living across them), the
+        window's gradients become fixed tensors from here on
+        (:attr:`_fixed_grads`)."""
         if self.captured:
             return
+        self._fixed = fixed_grads
         opt = self.optimizer
         device = self.params[0].device
         flags = []

@@ -40,7 +40,10 @@ the updating graph equal the eager micro-steps with the capturable
 optimizers bit for bit, each graph launching a step's kernels; on two
 cards two NCCL ranks replay their captured steps (the gradient
 all-reduce inside the graph) as the eager ranks step, within the data
-parallel test's bounds, the ranks equal.
+parallel test's bounds, the ranks equal. Under ``debug.nan_checks`` a
+captured step is two graphs split at its gradients' NaN flags, equal to
+the unchecked captured run bit for bit on clean batches; a NaN in a
+batch raises from the step's eager rerun with nothing updated.
 """
 
 import copy
@@ -1476,6 +1479,128 @@ def test_captured_accumulation_replays_the_eager_micro_steps(
     for name, state in want_states.items():
         for k, v in state.items():
             assert torch.equal(got_states[name][k], v), (name, k)
+
+
+def host_state(obj):
+    """``obj`` with each tensor copied to the host, through dicts and
+    lists."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: host_state(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(host_state(v) for v in obj)
+    return obj
+
+
+def assert_states_equal(got, want, path=""):
+    """Two :func:`host_state` trees equal, tensors bit for bit."""
+    if torch.is_tensor(want):
+        assert torch.equal(got, want), path
+    elif isinstance(want, dict):
+        assert got.keys() == want.keys(), path
+        for k in want:
+            assert_states_equal(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert_states_equal(a, b, f"{path}/{i}")
+    else:
+        assert got == want, path
+
+
+def trainer_state(trainer, buffers=True):
+    """A trainer's networks (without ``buffers``, their parameters only)
+    and optimizers, on the host."""
+    return host_state({
+        "nets": {name: m.state_dict() if buffers
+                 else dict(m.named_parameters()) for name, m in (
+                     ("model", trainer.model), ("teacher", trainer.teacher),
+                     ("peer", trainer.peer)) if m is not None},
+        "optimizers": [o.state_dict() for o in trainer.optimizers],
+        "step": trainer.step})
+
+
+NAN_SCAN_CASES = [("vit_tiny", "fixmatch", "bf16", 1),
+                  ("vit_tiny", "fixmatch", "fp32", 2),
+                  ("vit_tiny", "cps", "fp32", 1),
+                  ("resnet18", "fixmatch", "fp32", 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,algorithm,precision,accum",
+                         NAN_SCAN_CASES)
+def test_captured_step_with_nan_checks_equals_the_unchecked_one(
+        deterministic, family, algorithm, precision, accum):
+    """``debug.nan_checks`` at ``train.scan_steps: 2``: each micro-step's
+    capture splits at the gradients' NaN flags into two graphs, the first
+    holding the step's kernels (its kernel nodes), the second none of
+    them; on clean batches no step reruns, and the run equals the captured
+    run without the checks bit for bit (metrics, networks, optimizers)
+    under deterministic algorithms."""
+    from semi_seg_ecg_tpu_torch.utils import captured_step
+
+    cuda = deterministic
+    cfg = scan_config(algorithm, family, precision, accum_iter=accum)
+    steps = 3 * accum + 1 if accum > 1 else 4
+    want, _, plain = scan_run(cfg, algorithm, cuda, steps, True)
+    want_state = trainer_state(plain)
+    got, _, trainer = scan_run(dict(cfg, debug={"nan_checks": True}),
+                               algorithm, cuda, steps, True)
+    captured = trainer.captured
+    fwd, bwd, gathers = SCAN_PASSES[algorithm]
+    depth = 2 if family == "vit_tiny" else 0
+    per_step = {"fwd": fwd * depth, "bwd": bwd * depth, "gather": gathers}
+    none = {k: 0 for k in per_step}
+    for kind in captured.graphs:
+        assert [captured_step.count_kernels(names, SCAN_NEEDLES)
+                for names in captured.segment_kernel_names(kind)] == [
+            per_step, none], kind
+        assert len(plain.captured.graphs[kind]) == 1
+    assert captured.reruns == 0
+    assert got == want
+    assert_states_equal(trainer_state(trainer), want_state)
+
+
+@pytest.mark.cuda
+def test_captured_step_with_a_nan_raises_from_its_eager_rerun(cuda):
+    """``debug.nan_checks`` at ``train.scan_steps: 2``: after the warm-up
+    and a replay, a NaN in one labeled row of the batch sets the gradients'
+    flags; the update's graph does not run, and the step's eager rerun
+    raises ``FloatingPointError`` at the backward op (anomaly mode's error
+    the cause), the parameters, optimizer and step as they were (the
+    BatchNorm statistics move with the step's forward)."""
+    import re
+
+    from semi_seg_ecg_tpu_torch.algorithms import fixmatch
+    from semi_seg_ecg_tpu_torch.algorithms.common import Trainer, init_model
+    from semi_seg_ecg_tpu_torch.utils.captured_step import CapturedStep
+
+    cfg = dict(scan_config("fixmatch", precision="bf16"),
+               debug={"nan_checks": True})
+    cfg["train"]["scan_steps"] = 2
+    trainer = Trainer(cfg, fixmatch.SPEC, cuda, 4,
+                      model=init_model(cfg, cuda))
+    trainer.captured = CapturedStep(trainer)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batches = [{"ecg": torch.randn(8, 1, 2500, generator=gen, device=cuda),
+                "target": torch.randint(0, 4, (8, 2500), generator=gen,
+                                        device=cuda),
+                "ecg_u_w": torch.randn(8, 1, 2500, generator=gen,
+                                       device=cuda)} for _ in range(3)]
+    batches[2]["ecg"][5, 0, 1000] = float("nan")
+    for batch in batches[:2]:
+        trainer.train_step(batch)
+    before = trainer_state(trainer, buffers=False)
+    with pytest.raises(FloatingPointError) as info:
+        trainer.train_step(batches[2])
+    assert re.match(r"debug.nan_checks: train step 2: Function "
+                    r"'\w+Backward\d*' returned nan values",
+                    str(info.value))
+    assert isinstance(info.value.__cause__, RuntimeError)
+    assert trainer.captured.reruns == 1
+    assert trainer.captured.replays_by_kind["update"] == 1
+    assert_states_equal(trainer_state(trainer, buffers=False), before)
 
 
 @pytest.mark.cuda

@@ -22,8 +22,9 @@ captured step: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phases
   checkpoint's networks and optimizers; FixMatch, Mean Teacher and CPS
   the same at K = 2 and 4 with ``accum_iter`` 2 and 3 over two epochs, so
   that windows span units and the epoch's end;
-- the units, the refusals (a gloo group with CUDA tensors, and
-  ``debug.nan_checks``), and the host side of a captured step that runs
+- the units, the refusal (a gloo group with CUDA tensors; K > 1 with
+  ``debug.nan_checks`` taken and run), and the host side of a captured
+  step that runs
   without a card: the optimizer's lr tensors filled per update, its
   checkpoint in the eager layout, its window's gradients kept as fixed
   tensors and zeroed in place after an update, and the graph's kernel
@@ -193,10 +194,10 @@ def test_port_scan_steps_matches_jax_scan(tmp_path, monkeypatch):
     assert_port_scan_matches_jax(tmp_path, monkeypatch)
 
 
-def jax_run_training(cfg, monkeypatch, devices=1):
-    """The JAX package's FixMatch ``run_training`` of ``cfg`` on
-    ``devices`` of the conftest's CPU devices; returns its initial
-    ``(params, batch_stats)`` trees as host arrays."""
+def jax_run_training(cfg, monkeypatch, devices=1, spec=None):
+    """The JAX package's ``run_training`` of ``cfg`` (``spec``: its
+    FixMatch's) on ``devices`` of the conftest's CPU devices; returns its
+    initial ``(params, batch_stats)`` trees as host arrays."""
     import jax
 
     from semi_seg_ecg_tpu.algorithms import common as jax_common
@@ -222,7 +223,8 @@ def jax_run_training(cfg, monkeypatch, devices=1):
                   lambda model, config, seed: jax.jit(
                       lambda: init_state(model, config, seed))())
         m.setattr(jax_common, "TensorBoardWriter", NoWriter)
-        jax_common.run_training(jax_normalize(cfg), jax_fixmatch.SPEC,
+        jax_common.run_training(jax_normalize(cfg),
+                                spec or jax_fixmatch.SPEC,
                                 state_hook=keep_init)
     return init["trees"]
 
@@ -312,10 +314,11 @@ def test_units_of_one_batch_are_views():
 @pytest.mark.parametrize("case", ["gloo_cuda", "nan_checks"])
 def test_scan_steps_refusals(case, monkeypatch):
     """K > 1 under a gloo group with CUDA tensors (the backend and device
-    given; the check is host logic) or with ``debug.nan_checks`` (on either
-    device: the Trainer checks before any step) raises with the reason;
-    K = 1 takes them all. A gloo group on the CPU and an NCCL group on a
-    card take K > 1."""
+    given; the check is host logic) raises with the reason; K = 1 takes
+    it. A gloo group on the CPU and an NCCL group on a card take K > 1.
+    ``debug.nan_checks`` takes K > 1 on either device (a captured step
+    splits at its NaN flags, ``tests/test_torch_nan_checks.py``): a CPU
+    trainer runs a unit's steps eagerly under the checks."""
     cfg = lockstep_config("xla", "base")
     cfg["train"]["scan_steps"] = 2
     cuda = torch.device("cuda")
@@ -339,31 +342,31 @@ def test_scan_steps_refusals(case, monkeypatch):
         assert captured_step.check_scan_steps(cfg, cuda) == 1
         return
     cfg["debug"] = {"nan_checks": True}
-    with pytest.raises(ValueError, match="train.scan_steps: 2 is refused "
-                       "with debug.nan_checks: autograd's anomaly mode"):
-        common.Trainer(copy.deepcopy(cfg), get_algorithm("base").SPEC,
-                       torch.device("cpu"), 4)
-    with pytest.raises(ValueError, match="nan_checks"):
-        captured_step.check_scan_steps(cfg, cuda)
-    cfg["train"]["scan_steps"] = 1
-    assert captured_step.check_scan_steps(cfg) == 1
-    # a CUDA-only piece refuses the CPU
-    trainer = common.Trainer(copy.deepcopy(dict(cfg, debug={})),
-                             get_algorithm("base").SPEC,
+    assert captured_step.check_scan_steps(cfg, cuda) == 2
+    assert captured_step.check_scan_steps(cfg) == 2
+    trainer = common.Trainer(copy.deepcopy(cfg), get_algorithm("base").SPEC,
                              torch.device("cpu"), 4)
+    assert trainer.scan_steps == 2 and trainer.nan_checks
+    x = torch.randn(2, 1, SEQ, generator=torch.Generator().manual_seed(0))
+    batch = {"ecg": x, "target": torch.zeros(2, SEQ, dtype=torch.int64)}
+    for _ in range(2):
+        assert torch.isfinite(trainer.train_step(batch)["loss"])
+    assert trainer.step == 2 and trainer.optimizer.count == 2
+    # a CUDA-only piece refuses the CPU
     with pytest.raises(ValueError, match="needs a CUDA device"):
         captured_step.CapturedStep(trainer)
 
 
-@pytest.mark.parametrize("accum", [2, 3])
+@pytest.mark.parametrize("accum", [1, 2, 3])
 def test_capturable_window_keeps_fixed_gradients(accum):
-    """Under accumulation a capturable optimizer keeps the window's
-    gradients as the same tensors across windows (the graphs hold them):
-    ``zero_grad`` leaves them, the update zeroes them in place after it, a
-    parameter that got no gradient keeps none, and ``replayed`` advances
-    the counters as ``step`` does; the updates equal those of the
-    optimizer that sets ``.grad`` to None at a window's start, bit for
-    bit."""
+    """Under accumulation (and at ``accum_iter`` 1 with ``fixed_grads``, a
+    step captured in two graphs under ``debug.nan_checks``) a capturable
+    optimizer keeps the window's gradients as the same tensors across
+    windows (the graphs hold them): ``zero_grad`` leaves them, the update
+    zeroes them in place after it, a parameter that got no gradient keeps
+    none, and ``replayed`` advances the counters as ``step`` does; the
+    updates equal those of the optimizer that sets ``.grad`` to None at a
+    window's start, bit for bit."""
     cfg = lockstep_config("xla", "base")
     # SGD: its fused update (the capturable one) runs on the CPU, AdamW's
     # capturable update on a card only
@@ -375,7 +378,7 @@ def test_capturable_window_keeps_fixed_gradients(accum):
         model = common.init_model(cfg, torch.device("cpu"))
         opt = build_optimizer(cfg, model, 4)
         if capturable:
-            opt.make_capturable_()
+            opt.make_capturable_(fixed_grads=accum == 1)
         unused = model.backbone.pos_embedding
         held, first = [], None
         for micro in range(2 * accum + 1):

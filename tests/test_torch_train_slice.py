@@ -584,7 +584,7 @@ def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
     with open(path, "w") as f:
         yaml.safe_dump(dict(cfg, **override), f)
     anomaly = []
-    step = common.Trainer.train_step
+    step = common.Trainer.device_step
 
     def spy(self, batch):
         anomaly.append(torch.is_anomaly_enabled())
@@ -608,7 +608,7 @@ def test_config_keys_work_or_raise(key, tmp_path, monkeypatch):
             units.append(len(next(iter(unit.values()))))
             yield unit
 
-    monkeypatch.setattr(common.Trainer, "train_step", spy)
+    monkeypatch.setattr(common.Trainer, "device_step", spy)
     monkeypatch.setattr(common.capture, "stacked_units", counted)
     if key in twin:
         monkeypatch.setattr(common, "_save", saved_twice)

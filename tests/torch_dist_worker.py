@@ -402,6 +402,40 @@ def task_nan_abort(argv, rank):
     return train_main(argv)
 
 
+def task_nan_checks(argv, rank, where):
+    """``train_main`` (``debug.nan_checks``) with a NaN on ``rank``: in
+    every step's signal (``where`` ``ecg``) or in its cross-entropies
+    (``loss``); the ``FloatingPointError``'s message."""
+    from semi_seg_ecg_tpu_torch.algorithms import common, cps, fixmatch
+    from semi_seg_ecg_tpu_torch.cli import train_main
+
+    step = common.Trainer.train_step
+    losses = {m: m.cross_entropy for m in (cps, fixmatch)}
+
+    def poisoned(self, batch):
+        if where == "ecg":
+            batch = dict(batch, ecg=batch["ecg"] * float("nan"))
+        return step(self, batch)
+
+    def nan_loss(ce):
+        return lambda *args, **kwargs: ce(*args, **kwargs) * float("nan")
+
+    if pdist.get_rank() == rank:
+        common.Trainer.train_step = poisoned
+        if where == "loss":
+            for m, ce in losses.items():
+                m.cross_entropy = nan_loss(ce)
+    try:
+        train_main(argv)
+    except FloatingPointError as e:
+        return str(e)
+    finally:
+        common.Trainer.train_step = step
+        for m, ce in losses.items():
+            m.cross_entropy = ce
+    raise AssertionError("train_main did not raise")
+
+
 class KernelInfer:
     """A fixed 1-D convolution's softmax, ``(B, leads, T) -> (B, C, T)``,
     with the attributes the stitcher and the streaming segmenter read;
@@ -518,6 +552,7 @@ TASKS = {"batchnorm": task_batchnorm, "draws": task_draws,
          "run_training": task_run_training,
          "test_main": task_test_main,
          "inference_main": task_inference_main, "nan_abort": task_nan_abort,
+         "nan_checks": task_nan_checks,
          "longrec": task_longrec, "serve": task_serve,
          "save_backends": task_save_backends}
 
