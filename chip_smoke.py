@@ -296,7 +296,21 @@ non-zero exit when it fails:
    phase 10's ranks (NCCL and captured on two cards or more, else gloo
    with CUDA tensors on one card and eager), a NaN in rank 1's rows: every
    rank raises at that step, none waits at a collective, no update
-   applied. Each part's seconds are logged.
+   applied. Each part's seconds are logged;
+21. the measuring tools (``semi_seg_ecg_tpu_torch/tools/``), each tool's
+   ``main`` in this process at short counts (``TOOL_RUNS``): the FLOP
+   count, ``bench`` (20 eager steps and 2 units of 32 captured ones a
+   trial, and the batch-64 row), ``bench_scale``, ``bench_matrix``,
+   ``profile_step --augment``, ``bench_e2e`` (64 records, 3 epochs,
+   ``host`` and ``cache+scan``), ``bench_inference``, ``bench_holter``,
+   ``bench_streams`` and ``bench_longrec --mode card`` and ``--mode mem``;
+   each line holds its keys and names the card, no device metric is null,
+   MFU lies in (0, 1], losses are finite; the augmented trace window's
+   gather events are the launches its counter counted, the long-record
+   step launches 8 flash forwards and 4 backwards (depth 4 with remat),
+   the device-augment run gathers and the host one does not; the flash
+   kernels at the long-record step's (2, 3, 4097, 64) in bf16 and fp32
+   against their plain versions, as in phase 2.
 
 Phases 12 (e) and 13 (d), phase 17 (b)'s ZeRO-1 task and phase 20 (c)'s
 task run on phase 10's rank processes. In the whole run phases 14-16 share rank groups,
@@ -340,18 +354,24 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import yaml
 
+from semi_seg_ecg_tpu_torch.tools.device_profile import (
+    HBM_BYTES_PER_S,
+    PEAK_FLOPS,
+    event_ms,
+    kernel_ms,
+    launch_counts,
+    nvidia_smi,
+    profile_forward,
+    profile_step,
+    trace_device,
+)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 OUT_JSON = os.path.join(WORK, "chip_smoke.json")
 
-# H100 SXM data-sheet peaks (dense): device memory and the rate of the units
-# a kernel's products run on: fp32 on the CUDA cores (the gather), bf16 on
-# the tensor cores, and fp32-accurate products on the tensor cores as three
-# TF32 products each (3xTF32: 495 / 3 TFLOP/s, the fastest fp32-accurate
-# product the card has, so the fp32 flash kernels' bound)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "3xtf32": 495e12 / 3}
-# the PEAK_FLOPS entry each flash dtype is bounded by
+# the PEAK_FLOPS entry (tools/device_profile.py: the H100 SXM's dense peaks;
+# the fp32 flash kernels' products are 3xTF32) each flash dtype is bounded by
 FLASH_PEAK = {"float32": "3xtf32", "bfloat16": "bfloat16"}
 
 STEMS = ("flash_attention_fwd", "flash_attention_bwd", "gather1d")
@@ -525,26 +545,6 @@ def log(*args):
     print("[chip_smoke]", *args, flush=True)
 
 
-def device_ms(torch, fn, iters):
-    """Device time per call: CUDA events around ``iters`` calls queued
-    behind a sleep kernel, so the host's enqueue cost stays off the clock.
-    The sleep lasts about a millisecond per call: SDPA's backward through
-    autograd costs the host hundreds of microseconds a call in a fresh
-    process, and a shorter sleep let that into its time."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(max(100_000_000, 2_000_000 * iters))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound(nbytes, flops, peak):
     """The card's least time in ms for moving ``nbytes`` and doing
     ``flops`` at ``PEAK_FLOPS[peak]``, and which of the two bounds it."""
@@ -688,7 +688,7 @@ def phase_kernels(torch):
 
 def launch_floor(torch, gather1d):
     """Device time per launch of a kernel that does nothing (1 block of 32
-    threads), queued and timed as ``device_ms`` times every kernel: what a
+    threads), queued and timed as ``event_ms`` times every kernel: what a
     launch costs the card before any work."""
     lib = gather1d.load_kernels()
 
@@ -698,7 +698,7 @@ def launch_floor(torch, gather1d):
             raise SystemExit(f"phase 2 failed: the empty kernel's launch "
                              f"returned CUDA error {err}")
 
-    return device_ms(torch, empty, 200)
+    return event_ms(empty, 200)
 
 
 def tf32_flags(torch):
@@ -708,7 +708,7 @@ def tf32_flags(torch):
             f"{torch.backends.cudnn.allow_tf32}")
 
 
-def check_kernel(torch, fa, gen, label, shape, dtype_name):
+def check_kernel(torch, fa, gen, label, shape, dtype_name, phase=2):
     """One forward shape: the kernel against its plain version, then the
     times of kernel, plain version and SDPA, and the card's bound."""
     import torch.nn.functional as F
@@ -726,11 +726,11 @@ def check_kernel(torch, fa, gen, label, shape, dtype_name):
     ok = (math.isfinite(err_out) and ratio <= 1
           and math.isfinite(err_lse) and err_lse <= fa.LSE_ATOL)
     long = shape[2] >= 1000
-    kernel_ms = device_ms(torch, lambda: fa.flash_attention_forward(
+    kernel_ms = event_ms(lambda: fa.flash_attention_forward(
         q, k, v, scale), 20 if long else 200)
-    plain_ms = device_ms(torch, lambda: fa.flash_attention_plain(
+    plain_ms = event_ms(lambda: fa.flash_attention_plain(
         q, k, v, scale), 5 if long else 100)
-    library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+    library_ms = event_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, scale=scale), 20 if long else 200)
     bound_ms, bound_by = attention_bound(shape, dtype_name)
     log(f"  fwd {label} {shape} {dtype_name}: err out {err_out:.3g} "
@@ -739,9 +739,9 @@ def check_kernel(torch, fa, gen, label, shape, dtype_name):
         f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
         f"{FLASH_PEAK[dtype_name]})")
     if not ok:
-        raise SystemExit(f"phase 2 failed: forward {label} disagrees with "
-                         f"the plain version (out {err_out}, {ratio} of the "
-                         f"tolerance; lse {err_lse})")
+        raise SystemExit(f"phase {phase} failed: forward {label} disagrees "
+                         f"with the plain version (out {err_out}, {ratio} "
+                         f"of the tolerance; lse {err_lse})")
     return {"shape": label, "bhnd": list(shape), "dtype": dtype_name,
             "max_abs_err": err_out, "max_abs_err_lse": err_lse,
             "tolerance": tol_name, "max_tolerance_ratio": ratio,
@@ -750,7 +750,7 @@ def check_kernel(torch, fa, gen, label, shape, dtype_name):
             "bound_by": bound_by, "bound_peak": FLASH_PEAK[dtype_name]}
 
 
-def check_backward(torch, fa, gen, label, shape, dtype_name):
+def check_backward(torch, fa, gen, label, shape, dtype_name, phase=2):
     """One backward shape: ``flash_attention_backward`` (the two kernels, Δ
     included) against the plain backward on the kernel forward's ``(out,
     lse)``; times of the wrapper, the plain version and the backward of
@@ -769,8 +769,8 @@ def check_backward(torch, fa, gen, label, shape, dtype_name):
     errs, ratio = [], 0.0
     for got, ref, tol in zip(grads, want, tols):
         if got.dtype != dtype:
-            raise SystemExit(f"phase 2 failed: backward {label} returned "
-                             f"{got.dtype}, not {dtype}")
+            raise SystemExit(f"phase {phase} failed: backward {label} "
+                             f"returned {got.dtype}, not {dtype}")
         err, r = excess_over(got, ref, tol)
         errs.append(err)
         ratio = max(ratio, r)
@@ -778,13 +778,13 @@ def check_backward(torch, fa, gen, label, shape, dtype_name):
     # a reading only: no kernel sums in the plain version's order
     bit_equal = all(torch.equal(g, w) for g, w in zip(grads, want))
     long = shape[2] >= 1000
-    kernel_ms = device_ms(torch, lambda: fa.flash_attention_backward(
+    kernel_ms = event_ms(lambda: fa.flash_attention_backward(
         q, k, v, out, lse, dout, scale), 20 if long else 200)
-    plain_ms = device_ms(torch, lambda: fa.flash_attention_backward_plain(
+    plain_ms = event_ms(lambda: fa.flash_attention_backward_plain(
         q, k, v, out, lse, dout, scale), 3 if long else 50)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-    library_ms = device_ms(torch, lambda: torch.autograd.grad(
+    library_ms = event_ms(lambda: torch.autograd.grad(
         sdpa_out, (qg, kg, vg), dout, retain_graph=True), 20 if long else 200)
     bound_ms, bound_by = attention_bwd_bound(shape, dtype_name)
     err = max(errs)
@@ -795,9 +795,9 @@ def check_backward(torch, fa, gen, label, shape, dtype_name):
         f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms ({bound_by}, {FLASH_PEAK[dtype_name]})")
     if not (math.isfinite(err) and ratio <= 1):
-        raise SystemExit(f"phase 2 failed: backward {label} disagrees with "
-                         f"the plain version (max error {err}, {ratio} of "
-                         "the tolerance)")
+        raise SystemExit(f"phase {phase} failed: backward {label} disagrees "
+                         f"with the plain version (max error {err}, {ratio} "
+                         "of the tolerance)")
     return {"shape": label, "bhnd": list(shape), "dtype": dtype_name,
             "max_abs_err": err, "max_abs_err_dq_dk_dv": errs,
             "tolerance": tol_name, "max_tolerance_ratio": ratio,
@@ -891,11 +891,11 @@ def check_gather(torch, gather1d, label, kind, shape, j, slope):
     lib_err = None
     if kind != "index":
         lib_err = (grid_sample()[:, :, 0, :] - want[0]).abs().max().item()
-    kernel_ms = device_ms(torch, run, 200)
-    plain_ms = device_ms(torch, plain, 50)
-    library_ms = device_ms(torch, library, 200) if library else None
+    kernel_ms = event_ms(run, 200)
+    plain_ms = event_ms(plain, 50)
+    library_ms = event_ms(library, 200) if library else None
     if kind == "pair":
-        separate_ms = device_ms(torch, lambda: (
+        separate_ms = event_ms(lambda: (
             gather1d.monotonic_gather(x, pos, max_slope=slope),
             gather1d.monotonic_gather_int(y, idx, max_slope=slope)), 200)
     bound_ms, bound_by = bound(nbytes, flops, "float32")
@@ -974,15 +974,6 @@ def reset_counts():
     fa.LAUNCHES = fa.BWD_LAUNCHES = gather1d.LAUNCHES = 0
 
 
-def read_counts():
-    from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
-    from semi_seg_ecg_tpu_torch.ops import gather1d
-
-    return {"flash_attention_fwd": fa.LAUNCHES,
-            "flash_attention_bwd": fa.BWD_LAUNCHES,
-            "gather1d": gather1d.LAUNCHES}
-
-
 def serve(config_path, model_path, name, **override):
     """One ``inference_main`` call with an override file; returns the
     outputs, the kernel launches it made (by kernel) and its wall
@@ -1001,7 +992,7 @@ def serve(config_path, model_path, name, **override):
                               "--model_path", model_path,
                               "--exp_name", name])
     seconds = time.time() - t0
-    launches = read_counts()
+    launches = launch_counts()
     saved = np.load(os.path.join(WORK, "exps", name, "test_outputs.npy"))
     if not np.array_equal(saved, outputs):
         raise SystemExit(f"{name}: test_outputs.npy differs from the "
@@ -1018,66 +1009,6 @@ def check_probs(name, probs, n=NUM_TEST):
     if row_err > 1e-5:
         raise SystemExit(f"{name}: probability rows sum to 1 +- {row_err}")
     return row_err
-
-
-def trace_device(torch, fn, steps, region=None):
-    """Device time of ``steps`` calls of ``fn`` from a torch.profiler
-    trace: busy ms per call and per kernel, device events per call, with a
-    ``region`` (see :func:`region_device_us`) the region's device ms per
-    call (else None), and the host ms per call inside the process group's
-    all-reduces (its ``gloo:all_reduce`` / ``nccl:all_reduce`` ranges).
-    Empty when the trace holds no device events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / steps
-    region_ms = (region_device_us(prof.events(), *region) / 1e3 / steps
-                 if region else None)
-    per_kernel, count, kinds = {}, 0, {"copy": 0, "elementwise": 0}
-    allreduce_us = 0.0
-    for event in prof.events():
-        if event.device_type == DeviceType.CPU and \
-                event.name.endswith(":all_reduce"):
-            allreduce_us += event.cpu_time_total
-        # user annotations (the optimizer's step range) span kernels that
-        # the trace also lists, so they are not device work of their own
-        if event.device_type == DeviceType.CUDA and not getattr(
-                event, "is_user_annotation", False):
-            count += 1
-            per_kernel[event.name] = (per_kernel.get(event.name, 0.0)
-                                      + event.time_range.elapsed_us() / 1e3)
-            kind = kernel_kind(event.name)
-            if kind:
-                kinds[kind] += 1
-    return (traced_ms, {k: v / steps for k, v in per_kernel.items()},
-            count / steps, {k: v / steps for k, v in kinds.items()},
-            region_ms, allreduce_us / 1e3 / steps)
-
-
-def region_device_us(events, range_name, sequence_nrs):
-    """Device µs of a region of a traced run: the kernels launched inside
-    the host ranges named ``range_name`` (its forward) and inside the
-    backward's ``evaluate_function`` ranges of the autograd nodes whose
-    sequence numbers are ``sequence_nrs`` (its backward, each node's
-    gradient accumulation included)."""
-    from torch.autograd import DeviceType
-
-    backward = "autograd::engine::evaluate_function:"
-    total = 0.0
-    for event in events:
-        if event.device_type != DeviceType.CPU:
-            continue
-        if event.name == range_name or (
-                event.name.startswith(backward)
-                and event.sequence_nr in sequence_nrs):
-            total += event.device_time_total
-    return total
 
 
 @contextlib.contextmanager
@@ -1115,30 +1046,11 @@ def reco_loss_region(torch):
         rl.reco_draws, rl.compute_reco_loss = draws_fn, loss_fn
 
 
-def kernel_kind(name):
-    """'copy' for PyTorch's copy and cast kernels (and memcpys), else
-    'elementwise' for its other elementwise kernels, else None."""
-    low = name.lower()
-    if "copy" in low or "memcpy" in low:
-        return "copy"
-    if "elementwise" in low:
-        return "elementwise"
-    return None
-
-
-def kernel_ms(per_kernel, *needles):
-    if not per_kernel:
-        return None
-    return sum(v for k, v in per_kernel.items()
-               if any(n in k for n in needles))
-
-
 def profile_model(torch, config, model_path, amp, steps=20):
-    """Where one batch's time goes: host-clock wall time per forward of a
-    (16, 1, 2500) batch (synchronized), and from a torch.profiler trace of
-    the same loop the card's busy time, its idle share and the kernels
-    that take the most device time. Device numbers are None when the
-    trace holds no device events."""
+    """Where one batch's time goes (``profile_forward``): host-clock wall
+    time per forward of a (16, 1, 2500) batch (synchronized), and from a
+    torch.profiler trace of the same loop the card's busy time, its idle
+    share and the kernels that take the most device time."""
     from semi_seg_ecg_tpu_torch.algorithms.common import (
         full_fp32,
         load_eval_model,
@@ -1154,32 +1066,7 @@ def profile_model(torch, config, model_path, amp, steps=20):
                 "cuda", dtype=torch.bfloat16, enabled=amp):
             model(x)
 
-    forward()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        forward()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    traced_ms, per_kernel, events, kinds, _, _ = trace_device(
-        torch, forward, steps)
-    busy_ms = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return {
-        "wall_ms_per_batch": wall_ms,
-        "windows_per_s": BATCH / (wall_ms / 1e3),
-        "traced_wall_ms_per_batch": traced_ms,
-        "device_events_per_batch": events,
-        "copy_kernels_per_batch": kinds["copy"],
-        "elementwise_kernels_per_batch": kinds["elementwise"],
-        "device_busy_ms_per_batch": busy_ms if per_kernel else None,
-        # busy time from the trace over the untraced wall time: tracing
-        # slows the host, not the kernels
-        "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel
-        else None,
-        "flash_kernel_ms_per_batch": kernel_ms(per_kernel, "flash_fwd_"),
-        "top_kernels_ms_per_batch": [(k[:80], v) for k, v in top],
-    }
+    return profile_forward(forward, BATCH, steps, x.device)
 
 
 def profile_models(torch, config, model_path):
@@ -1188,17 +1075,17 @@ def profile_models(torch, config, model_path):
              "bf16_autocast": profile_model(torch, config, model_path, True)}
     for name, m in model.items():
         log(f"  model forward, batch {BATCH}, {name}: "
-            f"{m['wall_ms_per_batch']:.3f} ms wall "
+            f"{m['wall_ms']:.3f} ms wall "
             f"({m['windows_per_s']:.1f} windows/s); traced: "
-            f"{m['device_events_per_batch']:.0f} device events "
-            f"({m['copy_kernels_per_batch']:.0f} copy, "
-            f"{m['elementwise_kernels_per_batch']:.0f} other elementwise), "
+            f"{m['device_events']:.0f} device events "
+            f"({m['copy_kernels']:.0f} copy, "
+            f"{m['elementwise_kernels']:.0f} other elementwise), "
             "device busy "
-            f"{m['device_busy_ms_per_batch']} ms, idle share "
+            f"{m['device_busy_ms']} ms, idle share "
             f"{m['device_idle_share']}, flash kernel "
-            f"{m['flash_kernel_ms_per_batch']} ms")
-        for kernel, ms in m["top_kernels_ms_per_batch"]:
-            log(f"    {ms:.4f} ms  {kernel}")
+            f"{m['flash_kernel_ms']} ms")
+        for kernel, ms in m["top_kernels"] or []:
+            log(f"    {ms:.4f} ms  {kernel[:80]}")
     return model
 
 
@@ -1351,12 +1238,12 @@ def launches_by_part(algorithm, parts):
 
     def counted(name, fn):
         def call(*args, **kwargs):
-            before = read_counts()
+            before = launch_counts()
             out = fn(*args, **kwargs)
             part = names[name]
             if part == "stage":
                 part += str(kwargs["stage_id"])
-            parts[part] = {k: v - before[k] for k, v in read_counts().items()}
+            parts[part] = {k: v - before[k] for k, v in launch_counts().items()}
             return out
         return call
 
@@ -1404,7 +1291,7 @@ def train_recipe(torch, phase, family, algorithm):
         test_metrics = train_main(["-f", config_path])
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = read_counts()
+    launches = launch_counts()
     log(f"  train_main: {seconds:.2f} s, launches {launches} (expected "
         f"{want}: per step {per_step}; {eval_depth} forward per eval batch); "
         f"by part {parts} (expected {want_parts}); test metrics "
@@ -1454,7 +1341,7 @@ def train_recipe(torch, phase, family, algorithm):
     probs = inference_main(["-f", config_path, "--model_path",
                             os.path.join(out_dir, "best-MeanIoU.ckpt"),
                             "--exp_name", f"{name}_served"])
-    served = read_counts()
+    served = launch_counts()
     check_probs(f"{name}: served trained ckpt", probs, TRAIN_TEST)
     want_served = {"flash_attention_fwd": eval_depth * math.ceil(
         TRAIN_TEST / BATCH), "flash_attention_bwd": 0, "gather1d": 0}
@@ -1701,12 +1588,13 @@ def profile_train_step(torch, config, precision, phase=4,
                        family="vit_tiny", steps=10, algorithm="fixmatch",
                        region=None):
     """Where one step of ``algorithm`` (FixMatch unless given) goes at full
-    width: synchronized host-clock ms per ``Trainer.train_step`` (device
-    augmentation included), the peak of allocated device memory and, from
-    a trace of the same loop, device busy time, idle share, the top kernels,
-    the per-step ms of each ported kernel and, with ``region`` (a context
-    manager yielding :func:`trace_device`'s region), the region's device ms
-    per step."""
+    width (``profile_step``): synchronized host-clock ms per
+    ``Trainer.train_step`` (device augmentation included), the peak of
+    allocated device memory, the launches a step and, from a trace of as
+    many steps, device busy time, idle share, the top kernels, the
+    per-step ms of each ported kernel and, with ``region`` (a context
+    manager factory yielding ``trace_device``'s region), the region's
+    device ms per step."""
     from semi_seg_ecg_tpu_torch.algorithms import get_algorithm
     from semi_seg_ecg_tpu_torch.algorithms.common import (
         Trainer,
@@ -1722,72 +1610,38 @@ def profile_train_step(torch, config, precision, phase=4,
         trainer = Trainer(cfg, get_algorithm(algorithm).SPEC,
                           torch.device("cuda"), 4,
                           model=init_model(cfg, torch.device("cuda")))
-        step = lambda: trainer.train_step(batch)
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-        per_step = {k: v / steps for k, v in read_counts().items()}
-        with region() if region else contextlib.nullcontext() as traced:
-            (traced_ms, per_kernel, events, kinds, region_ms,
-             allreduce_host_ms) = trace_device(torch, step, steps, traced)
-    busy_ms = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
-    out = {
-        "algorithm": algorithm,
-        "wall_ms_per_step": wall_ms,
-        "windows_per_s": 2 * BATCH / (wall_ms / 1e3),
-        "peak_memory_mb": peak_mb,
-        "launches_per_step": per_step,
-        "traced_wall_ms_per_step": traced_ms,
-        "device_events_per_step": events,
-        "copy_kernels_per_step": kinds["copy"],
-        "elementwise_kernels_per_step": kinds["elementwise"],
-        "device_busy_ms_per_step": busy_ms if per_kernel else None,
-        "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel
-        else None,
-        "flash_fwd_ms_per_step": kernel_ms(per_kernel, "flash_fwd_"),
-        "flash_bwd_ms_per_step": kernel_ms(per_kernel, "flash_bwd_"),
-        "gather_ms_per_step": kernel_ms(per_kernel, "gather1d_kernel"),
-        # under a process group: the collectives' kernels (phase 10)
-        "collectives_ms_per_step": kernel_ms(per_kernel, "nccl"),
-        "allreduce_ms_per_step": kernel_ms(per_kernel, "AllReduce"),
-        # the same all-reduces' host time (gloo's run on the host)
-        "allreduce_host_ms_per_step": allreduce_host_ms,
-        "region_ms_per_step": region_ms if per_kernel else None,
-        "top_kernels_ms_per_step": [(k[:80], v) for k, v in top],
-    }
+        out = profile_step(lambda: trainer.train_step(batch), steps,
+                           torch.device("cuda"), warmup=3, region=region,
+                           launches=launch_counts)
+    wall_ms, per_step = out["wall_ms_per_step"], out["launches_per_step"]
+    out = {"algorithm": algorithm,
+           "windows_per_s": 2 * BATCH / (wall_ms / 1e3), **out}
     log(f"  {algorithm} train step, {precision}, {BATCH} + {BATCH} windows: "
         f"{wall_ms:.3f} ms wall ({out['windows_per_s']:.1f} windows/s), "
-        f"peak memory {peak_mb:.1f} MiB, "
-        f"launches/step {per_step}; traced: {events:.0f} device events "
-        f"({kinds['copy']:.0f} copy, {kinds['elementwise']:.0f} other "
-        "elementwise), "
+        f"peak memory {out['peak_memory_mb']:.1f} MiB, "
+        f"launches/step {per_step}; traced: "
+        f"{out['device_events_per_step']} device events "
+        f"({out['copy_kernels_per_step']} copy, "
+        f"{out['elementwise_kernels_per_step']} other elementwise), "
         f"device busy {out['device_busy_ms_per_step']} ms, idle share "
         f"{out['device_idle_share']}; flash fwd "
         f"{out['flash_fwd_ms_per_step']} ms, flash bwd "
         f"{out['flash_bwd_ms_per_step']} ms, gather "
         f"{out['gather_ms_per_step']} ms per step")
-    for kernel, ms in top:
+    for kernel, ms in out["top_kernels_ms_per_step"] or []:
         log(f"    {ms:.4f} ms  {kernel[:80]}")
     want = launches_per_step(family, algorithm)
     if per_step != want:
         raise SystemExit(f"phase {phase} failed: {precision} step launches "
                          f"{per_step}, expected {want}")
     # a trace with device events must find each launched kernel by its name
+    traced = out["device_busy_ms_per_step"] is not None
     unnamed = [k for k, kernel in (
         ("flash_fwd_ms_per_step", "flash_attention_fwd"),
         ("flash_bwd_ms_per_step", "flash_attention_bwd"),
         ("gather_ms_per_step", "gather1d"))
-        if per_kernel and want[kernel] and not out[k]]
-    if region and per_kernel and not region_ms:
+        if traced and want[kernel] and not out[k]]
+    if region and traced and not out["region_ms_per_step"]:
         unnamed.append("region")
     if unnamed:
         raise SystemExit(f"phase {phase} failed: the {precision} step's "
@@ -2041,10 +1895,9 @@ def check_reco_loss(torch, config):
                              temp).backward()
 
     with full_fp32():
-        # few calls: their host enqueue stays inside device_ms's sleep
-        ms = device_ms(torch, loss_and_backward, 5)
-        traced_ms, per_kernel, events, _, _, _ = trace_device(
-            torch, loss_and_backward, 10)
+        # few calls: their host enqueue stays inside event_ms's sleep
+        ms = event_ms(loss_and_backward, 5)
+        traced_ms, per_kernel, events, _, _, _ = trace_device(loss_and_backward, 10)
     busy_ms = sum(per_kernel.values()) if per_kernel else None
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     out = {"loss_cpu": cpu["loss"], "loss_card": card["loss"],
@@ -2174,7 +2027,7 @@ def longrec_entry(torch, family, config_path, model_path, record_path,
     out = infer_longrec_main(argv)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = read_counts()
+    launches = launch_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     probs, labels = out["probs"], out["labels"]
     if probs.shape != (4, total) or labels.shape != (total,) or \
@@ -2321,7 +2174,7 @@ def check_streaming(torch, config_path, model_path):
         labels.append(l)
     p, l = seg.flush()
     seconds = time.time() - t0
-    launches = read_counts()
+    launches = launch_counts()
     probs = np.concatenate(probs + [p], axis=2)
     labels = np.concatenate(labels + [l], axis=1)
     if launches != want or probs.shape != (STREAMS, 4, total):
@@ -2383,8 +2236,7 @@ def profile_longrec(torch, config_path, model_path, record, reps=3):
     filter_ms = float(np.mean(filter_s)) * 1e3
     after_ms = float(np.mean(rest_s)) * 1e3
     wall_ms = filter_ms + after_ms
-    _, per_kernel, events, kinds, _, _ = trace_device(
-        torch, lambda: rest(ecg), reps)
+    _, per_kernel, events, kinds, _, _ = trace_device(lambda: rest(ecg), reps)
     busy_ms = sum(per_kernel.values())
     batches = math.ceil(plan_windows(record.shape[-1], SIGNAL_LENGTH,
                                      LONGREC_HOP, 1)[0] / LONGREC_BATCH)
@@ -2528,9 +2380,9 @@ def timed_export(torch, config, path, flash=False, **kwargs):
     t0 = time.perf_counter()
     header = export_serving(config, path, **kwargs)
     seconds = time.perf_counter() - t0
-    if read_counts() != want:
+    if launch_counts() != want:
         raise SystemExit(f"phase 9 failed: exporting {path} launched "
-                         f"{read_counts()}, expected {want} (the "
+                         f"{launch_counts()}, expected {want} (the "
                          "calibration forwards; tracing launches none)")
     return header, seconds
 
@@ -2548,7 +2400,7 @@ def served(torch, serve, x, flash):
     reset_counts()
     out = serve(x)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     want = {"flash_attention_fwd": DEPTH if flash else 0,
             "flash_attention_bwd": 0, "gather1d": 0}
     if counts != want:
@@ -2650,33 +2502,6 @@ def activation_reductions(torch, fn, x):
         fn(x)
     torch.cuda.synchronize()
     return count[0]
-
-
-def profile_serving(torch, fn, n, steps=10):
-    """One serving call's time at batch ``n``: host-clock wall per call
-    (synchronized), and from a torch.profiler trace of the same loop the
-    card's busy time, idle share, device events and top kernel."""
-    x = card_batch(torch, n, 90 + n)
-    fn(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        fn(x)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    _, per_kernel, events, kinds, _, _ = trace_device(
-        torch, lambda: fn(x), steps)
-    busy_ms = sum(per_kernel.values())
-    top = max(per_kernel.items(), key=lambda kv: kv[1]) if per_kernel \
-        else (None, None)
-    return {"batch": n, "wall_ms": wall_ms,
-            "windows_per_s": n / (wall_ms / 1e3),
-            "device_busy_ms": busy_ms if per_kernel else None,
-            "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel
-            else None,
-            "device_events": events, "copy_kernels": kinds["copy"],
-            "flash_kernel_ms": kernel_ms(per_kernel, "flash_fwd_"),
-            "top_kernel": (top[0] or "")[:80], "top_kernel_ms": top[1]}
 
 
 def http_round_trip(port, x, reps=5):
@@ -2793,7 +2618,7 @@ def phase_deploy(torch, vit_model, resnet_model):
         for n in (1, 16, 37, 64):
             x = card_batch(torch, n, n)
             got = served(torch, serve, x, flash)
-            per_call = read_counts()
+            per_call = launch_counts()
             with torch.inference_mode():
                 want = infer(x)
             errs[n] = (got - want).abs().max().item()
@@ -2925,14 +2750,16 @@ def phase_deploy(torch, vit_model, resnet_model):
     for family, fns in serve_fns.items():
         for form, fn in fns.items():
             for n in (BATCH, 64):
-                m = profile_serving(torch, fn, n, steps=SERVE_PROFILE_STEPS)
+                x = card_batch(torch, n, 90 + n)
+                m = profile_forward(lambda: fn(x), n, SERVE_PROFILE_STEPS,
+                                    x.device, top=1)
                 timings[f"{family}/{form}/{n}"] = m
                 log(f"  {family} {form} batch {n}: {m['wall_ms']:.3f} ms "
                     f"wall ({m['windows_per_s']:.1f} windows/s), busy "
                     f"{m['device_busy_ms']} ms, idle share "
                     f"{m['device_idle_share']}, {m['device_events']:.0f} "
                     f"device events ({m['copy_kernels']:.0f} copy), top "
-                    f"{m['top_kernel_ms']} ms {m['top_kernel']}")
+                    f"{m['top_kernels']}")
     result["timings"] = timings
     result["exports"] = exports
     result["seconds"] = time.perf_counter() - t_phase
@@ -2966,13 +2793,6 @@ DP_PIXELS = 4
 DP_RECIPES = ("fixmatch", "cps", "reco")
 DP_SNAPSHOT_SEEDS = (21, 22, 23)
 DP_TIMEOUT = 600
-
-
-def nvidia_smi():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
 
 
 def dp_layout(torch):
@@ -3059,7 +2879,7 @@ def dp_steps(torch, config, batches, rows=None):
             torch.cuda.synchronize()
             reset_counts()
             step = trainer.train_step(on_card)
-            launches.append(read_counts())
+            launches.append(launch_counts())
             metrics.append({k: all_reduce_mean(v).item()
                             for k, v in step.items()})
     torch.cuda.synchronize()
@@ -3119,7 +2939,7 @@ def dp_train(torch, config_path):
     t0 = time.time()
     metrics = train_main(["-f", config_path])
     torch.cuda.synchronize()
-    return {"seconds": time.time() - t0, "launches": read_counts(),
+    return {"seconds": time.time() - t0, "launches": launch_counts(),
             "test_metrics": metrics}
 
 
@@ -3234,29 +3054,12 @@ def dp_reco_sync_free(torch):
         "rows": DP_WORLD * BATCH}
 
 
-def dp_events_ms(torch, fn, reps):
-    """CUDA-event ms per call of ``fn`` over ``reps`` calls, after a warm
-    call and a barrier."""
-    from semi_seg_ecg_tpu_torch.parallel.dist import barrier
-
-    fn()
-    barrier()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def dp_profile(torch, reps=20):
     """On each rank: :func:`dp_profiles` (the collectives' device time
     includes a rank's wait for the other); the gradient all-reduce alone
     (``all_reduce_grads_`` on the model's gradients: flatten, NCCL, divide,
     copy back) and NCCL's all-reduce of the same bytes as one flat buffer,
-    each by :func:`dp_events_ms`; :func:`dp_reco_sync_free`."""
+    each by ``event_ms`` after a barrier; :func:`dp_reco_sync_free`."""
     import torch.distributed as dist
 
     from semi_seg_ecg_tpu_torch.models import build_model_from_config
@@ -3268,10 +3071,12 @@ def dp_profile(torch, reps=20):
     for p in params:
         p.grad = torch.ones_like(p)
     flat = torch.ones(sum(p.numel() for p in params), device="cuda")
-    out["grad_allreduce_alone_ms"] = dp_events_ms(
-        torch, lambda: all_reduce_grads_(params), reps)
-    out["nccl_allreduce_ms"] = dp_events_ms(
-        torch, lambda: dist.all_reduce(flat), reps)
+    out["grad_allreduce_alone_ms"] = event_ms(
+        lambda: all_reduce_grads_(params), reps, warmup=1, sleep=False,
+        before=barrier)
+    out["nccl_allreduce_ms"] = event_ms(
+        lambda: dist.all_reduce(flat), reps, warmup=1, sleep=False,
+        before=barrier)
     out["grad_allreduce_bytes"] = 4 * flat.numel()
     out["reco_loss_gathered"] = dp_reco_sync_free(torch)
     return out
@@ -3718,7 +3523,7 @@ def option_steps(torch, cfg, batches, model=None):
         metrics = trainer.train_step(batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        steps.append({"launches": read_counts(), "ms": ms,
+        steps.append({"launches": launch_counts(), "ms": ms,
                       "metrics": {k: v.item() for k, v in metrics.items()}})
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     return steps, peak, trainer
@@ -3865,7 +3670,7 @@ def check_options(torch, family, base):
     reset_counts()
     last = trainer.train_step(batches[-1])
     torch.cuda.synchronize()
-    launches_last = read_counts()
+    launches_last = launch_counts()
     in_groups = set()
     worst_replay, worst_name = -1.0, None
     b1, b2 = opt.optimizer.defaults["betas"]
@@ -4059,7 +3864,7 @@ def accum_run(torch, argv, snapshot_epochs):
     t0 = time.perf_counter()
     run_training(config, fixmatch.SPEC, snapshot_epochs=snapshot_epochs)
     torch.cuda.synchronize()
-    return {"launches": read_counts(), "seconds": time.perf_counter() - t0,
+    return {"launches": launch_counts(), "seconds": time.perf_counter() - t0,
             "start_epoch": config["start_epoch"], "train": config["train"]}
 
 
@@ -4165,7 +3970,7 @@ def accum_teacher(torch):
         reset_counts()
         trainer.train_step(batch)
         torch.cuda.synchronize()
-        launches.append(read_counts())
+        launches.append(launch_counts())
         moved.append(any(not torch_equal(a, b) for a, b in zip(
             trainer.teacher.state_dict().values(), before)))
     want = launches_per_step("vit_tiny", "mean_teacher")
@@ -4532,7 +4337,7 @@ def cache_run(torch, name, cache):
         common.Trainer.train_step = real
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = read_counts()
+    launches = launch_counts()
     trainer = trainers[0]
     copies = [c for f in sorted(os.listdir(trace_dir))
               for c in h2d_copies(os.path.join(trace_dir, f))]
@@ -4654,7 +4459,7 @@ def z1_steps(torch, config, algorithm, batches, checkpoint):
             torch.cuda.synchronize()
             reset_counts()
             step = trainer.train_step(on_card)
-            launches.append(read_counts())
+            launches.append(launch_counts())
             metrics.append({k: all_reduce_mean(v).item()
                             for k, v in step.items()})
     torch.cuda.synchronize()
@@ -4697,7 +4502,7 @@ def z1_resume(torch, config, algorithm, path, batch):
         reset_counts()
         metrics = trainer.train_step({k: torch.from_numpy(v).to(device)
                                       for k, v in batch.items()})
-        launches = read_counts()
+        launches = launch_counts()
     return {"loss": metrics["loss"].item(), "launches": launches,
             "step": trainer.step,
             "model": {k: v.detach().cpu().numpy()
@@ -4894,7 +4699,7 @@ def tp_infer(torch, config_path, model_path, name):
     probs = inference_main(["-f", config_path, "--model_path", model_path,
                             "--exp_name", name])
     torch.cuda.synchronize()
-    return {"probs": probs, "launches": read_counts()}
+    return {"probs": probs, "launches": launch_counts()}
 
 
 def tp_longrec(torch, config_path, model_path, record_path, streams_path):
@@ -4922,14 +4727,14 @@ def tp_longrec(torch, config_path, model_path, record_path, streams_path):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     result = {"probs": out["probs"], "labels": out["labels"],
-              "launches": read_counts(), "seconds": seconds}
+              "launches": launch_counts(), "seconds": seconds}
     seg = StreamingSegmenter(infer, window=SIGNAL_LENGTH, hop=LONGREC_HOP,
                              num_streams=streams.shape[0], mesh=mesh)
     reset_counts()
     pushed = [seg.push(streams[:, :, off:off + STREAM_CHUNK])
               for off in range(0, streams.shape[-1], STREAM_CHUNK)]
     pushed.append(seg.flush())
-    result["stream_launches"] = read_counts()
+    result["stream_launches"] = launch_counts()
     result["streams"] = np.concatenate([p[0] for p in pushed], axis=2)
     return result
 
@@ -4986,7 +4791,7 @@ def tp_check_longrec(torch, ranks, config_path, model_path, record,
     want = long_record_inference(config, record, infer=infer)
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t0
-    one_launches = read_counts()
+    one_launches = launch_counts()
     total = record.shape[-1]
     data, model = TP_LONGREC_LAYOUT
     n_win, n_pad, _, _ = plan_windows(total, SIGNAL_LENGTH, LONGREC_HOP,
@@ -5421,19 +5226,19 @@ def seq_ring_case(torch, gen, label, shape, size, dtype_name, phase=15):
     reps = 20 if long else 200
     hop_out, hop_lse = fa.flash_attention_hop_forward(q0, kc, vc, scale, nkv)
     dout = g[:, :, :counts[0]].contiguous()
-    fwd_ms = device_ms(torch, lambda: fa.flash_attention_hop_forward(
+    fwd_ms = event_ms(lambda: fa.flash_attention_hop_forward(
         q0, kc, vc, scale, nkv), reps)
-    fwd_plain = device_ms(torch, lambda: fa.flash_attention_plain(
+    fwd_plain = event_ms(lambda: fa.flash_attention_plain(
         q0, ks, vs, scale), reps // 4)
-    fwd_sdpa = device_ms(torch, lambda: F.scaled_dot_product_attention(
+    fwd_sdpa = event_ms(lambda: F.scaled_dot_product_attention(
         q0, ks, vs, scale=scale), reps)
-    bwd_ms = device_ms(torch, lambda: fa.flash_attention_hop_backward(
+    bwd_ms = event_ms(lambda: fa.flash_attention_hop_backward(
         q0, kc, vc, hop_out, hop_lse, dout, scale, nkv), reps)
-    bwd_plain = device_ms(torch, lambda: fa.flash_attention_backward_plain(
+    bwd_plain = event_ms(lambda: fa.flash_attention_backward_plain(
         q0, ks, vs, hop_out, hop_lse, dout, scale), reps // 4)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q0, ks, vs))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-    bwd_sdpa = device_ms(torch, lambda: torch.autograd.grad(
+    bwd_sdpa = event_ms(lambda: torch.autograd.grad(
         sdpa_out, (qg, kg, vg), dout, retain_graph=True), reps)
     fwd_bound = hop_bound(b, h, counts[0], nkv, d, dtype_name)
     bwd_bound = hop_bound(b, h, counts[0], nkv, d, dtype_name, True)
@@ -5589,7 +5394,7 @@ def seq_long(torch, families=tuple(SEQ_LONG)):
         out[family] = {"activation_mb": (torch.cuda.max_memory_allocated()
                                          - before) / 2 ** 20,
                        "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
-                       "ms": ms, "loss": loss, "launches": read_counts()}
+                       "ms": ms, "loss": loss, "launches": launch_counts()}
         del trainer, on_card
         gc.collect()
         torch.cuda.empty_cache()
@@ -5878,7 +5683,7 @@ def so_stpp_rank(torch, config, snapshots):
                 models, loader, config["metric"]["num_classes"], device,
                 amp_context(config, device))
             torch.cuda.synchronize()
-            launches = read_counts()
+            launches = launch_counts()
     finally:
         loader.close()
     return {"reliable": reliable, "reliability": reliability,
@@ -5904,7 +5709,7 @@ def so_int8_serve(torch, config, x):
         probs = seq_shard.sharded_call(infer, batch)
     torch.cuda.synchronize()
     return {"probs": probs.cpu().numpy(), "codes": codes,
-            "launches": read_counts()}
+            "launches": launch_counts()}
 
 
 def so_join_codes(pieces, whole):
@@ -6456,7 +6261,7 @@ def ckpt_writer_run(torch, mode):
         train_main(["-f", path])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = read_counts()
+        launches = launch_counts()
     finally:
         ckpt.save_checkpoint = save
     out_dir = os.path.join(WORK, "exps", f"ckpt_{mode}")
@@ -6590,7 +6395,7 @@ def ckpt_artifact(torch, vit_model):
                               "--out", path, "--platforms", "cuda", "cpu"])
     seconds = time.perf_counter() - t0
     log(f"  (c) ecg-torch-export printed {line.getvalue().strip()[:300]}")
-    traced = read_counts()
+    traced = launch_counts()
     serve, _ = load_serving(path)
     single, _ = load_serving(single_path)
     cpu_serve, _ = load_serving(path, "cpu")
@@ -6602,7 +6407,7 @@ def ckpt_artifact(torch, vit_model):
         reset_counts()
         got = serve(x)
         torch.cuda.synchronize()
-        per_call = read_counts()
+        per_call = launch_counts()
         if per_call != {"flash_attention_fwd": DEPTH,
                         "flash_attention_bwd": 0, "gather1d": 0}:
             raise SystemExit(f"phase 17 failed: the cross-platform "
@@ -6611,7 +6416,7 @@ def ckpt_artifact(torch, vit_model):
     x = card_batch(torch, 2, 172).cpu()
     reset_counts()
     on_cpu = cpu_serve(x)
-    cpu_launches = read_counts()
+    cpu_launches = launch_counts()
     with torch.inference_mode():
         cpu_err = (on_cpu - infer_cpu(x)).abs().max().item()
     result = {"platforms": header["platforms"],
@@ -6782,7 +6587,7 @@ def scan_run(torch, cfg, algorithm, mode, steps, seed=40, accum=1):
         metrics = [{k: v.item() for k, v in trainer.train_step(b).items()}
                    for b in batches]
         torch.cuda.synchronize()
-    out = {"metrics": metrics, "host_counts": read_counts(),
+    out = {"metrics": metrics, "host_counts": launch_counts(),
            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
            "states": {name: {k: v.detach().cpu().clone() for k, v in
                              net.state_dict().items()}
@@ -7120,7 +6925,7 @@ def scan_recipe(torch, eager_log=None):
             test_metrics = train_main(["-f", path])
             torch.cuda.synchronize()
         warned.extend(w for w in seen if w not in warned)
-        counts = read_counts()
+        counts = launch_counts()
         replays = sum(t.captured.replays for t in trainers
                       if t.captured is not None)
         del trainers
@@ -7217,50 +7022,20 @@ def scan_recipe(torch, eager_log=None):
             "trace_ported_kernel_events": traced, "launches": launches}
 
 
-def step_profile(torch, step, steps):
+def scan_step_profile(step, steps):
     """``steps`` calls of ``step`` (after two untimed ones: a captured
-    run's warm-up and capture) in SCAN_PROFILE_CHUNKS windows: wall ms a
-    step (synchronized at each window's end; each window's too, the
-    spread) and the host's µs a step (each window's issue time before its
-    synchronize); from a trace of SCAN_TRACE_STEPS more, device busy ms,
-    device events a step and the idle share of the untraced wall."""
-    per_window = steps // SCAN_PROFILE_CHUNKS
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    windows, issued_s = [], 0.0
-    for _ in range(SCAN_PROFILE_CHUNKS):
-        t0 = time.perf_counter()
-        for _ in range(per_window):
-            step()
-        issued = time.perf_counter()
-        torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) * 1e3 / per_window)
-        issued_s += issued - t0
-    traced_ms, per_kernel, events, _, _, _ = trace_device(
-        torch, step, SCAN_TRACE_STEPS)
-    busy = sum(per_kernel.values()) if per_kernel else None
-    wall = sum(windows) / len(windows)
-    return {"steps": per_window * SCAN_PROFILE_CHUNKS,
-            "wall_ms_per_step": wall,
-            "wall_ms_per_step_windows": windows,
-            "host_us_per_step": issued_s * 1e6
-            / (per_window * SCAN_PROFILE_CHUNKS),
-            "traced_steps": SCAN_TRACE_STEPS,
-            "traced_wall_ms_per_step": traced_ms,
-            "device_busy_ms_per_step": busy,
-            "device_idle_share": (1 - busy / wall) if busy else None,
-            "device_idle_share_traced": (1 - busy / traced_ms) if busy
-            else None,
-            "device_events_per_step": events,
-            "flash_fwd_ms_per_step": kernel_ms(per_kernel, "flash_fwd_"),
-            "flash_bwd_ms_per_step": kernel_ms(per_kernel, "flash_bwd_"),
-            "gather_ms_per_step": kernel_ms(per_kernel, "gather1d_kernel")}
+    run's warm-up and capture) in SCAN_PROFILE_CHUNKS windows, and a trace
+    of SCAN_TRACE_STEPS more (``profile_step``)."""
+    import torch
+
+    return profile_step(step, steps, torch.device(
+        "cuda", torch.cuda.current_device()), chunks=SCAN_PROFILE_CHUNKS,
+        traced=SCAN_TRACE_STEPS)
 
 
 def scan_profile(torch, family):
     """(e) The bf16 FixMatch step of ``family`` eager and captured
-    (:func:`step_profile` of SCAN_PROFILE_STEPS steps)."""
+    (``profile_step`` of SCAN_PROFILE_STEPS steps)."""
     from semi_seg_ecg_tpu_torch.algorithms import fixmatch
     from semi_seg_ecg_tpu_torch.algorithms.common import (
         Trainer,
@@ -7277,8 +7052,8 @@ def scan_profile(torch, family):
         with full_fp32():
             trainer = Trainer(cfg, fixmatch.SPEC, torch.device("cuda"), 4,
                               model=init_model(cfg, torch.device("cuda")))
-            out[mode] = step_profile(torch, lambda: trainer.train_step(batch),
-                                     SCAN_PROFILE_STEPS[mode])
+            out[mode] = scan_step_profile(lambda: trainer.train_step(batch),
+                                          SCAN_PROFILE_STEPS[mode])
         log(f"  (e) {family} bf16 step, {mode}: {out[mode]}")
     return out
 
@@ -7433,7 +7208,7 @@ def scan_accum_recipe(torch):
             test_metrics = train_main(["-f", path])
             torch.cuda.synchronize()
         warned.extend(w for w in seen if w not in warned)
-        counts = read_counts()
+        counts = launch_counts()
         trainer = trainers[0]
         start = 0 if resume is None else 1
         run = {"seconds": time.time() - t, "host_counts": counts,
@@ -7533,8 +7308,8 @@ def scan_refusal(torch, config_path):
     try:
         train_main(["-f", config_path])
     except ValueError as e:
-        return {"raised": str(e), "launches": read_counts()}
-    return {"raised": None, "launches": read_counts()}
+        return {"raised": str(e), "launches": launch_counts()}
+    return {"raised": None, "launches": launch_counts()}
 
 
 def scan_check_refusal(by_task):
@@ -7645,7 +7420,7 @@ def scan_rank_case(torch, config, batches):
 
 def scan_rank_profile(torch, config, batch):
     """(d) a rank's bf16 step on its rows of ``batch``, eager (the default
-    optimizers) and captured (:func:`step_profile`)."""
+    optimizers) and captured (:func:`scan_step_profile`)."""
     from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
     from semi_seg_ecg_tpu_torch.parallel.dist import data_rank, data_size
 
@@ -7658,9 +7433,9 @@ def scan_rank_profile(torch, config, batch):
     with full_fp32():
         for mode in ("eager", "captured"):
             trainer = scan_rank_trainer(torch, config, mode)
-            out[mode] = step_profile(torch,
-                                     lambda: trainer.train_step(on_card),
-                                     SCAN_RANK_PROFILE_STEPS[mode])
+            out[mode] = scan_step_profile(
+                lambda: trainer.train_step(on_card),
+                SCAN_RANK_PROFILE_STEPS[mode])
             del trainer
     return out
 
@@ -8016,7 +7791,7 @@ def nan_step(torch):
            "warm_up_steps": captured.warm_up_steps,
            "replays_by_kind": dict(captured.replays_by_kind),
            "reruns": captured.reruns,
-           "rerun_launches": read_counts(),
+           "rerun_launches": launch_counts(),
            "unchanged": {k: payloads_equal(torch, after, before, (k,))
                          for k in before}}
     log(f"  (b) NaN in a labeled row of step {NAN_BAD_STEP}: {out}")
@@ -8064,7 +7839,7 @@ def nan_entry(torch, split):
         except FloatingPointError as e:
             raised = str(e)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     captured = trainers[0].captured
     exp = os.path.join(WORK, "exps", name)
     out = {"seconds": time.time() - t, "raised": raised,
@@ -8197,6 +7972,174 @@ def phase_nan_checks(torch, shared=None):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the measuring tools on the card
+# ---------------------------------------------------------------------------
+
+# the flash kernels at bench_longrec --mode card's shape: T = 65,536 in
+# patches of 16 and the cls token, 3 heads of 64, batch 2
+LONGREC_CARD_ROWS = [("longrec_card_bf16", (2, 3, 4097, 64), "bfloat16"),
+                     ("longrec_card_fp32", (2, 3, 4097, 64), "float32")]
+# a depth-4 ViT with remat: a forward a block, one more in its recompute,
+# a backward a block
+LONGREC_CARD_LAUNCHES = {"flash_attention_fwd": 8, "flash_attention_bwd": 4,
+                         "gather1d": 0}
+# tool: (its module under semi_seg_ecg_tpu_torch/tools, argv at short
+# counts, the keys its line must hold, the device metrics (top level) and
+# the rows' device metrics that must not be null on the card)
+TOOL_ROW_METRICS = ("samples_per_sec", "ms_per_step", "mfu",
+                    "device_busy_ms_per_step", "device_idle_share")
+TOOL_RUNS = {
+    "flops_audit": ("flops_audit", ["--batch", "16"],
+                    ("flops_per_step", "by_op", "top_contributors"),
+                    ("flops_per_step",), ()),
+    "bench": ("bench", ["--steps", "20"],
+              ("metric", "value", "unit", "vs_baseline", "mfu",
+               "flops_per_step", "mode", "device_kind", "all_modes", "peak",
+               "baseline"),
+              ("value", "vs_baseline", "mfu", "device_idle_share",
+               "device_kind"), TOOL_ROW_METRICS),
+    "bench_scale": ("bench_scale", ["--batches", "16", "128", "--steps",
+                                    "10"],
+                    ("metric", "sweep"), (), TOOL_ROW_METRICS),
+    "bench_matrix": ("bench_matrix", ["--steps", "3"], ("metric", "rows"),
+                     (), ("ms_per_step", "samples_per_sec")),
+    "profile_step": ("profile_step", ["--augment", "--steps", "10"],
+                     ("launches_in_window", "kernel_events_in_window",
+                      "categories_ms_per_step", "top_kernels"),
+                     ("wall_ms_per_step", "device_busy_ms_per_step",
+                      "device_idle_share", "device_events_per_step"), ()),
+    "bench_e2e": ("bench_e2e", ["--records", "64", "--epochs", "3",
+                                "--modes", "host,cache+scan"],
+                  ("metric", "results", "rows"), (),
+                  ("samples_per_sec", "sec_per_epoch")),
+    "bench_inference": ("bench_inference", ["--batches", "16", "64",
+                                            "--steps", "10", "--int8",
+                                            "--static"],
+                        ("metric", "rows"), (),
+                        ("wall_ms", "windows_per_s", "device_busy_ms",
+                         "device_idle_share")),
+    "bench_holter": ("bench_holter", ["--hours", "1", "--reps", "2"],
+                     ("metric", "value", "unit", "windows"),
+                     ("value", "seconds_per_record", "hours_of_ecg_per_s",
+                      "peak_memory_mb"), ()),
+    "bench_streams": ("bench_streams", ["--streams", "64", "--reps", "2"],
+                      ("metric", "value", "unit"),
+                      ("value", "ms_per_step_dispatch"), ()),
+    "bench_longrec_card": ("bench_longrec", ["--mode", "card", "--steps",
+                                             "3"],
+                           ("t", "tokens", "launches_per_step"),
+                           ("ms_per_step", "first_step_s", "peak_memory_mb"),
+                           ()),
+    "bench_longrec_mem": ("bench_longrec", ["--mode", "mem", "--steps", "2"],
+                          ("t", "rows"), (),
+                          ("ms_per_step", "peak_memory_mb")),
+}
+
+
+def tool_line(name, module, argv):
+    """``module.main(argv)`` in this process, its output kept aside: the
+    last line's JSON object, the seconds and the port's launches."""
+    import importlib
+    import io
+
+    tool = importlib.import_module(f"semi_seg_ecg_tpu_torch.tools.{module}")
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = tool.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    if code != 0:
+        raise SystemExit(f"phase 21 failed: {name} exited {code}")
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"  {name} ({seconds:.1f} s, launches {launches}): "
+        f"{json.dumps(line)[:1500]}")
+    return line, seconds, launches
+
+
+def tool_faults(name, line, keys, metrics, row_metrics):
+    """What of ``line`` breaks phase 21's rules: a key missing, a device
+    metric null on the card, an MFU outside (0, 1], a loss not finite."""
+    faults = [f"no {k}" for k in keys if k not in line]
+    device = line.get("device") or {}
+    if device.get("platform") != "gpu" or not device.get("kind") or \
+            not device.get("power_limit"):
+        faults.append(f"device {device}")
+    faults += [f"{k} null" for k in metrics if line.get(k) is None]
+    rows = [r for key in ("rows", "all_modes", "sweep")
+            for r in line.get(key) or []]
+    rows += [line["peak"]] if line.get("peak") else []
+    if row_metrics and not rows:
+        faults.append("no rows")
+    for row in rows:
+        faults += [f"{row.get('mode', row.get('model', ''))} {k} null"
+                   for k in row_metrics if row.get(k) is None]
+    for r in rows + [line]:
+        if "mfu" in r and r["mfu"] is not None and not 0 < r["mfu"] <= 1:
+            faults.append(f"mfu {r['mfu']}")
+    losses = [v for r in rows + [line] for k, v in r.items()
+              if k.endswith("loss")]
+    faults += [f"loss {v}" for v in losses
+               if v is None or not math.isfinite(v)]
+    return faults
+
+
+def phase_tools(torch):
+    """Every measuring tool of ``semi_seg_ecg_tpu_torch/tools`` on the card
+    at short counts, each line held to its keys, its device metrics not
+    null, MFU in (0, 1] and finite losses; ``profile_step --augment``'s
+    trace holds the gather launches its counter counted;
+    ``bench_longrec --mode card`` launches 8 flash forwards and 4 backwards
+    a step; the flash kernels at its (2, 3, 4097, 64) against their plain
+    versions in both dtypes."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+    from semi_seg_ecg_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    result = {"lines": {}, "seconds": {}, "launches": {}}
+    faults = {}
+    for name, (module, argv, keys, metrics, row_metrics) in \
+            TOOL_RUNS.items():
+        line, seconds, launches = tool_line(name, module, argv)
+        result["lines"][name] = line
+        result["seconds"][name] = seconds
+        result["launches"][name] = launches
+        bad = tool_faults(name, line, keys, metrics, row_metrics)
+        if bad:
+            faults[name] = bad
+    window = result["lines"]["profile_step"]
+    gathers = window["launches_in_window"]["gather1d"]
+    if not gathers or window["kernel_events_in_window"]["gather1d"] != \
+            gathers:
+        faults.setdefault("profile_step", []).append(
+            f"gather launches {window['launches_in_window']} against the "
+            f"trace's events {window['kernel_events_in_window']}")
+    card = result["lines"]["bench_longrec_card"]["launches_per_step"]
+    if card != LONGREC_CARD_LAUNCHES:
+        faults.setdefault("bench_longrec_card", []).append(
+            f"launches a step {card}, expected {LONGREC_CARD_LAUNCHES}")
+    e2e = {r["mode"]: r["gather_launches"]
+           for r in result["lines"]["bench_e2e"]["rows"]}
+    if e2e.get("host") != 0 or not e2e.get("cache+scan"):
+        faults.setdefault("bench_e2e", []).append(f"gathers {e2e}")
+    if faults:
+        raise SystemExit(f"phase 21 failed: {faults}")
+    with full_fp32():
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        result["rows"] = {
+            "flash_attention_fwd": [check_kernel(torch, fa, gen, *case,
+                                                 phase=21)
+                                    for case in LONGREC_CARD_ROWS],
+            "flash_attention_bwd": [check_backward(torch, fa, gen, *case,
+                                                   phase=21)
+                                    for case in LONGREC_CARD_ROWS]}
+    result["seconds"]["all"] = time.perf_counter() - t_phase
+    log(f"  phase 21 seconds by tool: {result['seconds']}")
+    return result
+
+
 def kernel_entry(name, rows, by_path):
     """A kernel's entry of the kernels line: ``launches`` on the main path
     (phase 4's vit_tiny FixMatch ``train_main``), ``launches_by_path`` on
@@ -8303,10 +8246,14 @@ def main():
     scan = timed(18, phase_scan, torch, train_result["log"])
     scan_accum = timed(19, phase_scan_accum, torch)
     nan = timed(20, phase_nan_checks, torch, nan_shared)
-    # the ring's hops beside phase 2's rows (phase 16's on one head a rank)
+    tools = timed(21, phase_tools, torch)
+    # the ring's hops beside phase 2's rows (phase 16's on one head a rank),
+    # phase 21's long-record rows
     for phase in (seq_parallel, seq_options):
         for name, hop_rows in phase["hops"].items():
             rows[name] = rows[name] + hop_rows
+    for name, long_rows in tools["rows"].items():
+        rows[name] = rows[name] + long_rows
     # each path's launches, counted from 0 just before it and read after
     by_path = {
         "vit_tiny_serving": slice_result["runs"]["flash_fp32"][
@@ -8415,7 +8362,16 @@ def main():
            for label, r in nan["a"].items()
            for kind, launches in r["graph_launches_by_kind"].items()},
         **{f"nan_vit_tiny_fixmatch_{split}_nan_recipe": nan["b"][split][
-            "launches"] for split in ("valid", "test")}}
+            "launches"] for split in ("valid", "test")},
+        # phase 21: each tool's run (counted from 0 just before it); the
+        # long-record step's flash launches and the augmented trace
+        # window's gathers
+        **{f"tool_{name}": launches
+           for name, launches in tools["launches"].items()},
+        "tool_bench_longrec_card_per_step": tools["lines"][
+            "bench_longrec_card"]["launches_per_step"],
+        "tool_profile_step_augment_window": tools["lines"]["profile_step"][
+            "launches_in_window"]}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -8434,6 +8390,7 @@ def main():
                    "seq_options": seq_options,
                    "checkpoint": checkpoint, "scan": scan,
                    "scan_accum": scan_accum, "nan_checks": nan,
+                   "tools": tools,
                    "phase_seconds": phase_seconds,
                    "seconds": time.time() - t_start}, f,
                   indent=1)

@@ -43,10 +43,16 @@ all-reduce inside the graph) as the eager ranks step, within the data
 parallel test's bounds, the ranks equal. Under ``debug.nan_checks`` a
 captured step is two graphs split at its gradients' NaN flags, equal to
 the unchecked captured run bit for bit on clean batches; a NaN in a
-batch raises from the step's eager rerun with nothing updated.
+batch raises from the step's eager rerun with nothing updated. The
+measuring tools (``semi_seg_ecg_tpu_torch/tools``) at short counts:
+``bench``'s modes timed with MFU in (0, 1] on an H100 SXM,
+``profile_step --augment``'s trace holding the gathers its counter
+counted, ``bench_longrec --mode card`` launching two flash forwards and
+one backward a block with remat.
 """
 
 import copy
+import json
 
 import numpy as np
 import pytest
@@ -1646,3 +1652,64 @@ def test_two_nccl_ranks_replay_the_captured_step(cuda, tmp_path, accum):
         if v.dtype.kind == "f":
             np.testing.assert_allclose(got, v, rtol=5e-4, atol=1e-5,
                                        err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The measuring tools (semi_seg_ecg_tpu_torch/tools) on the card, at short
+# counts; chip_smoke.py phase 21 runs them at the recipe's sizes.
+# ---------------------------------------------------------------------------
+
+
+def tool_line(module, argv, capsys):
+    assert module.main(argv) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+@pytest.mark.cuda
+def test_bench_on_the_card(cuda, capsys, monkeypatch):
+    """Both modes and the peak row timed, MFU in (0, 1] against the
+    card's peak where the card is an H100 SXM (else null), the device
+    named."""
+    from semi_seg_ecg_tpu_torch.tools import bench, device_profile
+
+    monkeypatch.setattr(bench, "TRIALS", 2)
+    monkeypatch.setattr(bench, "SCAN_K", 2)
+    monkeypatch.setattr(bench, "PEAK_BATCH", 8)
+    out = tool_line(bench, ["--steps", "4", "--batch", "4", "--length",
+                            "500"], capsys)
+    assert out["device"]["platform"] == "gpu" and out["device"]["kind"]
+    h100 = device_profile.peak_flops(out["device"]["kind"]) is not None
+    for row in out["all_modes"] + [out["peak"]]:
+        assert row["samples_per_sec"] > 0 and row["device_idle_share"] < 1
+        assert (0 < row["mfu"] <= 1) if h100 else row["mfu"] is None
+        assert np.isfinite(row["final_loss"])
+    assert [r["mode"] for r in out["all_modes"]] == ["per-step", "scan2"]
+
+
+@pytest.mark.cuda
+def test_profile_step_sees_the_gathers_it_launched(cuda, capsys):
+    """``profile_step --augment``: the trace's gather events are the
+    launches the wrapper counted in the window."""
+    from semi_seg_ecg_tpu_torch.tools import profile_step
+
+    out = tool_line(profile_step, ["--augment", "--steps", "3", "--batch",
+                                   "4", "--length", "500"], capsys)
+    gathers = out["launches_in_window"]["gather1d"]
+    assert gathers > 0
+    assert out["kernel_events_in_window"]["gather1d"] == gathers
+    assert out["categories_ms_per_step"]["gather"] > 0
+
+
+@pytest.mark.cuda
+def test_bench_longrec_card_launches(cuda, capsys):
+    """At N = 513 tokens ``auto`` takes flash: with remat two forwards and
+    one backward a block a step."""
+    from semi_seg_ecg_tpu_torch.tools import bench_longrec
+
+    out = tool_line(bench_longrec, ["--mode", "card", "--t", "8192",
+                                    "--depth", "2", "--steps", "2"], capsys)
+    assert out["tokens"] == 513
+    assert out["launches_per_step"] == {"flash_attention_fwd": 4,
+                                        "flash_attention_bwd": 2,
+                                        "gather1d": 0}
+    assert out["ms_per_step"] > 0 and out["peak_memory_mb"] > 0

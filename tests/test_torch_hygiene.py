@@ -1,8 +1,9 @@
 """What the torch port may import, and where it runs unasked.
 
 The port and ``chip_smoke.py`` import nothing of JAX (jax, flax, optax),
-nothing of the JAX package and nothing of the repo's ``tools/`` (the
-port keeps its own copies under ``semi_seg_ecg_tpu_torch/tools/``). The scan is static, over every file's AST: a
+nothing of the JAX package and nothing of the repo's ``tools/``,
+``bench.py`` or ``__graft_entry__.py`` (the port keeps its own copies
+under ``semi_seg_ecg_tpu_torch/tools/``). The scan is static, over every file's AST: a
 ``sys.modules`` check would be fooled by an interpreter that pre-imports
 jax at start-up. An entry point whose config does not say ``device: cpu``
 asks for the CUDA device, and raises where there is none.
@@ -22,7 +23,7 @@ from tests.torch_dist_worker import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "semi_seg_ecg_tpu",
-             "tools")
+             "tools", "__graft_entry__", "bench")
 PORT_FILES = sorted(
     glob.glob(os.path.join(REPO, "semi_seg_ecg_tpu_torch", "**", "*.py"),
               recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
@@ -50,8 +51,12 @@ def test_port_files_are_found():
     assert len(PORT_FILES) > 15
     assert all(os.path.exists(p) for p in PORT_FILES)
     names = {os.path.relpath(p, REPO) for p in PORT_FILES}
+    tools = ("device_profile", "flops_audit", "bench", "bench_scale",
+             "bench_matrix", "profile_step", "bench_e2e", "bench_inference",
+             "bench_holter", "bench_streams", "bench_longrec")
     for module in ("utils/lr_decay.py", "models/remat.py",
-                   "tools/validate_ssl.py", "tools/vit_row.py"):
+                   "tools/validate_ssl.py", "tools/vit_row.py",
+                   *(f"tools/{t}.py" for t in tools)):
         assert f"semi_seg_ecg_tpu_torch/{module}" in names
 
 

@@ -18,13 +18,18 @@ order and writes their results, NumPy leaves only, as a list to
 ``OUT_DIR/rank{RANK}.pkl``. Each process uses one CPU thread, so that two
 ranks and the single-process runs they are held against round alike.
 :func:`start_ranks` and :func:`wait_ranks` are the tests' launcher.
+
+The group's rendezvous port is rank 0's own (:func:`host_store`): rank 0
+starts the ``TCPStore`` server on a port the kernel picks and publishes
+the number in ``OUT_DIR/store_port``. A port chosen by the launcher and
+freed for the ranks to bind could be taken by any other process in
+between, and the group would then wait out its timeout.
 """
 
 import contextlib
 import copy
 import os
 import pickle
-import socket
 import subprocess
 import sys
 import time
@@ -557,10 +562,38 @@ TASKS = {"batchnorm": task_batchnorm, "draws": task_draws,
          "save_backends": task_save_backends}
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+PORT_FILE = "store_port"
+STORE_WAIT = 300  # seconds a rank waits for rank 0 to publish the port
+
+
+def host_store(work_dir):
+    """Rank 0: a ``TCPStore`` server on a port the kernel picks, its number
+    written to ``work_dir/PORT_FILE`` (renamed into place whole); every
+    rank: ``MASTER_PORT`` set to that number, and torch's ``env://``
+    rendezvous told to join the server as a client
+    (``TORCHELASTIC_USE_AGENT_STORE``, as under torchrun's agent, which
+    hosts the store itself), so ``parallel.dist.init_distributed_mode``
+    joins as it does under torchrun. Returns rank 0's store (keep it while
+    the process runs), else None."""
+    path = os.path.join(work_dir, PORT_FILE)
+    store = None
+    if int(os.environ["RANK"]) == 0:
+        store = torch.distributed.TCPStore(
+            "127.0.0.1", 0, int(os.environ["WORLD_SIZE"]), is_master=True,
+            wait_for_workers=False)
+        with open(path + ".tmp", "w") as f:
+            f.write(str(store.port))
+        os.replace(path + ".tmp", path)
+    deadline = time.monotonic() + STORE_WAIT
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"rank 0 published no port in {path} within "
+                               f"{STORE_WAIT} s")
+        time.sleep(0.05)
+    with open(path) as f:
+        os.environ["MASTER_PORT"] = f.read()
+    os.environ["TORCHELASTIC_USE_AGENT_STORE"] = "True"
+    return store
 
 
 def start_ranks(tasks, work_dir, world=2, device="cpu", backend=None,
@@ -574,18 +607,27 @@ def start_ranks(tasks, work_dir, world=2, device="cpu", backend=None,
     with open(job, "wb") as f:
         pickle.dump({"device": device, "backend": backend, "join": join,
                      "tasks": tasks}, f)
-    port = str(_free_port())
+    # an earlier group's port in this directory is not this group's
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(os.path.join(work_dir, PORT_FILE))
     procs = []
     for r in range(world):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
                    LOCAL_RANK="0" if one_card else str(r),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
-                   OMP_NUM_THREADS="1")
+                   MASTER_ADDR="127.0.0.1", OMP_NUM_THREADS="1")
         with open(os.path.join(work_dir, f"rank{r}.log"), "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), job, work_dir],
                 env=env, stdout=log, stderr=subprocess.STDOUT))
     return work_dir, procs
+
+
+def rank_logs(work_dir, procs):
+    out = []
+    for r in range(len(procs)):
+        with open(os.path.join(work_dir, f"rank{r}.log")) as f:
+            out.append(f.read())
+    return out
 
 
 def wait_ranks(handle, timeout):
@@ -601,12 +643,12 @@ def wait_ranks(handle, timeout):
         for p in procs:
             p.kill()
             p.wait()
+        tails = "".join(f"\n--- rank {r}:\n{log[-2000:]}"
+                        for r, log in enumerate(rank_logs(work_dir, procs)))
         raise AssertionError(f"ranks in {work_dir} did not finish within "
-                             f"{timeout} s")
-    logs, results = [], []
+                             f"{timeout} s{tails}")
+    logs, results = rank_logs(work_dir, procs), []
     for r in range(len(procs)):
-        with open(os.path.join(work_dir, f"rank{r}.log")) as f:
-            logs.append(f.read())
         path = os.path.join(work_dir, f"rank{r}.pkl")
         results.append(None)
         if os.path.exists(path):
@@ -630,6 +672,7 @@ def main(job_path, out_dir):
     torch.set_num_threads(1)
     with open(job_path, "rb") as f:
         job = pickle.load(f)
+    store = host_store(out_dir)  # noqa: F841 (rank 0's server, kept)
     if job["join"]:
         pdist.init_distributed_mode({"dist_backend": job["backend"]},
                                     job["device"])
