@@ -310,7 +310,21 @@ non-zero exit when it fails:
    step launches 8 flash forwards and 4 backwards (depth 4 with remat),
    the device-augment run gathers and the host one does not; the flash
    kernels at the long-record step's (2, 3, 4097, 64) in bf16 and fp32
-   against their plain versions, as in phase 2.
+   against their plain versions, as in phase 2;
+22. the experiment pipeline (``semi_seg_ecg_tpu_torch/tools/``): (a)
+   ``rehearse_wfdb`` at the shipped length (24 WFDB records of 10 s at
+   500 Hz through ``prepare_data``, ``train_main`` and ``test_main`` of the
+   flagship ResNet18 FixMatch recipe in bf16, 2 epochs at batch 4, then
+   ``infer_longrec_main`` on a raw ``.hea``): the best checkpoint written,
+   test MeanIoU in [0, 1], 5,000 labels, ``intervals.csv``, finite
+   sensitivity and PPV; (b) ``run_bench_grid --synthetic`` over resnet18
+   and vit_tiny, scratch and FixMatch, LUDB 1/2, 1 epoch: 4 rows, each
+   MeanIoU finite and in [0, 1], each cell's train and test seconds; (c)
+   ``convert_checkpoint to-torch`` of (a)'s checkpoint: the ``.pth`` loads
+   strictly into a fresh model on the card, and its fp32 logits on 16 x
+   2,500 equal the ``.ckpt``'s bit for bit. (a) and (b) launch none of the
+   port's kernels (shipped recipes: host augmentation, dense attention at
+   N = 101), and each part's launches are held to that.
 
 Phases 12 (e) and 13 (d), phase 17 (b)'s ZeRO-1 task and phase 20 (c)'s
 task run on phase 10's rank processes. In the whole run phases 14-16 share rank groups,
@@ -8140,6 +8154,156 @@ def phase_tools(torch):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the experiment pipeline on the card
+# ---------------------------------------------------------------------------
+
+# the rehearsal at the shipped length: records of 10 s at 500 Hz, which
+# the recipe resamples to signal_length 2,500 at 250 Hz
+EXP_REHEARSAL = {"epochs": 2, "num_records": 24, "fs": 500, "seconds": 10.0,
+                 "algorithm": "fixmatch", "seed": 0, "batch_size": 4}
+EXP_GRID = ["--synthetic", "--backbones", "resnet18", "vit_tiny",
+            "--algorithms", "scratch", "fixmatch", "--datasets", "ludb",
+            "--ratios", "2", "--epochs", "1"]
+# the shipped recipes say device_augment: false and set no attention_impl
+# (auto: dense at N = 101), the rehearsal's ResNet18 has no attention
+EXP_LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "gather1d": 0}
+EXP_LOGITS_BATCH = 16
+
+
+def exp_rehearsal(torch, root):
+    """(a) ``tools/rehearse_wfdb.rehearse`` at the shipped length: the
+    summary, each stage's seconds and the launches."""
+    from semi_seg_ecg_tpu_torch.tools import rehearse_wfdb
+
+    stages = {}
+    reset_counts()
+    summary = rehearse_wfdb.rehearse(root, device="cuda",
+                                     stage_seconds=stages, **EXP_REHEARSAL)
+    launches = launch_counts()
+    exp = os.path.join(root, "exps", "rehearse_fixmatch")
+    labels = np.load(os.path.join(root, "longrec_out", "labels.npy"))
+    faults = []
+    if not os.path.exists(os.path.join(exp, "best-MeanIoU.ckpt")):
+        faults.append("no best-MeanIoU.ckpt")
+    if not 0.0 <= summary["test_MeanIoU"] <= 1.0:
+        faults.append(f"test MeanIoU {summary['test_MeanIoU']}")
+    samples = int(EXP_REHEARSAL["fs"] * EXP_REHEARSAL["seconds"])
+    if labels.shape != (samples,):
+        faults.append(f"labels.npy {labels.shape}")
+    if not os.path.exists(os.path.join(root, "longrec_out",
+                                       "intervals.csv")):
+        faults.append("no intervals.csv")
+    for key in ("longrec_overall_sensitivity", "longrec_overall_ppv"):
+        if not math.isfinite(summary[key]):
+            faults.append(f"{key} {summary[key]}")
+    if launches != EXP_LAUNCHES:
+        faults.append(f"launches {launches}, expected {EXP_LAUNCHES}")
+    if faults:
+        raise SystemExit(f"phase 22 (a) failed: {faults}")
+    log(f"  (a) rehearsal: {json.dumps(summary)}; stage seconds {stages}; "
+        f"launches {launches}")
+    return {"summary": summary, "stage_seconds": stages,
+            "launches": launches,
+            "checkpoint": os.path.join(exp, "best-MeanIoU.ckpt")}
+
+
+def exp_grid(torch, out_dir):
+    """(b) ``tools/run_bench_grid`` on synthetic data: 4 cells, each row's
+    MeanIoU finite and in [0, 1]; each cell's train and test seconds and
+    the launches. The demo's dataset goes under ``out_dir``."""
+    import tempfile
+
+    from semi_seg_ecg_tpu_torch.tools import run_bench_grid
+
+    data_root = os.path.join(out_dir, "tmp")
+    os.makedirs(data_root)
+    saved, tempfile.tempdir = tempfile.tempdir, data_root
+    reset_counts()
+    try:
+        rows, seconds, table = run_bench_grid.sweep(run_bench_grid.parse_args(
+            EXP_GRID + ["--output_dir", out_dir]))
+    finally:
+        tempfile.tempdir = saved
+    launches = launch_counts()
+    with open(table) as f:
+        written = f.read().splitlines()[1:]
+    miou = [r["MeanIoU"] for r in rows]
+    faults = []
+    if len(rows) != 4 or len(written) != 4:
+        faults.append(f"{len(rows)} rows, {len(written)} in the table")
+    faults += [f"MeanIoU {v}" for v in miou
+               if not (math.isfinite(v) and 0.0 <= v <= 1.0)]
+    if launches != EXP_LAUNCHES:
+        faults.append(f"launches {launches}, expected {EXP_LAUNCHES}")
+    if faults:
+        raise SystemExit(f"phase 22 (b) failed: {faults}")
+    cells = [{"cell": f"{r['backbone']}/{r['algorithm']}",
+              "MeanIoU": r["MeanIoU"], **s} for r, s in zip(rows, seconds)]
+    log(f"  (b) grid: {json.dumps(cells)}; launches {launches}")
+    return {"cells": cells, "launches": launches, "table": table}
+
+
+def exp_converter(torch, checkpoint, out_dir):
+    """(c) ``tools/convert_checkpoint to-torch`` of (a)'s best checkpoint:
+    the ``.pth`` loads strictly into a fresh model on the card, whose fp32
+    logits on a batch of 16 x 2,500 equal those of the model restored from
+    the ``.ckpt`` bit for bit (deterministic algorithms, TF32 off)."""
+    from semi_seg_ecg_tpu_torch.algorithms.common import full_fp32
+    from semi_seg_ecg_tpu_torch.models import build_model_from_config
+    from semi_seg_ecg_tpu_torch.tools import convert_checkpoint
+    from semi_seg_ecg_tpu_torch.utils import checkpoint as ckpt
+
+    pth = os.path.join(out_dir, "best-MeanIoU.pth")
+    convert_checkpoint.main(["to-torch", checkpoint, pth])
+    converted = torch.load(pth, map_location="cpu", weights_only=True)
+    config = converted["config"]
+    fresh = build_model_from_config(config)
+    fresh.load_state_dict(converted["model"], strict=True)
+    restored = build_model_from_config(config)
+    restored.load_state_dict(ckpt.model_state_dict(
+        ckpt.load_checkpoint(checkpoint)["model"]), strict=True)
+    length = config["dataset"]["signal_length"]
+    gen = torch.Generator().manual_seed(22)
+    x = torch.randn(EXP_LOGITS_BATCH, 1, length, generator=gen).cuda()
+    with scan_determinism(torch), full_fp32(), torch.no_grad():
+        a = fresh.cuda().eval()(x)["seg_logits"]
+        b = restored.cuda().eval()(x)["seg_logits"]
+    torch.cuda.synchronize()
+    if not (torch.isfinite(a).all() and torch.equal(a, b)):
+        raise SystemExit(
+            "phase 22 (c) failed: the converted model's logits differ by "
+            f"{(a - b).abs().max().item()} from the checkpoint's")
+    shape = list(a.shape)
+    log(f"  (c) converter: {pth}, logits {shape} equal bit for bit")
+    return {"pth": pth, "logits_shape": shape, "equal": True}
+
+
+def phase_experiments(torch):
+    """Phase 22: the experiment pipeline (``tools/{rehearse_wfdb,
+    prepare_data,run_bench_grid,convert_checkpoint}``) on the card: (a) the
+    WFDB rehearsal at the shipped length, (b) a 4-cell synthetic grid, (c)
+    the converter's ``.pth`` against its ``.ckpt``; each part's seconds and
+    launches (the shipped paths launch none of the port's kernels)."""
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "experiments")
+    shutil.rmtree(root, ignore_errors=True)
+    result = {"seconds": {}}
+    t = time.perf_counter()
+    result["a"] = exp_rehearsal(torch, os.path.join(root, "rehearsal"))
+    result["seconds"]["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    result["b"] = exp_grid(torch, os.path.join(root, "grid"))
+    result["seconds"]["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    result["c"] = exp_converter(torch, result["a"]["checkpoint"], root)
+    result["seconds"]["c"] = time.perf_counter() - t
+    result["seconds"]["all"] = time.perf_counter() - t_phase
+    log(f"  phase 22 seconds by part: {result['seconds']}")
+    return result
+
+
 def kernel_entry(name, rows, by_path):
     """A kernel's entry of the kernels line: ``launches`` on the main path
     (phase 4's vit_tiny FixMatch ``train_main``), ``launches_by_path`` on
@@ -8247,6 +8411,7 @@ def main():
     scan_accum = timed(19, phase_scan_accum, torch)
     nan = timed(20, phase_nan_checks, torch, nan_shared)
     tools = timed(21, phase_tools, torch)
+    experiments = timed(22, phase_experiments, torch)
     # the ring's hops beside phase 2's rows (phase 16's on one head a rank),
     # phase 21's long-record rows
     for phase in (seq_parallel, seq_options):
@@ -8371,7 +8536,11 @@ def main():
         "tool_bench_longrec_card_per_step": tools["lines"][
             "bench_longrec_card"]["launches_per_step"],
         "tool_profile_step_augment_window": tools["lines"]["profile_step"][
-            "launches_in_window"]}
+            "launches_in_window"],
+        # phase 22: the WFDB rehearsal's chain and the 4-cell grid, each
+        # counted from 0 just before it
+        "exp_rehearsal_resnet18_fixmatch": experiments["a"]["launches"],
+        "exp_grid_4_cells": experiments["b"]["launches"]}
     kernels = [kernel_entry(name, rows[name], by_path) for name in STEMS]
     smi = nvidia_smi()
     with open(OUT_JSON, "w") as f:
@@ -8391,6 +8560,7 @@ def main():
                    "checkpoint": checkpoint, "scan": scan,
                    "scan_accum": scan_accum, "nan_checks": nan,
                    "tools": tools,
+                   "experiments": experiments,
                    "phase_seconds": phase_seconds,
                    "seconds": time.time() - t_start}, f,
                   indent=1)

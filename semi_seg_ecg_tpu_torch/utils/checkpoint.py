@@ -550,15 +550,22 @@ def _load_directory(path: str) -> Dict[str, Any]:
     return payload
 
 
-def save_torch_checkpoint(path: str, model: torch.nn.Module,
+def save_torch_checkpoint(path: str,
+                          model: Union[torch.nn.Module,
+                                       Dict[str, torch.Tensor]],
                           epoch: Optional[int] = None,
-                          config: Optional[Dict[str, Any]] = None) -> None:
-    """Write ``{model, epoch, config}`` as a torch ``.pth`` (reference
-    layout, CPU tensors), atomically."""
+                          config: Optional[Dict[str, Any]] = None,
+                          **entries: Any) -> None:
+    """Write ``{model, epoch, config, **entries}`` as a torch ``.pth``
+    (reference layout, CPU tensors), atomically. ``model`` is a module or
+    its state_dict; ``entries`` are the reference's other keys as they are
+    to be stored (``optimizer``, ``scaler``, ``metrics``, ``model_ema``)."""
     payload = {
-        "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "model": {k: v.detach().cpu()
+                  for k, v in _model_state(model).items()},
         "epoch": epoch,
         "config": config,
+        **entries,
     }
     tmp = path + ".tmp"
     torch.save(payload, tmp)

@@ -53,7 +53,9 @@ def test_port_files_are_found():
     names = {os.path.relpath(p, REPO) for p in PORT_FILES}
     tools = ("device_profile", "flops_audit", "bench", "bench_scale",
              "bench_matrix", "profile_step", "bench_e2e", "bench_inference",
-             "bench_holter", "bench_streams", "bench_longrec")
+             "bench_holter", "bench_streams", "bench_longrec",
+             "prepare_data", "run_bench_grid", "rehearse_wfdb",
+             "convert_checkpoint")
     for module in ("utils/lr_decay.py", "models/remat.py",
                    "tools/validate_ssl.py", "tools/vit_row.py",
                    *(f"tools/{t}.py" for t in tools)):
